@@ -1,0 +1,461 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Drives ``mxnet_tpu_torch`` (never the JAX package) on ``cuda:0``:
+
+1. device — requires CUDA; prints the card's name and power limit, the
+   torch and CUDA versions;
+2. build — compiles every hand-written kernel of the serving path from
+   ``mxnet_tpu_torch/csrc`` with ``nvcc`` (one process per source, all
+   started together) and prints the ptxas report;
+3. kernels vs plain — each kernel's wrapper on card tensors against its
+   plain PyTorch version on the same inputs, at the serving shapes, with
+   stated tolerances; the paged kernel also against poisoned unreferenced
+   slots and for batch invariance (bitwise);
+4. serving — the zoo Transformer-LM at full width (vocab 32000, 4 layers,
+   d 256, 4 heads, ffn 1024, max_len 128; pool bs 16, 257 blocks, batch
+   32) with seeded random weights: ``warmup()``, then 32 seeded requests
+   through ``submit``/``step`` until all finish, with the kernels' launch
+   counters set to 0 just before and read just after; then a
+   teacher-forced check of prefill + decode logits on the card against
+   the same port functions on CPU tensors;
+5. times — each kernel, its plain version and one PyTorch library call
+   computing the same function (a yardstick the port never calls), timed
+   with CUDA events while the stream is held by a sleep so host launch
+   overhead is hidden, beside the card's bound for the same work.
+
+Every phase that fails raises, so the exit code is not 0. The last two
+lines are the ``kernels`` JSON object and the ``ok`` JSON object; the card
+line comes just before them.
+"""
+import json
+import math
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+# published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bandwidth and
+# float32 outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+
+F32_TOL = 1e-4    # float32: only the summation order differs
+BF16_TOL = 2e-2   # bf16 inputs, float32 compute on both sides
+LOGIT_TOL = 1e-3  # whole model, float32, card vs CPU summation order
+
+
+def check(cond, msg):
+    if not cond:
+        raise RuntimeError("chip_smoke: " + msg)
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def card_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------- timing
+_CYCLES_PER_MS = None
+
+
+def _cycles_per_ms():
+    global _CYCLES_PER_MS
+    if _CYCLES_PER_MS is None:
+        cycles = 50_000_000
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        torch.cuda._sleep(cycles)
+        b.record()
+        torch.cuda.synchronize()
+        _CYCLES_PER_MS = cycles / a.elapsed_time(b)
+    return _CYCLES_PER_MS
+
+
+def device_ms(fn, n=100):
+    """Device time of one ``fn()`` call: the mean over ``n`` back-to-back
+    calls between two CUDA events, with the stream held by a sleep kernel
+    while the host enqueues them (so the launches run back to back and
+    the host's launch overhead is not in the number). Warm L2."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / 10
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(_cycles_per_ms() * (2.0 * n * host_ms + 5.0)))
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / n
+
+
+# ---------------------------------------------------------------- kernels
+def flash_inputs(rng, b, h, sq, sk, d, dtype):
+    def t(s):
+        return torch.from_numpy(rng.standard_normal((b, h, s, d)).astype(
+            np.float32)).to("cuda", dtype)
+    return t(sq), t(sk), t(sk)
+
+
+def check_flash(A):
+    rng = np.random.default_rng(0)
+    worst = {}
+    cases = [(1, 4, s, s, 64, True, torch.float32) for s in (16, 32, 64, 128)]
+    cases += [(2, 4, 80, 80, 64, False, torch.bfloat16),
+              (2, 4, 48, 80, 64, False, torch.float32),
+              (2, 4, 48, 80, 64, True, torch.float32),
+              (1, 2, 100, 37, 128, True, torch.bfloat16)]
+    for b, h, sq, sk, d, causal, dt in cases:
+        q, k, v = flash_inputs(rng, b, h, sq, sk, d, dt)
+        out, lse = A.flash_attention_forward(q, k, v, causal)
+        ref_out, ref_lse = A._flash_forward_plain(q, k, v, causal,
+                                                  1.0 / math.sqrt(d))
+        torch.cuda.synchronize()
+        err = max((out - ref_out).abs().max().item(),
+                  (lse - ref_lse).abs().max().item())
+        tol = F32_TOL if dt == torch.float32 else BF16_TOL
+        log("  flash_fwd b=%d h=%d sq=%d sk=%d d=%d causal=%d %s: "
+            "max_abs_err %.3e (tol %.0e)" % (b, h, sq, sk, d, causal,
+                                             str(dt)[6:], err, tol))
+        check(torch.isfinite(out).all().item(), "flash out not finite")
+        check(err <= tol, "flash_fwd disagrees with its plain version")
+        worst[dt] = max(worst.get(dt, 0.0), err)
+    return worst
+
+
+def paged_inputs(rng, B, dtype, lens, N=257, bs=16, H=4, D=64, nb=8):
+    q = torch.from_numpy(rng.standard_normal((B, H, D)).astype(
+        np.float32)).cuda()
+    kp = torch.from_numpy(rng.standard_normal((N, bs, H, D)).astype(
+        np.float32)).to("cuda", dtype)
+    vp = torch.from_numpy(rng.standard_normal((N, bs, H, D)).astype(
+        np.float32)).to("cuda", dtype)
+    # distinct live blocks per sequence (no block appears twice)
+    blocks = rng.permutation(np.arange(1, N))[:B * nb].reshape(B, nb)
+    bt = torch.from_numpy(blocks.astype(np.int32)).cuda()
+    cl = torch.from_numpy(np.asarray(lens, np.int32)).cuda()
+    return q, kp, vp, bt, cl
+
+
+def poison_unreferenced(kp, vp, bt, cl):
+    """+1e30 in K and -1e30 in V at every (block, slot) no live position
+    of any table reads."""
+    bs = kp.shape[1]
+    live = torch.zeros(kp.shape[:2], dtype=torch.bool, device=kp.device)
+    for b in range(bt.shape[0]):
+        n = int(cl[b])
+        for j in range(-(-n // bs)):
+            live[int(bt[b, j]), :min(bs, n - j * bs)] = True
+    kp2, vp2 = kp.clone(), vp.clone()
+    kp2[~live] = 1e30
+    vp2[~live] = -1e30
+    return kp2, vp2
+
+
+def check_paged(A):
+    rng = np.random.default_rng(1)
+    worst = {}
+    for B in (1, 8, 32):
+        lens = ([17, 0, 1, 16, 128]
+                + [int(x) for x in rng.integers(0, 129, B)])[:B]
+        for dt in (torch.float32, torch.bfloat16):
+            q, kp, vp, bt, cl = paged_inputs(rng, B, dt, lens)
+            out = A.paged_attention(q, kp, vp, bt, cl)
+            ref = A.paged_attention_reference(q, kp, vp, bt, cl)
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            tol = F32_TOL if dt == torch.float32 else BF16_TOL
+            log("  paged_decode B=%d pages %s lens %s...: max_abs_err %.3e "
+                "(tol %.0e)" % (B, str(dt)[6:], lens[:6], err, tol))
+            check(err <= tol, "paged_decode disagrees with its plain version")
+            zero_rows = cl == 0
+            check(bool((out[zero_rows] == 0).all()),
+                  "context_len 0 must give exactly 0")
+            kp2, vp2 = poison_unreferenced(kp, vp, bt, cl)
+            out2 = A.paged_attention(q, kp2, vp2, bt, cl)
+            check(torch.equal(out, out2),
+                  "unreferenced slots leaked into the output")
+            worst[dt] = max(worst.get(dt, 0.0), err)
+            if B == 32:
+                for b in range(B):
+                    one = A.paged_attention(q[b:b + 1], kp, vp, bt[b:b + 1],
+                                            cl[b:b + 1])
+                    check(torch.equal(one[0], out[b]),
+                          "row %d differs between B=32 and B=1 launches" % b)
+                log("  paged_decode B=32 %s: every row bitwise equal to its "
+                    "B=1 launch; poisoned slots changed nothing"
+                    % str(dt)[6:])
+    return worst
+
+
+# ---------------------------------------------------------------- serving
+def run_serving(S, M, build, tel):
+    cfg = S.ServingConfig(vocab_size=32000, num_layers=4, model_dim=256,
+                          num_heads=4, ffn_dim=1024, max_len=128,
+                          block_size=16, num_blocks=257, max_batch=32,
+                          prefills_per_step=4, prefix_cache=True,
+                          max_queue=0, default_timeout_ms=0)
+    params = M.random_params(cfg, seed=0)
+    eng = S.ServingEngine(cfg, arg_params=params, device="cuda")
+    t0 = time.perf_counter()
+    eng.warmup()
+    log("  warmup (every prefill and decode bucket): %.3f s"
+        % (time.perf_counter() - t0))
+    rng = np.random.RandomState(0)
+    lengths = [int(x) for x in rng.randint(1, 113, 32)]
+    lengths[0] = 112                     # the 128 prefill bucket runs
+    lengths[1] = 1
+    prompts = [[int(t) for t in rng.randint(0, cfg.vocab_size, n)]
+               for n in lengths]
+    pre0 = tel.histogram("serving.prefill_seconds").count
+    pre_s0 = tel.histogram("serving.prefill_seconds").sum
+    dec0 = tel.histogram("serving.decode_batch").count
+
+    for k in build.KERNELS.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, 16) for p in prompts]
+    steps = 0
+    while any(not r.finished() for r in reqs):
+        eng.step()
+        steps += 1
+        check(steps < 10000, "serving did not finish")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in build.KERNELS.items()}
+
+    prefills = tel.histogram("serving.prefill_seconds").count - pre0
+    prefill_s = tel.histogram("serving.prefill_seconds").sum - pre_s0
+    decodes = tel.histogram("serving.decode_batch").count - dec0
+    check(all(r.state == S.FINISHED for r in reqs), "a request did not finish")
+    check(all(len(r.generated) == 16 for r in reqs), "wrong token count")
+    check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.generated),
+          "token out of range")
+    L = cfg.num_layers
+    check(launches["flash_fwd"] >= L * prefills > 0,
+          "flash_fwd launched %d times for %d prefills"
+          % (launches["flash_fwd"], prefills))
+    check(launches["paged_decode"] >= L * decodes > 0,
+          "paged_decode launched %d times for %d decode steps"
+          % (launches["paged_decode"], decodes))
+    st = eng.stats()
+    ntok = sum(len(r.generated) for r in reqs)
+    log("  32 requests, prompts %d..%d tokens, 16 new each: %d engine "
+        "steps, %d prefills (incl. replays), %d decode steps, %d preemptions"
+        % (min(lengths), max(lengths), steps, prefills, decodes,
+           st["preemptions"]))
+    log("  launches on the main path: %s" % launches)
+    log("  host wall: %.4f s in %d prefill calls (%.5f s each), %.4f s in "
+        "the rest of the steps (%.5f s per decode step)"
+        % (prefill_s, prefills, prefill_s / prefills, wall - prefill_s,
+           (wall - prefill_s) / decodes))
+    log("  generated %d tokens in %.3f s: %.1f tokens/s; TTFT p50 %.4f s, "
+        "p99 %.4f s (port telemetry)" % (ntok, wall, ntok / wall,
+                                         st["ttft_p50_s"], st["ttft_p99_s"]))
+    return cfg, params, launches, {"prefills": prefills, "decodes": decodes,
+                                   "steps": steps}
+
+
+def teacher_forced(S, M, cfg, params_np):
+    """Prefill + 4 decode steps for three prompts, the same tokens fed on
+    the card (kernels) and on CPU tensors (plain path); logits compared."""
+    rng = np.random.RandomState(7)
+    lens = [5, 40, 100]
+    prompts = [rng.randint(0, cfg.vocab_size, n).astype(np.int32)
+               for n in lens]
+    forced = rng.randint(0, cfg.vocab_size, (4, 3)).astype(np.int32)
+    nb = cfg.max_len // cfg.block_size
+    tables = np.zeros((4, nb), np.int32)     # row 3: a padded trash lane
+    for i in range(3):
+        tables[i] = 1 + i * nb + np.arange(nb)
+    shape = (cfg.num_layers, cfg.num_blocks, cfg.block_size, cfg.num_heads,
+             cfg.model_dim // cfg.num_heads)
+    logits = {}
+    for dev in ("cuda", "cpu"):
+        p = M.as_device_params(params_np, cfg, device=dev)
+        kp = torch.zeros(shape, device=dev)
+        vp = torch.zeros(shape, device=dev)
+        outs = []
+        for i, pr in enumerate(prompts):
+            S_ = min(b for b in cfg.prefill_buckets() if b >= len(pr))
+            toks = np.zeros((1, S_), np.int32)
+            toks[0, :len(pr)] = pr
+            _t, lg, _k, _v = M.prefill(
+                p, torch.from_numpy(toks).to(dev), len(pr),
+                torch.from_numpy(tables[i, :S_ // cfg.block_size]).to(dev),
+                kp, vp, cfg)
+            outs.append(lg.cpu())
+        for t in range(4):
+            toks = np.zeros(4, np.int32)
+            pos = np.zeros(4, np.int32)
+            ctx = np.ones(4, np.int32)
+            toks[:3] = forced[t]
+            pos[:3] = [n + t for n in lens]
+            ctx[:3] = pos[:3] + 1
+            _t, lg, _k, _v = M.decode(
+                p, *(torch.from_numpy(a).to(dev) for a in
+                     (toks, pos, tables, ctx)), kp, vp, cfg)
+            outs.append(lg[:3].cpu())
+        logits[dev] = outs
+    err = 0.0
+    for a, b in zip(logits["cuda"], logits["cpu"]):
+        check(bool(torch.isfinite(a).all()), "non-finite logits on the card")
+        check(a.shape == b.shape and a.shape[-1] == cfg.vocab_size,
+              "logit shape")
+        err = max(err, (a - b).abs().max().item())
+    log("  teacher-forced prefill (lengths %s) + 4 decode steps: max abs "
+        "logit diff card vs CPU %.3e (tol %.0e)" % (lens, err, LOGIT_TOL))
+    check(err <= LOGIT_TOL, "card logits disagree with the CPU plain path")
+
+
+# ---------------------------------------------------------------- times
+def time_flash(A):
+    F = torch.nn.functional
+    b, h, s, d = 1, 4, 128, 64
+    rng = np.random.default_rng(2)
+    q, k, v = flash_inputs(rng, b, h, s, s, d, torch.float32)
+    scale = 1.0 / math.sqrt(d)
+    out, lse = A.flash_attention_forward(q, k, v, True)
+    ref, ref_lse = A._flash_forward_plain(q, k, v, True, scale)
+    err = max((out - ref).abs().max().item(),
+              (lse - ref_lse).abs().max().item())
+    ms = device_ms(lambda: A.flash_attention_forward(q, k, v, True))
+    plain = device_ms(lambda: A._flash_forward_plain(q, k, v, True, scale))
+    lib = device_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True))
+    # causal: row i needs i+1 scores and i+1 weighted rows of V
+    pairs = b * h * s * (s + 1) // 2
+    flops = 4 * pairs * d
+    nbytes = 4 * (4 * b * h * s * d + b * h * s)   # q,k,v in; out, lse out
+    return dict(err=err, ms=ms, plain=plain, lib=lib, flops=flops,
+                nbytes=nbytes, shape="q/k/v (1,4,128,64) f32 causal")
+
+
+def time_paged(A):
+    F = torch.nn.functional
+    rng = np.random.default_rng(3)
+    B, H, D, bs, nb = 32, 4, 64, 16, 8
+    lens = [int(x) for x in rng.integers(1, 129, B)]
+    q, kp, vp, bt, cl = paged_inputs(rng, B, torch.float32, lens)
+    out = A.paged_attention(q, kp, vp, bt, cl)
+    ref = A.paged_attention_reference(q, kp, vp, bt, cl)
+    err = (out - ref).abs().max().item()
+    ms = device_ms(lambda: A.paged_attention(q, kp, vp, bt, cl))
+    plain = device_ms(lambda: A.paged_attention_reference(q, kp, vp, bt, cl))
+    # the library yardstick runs on K/V gathered to contiguous (B,H,T,D)
+    tab = bt.long()
+    kc = kp[tab].reshape(B, nb * bs, H, D).transpose(1, 2).contiguous()
+    vc = vp[tab].reshape(B, nb * bs, H, D).transpose(1, 2).contiguous()
+    mask = (torch.arange(nb * bs, device="cuda")[None, :]
+            < cl[:, None])[:, None, None, :]
+    qc = q[:, :, None, :]
+    lib_out = F.scaled_dot_product_attention(qc, kc, vc, attn_mask=mask)
+    check((lib_out[:, :, 0] - out).abs().max().item() <= F32_TOL,
+          "library yardstick disagrees")
+    lib = device_ms(lambda: F.scaled_dot_product_attention(
+        qc, kc, vc, attn_mask=mask))
+    ctx = sum(lens)
+    flops = 4 * ctx * H * D
+    nbytes = (2 * ctx * H * D * 4 + 2 * B * H * D * 4 + B * nb * 4 + B * 4)
+    return dict(err=err, ms=ms, plain=plain, lib=lib, flops=flops,
+                nbytes=nbytes,
+                shape="B=32, N=257, bs=16, H=4, D=64, nb=8, f32, mean "
+                      "context %.1f" % (ctx / B))
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this smoke "
+              "runs the port on the card only", file=sys.stderr)
+        return 2
+    # the package is imported only once a card is known to be there
+    from mxnet_tpu_torch import serving as S
+    from mxnet_tpu_torch import telemetry as tel
+    from mxnet_tpu_torch.ops import _build as build
+    from mxnet_tpu_torch.ops import attention as A
+    from mxnet_tpu_torch.serving import model as M
+
+    log("== 1. device")
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    log("  %s | torch %s | CUDA %s | %s" % (card, torch.__version__,
+                                            torch.version.cuda, sys.version))
+
+    log("== 2. build")
+    t0 = time.perf_counter()
+    build.build()
+    log("  built %s in %.2f s" % (sorted(build.KERNELS),
+                                  time.perf_counter() - t0))
+    for k in build.KERNELS.values():
+        for line in k.build_log.splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                log("  [%s] %s" % (k.name, line.strip()))
+
+    log("== 3. kernels vs plain on the card")
+    flash_err = check_flash(A)
+    paged_err = check_paged(A)
+    log("  worst errors: flash %s, paged %s"
+        % ({str(k)[6:]: v for k, v in flash_err.items()},
+           {str(k)[6:]: v for k, v in paged_err.items()}))
+
+    log("== 4. serving at full width")
+    cfg, params, launches, counts = run_serving(S, M, build, tel)
+    teacher_forced(S, M, cfg, params)
+
+    log("== 5. times (%s)" % card)
+    rows = []
+    for name, src, replaces, res, per in (
+            ("flash_fwd", "mxnet_tpu_torch/csrc/flash_fwd.cu",
+             "mxnet_tpu/ops/attention.py:142", time_flash(A), "prefills"),
+            ("paged_decode", "mxnet_tpu_torch/csrc/paged_decode.cu",
+             "mxnet_tpu/ops/attention.py:691", time_paged(A), "decodes")):
+        t_bytes = res["nbytes"] / PEAK_BYTES_PER_S * 1e3
+        t_ops = res["flops"] / PEAK_F32_FLOPS * 1e3
+        bound = max(t_bytes, t_ops)
+        rows.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": res["err"], "ms": res["ms"],
+            "plain_ms": res["plain"], "bound_ms": bound,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": res["lib"]})
+        log("  %s at %s: kernel_ms %.6f plain_ms %.6f library_ms %.6f "
+            "bound_us %.4f (%s: %d bytes at 3.35 TB/s, %d FLOP at 67 "
+            "TFLOP/s f32) max_abs_err %.3e; %.2f launches per %s "
+            "(%d layers), %.2f per engine step"
+            % (name, res["shape"], res["ms"], res["plain"], res["lib"],
+               bound * 1e3, rows[-1]["bound_by"], res["nbytes"],
+               res["flops"], res["err"], launches[name] / counts[per],
+               per[:-1], cfg.num_layers, launches[name] / counts["steps"]))
+        check(res["err"] <= F32_TOL, "%s disagrees at the timed shape" % name)
+
+    log(card)
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

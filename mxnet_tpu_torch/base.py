@@ -1,0 +1,96 @@
+"""Core shared utilities of the PyTorch/CUDA port.
+
+The port's counterpart of ``mxnet_tpu/base.py``: the error type, the
+``MXNET_*`` environment helpers and one dtype helper. The JAX package's
+dtype tables stay behind (they name ``jnp`` types); PyTorch dtypes are
+resolved by :func:`torch_dtype`.
+"""
+from __future__ import annotations
+
+import logging
+import os
+
+import numpy as np
+import torch
+
+__all__ = ["MXNetError", "env_int", "env_float", "env_bool", "env_str",
+           "torch_dtype"]
+
+
+class MXNetError(Exception):
+    """Error raised by the framework (reference: python/mxnet/base.py MXNetError)."""
+
+
+def _env_number(name, default, cast):
+    raw = os.environ.get(name, "")
+    if not raw.strip():
+        return default
+    try:
+        return cast(raw)
+    except ValueError:
+        logging.warning("ignoring unparseable %s=%r (using %r)",
+                        name, raw, default)
+        return default
+
+
+def env_int(name, default=None):
+    """Integer MXNET_*-style env var; unset/empty or unparseable values fall
+    back to ``default`` (with a warning for garbage)."""
+    return _env_number(name, default, int)
+
+
+def env_float(name, default=None):
+    """Float MXNET_*-style env var; same fallback contract as
+    :func:`env_int`."""
+    return _env_number(name, default, float)
+
+
+_BOOL_TOKENS = {"1": True, "true": True, "yes": True, "on": True,
+                "0": False, "false": False, "no": False, "off": False}
+
+
+def env_bool(name, default=False):
+    """Strict boolean MXNET_*-style env var: accepts 1/0, true/false, yes/no,
+    on/off (case-insensitive). Unset/empty falls back to ``default``;
+    anything else warns and falls back."""
+    raw = os.environ.get(name, "")
+    if not raw.strip():
+        return default
+    val = _BOOL_TOKENS.get(raw.strip().lower())
+    if val is None:
+        logging.warning("ignoring unparseable %s=%r (using %r)",
+                        name, raw, default)
+        return default
+    return val
+
+
+def env_str(name, default=None, choices=None):
+    """String MXNET_*-style env var. Unset/empty falls back to ``default``.
+    With ``choices``, a value outside the set warns and falls back; the
+    comparison is case-insensitive and the matching choice is returned as
+    spelled in ``choices``."""
+    raw = os.environ.get(name, "")
+    if not raw.strip():
+        return default
+    raw = raw.strip()
+    if choices is None:
+        return raw
+    for c in choices:
+        if raw.lower() == str(c).lower():
+            return c
+    logging.warning("ignoring %s=%r (not one of %s; using %r)",
+                    name, raw, "/".join(str(c) for c in choices), default)
+    return default
+
+
+def torch_dtype(dtype):
+    """Resolve a torch dtype, a numpy dtype (or type) or a dtype name such
+    as ``"bfloat16"`` to the torch dtype. Configurations written for the
+    JAX package name their dtypes the numpy way."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    name = dtype if isinstance(dtype, str) else np.dtype(dtype).name
+    out = getattr(torch, name, None)
+    if not isinstance(out, torch.dtype):
+        raise MXNetError("no torch dtype named %r" % (name,))
+    return out
