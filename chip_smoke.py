@@ -6,13 +6,15 @@ Drives ``mxnet_tpu_torch`` (never the JAX package) on ``cuda:0``:
 
 1. device — requires CUDA; prints the card's name and power limit, the
    torch and CUDA versions;
-2. build — compiles every hand-written kernel of the serving path from
+2. build — compiles every hand-written kernel from
    ``mxnet_tpu_torch/csrc`` with ``nvcc`` (one process per source, all
    started together) and prints the ptxas report;
 3. kernels vs plain — each kernel's wrapper on card tensors against its
-   plain PyTorch version on the same inputs, at the serving shapes, with
-   stated tolerances; the paged kernel also against poisoned unreferenced
-   slots and for batch invariance (bitwise);
+   plain PyTorch version on the same inputs, at the main paths' shapes,
+   with stated tolerances; the paged kernel also against poisoned
+   unreferenced slots and for batch invariance (bitwise); the two
+   flash-backward kernels through the autograd Function, and bitwise
+   equal across two launches;
 4. serving — the zoo Transformer-LM at full width (vocab 32000, 4 layers,
    d 256, 4 heads, ffn 1024, max_len 128; pool bs 16, 257 blocks, batch
    32) with seeded random weights: ``warmup()``, then 32 seeded requests
@@ -20,7 +22,18 @@ Drives ``mxnet_tpu_torch`` (never the JAX package) on ``cuda:0``:
    counters set to 0 just before and read just after; then a
    teacher-forced check of prefill + decode logits on the card against
    the same port functions on CPU tensors;
-5. times — each kernel, its plain version and one PyTorch library call
+5. training — the same model trained through ``Module.fit`` on the card
+   (Adam, lr 1e-3, seeded Xavier, ``Perplexity``) for 5 epochs of 4
+   batches of 32 sequences of ``examples/train_lm.py``'s synthetic
+   stream, launch counters set to 0 just before ``fit`` and read just
+   after: every loss finite, perplexity falling every epoch and ending
+   below half the vocabulary (uniform guessing), and exactly one launch
+   of each attention kernel per layer and step;
+6. one training step, card vs CPU — ``forward_backward`` of one batch of
+   4 sequences from the same parameters on ``gpu(0)`` and on ``cpu()``
+   (plain versions): outputs (relative to the largest probability) and
+   every parameter's gradient compared;
+7. times — each kernel, its plain version and one PyTorch library call
    computing the same function (a yardstick the port never calls), timed
    with CUDA events while the stream is held by a sleep so host launch
    overhead is hidden, beside the card's bound for the same work.
@@ -45,7 +58,24 @@ PEAK_F32_FLOPS = 67e12
 
 F32_TOL = 1e-4    # float32: only the summation order differs
 BF16_TOL = 2e-2   # bf16 inputs, float32 compute on both sides
+# bf16 gradients: both sides compute in float32 and round to bf16 (8 bits),
+# so a value may land one bf16 step apart; held relative to the largest
+BF16_REL_TOL = 1e-2
 LOGIT_TOL = 1e-3  # whole model, float32, card vs CPU summation order
+# one training step, card vs CPU: max |p_card - p_cpu| / max |p_cpu| over
+# the SoftmaxOutput probabilities (32000 classes: a typical value is
+# ~3e-5, so an absolute limit would hold nothing)
+OUT_REL_TOL = 1e-5
+# one training step, card vs CPU: max |g_card - g_cpu| / max |g_cpu| per
+# parameter; float32 with another summation order through 4 layers and a
+# 32000-way softmax
+GRAD_TOL = 1e-3
+
+TRAIN = dict(vocab_size=32000, num_layers=4, model_dim=256, num_heads=4,
+             ffn_dim=1024, seq_len=128)
+# Adam's learning rate for the training phase: at 3e-3 (the example's
+# default) the perplexity of this 4-batch recipe rises in some epochs
+TRAIN_LR = 1e-3
 
 
 def check(cond, msg):
@@ -207,6 +237,52 @@ def check_paged(A):
     return worst
 
 
+def check_flash_bwd(A):
+    """The two backward kernels through the autograd Function (one K1, one
+    K2a and one K2b launch) against ``_flash_backward_plain`` on the same
+    card tensors and the same forward residuals; then bitwise equal on a
+    second launch."""
+    rng = np.random.default_rng(4)
+    worst = {}
+    cases = [(32, 4, 128, 128, 64, True, torch.float32),   # training shape
+             (2, 4, 48, 80, 64, False, torch.float32),
+             (2, 4, 48, 80, 64, True, torch.float32),
+             (1, 2, 100, 37, 128, True, torch.float32),
+             (2, 2, 70, 70, 128, False, torch.float32),
+             (2, 4, 80, 80, 64, True, torch.bfloat16)]
+    for b, h, sq, sk, d, causal, dt in cases:
+        q, k, v = flash_inputs(rng, b, h, sq, sk, d, dt)
+        g = flash_inputs(rng, b, h, sq, sq, d, dt)[0]
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        got = torch.autograd.grad(A.flash_attention(*leaves, causal), leaves, g)
+        again = torch.autograd.grad(A.flash_attention(*leaves, causal), leaves, g)
+        out, lse = A.flash_attention_forward(q, k, v, causal)
+        ref = A._flash_backward_plain(q, k, v, out.to(dt), lse, g, causal,
+                                      1.0 / math.sqrt(d))
+        torch.cuda.synchronize()
+        errs = [(a.float() - r.float()).abs().max().item()
+                for a, r in zip(got, ref)]
+        err = max(errs)
+        if dt == torch.float32:
+            tol = F32_TOL
+        else:
+            err = err / max(r.float().abs().max().item() for r in ref)
+            tol = BF16_REL_TOL
+        log("  flash_bwd b=%d h=%d sq=%d sk=%d d=%d causal=%d %s: max_abs_err "
+            "dq %.3e dk %.3e dv %.3e -> %s %.3e (tol %.0e)"
+            % (b, h, sq, sk, d, causal, str(dt)[6:], *errs,
+               "abs" if dt == torch.float32 else "rel", err, tol))
+        check(all(a.dtype == dt for a in got), "gradient dtype")
+        check(all(torch.isfinite(a).all().item() for a in got),
+              "flash backward not finite")
+        check(err <= tol, "flash backward kernels disagree with the plain version")
+        check(all(torch.equal(a, a2) for a, a2 in zip(got, again)),
+              "two launches gave different gradient bits")
+        worst[dt] = max(worst.get(dt, 0.0), err)
+    log("  flash_bwd: every case bitwise equal across two launches")
+    return worst
+
+
 # ---------------------------------------------------------------- serving
 def run_serving(S, M, build, tel):
     cfg = S.ServingConfig(vocab_size=32000, num_layers=4, model_dim=256,
@@ -328,10 +404,106 @@ def teacher_forced(S, M, cfg, params_np):
     check(err <= LOGIT_TOL, "card logits disagree with the CPU plain path")
 
 
+# ---------------------------------------------------------------- training
+def lm_stream(n, seed=0):
+    """``examples/train_lm.py``'s synthetic stream: token t+1 = token t + 1
+    (mod V), each sequence from a random start (numpy seed)."""
+    V, T = TRAIN["vocab_size"], TRAIN["seq_len"]
+    rng = np.random.RandomState(seed)
+    X = (rng.randint(0, V, (n, 1)) + np.arange(T)) % V
+    return X.astype(np.float32), ((X + 1) % V).astype(np.float32)
+
+
+def run_training(mx, build):
+    """``Module.fit`` of the zoo Transformer-LM at full width on the card."""
+    X, Y = lm_stream(128)
+    batch, epochs = 32, 5
+    it = mx.io.NDArrayIter(X, Y, batch_size=batch, shuffle=False)
+    mod = mx.mod.Module(mx.models.transformer_lm(**TRAIN), context=mx.gpu(0))
+    metric = mx.metric.Perplexity(ignore_label=None)
+    stamps, ppl = [], []
+
+    def batch_end(_param):
+        torch.cuda.synchronize()   # the step's host wall includes the card's work
+        stamps.append(time.perf_counter())
+
+    def epoch_end(_epoch, _sym, _arg, _aux):
+        ppl.append(metric.get()[1])
+
+    for k in build.KERNELS.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mod.fit(it, num_epoch=epochs, optimizer="adam",
+            optimizer_params={"learning_rate": TRAIN_LR},
+            initializer=mx.init.Xavier(rng=torch.Generator().manual_seed(0)),
+            eval_metric=metric, batch_end_callback=batch_end,
+            epoch_end_callback=epoch_end)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in build.KERNELS.items()}
+    steps = len(stamps)
+    per_step = np.diff([t0] + stamps)
+    step_s = float(np.median(per_step[1:]))
+    tokens = batch * TRAIN["seq_len"]
+    log("  %d epochs x %d batches of %d x %d tokens: %d steps in %.3f s; first "
+        "step %.4f s; host wall per step (median after the first, synchronized) "
+        "%.5f s = %.1f tokens/s" % (epochs, steps // epochs, batch,
+                                    TRAIN["seq_len"], steps, wall, per_step[0],
+                                    step_s, tokens / step_s))
+    log("  training perplexity per epoch: %s" % ["%.3f" % p for p in ppl])
+    log("  launches on the training path: %s" % launches)
+    L = TRAIN["num_layers"]
+    check(steps == epochs * (len(X) // batch), "fit ran %d steps" % steps)
+    check(all(math.isfinite(p) for p in ppl), "non-finite training loss")
+    check(all(b < a for a, b in zip(ppl, ppl[1:])),
+          "training perplexity did not fall every epoch")
+    check(ppl[-1] < TRAIN["vocab_size"] / 2,
+          "training perplexity ended near uniform guessing")
+    for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+        check(launches[name] == L * steps, "%s launched %d times in %d steps"
+              % (name, launches[name], steps))
+    check(launches["paged_decode"] == 0, "paged_decode ran on the training path")
+    params = {n: a.asnumpy() for n, a in mod.get_params()[0].items()}
+    return launches, {"steps": steps, "step_s": step_s, "ppl": ppl}, params
+
+
+def train_step_card_vs_cpu(mx, params):
+    """One ``forward_backward`` of 4 sequences from the same parameters on
+    the card (kernels) and on the CPU (plain versions)."""
+    X, Y = lm_stream(4, seed=1)
+    batch = mx.io.DataBatch([mx.nd.array(X, ctx=mx.cpu())],
+                            [mx.nd.array(Y, ctx=mx.cpu())])
+    res = {}
+    for ctx in (mx.gpu(0), mx.cpu()):
+        mod = mx.mod.Module(mx.models.transformer_lm(**TRAIN), context=ctx)
+        mod.bind(data_shapes=[("data", X.shape)],
+                 label_shapes=[("softmax_label", Y.shape)])
+        mod.init_params(arg_params=params)
+        mod.forward_backward(batch)
+        exe = mod._exec_group.execs[0]
+        res[ctx.type] = (mod.get_outputs()[0].asnumpy(),
+                         {n: exe.grad_dict[n].asnumpy() for n in params})
+    (out_c, g_c), (out_h, g_h) = res["cuda"], res["cpu"]
+    check(np.isfinite(out_c).all() and out_c.shape == out_h.shape,
+          "card outputs not finite or misshapen")
+    out_err = float(np.abs(out_c - out_h).max() / np.abs(out_h).max())
+    rel = {n: float(np.abs(g_c[n] - g_h[n]).max() / max(np.abs(g_h[n]).max(), 1e-30))
+           for n in params}
+    worst = max(rel, key=rel.get)
+    log("  one step at batch 4 x %d: max abs output diff card vs CPU / max "
+        "abs output %.3e (tol %.0e); worst gradient %s: max abs diff / max abs grad %.3e "
+        "(tol %.0e over %d parameters)" % (TRAIN["seq_len"], out_err,
+                                           OUT_REL_TOL, worst, rel[worst],
+                                           GRAD_TOL, len(rel)))
+    check(out_err <= OUT_REL_TOL, "card outputs disagree with the CPU")
+    check(all(np.isfinite(g_c[n]).all() for n in params), "non-finite gradient")
+    check(rel[worst] <= GRAD_TOL, "card gradients disagree with the CPU")
+
+
 # ---------------------------------------------------------------- times
-def time_flash(A):
+def time_flash(A, b, h, s, d):
     F = torch.nn.functional
-    b, h, s, d = 1, 4, 128, 64
     rng = np.random.default_rng(2)
     q, k, v = flash_inputs(rng, b, h, s, s, d, torch.float32)
     scale = 1.0 / math.sqrt(d)
@@ -348,7 +520,63 @@ def time_flash(A):
     flops = 4 * pairs * d
     nbytes = 4 * (4 * b * h * s * d + b * h * s)   # q,k,v in; out, lse out
     return dict(err=err, ms=ms, plain=plain, lib=lib, flops=flops,
-                nbytes=nbytes, shape="q/k/v (1,4,128,64) f32 causal")
+                nbytes=nbytes, shape="q/k/v (%d,%d,%d,%d) f32 causal" % (b, h, s, d))
+
+
+def time_flash_bwd(A, build, b=32, h=4, s=128, d=64):
+    """K2a and K2b launched alone at the training shape; the plain twin and
+    the library yardstick compute dq, dk and dv together, so both rows
+    carry the same plain and library times. Library: autograd through
+    ``scaled_dot_product_attention`` (forward + backward) less its forward
+    alone, both with gradients enabled."""
+    F = torch.nn.functional
+    rng = np.random.default_rng(5)
+    q, k, v = flash_inputs(rng, b, h, s, s, d, torch.float32)
+    g = flash_inputs(rng, b, h, s, s, d, torch.float32)[0]
+    scale = 1.0 / math.sqrt(d)
+    out, lse = A.flash_attention_forward(q, k, v, True)
+    delta = (out * g).sum(dim=-1)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = [x.data_ptr() for x in (q, k, v, g, lse, delta)]
+    dims = (b, h, s, s, d, scale, 1, 0, stream)
+
+    def dkv():
+        build.FLASH_BWD_DKV.launch(*ptrs, dk.data_ptr(), dv.data_ptr(), *dims)
+
+    def dq_():
+        build.FLASH_BWD_DQ.launch(*ptrs, dq.data_ptr(), *dims)
+
+    ref = A._flash_backward_plain(q, k, v, out, lse, g, True, scale)
+    dkv()
+    dq_()
+    torch.cuda.synchronize()
+    err_dkv = max((dk - ref[1]).abs().max().item(), (dv - ref[2]).abs().max().item())
+    err_dq = (dq - ref[0]).abs().max().item()
+    ms_dkv = device_ms(dkv)
+    ms_dq = device_ms(dq_)
+    plain = device_ms(lambda: A._flash_backward_plain(q, k, v, out, lse, g,
+                                                      True, scale))
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    lib_grads = torch.autograd.grad(
+        F.scaled_dot_product_attention(*leaves, is_causal=True), leaves, g)
+    lib_err = max((a - r).abs().max().item() for a, r in zip(lib_grads, ref))
+    check(lib_err <= 1e-3, "library yardstick disagrees (%.3e)" % lib_err)
+    lib_fb = device_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(*leaves, is_causal=True), leaves, g))
+    lib_f = device_ms(lambda: F.scaled_dot_product_attention(*leaves, is_causal=True))
+    lib = lib_fb - lib_f
+    log("  library yardstick for the backward: SDPA fwd+bwd %.6f ms - fwd "
+        "%.6f ms = %.6f ms (max abs err vs plain %.3e)" % (lib_fb, lib_f, lib, lib_err))
+    pairs = b * h * s * (s + 1) // 2
+    bhsd, bhs = b * h * s * d, b * h * s
+    shape = "q/k/v/dout (%d,%d,%d,%d) f32 causal" % (b, h, s, d)
+    # K2a: s, dp, dV, dK — 8 FLOP per pair and dim; reads q,k,v,dout,lse,
+    # delta, writes dk, dv.  K2b: s, dp, dQ — 6; writes dq.
+    return (dict(err=err_dkv, ms=ms_dkv, plain=plain, lib=lib, flops=8 * pairs * d,
+                 nbytes=4 * (6 * bhsd + 2 * bhs), shape=shape),
+            dict(err=err_dq, ms=ms_dq, plain=plain, lib=lib, flops=6 * pairs * d,
+                 nbytes=4 * (5 * bhsd + 2 * bhs), shape=shape))
 
 
 def time_paged(A):
@@ -389,6 +617,7 @@ def main():
               "runs the port on the card only", file=sys.stderr)
         return 2
     # the package is imported only once a card is known to be there
+    import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import serving as S
     from mxnet_tpu_torch import telemetry as tel
     from mxnet_tpu_torch.ops import _build as build
@@ -414,40 +643,81 @@ def main():
     log("== 3. kernels vs plain on the card")
     flash_err = check_flash(A)
     paged_err = check_paged(A)
-    log("  worst errors: flash %s, paged %s"
+    bwd_err = check_flash_bwd(A)
+    log("  worst errors: flash %s, paged %s, flash_bwd %s"
         % ({str(k)[6:]: v for k, v in flash_err.items()},
-           {str(k)[6:]: v for k, v in paged_err.items()}))
+           {str(k)[6:]: v for k, v in paged_err.items()},
+           {str(k)[6:]: v for k, v in bwd_err.items()}))
 
     log("== 4. serving at full width")
     cfg, params, launches, counts = run_serving(S, M, build, tel)
     teacher_forced(S, M, cfg, params)
 
-    log("== 5. times (%s)" % card)
+    log("== 5. training at full width through Module.fit")
+    t_launches, t_counts, t_params = run_training(mx, build)
+
+    log("== 6. one training step, card vs CPU")
+    train_step_card_vs_cpu(mx, t_params)
+
+    log("== 7. times (%s)" % card)
+    fwd_train = time_flash(A, 32, 4, 128, 64)
+    log("  flash_fwd at the training shape %s: kernel_ms %.6f plain_ms %.6f "
+        "library_ms %.6f bound_us %.4f max_abs_err %.3e; %d launches per "
+        "step (%d layers)"
+        % (fwd_train["shape"], fwd_train["ms"], fwd_train["plain"],
+           fwd_train["lib"], 1e3 * max(fwd_train["nbytes"] / PEAK_BYTES_PER_S,
+                                       fwd_train["flops"] / PEAK_F32_FLOPS) * 1e3,
+           fwd_train["err"], t_launches["flash_fwd"] // t_counts["steps"],
+           TRAIN["num_layers"]))
+    check(fwd_train["err"] <= F32_TOL, "flash_fwd disagrees at the training shape")
+    bwd_dkv, bwd_dq = time_flash_bwd(A, build)
     rows = []
+    total = {n: launches[n] + t_launches[n] for n in launches}
+    per_prefill = "%.2f per prefill, %.2f per engine step" % (
+        launches["flash_fwd"] / counts["prefills"],
+        launches["flash_fwd"] / counts["steps"])
     for name, src, replaces, res, per in (
             ("flash_fwd", "mxnet_tpu_torch/csrc/flash_fwd.cu",
-             "mxnet_tpu/ops/attention.py:142", time_flash(A), "prefills"),
+             "mxnet_tpu/ops/attention.py:142", time_flash(A, 1, 4, 128, 64),
+             "serving %d (%s), training %d (%d per step)"
+             % (launches["flash_fwd"], per_prefill, t_launches["flash_fwd"],
+                t_launches["flash_fwd"] // t_counts["steps"])),
+            ("flash_bwd_dkv", "mxnet_tpu_torch/csrc/flash_bwd_dkv.cu",
+             "mxnet_tpu/ops/attention.py:303", bwd_dkv,
+             "training %d (%d per step)" % (t_launches["flash_bwd_dkv"],
+                                            t_launches["flash_bwd_dkv"] // t_counts["steps"])),
+            ("flash_bwd_dq", "mxnet_tpu_torch/csrc/flash_bwd_dq.cu",
+             "mxnet_tpu/ops/attention.py:331", bwd_dq,
+             "training %d (%d per step)" % (t_launches["flash_bwd_dq"],
+                                            t_launches["flash_bwd_dq"] // t_counts["steps"])),
             ("paged_decode", "mxnet_tpu_torch/csrc/paged_decode.cu",
-             "mxnet_tpu/ops/attention.py:691", time_paged(A), "decodes")):
+             "mxnet_tpu/ops/attention.py:691", time_paged(A),
+             "serving %d (%.2f per decode step)"
+             % (launches["paged_decode"],
+                launches["paged_decode"] / counts["decodes"]))):
         t_bytes = res["nbytes"] / PEAK_BYTES_PER_S * 1e3
         t_ops = res["flops"] / PEAK_F32_FLOPS * 1e3
         bound = max(t_bytes, t_ops)
         rows.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": total[name],
             "max_abs_err": res["err"], "ms": res["ms"],
             "plain_ms": res["plain"], "bound_ms": bound,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": res["lib"]})
         log("  %s at %s: kernel_ms %.6f plain_ms %.6f library_ms %.6f "
             "bound_us %.4f (%s: %d bytes at 3.35 TB/s, %d FLOP at 67 "
-            "TFLOP/s f32) max_abs_err %.3e; %.2f launches per %s "
-            "(%d layers), %.2f per engine step"
+            "TFLOP/s f32) max_abs_err %.3e; launches on the main paths: %s"
             % (name, res["shape"], res["ms"], res["plain"], res["lib"],
                bound * 1e3, rows[-1]["bound_by"], res["nbytes"],
-               res["flops"], res["err"], launches[name] / counts[per],
-               per[:-1], cfg.num_layers, launches[name] / counts["steps"]))
+               res["flops"], res["err"], per))
         check(res["err"] <= F32_TOL, "%s disagrees at the timed shape" % name)
+    step_ms = t_counts["step_s"] * 1e3
+    attn_ms = (t_launches["flash_fwd"] * fwd_train["ms"]
+               + t_launches["flash_bwd_dkv"] * bwd_dkv["ms"]
+               + t_launches["flash_bwd_dq"] * bwd_dq["ms"]) / t_counts["steps"]
+    log("  training step: host wall %.3f ms; attention kernels' device time "
+        "%.3f ms per step (%.1f %%)" % (step_ms, attn_ms, 100 * attn_ms / step_ms))
 
     log(card)
     print(json.dumps({"kernels": rows}), flush=True)

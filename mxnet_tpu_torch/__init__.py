@@ -8,7 +8,12 @@ by :mod:`.ops._build`; each has a plain PyTorch version beside it that
 runs for tensors on the CPU.
 
 Ported so far: the serving engine (:mod:`.serving`) with the flash
-prefill and paged decode kernels (:mod:`.ops.attention`).
+prefill and paged decode kernels, and symbolic training through
+``Module.fit`` (:mod:`.symbol`, :mod:`.executor`, :mod:`.module`, the
+Transformer-LM's ops, initializers, SGD and Adam, ``NDArrayIter``,
+metrics) with the flash-attention backward kernels. The namespaces are
+the JAX package's, so a training script needs only its import line
+changed: ``import mxnet_tpu_torch as mx``.
 """
 import torch
 
@@ -21,6 +26,23 @@ from .context import cpu, default_device, gpu
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
+from . import ndarray, symbol  # noqa: E402
+from . import ndarray as nd  # noqa: E402
+from . import symbol as sym  # noqa: E402
+from .attribute import AttrScope  # noqa: E402
+from .name import NameManager, Prefix  # noqa: E402
+from .executor import Executor  # noqa: E402
+from . import initializer  # noqa: E402
+from . import initializer as init  # noqa: E402
+from . import optimizer  # noqa: E402
+from . import optimizer as opt  # noqa: E402
+from . import metric, io, callback, models  # noqa: E402
+from . import module  # noqa: E402
+from . import module as mod  # noqa: E402
+
 __version__ = "0.1.0"
 
-__all__ = ["base", "context", "MXNetError", "cpu", "gpu", "default_device"]
+__all__ = ["base", "context", "MXNetError", "cpu", "gpu", "default_device",
+           "nd", "ndarray", "sym", "symbol", "AttrScope", "NameManager",
+           "Prefix", "Executor", "init", "initializer", "opt", "optimizer",
+           "metric", "io", "callback", "models", "mod", "module"]

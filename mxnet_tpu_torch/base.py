@@ -1,9 +1,10 @@
 """Core shared utilities of the PyTorch/CUDA port.
 
 The port's counterpart of ``mxnet_tpu/base.py``: the error type, the
-``MXNET_*`` environment helpers and one dtype helper. The JAX package's
-dtype tables stay behind (they name ``jnp`` types); PyTorch dtypes are
-resolved by :func:`torch_dtype`.
+``MXNET_*`` environment helpers, the attr string forms the symbol layer
+serializes with, and one dtype helper. The JAX package's dtype tables
+stay behind (they name ``jnp`` types); PyTorch dtypes are resolved by
+:func:`torch_dtype`.
 """
 from __future__ import annotations
 
@@ -14,7 +15,10 @@ import numpy as np
 import torch
 
 __all__ = ["MXNetError", "env_int", "env_float", "env_bool", "env_str",
-           "torch_dtype"]
+           "torch_dtype", "attr_str", "parse_shape", "parse_bool",
+           "string_types"]
+
+string_types = (str,)
 
 
 class MXNetError(Exception):
@@ -94,3 +98,41 @@ def torch_dtype(dtype):
     if not isinstance(out, torch.dtype):
         raise MXNetError("no torch dtype named %r" % (name,))
     return out
+
+
+def parse_shape(s):
+    """Parse a shape attr string like ``(1, 2, 3)``/``[1,2]``/``3`` into a tuple."""
+    if s is None:
+        return None
+    if isinstance(s, (tuple, list)):
+        return tuple(int(x) for x in s)
+    if isinstance(s, (int, np.integer)):
+        return (int(s),)
+    s = s.strip()
+    if s in ("None", ""):
+        return None
+    s = s.strip("()[]")
+    if not s.strip():
+        return ()
+    return tuple(int(float(tok)) for tok in s.split(",") if tok.strip())
+
+
+def parse_bool(s):
+    if isinstance(s, bool):
+        return s
+    if isinstance(s, (int, np.integer)):
+        return bool(s)
+    return str(s).strip().lower() in ("true", "1", "yes")
+
+
+def attr_str(v):
+    """Serialize an attr value to the string form used in graph JSON (the
+    reference stores every op attr as its dmlc::Parameter text form), so
+    ``tojson`` output is interchangeable with the JAX package's."""
+    if isinstance(v, bool):
+        return "True" if v else "False"
+    if isinstance(v, (tuple, list)):
+        return "(" + ", ".join(attr_str(x) for x in v) + ")"
+    if v is None:
+        return "None"
+    return str(v)

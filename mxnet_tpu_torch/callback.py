@@ -1,0 +1,56 @@
+"""Training callbacks of the port (counterpart of ``mxnet_tpu/callback.py``):
+``Speedometer`` only, the batch-end callback ``examples/train_lm.py``
+passes to ``fit``. Checkpoint callbacks wait for ``.params`` I/O
+(``ROADMAP.md`` A3)."""
+from __future__ import annotations
+
+import logging
+import time
+
+from . import telemetry
+
+__all__ = ["Speedometer"]
+
+
+class Speedometer:
+    """Throughput logger: samples/sec over each ``frequent``-batch window,
+    logged with the metric on the batches where ``nbatch % frequent == 0``
+    (the JAX package's schedule and log lines). The speed comes from a
+    wall-clock window: the port's fit loop does not record
+    ``fit.step_time_seconds``, which the JAX package reads instead when it
+    is there. ``auto_reset`` resets the metric after each log line."""
+
+    def __init__(self, batch_size, frequent=50, auto_reset=True):
+        self.batch_size = batch_size
+        self.frequent = frequent
+        self.auto_reset = auto_reset
+        self._window_start = None  # wall time at the start of the window
+        self._prev_batch = None
+
+    def __call__(self, param):
+        now = time.time()
+        restarted = self._prev_batch is not None and param.nbatch < self._prev_batch
+        self._prev_batch = param.nbatch
+        if self._window_start is None or restarted:
+            # first batch of an epoch: open a fresh timing window
+            self._window_start = now
+            return
+        if param.nbatch % self.frequent:
+            return
+        speed = self.frequent * self.batch_size / (now - self._window_start)
+        telemetry.gauge("speedometer.samples_per_sec").set(speed)
+        telemetry.event("speedometer", epoch=param.epoch, nbatch=param.nbatch,
+                        samples_per_sec=round(speed, 3))
+        metric = param.eval_metric
+        if metric is not None:
+            pairs = metric.get_name_value()
+            if self.auto_reset:
+                metric.reset()
+            for name, value in pairs:
+                logging.info(
+                    "Epoch[%d] Batch [%d]\tSpeed: %.2f samples/sec\tTrain-%s=%f",
+                    param.epoch, param.nbatch, speed, name, value)
+        else:
+            logging.info("Iter[%d] Batch [%d]\tSpeed: %.2f samples/sec",
+                         param.epoch, param.nbatch, speed)
+        self._window_start = now

@@ -24,8 +24,8 @@ import threading
 
 from ..base import MXNetError
 
-__all__ = ["Kernel", "KERNELS", "FLASH_FWD", "PAGED_DECODE", "build",
-           "nvcc_command", "BUILD_DIR", "CSRC"]
+__all__ = ["Kernel", "KERNELS", "FLASH_FWD", "FLASH_BWD_DKV", "FLASH_BWD_DQ",
+           "PAGED_DECODE", "build", "nvcc_command", "BUILD_DIR", "CSRC"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -115,6 +115,22 @@ FLASH_FWD = Kernel("flash_fwd", [
     _P,                          # stream
 ])
 
+FLASH_BWD_DKV = Kernel("flash_bwd_dkv", [
+    _P, _P, _P, _P, _P, _P,      # q, k, v, dout, lse, delta
+    _P, _P,                      # dk, dv
+    _I, _I, _I, _I, _I,          # b, h, sq, sk, d
+    _F, _I, _I,                  # sm_scale, causal, dtype
+    _P,                          # stream
+])
+
+FLASH_BWD_DQ = Kernel("flash_bwd_dq", [
+    _P, _P, _P, _P, _P, _P,      # q, k, v, dout, lse, delta
+    _P,                          # dq
+    _I, _I, _I, _I, _I,          # b, h, sq, sk, d
+    _F, _I, _I,                  # sm_scale, causal, dtype
+    _P,                          # stream
+])
+
 PAGED_DECODE = Kernel("paged_decode", [
     _P, _P, _P, _P, _P, _P,      # q, k_pages, v_pages, tables, lens, out
     _I, _I, _I, _I, _I, _I,      # b, h, d, num_blocks, block_size, nb
@@ -122,7 +138,8 @@ PAGED_DECODE = Kernel("paged_decode", [
     _P,                          # stream
 ])
 
-KERNELS = {k.name: k for k in (FLASH_FWD, PAGED_DECODE)}
+KERNELS = {k.name: k for k in (FLASH_FWD, FLASH_BWD_DKV, FLASH_BWD_DQ,
+                                PAGED_DECODE)}
 
 
 def build(kernels=None):

@@ -1,19 +1,27 @@
-"""Attention ops of the port: flash (prefill) attention and paged decode.
+"""Attention ops of the port: flash attention (forward and backward) and
+paged decode.
 
-The PyTorch counterpart of the forward and paged-decode parts of
-``mxnet_tpu/ops/attention.py``, in the same layouts: (B, H, S, D) for
-flash attention and (N, bs, H, D) pool pages for paged decode.
+The PyTorch counterpart of ``mxnet_tpu/ops/attention.py`` without the
+multi-query paged kernel and the cached decode op, in the same layouts:
+(B, H, S, D) for flash attention and (N, bs, H, D) pool pages for paged
+decode.
 
 Each public function dispatches on ``q.device.type``:
 
-* ``cpu``  — the plain PyTorch version (:func:`_flash_forward_plain`, the
-  twin of the JAX package's ``_scan_forward``; :func:`paged_attention_reference`,
+* ``cpu``  — the plain PyTorch version (:func:`_flash_forward_plain` and
+  :func:`_flash_backward_plain`, the twins of the JAX package's
+  ``_scan_forward``/``_scan_backward``; :func:`paged_attention_reference`,
   the twin of its XLA reference);
 * ``cuda`` — the hand-written Hopper kernel (``csrc/flash_fwd.cu`` for
-  ``_pallas_forward``, ``csrc/paged_decode.cu`` for ``_paged_pallas``),
-  or :class:`MXNetError` for a shape or dtype the kernel does not take.
+  ``_pallas_forward``; ``csrc/flash_bwd_dkv.cu`` and
+  ``csrc/flash_bwd_dq.cu`` for the two kernels of ``_pallas_backward``;
+  ``csrc/paged_decode.cu`` for ``_paged_pallas``), or :class:`MXNetError`
+  for a shape or dtype the kernel does not take.
 
 Nothing falls back: a CUDA tensor reaches its kernel or raises.
+:func:`flash_attention` is a ``torch.autograd.Function`` whose backward
+runs the two backward kernels; the ops ``_contrib_FlashAttention`` and
+``_contrib_MultiHeadAttention`` are registered on top of it.
 """
 from __future__ import annotations
 
@@ -23,9 +31,11 @@ import torch
 
 from ..base import MXNetError
 from . import _build
+from .registry import Param, get_op, register
 
 __all__ = ["attention_reference", "flash_attention_forward",
-           "flash_attention", "paged_attention_reference", "paged_attention"]
+           "flash_attention_backward", "flash_attention",
+           "paged_attention_reference", "paged_attention"]
 
 _NEG_INF = -1e30
 
@@ -129,11 +139,185 @@ def flash_attention_forward(q, k, v, causal=False, sm_scale=None):
     raise MXNetError("flash attention: no implementation on %s" % q.device)
 
 
+# ----------------------------------------------------------- flash backward
+def _flash_backward_plain(q, k, v, out, lse, g, causal, sm_scale,
+                          block_k=256):
+    """Plain flash backward: P recomputed per KV block from the saved
+    ``lse``, dq accumulated across blocks, dk/dv written per block — the
+    twin of the JAX ``_scan_backward``. ``delta = rowsum(dout * out)`` in
+    float32. Masked scores are pinned to -1e30, so their p is exactly 0;
+    the last block is short instead of zero-padded. Returns (dq, dk, dv)
+    in the dtypes of q, k and v."""
+    sq = q.shape[2]
+    sk = k.shape[2]
+    block_k = min(block_k, sk)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    gf = g.float()
+    delta = (out.float() * gf).sum(dim=-1)
+    qi = torch.arange(sq, device=q.device)
+    dq = torch.zeros(qf.shape, dtype=torch.float32, device=q.device)
+    dks, dvs = [], []
+    for start in range(0, sk, block_k):
+        kb = kf[:, :, start:start + block_k]
+        vb = vf[:, :, start:start + block_k]
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kb) * sm_scale
+        if causal:
+            ki = start + torch.arange(kb.shape[2], device=q.device)
+            s = torch.where(qi[:, None] >= ki[None, :], s, _NEG_INF)
+        p = torch.exp(s - lse[..., None])
+        dvs.append(torch.einsum("bhqk,bhqd->bhkd", p, gf))
+        dp = torch.einsum("bhqd,bhkd->bhqk", gf, vb)
+        ds = p * (dp - delta[..., None]) * sm_scale
+        dq = dq + torch.einsum("bhqk,bhkd->bhqd", ds, kb)
+        dks.append(torch.einsum("bhqk,bhqd->bhkd", ds, qf))
+    return (dq.to(q.dtype), torch.cat(dks, dim=2).to(k.dtype),
+            torch.cat(dvs, dim=2).to(v.dtype))
+
+
+def _flash_backward_cuda(q, k, v, out, lse, g, causal, sm_scale):
+    _check_flash(q, k, v)
+    if g.shape != q.shape or g.dtype != q.dtype or not g.is_contiguous():
+        raise MXNetError("flash backward takes a contiguous output gradient "
+                         "of q's shape and dtype, got %s %s"
+                         % (tuple(g.shape), g.dtype))
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    if lse.shape != (b, h, sq) or lse.dtype != torch.float32 \
+            or not lse.is_contiguous():
+        raise MXNetError("flash backward takes a contiguous float32 lse of "
+                         "shape %s" % ((b, h, sq),))
+    if out.shape != q.shape:
+        raise MXNetError("flash backward: out %s does not match q %s"
+                         % (tuple(out.shape), tuple(q.shape)))
+    if not (g.device == lse.device == out.device == q.device):
+        raise MXNetError("flash backward: inputs on different devices")
+    delta = (out.float() * g.float()).sum(dim=-1)
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.empty(k.shape, dtype=torch.float32, device=q.device)
+    code = _DTYPE_CODE[q.dtype]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _build.FLASH_BWD_DKV.launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, h, sq, sk, d, sm_scale, int(causal), code, stream)
+        _build.FLASH_BWD_DQ.launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            b, h, sq, sk, d, sm_scale, int(causal), code, stream)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_backward(q, k, v, out, lse, g, causal=False,
+                             sm_scale=None):
+    """Flash-attention backward over (B, H, S, D) from the forward's
+    residuals (``out`` and float32 ``lse``) and the output gradient ``g``:
+    returns ``(dq, dk, dv)`` in the dtypes of q, k and v. CPU tensors take
+    the plain version, CUDA tensors the ``flash_bwd_dkv`` and
+    ``flash_bwd_dq`` kernels."""
+    sm_scale = _scale(sm_scale, q.shape[-1])
+    if q.device.type == "cuda":
+        return _flash_backward_cuda(q, k, v, out, lse, g, causal, sm_scale)
+    if q.device.type == "cpu":
+        return _flash_backward_plain(q, k, v, out, lse, g, causal, sm_scale)
+    raise MXNetError("flash attention: no implementation on %s" % q.device)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The JAX package's ``flash_attention`` custom_vjp: the forward keeps
+    (q, k, v, out, lse); the backward hands the kernels a contiguous
+    gradient (the head merge after it is a transpose, so autograd gives a
+    strided one)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale):
+        out, lse = flash_attention_forward(q, k, v, causal, sm_scale)
+        out = out.to(q.dtype)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        ctx.sm_scale = sm_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, out, lse, g.contiguous(), ctx.causal, ctx.sm_scale)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q, k, v, causal=False, sm_scale=None):
     """Memory-efficient attention over (B, H, S, D), output in q's dtype
-    (as the JAX package's ``_forward_impl`` casts it)."""
-    out, _ = flash_attention_forward(q, k, v, causal, sm_scale)
-    return out.to(q.dtype)
+    (as the JAX package's ``_forward_impl`` casts it); differentiable
+    through the hand-written backward kernels."""
+    return _FlashAttention.apply(q, k, v, causal,
+                                 _scale(sm_scale, q.shape[-1]))
+
+
+# ------------------------------------------------------------ registered ops
+@register(
+    "_contrib_FlashAttention",
+    arg_names=("query", "key", "value"),
+    params={
+        "causal": Param.bool(False),
+        "sm_scale": Param.float(-1.0),
+    },
+)
+def _flash_attention_op(octx, attrs, args, auxs):
+    q, k, v = args
+    scale = attrs["sm_scale"]
+    return [flash_attention(q, k, v, attrs["causal"],
+                            None if scale <= 0 else scale)], []
+
+
+get_op("_contrib_FlashAttention")._infer_shape = (
+    lambda attrs, in_shapes, aux_shapes: (in_shapes, [tuple(in_shapes[0])], []))
+
+
+@register(
+    "_contrib_MultiHeadAttention",
+    arg_names=("data", "in_weight", "out_weight"),
+    params={
+        "num_heads": Param.int(),
+        "causal": Param.bool(True),
+    },
+)
+def _mha_op(octx, attrs, args, auxs):
+    """Self-attention block over (batch, seq, model): fused qkv projection,
+    flash attention, output projection. in_weight (3*model, model) and
+    out_weight (model, model) are laid out like FullyConnected (out, in).
+    The head split and merge copy to contiguous memory: the kernels take
+    nothing else."""
+    x, w_in, w_out = args
+    bsz, seq, model = x.shape
+    heads = attrs["num_heads"]
+    hd = model // heads
+    qkv = torch.matmul(x, w_in.t())                       # (B, S, 3*model)
+    q, k, v = qkv.split(model, dim=-1)
+
+    def split_heads(t):
+        return t.reshape(bsz, seq, heads, hd).transpose(1, 2).contiguous()
+
+    out = flash_attention(split_heads(q), split_heads(k), split_heads(v),
+                          attrs["causal"])
+    out = out.transpose(1, 2).contiguous().reshape(bsz, seq, model)
+    return [torch.matmul(out, w_out.t())], []
+
+
+def _mha_infer_shape(attrs, in_shapes, aux_shapes):
+    data = in_shapes[0]
+    if data is None:
+        raise ValueError("MultiHeadAttention: data shape required")
+    model = data[2]
+    if in_shapes[1] is None:
+        in_shapes[1] = (3 * model, model)
+    if in_shapes[2] is None:
+        in_shapes[2] = (model, model)
+    return in_shapes, [tuple(data)], []
+
+
+get_op("_contrib_MultiHeadAttention")._infer_shape = _mha_infer_shape
 
 
 # ------------------------------------------------------------- paged decode

@@ -1,0 +1,83 @@
+"""Shape ops of the port (counterpart of ``mxnet_tpu/ops/matrix.py``).
+
+Only ``Reshape``, with MXNet's special target codes (0 keep, -1 infer,
+-2 copy the rest, -3 merge two, -4 split one) and ``reverse``. The rest
+of the file waits for ROADMAP A4.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from ..base import MXNetError
+from .registry import Param, register_simple
+
+
+def mx_reshape(shape, target, reverse=False):
+    """Implement MXNet Reshape's 0/-1/-2/-3/-4 codes on a concrete shape."""
+    src = list(shape)
+    if reverse:
+        src = src[::-1]
+        target = tuple(reversed(target))
+    out = []
+    src_i = 0
+    i = 0
+    target = list(target)
+    while i < len(target):
+        t = target[i]
+        if t == 0:
+            out.append(src[src_i])
+            src_i += 1
+        elif t == -1:
+            out.append(-1)
+            src_i += 1
+        elif t == -2:
+            out.extend(src[src_i:])
+            src_i = len(src)
+        elif t == -3:
+            out.append(src[src_i] * src[src_i + 1])
+            src_i += 2
+        elif t == -4:
+            d1, d2 = target[i + 1], target[i + 2]
+            cur = src[src_i]
+            if d1 == -1:
+                d1 = cur // d2
+            if d2 == -1:
+                d2 = cur // d1
+            out.extend([d1, d2])
+            src_i += 1
+            i += 2
+        else:
+            out.append(t)
+            src_i += 1
+        i += 1
+    if -1 in out:
+        known = int(np.prod([d for d in out if d != -1])) if len(out) > 1 else 1
+        total = int(np.prod(shape)) if shape else 1
+        out[out.index(-1)] = total // max(known, 1)
+    if reverse:
+        out = out[::-1]
+    return tuple(int(d) for d in out)
+
+
+def _reshape(attrs, x):
+    target = attrs["shape"]
+    if target is None or target == ():
+        ts = attrs.get("target_shape")     # the legacy attr
+        if ts:
+            return x.reshape(ts)
+        raise MXNetError("Reshape: shape required")
+    return x.reshape(mx_reshape(tuple(x.shape), target, attrs["reverse"]))
+
+
+register_simple(
+    "Reshape",
+    _reshape,
+    arg_names=("data",),
+    params={
+        "shape": Param.shape(()),
+        "reverse": Param.bool(False),
+        "target_shape": Param.shape(()),
+        "keep_highest": Param.bool(False),
+    },
+    alias=("reshape",),
+)

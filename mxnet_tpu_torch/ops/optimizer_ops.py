@@ -1,0 +1,46 @@
+"""Optimizer update arithmetic of the port (counterpart of
+``mxnet_tpu/ops/optimizer_ops.py``).
+
+Plain functions of torch tensors with the JAX package's arithmetic in
+its order: the gradient is rescaled, clipped when ``clip_gradient > 0``
+and gets ``wd * weight`` added (``_prep_grad``), then each rule updates.
+They return new tensors; the optimizer rebinds its NDArrays to them.
+SGD, SGD with momentum and Adam only; the RMSProp rules wait for
+ROADMAP A4.
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["sgd_update", "sgd_mom_update", "adam_update"]
+
+
+def _prep_grad(grad, weight, rescale_grad, clip_gradient, wd):
+    g = grad * rescale_grad
+    if clip_gradient > 0:
+        g = torch.clamp(g, -clip_gradient, clip_gradient)
+    return g + wd * weight
+
+
+def sgd_update(weight, grad, lr, wd=0.0, rescale_grad=1.0, clip_gradient=-1.0):
+    g = _prep_grad(grad, weight, rescale_grad, clip_gradient, wd)
+    return weight - lr * g
+
+
+def sgd_mom_update(weight, grad, mom, lr, momentum=0.0, wd=0.0,
+                   rescale_grad=1.0, clip_gradient=-1.0):
+    """Returns (new weight, new momentum)."""
+    g = _prep_grad(grad, weight, rescale_grad, clip_gradient, wd)
+    new_mom = momentum * mom - lr * g
+    return weight + new_mom, new_mom
+
+
+def adam_update(weight, grad, mean, var, lr, beta1=0.9, beta2=0.999,
+                epsilon=1e-8, wd=0.0, rescale_grad=1.0, clip_gradient=-1.0):
+    """Returns (new weight, new mean, new variance); ``lr`` is the
+    bias-corrected step size."""
+    g = _prep_grad(grad, weight, rescale_grad, clip_gradient, wd)
+    new_mean = beta1 * mean + (1 - beta1) * g
+    new_var = beta2 * var + (1 - beta2) * torch.square(g)
+    new_w = weight - lr * new_mean / (torch.sqrt(new_var) + epsilon)
+    return new_w, new_mean, new_var

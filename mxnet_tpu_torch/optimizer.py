@@ -1,0 +1,216 @@
+"""Optimizers of the port (counterpart of ``mxnet_tpu/optimizer.py``;
+reference: python/mxnet/optimizer.py).
+
+SGD (with and without momentum) and Adam, with the JAX package's
+``lr_mult``/``wd_mult`` resolution (no weight decay on names that end in
+neither ``_weight`` nor ``_gamma``), per-index update counts for Adam's
+bias correction, and its arithmetic in its order
+(:mod:`.ops.optimizer_ops`). The :class:`Updater` keeps per-index state
+and applies the update parameter by parameter with plain torch
+arithmetic on the parameters' own device; the JAX package's
+``FusedUpdater`` computes the same per-parameter math in one program
+(a fused step is later work, ``ROADMAP.md`` A3). The other optimizers
+(NAG, SGLD, AdaGrad, RMSProp, ...) and optimizer-state checkpoints wait
+for ROADMAP A4.
+"""
+from __future__ import annotations
+
+import logging
+import math
+
+from .base import MXNetError
+from .ndarray import NDArray, zeros
+from .ops import optimizer_ops
+
+__all__ = ["Optimizer", "SGD", "Adam", "Updater", "get_updater", "create",
+           "register"]
+
+
+class Optimizer:
+    """Base optimizer with lr/wd multiplier resolution and the registry."""
+
+    opt_registry = {}
+
+    @staticmethod
+    def register(klass):
+        name = klass.__name__.lower()
+        if name in Optimizer.opt_registry:
+            logging.warning("WARNING: New optimizer %s is overriding existing optimizer", name)
+        Optimizer.opt_registry[name] = klass
+        return klass
+
+    @staticmethod
+    def create_optimizer(name, **kwargs):
+        if name.lower() in Optimizer.opt_registry:
+            return Optimizer.opt_registry[name.lower()](**kwargs)
+        raise ValueError("Cannot find optimizer %s" % name)
+
+    def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0,
+                 clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
+                 sym=None, begin_num_update=0):
+        if lr_scheduler is not None:
+            raise MXNetError("lr_scheduler is not ported yet (ROADMAP.md A3)")
+        self.rescale_grad = rescale_grad
+        self.lr = learning_rate
+        self.wd = wd
+        self.lr_mult = {}
+        self.wd_mult = {}
+        self.begin_num_update = begin_num_update
+        self.num_update = begin_num_update
+        self._index_update_count = {}
+        self.clip_gradient = clip_gradient
+        if param_idx2name is None:
+            param_idx2name = {}
+        if not isinstance(param_idx2name, dict):
+            raise MXNetError("param_idx2name should be a dict of param indexes to names.")
+        self.idx2name = param_idx2name.copy()
+        self.sym = sym
+        self.set_lr_mult({})
+        self.set_wd_mult({})
+
+    def create_state(self, index, weight):
+        return None
+
+    def update(self, index, weight, grad, state):
+        raise NotImplementedError()
+
+    def set_lr_mult(self, args_lr_mult):
+        """``__lr_mult__`` attrs of the symbol, then ``args_lr_mult``."""
+        self.lr_mult = {}
+        if self.sym is not None:
+            attr = self.sym.attr_dict()
+            for name in self.sym.list_arguments():
+                if name in attr and "__lr_mult__" in attr[name]:
+                    self.lr_mult[name] = float(attr[name]["__lr_mult__"])
+        self.lr_mult.update(args_lr_mult)
+
+    def set_wd_mult(self, args_wd_mult):
+        """Defaults: no wd on names that end in neither ``_weight`` nor
+        ``_gamma``; then ``__wd_mult__`` attrs, then ``args_wd_mult``."""
+        self.wd_mult = {}
+        for n in self.idx2name.values():
+            if not (n.endswith("_weight") or n.endswith("_gamma")):
+                self.wd_mult[n] = 0.0
+        if self.sym is not None:
+            attr = self.sym.attr_dict()
+            for name in self.sym.list_arguments():
+                if name in attr and "__wd_mult__" in attr[name]:
+                    self.wd_mult[name] = float(attr[name]["__wd_mult__"])
+        self.wd_mult.update(args_wd_mult)
+
+    def _update_count(self, index):
+        if index not in self._index_update_count:
+            self._index_update_count[index] = self.begin_num_update
+        self._index_update_count[index] += 1
+        self.num_update = max(self._index_update_count[index], self.num_update)
+
+    def _get_lr(self, index):
+        lr = self.lr
+        if index in self.lr_mult:
+            lr *= self.lr_mult[index]
+        elif index in self.idx2name:
+            lr *= self.lr_mult.get(self.idx2name[index], 1.0)
+        return lr
+
+    def _get_wd(self, index):
+        wd = self.wd
+        if index in self.wd_mult:
+            wd *= self.wd_mult[index]
+        elif index in self.idx2name:
+            wd *= self.wd_mult.get(self.idx2name[index], 1.0)
+        return wd
+
+    def _common(self):
+        return dict(rescale_grad=self.rescale_grad,
+                    clip_gradient=(self.clip_gradient
+                                   if self.clip_gradient is not None else -1.0))
+
+
+register = Optimizer.register
+create = Optimizer.create_optimizer
+
+
+@register
+class SGD(Optimizer):
+    """SGD, with momentum when ``momentum`` is not 0."""
+
+    def __init__(self, momentum=0.0, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+
+    def create_state(self, index, weight):
+        if self.momentum == 0.0:
+            return None
+        return zeros(weight.shape, ctx=weight.context, dtype=weight.dtype)
+
+    def update(self, index, weight, grad, state):
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        self._update_count(index)
+        if state is not None:
+            w, m = optimizer_ops.sgd_mom_update(
+                weight.data, grad.data, state.data, lr=lr, wd=wd,
+                momentum=self.momentum, **self._common())
+            weight._set_data(w)
+            state._set_data(m)
+        else:
+            weight._set_data(optimizer_ops.sgd_update(
+                weight.data, grad.data, lr=lr, wd=wd, **self._common()))
+
+
+@register
+class Adam(Optimizer):
+    """Adam with the bias correction folded into the step size:
+    ``lr_t = lr * sqrt(1 - beta2^t) / (1 - beta1^t)``, t counted per index."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+
+    def create_state(self, index, weight):
+        return (zeros(weight.shape, weight.context, dtype=weight.dtype),   # mean
+                zeros(weight.shape, weight.context, dtype=weight.dtype))   # variance
+
+    def update(self, index, weight, grad, state):
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        self._update_count(index)
+        t = self._index_update_count[index]
+        coef1 = 1.0 - self.beta1 ** t
+        coef2 = 1.0 - self.beta2 ** t
+        lr_t = lr * math.sqrt(coef2) / coef1
+        mean, var = state
+        w, m, v = optimizer_ops.adam_update(
+            weight.data, grad.data, mean.data, var.data, lr=lr_t, wd=wd,
+            beta1=self.beta1, beta2=self.beta2, epsilon=self.epsilon,
+            **self._common())
+        weight._set_data(w)
+        mean._set_data(m)
+        var._set_data(v)
+
+
+class Updater:
+    """Weight updater with per-index optimizer state."""
+
+    def __init__(self, optimizer):
+        self.optimizer = optimizer
+        self.states = {}
+
+    def __call__(self, index, grad, weight):
+        if not isinstance(weight, NDArray) or not isinstance(grad, NDArray):
+            raise TypeError("Updater takes NDArray weights and gradients")
+        if index not in self.states:
+            self.states[index] = self.optimizer.create_state(index, weight)
+        self.optimizer.update(index, weight, grad, self.states[index])
+
+    def update_all(self, pairs):
+        """``pairs``: (index, grad, weight) triples, updated in order."""
+        for index, g, w in pairs:
+            self(index, g, w)
+
+
+def get_updater(optimizer):
+    return Updater(optimizer)

@@ -3,10 +3,13 @@
 The same numpy inputs (made from a seed) go through the JAX function and
 through the port's plain PyTorch version, which is what the port runs for
 CPU tensors: the flash forward against ``_scan_forward`` and against the
-Pallas kernel ``_pallas_forward`` in interpret mode, the paged decode
-against ``paged_attention_reference`` and the Pallas kernel
-``_paged_pallas`` in interpret mode. The CUDA kernels themselves run only
-on the card (``chip_smoke.py`` holds them against these plain versions).
+Pallas kernel ``_pallas_forward`` in interpret mode, the flash backward
+against ``_scan_backward`` and the Pallas kernels of ``_pallas_backward``
+in interpret mode, the differentiable ``flash_attention`` against
+``jax.vjp`` of the JAX one, the paged decode against
+``paged_attention_reference`` and the Pallas kernel ``_paged_pallas`` in
+interpret mode. The CUDA kernels themselves run only on the card
+(``chip_smoke.py`` holds them against these plain versions).
 """
 import os
 import stat
@@ -98,6 +101,89 @@ def test_flash_attention_matches_jax_and_oracle(causal):
     assert out_bf.dtype == torch.bfloat16
     np.testing.assert_allclose(out_bf.float().numpy(), ref_bf,
                                rtol=BF16_TOL, atol=BF16_TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+@pytest.mark.parametrize("oracle", ["scan", "pallas_interpret"])
+def test_flash_backward_matches_jax(oracle, shape, causal):
+    """``_flash_backward_plain`` (the twin of ``_scan_backward``) on the
+    JAX forward's residuals: dq, dk, dv within 2e-5 (float32, another
+    summation order). S = 80 with blocks of 32 leaves ragged tails."""
+    b, h, sq, sk, d = shape
+    q, k, v = _qkv(sum(shape) + 7 * causal, b, h, sq, sk, d)
+    g = np.random.default_rng(sum(shape)).standard_normal(
+        (b, h, sq, d)).astype(np.float32)
+    scale = 1.0 / np.sqrt(d)
+    with jax.default_device(_cpu()):
+        jq, jk, jv, jg = (jnp.asarray(x) for x in (q, k, v, g))
+        out, lse = JA._scan_forward(jq, jk, jv, causal, scale, 32)
+        if oracle == "scan":
+            ref = JA._scan_backward(jq, jk, jv, out, lse, jg, causal, scale, 32)
+        else:
+            ref = JA._pallas_backward(jq, jk, jv, out, lse, jg, causal, scale,
+                                      block_q=32, block_k=32, interpret=True)
+    args = [torch.from_numpy(np.array(x)) for x in (q, k, v, out, lse, g)]
+    for block_k in (32, 256):
+        got = TA._flash_backward_plain(*args[:6], causal, scale, block_k)
+        for a, r in zip(got, ref):
+            np.testing.assert_allclose(a.numpy(), np.asarray(r), rtol=TOL,
+                                       atol=TOL)
+    # the public entry point takes the plain version for CPU tensors
+    got = TA.flash_attention_backward(*args, causal)
+    for a, r in zip(got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(r), rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_gradient_matches_jax_vjp(causal):
+    """Autograd through the port's ``flash_attention`` Function against
+    ``jax.vjp`` of the JAX custom_vjp, with a strided head gradient (the
+    Function makes it contiguous), float32 within 2e-5; bf16 inputs give
+    bf16 gradients."""
+    q, k, v = _qkv(21 + causal, 2, 2, 48, 80, 16)
+    g = np.random.default_rng(5).standard_normal((2, 48, 2, 16)).astype(
+        np.float32)
+    with jax.default_device(_cpu()):
+        _, vjp = jax.vjp(lambda a, b, c: JA.flash_attention(a, b, c, causal),
+                         *map(jnp.asarray, (q, k, v)))
+        ref = vjp(jnp.asarray(g.transpose(0, 2, 1, 3)))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
+    out = TA.flash_attention(tq, tk, tv, causal)
+    tg = torch.from_numpy(g).transpose(1, 2)           # not contiguous
+    assert not tg.is_contiguous()
+    got = torch.autograd.grad(out, (tq, tk, tv), tg)
+    for a, r in zip(got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(r), rtol=TOL, atol=TOL)
+    bq, bk, bv = (torch.from_numpy(x).bfloat16().requires_grad_(True)
+                  for x in (q, k, v))
+    bgrads = torch.autograd.grad(TA.flash_attention(bq, bk, bv, causal).float().sum(),
+                                 (bq, bk, bv))
+    assert all(x.dtype == torch.bfloat16 for x in bgrads)
+
+
+def test_flash_backward_kernel_gate_rejects():
+    """What the backward kernels refuse raises before any launch."""
+    q = _t(1, 2, 8, 16)
+    lse = _t(1, 2, 8)
+    with pytest.raises(MXNetError, match="contiguous output gradient"):
+        TA._flash_backward_cuda(q, q, q, q, lse, _t(1, 8, 2, 16).transpose(1, 2),
+                                True, 0.25)
+    with pytest.raises(MXNetError, match="lse"):
+        TA._flash_backward_cuda(q, q, q, q, lse.double(), q, True, 0.25)
+    with pytest.raises(MXNetError, match="out"):
+        TA._flash_backward_cuda(q, q, q, _t(1, 2, 9, 16), lse, q, True, 0.25)
+    with pytest.raises(MXNetError, match="different devices"):
+        TA._flash_backward_cuda(q, q, q, q, torch.zeros(1, 2, 8, device="meta"),
+                                q, True, 0.25)
+    with pytest.raises(MXNetError):
+        TA._flash_backward_cuda(_t(1, 2, 8, 12), _t(1, 2, 8, 12),
+                                _t(1, 2, 8, 12), _t(1, 2, 8, 12), lse,
+                                _t(1, 2, 8, 12), True, 0.25)
+    with pytest.raises(MXNetError):
+        TA.flash_attention_backward(*(torch.zeros(1, 1, 4, 8, device="meta"),) * 4,
+                                    torch.zeros(1, 1, 4, device="meta"),
+                                    torch.zeros(1, 1, 4, 8, device="meta"))
 
 
 def _paged(seed, B=4, H=2, D=16, bs=8, N=12, nb=4, lens=None):
@@ -248,7 +334,8 @@ def test_build_compiles_each_source_for_sm90a(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "_nvcc",
                         lambda: _fake_nvcc(tmp_path, ok=True))
     kernels = list(_build.KERNELS.values())
-    assert [k.name for k in kernels] == ["flash_fwd", "paged_decode"]
+    assert [k.name for k in kernels] == ["flash_fwd", "flash_bwd_dkv",
+                                         "flash_bwd_dq", "paged_decode"]
     for k in kernels:
         assert os.path.exists(k.source)
         cmd = _build.nvcc_command(k.source, "x.so")
