@@ -12,9 +12,11 @@ Drives ``mxnet_tpu_torch`` (never the JAX package) on ``cuda:0``:
 3. kernels vs plain — each kernel's wrapper on card tensors against its
    plain PyTorch version on the same inputs, at the main paths' shapes,
    with stated tolerances; the paged kernel also against poisoned
-   unreferenced slots and for batch invariance (bitwise); the two
-   flash-backward kernels through the autograd Function, and bitwise
-   equal across two launches;
+   unreferenced slots and for batch invariance (bitwise); the multi-query
+   paged kernel at the verify shape and edge cases, each lane bitwise
+   equal to the single-query kernel at its context, batch-invariant, and
+   NaN past an out-of-range block id; the two flash-backward kernels
+   through the autograd Function, and bitwise equal across two launches;
 4. serving — the zoo Transformer-LM at full width (vocab 32000, 4 layers,
    d 256, 4 heads, ffn 1024, max_len 128; pool bs 16, 257 blocks, batch
    32) with seeded random weights: ``warmup()``, then 32 seeded requests
@@ -33,7 +35,19 @@ Drives ``mxnet_tpu_torch`` (never the JAX package) on ``cuda:0``:
    4 sequences from the same parameters on ``gpu(0)`` and on ``cpu()``
    (plain versions): outputs (relative to the largest probability) and
    every parameter's gradient compared;
-7. times — each kernel, its plain version and one PyTorch library call
+7. speculative serving from a checkpoint — phase 5's trained module
+   written with ``Module.save_checkpoint`` into a temporary directory and
+   read back with ``mx.model.load_checkpoint`` (bit for bit), then served
+   at phase 4's width and prompt mix three times: target-only
+   (``spec_k`` 0), ``spec_k`` 3 with the ``small`` draft and with the
+   ``self`` draft. The three token streams must be equal (else the first
+   diverging request and position and the target's top-2 logit margin
+   there are printed, and the run fails); launch counts exact per run
+   (the multi-query kernel once per target layer and speculative step,
+   the single-query one once per draft layer and draft step, the flash
+   forward once per target and draft layer and prefill); acceptance rate,
+   tokens/s, TTFT and the draft/verify wall split printed;
+8. times — each kernel, its plain version and one PyTorch library call
    computing the same function (a yardstick the port never calls), timed
    with CUDA events while the stream is held by a sleep so host launch
    overhead is hidden, beside the card's bound for the same work.
@@ -173,7 +187,10 @@ def check_flash(A):
 
 
 def paged_inputs(rng, B, dtype, lens, N=257, bs=16, H=4, D=64, nb=8):
-    q = torch.from_numpy(rng.standard_normal((B, H, D)).astype(
+    """Paged inputs: q of lens' shape + (H, D) f32 — (B,H,D) for one query
+    per sequence, (B,T,H,D) for T lanes — pages (N,bs,H,D) in ``dtype``,
+    distinct live blocks per sequence, lens int32 as given."""
+    q = torch.from_numpy(rng.standard_normal(np.shape(lens) + (H, D)).astype(
         np.float32)).cuda()
     kp = torch.from_numpy(rng.standard_normal((N, bs, H, D)).astype(
         np.float32)).to("cuda", dtype)
@@ -237,6 +254,78 @@ def check_paged(A):
     return worst
 
 
+def verify_lens(rng, B, T, lo=0, hi=124):
+    """Per-lane contexts of a verify window: base + 1, ..., base + T."""
+    base = rng.integers(lo, hi + 1, B)
+    return base[:, None] + 1 + np.arange(T)[None, :]
+
+
+def check_paged_multi(A):
+    """K4 against its plain version at the verify shape (B 32, T 4, 257
+    blocks of 16, H 4, D 64) and on edge cases; two bitwise checks: lane t
+    equals K3 (``paged_attention``) at ``lens[:, t]``, and row b of the
+    B 32 launch equals its B 1 launch. Unreferenced slots poisoned with
+    +-1e30 change nothing; an out-of-range block id gives NaN in exactly
+    the lanes whose context reaches it."""
+    rng = np.random.default_rng(6)
+    worst = {}
+    edge = np.array([[0, 0, 0, 0],          # a dead row
+                     [0, 5, 17, 3],         # zero and non-monotone lanes
+                     [128, 1, 64, 0],
+                     [16, 16, 16, 16]])     # a whole block, all lanes
+    cases = [(32, 4, torch.float32, 64, "verify"),
+             (32, 4, torch.bfloat16, 64, "verify"),
+             (32, 4, torch.float32, 128, "verify"),
+             (32, 1, torch.float32, 64, "verify"),
+             (32, 2, torch.float32, 64, "verify"),
+             (32, 8, torch.float32, 64, "verify"),
+             (16, 4, torch.float32, 64, "edge")]
+    for B, T, dt, D, kind in cases:
+        if kind == "verify":
+            lens = verify_lens(rng, B, T, hi=128 - T)
+        else:
+            lens = np.concatenate([edge, rng.integers(0, 129, (B - 4, T))])
+        q, kp, vp, bt, cl = paged_inputs(rng, B, dt, lens, D=D)
+        out = A.paged_attention_multi(q, kp, vp, bt, cl)
+        ref = A.paged_attention_multi_reference(q, kp, vp, bt, cl)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        tol = F32_TOL if dt == torch.float32 else BF16_TOL
+        log("  paged_decode_multi B=%d T=%d D=%d pages %s %s lens: max_abs_err "
+            "%.3e (tol %.0e)" % (B, T, D, str(dt)[6:], kind, err, tol))
+        check(err <= tol, "paged_decode_multi disagrees with its plain version")
+        check(bool((out[cl == 0] == 0).all()), "a context-0 lane must give 0")
+        for t in range(T):
+            one = A.paged_attention(q[:, t].contiguous(), kp, vp, bt,
+                                    cl[:, t].contiguous())
+            check(torch.equal(one, out[:, t]),
+                  "lane %d differs from paged_decode at its context" % t)
+        for b in range(B):
+            row = A.paged_attention_multi(q[b:b + 1], kp, vp, bt[b:b + 1],
+                                          cl[b:b + 1])
+            check(torch.equal(row[0], out[b]),
+                  "row %d differs between B=%d and B=1 launches" % (b, B))
+        kp2, vp2 = poison_unreferenced(kp, vp, bt, cl.max(dim=1).values)
+        check(torch.equal(out, A.paged_attention_multi(q, kp2, vp2, bt, cl)),
+              "unreferenced slots leaked into the output")
+        worst[dt] = max(worst.get(dt, 0.0), err)
+    log("  paged_decode_multi: every lane bitwise equal to paged_decode at its "
+        "context, every row to its B=1 launch; poisoned slots changed nothing")
+    # an out-of-range id in table slot 2 (positions 32..47)
+    bt_bad = bt.clone()
+    bt_bad[:, 2] = kp.shape[0] + 7
+    out = A.paged_attention_multi(q, kp, vp, bt_bad, cl)
+    reach = cl > 32
+    check(bool(torch.isnan(out[reach]).all()),
+          "a lane reaching an out-of-range block must be NaN")
+    check(torch.equal(out[~reach], A.paged_attention_multi(q, kp, vp, bt, cl)[~reach]),
+          "lanes short of an out-of-range block changed")
+    log("  paged_decode_multi: an out-of-range block id gave NaN in the %d "
+        "lanes reaching it and changed none of the other %d"
+        % (int(reach.sum()), int((~reach).sum())))
+    return worst
+
+
 def check_flash_bwd(A):
     """The two backward kernels through the autograd Function (one K1, one
     K2a and one K2b launch) against ``_flash_backward_plain`` on the same
@@ -284,24 +373,32 @@ def check_flash_bwd(A):
 
 
 # ---------------------------------------------------------------- serving
+SERVE = dict(vocab_size=32000, num_layers=4, model_dim=256, num_heads=4,
+             ffn_dim=1024, max_len=128, block_size=16, num_blocks=257,
+             max_batch=32, prefills_per_step=4, prefix_cache=True,
+             max_queue=0, default_timeout_ms=0)
+
+
+def prompt_mix(vocab):
+    """The 32 seeded prompts of the serving phases: 1..112 tokens, one of
+    112 (the 128 prefill bucket runs) and one of 1."""
+    rng = np.random.RandomState(0)
+    lengths = [int(x) for x in rng.randint(1, 113, 32)]
+    lengths[0] = 112
+    lengths[1] = 1
+    return [[int(t) for t in rng.randint(0, vocab, n)] for n in lengths]
+
+
 def run_serving(S, M, build, tel):
-    cfg = S.ServingConfig(vocab_size=32000, num_layers=4, model_dim=256,
-                          num_heads=4, ffn_dim=1024, max_len=128,
-                          block_size=16, num_blocks=257, max_batch=32,
-                          prefills_per_step=4, prefix_cache=True,
-                          max_queue=0, default_timeout_ms=0)
+    cfg = S.ServingConfig(**SERVE)
     params = M.random_params(cfg, seed=0)
     eng = S.ServingEngine(cfg, arg_params=params, device="cuda")
     t0 = time.perf_counter()
     eng.warmup()
     log("  warmup (every prefill and decode bucket): %.3f s"
         % (time.perf_counter() - t0))
-    rng = np.random.RandomState(0)
-    lengths = [int(x) for x in rng.randint(1, 113, 32)]
-    lengths[0] = 112                     # the 128 prefill bucket runs
-    lengths[1] = 1
-    prompts = [[int(t) for t in rng.randint(0, cfg.vocab_size, n)]
-               for n in lengths]
+    prompts = prompt_mix(cfg.vocab_size)
+    lengths = [len(p) for p in prompts]
     pre0 = tel.histogram("serving.prefill_seconds").count
     pre_s0 = tel.histogram("serving.prefill_seconds").sum
     dec0 = tel.histogram("serving.decode_batch").count
@@ -465,7 +562,7 @@ def run_training(mx, build):
               % (name, launches[name], steps))
     check(launches["paged_decode"] == 0, "paged_decode ran on the training path")
     params = {n: a.asnumpy() for n, a in mod.get_params()[0].items()}
-    return launches, {"steps": steps, "step_s": step_s, "ppl": ppl}, params
+    return launches, {"steps": steps, "step_s": step_s, "ppl": ppl}, params, mod
 
 
 def train_step_card_vs_cpu(mx, params):
@@ -499,6 +596,155 @@ def train_step_card_vs_cpu(mx, params):
     check(out_err <= OUT_REL_TOL, "card outputs disagree with the CPU")
     check(all(np.isfinite(g_c[n]).all() for n in params), "non-finite gradient")
     check(rel[worst] <= GRAD_TOL, "card gradients disagree with the CPU")
+
+
+# ---------------------------------------------------- speculative serving
+def checkpoint_round_trip(mx, mod):
+    """The trained module written with ``Module.save_checkpoint`` into a
+    temporary directory and read back with ``mx.model.load_checkpoint``:
+    the same parameters, bit for bit."""
+    import tempfile
+
+    want = {n: a.asnumpy() for n, a in mod.get_params()[0].items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = tmp + "/lm"
+        mod.save_checkpoint(prefix, 5)
+        sym, args, auxs = mx.model.load_checkpoint(prefix, 5)
+    check(sym.tojson() == mod.symbol.tojson(), "checkpoint symbol differs")
+    check(sorted(args) == sorted(want) and not auxs,
+          "checkpoint parameter names differ")
+    check(all(np.array_equal(args[n].asnumpy(), want[n]) for n in want),
+          "checkpoint parameters differ from the trained module's")
+    log("  Module.save_checkpoint -> mx.model.load_checkpoint: %d parameters "
+        "(%d floats) read back bit for bit" % (len(args),
+                                              sum(v.size for v in want.values())))
+    return args
+
+
+def serve_once(S, build, tel, params, prompts, **over):
+    """One engine at ``SERVE`` (+ ``over``) on the card: ``warmup()``, then
+    the prompts through ``submit``/``step`` until all finish, the launch
+    counters set to 0 just before and read just after."""
+    cfg = S.ServingConfig(**dict(SERVE, **over))
+    eng = S.ServingEngine(cfg, arg_params=params, device="cuda")
+    eng.warmup()
+    pre0 = tel.histogram("serving.prefill_seconds").count
+    dec0 = tel.histogram("serving.decode_batch").count
+    for k in build.KERNELS.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, 16) for p in prompts]
+    steps = 0
+    while any(not r.finished() for r in reqs):
+        eng.step()
+        steps += 1
+        check(steps < 10000, "serving did not finish")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in build.KERNELS.items()}
+    check(all(r.state == S.FINISHED for r in reqs), "a request did not finish")
+    check(all(len(r.generated) == 16 for r in reqs), "wrong token count")
+    return eng, [list(r.generated) for r in reqs], launches, {
+        "wall": wall, "steps": steps,
+        "prefills": tel.histogram("serving.prefill_seconds").count - pre0,
+        "decodes": tel.histogram("serving.decode_batch").count - dec0}
+
+
+def first_divergence(S, M, params, prompts, want, got):
+    """Where two token streams first part: the request, the position, and
+    the target's top-2 logit margin there (teacher-forced prefill of the
+    prompt and the agreed tokens), so a near-tie can be told from a bug."""
+    for i, (a, b) in enumerate(zip(want, got)):
+        if a == b:
+            continue
+        j = next(j for j in range(len(a)) if a[j] != b[j])
+        cfg = S.ServingConfig(**SERVE)
+        p = M.as_device_params(params, cfg, device="cuda")
+        ctx = prompts[i] + a[:j]
+        S_ = min(x for x in cfg.prefill_buckets() if x >= len(ctx))
+        toks = torch.zeros((1, S_), dtype=torch.int32, device="cuda")
+        toks[0, :len(ctx)] = torch.tensor(ctx, dtype=torch.int32)
+        shape = (cfg.num_layers, cfg.num_blocks, cfg.block_size,
+                 cfg.num_heads, cfg.model_dim // cfg.num_heads)
+        kp = torch.zeros(shape, device="cuda")
+        vp = torch.zeros(shape, device="cuda")
+        table = torch.arange(1, S_ // cfg.block_size + 1, dtype=torch.int32,
+                             device="cuda")
+        _t, lg, _k, _v = M.prefill(p, toks, len(ctx), table, kp, vp, cfg)
+        top = torch.topk(lg[0], 2)
+        return ("request %d (batch lane %d), position %d (new token %d): "
+                "target-only %d, speculative %d; target's top-2 %s, logit "
+                "margin %.3e" % (i, i, len(ctx), j, a[j], b[j],
+                                 top.indices.tolist(),
+                                 (top.values[0] - top.values[1]).item()))
+    return None
+
+
+def run_spec_serving(mx, S, M, build, tel, mod):
+    """Speculative serving at full width from the phase-5 checkpoint:
+    target-only (``spec_k`` 0, K3), ``spec_k`` 3 with the ``small`` draft
+    and with the ``self`` draft; the three token streams must be equal."""
+    params = checkpoint_round_trip(mx, mod)
+    prompts = prompt_mix(SERVE["vocab_size"])
+    L = SERVE["num_layers"]
+    runs = {}
+    for name, over in (("target-only", dict(spec_k=0)),
+                       ("spec_k=3 small", dict(spec_k=3, draft="small")),
+                       ("spec_k=3 self", dict(spec_k=3, draft="self"))):
+        eng, toks, launches, c = serve_once(S, build, tel, params, prompts,
+                                            **over)
+        st = eng.stats()
+        spec = st["spec"]
+        ntok = sum(len(t) for t in toks)
+        log("  %s: %d steps, %d prefills, %d decode steps, %d preemptions; "
+            "%d tokens in %.3f s = %.1f tokens/s; TTFT p50 %.4f s, p99 %.4f s"
+            % (name, c["steps"], c["prefills"], c["decodes"],
+               st["preemptions"], ntok, c["wall"], ntok / c["wall"],
+               st["ttft_p50_s"], st["ttft_p99_s"]))
+        log("    launches: %s" % launches)
+        if spec["enabled"]:
+            Ld = eng.draft_config.num_layers
+            k = spec["k"]
+            log("    acceptance %d / %d = %.4f; draft %.4f s, verify %.4f s "
+                "(%.1f %% of the spec wall in the draft)"
+                % (spec["accepted_tokens"], spec["proposed_tokens"],
+                   spec["acceptance_rate"], spec["draft_seconds"],
+                   spec["verify_seconds"],
+                   100 * spec["draft_seconds"]
+                   / (spec["draft_seconds"] + spec["verify_seconds"])))
+            check(launches["paged_decode_multi"] == L * c["decodes"] > 0,
+                  "paged_decode_multi launched %d times for %d speculative "
+                  "steps" % (launches["paged_decode_multi"], c["decodes"]))
+            check(launches["paged_decode"] == Ld * (k + 1) * c["decodes"],
+                  "paged_decode launched %d times for %d draft layers x %d "
+                  "x %d steps" % (launches["paged_decode"], Ld, k + 1,
+                                  c["decodes"]))
+            check(launches["flash_fwd"] == (L + Ld) * c["prefills"] > 0,
+                  "flash_fwd launched %d times for %d prefills of %d + %d "
+                  "layers" % (launches["flash_fwd"], c["prefills"], L, Ld))
+        else:
+            check(launches["paged_decode_multi"] == 0,
+                  "paged_decode_multi ran without speculative decoding")
+            check(launches["paged_decode"] == L * c["decodes"] > 0,
+                  "paged_decode launched %d times for %d decode steps"
+                  % (launches["paged_decode"], c["decodes"]))
+            check(launches["flash_fwd"] == L * c["prefills"] > 0,
+                  "flash_fwd launched %d times for %d prefills"
+                  % (launches["flash_fwd"], c["prefills"]))
+        runs[name] = (toks, launches, c, spec)
+    want = runs["target-only"][0]
+    for name in ("spec_k=3 small", "spec_k=3 self"):
+        where = first_divergence(S, M, params, prompts, want, runs[name][0])
+        if where is not None:
+            log("  %s parts from target-only decoding at %s" % (name, where))
+        check(where is None, "%s tokens differ from target-only decoding"
+              % name)
+    log("  the three runs' token streams are equal (32 x 16 tokens)")
+    check(runs["spec_k=3 self"][3]["acceptance_rate"] >= 0.75,
+          "the self draft's acceptance is low: the verify pass disagrees "
+          "with decoding")
+    return runs
 
 
 # ---------------------------------------------------------------- times
@@ -611,6 +857,41 @@ def time_paged(A):
                       "context %.1f" % (ctx / B))
 
 
+def time_paged_multi(A, B=32, T=4, H=4, D=64, bs=16, nb=8):
+    """K4 at the verify shape. Library: SDPA on K/V gathered to contiguous
+    (B, H, nb*bs, D) with the per-lane mask (B, 1, T, nb*bs). Bound: K/V
+    of each sequence's longest lane read once per window, q and out, the
+    tables and lengths; operations 4 per live (lane, position, dim)."""
+    F = torch.nn.functional
+    rng = np.random.default_rng(7)
+    lens = verify_lens(rng, B, T, hi=128 - T)
+    q, kp, vp, bt, cl = paged_inputs(rng, B, torch.float32, lens, H=H, D=D)
+    out = A.paged_attention_multi(q, kp, vp, bt, cl)
+    ref = A.paged_attention_multi_reference(q, kp, vp, bt, cl)
+    err = (out - ref).abs().max().item()
+    ms = device_ms(lambda: A.paged_attention_multi(q, kp, vp, bt, cl))
+    plain = device_ms(lambda: A.paged_attention_multi_reference(q, kp, vp,
+                                                                bt, cl))
+    tab = bt.long()
+    kc = kp[tab].reshape(B, nb * bs, H, D).transpose(1, 2).contiguous()
+    vc = vp[tab].reshape(B, nb * bs, H, D).transpose(1, 2).contiguous()
+    mask = (torch.arange(nb * bs, device="cuda")[None, None, :]
+            < cl[:, :, None])[:, None]
+    qc = q.transpose(1, 2)
+    lib_out = F.scaled_dot_product_attention(qc, kc, vc, attn_mask=mask)
+    check((lib_out.transpose(1, 2) - out).abs().max().item() <= F32_TOL,
+          "library yardstick disagrees")
+    lib = device_ms(lambda: F.scaled_dot_product_attention(
+        qc, kc, vc, attn_mask=mask))
+    window = int(lens.max(axis=1).sum())
+    nbytes = (2 * window * H * D * 4 + 2 * B * T * H * D * 4 + B * nb * 4
+              + B * T * 4)
+    return dict(err=err, ms=ms, plain=plain, lib=lib,
+                flops=4 * int(lens.sum()) * H * D, nbytes=nbytes,
+                shape="B=32, T=4, N=257, bs=16, H=4, D=64, nb=8, f32, mean "
+                      "window context %.1f" % (window / B))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -643,10 +924,12 @@ def main():
     log("== 3. kernels vs plain on the card")
     flash_err = check_flash(A)
     paged_err = check_paged(A)
+    multi_err = check_paged_multi(A)
     bwd_err = check_flash_bwd(A)
-    log("  worst errors: flash %s, paged %s, flash_bwd %s"
+    log("  worst errors: flash %s, paged %s, paged_multi %s, flash_bwd %s"
         % ({str(k)[6:]: v for k, v in flash_err.items()},
            {str(k)[6:]: v for k, v in paged_err.items()},
+           {str(k)[6:]: v for k, v in multi_err.items()},
            {str(k)[6:]: v for k, v in bwd_err.items()}))
 
     log("== 4. serving at full width")
@@ -654,12 +937,15 @@ def main():
     teacher_forced(S, M, cfg, params)
 
     log("== 5. training at full width through Module.fit")
-    t_launches, t_counts, t_params = run_training(mx, build)
+    t_launches, t_counts, t_params, t_mod = run_training(mx, build)
 
     log("== 6. one training step, card vs CPU")
     train_step_card_vs_cpu(mx, t_params)
 
-    log("== 7. times (%s)" % card)
+    log("== 7. speculative serving at full width from the phase-5 checkpoint")
+    spec_runs = run_spec_serving(mx, S, M, build, tel, t_mod)
+
+    log("== 8. times (%s)" % card)
     fwd_train = time_flash(A, 32, 4, 128, 64)
     log("  flash_fwd at the training shape %s: kernel_ms %.6f plain_ms %.6f "
         "library_ms %.6f bound_us %.4f max_abs_err %.3e; %d launches per "
@@ -672,7 +958,10 @@ def main():
     check(fwd_train["err"] <= F32_TOL, "flash_fwd disagrees at the training shape")
     bwd_dkv, bwd_dq = time_flash_bwd(A, build)
     rows = []
-    total = {n: launches[n] + t_launches[n] for n in launches}
+    total = {n: launches[n] + t_launches[n]
+             + sum(r[1][n] for r in spec_runs.values()) for n in launches}
+    spec_steps = sum(r[2]["decodes"] for r in spec_runs.values()
+                     if r[3]["enabled"])
     per_prefill = "%.2f per prefill, %.2f per engine step" % (
         launches["flash_fwd"] / counts["prefills"],
         launches["flash_fwd"] / counts["steps"])
@@ -692,9 +981,15 @@ def main():
                                             t_launches["flash_bwd_dq"] // t_counts["steps"])),
             ("paged_decode", "mxnet_tpu_torch/csrc/paged_decode.cu",
              "mxnet_tpu/ops/attention.py:691", time_paged(A),
-             "serving %d (%.2f per decode step)"
+             "serving %d (%.2f per decode step), speculative phase %d"
              % (launches["paged_decode"],
-                launches["paged_decode"] / counts["decodes"]))):
+                launches["paged_decode"] / counts["decodes"],
+                sum(r[1]["paged_decode"] for r in spec_runs.values()))),
+            ("paged_decode_multi", "mxnet_tpu_torch/csrc/paged_decode_multi.cu",
+             "mxnet_tpu/ops/attention.py:842", time_paged_multi(A),
+             "speculative phase %d (%.2f per speculative step)"
+             % (total["paged_decode_multi"],
+                total["paged_decode_multi"] / spec_steps))):
         t_bytes = res["nbytes"] / PEAK_BYTES_PER_S * 1e3
         t_ops = res["flops"] / PEAK_F32_FLOPS * 1e3
         bound = max(t_bytes, t_ops)

@@ -11,7 +11,10 @@ Ported so far: the serving engine (:mod:`.serving`) with the flash
 prefill and paged decode kernels, and symbolic training through
 ``Module.fit`` (:mod:`.symbol`, :mod:`.executor`, :mod:`.module`, the
 Transformer-LM's ops, initializers, SGD and Adam, ``NDArrayIter``,
-metrics) with the flash-attention backward kernels. The namespaces are
+metrics) with the flash-attention backward kernels; speculative decoding
+with the multi-query paged kernel, and checkpoints (``nd.save``/``load``,
+``model.save_checkpoint``/``load_checkpoint``, ``Module.load``) in the JAX
+package's file format. The namespaces are
 the JAX package's, so a training script needs only its import line
 changed: ``import mxnet_tpu_torch as mx``.
 """
@@ -39,10 +42,11 @@ from . import optimizer as opt  # noqa: E402
 from . import metric, io, callback, models  # noqa: E402
 from . import module  # noqa: E402
 from . import module as mod  # noqa: E402
+from . import model  # noqa: E402
 
 __version__ = "0.1.0"
 
 __all__ = ["base", "context", "MXNetError", "cpu", "gpu", "default_device",
            "nd", "ndarray", "sym", "symbol", "AttrScope", "NameManager",
            "Prefix", "Executor", "init", "initializer", "opt", "optimizer",
-           "metric", "io", "callback", "models", "mod", "module"]
+           "metric", "io", "callback", "models", "mod", "module", "model"]

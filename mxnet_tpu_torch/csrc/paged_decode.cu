@@ -19,33 +19,15 @@
 // then thread d accumulates sum_t p_t * V[t, d] (neighbouring threads read
 // neighbouring words of each V row). Every (sequence, head) reduces in one
 // fixed order with no atomics and no split across blocks, so a row's
-// result does not depend on the batch it was launched in.
+// result does not depend on the batch it was launched in. The score and
+// the online-softmax step are paged_common.cuh's, shared with
+// paged_decode_multi.cu so that the two kernels agree bit for bit.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+#include "paged_common.cuh"
 
 namespace {
 
-constexpr int THREADS = 128;  // one thread per head dimension, D <= 128
-constexpr int WARPS = THREADS / 32;
-constexpr int MAX_BS = 256;   // tokens per pool block
-constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+using namespace paged;
 
 template <typename TQ, typename TP>
 __global__ void __launch_bounds__(THREADS)
@@ -70,9 +52,7 @@ paged_decode_kernel(const TQ* __restrict__ q, const TP* __restrict__ kp,
   const size_t tok_stride = (size_t)h * d;  // one token of a pool block
   __syncthreads();
 
-  float m = NEG_INF;
-  float l = 0.f;
-  float acc = 0.f;  // output dimension tid
+  Softmax st;
   bool bad = false;
   for (int j = 0; j < nblk; ++j) {
     const int blk = row[j];
@@ -83,35 +63,25 @@ paged_decode_kernel(const TQ* __restrict__ q, const TP* __restrict__ kp,
     const int n = min(bs, ctx - j * bs);  // live tokens of this pool block
     const size_t base = (size_t)blk * bs * tok_stride + (size_t)hh * d;
     for (int t = warp; t < n; t += WARPS) {
-      const TP* kr = kp + base + t * tok_stride;
-      float part = 0.f;
-      for (int dd = lane; dd < d; dd += 32) part += qs[dd] * to_float(kr[dd]);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        part += __shfl_xor_sync(0xffffffffu, part, off);
-      if (lane == 0) ss[t] = part * scale;
+      float k[KREG];
+      load_row(kp + base + t * tok_stride, d, lane, k);
+      const float s = score(qs, k, d, lane, scale);
+      if (lane == 0) ss[t] = s;
     }
     __syncthreads();
-    float m_blk = NEG_INF;
-    for (int t = 0; t < n; ++t) m_blk = fmaxf(m_blk, ss[t]);
-    const float m_new = fmaxf(m, m_blk);
-    const float corr = expf(m - m_new);
-    float psum = 0.f;
-    float a = 0.f;
+    BlockStep step;
+    step.begin(st, ss, n);
     for (int t = 0; t < n; ++t) {
-      const float p = expf(ss[t] - m_new);
-      psum += p;
-      if (tid < d) a += p * to_float(vp[base + t * tok_stride + tid]);
+      const float v =
+          tid < d ? to_float(vp[base + t * tok_stride + tid]) : 0.f;
+      step.add(ss[t], v);
     }
-    l = l * corr + psum;
-    acc = acc * corr + a;
-    m = m_new;
+    step.end(st);
     __syncthreads();  // ss is rewritten by the next pool block
   }
   if (tid < d) {
     // an out-of-range block id poisons the row, as jnp.take fills NaN
-    const float o = bad ? NAN : acc / fmaxf(l, 1e-30f);
-    out[qoff + tid] = from_float<TQ>(o);
+    out[qoff + tid] = from_float<TQ>(bad ? NAN : finish(st));
   }
 }
 

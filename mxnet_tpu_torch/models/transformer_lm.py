@@ -10,7 +10,16 @@ JSON is the same byte for byte. ``get_decode_symbol`` needs
 from .. import symbol as sym
 from ..initializer import Normal, One, Zero
 
-__all__ = ["get_symbol", "block"]
+__all__ = ["get_symbol", "block", "SERVING_DRAFT_PRESETS"]
+
+#: Tiny zoo shapes for speculative-decoding DRAFT models
+#: (``ServingConfig.draft`` / ``MXNET_SERVING_DRAFT``). vocab_size and
+#: max_len always follow the target (``serving.model.draft_config``): the
+#: draft proposes from the same vocabulary at the same absolute positions.
+SERVING_DRAFT_PRESETS = {
+    "tiny": dict(num_layers=1, model_dim=64, num_heads=2, ffn_dim=128),
+    "small": dict(num_layers=2, model_dim=128, num_heads=2, ffn_dim=256),
+}
 
 
 def _layer_norm(x, model_dim, name):

@@ -220,6 +220,30 @@ class BaseModule:
                          aux_params=aux_params, allow_missing=allow_missing,
                          force_init=force_init)
 
+    def save_params(self, fname):
+        """Save the parameters to a ``.params`` file (``arg:``/``aux:``
+        name prefixes)."""
+        arg_params, aux_params = self.get_params()
+        save_dict = {("arg:%s" % k): v for k, v in arg_params.items()}
+        save_dict.update({("aux:%s" % k): v for k, v in aux_params.items()})
+        nd.save(fname, save_dict)
+
+    def load_params(self, fname):
+        """Load the parameters from a ``.params`` file written by
+        :meth:`save_params` (by either package)."""
+        save_dict = nd.load(fname)
+        arg_params = {}
+        aux_params = {}
+        for k, value in save_dict.items():
+            arg_type, name = k.split(":", 1)
+            if arg_type == "arg":
+                arg_params[name] = value
+            elif arg_type == "aux":
+                aux_params[name] = value
+            else:
+                raise ValueError("Invalid param file " + fname)
+        self.set_params(arg_params, aux_params)
+
     def bind(self, data_shapes, label_shapes=None, for_training=True,
              inputs_need_grad=False, force_rebind=False, shared_module=None,
              grad_req="write"):

@@ -8,10 +8,11 @@ update each parameter — so does the port. A ``Module`` built without a
 ``context`` runs on the card (:func:`~..context.default_device`, which
 raises when there is none); tests pass ``context=cpu()``.
 
-Not in this slice: the fused one-program step (a CUDA graph on the
-card), kvstores and several contexts, ``compute_dtype``, checkpoints
-(``save_checkpoint``/``load`` wait for ``.params`` I/O), optimizer-state
-files, ``BucketingModule`` and monitors (``ROADMAP.md`` A1, A3, A6, A7).
+Checkpoints (``save_checkpoint``/``Module.load``) are the JAX package's
+files, readable by either package. Not in this slice: the fused
+one-program step (a CUDA graph on the card), kvstores and several
+contexts, ``compute_dtype``, optimizer-state files, ``BucketingModule``
+and monitors (``ROADMAP.md`` A1, A3, A6, A7).
 """
 from __future__ import annotations
 
@@ -75,6 +76,35 @@ class Module(BaseModule):
         self._exec_group = None
         self._data_shapes = None
         self._label_shapes = None
+
+    @staticmethod
+    def load(prefix, epoch, load_optimizer_states=False, **kwargs):
+        """A Module from a checkpoint written by :meth:`save_checkpoint` or
+        ``model.save_checkpoint`` (of either package); ``kwargs`` go to the
+        constructor. The parameters are set at the next ``bind``."""
+        from ..model import load_checkpoint
+
+        if load_optimizer_states:
+            raise MXNetError("optimizer-state files are not ported yet "
+                             "(ROADMAP.md A)")
+        sym, args, auxs = load_checkpoint(prefix, epoch)
+        mod = Module(symbol=sym, **kwargs)
+        mod._arg_params = args
+        mod._aux_params = auxs
+        mod.params_initialized = True
+        return mod
+
+    def save_checkpoint(self, prefix, epoch, save_optimizer_states=False):
+        """Write ``prefix-symbol.json`` and ``prefix-%04d.params``, both
+        crash-safely, in the JAX package's format."""
+        if save_optimizer_states:
+            raise MXNetError("optimizer-state files are not ported yet "
+                             "(ROADMAP.md A)")
+        self._symbol.save("%s-symbol.json" % prefix)
+        param_name = "%s-%04d.params" % (prefix, epoch)
+        self.save_params(param_name)
+        # the JAX package also retires a stale .resume sidecar here: not ported
+        logging.info('Saved checkpoint to "%s"', param_name)
 
     # ---- properties ------------------------------------------------------
     def _reset_bind(self):

@@ -4,8 +4,8 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``)
 into its own shared library with a plain C interface and loaded with
 ``ctypes`` (no PyTorch headers, so a build takes seconds, not minutes).
 Libraries go to ``build/mxnet_tpu_torch/`` beside the package, named by a
-digest of the source and the flags, so an edited source is rebuilt and an
-unchanged one is reused. Everything is built from the repository's own
+digest of the source, the shared headers (``csrc/*.cuh``) and the flags,
+so an edited source is rebuilt and an unchanged one is reused. Everything is built from the repository's own
 sources at first use; :func:`build` starts one ``nvcc`` per missing
 library, all at once.
 
@@ -16,6 +16,7 @@ its successful launches in ``Kernel.launches``.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -25,7 +26,7 @@ import threading
 from ..base import MXNetError
 
 __all__ = ["Kernel", "KERNELS", "FLASH_FWD", "FLASH_BWD_DKV", "FLASH_BWD_DQ",
-           "PAGED_DECODE", "build", "nvcc_command", "BUILD_DIR", "CSRC"]
+           "PAGED_DECODE", "PAGED_DECODE_MULTI", "build", "nvcc_command", "BUILD_DIR", "CSRC"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -76,8 +77,10 @@ class Kernel:
     def library(self):
         """Path of this kernel's shared library for the current source."""
         h = hashlib.sha1()
-        with open(self.source, "rb") as f:
-            h.update(f.read())
+        for path in [self.source] + sorted(glob.glob(os.path.join(CSRC,
+                                                                  "*.cuh"))):
+            with open(path, "rb") as f:
+                h.update(f.read())
         h.update(" ".join(NVCC_FLAGS).encode())
         return os.path.join(BUILD_DIR, "%s-%s.so" % (self.name,
                                                      h.hexdigest()[:16]))
@@ -138,8 +141,15 @@ PAGED_DECODE = Kernel("paged_decode", [
     _P,                          # stream
 ])
 
+PAGED_DECODE_MULTI = Kernel("paged_decode_multi", [
+    _P, _P, _P, _P, _P, _P,      # q, k_pages, v_pages, tables, lens, out
+    _I, _I, _I, _I, _I, _I, _I,  # b, t, h, d, num_blocks, block_size, nb
+    _F, _I, _I,                  # sm_scale, q dtype, page dtype
+    _P,                          # stream
+])
+
 KERNELS = {k.name: k for k in (FLASH_FWD, FLASH_BWD_DKV, FLASH_BWD_DQ,
-                                PAGED_DECODE)}
+                                PAGED_DECODE, PAGED_DECODE_MULTI)}
 
 
 def build(kernels=None):

@@ -1,22 +1,24 @@
-"""Attention ops of the port: flash attention (forward and backward) and
-paged decode.
+"""Attention ops of the port: flash attention (forward and backward),
+paged decode and multi-query paged attention (the speculative verify
+pass).
 
 The PyTorch counterpart of ``mxnet_tpu/ops/attention.py`` without the
-multi-query paged kernel and the cached decode op, in the same layouts:
-(B, H, S, D) for flash attention and (N, bs, H, D) pool pages for paged
-decode.
+cached decode op, in the same layouts: (B, H, S, D) for flash attention
+and (N, bs, H, D) pool pages for paged attention.
 
 Each public function dispatches on ``q.device.type``:
 
 * ``cpu``  — the plain PyTorch version (:func:`_flash_forward_plain` and
   :func:`_flash_backward_plain`, the twins of the JAX package's
-  ``_scan_forward``/``_scan_backward``; :func:`paged_attention_reference`,
-  the twin of its XLA reference);
+  ``_scan_forward``/``_scan_backward``; :func:`paged_attention_reference`
+  and :func:`paged_attention_multi_reference`, the twins of its XLA
+  references);
 * ``cuda`` — the hand-written Hopper kernel (``csrc/flash_fwd.cu`` for
   ``_pallas_forward``; ``csrc/flash_bwd_dkv.cu`` and
   ``csrc/flash_bwd_dq.cu`` for the two kernels of ``_pallas_backward``;
-  ``csrc/paged_decode.cu`` for ``_paged_pallas``), or :class:`MXNetError`
-  for a shape or dtype the kernel does not take.
+  ``csrc/paged_decode.cu`` for ``_paged_pallas``;
+  ``csrc/paged_decode_multi.cu`` for ``_paged_pallas_multi``), or
+  :class:`MXNetError` for a shape or dtype the kernel does not take.
 
 Nothing falls back: a CUDA tensor reaches its kernel or raises.
 :func:`flash_attention` is a ``torch.autograd.Function`` whose backward
@@ -35,7 +37,8 @@ from .registry import Param, get_op, register
 
 __all__ = ["attention_reference", "flash_attention_forward",
            "flash_attention_backward", "flash_attention",
-           "paged_attention_reference", "paged_attention"]
+           "paged_attention_reference", "paged_attention",
+           "paged_attention_multi_reference", "paged_attention_multi"]
 
 _NEG_INF = -1e30
 
@@ -407,3 +410,111 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens,
         return paged_attention_reference(q, k_pages, v_pages, block_tables,
                                          context_lens, sm_scale)
     raise MXNetError("paged attention: no implementation on %s" % q.device)
+
+
+# ------------------------------------------- paged multi-query (verify)
+#: most query lanes per sequence ``csrc/paged_decode_multi.cu`` takes
+MAX_LANES = 16
+
+
+def paged_attention_multi_reference(q, k_pages, v_pages, block_tables,
+                                    context_lens, sm_scale=None):
+    """Plain multi-query paged attention — the twin of the JAX package's
+    ``paged_attention_multi_reference``.
+
+    q (B, T, H, D): T query lanes per sequence; k_pages/v_pages
+    (N, bs, H, D); block_tables (B, nb) int, ONE table per sequence;
+    context_lens (B, T) int, valid pool positions PER LANE. Returns
+    (B, T, H, D) in q's dtype. Lane t reads only positions
+    < context_lens[b, t] (scores pinned to -1e30 elsewhere); a lane with
+    context 0 returns exactly zero."""
+    sm_scale = _scale(sm_scale, q.shape[-1])
+    b, _tq, h, d = q.shape
+    t = block_tables.shape[1] * k_pages.shape[1]
+    tables = block_tables.long()
+    k = k_pages[tables].reshape(b, t, h, d).float()
+    v = v_pages[tables].reshape(b, t, h, d).float()
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k) * sm_scale
+    lens = context_lens.to(q.device)
+    valid = torch.arange(t, device=q.device)[None, None, :] < lens[:, :, None]
+    s = torch.where(valid[:, None], s, _NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    # an all-masked lane would softmax to uniform and average garbage
+    p = torch.where((lens > 0)[:, None, :, None], p, 0.0)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v).to(q.dtype)
+
+
+def _check_paged_multi(q, k_pages, v_pages, block_tables, context_lens):
+    """Validate what ``csrc/paged_decode_multi.cu`` takes; raises
+    otherwise."""
+    if q.dim() != 4 or k_pages.dim() != 4:
+        raise MXNetError("multi-query paged attention wants q (B, T, H, D) "
+                         "and pages (N, bs, H, D), got %s %s"
+                         % (tuple(q.shape), tuple(k_pages.shape)))
+    b, tq, h, d = q.shape
+    if v_pages.shape != k_pages.shape or k_pages.shape[2:] != (h, d):
+        raise MXNetError("multi-query paged attention: pages %s %s do not "
+                         "match q %s" % (tuple(k_pages.shape),
+                                         tuple(v_pages.shape),
+                                         tuple(q.shape)))
+    if block_tables.dim() != 2 or block_tables.shape[0] != b \
+            or context_lens.shape != (b, tq):
+        raise MXNetError("multi-query paged attention: tables %s / lens %s "
+                         "for q %s" % (tuple(block_tables.shape),
+                                       tuple(context_lens.shape),
+                                       tuple(q.shape)))
+    if q.dtype not in _DTYPE_CODE or k_pages.dtype not in _DTYPE_CODE \
+            or v_pages.dtype != k_pages.dtype:
+        raise MXNetError("multi-query paged kernel takes float32/bfloat16 q "
+                         "and pages, got %s %s %s"
+                         % (q.dtype, k_pages.dtype, v_pages.dtype))
+    if block_tables.dtype != torch.int32 or context_lens.dtype != torch.int32:
+        raise MXNetError("multi-query paged kernel takes int32 block tables "
+                         "and lengths")
+    if d % 8 or d > 128 or k_pages.shape[1] > 256 or b < 1 \
+            or not 1 <= tq <= MAX_LANES:
+        raise MXNetError("multi-query paged kernel takes head_dim <= 128 (a "
+                         "multiple of 8), block_size <= 256, B >= 1 and "
+                         "1 <= T <= %d; got %s / %s"
+                         % (MAX_LANES, tuple(q.shape), tuple(k_pages.shape)))
+    tensors = (q, k_pages, v_pages, block_tables, context_lens)
+    if any(x.device != q.device for x in tensors):
+        raise MXNetError("multi-query paged attention: inputs on different "
+                         "devices")
+    if not all(x.is_contiguous() for x in tensors):
+        raise MXNetError("multi-query paged kernel takes contiguous inputs")
+
+
+def _paged_multi_cuda(q, k_pages, v_pages, block_tables, context_lens,
+                      sm_scale):
+    _check_paged_multi(q, k_pages, v_pages, block_tables, context_lens)
+    b, tq, h, d = q.shape
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        _build.PAGED_DECODE_MULTI.launch(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
+            b, tq, h, d, k_pages.shape[0], k_pages.shape[1],
+            block_tables.shape[1], sm_scale, _DTYPE_CODE[q.dtype],
+            _DTYPE_CODE[k_pages.dtype], torch.cuda.current_stream().cuda_stream)
+    return out
+
+
+def paged_attention_multi(q, k_pages, v_pages, block_tables, context_lens,
+                          sm_scale=None):
+    """Multi-query paged attention over a shared KV block pool: q is
+    (B, T, H, D) and context_lens (B, T), one length per lane — the
+    speculative verify pass scores all T = k+1 window positions in one
+    call. CPU tensors take :func:`paged_attention_multi_reference`, CUDA
+    tensors the ``paged_decode_multi`` kernel, whose lane t equals
+    :func:`paged_attention` at ``context_lens[:, t]`` bit for bit."""
+    sm_scale = _scale(sm_scale, q.shape[-1])
+    if q.device.type == "cuda":
+        return _paged_multi_cuda(q, k_pages, v_pages, block_tables,
+                                 context_lens, sm_scale)
+    if q.device.type == "cpu":
+        return paged_attention_multi_reference(q, k_pages, v_pages,
+                                               block_tables, context_lens,
+                                               sm_scale)
+    raise MXNetError("multi-query paged attention: no implementation on %s"
+                     % q.device)

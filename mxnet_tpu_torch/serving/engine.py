@@ -14,7 +14,12 @@ the other rows.
 Each :meth:`step` runs the scheduler's plan: admitted prompts prefill into
 the shared block pool (one call per request at its length bucket), then
 every decoding stream advances one token through the fused paged decode
-step at the batch bucket. The step inputs go up as one int32 buffer per
+step at the batch bucket — or, with ``spec_k > 0``, up to ``spec_k + 1``
+tokens through speculative decoding: a draft model proposes ``spec_k``
+greedy tokens over its own pages, the target scores the whole window in
+one :func:`.model.extend` pass (the multi-query paged kernel) and greedy
+acceptance emits the target's tokens, so the stream equals target-only
+decoding. The step inputs go up as one int32 buffer per
 call; the ONLY device->host reads are the next-token vectors (``.cpu()``)
 — that read IS the product (tokens leave for clients). The pool pages are
 written in place call to call.
@@ -23,9 +28,9 @@ Thread model: ``submit()`` is safe from any thread; ``step()`` /
 ``run_loop()`` must run on one stepping thread. Per-request latency metrics
 (TTFT, end-to-end, tokens/sec) flow through the telemetry registry.
 
-Not ported yet: speculative decoding (``spec_k > 0``; ROADMAP queue A,
-"speculative decoding") and the compile plane (``compileobs`` /
-``compile_cache``): nothing compiles here, so ``compile_stall`` is 0.
+Not ported yet: the compile plane (``compileobs`` / ``compile_cache``):
+nothing compiles here, so ``compile_stall`` is 0 and ``stats()`` has no
+``compiles`` block.
 """
 import itertools
 import threading
@@ -79,8 +84,8 @@ class ServingConfig(_model.ModelConfig):
         self.prefix_cache = bool(
             prefix_cache if prefix_cache is not None
             else env_bool("MXNET_SERVING_PREFIX_CACHE", True))
-        # speculative decoding: parsed as in the JAX package so a config
-        # written for it reads the same; the engine refuses spec_k > 0
+        # speculative decoding: spec_k draft proposals per step (0 = off)
+        # from the draft named by ``draft`` ("self" or a zoo preset)
         self.spec_k = int(spec_k if spec_k is not None
                           else env_int("MXNET_SERVING_SPEC_K", 0))
         if self.spec_k < 0:
@@ -144,12 +149,6 @@ class ServingEngine:
     def __init__(self, config, arg_params=None, seed=0, device=None,
                  enable_telemetry=True):
         cfg = config
-        if cfg.spec_k > 0:
-            raise NotImplementedError(
-                "speculative decoding (spec_k=%d) is not ported yet: it "
-                "needs the multi-query paged kernel _paged_pallas_multi "
-                "(ROADMAP.md queue A, 'Speculative decoding'); use "
-                "spec_k=0" % cfg.spec_k)
         if enable_telemetry:
             telemetry.enable()
         self.config = cfg
@@ -163,9 +162,14 @@ class ServingEngine:
                                 cfg.model_dim // cfg.num_heads,
                                 dtype=cfg.kv_dtype, device=self.device,
                                 prefix_cache=cfg.prefix_cache)
+        # speculative decoding writes spec_k+1 window slots per step, so
+        # headroom lookahead covers the whole draft+verify window
+        self._spec = cfg.spec_k > 0
+        self.spec_k = cfg.spec_k
         self.scheduler = Scheduler(self.pool, max_batch=cfg.max_batch,
                                    prefills_per_step=cfg.prefills_per_step,
-                                   lookahead=1, max_positions=cfg.max_len)
+                                   lookahead=cfg.spec_k + 1,
+                                   max_positions=cfg.max_len)
         self._nb_max = cfg.max_len // cfg.block_size
         self._lock = threading.RLock()
         self._lock = witness.declare(
@@ -192,6 +196,31 @@ class ServingEngine:
         self._tokens_total = 0
         self.engine_id = next(_engine_ids)
         self.obs = ServingObs(self.engine_id)
+
+        # ---- speculative decoding: the draft model and its own pages ----
+        self._draft_params = None
+        self._draft_kp = self._draft_vp = None
+        self._spec_proposed = 0
+        self._spec_accepted = 0
+        self._spec_draft_s = 0.0
+        self._spec_verify_s = 0.0
+        if self._spec:
+            dcfg = _model.draft_config(cfg, cfg.draft)
+            self.draft_config = dcfg
+            if dcfg.key() == cfg.key():
+                # self-drafting: the draft IS the target (shared weights),
+                # so proposals match the verify pass
+                self._draft_params = self.params
+            else:
+                self._draft_params = _model.as_device_params(
+                    _model.random_params(dcfg, seed=seed), dcfg,
+                    device=self.device)
+            dshape = (dcfg.num_layers, cfg.num_blocks, cfg.block_size,
+                      dcfg.num_heads, dcfg.model_dim // dcfg.num_heads)
+            self._draft_kp = torch.zeros(dshape, dtype=cfg.kv_dtype,
+                                         device=self.device)
+            self._draft_vp = torch.zeros(dshape, dtype=cfg.kv_dtype,
+                                         device=self.device)
 
     # ------------------------------------------------------------------ API
     def submit(self, prompt, max_new_tokens, eos_id=None, request_id=None,
@@ -327,7 +356,10 @@ class ServingEngine:
                     # copy-on-write safety net: a write slot backed by a
                     # SHARED block gets a private bit-exact copy first
                     self._cow_guard(decodes)
-                    self._run_decode(decodes)
+                    if self._spec:
+                        self._run_spec_decode(decodes)
+                    else:
+                        self._run_decode(decodes)
                 finished = [r for r in list(self.scheduler.running)
                             if r.finished()]
                 for req in finished:
@@ -443,6 +475,30 @@ class ServingEngine:
                                     np.ones(B, np.int32))
                 _model.decode(self.params, *args, self.pool.k_pages,
                               self.pool.v_pages, cfg)
+            if self._spec:
+                # the draft's prefill and decode and the verify pass, at
+                # every bucket
+                dcfg = self.draft_config
+                T = self.spec_k + 1
+                for S in cfg.prefill_buckets():
+                    toks, table = self._upload(np.zeros((1, S), np.int32),
+                                               np.zeros(S // cfg.block_size,
+                                                        np.int32))
+                    _model.prefill(self._draft_params, toks, 1, table,
+                                   self._draft_kp, self._draft_vp, dcfg)
+                for B in cfg.decode_buckets():
+                    args = self._upload(np.zeros(B, np.int32),
+                                        np.zeros(B, np.int32),
+                                        np.zeros((B, self._nb_max), np.int32),
+                                        np.ones(B, np.int32))
+                    _model.decode(self._draft_params, *args, self._draft_kp,
+                                  self._draft_vp, dcfg)
+                    args = self._upload(np.zeros((B, T), np.int32),
+                                        np.zeros((B, T), np.int32),
+                                        np.zeros((B, self._nb_max), np.int32),
+                                        np.ones((B, T), np.int32))
+                    _model.extend(self.params, *args, self.pool.k_pages,
+                                  self.pool.v_pages, cfg)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
 
@@ -533,6 +589,13 @@ class ServingEngine:
         tok, _logits, _kp, _vp = _model.prefill(
             self.params, toks_d, L, table_d, self.pool.k_pages,
             self.pool.v_pages, cfg)
+        if self._spec:
+            # the draft caches the same replay through the same write table
+            # into its OWN pages; shared blocks were draft-cached by the
+            # prefix's original prefill, as the target pages were
+            _model.prefill(self._draft_params, toks_d, L, table_d,
+                           self._draft_kp, self._draft_vp,
+                           self.draft_config)
         # the per-request token egress: serving's output IS this transfer
         tok = int(tok.cpu()[0])
         wall = time.time() - t0
@@ -572,17 +635,111 @@ class ServingEngine:
             self._note_token(req, int(nxt[i]))
 
     def _cow_guard(self, reqs):
-        """Give every write slot this step will touch a PRIVATE block
-        (structurally unreachable with the current admission flow, but the
-        pool's copy-on-write contract must hold unconditionally)."""
+        """Give every write slot this step will touch (the whole window
+        with speculative decoding) a PRIVATE block (structurally
+        unreachable with the current admission flow, but the pool's
+        copy-on-write contract must hold unconditionally)."""
         bs = self.config.block_size
+        k = self.spec_k
         for req in reqs:
             first = req.context_len // bs
-            last = min(req.context_len, self.config.max_len - 1) // bs
+            last = min(req.context_len + k, self.config.max_len - 1) // bs
             for idx in range(first, min(last, len(req.blocks) - 1) + 1):
                 b = req.blocks[idx]
                 if self.pool.refcount(b) > 1:
-                    req.blocks[idx] = self.pool.cow(b)
+                    nb = self.pool.cow(b)
+                    if nb != b and self._draft_kp is not None:
+                        # the draft pages share the block table, so the
+                        # draft copy rides the same decision
+                        self._draft_kp[:, nb] = self._draft_kp[:, b]
+                        self._draft_vp[:, nb] = self._draft_vp[:, b]
+                    req.blocks[idx] = nb
+
+    def _run_spec_decode(self, reqs):
+        """Speculative decode: the draft proposes ``spec_k`` greedy tokens
+        (one-token steps over its OWN pages, same block tables), then the
+        target scores all ``spec_k+1`` window positions in ONE
+        :func:`.model.extend` pass and greedy acceptance emits the TARGET's
+        tokens — the stream equals target-only decoding whatever the draft
+        proposed.
+
+        The draft runs k+1 inner steps: steps 0..k-1 yield proposals, the
+        last only fills its cache — with all k proposals accepted the next
+        step starts at position ctx+k+1, and the draft's attention there
+        needs its K/V at ctx+k, which no proposal step wrote."""
+        cfg = self.config
+        k = self.spec_k
+        B = _bucket_for(len(reqs), cfg.decode_buckets())
+        n = len(reqs)
+        nb = self._nb_max
+        base_ctx = np.array([r.context_len for r in reqs], np.int32)
+        tables = np.zeros((B, nb), np.int32)
+        for i, req in enumerate(reqs):
+            tables[i] = self._table_row(req, nb)
+        cur = np.zeros(B, np.int32)
+        cur[:n] = [r.pending_token for r in reqs]
+        proposals = np.zeros((n, k), np.int32)
+        fault.hit("dispatch_error")
+        t0 = time.time()
+        (tables_d,) = self._upload(tables)   # the draft and verify share it
+        for j in range(k + 1):
+            poss = np.zeros(B, np.int32)
+            ctx = np.ones(B, np.int32)
+            poss[:n] = base_ctx + j
+            ctx[:n] = base_ctx + j + 1
+            toks_d, poss_d, ctx_d = self._upload(cur, poss, ctx)
+            dnxt, _dl, _dk, _dv = _model.decode(
+                self._draft_params, toks_d, poss_d, tables_d, ctx_d,
+                self._draft_kp, self._draft_vp, self.draft_config)
+            if j < k:
+                # the proposal steers the next inner step's input token:
+                # one device->host read of B int32s per draft step
+                dnxt = dnxt.cpu().numpy()
+                proposals[:, j] = dnxt[:n]
+                cur[:n] = dnxt[:n]
+        draft_wall = time.time() - t0
+        # verify: lane j consumes [pending, d_1..d_k][j] at position ctx+j;
+        # its greedy argmax is what the stream emits if lane j is reached
+        T = k + 1
+        toks2 = np.zeros((B, T), np.int32)
+        poss2 = np.zeros((B, T), np.int32)
+        ctx2 = np.ones((B, T), np.int32)
+        toks2[:n, 0] = [r.pending_token for r in reqs]
+        toks2[:n, 1:] = proposals
+        poss2[:n] = base_ctx[:, None] + np.arange(T)[None, :]
+        ctx2[:n] = poss2[:n] + 1
+        t0 = time.time()
+        toks2_d, poss2_d, ctx2_d = self._upload(toks2, poss2, ctx2)
+        nxt2, _logits, _kp, _vp = _model.extend(
+            self.params, toks2_d, poss2_d, tables_d, ctx2_d,
+            self.pool.k_pages, self.pool.v_pages, cfg)
+        # token egress to clients: B x (k+1) int32s per step
+        nxt2 = nxt2.cpu().numpy()
+        verify_wall = time.time() - t0
+        # greedy acceptance: emit the TARGET's token at every reached lane.
+        # Lane j+1 is reached only if the draft's proposal d_{j+1} matched
+        # the target's lane-j output (the window's K/V past a mismatch
+        # encodes the draft's wrong token; the next step's lane 0
+        # overwrites those slots)
+        proposed = accepted = 0
+        for i, req in enumerate(reqs):
+            proposed += k
+            for j in range(T):
+                tok = int(nxt2[i, j])
+                if tok < 0:
+                    break   # overflow-poisoned lane (past max_len)
+                req.context_len += 1
+                self._note_token(req, tok)
+                if req.state != DECODING or j >= k \
+                        or int(proposals[i, j]) != tok:
+                    break
+                accepted += 1
+        self._spec_proposed += proposed
+        self._spec_accepted += accepted
+        self._spec_draft_s += draft_wall
+        self._spec_verify_s += verify_wall
+        telemetry.histogram("serving.decode_batch").observe(len(reqs))
+        self.obs.spec_step(reqs, draft_wall, verify_wall, proposed, accepted)
 
     def _note_token(self, req, tok):
         now = time.time()
@@ -660,6 +817,18 @@ class ServingEngine:
                     "cancelled": self._n_cancelled,
                 },
                 "prefix": self.pool.prefix_stats(),
+                "spec": {
+                    "enabled": self._spec,
+                    "k": self.spec_k,
+                    "draft": self.config.draft if self._spec else None,
+                    "proposed_tokens": self._spec_proposed,
+                    "accepted_tokens": self._spec_accepted,
+                    "acceptance_rate":
+                        (self._spec_accepted / self._spec_proposed)
+                        if self._spec_proposed else 0.0,
+                    "draft_seconds": round(self._spec_draft_s, 6),
+                    "verify_seconds": round(self._spec_verify_s, 6),
+                },
                 "slo": self.obs.slo_snapshot(),
                 "phases": self.obs.phase_snapshot(),
             }

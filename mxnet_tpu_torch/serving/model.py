@@ -10,20 +10,21 @@ package leaves them to XLA; attention goes through the hand-written
 kernels of :mod:`..ops.attention` on the card.
 
 Where the JAX step functions are pure and the engine donates the pool
-pages, here ``prefill`` and ``decode`` write their K/V into ``k_pages`` /
-``v_pages`` IN PLACE and return the same tensors.
+pages, here ``prefill``, ``decode`` and ``extend`` write their K/V into
+``k_pages`` / ``v_pages`` IN PLACE and return the same tensors.
 
 Padded-lane safety contract, as in the JAX package: dead lanes write
 through the block table's TRASH entries (block 0) and read under a
-context-length mask. A decode position >= max_len writes to the trash
-block, its token is -1 and its logits are NaN.
+context-length mask. A decode (or verify-lane) position >= max_len writes
+to the trash block, its token is -1 and its logits are NaN.
 """
 import numpy as np
 import torch
 
 from .. import context
 from ..base import torch_dtype
-from ..ops.attention import flash_attention, paged_attention
+from ..ops.attention import (flash_attention, paged_attention,
+                             paged_attention_multi)
 
 #: parameter init scale matching models/transformer_lm.py's Normal(0.02)
 _INIT_SCALE = 0.02
@@ -47,6 +48,11 @@ class ModelConfig:
         self.max_len = int(max_len)
         if self.model_dim % self.num_heads:
             raise ValueError("model_dim must divide by num_heads")
+
+    def key(self):
+        """The model shape: equal keys, interchangeable weights."""
+        return (self.vocab_size, self.num_layers, self.model_dim,
+                self.num_heads, self.ffn_dim, self.max_len)
 
     def _slot_names(self):
         # the whole MRO: on a subclass (ServingConfig) bare self.__slots__
@@ -136,6 +142,28 @@ def as_device_params(arg_params, cfg, dtype=None, device=None):
 # ---------------------------------------------------------------------------
 # functional blocks (numerics mirror models/transformer_lm.py op for op)
 # ---------------------------------------------------------------------------
+
+
+def draft_config(cfg, spec):
+    """Resolve a draft-model selection against a target config.
+    ``"self"`` is the self-drafting harness: the draft IS the target shape
+    (the engine then shares the target's weights, so greedy proposals
+    match the verify pass and acceptance sits near 1.0); any other name
+    must be a ``models/transformer_lm.py`` ``SERVING_DRAFT_PRESETS`` entry.
+    vocab_size and max_len always follow the target."""
+    from ..models.transformer_lm import SERVING_DRAFT_PRESETS
+
+    if spec == "self":
+        return ModelConfig(cfg.vocab_size, cfg.num_layers, cfg.model_dim,
+                           cfg.num_heads, cfg.ffn_dim, cfg.max_len)
+    if spec not in SERVING_DRAFT_PRESETS:
+        raise ValueError(
+            "unknown draft model %r: expected 'self' or one of %s "
+            "(models/transformer_lm.py SERVING_DRAFT_PRESETS)"
+            % (spec, sorted(SERVING_DRAFT_PRESETS)))
+    p = SERVING_DRAFT_PRESETS[spec]
+    return ModelConfig(cfg.vocab_size, p["num_layers"], p["model_dim"],
+                       p["num_heads"], p["ffn_dim"], cfg.max_len)
 
 
 def _layer_norm(x, gamma, beta):
@@ -260,4 +288,68 @@ def decode(params, tokens, positions, block_tables, context_lens,
     # overflow contract: poison the overflowed lanes, loudly
     next_tokens = torch.where(in_range, next_tokens, -1)
     logits = torch.where(in_range[:, None], logits, float("nan"))
+    return next_tokens, logits, k_pages, v_pages
+
+
+def extend(params, tokens, positions, block_tables, context_lens,
+           k_pages, v_pages, cfg):
+    """The speculative-decoding VERIFY step: :func:`decode` generalized to
+    T tokens per stream, scored in ONE multi-query paged-attention pass.
+
+    tokens:       (B, T) int tensor — lane 0 is the stream's pending
+                  token, lanes 1..T-1 the draft's proposals
+    positions:    (B, T) int tensor — each lane's write slot
+    block_tables: (B, max_len // block_size) int32 — ONE table per stream
+    context_lens: (B, T) int32 — valid tokens PER LANE after this step's
+                  writes (positions + 1 for live lanes): per-lane masking
+                  is what makes the window causal
+    k/v_pages:    pool pages, written in place
+
+    Returns ``(next_tokens (B, T) int32, logits (B, T, V), k_pages,
+    v_pages)``: lane t's output is the target's greedy next token given
+    the stream's context plus window lanes 0..t — what :func:`decode`
+    would produce fed the window one token at a time. Out-of-range lanes
+    (position >= max_len) honour the overflow contract per lane.
+    """
+    B, T = tokens.shape
+    m, hh = cfg.model_dim, cfg.num_heads
+    hd = m // hh
+    bs = k_pages.shape[2]
+
+    positions = positions.long()
+    in_range = positions < cfg.max_len                          # (B, T)
+    safe_pos = torch.clamp_max(positions, cfg.max_len - 1)
+    page_ids = torch.gather(block_tables.long(), 1, safe_pos // bs)
+    page_ids = torch.where(in_range, page_ids, 0)  # overflow -> trash block
+    slots = torch.where(in_range, safe_pos % bs, 0)
+
+    pos_tab = params["pos_embed_weight"].reshape(cfg.max_len, m)
+    x = params["embed_weight"][tokens.long()] + pos_tab[safe_pos]  # (B, T, M)
+
+    for i in range(cfg.num_layers):
+        p = "layer%d" % i
+        h = _layer_norm(x, params[p + "_ln1_gamma"], params[p + "_ln1_beta"])
+        qkv = h @ params[p + "_attn_in_weight"].T
+        q, k_new, v_new = qkv.split(m, dim=-1)                  # (B, T, M)
+        q = q.reshape(B, T, hh, hd).contiguous()   # the kernel takes dense q
+        # window lanes write their K/V first (distinct slots per lane;
+        # overflow lanes pile into trash), then every lane reads back under
+        # its OWN context length: lane t cannot see lanes > t
+        k_pages[i, page_ids, slots] = k_new.reshape(B, T, hh, hd).to(
+            k_pages.dtype)
+        v_pages[i, page_ids, slots] = v_new.reshape(B, T, hh, hd).to(
+            v_pages.dtype)
+        attn = paged_attention_multi(q, k_pages[i], v_pages[i], block_tables,
+                                     context_lens)              # (B, T, H, hd)
+        x = x + attn.reshape(B, T, m) @ params[p + "_attn_out_weight"].T
+        h = _layer_norm(x, params[p + "_ln2_gamma"], params[p + "_ln2_beta"])
+        x = x + _ffn(h.reshape(B * T, m), params, p).reshape(B, T, m)
+
+    x = _layer_norm(x, params["final_ln_gamma"], params["final_ln_beta"])
+    logits = (x.reshape(B * T, m) @ params["lm_head_weight"].T
+              + params["lm_head_bias"]).reshape(B, T, -1)       # (B, T, V)
+    next_tokens = torch.argmax(logits, dim=-1).to(torch.int32)
+    # overflow contract: poison the overflowed lanes, loudly
+    next_tokens = torch.where(in_range, next_tokens, -1)
+    logits = torch.where(in_range[:, :, None], logits, float("nan"))
     return next_tokens, logits, k_pages, v_pages

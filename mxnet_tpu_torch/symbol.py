@@ -10,8 +10,9 @@ graph with torch tensors.
 
 Each registered op is a module-level constructor (``sym.FullyConnected``,
 ``sym.Reshape``, ...); ``_contrib_*`` ops are also reachable as
-``sym.contrib.<name>``. Left for later slices: ``Symbol.save``/``load``
-(file I/O goes with ``.params`` I/O), ``eval`` and the module functions
+``sym.contrib.<name>``. ``Symbol.save`` and :func:`load` write and read
+the JSON file (the write crash-safe, as in the JAX package). Left for
+later slices: ``eval`` and the module functions
 ``pow``/``maximum``/``minimum``/``hypot``/``zeros``/``ones``/``arange``.
 """
 from __future__ import annotations
@@ -30,7 +31,7 @@ from .base import MXNetError, attr_str
 from .name import NameManager
 from .ops.registry import get_op, list_ops
 
-__all__ = ["Symbol", "Variable", "var", "Group", "load_json"]
+__all__ = ["Symbol", "Variable", "var", "Group", "load", "load_json"]
 
 
 class _Node:
@@ -287,6 +288,14 @@ class Symbol:
             indent=2,
         )
 
+    def save(self, fname):
+        """Write :meth:`tojson` to ``fname`` crash-safely (temp file,
+        fsync, rename; no checksum footer: the file stays plain JSON)."""
+        from .utils.atomic_file import atomic_write
+
+        with atomic_write(fname, checksum=False) as f:
+            f.write(self.tojson())
+
     # ---- binding --------------------------------------------------------
     def simple_bind(self, ctx=None, grad_req="write", type_dict=None,
                     group2ctx=None, shared_arg_names=None, shared_exec=None,
@@ -414,6 +423,13 @@ def Group(symbols):
     for s in symbols:
         entries.extend(s._entries)
     return Symbol(entries)
+
+
+def load(fname):
+    """Read a Symbol from a JSON file written by :meth:`Symbol.save` (or by
+    the JAX package, or the reference)."""
+    with open(fname) as f:
+        return load_json(f.read())
 
 
 def load_json(json_str):

@@ -335,7 +335,8 @@ def test_build_compiles_each_source_for_sm90a(tmp_path, monkeypatch):
                         lambda: _fake_nvcc(tmp_path, ok=True))
     kernels = list(_build.KERNELS.values())
     assert [k.name for k in kernels] == ["flash_fwd", "flash_bwd_dkv",
-                                         "flash_bwd_dq", "paged_decode"]
+                                         "flash_bwd_dq", "paged_decode",
+                                         "paged_decode_multi"]
     for k in kernels:
         assert os.path.exists(k.source)
         cmd = _build.nvcc_command(k.source, "x.so")
@@ -355,3 +356,18 @@ def test_build_failure_raises_with_compiler_output(tmp_path, monkeypatch):
     with pytest.raises(MXNetError, match="fake compile failure"):
         _build.build([_build.FLASH_FWD])
     assert _build.FLASH_FWD.launches == 0
+
+
+def test_library_digest_covers_the_shared_header(tmp_path, monkeypatch):
+    """An edit of ``csrc/paged_common.cuh`` rebuilds both paged kernels."""
+    import shutil
+
+    src = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, src)
+    monkeypatch.setattr(_build, "CSRC", str(src))
+    kernels = [_build.Kernel(n, []) for n in ("paged_decode",
+                                              "paged_decode_multi")]
+    before = [k.library() for k in kernels]
+    header = src / "paged_common.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert all(k.library() != b for k, b in zip(kernels, before))

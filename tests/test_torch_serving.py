@@ -246,11 +246,6 @@ def test_engine_abort_fails_pending_requests():
         eng.submit([1], 1)
 
 
-def test_engine_refuses_speculative_decoding():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingEngine(_config(spec_k=2), seed=SEED, device="cpu")
-
-
 def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(MXNetError, match="CUDA"):
