@@ -11,12 +11,15 @@ Drives ``mxnet_tpu_torch`` (never the JAX package) on ``cuda:0``:
    started together) and prints the ptxas report;
 3. kernels vs plain — each kernel's wrapper on card tensors against its
    plain PyTorch version on the same inputs, at the main paths' shapes,
-   with stated tolerances; the paged kernel also against poisoned
-   unreferenced slots and for batch invariance (bitwise); the multi-query
-   paged kernel at the verify shape and edge cases, each lane bitwise
-   equal to the single-query kernel at its context, batch-invariant, and
-   NaN past an out-of-range block id; the two flash-backward kernels
-   through the autograd Function, and bitwise equal across two launches;
+   with stated tolerances: the flash forward at every serving bucket
+   (16-row q-tiles), the training shape and wide grids at D 32, 64 and
+   128 (64-row q-tiles), f32 and bf16; the paged kernel also against
+   poisoned unreferenced slots and for batch invariance (bitwise); the
+   multi-query paged kernel at T 1, 2, 4, 8 and 16 (pool blocks of 16),
+   bf16 pages in blocks of 64 and edge cases, each lane bitwise equal to
+   the single-query kernel at its context, batch-invariant, and NaN past
+   an out-of-range block id; the two flash-backward kernels through the
+   autograd Function, and bitwise equal across two launches;
 4. serving — the zoo Transformer-LM at full width (vocab 32000, 4 layers,
    d 256, 4 heads, ffn 1024, max_len 128; pool bs 16, 257 blocks, batch
    32) with seeded random weights: ``warmup()``, then 32 seeded requests
@@ -50,7 +53,11 @@ Drives ``mxnet_tpu_torch`` (never the JAX package) on ``cuda:0``:
 8. times — each kernel, its plain version and one PyTorch library call
    computing the same function (a yardstick the port never calls), timed
    with CUDA events while the stream is held by a sleep so host launch
-   overhead is hidden, beside the card's bound for the same work.
+   overhead is hidden, beside the card's bound for the same work (the
+   flash forward's operations at its split-TF32 tensor-core rate, the
+   others' at the float32 rate); the device kernels that the flash-forward and
+   multi-query yardsticks launch are printed (one ``torch.profiler``
+   pass each).
 
 Every phase that fails raises, so the exit code is not 0. The last two
 lines are the ``kernels`` JSON object and the ``ok`` JSON object; the card
@@ -65,10 +72,13 @@ import time
 import numpy as np
 import torch
 
-# published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bandwidth and
-# float32 outside the tensor cores
+# published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bandwidth,
+# float32 outside the tensor cores, and the flash forward's rate on the
+# 495 TFLOP/s TF32 tensor cores: half its operations (Q.K^T) in six TF32
+# products, half (P.V) in three, 4.5 per operation on average
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_K1_FLOPS = 495e12 / 4.5
 
 F32_TOL = 1e-4    # float32: only the summation order differs
 BF16_TOL = 2e-2   # bf16 inputs, float32 compute on both sides
@@ -152,6 +162,24 @@ def device_ms(fn, n=100):
     return a.elapsed_time(b) / n
 
 
+def device_kernels(fn):
+    """Names of the device kernels one ``fn()`` call launches (one
+    ``torch.profiler`` pass): what a library yardstick really runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    except Exception as e:   # the profiler is a log line, not a check
+        return ["(profiler failed: %s)" % e]
+    names = sorted({e.name for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA})
+    return names or ["(the profiler saw no device kernel)"]
+
+
 # ---------------------------------------------------------------- kernels
 def flash_inputs(rng, b, h, sq, sk, d, dtype):
     def t(s):
@@ -161,10 +189,19 @@ def flash_inputs(rng, b, h, sq, sk, d, dtype):
 
 
 def check_flash(A):
+    """K1 against its plain version: the serving buckets (S 16..128, B 1:
+    16-row q-tiles), the training shape and wide grids at D 32, 64 and 128
+    (64-row q-tiles), ragged and sq != sk cases, f32 and bf16."""
     rng = np.random.default_rng(0)
     worst = {}
     cases = [(1, 4, s, s, 64, True, torch.float32) for s in (16, 32, 64, 128)]
-    cases += [(2, 4, 80, 80, 64, False, torch.bfloat16),
+    cases += [(32, 4, 128, 128, 64, True, torch.float32),     # training
+              (32, 4, 128, 128, 64, True, torch.bfloat16),
+              (32, 4, 100, 100, 32, False, torch.float32),
+              (16, 8, 128, 128, 128, True, torch.float32),
+              (2, 4, 96, 96, 32, True, torch.float32),
+              (2, 2, 70, 70, 128, False, torch.float32),
+              (2, 4, 80, 80, 64, False, torch.bfloat16),
               (2, 4, 48, 80, 64, False, torch.float32),
               (2, 4, 48, 80, 64, True, torch.float32),
               (1, 2, 100, 37, 128, True, torch.bfloat16)]
@@ -273,26 +310,32 @@ def check_paged_multi(A):
                      [0, 5, 17, 3],         # zero and non-monotone lanes
                      [128, 1, 64, 0],
                      [16, 16, 16, 16]])     # a whole block, all lanes
-    cases = [(32, 4, torch.float32, 64, "verify"),
-             (32, 4, torch.bfloat16, 64, "verify"),
-             (32, 4, torch.float32, 128, "verify"),
-             (32, 1, torch.float32, 64, "verify"),
-             (32, 2, torch.float32, 64, "verify"),
-             (32, 8, torch.float32, 64, "verify"),
-             (16, 4, torch.float32, 64, "edge")]
-    for B, T, dt, D, kind in cases:
+    # (B, T, page dtype, D, pool block size, lens); bs 64 crosses K4's
+    # 32-token staging chunk
+    cases = [(32, 4, torch.float32, 64, 16, "verify"),
+             (32, 4, torch.bfloat16, 64, 16, "verify"),
+             (32, 4, torch.float32, 128, 16, "verify"),
+             (32, 1, torch.float32, 64, 16, "verify"),
+             (32, 2, torch.float32, 64, 16, "verify"),
+             (32, 8, torch.float32, 64, 16, "verify"),
+             (32, 16, torch.float32, 64, 16, "verify"),
+             (32, 4, torch.bfloat16, 64, 64, "verify"),
+             (16, 4, torch.float32, 64, 16, "edge")]
+    for B, T, dt, D, bs, kind in cases:
         if kind == "verify":
             lens = verify_lens(rng, B, T, hi=128 - T)
         else:
             lens = np.concatenate([edge, rng.integers(0, 129, (B - 4, T))])
-        q, kp, vp, bt, cl = paged_inputs(rng, B, dt, lens, D=D)
+        q, kp, vp, bt, cl = paged_inputs(rng, B, dt, lens, D=D, bs=bs,
+                                         nb=128 // bs)
         out = A.paged_attention_multi(q, kp, vp, bt, cl)
         ref = A.paged_attention_multi_reference(q, kp, vp, bt, cl)
         torch.cuda.synchronize()
         err = (out - ref).abs().max().item()
         tol = F32_TOL if dt == torch.float32 else BF16_TOL
-        log("  paged_decode_multi B=%d T=%d D=%d pages %s %s lens: max_abs_err "
-            "%.3e (tol %.0e)" % (B, T, D, str(dt)[6:], kind, err, tol))
+        log("  paged_decode_multi B=%d T=%d D=%d bs=%d pages %s %s lens: "
+            "max_abs_err %.3e (tol %.0e)" % (B, T, D, bs, str(dt)[6:], kind,
+                                             err, tol))
         check(err <= tol, "paged_decode_multi disagrees with its plain version")
         check(bool((out[cl == 0] == 0).all()), "a context-0 lane must give 0")
         for t in range(T):
@@ -761,12 +804,18 @@ def time_flash(A, b, h, s, d):
     plain = device_ms(lambda: A._flash_forward_plain(q, k, v, True, scale))
     lib = device_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True))
+    log("  library yardstick for flash_fwd at (%d,%d,%d,%d) f32 causal runs: "
+        "%s" % (b, h, s, d, device_kernels(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True))))
     # causal: row i needs i+1 scores and i+1 weighted rows of V
     pairs = b * h * s * (s + 1) // 2
     flops = 4 * pairs * d
     nbytes = 4 * (4 * b * h * s * d + b * h * s)   # q,k,v in; out, lse out
+    # the kernel's products run on the tensor cores as split TF32 products
     return dict(err=err, ms=ms, plain=plain, lib=lib, flops=flops,
-                nbytes=nbytes, shape="q/k/v (%d,%d,%d,%d) f32 causal" % (b, h, s, d))
+                nbytes=nbytes, peak=PEAK_K1_FLOPS,
+                peak_name="110 TFLOP/s (TF32 x 4.5)",
+                shape="q/k/v (%d,%d,%d,%d) f32 causal" % (b, h, s, d))
 
 
 def time_flash_bwd(A, build, b=32, h=4, s=128, d=64):
@@ -883,6 +932,9 @@ def time_paged_multi(A, B=32, T=4, H=4, D=64, bs=16, nb=8):
           "library yardstick disagrees")
     lib = device_ms(lambda: F.scaled_dot_product_attention(
         qc, kc, vc, attn_mask=mask))
+    log("  library yardstick for paged_decode_multi (SDPA on gathered K/V, "
+        "per-lane mask) runs: %s" % device_kernels(
+            lambda: F.scaled_dot_product_attention(qc, kc, vc, attn_mask=mask)))
     window = int(lens.max(axis=1).sum())
     nbytes = (2 * window * H * D * 4 + 2 * B * T * H * D * 4 + B * nb * 4
               + B * T * 4)
@@ -952,7 +1004,7 @@ def main():
         "step (%d layers)"
         % (fwd_train["shape"], fwd_train["ms"], fwd_train["plain"],
            fwd_train["lib"], 1e3 * max(fwd_train["nbytes"] / PEAK_BYTES_PER_S,
-                                       fwd_train["flops"] / PEAK_F32_FLOPS) * 1e3,
+                                       fwd_train["flops"] / fwd_train["peak"]) * 1e3,
            fwd_train["err"], t_launches["flash_fwd"] // t_counts["steps"],
            TRAIN["num_layers"]))
     check(fwd_train["err"] <= F32_TOL, "flash_fwd disagrees at the training shape")
@@ -991,7 +1043,7 @@ def main():
              % (total["paged_decode_multi"],
                 total["paged_decode_multi"] / spec_steps))):
         t_bytes = res["nbytes"] / PEAK_BYTES_PER_S * 1e3
-        t_ops = res["flops"] / PEAK_F32_FLOPS * 1e3
+        t_ops = res["flops"] / res.get("peak", PEAK_F32_FLOPS) * 1e3
         bound = max(t_bytes, t_ops)
         rows.append({
             "name": name, "route": "cuda", "source": src,
@@ -1001,11 +1053,13 @@ def main():
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": res["lib"]})
         log("  %s at %s: kernel_ms %.6f plain_ms %.6f library_ms %.6f "
-            "bound_us %.4f (%s: %d bytes at 3.35 TB/s, %d FLOP at 67 "
-            "TFLOP/s f32) max_abs_err %.3e; launches on the main paths: %s"
+            "bound_us %.4f (%s: %d bytes at 3.35 TB/s, %d FLOP at %s; "
+            "%.4f us at 67 TFLOP/s f32) max_abs_err %.3e; launches on the "
+            "main paths: %s"
             % (name, res["shape"], res["ms"], res["plain"], res["lib"],
                bound * 1e3, rows[-1]["bound_by"], res["nbytes"],
-               res["flops"], res["err"], per))
+               res["flops"], res.get("peak_name", "67 TFLOP/s f32"),
+               res["flops"] / PEAK_F32_FLOPS * 1e6, res["err"], per))
         check(res["err"] <= F32_TOL, "%s disagrees at the timed shape" % name)
     step_ms = t_counts["step_s"] * 1e3
     attn_ms = (t_launches["flash_fwd"] * fwd_train["ms"]

@@ -67,6 +67,22 @@ __device__ __forceinline__ float score(const float* qs, const float (&k)[KREG],
   return __fmul_rn(part, scale);
 }
 
+// The online softmax's three roundings, named once so that every kernel
+// that must agree with another (paged_decode_multi.cu with
+// paged_decode.cu) performs them with the same operations:
+//   rescale(m_old, m_new)  — the correction exp(m_old - m_new);
+//   prob(s, m_new)         — a live token's weight exp(s - m_new);
+//   fold(x, corr, part)    — the running sum x * corr + part (one fma).
+__device__ __forceinline__ float rescale(float m_old, float m_new) {
+  return expf(__fsub_rn(m_old, m_new));
+}
+__device__ __forceinline__ float prob(float s, float m_new) {
+  return expf(__fsub_rn(s, m_new));
+}
+__device__ __forceinline__ float fold(float x, float corr, float part) {
+  return __fmaf_rn(x, corr, part);
+}
+
 // Online-softmax state of one query row: running max m, running sum l and
 // this thread's output dimension acc.
 struct Softmax {
@@ -75,8 +91,8 @@ struct Softmax {
   float acc = 0.f;
 };
 
-// One pool block's step, split in three so the multi-query kernel can
-// read each V row once for all its lanes:
+// One pool block's step of paged_decode.cu, in three parts (the
+// multi-query kernel runs the same operations spread over its threads):
 //   begin(ss, n)       — max over the block's n live scores, the new max
 //                        and the correction of the old sums;
 //   add(s, v)          — one live token: p = exp(s - m_new), summed into
@@ -93,25 +109,28 @@ struct BlockStep {
     float m_blk = NEG_INF;
     for (int t = 0; t < n; ++t) m_blk = fmaxf(m_blk, ss[t]);
     m_new = fmaxf(st.m, m_blk);
-    corr = expf(__fsub_rn(st.m, m_new));
+    corr = rescale(st.m, m_new);
     psum = 0.f;
     a = 0.f;
   }
   __device__ __forceinline__ void add(float s, float v) {
-    const float p = expf(__fsub_rn(s, m_new));
+    const float p = prob(s, m_new);
     psum = __fadd_rn(psum, p);
     a = __fmaf_rn(p, v, a);
   }
   __device__ __forceinline__ void end(Softmax& st) const {
-    st.l = __fmaf_rn(st.l, corr, psum);
-    st.acc = __fmaf_rn(st.acc, corr, a);
+    st.l = fold(st.l, corr, psum);
+    st.acc = fold(st.acc, corr, a);
     st.m = m_new;
   }
 };
 
 // The row's output: acc / l, with l clamped so an empty row gives exactly 0.
+__device__ __forceinline__ float finish(float acc, float l) {
+  return __fdiv_rn(acc, fmaxf(l, 1e-30f));
+}
 __device__ __forceinline__ float finish(const Softmax& st) {
-  return __fdiv_rn(st.acc, fmaxf(st.l, 1e-30f));
+  return finish(st.acc, st.l);
 }
 
 }  // namespace paged

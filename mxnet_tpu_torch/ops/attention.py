@@ -117,8 +117,15 @@ def _check_flash(q, k, v):
         raise MXNetError("flash kernel takes contiguous q/k/v")
 
 
+def _aligned16(x):
+    """``x``, or a fresh copy when its data does not start on 16 bytes:
+    the kernels stage K/V rows with 16-byte ``cp.async`` copies."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def _flash_forward_cuda(q, k, v, causal, sm_scale):
     _check_flash(q, k, v)
+    k, v = _aligned16(k), _aligned16(v)
     b, h, sq, d = q.shape
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
@@ -415,6 +422,8 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens,
 # ------------------------------------------- paged multi-query (verify)
 #: most query lanes per sequence ``csrc/paged_decode_multi.cu`` takes
 MAX_LANES = 16
+#: most table slots per sequence it takes (it keeps the row in shared memory)
+MAX_TABLE_SLOTS = 8192
 
 
 def paged_attention_multi_reference(q, k_pages, v_pages, block_tables,
@@ -472,11 +481,14 @@ def _check_paged_multi(q, k_pages, v_pages, block_tables, context_lens):
         raise MXNetError("multi-query paged kernel takes int32 block tables "
                          "and lengths")
     if d % 8 or d > 128 or k_pages.shape[1] > 256 or b < 1 \
-            or not 1 <= tq <= MAX_LANES:
+            or not 1 <= tq <= MAX_LANES \
+            or block_tables.shape[1] > MAX_TABLE_SLOTS:
         raise MXNetError("multi-query paged kernel takes head_dim <= 128 (a "
-                         "multiple of 8), block_size <= 256, B >= 1 and "
-                         "1 <= T <= %d; got %s / %s"
-                         % (MAX_LANES, tuple(q.shape), tuple(k_pages.shape)))
+                         "multiple of 8), block_size <= 256, B >= 1, "
+                         "1 <= T <= %d and at most %d table slots; got "
+                         "%s / %s / %s"
+                         % (MAX_LANES, MAX_TABLE_SLOTS, tuple(q.shape),
+                            tuple(k_pages.shape), tuple(block_tables.shape)))
     tensors = (q, k_pages, v_pages, block_tables, context_lens)
     if any(x.device != q.device for x in tensors):
         raise MXNetError("multi-query paged attention: inputs on different "
@@ -488,6 +500,7 @@ def _check_paged_multi(q, k_pages, v_pages, block_tables, context_lens):
 def _paged_multi_cuda(q, k_pages, v_pages, block_tables, context_lens,
                       sm_scale):
     _check_paged_multi(q, k_pages, v_pages, block_tables, context_lens)
+    k_pages, v_pages = _aligned16(k_pages), _aligned16(v_pages)
     b, tq, h, d = q.shape
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):

@@ -317,6 +317,17 @@ def test_non_cpu_non_cuda_device_raises():
                            torch.zeros(1, dtype=torch.int32))
 
 
+@pytest.mark.parametrize("offset", [0, 1, 3, 4])
+def test_misaligned_kv_reach_the_kernels_as_aligned_copies(offset):
+    """The kernels stage K/V with 16-byte copies: a tensor whose data does
+    not start on 16 bytes is handed over as an equal, aligned copy."""
+    base = torch.arange(80, dtype=torch.float32)
+    x = base[offset:offset + 64].view(1, 1, 8, 8)
+    y = TA._aligned16(x)
+    assert y.data_ptr() % 16 == 0 and torch.equal(x, y)
+    assert (y is x) == (x.data_ptr() % 16 == 0)
+
+
 # ------------------------------------------------------- the kernel build
 def _fake_nvcc(tmp_path, ok):
     """A stand-in compiler: writes the ``-o`` file (or fails loudly)."""

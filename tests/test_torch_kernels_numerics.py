@@ -1,0 +1,203 @@
+"""The precision design of the flash-forward kernel (``csrc/flash_fwd.cu``),
+checked on the CPU.
+
+The kernel computes both products of the flash forward on the tensor
+cores in TF32, with split operands: P.V in three products ("3xTF32":
+x = big + small with big = tf32(x) and small = tf32(x - big), summed as
+a_small.b_big + a_big.b_small + a_big.b_big), Q.K^T from an exact
+three-way split x = x1 + x2 + x3 in six products. The card cannot be
+reached from these tests, so a test-only emulation of that arithmetic
+(the kernel's key tiles, online softmax and rounding, in numpy) is held
+against the JAX package's ``_scan_forward`` and ``_pallas_forward``
+(interpret mode) within the port's flash tolerance, and the same
+emulation with one TF32 product is shown to miss it by a wide margin:
+that is why the kernel splits. bf16 inputs are exact in TF32, which is
+why the kernel takes fewer products for them.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mxnet_tpu.ops import attention as JA
+from mxnet_tpu_torch.ops import attention as TA
+
+TOL = 2e-5   # the port's float32 flash tolerance (tests/test_torch_attention.py)
+NEG_INF = np.float32(-1e30)
+
+
+def _tf32(x):
+    """float32 rounded to TF32 (10 mantissa bits), to nearest with ties
+    away from zero: the kernel's rounding."""
+    bits = np.asarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split(x):
+    x = np.asarray(x, np.float32)
+    big = _tf32(x)
+    return big, _tf32(x - big)
+
+
+def _split3(x):
+    """x = x1 + x2 + x3 exactly, each TF32 (11 + 11 + at most 3 bits)."""
+    x = np.asarray(x, np.float32)
+    x1 = _tf32(x)
+    r = x - x1
+    x2 = _tf32(r)
+    return x1, x2, r - x2
+
+
+def _mm(a, b, products):
+    """a @ b as the kernel's tensor cores compute it: TF32 operands, exact
+    products, float32 result; ``products`` 6 (the exact three-way split,
+    the six products above 2^-33), 3 (3xTF32) or 1 (plain TF32)."""
+    f = np.float64
+    if products == 6:
+        (a1, a2, a3), (b1, b2, b3) = _split3(a), _split3(b)
+        out = sum(x.astype(f) @ y.astype(f) for x, y in
+                  ((a3, b1), (a2, b2), (a1, b3), (a2, b1), (a1, b2), (a1, b1)))
+        return out.astype(np.float32)
+    (ab, as_), (bb, bs) = _split(a), _split(b)
+    out = ab.astype(f) @ bb.astype(f)
+    if products == 3:
+        out += as_.astype(f) @ bb.astype(f) + ab.astype(f) @ bs.astype(f)
+    return out.astype(np.float32)
+
+
+def emulated_flash_forward(q, k, v, causal, scale, exact=True):
+    """The kernel's forward on (B, H, S, D) float32 arrays: key tiles of 64
+    (32 at D > 64), scores (six products) and P.V (three) through
+    :func:`_mm` — or both in one TF32 product with ``exact=False`` — and
+    the online softmax in float32 with masked scores pinned to -1e30 and
+    l clamped at 1e-30. Returns (out, lse)."""
+    qk_products, pv_products = (6, 3) if exact else (1, 1)
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    bk = 64 if d <= 64 else 32
+    m = np.full((b, h, sq), NEG_INF, np.float32)
+    l = np.zeros((b, h, sq), np.float32)
+    acc = np.zeros((b, h, sq, d), np.float32)
+    qi = np.arange(sq)[:, None]
+    for t0 in range(0, sk, bk):
+        kt, vt = k[:, :, t0:t0 + bk], v[:, :, t0:t0 + bk]
+        s = _mm(q, np.swapaxes(kt, -1, -2), qk_products) * np.float32(scale)
+        ki = t0 + np.arange(kt.shape[2])[None, :]
+        ok = (qi >= ki) if causal else np.ones_like(qi >= ki)
+        s = np.where(ok, s, NEG_INF).astype(np.float32)
+        m_new = np.maximum(m, s.max(axis=-1))
+        corr = np.exp(m - m_new)
+        p = np.exp(s - m_new[..., None]).astype(np.float32)
+        l = (l * corr + p.sum(axis=-1)).astype(np.float32)
+        acc = (acc * corr[..., None] + _mm(p, vt, pv_products)).astype(
+            np.float32)
+        m = m_new
+    lc = np.maximum(l, np.float32(1e-30))
+    return acc / lc[..., None], m + np.log(lc)
+
+
+def _inputs(seed, b, h, sq, sk, d, dtype):
+    """Seeded q, k, v: float32, or float32 holding bf16-rounded values."""
+    rng = np.random.default_rng(seed)
+    xs = [rng.standard_normal((b, h, s, d)).astype(np.float32)
+          for s in (sq, sk, sk)]
+    if dtype == "bf16":
+        xs = [torch.from_numpy(x).bfloat16().float().numpy() for x in xs]
+    return xs
+
+
+def _jax(q, k, v, causal, scale, oracle, dtype):
+    jt = jnp.bfloat16 if dtype == "bf16" else jnp.float32
+    with jax.default_device(jax.devices("cpu")[0]):
+        jq, jk, jv = (jnp.asarray(x, jt) for x in (q, k, v))
+        if oracle == "scan":
+            out, lse = JA._scan_forward(jq, jk, jv, causal, scale, 32)
+        else:
+            out, lse = JA._pallas_forward(jq, jk, jv, causal, scale,
+                                          block_q=32, block_k=32,
+                                          interpret=True)
+    return np.asarray(out), np.asarray(lse)
+
+
+# (b, h, sq, sk, d): the serving and training rows of the kernel table
+# cut to small B, a ragged sq < sk, and sq > sk at the widest head
+SHAPES = [(1, 4, 128, 128, 64), (2, 2, 48, 80, 64), (1, 2, 100, 37, 128)]
+CASES = [(o, dt, s, c) for s in SHAPES for c in (False, True)
+         for dt in ("f32", "bf16") for o in ("scan", "pallas_interpret")
+         if not (o == "pallas_interpret" and dt == "bf16")]
+
+
+@pytest.mark.parametrize("oracle,dtype,shape,causal", CASES)
+def test_split_tf32_flash_forward_matches_jax(oracle, dtype, shape, causal):
+    b, h, sq, sk, d = shape
+    q, k, v = _inputs(sum(shape) + causal, b, h, sq, sk, d, dtype)
+    scale = 1.0 / np.sqrt(d)
+    out, lse = emulated_flash_forward(q, k, v, causal, scale)
+    ref_out, ref_lse = _jax(q, k, v, causal, scale, oracle, dtype)
+    np.testing.assert_allclose(out, ref_out, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(lse, ref_lse, rtol=TOL, atol=TOL)
+    # and the port's plain version, which the kernel is held to on the card
+    p_out, p_lse = TA._flash_forward_plain(
+        *(torch.from_numpy(x) for x in (q, k, v)), causal, scale)
+    np.testing.assert_allclose(out, p_out.numpy(), rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(lse, p_lse.numpy(), rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_one_tf32_product_misses_the_tolerance(causal):
+    """Plain TF32 keeps about three decimal digits: at the serving shape it
+    misses the flash tolerance by far more than 10x, where the split
+    products meet it."""
+    q, k, v = _inputs(5 + causal, 1, 4, 128, 128, 64, "f32")
+    scale = 0.125
+    ref_out, _ = _jax(q, k, v, causal, scale, "scan", "f32")
+    err_split = np.abs(emulated_flash_forward(q, k, v, causal, scale)[0]
+                  - ref_out).max()
+    err1 = np.abs(emulated_flash_forward(q, k, v, causal, scale, False)[0]
+                  - ref_out).max()
+    assert err_split <= TOL
+    assert err1 > 10 * TOL, err1
+
+
+def test_bf16_operands_are_exact_in_tf32():
+    """bf16 keeps 8 mantissa bits and TF32 10: a bf16 value's big part is
+    the value itself and its small part is 0, so the kernel skips the
+    small products for bf16 K and V (and Q)."""
+    x = torch.randn(4096, generator=torch.Generator().manual_seed(3))
+    x = torch.cat([x, x * 1e-20, x * 1e20]).bfloat16().float().numpy()
+    big, small = _split(x)
+    np.testing.assert_array_equal(big, x)
+    np.testing.assert_array_equal(small, np.zeros_like(x))
+
+
+@pytest.mark.parametrize("x,want", [
+    (1.0 + 2.0 ** -11, 1.0 + 2.0 ** -10),     # a tie rounds away from zero
+    (-(1.0 + 2.0 ** -11), -(1.0 + 2.0 ** -10)),
+    (1.0 + 2.0 ** -12, 1.0),                  # below half a TF32 step
+    (1.0 + 3 * 2.0 ** -12, 1.0 + 2.0 ** -10),
+])
+def test_tf32_rounding_is_nearest_ties_away(x, want):
+    assert _tf32(np.float32(x)) == np.float32(want)
+
+
+def test_three_way_split_is_exact():
+    """x1 + x2 + x3 is x itself: the scores' products miss nothing above
+    2^-33 of q.k."""
+    x = np.random.default_rng(5).standard_normal(100000).astype(np.float32)
+    x1, x2, x3 = _split3(x)
+    np.testing.assert_array_equal(_tf32(x3), x3)
+    np.testing.assert_array_equal(
+        (x1.astype(np.float64) + x2 + x3).astype(np.float32), x)
+    np.testing.assert_array_equal(x1.astype(np.float64) + x2 + x3, x)
+
+
+def test_split_keeps_float32_accuracy():
+    """big + small carries x to within 2^-21 of its size (the dropped
+    small.small product is of that order), where big alone errs by up
+    to 2^-11."""
+    x = np.random.default_rng(4).standard_normal(100000).astype(np.float32)
+    big, small = _split(x)
+    rel = np.abs((big.astype(np.float64) + small) - x) / np.abs(x)
+    assert rel.max() <= 2.0 ** -21
+    assert (np.abs(big - x) / np.abs(x)).max() > 2.0 ** -13

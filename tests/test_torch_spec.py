@@ -169,12 +169,14 @@ def _gate_args(case):
         q = torch.zeros(2, 2, 3, 16).transpose(1, 2)
     elif case == "page_dtypes":
         return q, kp, kp.bfloat16(), bt, cl
+    elif case == "table_too_wide":   # the kernel keeps the row in shared memory
+        bt = torch.zeros(2, 8193, dtype=torch.int32)
     return q, kp, kp.clone(), bt, cl
 
 
 @pytest.mark.parametrize("case", ["q_3d", "too_many_lanes", "lens_shape",
                                   "tables_i64", "head_dim", "strided_q",
-                                  "page_dtypes"])
+                                  "page_dtypes", "table_too_wide"])
 def test_multi_kernel_gate_rejects(case):
     with pytest.raises(MXNetError):
         TA._check_paged_multi(*_gate_args(case))
