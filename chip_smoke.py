@@ -54,10 +54,10 @@ Drives ``mxnet_tpu_torch`` (never the JAX package) on ``cuda:0``:
    computing the same function (a yardstick the port never calls), timed
    with CUDA events while the stream is held by a sleep so host launch
    overhead is hidden, beside the card's bound for the same work (the
-   flash forward's operations at its split-TF32 tensor-core rate, the
-   others' at the float32 rate); the device kernels that the flash-forward and
-   multi-query yardsticks launch are printed (one ``torch.profiler``
-   pass each).
+   flash forward's and backward's operations at their split-TF32
+   tensor-core rates, the others' at the float32 rate); the device kernels
+   that the flash-forward and multi-query yardsticks launch are printed
+   (one ``torch.profiler`` pass each).
 
 Every phase that fails raises, so the exit code is not 0. The last two
 lines are the ``kernels`` JSON object and the ``ok`` JSON object; the card
@@ -73,12 +73,17 @@ import numpy as np
 import torch
 
 # published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bandwidth,
-# float32 outside the tensor cores, and the flash forward's rate on the
-# 495 TFLOP/s TF32 tensor cores: half its operations (Q.K^T) in six TF32
-# products, half (P.V) in three, 4.5 per operation on average
+# float32 outside the tensor cores, and the flash kernels' rates on the
+# 495 TFLOP/s TF32 tensor cores over the mean number of TF32 products they
+# issue per operation in float32: the forward's Q.K^T six (an exact
+# split), P.V three (3xTF32), 4.5 on average; the backward's dK/dV kernel
+# S six, dP, dV and dK three each, (6+3+3+3)/4 = 3.75; its dQ kernel S
+# six, dP and dQ three each, (6+3+3)/3 = 4
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_K1_FLOPS = 495e12 / 4.5
+PEAK_K2A_FLOPS = 495e12 / 3.75
+PEAK_K2B_FLOPS = 495e12 / 4
 
 F32_TOL = 1e-4    # float32: only the summation order differs
 BF16_TOL = 2e-2   # bf16 inputs, float32 compute on both sides
@@ -867,11 +872,14 @@ def time_flash_bwd(A, build, b=32, h=4, s=128, d=64):
     bhsd, bhs = b * h * s * d, b * h * s
     shape = "q/k/v/dout (%d,%d,%d,%d) f32 causal" % (b, h, s, d)
     # K2a: s, dp, dV, dK — 8 FLOP per pair and dim; reads q,k,v,dout,lse,
-    # delta, writes dk, dv.  K2b: s, dp, dQ — 6; writes dq.
+    # delta, writes dk, dv.  K2b: s, dp, dQ — 6; writes dq. Both on the
+    # tensor cores as split TF32 products
     return (dict(err=err_dkv, ms=ms_dkv, plain=plain, lib=lib, flops=8 * pairs * d,
-                 nbytes=4 * (6 * bhsd + 2 * bhs), shape=shape),
+                 nbytes=4 * (6 * bhsd + 2 * bhs), shape=shape,
+                 peak=PEAK_K2A_FLOPS, peak_name="132 TFLOP/s (TF32 x 3.75)"),
             dict(err=err_dq, ms=ms_dq, plain=plain, lib=lib, flops=6 * pairs * d,
-                 nbytes=4 * (5 * bhsd + 2 * bhs), shape=shape))
+                 nbytes=4 * (5 * bhsd + 2 * bhs), shape=shape,
+                 peak=PEAK_K2B_FLOPS, peak_name="124 TFLOP/s (TF32 x 4)"))
 
 
 def time_paged(A):

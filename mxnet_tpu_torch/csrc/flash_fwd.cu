@@ -49,74 +49,11 @@
 // as many blocks, each with a quarter of the serial work per warp. The
 // ragged Sk tail is zero-filled and masked.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "tf32_mma.cuh"
 
 namespace {
 
-constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-// x rounded to TF32, to nearest with ties away from zero (what
-// cvt.rna.tf32.f32 computes for finite x), in two integer operations:
-// the cvt instruction is slower here (profile_kernels_torch.py times both).
-__device__ __forceinline__ uint32_t tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x = big + small, both TF32 (exact as float32 bit patterns)
-__device__ __forceinline__ void split(float x, uint32_t& big,
-                                      uint32_t& small) {
-  big = tf32(x);
-  small = tf32(x - __uint_as_float(big));
-}
-
-// c += a.b over one m16n8k8 tile, float32 accumulation
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// x = x1 + x2 + x3 exactly, each TF32: x1 takes x's top 11 bits, x2 the
-// next 11 of the remainder, x3 what is left (at most 3 bits)
-__device__ __forceinline__ void split3(float x, uint32_t& x1, uint32_t& x2,
-                                       uint32_t& x3) {
-  x1 = tf32(x);
-  const float r = x - __uint_as_float(x1);
-  x2 = tf32(r);
-  x3 = __float_as_uint(r - __uint_as_float(x2));
-}
-
-// the two TF32 operands of a B fragment element: split, or exact as it is
-template <bool EXACT>
-__device__ __forceinline__ void operand(float x, uint32_t& big,
-                                        uint32_t& small) {
-  if (EXACT)
-    big = __float_as_uint(x);
-  else
-    split(x, big, small);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s),
-               "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::);
-}
-__device__ __forceinline__ void cp_async_wait_1() {
-  asm volatile("cp.async.wait_group 1;" ::: "memory");
-}
+using namespace tf32mma;
 
 // KS: k-steps of 8 head dimensions (D <= 8*KS; FULL_D: D == 8*KS). RG: row groups of 16
 // query rows per block; the block's 4 warps are RG row groups times
@@ -200,7 +137,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int it = 0; it < ntiles; ++it) {
     if (it + 1 < ntiles) stage((it + 1) & 1, (it + 1) * BK);
     cp_async_commit();
-    cp_async_wait_1();
+    cp_async_wait<1>();
     __syncthreads();
     const T* ks = smem + (it & 1) * 2 * BK * stride;
     const T* vs = ks + BK * stride;
@@ -411,26 +348,6 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-constexpr int MAX_DEVICES = 64;
-
-// The card's SM count and the opt-in to more than 48 KB of shared memory
-// are asked for once per device, not on every launch.
-inline cudaError_t sm_count(int* sms) {
-  static int cached[MAX_DEVICES];
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev >= MAX_DEVICES)
-    return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  if (cached[dev] == 0) {
-    e = cudaDeviceGetAttribute(&cached[dev], cudaDevAttrMultiProcessorCount,
-                               dev);
-    if (e != cudaSuccess) return e;
-  }
-  *sms = cached[dev];
-  return cudaSuccess;
-}
-
 template <typename T, int KS, int RG, bool FULL_D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    void* lse, int bh, int sq, int sk, int d, float scale,
@@ -442,18 +359,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
     const int merge = RG == 4 ? 0 : 64 * (dd + 2) * 4;  // KG * BQ = 64 rows
     return ring > merge ? ring : merge;
   };
+  // the largest head dimension this instance takes (8 KS) sets the opt-in
   static bool opted_in[MAX_DEVICES];
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  const cudaError_t e = smem_opt_in(flash_fwd_kernel<T, KS, RG, FULL_D>,
+                                    opted_in, bytes(8 * KS));
   if (e != cudaSuccess) return e;
-  if (dev >= MAX_DEVICES || !opted_in[dev]) {
-    // the largest head dimension this instance takes (8 KS) sets the opt-in
-    e = cudaFuncSetAttribute(flash_fwd_kernel<T, KS, RG, FULL_D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             bytes(8 * KS));
-    if (e != cudaSuccess) return e;
-    if (dev < MAX_DEVICES) opted_in[dev] = true;
-  }
   const dim3 grid(bh, (sq + RG * 16 - 1) / (RG * 16));
   flash_fwd_kernel<T, KS, RG, FULL_D><<<grid, 128, bytes(d), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),

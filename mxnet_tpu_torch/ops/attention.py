@@ -202,6 +202,8 @@ def _flash_backward_cuda(q, k, v, out, lse, g, causal, sm_scale):
     if not (g.device == lse.device == out.device == q.device):
         raise MXNetError("flash backward: inputs on different devices")
     delta = (out.float() * g.float()).sum(dim=-1)
+    # both kernels stage their tiles with 16-byte cp.async copies
+    q, k, v, g = (_aligned16(x) for x in (q, k, v, g))
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
     dv = torch.empty(k.shape, dtype=torch.float32, device=q.device)

@@ -1,21 +1,27 @@
-"""What the design choices of the flash-forward (K1) and multi-query paged
-(K4) kernels are worth, for the PyTorch/CUDA port, on one GPU.
+"""What the design choices of the flash-forward (K1), flash-backward (K2a
+dK/dV, K2b dQ) and multi-query paged (K4) kernels are worth, for the
+PyTorch/CUDA port, on one GPU.
 
     python3 profile_kernels_torch.py
 
 Builds each kernel as it is and in variants that undo one design choice
-(a copy of the source edited by string replacement, one ``nvcc`` per
-copy, all started together), binds each with ``ctypes`` and times them
-side by side with ``chip_smoke.device_ms`` at the main paths' shapes,
-beside the yardstick of ``chip_smoke.py`` phase 8. Each variant's largest
-difference from the plain version is printed too (the one-product
-variant shows why the kernel splits its operands). Last, the rate of the
-``mma.sync`` TF32 instruction that K1 is built on, with 1 to 16 warps per
-SM, each warp keeping 8 independent accumulators. Needs CUDA and
-``nvcc``; exits non-zero without them.
+(a copy of the source and of the shared headers, edited by string
+replacement, one ``nvcc`` per copy, all started together), binds each with
+``ctypes`` and times them side by side with ``chip_smoke.device_ms`` at the
+main paths' shapes, beside the yardstick of ``chip_smoke.py`` phase 8.
+Each variant's largest difference from the plain version is printed too
+(the one-product variant shows why the kernel splits its operands), and
+for K2 the registers and spill bytes ``ptxas`` reports for the float32
+instances at head dimension 64 (the training path's). Last, the rate of
+the ``mma.sync`` TF32 instruction that the flash kernels are built on,
+with 1 to 16 warps per SM, each warp keeping 8 independent accumulators.
+Needs CUDA and ``nvcc``; exits non-zero without them.
 """
 import ctypes
+import glob
 import os
+import re
+import shutil
 import subprocess
 import sys
 
@@ -61,6 +67,53 @@ K1_VARIANTS = {
     "64-row q-tiles only": {DISPATCH: "  const bool wide = true;"},
     "16-row q-tiles only": {DISPATCH: "  const bool wide = false;"},
 }
+def _ring1(stage_call):
+    """One staging buffer in flight: a tile is loaded only after the one
+    before it was computed (no overlap of loads and compute)."""
+    return {
+        "    if (it + 1 < ntiles) %s;\n    cp_async_commit();\n"
+        "    cp_async_wait<1>();\n" % stage_call: "    cp_async_wait<0>();\n",
+        "    __syncthreads();  // the next stage overwrites this buffer\n":
+        "    __syncthreads();  // the next stage overwrites this buffer\n"
+        "    if (it + 1 < ntiles) %s;\n    cp_async_commit();\n" % stage_call}
+
+
+# the wide launches of K2a (32-key blocks) and K2b (32-row q-tiles) at a
+# full head dimension, and their dispatch rules; a 64-key or 64-row variant
+# (one query or key group) still writes its dK/dV or dQ through the
+# shared-memory sum
+WIDE_K2A = "    return wide ? launch<T, KS, 2, true>(q, k, v, dout, lse, delta, dk, dv,"
+WIDE_K2B = "    return wide ? launch<T, KS, 2, true>(q, k, v, dout, lse, delta, dq, bh,"
+RULE_K2A = "  const bool wide = (long long)bh * ((sk + 31) / 32) >= sms;"
+RULE_K2B = "  const bool wide = (long long)bh * ((sq + 31) / 32) >= sms;"
+# both kernels run their groups of n-tiles one after another
+UNROLLED = {"#pragma unroll 1\n    for (int u0 = 0; u0 < NU; u0 += NG) {":
+            "#pragma unroll\n    for (int u0 = 0; u0 < NU; u0 += NG) {"}
+K2A_VARIANTS = {
+    "as built": {},
+    "exact-split dP": {"kstep_lr<3, EXACT, false>(dp, av, gf);":
+                       "kstep_lr<6, EXACT, false>(dp, av, gf);"},
+    "64-key blocks": {WIDE_K2A: WIDE_K2A.replace("KS, 2, true", "KS, 4, true")},
+    "16-key blocks only": {RULE_K2A: "  const bool wide = false;"},
+    "ring depth 1": _ring1("stage((it + 1) & 1, q0 + BQ)"),
+    "4 n-tiles at once": {"constexpr int GROUP = 2;": "constexpr int GROUP = 4;"},
+    "group loop unrolled": UNROLLED,
+}
+K2B_VARIANTS = {
+    "as built": {},
+    "exact-split dP": {"kstep_lr<3, EXACT, true>(dp, ga, vf);":
+                       "kstep_lr<6, EXACT, true>(dp, ga, vf);"},
+    "64-row q-tiles": {WIDE_K2B: WIDE_K2B.replace("KS, 2, true", "KS, 4, true")},
+    "16-row q-tiles only": {RULE_K2B: "  const bool wide = false;"},
+    "ring depth 1": _ring1("stage((it + 1) & 1, (it + 1) * BK)"),
+    "4 n-tiles at once": {"constexpr int GROUP = 2;": "constexpr int GROUP = 4;"},
+    "group loop unrolled": UNROLLED,
+}
+# the float32 instances at head dimension 64 (KS 8, full D) with 64-, 32-
+# and 16-row/key tiles: 32 is the training path's, 16 small grids' (e.g.
+# chip_smoke.py phase 6), 64 the variants'
+K2_INSTANCES = (("64", "IfLi8ELi4ELb1EE"), ("32", "IfLi8ELi2ELb1EE"),
+                ("16", "IfLi8ELi1ELb1EE"))
 K4_VARIANTS = {
     "as built": {},
     "256 threads": {"      <<<grid, BLOCK_THREADS, smem, stream>>>(":
@@ -96,33 +149,63 @@ extern "C" int run(void* out, int blocks, int threads, int iters, void* stream) 
 
 
 def _variants(kernel, variants, out_dir, build, nvcc):
-    """Start one nvcc per variant of ``kernel``'s source."""
-    src = open(kernel.source).read()
+    """Start one nvcc per variant of ``kernel``: each in a directory of its
+    own, holding a copy of the source and of the shared headers (which the
+    source's quoted includes find first), each replacement made in the
+    file that holds its text."""
+    names = [kernel.source] + sorted(glob.glob(os.path.join(build.CSRC,
+                                                            "*.cuh")))
     procs = {}
     for name, reps in variants.items():
-        text = src
+        texts = {path: open(path).read() for path in names}
         for a, b in reps.items():
-            if a not in text:
-                raise RuntimeError("%s variant %r: %r not in the source"
-                                   % (kernel.name, name, a[:60]))
-            text = text.replace(a, b)
-        stem = os.path.join(out_dir, "%s-%d" % (kernel.name, len(procs)))
-        with open(stem + ".cu", "w") as f:
-            f.write(text)
-        cmd = [nvcc, *build.NVCC_FLAGS, "-I", build.CSRC, "-o", stem + ".so",
-               stem + ".cu"]
+            path = next((p for p in names if a in texts[p]), None)
+            if path is None:
+                raise RuntimeError("%s variant %r: %r not in the source or "
+                                   "its headers" % (kernel.name, name, a[:60]))
+            texts[path] = texts[path].replace(a, b)
+        vdir = os.path.join(out_dir, "%s-%d" % (kernel.name, len(procs)))
+        shutil.rmtree(vdir, ignore_errors=True)
+        os.makedirs(vdir)
+        for path, text in texts.items():
+            with open(os.path.join(vdir, os.path.basename(path)), "w") as f:
+                f.write(text)
+        stem = os.path.join(vdir, kernel.name)
+        cmd = [nvcc, *build.NVCC_FLAGS, "-o", stem + ".so", stem + ".cu"]
         procs[name] = (stem, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     return procs
 
 
-def _bind(procs, kernel):
+def ptxas_report(log):
+    """{entry function: (registers, spill store bytes, spill load bytes)}
+    from the ``-Xptxas -v`` output of one build."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = [0, 0, 0]
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            out[name][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def _bind(procs, kernel, logs=None):
     fns = {}
     for name, (stem, proc) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError("nvcc failed for %s %r:\n%s"
                                % (kernel.name, name, log))
+        if logs is not None:
+            logs[name] = log
         fn = getattr(ctypes.CDLL(os.path.abspath(stem + ".so")), kernel.symbol)
         fn.argtypes = kernel.argtypes
         fns[name] = fn
@@ -151,6 +234,11 @@ def main():
                build.FLASH_FWD)
     k4 = _bind(_variants(build.PAGED_DECODE_MULTI, K4_VARIANTS, out_dir,
                          build, nvcc), build.PAGED_DECODE_MULTI)
+    k2_logs = {"dkv": {}, "dq": {}}
+    k2a = _bind(_variants(build.FLASH_BWD_DKV, K2A_VARIANTS, out_dir, build,
+                          nvcc), build.FLASH_BWD_DKV, k2_logs["dkv"])
+    k2b = _bind(_variants(build.FLASH_BWD_DQ, K2B_VARIANTS, out_dir, build,
+                          nvcc), build.FLASH_BWD_DQ, k2_logs["dq"])
     stream = torch.cuda.current_stream().cuda_stream
     F = torch.nn.functional
 
@@ -178,6 +266,45 @@ def main():
         print("  (%d,%d,%d,%d): %s | SDPA %.4f" % (b, h, s, d,
                                                    ", ".join(cells), lib),
               flush=True)
+
+    b, h, s, d = 32, 4, 128, 64
+    print("K2 flash backward at the training shape (%d,%d,%d,%d), causal "
+          "f32, us per call (max abs err vs plain; ptxas registers/spill "
+          "store bytes of the f32 D 64 instances by rows or keys per tile):"
+          % (b, h, s, d))
+    rng = np.random.default_rng(5)
+    q, k, v = C.flash_inputs(rng, b, h, s, s, d, torch.float32)
+    g = C.flash_inputs(rng, b, h, s, s, d, torch.float32)[0]
+    out, lse = A.flash_attention_forward(q, k, v, True)
+    delta = (out * g).sum(dim=-1)
+    ref = A._flash_backward_plain(q, k, v, out, lse, g, True, d ** -0.5)
+    grads = [torch.empty_like(q) for _ in range(3)]
+    ptrs = [x.data_ptr() for x in (q, k, v, g, lse, delta)]
+    dims = (b, h, s, s, d, d ** -0.5, 1, 0, stream)
+    for label, fns, outs, refs, logs in (
+            ("K2a flash_bwd_dkv", k2a, grads[1:], ref[1:], k2_logs["dkv"]),
+            ("K2b flash_bwd_dq", k2b, grads[:1], ref[:1], k2_logs["dq"])):
+        cells = []
+        for name, fn in fns.items():
+            def call(fn=fn):
+                code = fn(*ptrs, *(x.data_ptr() for x in outs), *dims)
+                assert code == 0, code
+            call()
+            torch.cuda.synchronize()
+            err = max((o - r).abs().max().item() for o, r in zip(outs, refs))
+            regs = ptxas_report(logs[name])
+            spills = ["%s: %d/%d" % (rows, r, st) for rows, tag in K2_INSTANCES
+                      for n, (r, st, _) in regs.items() if tag in n]
+            cells.append("%s %.4f (%.1e; %s)" % (name, C.device_ms(call) * 1e3,
+                                                 err, ", ".join(spills)))
+        print("  %s: %s" % (label, ", ".join(cells)), flush=True)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    lib_fb = C.device_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(*leaves, is_causal=True), leaves, g))
+    lib_f = C.device_ms(lambda: F.scaled_dot_product_attention(
+        *leaves, is_causal=True))
+    print("  SDPA backward (fwd+bwd less fwd) %.4f" % ((lib_fb - lib_f) * 1e3),
+          flush=True)
 
     print("K4 paged_decode_multi, verify shapes (B 32, bs 16, H 4, D 64, "
           "f32), us per call:")

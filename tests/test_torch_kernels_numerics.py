@@ -1,4 +1,5 @@
-"""The precision design of the flash-forward kernel (``csrc/flash_fwd.cu``),
+"""The precision design of the flash kernels (``csrc/flash_fwd.cu``, and
+``csrc/flash_bwd_dkv.cu`` and ``csrc/flash_bwd_dq.cu`` for the backward),
 checked on the CPU.
 
 The kernel computes both products of the flash forward on the tensor
@@ -12,8 +13,14 @@ against the JAX package's ``_scan_forward`` and ``_pallas_forward``
 (interpret mode) within the port's flash tolerance, and the same
 emulation with one TF32 product is shown to miss it by a wide margin:
 that is why the kernel splits. bf16 inputs are exact in TF32, which is
-why the kernel takes fewer products for them.
+why the kernel takes fewer products for them. The backward kernels
+recompute S = Q.K^T as the forward does (six products), take dP = dO.V^T
+and the three gradient products in 3xTF32, and are emulated and held to
+the JAX package's ``_scan_backward`` and ``_pallas_backward`` the same
+way.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -52,13 +59,19 @@ def _split3(x):
 def _mm(a, b, products):
     """a @ b as the kernel's tensor cores compute it: TF32 operands, exact
     products, float32 result; ``products`` 6 (the exact three-way split,
-    the six products above 2^-33), 3 (3xTF32) or 1 (plain TF32)."""
+    the six products above 2^-33), 3 (3xTF32), 2 (a split, b exact in
+    TF32: bfloat16 values) or 1 (plain TF32)."""
     f = np.float64
     if products == 6:
         (a1, a2, a3), (b1, b2, b3) = _split3(a), _split3(b)
         out = sum(x.astype(f) @ y.astype(f) for x, y in
                   ((a3, b1), (a2, b2), (a1, b3), (a2, b1), (a1, b2), (a1, b1)))
         return out.astype(np.float32)
+    if products == 2:
+        np.testing.assert_array_equal(_tf32(b), b)
+        ab, as_ = _split(a)
+        return (as_.astype(f) @ b.astype(f)
+                + ab.astype(f) @ b.astype(f)).astype(np.float32)
     (ab, as_), (bb, bs) = _split(a), _split(b)
     out = ab.astype(f) @ bb.astype(f)
     if products == 3:
@@ -95,6 +108,50 @@ def emulated_flash_forward(q, k, v, causal, scale, exact=True):
         m = m_new
     lc = np.maximum(l, np.float32(1e-30))
     return acc / lc[..., None], m + np.log(lc)
+
+
+def emulated_flash_backward(q, k, v, out, lse, g, causal, scale,
+                            products=(6, 3, 3)):
+    """The two backward kernels on (B, H, S, D) float32 arrays, from the
+    forward's ``out`` and ``lse``: dQ over key tiles of 64 (32 at D > 64),
+    as ``csrc/flash_bwd_dq.cu`` walks them, dK and dV over query tiles of
+    the same size, as ``csrc/flash_bwd_dkv.cu`` does. S = Q.K^T, dP =
+    dO.V^T and the three gradient products go through :func:`_mm` with
+    ``products`` = (S's, dP's, the gradients') split degrees: (6, 3, 3) for
+    float32, (1, 1, 2) for bfloat16 values, (1, 1, 1) for plain TF32.
+    delta = rowsum(dO * out) in float32; masked pairs give p = 0 exactly.
+    Returns (dq, dk, dv)."""
+    s_p, dp_p, g_p = products
+    sq, sk, d = q.shape[2], k.shape[2], q.shape[3]
+    tile = 64 if d <= 64 else 32
+    delta = (out * g).sum(axis=-1, dtype=np.float32)
+    f32 = np.float32
+    tr = functools.partial(np.swapaxes, axis1=-1, axis2=-2)
+
+    def p_ds(q0, qt, gt, lt, dt, k0, kt, vt):
+        s = _mm(qt, tr(kt), s_p) * f32(scale)
+        ok = (q0 + np.arange(qt.shape[2])[:, None]
+              >= k0 + np.arange(kt.shape[2])[None, :])
+        if not causal:
+            ok = np.ones_like(ok)
+        p = np.where(ok, np.exp(s - lt[..., None]), f32(0)).astype(f32)
+        dp = _mm(gt, tr(vt), dp_p)
+        return p, (p * (dp - dt[..., None]) * f32(scale)).astype(f32)
+
+    dq = np.zeros(q.shape, f32)
+    for k0 in range(0, sk, tile):
+        kt, vt = k[:, :, k0:k0 + tile], v[:, :, k0:k0 + tile]
+        _, ds = p_ds(0, q, g, lse, delta, k0, kt, vt)
+        dq = (dq + _mm(ds, kt, g_p)).astype(f32)
+    dk = np.zeros(k.shape, f32)
+    dv = np.zeros(v.shape, f32)
+    for q0 in range(0, sq, tile):
+        qt, gt = q[:, :, q0:q0 + tile], g[:, :, q0:q0 + tile]
+        p, ds = p_ds(q0, qt, gt, lse[:, :, q0:q0 + tile],
+                     delta[:, :, q0:q0 + tile], 0, k, v)
+        dv = (dv + _mm(tr(p), gt, g_p)).astype(f32)
+        dk = (dk + _mm(tr(ds), qt, g_p)).astype(f32)
+    return dq, dk, dv
 
 
 def _inputs(seed, b, h, sq, sk, d, dtype):
@@ -201,3 +258,69 @@ def test_split_keeps_float32_accuracy():
     rel = np.abs((big.astype(np.float64) + small) - x) / np.abs(x)
     assert rel.max() <= 2.0 ** -21
     assert (np.abs(big - x) / np.abs(x)).max() > 2.0 ** -13
+
+
+def _jax_backward(q, k, v, g, causal, scale, oracle):
+    """The JAX package's forward residuals (``_scan_forward``) and its
+    backward, ``_scan_backward`` or ``_pallas_backward`` in interpret mode,
+    in float32 on the given values."""
+    with jax.default_device(jax.devices("cpu")[0]):
+        jq, jk, jv, jg = (jnp.asarray(x, jnp.float32) for x in (q, k, v, g))
+        out, lse = JA._scan_forward(jq, jk, jv, causal, scale, 32)
+        if oracle == "scan":
+            ref = JA._scan_backward(jq, jk, jv, out, lse, jg, causal, scale,
+                                    32)
+        else:
+            ref = JA._pallas_backward(jq, jk, jv, out, lse, jg, causal, scale,
+                                      block_q=32, block_k=32, interpret=True)
+    return (np.array(out), np.array(lse),
+            [np.array(r, np.float32) for r in ref])
+
+
+# the training shape cut to B*H = 2, a ragged sq < sk, and sq > sk at the
+# widest head (32-row tiles)
+BWD_SHAPES = [(1, 2, 128, 128, 64), (1, 2, 48, 80, 64), (1, 2, 100, 37, 128)]
+BWD_CASES = [(o, dt, s, c) for s in BWD_SHAPES for c in (False, True)
+             for dt in ("f32", "bf16") for o in ("scan", "pallas_interpret")
+             if not (o == "pallas_interpret" and dt == "bf16")]
+
+
+@pytest.mark.parametrize("oracle,dtype,shape,causal", BWD_CASES)
+def test_split_tf32_flash_backward_matches_jax(oracle, dtype, shape, causal):
+    """The backward kernels' split degrees keep float32 accuracy: dq, dk and
+    dv within the flash tolerance of the JAX package's backward (and of
+    the port's plain version) on the same residuals. bf16 values take the
+    kernels' bf16 degrees: one product for S and dP, two for the
+    gradients."""
+    b, h, sq, sk, d = shape
+    q, k, v = _inputs(sum(shape) + 3 * causal, b, h, sq, sk, d, dtype)
+    g = _inputs(sum(shape) + 1, b, h, sq, sq, d, dtype)[0]
+    scale = 1.0 / np.sqrt(d)
+    out, lse, ref = _jax_backward(q, k, v, g, causal, scale, oracle)
+    products = (6, 3, 3) if dtype == "f32" else (1, 1, 2)
+    got = emulated_flash_backward(q, k, v, out, lse, g, causal, scale,
+                                  products)
+    for a, r in zip(got, ref):
+        np.testing.assert_allclose(a, r, rtol=TOL, atol=TOL)
+    plain = TA._flash_backward_plain(
+        *(torch.from_numpy(x) for x in (q, k, v, out, lse, g)), causal, scale)
+    for a, r in zip(got, plain):
+        np.testing.assert_allclose(a, r.numpy(), rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_one_tf32_product_misses_the_backward_tolerance(causal):
+    """Plain TF32 in all five backward products misses the flash tolerance
+    by more than 10x at the training shape cut to B*H = 2, where the
+    kernels' split degrees meet it."""
+    q, k, v = _inputs(11 + causal, 1, 2, 128, 128, 64, "f32")
+    g = _inputs(12, 1, 2, 128, 128, 64, "f32")[0]
+    scale = 0.125
+    out, lse, ref = _jax_backward(q, k, v, g, causal, scale, "scan")
+    split = emulated_flash_backward(q, k, v, out, lse, g, causal, scale)
+    one = emulated_flash_backward(q, k, v, out, lse, g, causal, scale,
+                                  (1, 1, 1))
+    err_split = max(np.abs(a - r).max() for a, r in zip(split, ref))
+    err1 = max(np.abs(a - r).max() for a, r in zip(one, ref))
+    assert err_split <= TOL
+    assert err1 > 10 * TOL, err1
