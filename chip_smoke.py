@@ -13,13 +13,18 @@ Drives ``mxnet_tpu_torch`` (never the JAX package) on ``cuda:0``:
    plain PyTorch version on the same inputs, at the main paths' shapes,
    with stated tolerances: the flash forward at every serving bucket
    (16-row q-tiles), the training shape and wide grids at D 32, 64 and
-   128 (64-row q-tiles), f32 and bf16; the paged kernel also against
-   poisoned unreferenced slots and for batch invariance (bitwise); the
-   multi-query paged kernel at T 1, 2, 4, 8 and 16 (pool blocks of 16),
-   bf16 pages in blocks of 64 and edge cases, each lane bitwise equal to
-   the single-query kernel at its context, batch-invariant, and NaN past
-   an out-of-range block id; the two flash-backward kernels through the
-   autograd Function, and bitwise equal across two launches;
+   128 (64-row q-tiles), f32 and bf16, at D 136 and 256 in f32, bf16 and
+   f16, f16 at the training shape and b*h 70000 with a short sequence;
+   the paged kernel also against poisoned unreferenced slots and for
+   batch invariance (bitwise), at D 8, 136, 256, 512 and 4096, pool blocks of
+   32 and 512 and f16 pages besides the serving shape; the multi-query
+   paged kernel at T 1, 2, 4, 8, 16, 17 and 32 (pool blocks of 16), bf16
+   pages in blocks of 64, a table of 8200 slots, D 256 in blocks of 512
+   and edge cases, each lane bitwise equal to the single-query kernel at
+   its context, batch-invariant, and NaN past an out-of-range block id;
+   the two flash-backward kernels through the autograd Function (D 136
+   and 256 in f32, bf16 and f16, f16 at the training shape), and bitwise
+   equal across two launches;
 4. serving — the zoo Transformer-LM at full width (vocab 32000, 4 layers,
    d 256, 4 heads, ffn 1024, max_len 128; pool bs 16, 257 blocks, batch
    32) with seeded random weights: ``warmup()``, then 32 seeded requests
@@ -41,9 +46,10 @@ Drives ``mxnet_tpu_torch`` (never the JAX package) on ``cuda:0``:
 7. speculative serving from a checkpoint — phase 5's trained module
    written with ``Module.save_checkpoint`` into a temporary directory and
    read back with ``mx.model.load_checkpoint`` (bit for bit), then served
-   at phase 4's width and prompt mix three times: target-only
+   at phase 4's width and prompt mix four times: target-only
    (``spec_k`` 0), ``spec_k`` 3 with the ``small`` draft and with the
-   ``self`` draft. The three token streams must be equal (else the first
+   ``self`` draft, and ``spec_k`` 16 with the ``self`` draft (17 verify
+   lanes). The four token streams must be equal (else the first
    diverging request and position and the target's top-2 logit margin
    there are printed, and the run fails); launch counts exact per run
    (the multi-query kernel once per target layer and speculative step,
@@ -55,9 +61,10 @@ Drives ``mxnet_tpu_torch`` (never the JAX package) on ``cuda:0``:
    with CUDA events while the stream is held by a sleep so host launch
    overhead is hidden, beside the card's bound for the same work (the
    flash forward's and backward's operations at their split-TF32
-   tensor-core rates, the others' at the float32 rate); the device kernels
-   that the flash-forward and multi-query yardsticks launch are printed
-   (one ``torch.profiler`` pass each).
+   tensor-core rates, the others' at the float32 rate); the paged kernel
+   also at contexts 1024 and 4096 for B 32 and B 1 (printed lines); the
+   device kernels that the flash-forward and multi-query yardsticks
+   launch are printed (one ``torch.profiler`` pass each).
 
 Every phase that fails raises, so the exit code is not 0. The last two
 lines are the ``kernels`` JSON object and the ``ok`` JSON object; the card
@@ -87,6 +94,11 @@ PEAK_K2B_FLOPS = 495e12 / 4
 
 F32_TOL = 1e-4    # float32: only the summation order differs
 BF16_TOL = 2e-2   # bf16 inputs, float32 compute on both sides
+# f16 inputs are exact in float32 and the flash forward returns float32, so
+# only the summation order differs, as for float32 inputs; f16 gradients
+# are rounded to f16 (11 bits) on both sides, so one may land a step
+# apart: held relative to the largest, as bf16's are
+F16_REL_TOL = 2e-3
 # bf16 gradients: both sides compute in float32 and round to bf16 (8 bits),
 # so a value may land one bf16 step apart; held relative to the largest
 BF16_REL_TOL = 1e-2
@@ -209,7 +221,15 @@ def check_flash(A):
               (2, 4, 80, 80, 64, False, torch.bfloat16),
               (2, 4, 48, 80, 64, False, torch.float32),
               (2, 4, 48, 80, 64, True, torch.float32),
-              (1, 2, 100, 37, 128, True, torch.bfloat16)]
+              (1, 2, 100, 37, 128, True, torch.bfloat16),
+              (32, 4, 128, 128, 64, True, torch.float16),     # training
+              (35000, 2, 16, 16, 32, True, torch.float32)]    # b*h 70000
+    # head dimensions past 128 (k-steps of 32), in every dtype
+    cases += [(2, 2, 70, 70, d, causal, dt) for d in (136, 256)
+              for causal, dt in ((True, torch.float32), (False, torch.float32),
+                                 (True, torch.bfloat16),
+                                 (True, torch.float16))]
+    cases += [(16, 8, 128, 128, 256, True, torch.float32)]   # 64-row tiles
     for b, h, sq, sk, d, causal, dt in cases:
         q, k, v = flash_inputs(rng, b, h, sq, sk, d, dt)
         out, lse = A.flash_attention_forward(q, k, v, causal)
@@ -218,7 +238,7 @@ def check_flash(A):
         torch.cuda.synchronize()
         err = max((out - ref_out).abs().max().item(),
                   (lse - ref_lse).abs().max().item())
-        tol = F32_TOL if dt == torch.float32 else BF16_TOL
+        tol = BF16_TOL if dt == torch.bfloat16 else F32_TOL
         log("  flash_fwd b=%d h=%d sq=%d sk=%d d=%d causal=%d %s: "
             "max_abs_err %.3e (tol %.0e)" % (b, h, sq, sk, d, causal,
                                              str(dt)[6:], err, tol))
@@ -247,16 +267,18 @@ def paged_inputs(rng, B, dtype, lens, N=257, bs=16, H=4, D=64, nb=8):
 
 def poison_unreferenced(kp, vp, bt, cl):
     """+1e30 in K and -1e30 in V at every (block, slot) no live position
-    of any table reads."""
+    of any table reads (float16 pages: +-6e4, near its largest)."""
     bs = kp.shape[1]
-    live = torch.zeros(kp.shape[:2], dtype=torch.bool, device=kp.device)
-    for b in range(bt.shape[0]):
-        n = int(cl[b])
-        for j in range(-(-n // bs)):
-            live[int(bt[b, j]), :min(bs, n - j * bs)] = True
+    tables, lens = bt.cpu().numpy(), cl.cpu().numpy()
+    live = np.zeros(kp.shape[:2], bool)
+    for b in range(tables.shape[0]):
+        pos = np.arange(min(int(lens[b]), tables.shape[1] * bs))
+        live[tables[b, pos // bs], pos % bs] = True
+    live = torch.from_numpy(live).to(kp.device)
+    big = 6e4 if kp.dtype == torch.float16 else 1e30
     kp2, vp2 = kp.clone(), vp.clone()
-    kp2[~live] = 1e30
-    vp2[~live] = -1e30
+    kp2[~live] = big
+    vp2[~live] = -big
     return kp2, vp2
 
 
@@ -293,6 +315,42 @@ def check_paged(A):
                 log("  paged_decode B=32 %s: every row bitwise equal to its "
                     "B=1 launch; poisoned slots changed nothing"
                     % str(dt)[6:])
+    # the envelope past the serving shape: (B, D, bs, nb, page dtype);
+    # contexts up to the table's end, 0 and one block's worth among them
+    for B, D, bs, nb, dt in ((8, 8, 16, 8, torch.float32),
+                             (8, 136, 16, 8, torch.float32),
+                             (8, 256, 16, 8, torch.float32),
+                             (4, 512, 16, 8, torch.float32),
+                             (3, 4096, 16, 2, torch.float32),  # widest
+                             (8, 64, 32, 6, torch.float32),
+                             (6, 64, 512, 3, torch.float32),
+                             (8, 64, 16, 8, torch.float16),
+                             (6, 256, 512, 2, torch.bfloat16)):
+        lens = [0, bs, nb * bs] + [int(x) for x in
+                                   rng.integers(1, nb * bs + 1, B - 3)]
+        q, kp, vp, bt, cl = paged_inputs(rng, B, dt, lens, N=B * nb + 1,
+                                         bs=bs, D=D, nb=nb)
+        out = A.paged_attention(q, kp, vp, bt, cl)
+        ref = A.paged_attention_reference(q, kp, vp, bt, cl)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        # the pages' values are exact in float32 on both sides
+        tol = BF16_TOL if dt == torch.bfloat16 else F32_TOL
+        log("  paged_decode B=%d D=%d bs=%d nb=%d pages %s: max_abs_err %.3e "
+            "(tol %.0e)" % (B, D, bs, nb, str(dt)[6:], err, tol))
+        check(err <= tol, "paged_decode disagrees with its plain version")
+        check(bool((out[cl == 0] == 0).all()), "context_len 0 must give 0")
+        kp2, vp2 = poison_unreferenced(kp, vp, bt, cl)
+        check(torch.equal(out, A.paged_attention(q, kp2, vp2, bt, cl)),
+              "unreferenced slots leaked into the output")
+        for b in range(B):
+            one = A.paged_attention(q[b:b + 1], kp, vp, bt[b:b + 1],
+                                    cl[b:b + 1])
+            check(torch.equal(one[0], out[b]),
+                  "row %d differs between B=%d and B=1 launches" % (b, B))
+        worst[dt] = max(worst.get(dt, 0.0), err)
+    log("  paged_decode envelope: every row bitwise equal to its B=1 launch; "
+        "poisoned slots changed nothing")
     return worst
 
 
@@ -325,22 +383,38 @@ def check_paged_multi(A):
              (32, 8, torch.float32, 64, 16, "verify"),
              (32, 16, torch.float32, 64, 16, "verify"),
              (32, 4, torch.bfloat16, 64, 64, "verify"),
-             (16, 4, torch.float32, 64, 16, "edge")]
+             # past one group of 16 lanes, past 128 dims and 256-position
+             # windows, a table past the 2048 slots kept in shared memory
+             (8, 17, torch.float32, 64, 16, "verify"),
+             (8, 32, torch.float32, 64, 16, "verify"),
+             (4, 4, torch.float32, 256, 512, "long"),
+             (4, 4, torch.float16, 64, 16, "verify"),
+             (2, 3, torch.float32, 4096, 16, "verify"),   # lane groups of 1
+             (2, 3, torch.float32, 64, 1, "table"),
+             (16, 4, torch.float32, 64, 16, "edge")]   # last: see below
     for B, T, dt, D, bs, kind in cases:
+        nb = 128 // bs
         if kind == "verify":
             lens = verify_lens(rng, B, T, hi=128 - T)
+        elif kind == "long":   # contexts of 1..3 pool blocks of 512
+            nb = 3
+            lens = verify_lens(rng, B, T, hi=nb * bs - T)
+        elif kind == "table":  # 8200 slots of one position each
+            nb = 8200
+            lens = verify_lens(rng, B, T, lo=8000, hi=nb - T)
         else:
             lens = np.concatenate([edge, rng.integers(0, 129, (B - 4, T))])
-        q, kp, vp, bt, cl = paged_inputs(rng, B, dt, lens, D=D, bs=bs,
-                                         nb=128 // bs)
+        N = 257 if B * nb < 257 and bs <= 64 and D <= 256 else B * nb + 1
+        q, kp, vp, bt, cl = paged_inputs(rng, B, dt, lens, N=N, D=D, bs=bs,
+                                         nb=nb)
         out = A.paged_attention_multi(q, kp, vp, bt, cl)
         ref = A.paged_attention_multi_reference(q, kp, vp, bt, cl)
         torch.cuda.synchronize()
         err = (out - ref).abs().max().item()
-        tol = F32_TOL if dt == torch.float32 else BF16_TOL
-        log("  paged_decode_multi B=%d T=%d D=%d bs=%d pages %s %s lens: "
-            "max_abs_err %.3e (tol %.0e)" % (B, T, D, bs, str(dt)[6:], kind,
-                                             err, tol))
+        tol = BF16_TOL if dt == torch.bfloat16 else F32_TOL
+        log("  paged_decode_multi B=%d T=%d D=%d bs=%d nb=%d pages %s %s "
+            "lens: max_abs_err %.3e (tol %.0e)"
+            % (B, T, D, bs, nb, str(dt)[6:], kind, err, tol))
         check(err <= tol, "paged_decode_multi disagrees with its plain version")
         check(bool((out[cl == 0] == 0).all()), "a context-0 lane must give 0")
         for t in range(T):
@@ -359,7 +433,7 @@ def check_paged_multi(A):
         worst[dt] = max(worst.get(dt, 0.0), err)
     log("  paged_decode_multi: every lane bitwise equal to paged_decode at its "
         "context, every row to its B=1 launch; poisoned slots changed nothing")
-    # an out-of-range id in table slot 2 (positions 32..47)
+    # an out-of-range id in table slot 2 (positions 32..47) of the edge case
     bt_bad = bt.clone()
     bt_bad[:, 2] = kp.shape[0] + 7
     out = A.paged_attention_multi(q, kp, vp, bt_bad, cl)
@@ -386,7 +460,12 @@ def check_flash_bwd(A):
              (2, 4, 48, 80, 64, True, torch.float32),
              (1, 2, 100, 37, 128, True, torch.float32),
              (2, 2, 70, 70, 128, False, torch.float32),
-             (2, 4, 80, 80, 64, True, torch.bfloat16)]
+             (2, 4, 80, 80, 64, True, torch.bfloat16),
+             (32, 4, 128, 128, 64, True, torch.float16)]  # training shape
+    cases += [(2, 2, 70, 70, d, causal, dt) for d in (136, 256)
+              for causal, dt in ((True, torch.float32), (False, torch.float32),
+                                 (True, torch.bfloat16),
+                                 (True, torch.float16))]
     for b, h, sq, sk, d, causal, dt in cases:
         q, k, v = flash_inputs(rng, b, h, sq, sk, d, dt)
         g = flash_inputs(rng, b, h, sq, sq, d, dt)[0]
@@ -404,7 +483,7 @@ def check_flash_bwd(A):
             tol = F32_TOL
         else:
             err = err / max(r.float().abs().max().item() for r in ref)
-            tol = BF16_REL_TOL
+            tol = BF16_REL_TOL if dt == torch.bfloat16 else F16_REL_TOL
         log("  flash_bwd b=%d h=%d sq=%d sk=%d d=%d causal=%d %s: max_abs_err "
             "dq %.3e dk %.3e dv %.3e -> %s %.3e (tol %.0e)"
             % (b, h, sq, sk, d, causal, str(dt)[6:], *errs,
@@ -732,14 +811,17 @@ def first_divergence(S, M, params, prompts, want, got):
 def run_spec_serving(mx, S, M, build, tel, mod):
     """Speculative serving at full width from the phase-5 checkpoint:
     target-only (``spec_k`` 0, K3), ``spec_k`` 3 with the ``small`` draft
-    and with the ``self`` draft; the three token streams must be equal."""
+    and with the ``self`` draft, ``spec_k`` 16 with the ``self`` draft (17
+    verify lanes); the four token streams must be equal."""
     params = checkpoint_round_trip(mx, mod)
     prompts = prompt_mix(SERVE["vocab_size"])
     L = SERVE["num_layers"]
     runs = {}
     for name, over in (("target-only", dict(spec_k=0)),
                        ("spec_k=3 small", dict(spec_k=3, draft="small")),
-                       ("spec_k=3 self", dict(spec_k=3, draft="self"))):
+                       ("spec_k=3 self", dict(spec_k=3, draft="self")),
+                       # 17 verify lanes: two lane groups of the kernel
+                       ("spec_k=16 self", dict(spec_k=16, draft="self"))):
         eng, toks, launches, c = serve_once(S, build, tel, params, prompts,
                                             **over)
         st = eng.stats()
@@ -782,13 +864,13 @@ def run_spec_serving(mx, S, M, build, tel, mod):
                   % (launches["flash_fwd"], c["prefills"]))
         runs[name] = (toks, launches, c, spec)
     want = runs["target-only"][0]
-    for name in ("spec_k=3 small", "spec_k=3 self"):
+    for name in ("spec_k=3 small", "spec_k=3 self", "spec_k=16 self"):
         where = first_divergence(S, M, params, prompts, want, runs[name][0])
         if where is not None:
             log("  %s parts from target-only decoding at %s" % (name, where))
         check(where is None, "%s tokens differ from target-only decoding"
               % name)
-    log("  the three runs' token streams are equal (32 x 16 tokens)")
+    log("  the four runs' token streams are equal (32 x 16 tokens)")
     check(runs["spec_k=3 self"][3]["acceptance_rate"] >= 0.75,
           "the self draft's acceptance is low: the verify pass disagrees "
           "with decoding")
@@ -882,12 +964,22 @@ def time_flash_bwd(A, build, b=32, h=4, s=128, d=64):
                  peak=PEAK_K2B_FLOPS, peak_name="124 TFLOP/s (TF32 x 4)"))
 
 
-def time_paged(A):
+def time_paged(A, B=32, ctx=None, H=4, D=64, bs=16):
+    """K3 at the serving shape (B 32, nb 8, seeded contexts 1..128), or
+    with every sequence at context ``ctx`` (nb = ctx / bs, a pool of
+    distinct blocks). Library: SDPA on K/V gathered to contiguous
+    (B, H, nb*bs, D) with the context mask."""
     F = torch.nn.functional
     rng = np.random.default_rng(3)
-    B, H, D, bs, nb = 32, 4, 64, 16, 8
-    lens = [int(x) for x in rng.integers(1, 129, B)]
-    q, kp, vp, bt, cl = paged_inputs(rng, B, torch.float32, lens)
+    if ctx is None:
+        nb = 8
+        lens = [int(x) for x in rng.integers(1, 129, B)]
+    else:
+        nb = ctx // bs
+        lens = [ctx] * B
+    q, kp, vp, bt, cl = paged_inputs(rng, B, torch.float32, lens,
+                                     N=max(257, B * nb + 1), bs=bs, H=H, D=D,
+                                     nb=nb)
     out = A.paged_attention(q, kp, vp, bt, cl)
     ref = A.paged_attention_reference(q, kp, vp, bt, cl)
     err = (out - ref).abs().max().item()
@@ -905,13 +997,14 @@ def time_paged(A):
           "library yardstick disagrees")
     lib = device_ms(lambda: F.scaled_dot_product_attention(
         qc, kc, vc, attn_mask=mask))
-    ctx = sum(lens)
-    flops = 4 * ctx * H * D
-    nbytes = (2 * ctx * H * D * 4 + 2 * B * H * D * 4 + B * nb * 4 + B * 4)
+    total = sum(lens)
+    flops = 4 * total * H * D
+    nbytes = (2 * total * H * D * 4 + 2 * B * H * D * 4 + B * nb * 4 + B * 4)
     return dict(err=err, ms=ms, plain=plain, lib=lib, flops=flops,
                 nbytes=nbytes,
-                shape="B=32, N=257, bs=16, H=4, D=64, nb=8, f32, mean "
-                      "context %.1f" % (ctx / B))
+                shape="B=%d, N=%d, bs=%d, H=%d, D=%d, nb=%d, f32, mean "
+                      "context %.1f" % (B, kp.shape[0], bs, H, D, nb,
+                                        total / B))
 
 
 def time_paged_multi(A, B=32, T=4, H=4, D=64, bs=16, nb=8):
@@ -1069,6 +1162,16 @@ def main():
                res["flops"], res.get("peak_name", "67 TFLOP/s f32"),
                res["flops"] / PEAK_F32_FLOPS * 1e6, res["err"], per))
         check(res["err"] <= F32_TOL, "%s disagrees at the timed shape" % name)
+    for B, ctx in ((32, 1024), (32, 4096), (1, 1024), (1, 4096)):
+        res = time_paged(A, B=B, ctx=ctx)
+        bound = max(res["nbytes"] / PEAK_BYTES_PER_S,
+                    res["flops"] / PEAK_F32_FLOPS) * 1e3
+        log("  paged_decode long context at %s: kernel_ms %.6f plain_ms %.6f "
+            "library_ms %.6f bound_ms %.6f (bytes: %d at 3.35 TB/s) "
+            "max_abs_err %.3e" % (res["shape"], res["ms"], res["plain"],
+                                  res["lib"], bound, res["nbytes"],
+                                  res["err"]))
+        check(res["err"] <= F32_TOL, "paged_decode disagrees at long context")
     step_ms = t_counts["step_s"] * 1e3
     attn_ms = (t_launches["flash_fwd"] * fwd_train["ms"]
                + t_launches["flash_bwd_dkv"] * bwd_dkv["ms"]

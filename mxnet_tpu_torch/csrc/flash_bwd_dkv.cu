@@ -5,9 +5,9 @@
 // mxnet_tpu/ops/attention.py::_pallas_backward (kernel_dkv: grid
 // (B*H, k-blocks, q-blocks), q-blocks innermost, the (block_k, D) dK and dV
 // accumulators carried in VMEM across the sequential q axis). Same contract:
-// q/dout (B,H,Sq,D), k/v (B,H,Sk,D) in float32 or bfloat16, computed in
-// float32; lse and delta = rowsum(dout*out) float32 (B,H,Sq); dk/dv float32
-// (B,H,Sk,D). P is recomputed from lse: s = q.k * scale, masked (key past
+// q/dout (B,H,Sq,D), k/v (B,H,Sk,D) in float32, bfloat16 or float16,
+// computed in float32; lse and delta = rowsum(dout*out) float32 (B,H,Sq);
+// dk/dv float32 (B,H,Sk,D). P is recomputed from lse: s = q.k * scale, masked (key past
 // Sk or, causal, after the query) to p = 0 exactly as a score pinned to
 // -1e30 gives; p = exp(s - lse), dp = dout.v, ds = p * (dp - delta) *
 // scale; dV += p^T dout and dK += ds^T q.
@@ -31,8 +31,8 @@
 //     (profile_kernels_torch.py times both);
 //   - dV += P^T.dO and dK += dS^T.Q in 3xTF32, k-steps (8 queries) summed
 //     from zero.
-// bfloat16 operands are exact in TF32: S and dP take one product, dV and dK
-// two (P or dS split, dO or Q exact). Float32 issues 3.75 TF32 products per
+// bfloat16 and float16 operands are exact in TF32: S and dP take one
+// product, dV and dK two (P or dS split, dO or Q exact). Float32 issues 3.75 TF32 products per
 // operation on average (6, 3, 3 and 3 for the four products).
 //
 // Design: one block of 4 warps per (b*h, key tile), the TPU grid's q axis
@@ -374,14 +374,17 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
   if (d <= 128)
     return dispatch_tile<T, 16>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk,
                                 d, scale, causal, stream);
+  if (d <= 256)  // KS 32 spills registers (PERF.md); right, not fast
+    return dispatch_tile<T, 32>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk,
+                                d, scale, causal, stream);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and dout share it). q, k, v and
-// dout must be 16-byte aligned (cp.async). Returns the launch's
-// cudaGetLastError().
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q, k, v and dout share
+// it). q, k, v and dout must be 16-byte aligned (cp.async). Returns the
+// launch's cudaGetLastError().
 extern "C" int mxt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
                                  const void* delta, void* dk, void* dv, int b,
@@ -397,6 +400,9 @@ extern "C" int mxt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                            d, scale, causal, s);
   if (dtype == 1)
     return dispatch<__nv_bfloat16>(q, k, v, dout, lse, delta, dk, dv, b * h,
+                                   sq, sk, d, scale, causal, s);
+  if (dtype == 2)
+    return dispatch<__half>(q, k, v, dout, lse, delta, dk, dv, b * h,
                                    sq, sk, d, scale, causal, s);
   return cudaErrorInvalidValue;
 }

@@ -5,9 +5,9 @@
 // mxnet_tpu/ops/attention.py::_pallas_backward (kernel_dq: grid
 // (B*H, q-blocks, k-blocks), k-blocks innermost, the (block_q, D) dQ
 // accumulator carried in VMEM across the sequential k axis). Same contract
-// as flash_bwd_dkv.cu: q/dout (B,H,Sq,D), k/v (B,H,Sk,D) in float32 or
-// bfloat16, computed in float32; lse and delta = rowsum(dout*out) float32
-// (B,H,Sq); dq float32 (B,H,Sq,D). P is recomputed from lse: s = q.k *
+// as flash_bwd_dkv.cu: q/dout (B,H,Sq,D), k/v (B,H,Sk,D) in float32,
+// bfloat16 or float16, computed in float32; lse and delta =
+// rowsum(dout*out) float32 (B,H,Sq); dq float32 (B,H,Sq,D). P is recomputed from lse: s = q.k *
 // scale, masked (key past Sk or, causal, after the query) to p = 0 exactly
 // as a score pinned to -1e30 gives; p = exp(s - lse), dp = dout.v,
 // ds = p * (dp - delta) * scale, dQ += ds k.
@@ -29,8 +29,8 @@
 //     with a wide margin (PERF.md), and the exact split costs time
 //     (profile_kernels_torch.py times both);
 //   - dQ += dS.K in 3xTF32, k-steps (8 keys) summed from zero.
-// bfloat16 operands are exact in TF32: S and dP take one product, dQ two
-// (dS split, K exact). Float32 issues 4 TF32 products per operation on
+// bfloat16 and float16 operands are exact in TF32: S and dP take one
+// product, dQ two (dS split, K exact). Float32 issues 4 TF32 products per operation on
 // average (6, 3 and 3 for the three products).
 //
 // Design: blocks of 4 warps, each warp owning 16 query rows, whose lse and
@@ -339,14 +339,17 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
   if (d <= 128)
     return dispatch_tile<T, 16>(q, k, v, dout, lse, delta, dq, bh, sq, sk, d,
                                 scale, causal, stream);
+  if (d <= 256)  // KS 32 spills registers (PERF.md); right, not fast
+    return dispatch_tile<T, 32>(q, k, v, dout, lse, delta, dq, bh, sq, sk, d,
+                                scale, causal, stream);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and dout share it). q, k, v and
-// dout must be 16-byte aligned (cp.async). Returns the launch's
-// cudaGetLastError().
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q, k, v and dout share
+// it). q, k, v and dout must be 16-byte aligned (cp.async). Returns the
+// launch's cudaGetLastError().
 extern "C" int mxt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
                                 const void* delta, void* dq, int b, int h,
@@ -362,6 +365,9 @@ extern "C" int mxt_flash_bwd_dq(const void* q, const void* k, const void* v,
                            scale, causal, s);
   if (dtype == 1)
     return dispatch<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, b * h, sq,
+                                   sk, d, scale, causal, s);
+  if (dtype == 2)
+    return dispatch<__half>(q, k, v, dout, lse, delta, dq, b * h, sq,
                                    sk, d, scale, causal, s);
   return cudaErrorInvalidValue;
 }

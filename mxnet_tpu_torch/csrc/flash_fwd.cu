@@ -4,9 +4,9 @@
 // Replaces the Pallas TPU kernel mxnet_tpu/ops/attention.py::_pallas_forward
 // (grid (B*H, q-blocks, kv-blocks), online softmax carried in VMEM across
 // the sequential kv axis). Same contract: q (B,H,Sq,D), k/v (B,H,Sk,D) in
-// float32 or bfloat16, computed in float32; out float32 (B,H,Sq,D) and
-// lse = m + log(l) float32 (B,H,Sq). Masked scores are pinned to -1e30 and
-// l is clamped at 1e-30, as in the reference.
+// float32, bfloat16 or float16, computed in float32; out float32
+// (B,H,Sq,D) and lse = m + log(l) float32 (B,H,Sq). Masked scores are
+// pinned to -1e30 and l is clamped at 1e-30, as in the reference.
 //
 // What bounds it here: at the main paths' shapes (S <= 128, D 64) bytes
 // set the card's bound (~5 us at (32,4,128,64)), but a float32 kernel on
@@ -26,8 +26,8 @@
 //     sums on the CUDA cores, rounded to nearest: the tensor core
 //     truncates as it accumulates, and a long chain of truncations biases
 //     the sums.
-// bfloat16 operands are exact in TF32: Q.K^T takes one product and P.V two
-// (P split, V exact).
+// bfloat16 and float16 operands are exact in TF32: Q.K^T takes one
+// product and P.V two (P split, V exact).
 //
 // Design: blocks of 4 warps; each warp owns 16 query rows, whose Q
 // fragments sit in registers. K/V tiles of BK keys are staged in shared
@@ -407,13 +407,16 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
   if (d <= 128)
     return dispatch_tile<T, 16>(q, k, v, out, lse, bh, sq, sk, d, scale,
                                 causal, stream);
+  if (d <= 256)  // KS 32 spills registers (PERF.md); right, not fast
+    return dispatch_tile<T, 32>(q, k, v, out, lse, bh, sq, sk, d, scale,
+                                causal, stream);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k and v share it). k and v must be
-// 16-byte aligned (cp.async). Returns the launch's cudaGetLastError().
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q, k and v share it).
+// k and v must be 16-byte aligned (cp.async). Returns the launch's cudaGetLastError().
 extern "C" int mxt_flash_fwd(const void* q, const void* k, const void* v,
                              void* out, void* lse, int b, int h, int sq,
                              int sk, int d, float scale, int causal, int dtype,
@@ -426,6 +429,9 @@ extern "C" int mxt_flash_fwd(const void* q, const void* k, const void* v,
                            s);
   if (dtype == 1)
     return dispatch<__nv_bfloat16>(q, k, v, out, lse, b * h, sq, sk, d, scale,
+                                   causal, s);
+  if (dtype == 2)
+    return dispatch<__half>(q, k, v, out, lse, b * h, sq, sk, d, scale,
                                    causal, s);
   return cudaErrorInvalidValue;
 }

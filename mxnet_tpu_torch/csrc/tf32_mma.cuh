@@ -11,7 +11,8 @@
 // Each 8-wide k-step is accumulated from zero and added to the running sums
 // on the CUDA cores, rounded to nearest: the tensor core truncates as it
 // accumulates, and a long chain of truncations biases the sums. bfloat16
-// operands are exact in TF32 and need no split.
+// and float16 operands are exact in TF32 (8 and 10 explicit mantissa bits
+// against TF32's 10, exponents inside float32's range) and need no split.
 //
 // Fragment layouts of m16n8k8 (g = lane / 4, t = lane % 4):
 //   A (16x8, row): a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4)
@@ -25,6 +26,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -36,6 +38,7 @@ __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 
 // x rounded to TF32, to nearest with ties away from zero (what
 // cvt.rna.tf32.f32 computes for finite x), in two integer operations:
@@ -88,7 +91,7 @@ __device__ __forceinline__ void operand(float x, uint32_t& big,
 // same order either way, into a fresh accumulator. PRODUCTS 6: the exact
 // three-way split in flash_fwd.cu's order for Q.K^T, (L3,R1), (L2,R2),
 // (L1,R3), (L2,R1), (L1,R2), (L1,R1); 3: 3xTF32 in its P.V order,
-// (L_small,R_big), (L_big,R_small), (L_big,R_big). EXACT (bfloat16
+// (L_small,R_big), (L_big,R_small), (L_big,R_big). EXACT (bfloat16 or float16
 // operands, exact in TF32): the one product L.R.
 template <int PRODUCTS, bool EXACT, bool L_IS_A, int N>
 __device__ __forceinline__ void kstep_lr(float (&acc)[N][4],
@@ -150,7 +153,7 @@ __device__ __forceinline__ void kstep_lr(float (&acc)[N][4],
 
 // acc[s] += p.y_s over one k-step: p is an A fragment of float32 values
 // (probabilities or dS, always split), b[s] the B fragment of n-tile s
-// (split, or exact for bfloat16). 3xTF32 into a fresh accumulator, in
+// (split, or exact for bfloat16 and float16). 3xTF32 into a fresh accumulator, in
 // flash_fwd.cu's P.V order: (p_small, y_big), (p_big, y_small),
 // (p_big, y_big); EXACT: the first and last.
 template <bool EXACT, int N>

@@ -137,14 +137,14 @@ FLASH_BWD_DQ = Kernel("flash_bwd_dq", [
 PAGED_DECODE = Kernel("paged_decode", [
     _P, _P, _P, _P, _P, _P,      # q, k_pages, v_pages, tables, lens, out
     _I, _I, _I, _I, _I, _I,      # b, h, d, num_blocks, block_size, nb
-    _F, _I, _I,                  # sm_scale, q dtype, page dtype
+    _F, _I,                      # sm_scale, page dtype (q, out float32)
     _P,                          # stream
 ])
 
 PAGED_DECODE_MULTI = Kernel("paged_decode_multi", [
     _P, _P, _P, _P, _P, _P,      # q, k_pages, v_pages, tables, lens, out
     _I, _I, _I, _I, _I, _I, _I,  # b, t, h, d, num_blocks, block_size, nb
-    _F, _I, _I,                  # sm_scale, q dtype, page dtype
+    _F, _I,                      # sm_scale, page dtype (q, out float32)
     _P,                          # stream
 ])
 

@@ -43,7 +43,20 @@ __all__ = ["attention_reference", "flash_attention_forward",
 _NEG_INF = -1e30
 
 #: dtype codes of the kernels' C interface
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+#: the largest head dimension the flash kernels take: at D 512 the K/V
+#: ring alone would need 264 KB of the 227 KB of shared memory a block has
+#: (ROADMAP C1)
+FLASH_MAX_D = 256
+#: the longest sequence the flash kernels take: 16-row tiles on the
+#: grid's y axis, at most 65535 of them
+FLASH_MAX_S = 16 * 65535
+#: the largest head dimension and pool block size the paged kernels take
+#: (csrc/paged_common.cuh: a query row, a pool block's scores and the
+#: staging ring in the 227 KB of shared memory)
+PAGED_MAX_D = 4096
+PAGED_MAX_BS = 16384
 
 
 def _scale(sm_scale, d):
@@ -103,12 +116,15 @@ def _check_flash(q, k, v):
         raise MXNetError("flash attention: k/v %s %s do not match q %s"
                          % (tuple(k.shape), tuple(v.shape), tuple(q.shape)))
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise MXNetError("flash kernel takes float32 or bfloat16 q/k/v of one "
-                         "dtype, got %s %s %s" % (q.dtype, k.dtype, v.dtype))
-    if d % 8 or d > 128:
-        raise MXNetError("flash kernel takes head_dim <= 128, a multiple of "
-                         "8, got %d" % d)
-    if sq < 1 or k.shape[2] < 1 or not 1 <= b * h <= 65535:
+        raise MXNetError("flash kernel takes float32, bfloat16 or float16 "
+                         "q/k/v of one dtype, got %s %s %s"
+                         % (q.dtype, k.dtype, v.dtype))
+    if d % 8 or not 8 <= d <= FLASH_MAX_D:
+        raise MXNetError("flash kernel takes head_dim <= %d, a multiple of "
+                         "8, got %d (a wider head does not fit the kernels' "
+                         "shared memory: ROADMAP C1)" % (FLASH_MAX_D, d))
+    if not (1 <= sq <= FLASH_MAX_S and 1 <= k.shape[2] <= FLASH_MAX_S
+            and 1 <= b * h < 2 ** 31):
         raise MXNetError("flash kernel: empty or oversized problem %s / %s"
                          % (tuple(q.shape), tuple(k.shape)))
     if not (q.device == k.device == v.device):
@@ -376,15 +392,13 @@ def _check_paged(q, k_pages, v_pages, block_tables, context_lens):
                             tuple(context_lens.shape), b))
     if q.dtype not in _DTYPE_CODE or k_pages.dtype not in _DTYPE_CODE \
             or v_pages.dtype != k_pages.dtype:
-        raise MXNetError("paged kernel takes float32/bfloat16 q and pages, "
-                         "got %s %s %s" % (q.dtype, k_pages.dtype,
-                                           v_pages.dtype))
+        raise MXNetError("paged kernel takes float32/bfloat16/float16 q and "
+                         "pages, got %s %s %s" % (q.dtype, k_pages.dtype,
+                                                  v_pages.dtype))
     if block_tables.dtype != torch.int32 or context_lens.dtype != torch.int32:
         raise MXNetError("paged kernel takes int32 block tables and lengths")
-    if d % 8 or d > 128 or k_pages.shape[1] > 256 or b < 1:
-        raise MXNetError("paged kernel takes head_dim <= 128 (a multiple of "
-                         "8), block_size <= 256 and B >= 1; got %s / %s"
-                         % (tuple(q.shape), tuple(k_pages.shape)))
+    _check_paged_sizes(b, h, d, k_pages.shape[1], block_tables.shape[1],
+                       (q.shape, k_pages.shape))
     tensors = (q, k_pages, v_pages, block_tables, context_lens)
     if any(x.device != q.device for x in tensors):
         raise MXNetError("paged attention: inputs on different devices")
@@ -392,18 +406,35 @@ def _check_paged(q, k_pages, v_pages, block_tables, context_lens):
         raise MXNetError("paged kernel takes contiguous inputs")
 
 
+def _check_paged_sizes(b, h, d, bs, nb, shapes):
+    """The sizes both paged kernels take: what the JAX package's
+    ``_paged_shapes_ok`` asks (D a multiple of 8, at least 8), within what
+    their shared memory holds."""
+    if d % 8 or not 8 <= d <= PAGED_MAX_D or not 1 <= bs <= PAGED_MAX_BS \
+            or b < 1 or not 1 <= h <= 65535 or nb < 1:
+        raise MXNetError("paged kernel takes head_dim a multiple of 8 in "
+                         "[8, %d], block_size <= %d, B >= 1, 1 <= H <= 65535 "
+                         "and a table of >= 1 slot; got %s"
+                         % (PAGED_MAX_D, PAGED_MAX_BS,
+                            " / ".join(str(tuple(x)) for x in shapes)))
+
+
 def _paged_cuda(q, k_pages, v_pages, block_tables, context_lens, sm_scale):
     _check_paged(q, k_pages, v_pages, block_tables, context_lens)
+    # the kernel stages K/V rows with 16-byte cp.async copies, and reads
+    # and writes float32 rows (a cast is exact, and rounds as it would)
+    k_pages, v_pages = _aligned16(k_pages), _aligned16(v_pages)
     b, h, d = q.shape
-    out = torch.empty_like(q)
+    qf = q.float()
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         _build.PAGED_DECODE.launch(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            qf.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
             b, h, d, k_pages.shape[0], k_pages.shape[1],
-            block_tables.shape[1], sm_scale, _DTYPE_CODE[q.dtype],
-            _DTYPE_CODE[k_pages.dtype], torch.cuda.current_stream().cuda_stream)
-    return out
+            block_tables.shape[1], sm_scale, _DTYPE_CODE[k_pages.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    return out.to(q.dtype)
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, context_lens,
@@ -422,11 +453,6 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens,
 
 
 # ------------------------------------------- paged multi-query (verify)
-#: most query lanes per sequence ``csrc/paged_decode_multi.cu`` takes
-MAX_LANES = 16
-#: most table slots per sequence it takes (it keeps the row in shared memory)
-MAX_TABLE_SLOTS = 8192
-
 
 def paged_attention_multi_reference(q, k_pages, v_pages, block_tables,
                                     context_lens, sm_scale=None):
@@ -476,21 +502,17 @@ def _check_paged_multi(q, k_pages, v_pages, block_tables, context_lens):
                                        tuple(q.shape)))
     if q.dtype not in _DTYPE_CODE or k_pages.dtype not in _DTYPE_CODE \
             or v_pages.dtype != k_pages.dtype:
-        raise MXNetError("multi-query paged kernel takes float32/bfloat16 q "
-                         "and pages, got %s %s %s"
+        raise MXNetError("multi-query paged kernel takes float32/bfloat16/"
+                         "float16 q and pages, got %s %s %s"
                          % (q.dtype, k_pages.dtype, v_pages.dtype))
     if block_tables.dtype != torch.int32 or context_lens.dtype != torch.int32:
         raise MXNetError("multi-query paged kernel takes int32 block tables "
                          "and lengths")
-    if d % 8 or d > 128 or k_pages.shape[1] > 256 or b < 1 \
-            or not 1 <= tq <= MAX_LANES \
-            or block_tables.shape[1] > MAX_TABLE_SLOTS:
-        raise MXNetError("multi-query paged kernel takes head_dim <= 128 (a "
-                         "multiple of 8), block_size <= 256, B >= 1, "
-                         "1 <= T <= %d and at most %d table slots; got "
-                         "%s / %s / %s"
-                         % (MAX_LANES, MAX_TABLE_SLOTS, tuple(q.shape),
-                            tuple(k_pages.shape), tuple(block_tables.shape)))
+    if not 1 <= tq <= 16 * 65535:
+        raise MXNetError("multi-query paged kernel takes 1 <= T <= %d, got %d"
+                         % (16 * 65535, tq))
+    _check_paged_sizes(b, h, d, k_pages.shape[1], block_tables.shape[1],
+                       (q.shape, k_pages.shape, block_tables.shape))
     tensors = (q, k_pages, v_pages, block_tables, context_lens)
     if any(x.device != q.device for x in tensors):
         raise MXNetError("multi-query paged attention: inputs on different "
@@ -504,15 +526,16 @@ def _paged_multi_cuda(q, k_pages, v_pages, block_tables, context_lens,
     _check_paged_multi(q, k_pages, v_pages, block_tables, context_lens)
     k_pages, v_pages = _aligned16(k_pages), _aligned16(v_pages)
     b, tq, h, d = q.shape
-    out = torch.empty_like(q)
+    qf = q.float()
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         _build.PAGED_DECODE_MULTI.launch(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            qf.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
             b, tq, h, d, k_pages.shape[0], k_pages.shape[1],
-            block_tables.shape[1], sm_scale, _DTYPE_CODE[q.dtype],
-            _DTYPE_CODE[k_pages.dtype], torch.cuda.current_stream().cuda_stream)
-    return out
+            block_tables.shape[1], sm_scale, _DTYPE_CODE[k_pages.dtype],
+            torch.cuda.current_stream().cuda_stream)
+    return out.to(q.dtype)
 
 
 def paged_attention_multi(q, k_pages, v_pages, block_tables, context_lens,

@@ -1,8 +1,8 @@
 """What the design choices of the flash-forward (K1), flash-backward (K2a
-dK/dV, K2b dQ) and multi-query paged (K4) kernels are worth, for the
-PyTorch/CUDA port, on one GPU.
+dK/dV, K2b dQ), paged-decode (K3) and multi-query paged (K4) kernels are
+worth, for the PyTorch/CUDA port, on one GPU.
 
-    python3 profile_kernels_torch.py
+    python3 profile_kernels_torch.py [--parent DIR]
 
 Builds each kernel as it is and in variants that undo one design choice
 (a copy of the source and of the shared headers, edited by string
@@ -12,7 +12,13 @@ main paths' shapes, beside the yardstick of ``chip_smoke.py`` phase 8.
 Each variant's largest difference from the plain version is printed too
 (the one-product variant shows why the kernel splits its operands), and
 for K2 the registers and spill bytes ``ptxas`` reports for the float32
-instances at head dimension 64 (the training path's). Last, the rate of
+instances at head dimension 64 (the training path's). K3 is timed at the
+serving shape and at contexts 1024 and 4096 (B 32 and B 1); with
+``--parent DIR`` (a checkout of an earlier commit) that tree's
+``paged_decode.cu`` is built beside and held against this one bit for bit
+on the smoke's inputs. The flash kernels are also timed at head dimension
+256 (float32) and in float16 at the training shape, beside the ptxas
+registers and spills of every instance with 32 k-steps. Last, the rate of
 the ``mma.sync`` TF32 instruction that the flash kernels are built on,
 with 1 to 16 warps per SM, each warp keeping 8 independent accumulators.
 Needs CUDA and ``nvcc``; exits non-zero without them.
@@ -114,6 +120,35 @@ K2B_VARIANTS = {
 # chip_smoke.py phase 6), 64 the variants'
 K2_INSTANCES = (("64", "IfLi8ELi4ELb1EE"), ("32", "IfLi8ELi2ELb1EE"),
                 ("16", "IfLi8ELi1ELb1EE"))
+K3_VARIANTS = {
+    "as built": {},
+    "256 threads": {"constexpr int THREADS = 512;": "constexpr int THREADS = 256;"},
+    "a warp per position": {"constexpr int TPP = 4; ": "constexpr int TPP = 32;"},
+    "2 threads per position": {"constexpr int TPP = 4; ": "constexpr int TPP = 2; "},
+    "64-position chunks, 4 slots": {
+        "constexpr int CH_MAX = 256;": "constexpr int CH_MAX = 64;",
+        "constexpr int STAGES = 3;": "constexpr int STAGES = 4;"},
+    "128-position chunks": {"constexpr int CH_MAX = 256;": "constexpr int CH_MAX = 128;"},
+    "V chains per dim only": {
+        "      for (int e = tid; e < jn * dp; e += THREADS) {\n"
+        "        const int jj = jlo + e / dp;\n"
+        "        const int dim = e % dp;\n":
+        "      for (int e = tid; e < dp; e += THREADS)\n"
+        "      for (int jj = jlo; jj < jlo + jn; ++jj) {\n"
+        "        const int dim = e;\n"},
+    "cp.async through L1 (.ca)": {
+        "cp.async.cg.shared.global [%0], [%1], 16;":
+        "cp.async.ca.shared.global [%0], [%1], 16;"},
+    # where the time goes (wrong results): the copies and the softmax
+    # bookkeeping alone; the launch and the prologue alone
+    "no scoring, no V pass": {
+        "for (int base = x.c0; base < x.c1; base += THREADS / TPP) {":
+        "for (int base = x.c0; base < x.c0; base += THREADS / TPP) {",
+        "for (int e = tid; e < jn * dp; e += THREADS) {":
+        "for (int e = tid; e < 0; e += THREADS) {"},
+    "prologue only": {"  const int njobs = nseg > 0 ?":
+                      "  const int njobs = 0 && nseg > 0 ?"},
+}
 K4_VARIANTS = {
     "as built": {},
     "256 threads": {"      <<<grid, BLOCK_THREADS, smem, stream>>>(":
@@ -212,10 +247,41 @@ def _bind(procs, kernel, logs=None):
     return fns
 
 
+def _parent_k3(parent, out_dir, build, nvcc):
+    """The parent tree's paged_decode.cu and headers, built as they are."""
+    src = os.path.join(parent, "mxnet_tpu_torch", "csrc")
+    vdir = os.path.join(out_dir, "paged_decode-parent")
+    shutil.rmtree(vdir, ignore_errors=True)
+    os.makedirs(vdir)
+    for path in [os.path.join(src, "paged_decode.cu")] + glob.glob(
+            os.path.join(src, "*.cuh")):
+        shutil.copy(path, vdir)
+    stem = os.path.join(vdir, "paged_decode")
+    return subprocess.Popen(
+        [nvcc, *build.NVCC_FLAGS, "-o", stem + ".so", stem + ".cu"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), stem
+
+
+def _k3_inputs(C, B, ctx, page_dtype=torch.float32):
+    """K3's inputs as chip_smoke.time_paged makes them: the serving mix
+    (ctx None) or every sequence at context ctx."""
+    rng = np.random.default_rng(3)
+    if ctx is None:
+        nb = 8
+        lens = [int(x) for x in rng.integers(1, 129, B)]
+    else:
+        nb = ctx // 16
+        lens = [ctx] * B
+    return C.paged_inputs(rng, B, page_dtype, lens, N=max(257, B * nb + 1),
+                          nb=nb)
+
+
 def main():
     if not torch.cuda.is_available():
         print("profile_kernels_torch: no CUDA device", file=sys.stderr)
         return 2
+    parent = sys.argv[sys.argv.index("--parent") + 1] \
+        if "--parent" in sys.argv else None
     import chip_smoke as C
     from mxnet_tpu_torch.ops import _build as build
     from mxnet_tpu_torch.ops import attention as A
@@ -230,8 +296,12 @@ def main():
         [nvcc, *build.NVCC_FLAGS, "-o", os.path.join(out_dir, "mma_rate.so"),
          os.path.join(out_dir, "mma_rate.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    k1_logs = {}
     k1 = _bind(_variants(build.FLASH_FWD, K1_VARIANTS, out_dir, build, nvcc),
-               build.FLASH_FWD)
+               build.FLASH_FWD, k1_logs)
+    par = _parent_k3(parent, out_dir, build, nvcc) if parent else None
+    k3v = _bind(_variants(build.PAGED_DECODE, K3_VARIANTS, out_dir, build,
+                          nvcc), build.PAGED_DECODE)
     k4 = _bind(_variants(build.PAGED_DECODE_MULTI, K4_VARIANTS, out_dir,
                          build, nvcc), build.PAGED_DECODE_MULTI)
     k2_logs = {"dkv": {}, "dq": {}}
@@ -319,7 +389,7 @@ def main():
             def call(fn=fn):
                 code = fn(q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
                           bt.data_ptr(), cl.data_ptr(), out.data_ptr(), 32, T,
-                          4, 64, kp.shape[0], 16, 8, 0.125, 0, 0, stream)
+                          4, 64, kp.shape[0], 16, 8, 0.125, 0, stream)
                 assert code == 0, code
             call()
             torch.cuda.synchronize()
@@ -330,6 +400,114 @@ def main():
         k3 = C.device_ms(lambda: A.paged_attention(q1, kp, vp, bt, c1)) * 1e3
         print("  T %d: %s | K3 (lane 0 alone) %.4f" % (T, ", ".join(cells),
                                                        k3), flush=True)
+
+    print("K3 paged_decode (bs 16, H 4, D 64, f32 pages), us per call "
+          "(max abs err vs plain):")
+    for B, ctx in ((32, None), (32, 1024), (32, 4096), (1, 1024), (1, 4096)):
+        q, kp, vp, bt, cl = _k3_inputs(C, B, ctx)
+        nb = bt.shape[1]
+        ref = A.paged_attention_reference(q, kp, vp, bt, cl)
+        out = torch.empty_like(q)
+        cells = []
+        for name, fn in k3v.items():
+            def call(fn=fn):
+                code = fn(q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                          bt.data_ptr(), cl.data_ptr(), out.data_ptr(), B, 4,
+                          64, kp.shape[0], 16, nb, 0.125, 0, stream)
+                assert code == 0, code
+            call()
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            cells.append("%s %.4f (%.1e)" % (name, C.device_ms(call) * 1e3,
+                                             err))
+        print("  B %d, %s: %s" % (B, "serving contexts 1..128" if ctx is None
+                                  else "context %d" % ctx, ", ".join(cells)),
+              flush=True)
+
+    if par is not None:
+        proc, stem = par
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError("nvcc failed for the parent's K3:\n" + log)
+        fn = getattr(ctypes.CDLL(os.path.abspath(stem + ".so")),
+                     "mxt_paged_decode")
+        # the parent's interface: q dtype beside the pages'
+        fn.argtypes = (build.PAGED_DECODE.argtypes[:13]
+                       + [ctypes.c_int] + build.PAGED_DECODE.argtypes[13:])
+        print("K3 against the parent's (%s) build, bit for bit, and us per "
+              "call (this tree | parent):" % parent)
+        for B, ctx, pdt in ((32, None, torch.float32),
+                            (32, None, torch.bfloat16),
+                            (8, 1024, torch.float32),
+                            (32, 4096, torch.float32)):
+            q, kp, vp, bt, cl = _k3_inputs(C, B, ctx, pdt)
+            nb = bt.shape[1]
+            mine = A.paged_attention(q, kp, vp, bt, cl)
+            theirs = torch.empty_like(q)
+
+            def old():
+                code = fn(q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                          bt.data_ptr(), cl.data_ptr(), theirs.data_ptr(), B,
+                          4, 64, kp.shape[0], 16, nb, 0.125, 0,
+                          A._DTYPE_CODE[pdt], stream)
+                assert code == 0, code
+            old()
+            torch.cuda.synchronize()
+            same = torch.equal(mine, theirs)
+            print("  B %d, %s, %s pages: bitwise equal %s; %.4f | %.4f"
+                  % (B, "serving contexts" if ctx is None else
+                     "context %d" % ctx, str(pdt)[6:], same,
+                     C.device_ms(lambda: A.paged_attention(q, kp, vp, bt,
+                                                           cl)) * 1e3,
+                     C.device_ms(old) * 1e3), flush=True)
+            if not same:
+                raise RuntimeError("K3 differs from the parent's K3")
+
+    print("Flash kernels past D 128 and in float16, causal, us per call "
+          "(max abs err vs plain):")
+    for b, h, s_, d, dt in ((32, 4, 128, 256, torch.float32),
+                            (32, 4, 128, 256, torch.bfloat16),
+                            (32, 4, 128, 64, torch.float16),
+                            (32, 4, 128, 64, torch.float32)):
+        rng = np.random.default_rng(5)
+        q, k, v = C.flash_inputs(rng, b, h, s_, s_, d, dt)
+        g = C.flash_inputs(rng, b, h, s_, s_, d, dt)[0]
+        out, lse = A.flash_attention_forward(q, k, v, True)
+        ref_out, _ = A._flash_forward_plain(q, k, v, True, d ** -0.5)
+        delta = (out * g.float()).sum(dim=-1)
+        grads = [torch.empty(q.shape, device="cuda") for _ in range(3)]
+        ptrs = [x.data_ptr() for x in (q, k, v, g, lse, delta)]
+        dims = (b, h, s_, s_, d, d ** -0.5, 1, A._DTYPE_CODE[dt], stream)
+        ref = A._flash_backward_plain(q, k, v, out.to(dt), lse, g, True,
+                                      d ** -0.5)
+        t_fwd = C.device_ms(lambda: A.flash_attention_forward(q, k, v, True))
+        build.FLASH_BWD_DKV.launch(*ptrs, grads[1].data_ptr(),
+                                   grads[2].data_ptr(), *dims)
+        build.FLASH_BWD_DQ.launch(*ptrs, grads[0].data_ptr(), *dims)
+        torch.cuda.synchronize()
+        err = max((a - r.float()).abs().max().item()
+                  for a, r in zip(grads, ref))
+        t_dkv = C.device_ms(lambda: build.FLASH_BWD_DKV.launch(
+            *ptrs, grads[1].data_ptr(), grads[2].data_ptr(), *dims))
+        t_dq = C.device_ms(lambda: build.FLASH_BWD_DQ.launch(
+            *ptrs, grads[0].data_ptr(), *dims))
+        print("  (%d,%d,%d,%d) %s: K1 %.4f (%.1e), K2a %.4f, K2b %.4f "
+              "(gradients %.1e against the plain version's, float32)"
+              % (b, h, s_, d, str(dt)[6:], t_fwd * 1e3,
+                 (out - ref_out).abs().max().item(), t_dkv * 1e3,
+                 t_dq * 1e3, err), flush=True)
+    print("ptxas registers / spill store bytes of the 32-k-step (D 136..256) "
+          "instances:")
+    logs = {"flash_fwd": k1_logs["as built"],
+            "flash_bwd_dkv": k2_logs["dkv"]["as built"],
+            "flash_bwd_dq": k2_logs["dq"]["as built"]}
+    for name, text in logs.items():
+        # the template arguments <dtype, KS, row/key groups, full D>
+        cells = ["%s %d/%d" % (re.search(r"kernelI(.*?)EEv", fn_name).group(1),
+                               r, st)
+                 for fn_name, (r, st, _) in sorted(ptxas_report(text).items())
+                 if re.search(r"Li32ELi\dELb", fn_name)]
+        print("  %s: %s" % (name, ", ".join(cells)), flush=True)
 
     log, _ = mma.communicate()
     if mma.returncode:

@@ -162,6 +162,57 @@ def test_flash_attention_gradient_matches_jax_vjp(causal):
     assert all(x.dtype == torch.bfloat16 for x in bgrads)
 
 
+# (d, dtype): past D 128 (the kernels' 32-k-step instances) and float16
+WIDE_CASES = [(136, np.float32), (256, np.float32), (64, np.float16),
+              (136, np.float16)]
+
+
+def _f16_tol(ref):
+    """float16 results are rounded to float16 on both sides: one may land
+    a float16 step (2^-10 relative) from the other."""
+    return 2e-3 * max(1.0, float(np.abs(np.asarray(ref, np.float32)).max()))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d,dtype", WIDE_CASES)
+def test_flash_forward_matches_jax_scan_past_d128_and_in_f16(d, dtype, causal):
+    """The plain forward against ``_scan_forward`` on the same float16 or
+    float32 values (both compute in float32 and return float32)."""
+    q, k, v = (x.astype(dtype) for x in _qkv(d + causal, 1, 2, 40, 56, d))
+    scale = 1.0 / np.sqrt(d)
+    with jax.default_device(_cpu()):
+        ref_out, ref_lse = JA._scan_forward(
+            *(jnp.asarray(x) for x in (q, k, v)), causal, scale, 32)
+    out, lse = TA.flash_attention_forward(
+        *(torch.from_numpy(x) for x in (q, k, v)), causal)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref_out), rtol=TOL,
+                               atol=TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse), rtol=TOL,
+                               atol=TOL)
+
+
+@pytest.mark.parametrize("d,dtype", WIDE_CASES)
+def test_flash_backward_matches_jax_scan_past_d128_and_in_f16(d, dtype):
+    """The plain backward against ``_scan_backward`` on the JAX forward's
+    residuals, causal; gradients in the inputs' dtype on both sides."""
+    q, k, v = (x.astype(dtype) for x in _qkv(d + 3, 1, 2, 40, 40, d))
+    g = np.random.default_rng(d).standard_normal(q.shape).astype(dtype)
+    scale = 1.0 / np.sqrt(d)
+    with jax.default_device(_cpu()):
+        jq, jk, jv, jg = (jnp.asarray(x) for x in (q, k, v, g))
+        out, lse = JA._scan_forward(jq, jk, jv, True, scale, 32)
+        out = out.astype(jq.dtype)
+        ref = JA._scan_backward(jq, jk, jv, out, lse, jg, True, scale, 32)
+    args = [torch.from_numpy(np.array(x)) for x in (q, k, v, out, lse, g)]
+    got = TA.flash_attention_backward(*args, True)
+    for a, r in zip(got, ref):
+        assert a.dtype == torch.from_numpy(q).dtype
+        tol = TOL if dtype == np.float32 else _f16_tol(r)
+        np.testing.assert_allclose(a.float().numpy(),
+                                   np.asarray(r, np.float32), rtol=tol,
+                                   atol=tol)
+
+
 def test_flash_backward_kernel_gate_rejects():
     """What the backward kernels refuse raises before any launch."""
     q = _t(1, 2, 8, 16)
@@ -270,7 +321,7 @@ def _t(*shape, dtype=torch.float32):
 @pytest.mark.parametrize("q,k,v", [
     (_t(1, 2, 8, 16), _t(1, 2, 8, 16), _t(1, 2, 8, 16, dtype=torch.float16)),
     (_t(1, 2, 8, 12), _t(1, 2, 8, 12), _t(1, 2, 8, 12)),        # D % 8
-    (_t(1, 2, 8, 136), _t(1, 2, 8, 136), _t(1, 2, 8, 136)),     # D > 128
+    (_t(1, 2, 8, 264), _t(1, 2, 8, 264), _t(1, 2, 8, 264)),     # D > 256
     (_t(1, 2, 8, 16), _t(1, 3, 8, 16), _t(1, 3, 8, 16)),        # heads
     (_t(2, 8, 16), _t(2, 8, 16), _t(2, 8, 16)),                 # rank
 ])
@@ -284,6 +335,21 @@ def test_flash_kernel_gate_accepts_serving_shapes():
         TA._check_flash(_t(1, 4, s, 64), _t(1, 4, s, 64), _t(1, 4, s, 64))
 
 
+@pytest.mark.parametrize("shape,dtype", [
+    ((1, 2, 8, 64), torch.float16),
+    ((1, 2, 8, 136), torch.float32),
+    ((1, 2, 8, 256), torch.bfloat16),
+    ((1, 2, 8, 8), torch.float16),
+    ((70000, 1, 4, 8), torch.float32),   # b*h past the old 65535
+])
+def test_flash_kernel_gate_accepts_the_widened_envelope(shape, dtype):
+    """float16, head_dim up to 256 and any b*h reach the kernels, as the
+    JAX package computes them (its Pallas path asks only D % 8 == 0)."""
+    x = _t(*shape, dtype=dtype)
+    TA._check_flash(x, x, x)
+    assert TA.FLASH_MAX_D == 256
+
+
 @pytest.mark.parametrize("case", ["tables_i64", "lens_shape", "page_f16",
                                   "head_dim", "noncontig_q"])
 def test_paged_kernel_gate_rejects(case):
@@ -293,8 +359,8 @@ def test_paged_kernel_gate_rejects(case):
         bt = bt.long()
     elif case == "lens_shape":
         cl = _t(3, dtype=torch.int32)
-    elif case == "page_f16":
-        kp, vp = kp.half(), vp.half()
+    elif case == "page_f16":   # f16 K beside f32 V: the pages share a dtype
+        kp = kp.half()
     elif case == "head_dim":
         q, kp, vp = _t(2, 4, 60), _t(9, 16, 4, 60), _t(9, 16, 4, 60)
     else:
@@ -303,6 +369,39 @@ def test_paged_kernel_gate_rejects(case):
         TA._check_paged(q, kp, vp, bt, cl)
     if case == "tables_i64":
         TA._check_paged(q, kp, vp, bt.int(), cl)   # the int32 twin passes
+    if case == "page_f16":
+        TA._check_paged(q, kp, vp.half(), bt, cl)  # f16 pages pass
+
+
+@pytest.mark.parametrize("d,bs,nb,dtype", [
+    (8, 16, 8, torch.float32), (136, 16, 8, torch.float32),
+    (512, 16, 8, torch.bfloat16), (4096, 16, 2, torch.float32),
+    (64, 512, 3, torch.float32), (64, 16384, 1, torch.float16),
+    (64, 1, 8200, torch.float32)])
+def test_paged_kernel_gate_accepts_the_jax_envelope(d, bs, nb, dtype):
+    """Every D % 8 == 0 (the JAX package's ``_paged_shapes_ok``), pool
+    blocks past 256 and tables past 8192 slots, in f32/bf16/f16, reach
+    both paged kernels (meta tensors: only the shapes are read)."""
+    def z(*s, dt=dtype):
+        return torch.zeros(s, dtype=dt, device="meta")
+    TA._check_paged(z(2, 4, d), z(9, bs, 4, d), z(9, bs, 4, d),
+                    z(2, nb, dt=torch.int32), z(2, dt=torch.int32))
+    TA._check_paged_multi(z(2, 17, 4, d), z(9, bs, 4, d), z(9, bs, 4, d),
+                          z(2, nb, dt=torch.int32), z(2, 17, dt=torch.int32))
+
+
+@pytest.mark.parametrize("d,bs", [(4104, 16), (64, 16385), (60, 16)])
+def test_paged_kernel_gate_rejects_past_shared_memory(d, bs):
+    """Past what the kernels' shared memory holds (D 4104, pool blocks of
+    16385), and off the JAX envelope (D 60), both gates raise."""
+    def z(*s, dt=torch.float32):
+        return torch.zeros(s, dtype=dt, device="meta")
+    with pytest.raises(MXNetError, match="head_dim"):
+        TA._check_paged(z(2, 4, d), z(9, bs, 4, d), z(9, bs, 4, d),
+                        z(2, 8, dt=torch.int32), z(2, dt=torch.int32))
+    with pytest.raises(MXNetError, match="head_dim"):
+        TA._check_paged_multi(z(2, 3, 4, d), z(9, bs, 4, d), z(9, bs, 4, d),
+                              z(2, 8, dt=torch.int32), z(2, 3, dt=torch.int32))
 
 
 def test_non_cpu_non_cuda_device_raises():

@@ -228,6 +228,21 @@ def test_bf16_operands_are_exact_in_tf32():
     np.testing.assert_array_equal(small, np.zeros_like(x))
 
 
+def test_f16_operands_are_exact_in_tf32():
+    """float16 keeps 10 explicit mantissa bits, as TF32 does, and its
+    exponents (subnormals included) lie inside float32's normal range:
+    every finite float16 value's big part is the value itself and its
+    small part 0, so the flash kernels take bf16's one-product route for
+    float16 inputs too."""
+    x = np.arange(1 << 16, dtype=np.uint32).astype(np.uint16).view(np.float16)
+    x = x[np.isfinite(x)].astype(np.float32)
+    assert x.size == 63488      # 2^16 less 2 infinities and 2046 NaNs
+    big, small = _split(x)
+    np.testing.assert_array_equal(big, x)
+    np.testing.assert_array_equal(small, np.zeros_like(x))
+    np.testing.assert_array_equal(_tf32(x), x)
+
+
 @pytest.mark.parametrize("x,want", [
     (1.0 + 2.0 ** -11, 1.0 + 2.0 ** -10),     # a tie rounds away from zero
     (-(1.0 + 2.0 ** -11), -(1.0 + 2.0 ** -10)),

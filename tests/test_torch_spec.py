@@ -155,9 +155,9 @@ def _gate_args(case):
     cl = torch.ones(2, 3, dtype=torch.int32)
     if case == "q_3d":
         q = q[:, 0]
-    elif case == "too_many_lanes":
-        q = torch.zeros(2, 17, 2, 16)
-        cl = torch.ones(2, 17, dtype=torch.int32)
+    elif case == "too_many_lanes":   # past 65535 groups of 16 (grid z)
+        q = torch.zeros(2, 16 * 65535 + 1, 2, 16, device="meta")
+        cl = torch.ones(2, 16 * 65535 + 1, dtype=torch.int32, device="meta")
     elif case == "lens_shape":
         cl = torch.ones(2, dtype=torch.int32)
     elif case == "tables_i64":
@@ -169,20 +169,26 @@ def _gate_args(case):
         q = torch.zeros(2, 2, 3, 16).transpose(1, 2)
     elif case == "page_dtypes":
         return q, kp, kp.bfloat16(), bt, cl
-    elif case == "table_too_wide":   # the kernel keeps the row in shared memory
-        bt = torch.zeros(2, 8193, dtype=torch.int32)
+    elif case == "table_empty":
+        bt = torch.zeros(2, 0, dtype=torch.int32)
     return q, kp, kp.clone(), bt, cl
 
 
 @pytest.mark.parametrize("case", ["q_3d", "too_many_lanes", "lens_shape",
                                   "tables_i64", "head_dim", "strided_q",
-                                  "page_dtypes", "table_too_wide"])
+                                  "page_dtypes", "table_empty"])
 def test_multi_kernel_gate_rejects(case):
     with pytest.raises(MXNetError):
         TA._check_paged_multi(*_gate_args(case))
 
 
 def test_multi_kernel_gate_accepts_verify_shapes_and_other_devices_raise():
+    # T past 16 lanes and tables past 8192 slots reach the kernel (lane
+    # groups on the grid's z axis; table slots read per chunk)
+    TA._check_paged_multi(torch.zeros(2, 33, 2, 16), torch.zeros(6, 4, 2, 16),
+                          torch.zeros(6, 4, 2, 16),
+                          torch.zeros(2, 8193, dtype=torch.int32),
+                          torch.ones(2, 33, dtype=torch.int32))
     for t in (1, 4, 16):
         TA._check_paged_multi(torch.zeros(32, t, 4, 64),
                               torch.zeros(257, 16, 4, 64),
