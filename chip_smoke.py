@@ -24,7 +24,8 @@ Drives ``mxnet_tpu_torch`` (never the JAX package) on ``cuda:0``:
    its context, batch-invariant, and NaN past an out-of-range block id;
    the two flash-backward kernels through the autograd Function (D 136
    and 256 in f32, bf16 and f16, f16 at the training shape), and bitwise
-   equal across two launches;
+   equal across two launches; the wide route (``flash_wide.cu``: forward,
+   dK/dV and dQ) at D 264, 384 and 512 in f32 and bf16, causal;
 4. serving — the zoo Transformer-LM at full width (vocab 32000, 4 layers,
    d 256, 4 heads, ffn 1024, max_len 128; pool bs 16, 257 blocks, batch
    32) with seeded random weights: ``warmup()``, then 32 seeded requests
@@ -35,10 +36,16 @@ Drives ``mxnet_tpu_torch`` (never the JAX package) on ``cuda:0``:
 5. training — the same model trained through ``Module.fit`` on the card
    (Adam, lr 1e-3, seeded Xavier, ``Perplexity``) for 5 epochs of 4
    batches of 32 sequences of ``examples/train_lm.py``'s synthetic
-   stream, launch counters set to 0 just before ``fit`` and read just
-   after: every loss finite, perplexity falling every epoch and ending
-   below half the vocabulary (uniform guessing), and exactly one launch
-   of each attention kernel per layer and step;
+   stream, on the fused step (kvstore 'local' on a card fuses): the first
+   step eager, the step then captured once as a CUDA graph and replayed;
+   launch counters set to 0 just before ``fit`` and read just after:
+   every loss finite, perplexity falling every epoch and ending below
+   half the vocabulary (uniform guessing), and exactly one launch of each
+   attention kernel per layer and step (a replay adds the captured step's
+   launches). Then the same ``fit`` on the classic path
+   (``MXNET_MODULE_NO_FUSED=1``), with the same checks; both host walls
+   per step printed, and the two runs' final parameters held against each
+   other;
 6. one training step, card vs CPU — ``forward_backward`` of one batch of
    4 sequences from the same parameters on ``gpu(0)`` and on ``cpu()``
    (plain versions): outputs (relative to the largest probability) and
@@ -56,7 +63,25 @@ Drives ``mxnet_tpu_torch`` (never the JAX package) on ``cuda:0``:
    the single-query one once per draft layer and draft step, the flash
    forward once per target and draft layer and prefill); acceptance rate,
    tokens/s, TTFT and the draft/verify wall split printed;
-8. times — each kernel, its plain version and one PyTorch library call
+8. training at head_dim 512 — the zoo LM at model_dim 1024 with 2 heads
+   (2 layers, batch 8) fit for 4 fused steps: exactly one launch of each
+   wide flash kernel per layer and step, none of the D <= 256 kernels;
+9. ResNet-50 through ``Module.fit`` at ``bench.py``'s configuration (1000
+   classes, 3x224x224 NCHW, batch 32, ``compute_dtype`` bfloat16, SGD lr
+   0.05 momentum 0.9 rescale 1/32, Xavier gaussian/in/2, Accuracy,
+   kvstore 'device', one device-resident seeded batch): on the fused path
+   (one CUDA graph captured for the shape) and on the classic path; host
+   wall per step (median after warm-up, synchronized) and images/s of
+   each, device busy time and kernels per step (one ``torch.profiler``
+   window of 3 steps each, taken in phase 12), peak memory; the batch's
+   loss finite and lower after the run than at step 1;
+10. ResNet-50 card against CPU — one fused step in float32 at batch 4 from
+   the same parameters on the card and on the CPU: outputs and BatchNorm
+   moving statistics relative to the largest CPU value, the updates
+   against the CPU step's own move under a 1e-7 parameter perturbation;
+   and on the card one graph replay against one eager step from the same
+   state;
+11. times — each kernel, its plain version and one PyTorch library call
    computing the same function (a yardstick the port never calls), timed
    with CUDA events while the stream is held by a sleep so host launch
    overhead is hidden, beside the card's bound for the same work (the
@@ -64,12 +89,18 @@ Drives ``mxnet_tpu_torch`` (never the JAX package) on ``cuda:0``:
    tensor-core rates, the others' at the float32 rate); the paged kernel
    also at contexts 1024 and 4096 for B 32 and B 1 (printed lines); the
    device kernels that the flash-forward and multi-query yardsticks
-   launch are printed (one ``torch.profiler`` pass each).
+   launch are printed (one ``torch.profiler`` pass each); the wide flash
+   kernels at phase 8's shape, their bound at the float32 rate;
+12. device profiles — three steps of each training path of phases 5 and 9
+   under ``torch.profiler``: device busy time and share of the host wall,
+   device operations per step, time by kernel class and the largest
+   kernels.
 
 Every phase that fails raises, so the exit code is not 0. The last two
 lines are the ``kernels`` JSON object and the ``ok`` JSON object; the card
 line comes just before them.
 """
+import contextlib
 import json
 import math
 import subprocess
@@ -111,6 +142,41 @@ OUT_REL_TOL = 1e-5
 # parameter; float32 with another summation order through 4 layers and a
 # 32000-way softmax
 GRAD_TOL = 1e-3
+# the LM's fused and classic fits (20 Adam steps at lr 1e-3): the same
+# arithmetic in the same order, but the embedding's backward adds its rows
+# with atomics in an order that changes from run to run, and Adam's
+# division by sqrt(v) carries a rounding difference into the weights;
+# 1e-4 absolute is a tenth of one step's largest move (lr)
+FUSED_CLASSIC_TOL = 1e-4
+# ResNet-50, one float32 fused step at batch 4, card vs CPU (cuDNN's
+# algorithms sum in other orders than the CPU's, through 50 layers).
+# Outputs and BN moving statistics: relative to the largest CPU value of
+# each tensor (the moving variance is the one-pass E[x^2] - mean^2 of the
+# JAX package, which in float32 loses digits where |mean| >> std).
+RESNET_OUT_TOL = 1e-4
+RESNET_AUX_TOL = 1e-4
+# The updates: this step's gradients sit on ReLU kinks that a rounding
+# difference flips (a ResNet-50 at initialization, BatchNorm over 4
+# samples), so no fixed bound tells the card from the CPU. The yardstick
+# is measured in the same run: how far the CPU's own step moves when the
+# parameters move by a seeded 1e-7 relative perturbation (float32's
+# resolution). The card's step may differ from the CPU's by at most
+# UPDATE_SENSITIVITY_FACTOR times that, both as the largest difference
+# over the largest update of the whole step.
+UPDATE_SENSITIVITY_FACTOR = 3.0
+PERTURBATION = 1e-7
+
+# bench.py's ResNet-50 configuration
+RESNET = dict(num_classes=1000, num_layers=50, image_shape="3,224,224",
+              layout="NCHW")
+RESNET_SHAPE = tuple(int(x) for x in RESNET["image_shape"].split(","))
+RESNET_BATCH = 32
+RESNET_STEPS = 40
+CLASSIC_STEPS = 12
+# the zoo LM at head_dim 512, for the wide flash kernels (phase 8)
+WIDE = dict(vocab_size=32000, num_layers=2, model_dim=1024, num_heads=2,
+            ffn_dim=2048, seq_len=128)
+WIDE_BATCH = 8
 
 TRAIN = dict(vocab_size=32000, num_layers=4, model_dim=256, num_heads=4,
              ffn_dim=1024, seq_len=128)
@@ -499,6 +565,58 @@ def check_flash_bwd(A):
     return worst
 
 
+def check_flash_wide(A, build):
+    """The wide route (D > 256: forward, dK/dV and dQ of flash_wide.cu)
+    through the autograd Function against the plain versions on the same
+    card tensors, causal; bitwise equal on a second launch."""
+    rng = np.random.default_rng(8)
+    worst = {}
+    before = {n: build.KERNELS[n].launches for n in WIDE_KERNELS}
+    for d in (264, 384, 512):
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = flash_inputs(rng, 2, 2, 70, 70, d, dt)
+            g = flash_inputs(rng, 2, 2, 70, 70, d, dt)[0]
+            out, lse = A.flash_attention_forward(q, k, v, True)
+            ref_out, ref_lse = A._flash_forward_plain(q, k, v, True,
+                                                      1.0 / math.sqrt(d))
+            leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+            got = torch.autograd.grad(A.flash_attention(*leaves, True), leaves, g)
+            again = torch.autograd.grad(A.flash_attention(*leaves, True), leaves, g)
+            ref = A._flash_backward_plain(q, k, v, out.to(dt), lse, g, True,
+                                          1.0 / math.sqrt(d))
+            torch.cuda.synchronize()
+            ferr = max((out - ref_out).abs().max().item(),
+                       (lse - ref_lse).abs().max().item())
+            berrs = [(a.float() - r.float()).abs().max().item()
+                     for a, r in zip(got, ref)]
+            berr = max(berrs)
+            if dt == torch.float32:
+                ftol, btol = F32_TOL, F32_TOL
+            else:
+                ftol, btol = BF16_TOL, BF16_REL_TOL
+                berr = berr / max(r.float().abs().max().item() for r in ref)
+            log("  flash_wide d=%d %s causal: fwd max_abs_err %.3e (tol %.0e); "
+                "bwd dq %.3e dk %.3e dv %.3e -> %s %.3e (tol %.0e)"
+                % (d, str(dt)[6:], ferr, ftol, *berrs,
+                   "abs" if dt == torch.float32 else "rel", berr, btol))
+            check(torch.isfinite(out).all().item(), "wide flash out not finite")
+            check(ferr <= ftol, "flash_wide_fwd disagrees with its plain version")
+            check(berr <= btol, "flash_wide backward kernels disagree with the "
+                  "plain version")
+            check(all(torch.equal(a, a2) for a, a2 in zip(got, again)),
+                  "two wide launches gave different gradient bits")
+            worst[dt] = max(worst.get(dt, 0.0), ferr, berr)
+    ran = {n: build.KERNELS[n].launches - before[n] for n in WIDE_KERNELS}
+    # per case: three forwards (one direct, two through autograd) and two
+    # backwards
+    check(ran == {"flash_wide_fwd": 18, "flash_wide_bwd_dkv": 12,
+                  "flash_wide_bwd_dq": 12},
+          "the wide kernels did not take D > 256: %s" % ran)
+    log("  flash_wide: every case bitwise equal across two launches; "
+        "launches %s" % ran)
+    return worst
+
+
 # ---------------------------------------------------------------- serving
 SERVE = dict(vocab_size=32000, num_layers=4, model_dim=256, num_heads=4,
              ffn_dim=1024, max_len=128, block_size=16, num_blocks=257,
@@ -638,8 +756,24 @@ def lm_stream(n, seed=0):
     return X.astype(np.float32), ((X + 1) % V).astype(np.float32)
 
 
-def run_training(mx, build):
-    """``Module.fit`` of the zoo Transformer-LM at full width on the card."""
+class no_fused:
+    """``MXNET_MODULE_NO_FUSED=1`` for the body: the classic path."""
+
+    def __enter__(self):
+        import os
+
+        os.environ["MXNET_MODULE_NO_FUSED"] = "1"
+
+    def __exit__(self, *exc):
+        import os
+
+        del os.environ["MXNET_MODULE_NO_FUSED"]
+        return False
+
+
+def run_training(mx, build, fused=True):
+    """``Module.fit`` of the zoo Transformer-LM at full width on the card,
+    on the fused step (a CUDA graph) or the classic path."""
     X, Y = lm_stream(128)
     batch, epochs = 32, 5
     it = mx.io.NDArrayIter(X, Y, batch_size=batch, shuffle=False)
@@ -658,11 +792,12 @@ def run_training(mx, build):
         k.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    mod.fit(it, num_epoch=epochs, optimizer="adam",
-            optimizer_params={"learning_rate": TRAIN_LR},
-            initializer=mx.init.Xavier(rng=torch.Generator().manual_seed(0)),
-            eval_metric=metric, batch_end_callback=batch_end,
-            epoch_end_callback=epoch_end)
+    with (contextlib.nullcontext() if fused else no_fused()):
+        mod.fit(it, num_epoch=epochs, optimizer="adam",
+                optimizer_params={"learning_rate": TRAIN_LR},
+                initializer=mx.init.Xavier(rng=torch.Generator().manual_seed(0)),
+                eval_metric=metric, batch_end_callback=batch_end,
+                epoch_end_callback=epoch_end)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: k.launches for name, k in build.KERNELS.items()}
@@ -670,11 +805,22 @@ def run_training(mx, build):
     per_step = np.diff([t0] + stamps)
     step_s = float(np.median(per_step[1:]))
     tokens = batch * TRAIN["seq_len"]
-    log("  %d epochs x %d batches of %d x %d tokens: %d steps in %.3f s; first "
-        "step %.4f s; host wall per step (median after the first, synchronized) "
-        "%.5f s = %.1f tokens/s" % (epochs, steps // epochs, batch,
-                                    TRAIN["seq_len"], steps, wall, per_step[0],
-                                    step_s, tokens / step_s))
+    path = "fused" if fused else "classic"
+    log("  [%s] %d epochs x %d batches of %d x %d tokens: %d steps in %.3f s; "
+        "first step %.4f s; host wall per step (median after the first, "
+        "synchronized) %.5f s = %.1f tokens/s"
+        % (path, epochs, steps // epochs, batch, TRAIN["seq_len"], steps,
+           wall, per_step[0], step_s, tokens / step_s))
+    if fused:
+        tr = mod._fused.trainer if mod._fused is not None else None
+        check(tr is not None and tr.captures == 1
+              and tr.replays == epochs * (len(X) // batch) - 1,
+              "the LM's fit did not run one captured graph: %s"
+              % ((None if tr is None else (tr.captures, tr.replays)),))
+        log("  [fused] one CUDA graph captured, %d replays; kernel launches "
+            "per replay %s" % (tr.replays, tr._per_replay))
+    else:
+        check(mod._fused is None, "MXNET_MODULE_NO_FUSED=1 still fused")
     log("  training perplexity per epoch: %s" % ["%.3f" % p for p in ppl])
     log("  launches on the training path: %s" % launches)
     L = TRAIN["num_layers"]
@@ -689,7 +835,27 @@ def run_training(mx, build):
               % (name, launches[name], steps))
     check(launches["paged_decode"] == 0, "paged_decode ran on the training path")
     params = {n: a.asnumpy() for n, a in mod.get_params()[0].items()}
+    it.reset()
+    batch_ = next(iter(it))
+
+    def step():
+        mod.forward(batch_, is_train=True)
+        mod.backward()
+        mod.update()
+
+    PROFILES.append(("LM " + path, step, step_s))
     return launches, {"steps": steps, "step_s": step_s, "ppl": ppl}, params, mod
+
+
+def fused_against_classic(fused, classic):
+    """The final parameters of the LM's fused and classic fits."""
+    diff = {n: float(np.abs(fused[n] - classic[n]).max()) for n in fused}
+    worst = max(diff, key=diff.get)
+    log("  fused against classic after 20 steps: worst parameter %s max abs "
+        "diff %.3e (tol %.0e over %d parameters)"
+        % (worst, diff[worst], FUSED_CLASSIC_TOL, len(diff)))
+    check(diff[worst] <= FUSED_CLASSIC_TOL,
+          "the fused and classic fits disagree")
 
 
 def train_step_card_vs_cpu(mx, params):
@@ -723,6 +889,332 @@ def train_step_card_vs_cpu(mx, params):
     check(out_err <= OUT_REL_TOL, "card outputs disagree with the CPU")
     check(all(np.isfinite(g_c[n]).all() for n in params), "non-finite gradient")
     check(rel[worst] <= GRAD_TOL, "card gradients disagree with the CPU")
+
+
+# ------------------------------------------------ training past D 256
+WIDE_KERNELS = ("flash_wide_fwd", "flash_wide_bwd_dkv", "flash_wide_bwd_dq")
+
+
+def run_wide_training(mx, build):
+    """The zoo LM at head_dim 512 through ``Module.fit`` (fused): the wide
+    flash kernels once per layer and step, inside the captured graph."""
+    V, T = WIDE["vocab_size"], WIDE["seq_len"]
+    rng = np.random.RandomState(3)
+    X = (rng.randint(0, V, (4 * WIDE_BATCH, 1)) + np.arange(T)) % V
+    Y = (X + 1) % V
+    it = mx.io.NDArrayIter(X.astype(np.float32), Y.astype(np.float32),
+                           batch_size=WIDE_BATCH)
+    mod = mx.mod.Module(mx.models.transformer_lm(**WIDE), context=mx.gpu(0))
+    metric = mx.metric.Perplexity(ignore_label=None)
+    for k in build.KERNELS.values():
+        k.launches = 0
+    mod.fit(it, num_epoch=1, optimizer="adam",
+            optimizer_params={"learning_rate": TRAIN_LR},
+            initializer=mx.init.Xavier(rng=torch.Generator().manual_seed(1)),
+            eval_metric=metric)
+    torch.cuda.synchronize()
+    launches = {name: k.launches for name, k in build.KERNELS.items()}
+    steps = 4
+    L = WIDE["num_layers"]
+    ppl = metric.get()[1]
+    log("  head_dim %d, %d layers, batch %d x %d: %d fused steps, perplexity "
+        "%.3f; launches %s" % (WIDE["model_dim"] // WIDE["num_heads"], L,
+                               WIDE_BATCH, T, steps, ppl,
+                               {n: v for n, v in launches.items() if v}))
+    check(math.isfinite(ppl), "non-finite loss at head_dim 512")
+    check(mod._fused is not None and mod._fused.trainer.captures == 1,
+          "the head_dim 512 fit did not run a captured graph")
+    for name in WIDE_KERNELS:
+        check(launches[name] == L * steps, "%s launched %d times in %d steps"
+              % (name, launches[name], steps))
+    for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+        check(launches[name] == 0, "%s ran at head_dim 512" % name)
+    return launches
+
+
+# ---------------------------------------------------------------- ResNet-50
+class ResidentIter:
+    """``bench.py``'s synthetic iterator: one device-resident seeded batch,
+    reused every step."""
+
+    def __init__(self, mx, batch, data_shape, classes, epoch_batches,
+                 ctx):
+        rng = np.random.RandomState(0)
+        self.data = mx.nd.array(rng.rand(batch, *data_shape).astype(
+            np.float32), ctx=ctx)
+        self.label = mx.nd.array(rng.randint(0, classes, (batch,)).astype(
+            np.float32), ctx=ctx)
+        self.provide_data = [mx.io.DataDesc("data", (batch,) + data_shape)]
+        self.provide_label = [mx.io.DataDesc("softmax_label", (batch,))]
+        self.batch_size = batch
+        self._n = epoch_batches
+        self._i = 0
+        self.batch = mx.io.DataBatch(data=[self.data], label=[self.label],
+                                     pad=0)
+
+    def __iter__(self):
+        return self
+
+    def reset(self):
+        self._i = 0
+
+    def __next__(self):
+        if self._i >= self._n:
+            raise StopIteration
+        self._i += 1
+        return self.batch
+
+
+def batch_loss(mod, label):
+    """Mean cross-entropy of the step's SoftmaxOutput probabilities."""
+    p = mod.get_outputs()[0].data.float()
+    picked = p.gather(1, label.data.long()[:, None]).clamp_min(1e-30)
+    return -picked.log().mean().item()
+
+
+# device operations by the substring of their name, first match wins
+KERNEL_CLASSES = (("conv/GEMM", ("conv", "gemm", "xmma", "cutlass", "cudnn",
+                                 "implicit", "wgrad", "dgrad")),
+                  ("port kernels", ("flash_", "wide_", "paged_")),
+                  ("reductions", ("reduce",)),
+                  ("copies", ("memcpy", "memset", "copy")),
+                  ("elementwise", ("elementwise",)))
+
+
+def device_profile(step, n=3):
+    """(busy ms per step, device operations per step, the six largest by
+    name as (ms per step, name), ms per step by KERNEL_CLASSES) over ``n``
+    calls of ``step``: what one ``torch.profiler`` window sees on the
+    device; None when it sees nothing there."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                step()
+            torch.cuda.synchronize()
+    except Exception as e:   # the profiler is a measurement, not a check
+        log("  (profiler failed: %s)" % e)
+        return None
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        return None
+    busy_us = sum(e.time_range.elapsed_us() for e in dev)
+    by_name = {}
+    for e in dev:
+        by_name[e.name] = by_name.get(e.name, 0) + e.time_range.elapsed_us()
+    top = sorted(((us / 1e3 / n, name[:60]) for name, us in by_name.items()),
+                 reverse=True)[:6]
+    classes = {}
+    for name, us in by_name.items():
+        low = name.lower()
+        cls = next((c for c, keys in KERNEL_CLASSES
+                    if any(k in low for k in keys)), "other")
+        classes[cls] = classes.get(cls, 0.0) + us / 1e3 / n
+    return busy_us / 1e3 / n, len(dev) / n, top, classes
+
+
+# the training steps profiled at the end of the run (one torch.profiler
+# window each; a profiler pass over them earlier left later passes, the
+# library yardsticks' kernel listings, empty): (label, step, host wall s)
+PROFILES = []
+
+
+def log_profile(path, prof, step_s):
+    if prof is None:
+        log("  [%s] device busy per step: not measured (the profiler saw no "
+            "device operation)" % path)
+        return
+    log("  [%s] device busy %.3f ms per step (%.1f %% of the host wall), "
+        "%.1f device operations per step (torch.profiler, 3 steps); by class: "
+        "%s; largest: %s"
+        % (path, prof[0], 100 * prof[0] / (step_s * 1e3), prof[1],
+           ", ".join("%s %.3f ms" % kv for kv in sorted(
+               prof[3].items(), key=lambda kv: -kv[1])),
+           "; ".join("%s %.3f ms" % (name, ms) for ms, name in prof[2])))
+
+
+def run_resnet(mx, build, fused=True):
+    """ResNet-50 through ``Module.fit`` at ``bench.py``'s configuration."""
+    steps = RESNET_STEPS if fused else CLASSIC_STEPS
+    ctx = mx.gpu(0)
+    it = ResidentIter(mx, RESNET_BATCH, RESNET_SHAPE,
+                      RESNET["num_classes"], steps, ctx)
+    mod = mx.mod.Module(mx.models.resnet(**RESNET), context=ctx,
+                        compute_dtype="bfloat16")
+    stamps, losses = [], {}
+
+    def batch_end(param):
+        if param.nbatch in (0, steps - 1):
+            losses[param.nbatch] = batch_loss(mod, it.label)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()   # what earlier phases keep
+    for k in build.KERNELS.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    with (contextlib.nullcontext() if fused else no_fused()):
+        mod.fit(it, num_epoch=1, kvstore="device", optimizer="sgd",
+                optimizer_params={"learning_rate": 0.05, "momentum": 0.9,
+                                  "rescale_grad": 1.0 / RESNET_BATCH},
+                initializer=mx.init.Xavier(
+                    rnd_type="gaussian", factor_type="in", magnitude=2,
+                    rng=torch.Generator().manual_seed(0)),
+                eval_metric=mx.metric.Accuracy(), batch_end_callback=batch_end)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = {n: k.launches for n, k in build.KERNELS.items() if k.launches}
+    per_step = np.diff([t0] + stamps)
+    warm = 2 if fused else 1
+    step_s = float(np.median(per_step[warm:]))
+    path = "fused" if fused else "classic"
+    check(len(stamps) == steps, "fit ran %d steps" % len(stamps))
+    if fused:
+        tr = mod._fused.trainer if mod._fused is not None else None
+        check(tr is not None and tr.captures == 1 and tr.replays == steps - 1,
+              "ResNet-50's fit did not run one captured graph")
+    else:
+        check(mod._fused is None, "MXNET_MODULE_NO_FUSED=1 still fused")
+    check(not launches, "a port kernel ran on ResNet's path: %s" % launches)
+
+    def step():
+        mod.forward(it.batch, is_train=True)
+        mod.backward()
+        mod.update()
+
+    PROFILES.append(("ResNet-50 " + path, step, step_s))
+    log("  [%s] %d steps of batch %d: first step %.4f s; host wall per step "
+        "(median after %d warm-up, synchronized) %.5f s = %.1f images/s; peak "
+        "memory %.3f GB" % (path, steps, RESNET_BATCH, per_step[0], warm,
+                            step_s, RESNET_BATCH / step_s, peak / 1e9))
+    log("  [%s] batch loss at step 1 %.4f, at step %d %.4f"
+        % (path, losses[0], steps, losses[steps - 1]))
+    check(all(math.isfinite(v) for v in losses.values()), "non-finite loss")
+    check(losses[steps - 1] < losses[0], "the loss did not fall")
+    if fused:
+        log("  [fused] optimizer state on the card: %.3f GB"
+            % (mod._fused.state_bytes() / 1e9))
+    return {"step_s": step_s, "peak": peak, "losses": losses}
+
+
+def resnet_card_vs_cpu(mx):
+    """One fused float32 step of ResNet-50 at batch 4 from the same
+    parameters on the card and on the CPU; then, on the card, two graph
+    replays after the eager first step against three eager steps."""
+    batch = 4
+    sym = mx.models.resnet(**RESNET)
+    rng = np.random.RandomState(5)
+    X = rng.rand(batch, *RESNET_SHAPE).astype(np.float32)
+    Y = rng.randint(0, RESNET["num_classes"], (batch,)).astype(np.float32)
+    shapes = dict(data_shapes=[("data", X.shape)],
+                  label_shapes=[("softmax_label", Y.shape)])
+    init = mx.mod.Module(sym, context=mx.cpu())
+    init.bind(**shapes)
+    init.init_params(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                    magnitude=2,
+                                    rng=torch.Generator().manual_seed(2)))
+    args0, auxs0 = ({n: a.asnumpy() for n, a in d.items()}
+                    for d in init.get_params())
+
+    def fused_module(ctx, args=args0):
+        mod = mx.mod.Module(sym, context=ctx)
+        mod.bind(**shapes)
+        mod.init_params(arg_params=args, aux_params=auxs0)
+        mod.init_optimizer(kvstore="device", optimizer="sgd",
+                           optimizer_params={"learning_rate": 0.05,
+                                             "momentum": 0.9,
+                                             "rescale_grad": 1.0 / batch})
+        check(mod._fused is not None, "kvstore='device' did not fuse")
+        return mod
+
+    def steps(mod, ctx, n):
+        b = mx.io.DataBatch([mx.nd.array(X, ctx=ctx)], [mx.nd.array(Y, ctx=ctx)])
+        for _ in range(n):
+            mod.forward(b, is_train=True)
+            mod.update()
+        out = mod.get_outputs()[0].asnumpy()
+        args, auxs = ({n_: a.asnumpy() for n_, a in d.items()}
+                      for d in mod.get_params())
+        return out, args, auxs
+
+    res = {}
+    for ctx in (mx.gpu(0), mx.cpu()):
+        res[ctx.type] = steps(fused_module(ctx), ctx, 1)
+    (out_c, a_c, x_c), (out_h, a_h, x_h) = res["cuda"], res["cpu"]
+    noise = np.random.RandomState(6)
+    args_p = {n: (v * (1 + PERTURBATION * noise.standard_normal(v.shape)))
+              .astype(np.float32) for n, v in args0.items()}
+    _, a_p, _ = steps(fused_module(mx.cpu(), args_p), mx.cpu(), 1)
+    check(np.isfinite(out_c).all()
+          and out_c.shape == out_h.shape == (batch, RESNET["num_classes"]),
+          "card outputs not finite or misshapen")
+    out_err = float(np.abs(out_c - out_h).max() / np.abs(out_h).max())
+    upd, glob = compare_step(args0, a_c, args0, a_h)
+    _, sens = compare_step(args_p, a_p, args0, a_h)
+    aux = {n: float(np.abs(x_c[n] - x_h[n]).max() / np.abs(x_h[n]).max())
+           for n in auxs0}
+    wu, wa = max(upd, key=upd.get), max(aux, key=aux.get)
+    log("  one float32 step at batch %d: outputs max abs diff / max %.3e (tol "
+        "%.0e); worst BN moving statistic %s %.3e (tol %.0e over %d); "
+        "updates: max abs diff / largest update of the step %.3e against the "
+        "CPU step's own move under a %.0e parameter perturbation %.3e (tol "
+        "%.0fx); worst per parameter %s %.3e of its largest update"
+        % (batch, out_err, RESNET_OUT_TOL, wa, aux[wa], RESNET_AUX_TOL,
+           len(aux), glob, PERTURBATION, sens, UPDATE_SENSITIVITY_FACTOR, wu,
+           upd[wu]))
+    check(out_err <= RESNET_OUT_TOL, "ResNet outputs: card disagrees with CPU")
+    check(aux[wa] <= RESNET_AUX_TOL, "ResNet BN statistics: card disagrees")
+    check(glob <= UPDATE_SENSITIVITY_FACTOR * sens,
+          "ResNet updates: card disagrees with CPU")
+    # a replay and an eager step from one state: the graph's module after
+    # its eager first step and its captured second, its state saved, one
+    # replay, the state put back, one eager step of the same trainer
+    graph = fused_module(mx.gpu(0))
+    steps(graph, mx.gpu(0), 2)
+    fused, tr = graph._fused, graph._fused.trainer
+    st = fused.state
+    tensors = (list(st.params.values()) + list(st.auxs.values())
+               + [t for slots in st.states.values() for t in slots])
+    saved = [t.clone() for t in tensors]
+    start = {n: t.cpu().numpy().copy() for n, t in st.params.items()}
+    steps(graph, mx.gpu(0), 1)
+    check(tr.captures == 1 and tr.replays == 2, "the steps did not replay")
+    a_g = {n: t.cpu().numpy().copy() for n, t in st.params.items()}
+    x_g = {n: t.cpu().numpy().copy() for n, t in st.auxs.items()}
+    with torch.no_grad():
+        for t, v in zip(tensors, saved):
+            t.copy_(v)
+    tr._run(st.params, st.auxs, st.states, tr.input_buffers())
+    a_e = {n: t.cpu().numpy().copy() for n, t in st.params.items()}
+    x_e = {n: t.cpu().numpy().copy() for n, t in st.auxs.items()}
+    upd, glob = compare_step(start, a_g, start, a_e)
+    rep_aux = max(float(np.abs(x_g[n] - x_e[n]).max() / np.abs(x_e[n]).max())
+                  for n in auxs0)
+    log("  one graph replay against one eager step from the same state: "
+        "updates' max abs diff / largest update %.3e (tol %.0fx the "
+        "perturbation's %.3e; worst per parameter %.3e), worst BN statistic "
+        "%.3e (tol %.0e)" % (glob, UPDATE_SENSITIVITY_FACTOR, sens,
+                             max(upd.values()), rep_aux, RESNET_AUX_TOL))
+    check(rep_aux <= RESNET_AUX_TOL and glob <= UPDATE_SENSITIVITY_FACTOR * sens,
+          "a graph replay disagrees with an eager fused step")
+
+
+def compare_step(start, got, ref_start, ref):
+    """A step's updates (``got - start``) against a reference step's
+    (``ref - ref_start``): per parameter the largest diff over the
+    reference's largest update of that parameter, and the largest diff
+    over the largest update of the whole step."""
+    du = {n: np.abs((got[n] - start[n]) - (ref[n] - ref_start[n])).max()
+          for n in ref}
+    size = {n: np.abs(ref[n] - ref_start[n]).max() for n in ref}
+    upd = {n: float(du[n] / max(size[n], 1e-30)) for n in ref}
+    return upd, float(max(du.values()) / max(size.values()))
 
 
 # ---------------------------------------------------- speculative serving
@@ -878,7 +1370,8 @@ def run_spec_serving(mx, S, M, build, tel, mod):
 
 
 # ---------------------------------------------------------------- times
-def time_flash(A, b, h, s, d):
+def time_flash(A, b, h, s, d, wide=False):
+    """K1 (or, ``wide``, its D > 256 route on the CUDA cores) causal."""
     F = torch.nn.functional
     rng = np.random.default_rng(2)
     q, k, v = flash_inputs(rng, b, h, s, s, d, torch.float32)
@@ -898,19 +1391,22 @@ def time_flash(A, b, h, s, d):
     pairs = b * h * s * (s + 1) // 2
     flops = 4 * pairs * d
     nbytes = 4 * (4 * b * h * s * d + b * h * s)   # q,k,v in; out, lse out
-    # the kernel's products run on the tensor cores as split TF32 products
+    # the kernel's products run on the tensor cores as split TF32 products;
+    # the wide route's in float32 on the CUDA cores
+    peak, peak_name = ((PEAK_F32_FLOPS, "67 TFLOP/s f32") if wide else
+                       (PEAK_K1_FLOPS, "110 TFLOP/s (TF32 x 4.5)"))
     return dict(err=err, ms=ms, plain=plain, lib=lib, flops=flops,
-                nbytes=nbytes, peak=PEAK_K1_FLOPS,
-                peak_name="110 TFLOP/s (TF32 x 4.5)",
+                nbytes=nbytes, peak=peak, peak_name=peak_name,
                 shape="q/k/v (%d,%d,%d,%d) f32 causal" % (b, h, s, d))
 
 
-def time_flash_bwd(A, build, b=32, h=4, s=128, d=64):
-    """K2a and K2b launched alone at the training shape; the plain twin and
-    the library yardstick compute dq, dk and dv together, so both rows
-    carry the same plain and library times. Library: autograd through
-    ``scaled_dot_product_attention`` (forward + backward) less its forward
-    alone, both with gradients enabled."""
+def time_flash_bwd(A, build, b=32, h=4, s=128, d=64, wide=False):
+    """K2a and K2b (or, ``wide``, their D > 256 route) launched alone at the
+    training shape; the plain twin and the library yardstick compute dq,
+    dk and dv together, so both rows carry the same plain and library
+    times. Library: autograd through ``scaled_dot_product_attention``
+    (forward + backward) less its forward alone, both with gradients
+    enabled."""
     F = torch.nn.functional
     rng = np.random.default_rng(5)
     q, k, v = flash_inputs(rng, b, h, s, s, d, torch.float32)
@@ -923,11 +1419,14 @@ def time_flash_bwd(A, build, b=32, h=4, s=128, d=64):
     ptrs = [x.data_ptr() for x in (q, k, v, g, lse, delta)]
     dims = (b, h, s, s, d, scale, 1, 0, stream)
 
+    dkv_k, dq_k = ((build.FLASH_WIDE_BWD_DKV, build.FLASH_WIDE_BWD_DQ) if wide
+                   else (build.FLASH_BWD_DKV, build.FLASH_BWD_DQ))
+
     def dkv():
-        build.FLASH_BWD_DKV.launch(*ptrs, dk.data_ptr(), dv.data_ptr(), *dims)
+        dkv_k.launch(*ptrs, dk.data_ptr(), dv.data_ptr(), *dims)
 
     def dq_():
-        build.FLASH_BWD_DQ.launch(*ptrs, dq.data_ptr(), *dims)
+        dq_k.launch(*ptrs, dq.data_ptr(), *dims)
 
     ref = A._flash_backward_plain(q, k, v, out, lse, g, True, scale)
     dkv()
@@ -955,13 +1454,19 @@ def time_flash_bwd(A, build, b=32, h=4, s=128, d=64):
     shape = "q/k/v/dout (%d,%d,%d,%d) f32 causal" % (b, h, s, d)
     # K2a: s, dp, dV, dK — 8 FLOP per pair and dim; reads q,k,v,dout,lse,
     # delta, writes dk, dv.  K2b: s, dp, dQ — 6; writes dq. Both on the
-    # tensor cores as split TF32 products
+    # tensor cores as split TF32 products; the wide route's in float32 on
+    # the CUDA cores
+    if wide:
+        peaks = [(PEAK_F32_FLOPS, "67 TFLOP/s f32")] * 2
+    else:
+        peaks = [(PEAK_K2A_FLOPS, "132 TFLOP/s (TF32 x 3.75)"),
+                 (PEAK_K2B_FLOPS, "124 TFLOP/s (TF32 x 4)")]
     return (dict(err=err_dkv, ms=ms_dkv, plain=plain, lib=lib, flops=8 * pairs * d,
                  nbytes=4 * (6 * bhsd + 2 * bhs), shape=shape,
-                 peak=PEAK_K2A_FLOPS, peak_name="132 TFLOP/s (TF32 x 3.75)"),
+                 peak=peaks[0][0], peak_name=peaks[0][1]),
             dict(err=err_dq, ms=ms_dq, plain=plain, lib=lib, flops=6 * pairs * d,
                  nbytes=4 * (5 * bhsd + 2 * bhs), shape=shape,
-                 peak=PEAK_K2B_FLOPS, peak_name="124 TFLOP/s (TF32 x 4)"))
+                 peak=peaks[1][0], peak_name=peaks[1][1]))
 
 
 def time_paged(A, B=32, ctx=None, H=4, D=64, bs=16):
@@ -1079,11 +1584,14 @@ def main():
     paged_err = check_paged(A)
     multi_err = check_paged_multi(A)
     bwd_err = check_flash_bwd(A)
-    log("  worst errors: flash %s, paged %s, paged_multi %s, flash_bwd %s"
+    wide_err = check_flash_wide(A, build)
+    log("  worst errors: flash %s, paged %s, paged_multi %s, flash_bwd %s, "
+        "flash_wide %s"
         % ({str(k)[6:]: v for k, v in flash_err.items()},
            {str(k)[6:]: v for k, v in paged_err.items()},
            {str(k)[6:]: v for k, v in multi_err.items()},
-           {str(k)[6:]: v for k, v in bwd_err.items()}))
+           {str(k)[6:]: v for k, v in bwd_err.items()},
+           {str(k)[6:]: v for k, v in wide_err.items()}))
 
     log("== 4. serving at full width")
     cfg, params, launches, counts = run_serving(S, M, build, tel)
@@ -1091,6 +1599,11 @@ def main():
 
     log("== 5. training at full width through Module.fit")
     t_launches, t_counts, t_params, t_mod = run_training(mx, build)
+    c_launches, c_counts, c_params, _ = run_training(mx, build, fused=False)
+    fused_against_classic(t_params, c_params)
+    log("  host wall per step: fused graph %.5f s, classic %.5f s (%.2fx)"
+        % (t_counts["step_s"], c_counts["step_s"],
+           c_counts["step_s"] / t_counts["step_s"]))
 
     log("== 6. one training step, card vs CPU")
     train_step_card_vs_cpu(mx, t_params)
@@ -1098,7 +1611,22 @@ def main():
     log("== 7. speculative serving at full width from the phase-5 checkpoint")
     spec_runs = run_spec_serving(mx, S, M, build, tel, t_mod)
 
-    log("== 8. times (%s)" % card)
+    log("== 8. training at head_dim 512 (the wide flash kernels)")
+    w_launches = run_wide_training(mx, build)
+
+    log("== 9. ResNet-50 through Module.fit at bench.py's configuration")
+    rn_fused = run_resnet(mx, build)
+    rn_classic = run_resnet(mx, build, fused=False)
+    log("  host wall per step: fused graph %.5f s (%.1f images/s), classic "
+        "%.5f s (%.1f images/s), %.2fx"
+        % (rn_fused["step_s"], RESNET_BATCH / rn_fused["step_s"],
+           rn_classic["step_s"], RESNET_BATCH / rn_classic["step_s"],
+           rn_classic["step_s"] / rn_fused["step_s"]))
+
+    log("== 10. ResNet-50, one fused step, card vs CPU")
+    resnet_card_vs_cpu(mx)
+
+    log("== 11. times (%s)" % card)
     fwd_train = time_flash(A, 32, 4, 128, 64)
     log("  flash_fwd at the training shape %s: kernel_ms %.6f plain_ms %.6f "
         "library_ms %.6f bound_us %.4f max_abs_err %.3e; %d launches per "
@@ -1111,8 +1639,15 @@ def main():
     check(fwd_train["err"] <= F32_TOL, "flash_fwd disagrees at the training shape")
     bwd_dkv, bwd_dq = time_flash_bwd(A, build)
     rows = []
-    total = {n: launches[n] + t_launches[n]
+    total = {n: launches[n] + t_launches[n] + w_launches[n]
              + sum(r[1][n] for r in spec_runs.values()) for n in launches}
+    wide_fwd = time_flash(A, WIDE_BATCH, WIDE["num_heads"], WIDE["seq_len"],
+                          WIDE["model_dim"] // WIDE["num_heads"], wide=True)
+    wide_dkv, wide_dq = time_flash_bwd(
+        A, build, WIDE_BATCH, WIDE["num_heads"], WIDE["seq_len"],
+        WIDE["model_dim"] // WIDE["num_heads"], wide=True)
+    wide_per = "training at head_dim 512 %%d (%d per step)" % (
+        WIDE["num_layers"])
     spec_steps = sum(r[2]["decodes"] for r in spec_runs.values()
                      if r[3]["enabled"])
     per_prefill = "%.2f per prefill, %.2f per engine step" % (
@@ -1142,7 +1677,16 @@ def main():
              "mxnet_tpu/ops/attention.py:842", time_paged_multi(A),
              "speculative phase %d (%.2f per speculative step)"
              % (total["paged_decode_multi"],
-                total["paged_decode_multi"] / spec_steps))):
+                total["paged_decode_multi"] / spec_steps)),
+            ("flash_wide_fwd", "mxnet_tpu_torch/csrc/flash_wide.cu",
+             "mxnet_tpu/ops/attention.py:142", wide_fwd,
+             wide_per % w_launches["flash_wide_fwd"]),
+            ("flash_wide_bwd_dkv", "mxnet_tpu_torch/csrc/flash_wide.cu",
+             "mxnet_tpu/ops/attention.py:303", wide_dkv,
+             wide_per % w_launches["flash_wide_bwd_dkv"]),
+            ("flash_wide_bwd_dq", "mxnet_tpu_torch/csrc/flash_wide.cu",
+             "mxnet_tpu/ops/attention.py:331", wide_dq,
+             wide_per % w_launches["flash_wide_bwd_dq"])):
         t_bytes = res["nbytes"] / PEAK_BYTES_PER_S * 1e3
         t_ops = res["flops"] / res.get("peak", PEAK_F32_FLOPS) * 1e3
         bound = max(t_bytes, t_ops)
@@ -1178,6 +1722,10 @@ def main():
                + t_launches["flash_bwd_dq"] * bwd_dq["ms"]) / t_counts["steps"]
     log("  training step: host wall %.3f ms; attention kernels' device time "
         "%.3f ms per step (%.1f %%)" % (step_ms, attn_ms, 100 * attn_ms / step_ms))
+
+    log("== 12. device profiles of the training steps")
+    for label, step, step_s in PROFILES:
+        log_profile(label, device_profile(step), step_s)
 
     log(card)
     print(json.dumps({"kernels": rows}), flush=True)

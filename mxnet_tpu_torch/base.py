@@ -14,7 +14,8 @@ import os
 import numpy as np
 import torch
 
-__all__ = ["MXNetError", "env_int", "env_float", "env_bool", "env_str",
+__all__ = ["MXNetError", "env_flag", "env_int", "env_float", "env_bool",
+           "env_str",
            "torch_dtype", "attr_str", "parse_shape", "parse_bool",
            "string_types"]
 
@@ -23,6 +24,14 @@ string_types = (str,)
 
 class MXNetError(Exception):
     """Error raised by the framework (reference: python/mxnet/base.py MXNetError)."""
+
+
+def env_flag(name, default="0"):
+    """Boolean MXNET_*-style env var: anything but 0/empty/false/no/off is
+    on (the JAX package's convention, which its kill switches such as
+    ``MXNET_MODULE_NO_FUSED`` read)."""
+    return os.environ.get(name, default).strip().lower() not in (
+        "0", "", "false", "no", "off")
 
 
 def _env_number(name, default, cast):

@@ -1,7 +1,7 @@
 """Training callbacks of the port (counterpart of ``mxnet_tpu/callback.py``):
 ``Speedometer`` only, the batch-end callback ``examples/train_lm.py``
-passes to ``fit``. Checkpoint callbacks wait for ``.params`` I/O
-(``ROADMAP.md`` A3)."""
+passes to ``fit``. The checkpoint callbacks (``do_checkpoint``,
+``module_checkpoint``) wait for ``ROADMAP.md`` A4."""
 from __future__ import annotations
 
 import logging

@@ -15,20 +15,63 @@ engine) and takes the gradient with ``torch.autograd``:
   (``'add'``) each gradient into its grad array; ``'null'`` arguments get
   none.
 
+``compute_dtype`` is the JAX package's mixed precision: float32
+arguments are cast to it where the graph uses them (the leaves that take
+gradients stay the float32 masters, so gradients come back float32),
+except labels and index-like inputs (``cast_exempt`` and
+:data:`_INDEX_ARG_POSITIONS`); auxiliary states keep their float32.
+
 Not in this slice (they raise :class:`MXNetError`): ``group2ctx`` model
-parallelism, the ``compute_dtype`` mixed-precision cast, and monitor
-callbacks — ``ROADMAP.md`` A6/A7. The JAX package's graph passes and
-compile cache have no counterpart yet (A7).
+parallelism and monitor callbacks — ``ROADMAP.md`` A6/A7. The JAX
+package's graph passes and compile cache have no counterpart yet (A7).
 """
 from __future__ import annotations
 
 import torch
 
-from .base import MXNetError
+from .base import MXNetError, torch_dtype
 from .ops.registry import OpContext, get_op
 from .symbol import _topo_order
 
 __all__ = ["Executor"]
+
+# ops whose listed inputs carry integer ids: bf16 holds integers exactly
+# only up to 256, so these inputs are exempt from the compute_dtype cast
+_INDEX_ARG_POSITIONS = {
+    "Embedding": (0,),
+    "take": (1,),
+    "batch_take": (1,),
+    "one_hot": (0,),
+    "gather_nd": (1,),
+    "scatter_nd": (1,),
+    "pick": (1,),
+    "choose_element_0index": (1,),
+    "fill_element_0index": (1,),
+}
+
+
+def index_like_inputs(symbol):
+    """Names of Variable inputs that feed an index argument of any op."""
+    exempt = set()
+    for node in _topo_order(symbol._entries):
+        if node.is_variable:
+            continue
+        for pos in _INDEX_ARG_POSITIONS.get(node.op, ()):
+            if pos < len(node.inputs):
+                inp, _ = node.inputs[pos]
+                if inp.is_variable:
+                    exempt.add(inp.name)
+    return exempt
+
+
+def cast_compute(names, tensors, compute_dtype, exempt):
+    """``tensors`` with every float32 one whose name is not in ``exempt``
+    cast to ``compute_dtype`` (None: unchanged)."""
+    if compute_dtype is None:
+        return list(tensors)
+    return [t.to(compute_dtype) if (n not in exempt
+                                    and t.dtype == torch.float32) else t
+            for n, t in zip(names, tensors)]
 
 
 def build_graph_fn(symbol):
@@ -78,10 +121,10 @@ class Executor:
         if group2ctx:
             raise MXNetError("group2ctx (model-parallel placement) is not "
                              "ported yet (ROADMAP.md A6)")
-        if compute_dtype is not None:
-            raise MXNetError("compute_dtype (mixed precision) is not ported "
-                             "yet (ROADMAP.md A3)")
-        del shared_exec, cast_exempt   # no memory pool or cast to share
+        del shared_exec   # no memory pool to share
+        self._compute_dtype = (None if compute_dtype is None
+                               else torch_dtype(compute_dtype))
+        self._cast_exempt = frozenset(cast_exempt) | index_like_inputs(symbol)
         self._symbol = symbol
         self._ctx = ctx
         self._arg_names = symbol.list_arguments()
@@ -151,18 +194,22 @@ class Executor:
                 args[i] = args[i].detach().requires_grad_(True)
                 leaves.append(args[i])
             with torch.enable_grad():
-                outs, new_aux = self._graph_fn(args, auxs, True)
+                outs, new_aux = self._graph_fn(self._cast(args), auxs, True)
             self._pending = (leaves, outs)
             self._outputs = [o.detach() for o in outs]
         else:
             with torch.no_grad():
-                outs, new_aux = self._graph_fn(args, auxs, False)
+                outs, new_aux = self._graph_fn(self._cast(args), auxs, False)
             self._pending = None
             self._outputs = outs
         if is_train:
             for arr, new in zip(self.aux_arrays, new_aux):
-                arr._set_data(new.detach())
+                arr._set_data(new.detach().to(arr.data.dtype))
         return self.outputs
+
+    def _cast(self, args):
+        return cast_compute(self._arg_names, args, self._compute_dtype,
+                            self._cast_exempt)
 
     @property
     def outputs(self):

@@ -94,7 +94,9 @@ class DataParallelExecutorGroup:
         auxs = [nd.zeros(s, ctx=ctx) for s in aux_shapes]
         exe = self.symbol.bind(ctx, args, args_grad=grads,
                                grad_req=self.grad_req, aux_states=auxs,
-                               compute_dtype=self.compute_dtype)
+                               compute_dtype=self.compute_dtype,
+                               cast_exempt=[d.name for d in
+                                            self.label_shapes or []])
         self.execs = [exe]
         arg = exe.arg_dict
         self.data_arrays = [arg[d.name] for d in self.data_shapes]

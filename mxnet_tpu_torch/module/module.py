@@ -1,18 +1,24 @@
 """Module — the training API of the port (counterpart of
 ``mxnet_tpu/module/module.py``; reference: python/mxnet/module/module.py).
 
-The classic executor-group path: with one context and no distributed
-kvstore the JAX package creates no kvstore, sets
-``rescale_grad = 1 / batch_size`` and lets the :class:`~..optimizer.Updater`
-update each parameter — so does the port. A ``Module`` built without a
+Two paths, as in the JAX package. The fused path (:mod:`.fused_path`)
+runs forward, backward and the optimizer update as one step, captured as
+a CUDA graph on the card; it is taken on a card's context with kvstore
+None, ``'local'`` or ``'device'``, and on the CPU with ``'device'``
+(:meth:`Module._fused_veto` lists what keeps the classic path, with the
+JAX package's warnings; ``MXNET_MODULE_NO_FUSED=1`` turns it off). The
+classic executor-group path: with one context and no distributed kvstore
+the JAX package creates no kvstore, sets ``rescale_grad = 1 / batch_size``
+and lets the :class:`~..optimizer.Updater` update each parameter — so
+does the port. ``compute_dtype`` runs the graph in that dtype over
+float32 master parameters on both paths. A ``Module`` built without a
 ``context`` runs on the card (:func:`~..context.default_device`, which
 raises when there is none); tests pass ``context=cpu()``.
 
 Checkpoints (``save_checkpoint``/``Module.load``) are the JAX package's
-files, readable by either package. Not in this slice: the fused
-one-program step (a CUDA graph on the card), kvstores and several
-contexts, ``compute_dtype``, optimizer-state files, ``BucketingModule``
-and monitors (``ROADMAP.md`` A1, A3, A6, A7).
+files, readable by either package. Not in this slice: kvstores and
+several contexts, optimizer-state files, ``BucketingModule`` and monitors
+(``ROADMAP.md`` A1, A6, A7).
 """
 from __future__ import annotations
 
@@ -23,7 +29,7 @@ import torch
 
 from .. import context as ctx_mod
 from .. import optimizer as opt
-from ..base import MXNetError
+from ..base import MXNetError, env_flag
 from ..io import DataDesc
 from .base_module import BaseModule, _check_input_names
 from .executor_group import DataParallelExecutorGroup
@@ -36,9 +42,6 @@ class Module(BaseModule):
                  logger=logging, context=None, work_load_list=None,
                  fixed_param_names=None, state_names=None, compute_dtype=None):
         super().__init__(logger=logger)
-        if compute_dtype is not None:
-            raise MXNetError("compute_dtype (mixed precision) is not ported "
-                             "yet (ROADMAP.md A3)")
         if context is None:
             context = [ctx_mod.default_device()]
         if isinstance(context, (torch.device, str)):
@@ -51,6 +54,9 @@ class Module(BaseModule):
         self._work_load_list = work_load_list
 
         self._symbol = symbol
+        # mixed precision: the graph runs in this dtype over float32
+        # master parameters
+        self._compute_dtype = compute_dtype
         data_names = list(data_names) if data_names is not None else []
         label_names = list(label_names) if label_names is not None else []
         arg_names = symbol.list_arguments()
@@ -73,9 +79,12 @@ class Module(BaseModule):
         self._params_dirty = False
         self._optimizer = None
         self._updater = None
+        self._grad_req = None
         self._exec_group = None
         self._data_shapes = None
         self._label_shapes = None
+        self._fused = None    # the fused path, set by init_optimizer
+        self._fused_kvstore_arg = None
 
     @staticmethod
     def load(prefix, epoch, load_optimizer_states=False, **kwargs):
@@ -143,9 +152,15 @@ class Module(BaseModule):
         if not (self.binded and self.params_initialized):
             raise MXNetError("bind and initialize the module first")
         if self._params_dirty:
-            self._exec_group.get_params(self._arg_params, self._aux_params)
-            self._params_dirty = False
+            self._sync_params_from_devices()
         return (self._arg_params, self._aux_params)
+
+    def _sync_params_from_devices(self):
+        if self._fused is not None and self._fused.device_dirty:
+            self._fused.sync_to_module()
+        else:
+            self._exec_group.get_params(self._arg_params, self._aux_params)
+        self._params_dirty = False
 
     def init_params(self, initializer=None, arg_params=None, aux_params=None,
                     allow_missing=False, force_init=False):
@@ -191,8 +206,16 @@ class Module(BaseModule):
         self._aux_params = {name: arr.copyto(host) for name, arr in exe.aux_dict.items()}
         self.params_initialized = True
         self._params_dirty = False
+        if self._fused is not None:
+            self._fused.invalidate()
 
     def set_params(self, arg_params, aux_params, allow_missing=False, force_init=True):
+        if (arg_params is self._arg_params and aux_params is self._aux_params
+                and self._fused is not None and not self._fused.device_dirty
+                and not self._params_dirty):
+            # fit's epoch-end get_params -> set_params: the host dicts, the
+            # executor group and the fused path already agree
+            return
         if not allow_missing:
             self.init_params(initializer=None, arg_params=arg_params,
                              aux_params=aux_params, allow_missing=allow_missing,
@@ -205,12 +228,17 @@ class Module(BaseModule):
         self._exec_group.set_params(arg_params, aux_params)
         self._params_dirty = True
         self.params_initialized = True
+        if self._fused is not None:
+            self._fused.invalidate()
 
     # ---- bind ------------------------------------------------------------
     def bind(self, data_shapes, label_shapes=None, for_training=True,
              inputs_need_grad=False, force_rebind=False, shared_module=None,
              grad_req="write"):
+        fused = self._fused
         if force_rebind:
+            if fused is not None and fused.device_dirty:
+                self.get_params()   # the fused path's parameters first
             self._reset_bind()
         if self.binded:
             self.logger.warning("Already binded, ignoring bind()")
@@ -222,6 +250,7 @@ class Module(BaseModule):
             raise MXNetError("inputs_need_grad needs for_training")
         self.for_training = for_training
         self.inputs_need_grad = inputs_need_grad
+        self._grad_req = grad_req
         self.binded = True
         self._data_shapes = [x if isinstance(x, DataDesc) else DataDesc(*x)
                              for x in data_shapes]
@@ -232,10 +261,17 @@ class Module(BaseModule):
             self._symbol, self._context, self._work_load_list, self._data_shapes,
             self._label_shapes, self._param_names, for_training, inputs_need_grad,
             None, logger=self.logger, fixed_param_names=self._fixed_param_names,
-            grad_req=grad_req, state_names=self._state_names)
+            grad_req=grad_req, state_names=self._state_names,
+            compute_dtype=self._compute_dtype)
         if self.params_initialized:
             self._exec_group.set_params(self._arg_params, self._aux_params)
-
+        if fused is not None and self.optimizer_initialized:
+            # a rebind to new shapes: a new fused path (and graph) for them,
+            # carrying the optimizer state
+            states = fused.states_for_updater()
+            self._fused = self._build_fused_path(self._fused_kvstore_arg)
+            if self._fused is not None:
+                self._fused.set_states_from_updater(states)
 
     # ---- optimizer -------------------------------------------------------
     def init_optimizer(self, kvstore="local", optimizer="sgd",
@@ -267,32 +303,143 @@ class Module(BaseModule):
                 "intended?" % (optimizer.rescale_grad, rescale_grad), stacklevel=2)
         self._optimizer = optimizer
         self._updater = opt.get_updater(optimizer)
+        self._fused_kvstore_arg = kvstore
+        self._fused = self._build_fused_path(kvstore)
         self.optimizer_initialized = True
+
+    def _fused_veto(self, kvstore_arg):
+        """Why this configuration does not run as one program per step —
+        None when it does. The JAX package's reasons for one context, with
+        the card's context in the TPU's place: kvstore None, 'local' and
+        'device' fuse on a card, only 'device' on the CPU."""
+        if env_flag("MXNET_MODULE_NO_FUSED"):
+            return "MXNET_MODULE_NO_FUSED=1 (explicit opt-out)"
+        if self._grad_req != "write":
+            return "grad_req=%r (fused step supports 'write' only)" % (
+                self._grad_req,)
+        if self.inputs_need_grad:
+            return "inputs_need_grad=True"
+        if self._state_names:
+            return "state_names are bound"
+        if self._fixed_param_names:
+            return "fixed_param_names are bound"
+        from .fused_path import batch_axes_standard
+
+        if not batch_axes_standard(self._data_shapes or []) or (
+                self._label_shapes
+                and not batch_axes_standard(self._label_shapes)):
+            return "a data/label layout has a non-leading batch axis"
+        # the fused step seeds ones into loss OUTPUTS only: a symbol with
+        # none would train on zero gradients
+        from ..ops.registry import get_op
+
+        if not any(not node.is_variable and get_op(node.op).is_loss
+                   for node, _ in self._symbol._entries):
+            return "symbol has no loss output (trained via out_grads)"
+        if kvstore_arg is not None and "dist" in kvstore_arg:
+            return ("distributed kvstore %r (the hybrid fused step is not "
+                    "ported: ROADMAP.md A6)" % (kvstore_arg,))
+        if kvstore_arg in ("device", "local_allreduce_device"):
+            return None
+        if self._context[0].type == "cuda" and kvstore_arg in (None, "local"):
+            return None
+        return ("kvstore=%r on a CPU context (pass kvstore='device' to opt "
+                "in)" % (kvstore_arg,))
+
+    def _build_fused_path(self, kvstore_arg):
+        veto = self._fused_veto(kvstore_arg)
+        if veto is not None:
+            # loud when the user plausibly expected the fused path: a card's
+            # context or an explicit kvstore='device' (CPU + local is the
+            # expected classic default: quiet)
+            wanted_fast = (
+                (isinstance(kvstore_arg, str)
+                 and (kvstore_arg in ("device", "local_allreduce_device")
+                      or "dist" in kvstore_arg))
+                or any(c.type == "cuda" for c in self._context))
+            if wanted_fast and "MXNET_MODULE_NO_FUSED" not in veto:
+                self.logger.warning(
+                    "Module.fit is NOT using the fused SPMD fast path: %s. "
+                    "Training runs on the executor-group path (one launch "
+                    "per kernel instead of one CUDA graph per step). Set "
+                    "MXNET_MODULE_NO_FUSED=1 to silence this warning if "
+                    "the classic path is intended.", veto)
+            return None
+        try:
+            from .fused_path import FusedFitPath
+
+            return FusedFitPath(self)
+        except ValueError as e:   # an optimizer without a fused rule
+            self.logger.info("fused SPMD path unavailable (%s); using the "
+                             "executor-group path", e)
+            return None
 
     # ---- compute ---------------------------------------------------------
     def forward(self, data_batch, is_train=None):
         if not (self.binded and self.params_initialized):
             raise MXNetError("bind and initialize the module first")
+        if self._fused is not None:
+            train = self.for_training if is_train is None else is_train
+            if train and self._fused.accepts(data_batch):
+                # stage only: update() runs forward, backward and update
+                self._fused.stage(data_batch)
+                return
+            # a classic-path consumer (eval, a batch of another shape): it
+            # sees the fused updates, and no stale staged batch or outputs
+            self._fused.sync_to_module()
+            self._fused.drop_batch()
         self._exec_group.forward(data_batch, is_train)
 
     def backward(self, out_grads=None):
         if not (self.binded and self.params_initialized):
             raise MXNetError("bind and initialize the module first")
+        if self._fused is not None and self._fused.pending:
+            if out_grads is None:
+                return   # the gradient is computed inside update()
+            # explicit head gradients cannot be seeded into the fused
+            # step: replay the staged batch on the classic path
+            batch = self._fused.staged_batch
+            self._fused.sync_to_module()
+            self._fused.drop_batch()
+            self._exec_group.forward(batch, True)
         self._exec_group.backward(out_grads=out_grads)
 
     def update(self):
-        """One optimizer step over every parameter that has a gradient."""
+        """One optimizer step over every parameter that has a gradient: the
+        fused step when a batch is staged for it, else the Updater."""
         if not (self.binded and self.params_initialized and self.optimizer_initialized):
             raise MXNetError("bind, initialize and init_optimizer first")
         self._params_dirty = True
+        if self._fused is not None and self._fused.pending:
+            self._fused.step()
+            return
+        handover = self._fused is not None and (
+            self._fused.state.states is not None
+            or self._fused.state.host_states is not None)
+        if handover:
+            # a classic update mid-fused-training keeps the fused momentum
+            # and Adam moments, and the update count goes on from where
+            # the fused steps left it
+            self._optimizer.begin_num_update = self._optimizer.num_update
+            self._optimizer._index_update_count = {}
+            self._updater.states = self._fused.states_for_updater()
         pairs = [(index, grads[0], params[0]) for index, (params, grads) in enumerate(
                      zip(self._exec_group.param_arrays, self._exec_group.grad_arrays))
                  if grads[0] is not None]
         self._updater.update_all(pairs)
+        if self._fused is not None:
+            # the executor group's parameters are now the truth, and the
+            # classic step's optimizer state goes back to the fused path
+            self._fused.invalidate()
+            if handover:
+                self._fused.set_states_from_updater(self._updater.states)
 
     def get_outputs(self, merge_multi_context=True):
         if not (self.binded and self.params_initialized):
             raise MXNetError("bind and initialize the module first")
+        if self._fused is not None and self._fused.has_outputs:
+            outs = self._fused.get_outputs()
+            return outs if merge_multi_context else [[o] for o in outs]
         return self._exec_group.get_outputs(merge_multi_context=merge_multi_context)
 
     def get_input_grads(self, merge_multi_context=True):
@@ -301,6 +448,9 @@ class Module(BaseModule):
         return self._exec_group.get_input_grads(merge_multi_context=merge_multi_context)
 
     def update_metric(self, eval_metric, labels):
+        if self._fused is not None and self._fused.has_outputs:
+            self._fused.update_metric(eval_metric, labels)
+            return
         self._exec_group.update_metric(eval_metric, labels)
 
 

@@ -1,7 +1,8 @@
 """Build and bind the port's hand-written CUDA kernels.
 
-Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``)
-into its own shared library with a plain C interface and loaded with
+Each ``csrc/<source>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``)
+into its own shared library (the three wide flash kernels share
+``flash_wide.cu``, so one library) with a plain C interface and loaded with
 ``ctypes`` (no PyTorch headers, so a build takes seconds, not minutes).
 Libraries go to ``build/mxnet_tpu_torch/`` beside the package, named by a
 digest of the source, the shared headers (``csrc/*.cuh``) and the flags,
@@ -26,7 +27,9 @@ import threading
 from ..base import MXNetError
 
 __all__ = ["Kernel", "KERNELS", "FLASH_FWD", "FLASH_BWD_DKV", "FLASH_BWD_DQ",
-           "PAGED_DECODE", "PAGED_DECODE_MULTI", "build", "nvcc_command", "BUILD_DIR", "CSRC"]
+           "FLASH_WIDE_FWD", "FLASH_WIDE_BWD_DKV", "FLASH_WIDE_BWD_DQ",
+           "PAGED_DECODE", "PAGED_DECODE_MULTI", "build", "nvcc_command",
+           "BUILD_DIR", "CSRC"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -59,12 +62,13 @@ def nvcc_command(source, output, nvcc="nvcc"):
 
 
 class Kernel:
-    """One hand-written kernel: its source, its C entry point, its
-    argument types and the count of its launches."""
+    """One hand-written kernel: its source (``csrc/<source>.cu``, by
+    default ``<name>.cu``), its C entry point, its argument types and the
+    count of its launches."""
 
-    def __init__(self, name, argtypes):
+    def __init__(self, name, argtypes, source=None):
         self.name = name
-        self.source = os.path.join(CSRC, name + ".cu")
+        self.source = os.path.join(CSRC, (source or name) + ".cu")
         self.symbol = "mxt_" + name
         self.argtypes = list(argtypes)
         #: successful launches since the last reset (set it to 0 to reset)
@@ -82,7 +86,8 @@ class Kernel:
             with open(path, "rb") as f:
                 h.update(f.read())
         h.update(" ".join(NVCC_FLAGS).encode())
-        return os.path.join(BUILD_DIR, "%s-%s.so" % (self.name,
+        stem = os.path.splitext(os.path.basename(self.source))[0]
+        return os.path.join(BUILD_DIR, "%s-%s.so" % (stem,
                                                      h.hexdigest()[:16]))
 
     def _load(self):
@@ -134,6 +139,14 @@ FLASH_BWD_DQ = Kernel("flash_bwd_dq", [
     _P,                          # stream
 ])
 
+# the D > 256 route of the three flash kernels (csrc/flash_wide.cu), with
+# their argument lists
+FLASH_WIDE_FWD = Kernel("flash_wide_fwd", FLASH_FWD.argtypes, "flash_wide")
+FLASH_WIDE_BWD_DKV = Kernel("flash_wide_bwd_dkv", FLASH_BWD_DKV.argtypes,
+                            "flash_wide")
+FLASH_WIDE_BWD_DQ = Kernel("flash_wide_bwd_dq", FLASH_BWD_DQ.argtypes,
+                           "flash_wide")
+
 PAGED_DECODE = Kernel("paged_decode", [
     _P, _P, _P, _P, _P, _P,      # q, k_pages, v_pages, tables, lens, out
     _I, _I, _I, _I, _I, _I,      # b, h, d, num_blocks, block_size, nb
@@ -149,34 +162,40 @@ PAGED_DECODE_MULTI = Kernel("paged_decode_multi", [
 ])
 
 KERNELS = {k.name: k for k in (FLASH_FWD, FLASH_BWD_DKV, FLASH_BWD_DQ,
-                                PAGED_DECODE, PAGED_DECODE_MULTI)}
+                                FLASH_WIDE_FWD, FLASH_WIDE_BWD_DKV,
+                                FLASH_WIDE_BWD_DQ, PAGED_DECODE,
+                                PAGED_DECODE_MULTI)}
 
 
 def build(kernels=None):
     """Build the shared library of every kernel in ``kernels`` (default:
-    all) that is missing, one ``nvcc`` per source, all started together.
+    all) that is missing, one ``nvcc`` per source, all started together
+    (kernels that share a source share its one build).
     Raises :class:`MXNetError` with the compiler's output on failure."""
     kernels = list(KERNELS.values()) if kernels is None else list(kernels)
     with _lock:
-        todo = [k for k in kernels if not os.path.exists(k.library())]
+        todo = {}
+        for k in kernels:
+            if not os.path.exists(k.library()):
+                todo.setdefault(k.library(), []).append(k)
         if not todo:
             return
         nvcc = _nvcc()
         os.makedirs(BUILD_DIR, exist_ok=True)
         procs = []
-        for k in todo:
-            out = k.library()
+        for out, ks in todo.items():
             tmp = "%s.tmp%d" % (out, os.getpid())
-            procs.append((k, out, tmp, subprocess.Popen(
-                nvcc_command(k.source, tmp, nvcc), stdout=subprocess.PIPE,
+            procs.append((ks, out, tmp, subprocess.Popen(
+                nvcc_command(ks[0].source, tmp, nvcc), stdout=subprocess.PIPE,
                 stderr=subprocess.STDOUT, text=True)))
         failed = []
-        for k, out, tmp, proc in procs:
+        for ks, out, tmp, proc in procs:
             log, _ = proc.communicate()
-            k.build_log = log
+            for k in ks:
+                k.build_log = log
             if proc.returncode != 0:
-                failed.append("%s (exit %d):\n%s" % (k.source, proc.returncode,
-                                                     log))
+                failed.append("%s (exit %d):\n%s" % (ks[0].source,
+                                                     proc.returncode, log))
                 continue
             os.replace(tmp, out)
         if failed:

@@ -16,6 +16,8 @@ Each public function dispatches on ``q.device.type``:
 * ``cuda`` — the hand-written Hopper kernel (``csrc/flash_fwd.cu`` for
   ``_pallas_forward``; ``csrc/flash_bwd_dkv.cu`` and
   ``csrc/flash_bwd_dq.cu`` for the two kernels of ``_pallas_backward``;
+  for head dimensions past :data:`FLASH_MAX_D` the three kernels of
+  ``csrc/flash_wide.cu`` in their place, picked by the shape alone;
   ``csrc/paged_decode.cu`` for ``_paged_pallas``;
   ``csrc/paged_decode_multi.cu`` for ``_paged_pallas_multi``), or
   :class:`MXNetError` for a shape or dtype the kernel does not take.
@@ -45,9 +47,10 @@ _NEG_INF = -1e30
 #: dtype codes of the kernels' C interface
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
-#: the largest head dimension the flash kernels take: at D 512 the K/V
-#: ring alone would need 264 KB of the 227 KB of shared memory a block has
-#: (ROADMAP C1)
+#: the largest head dimension the tensor-core flash kernels take: at D 512
+#: their K/V ring alone would need 264 KB of the 227 KB of shared memory a
+#: block has. Wider heads (any multiple of 8, as the JAX package computes
+#: them) take the wide route, ``csrc/flash_wide.cu``
 FLASH_MAX_D = 256
 #: the longest sequence the flash kernels take: 16-row tiles on the
 #: grid's y axis, at most 65535 of them
@@ -119,10 +122,9 @@ def _check_flash(q, k, v):
         raise MXNetError("flash kernel takes float32, bfloat16 or float16 "
                          "q/k/v of one dtype, got %s %s %s"
                          % (q.dtype, k.dtype, v.dtype))
-    if d % 8 or not 8 <= d <= FLASH_MAX_D:
-        raise MXNetError("flash kernel takes head_dim <= %d, a multiple of "
-                         "8, got %d (a wider head does not fit the kernels' "
-                         "shared memory: ROADMAP C1)" % (FLASH_MAX_D, d))
+    if d % 8 or d < 8:
+        raise MXNetError("flash kernel takes a head_dim that is a multiple "
+                         "of 8, got %d" % d)
     if not (1 <= sq <= FLASH_MAX_S and 1 <= k.shape[2] <= FLASH_MAX_S
             and 1 <= b * h < 2 ** 31):
         raise MXNetError("flash kernel: empty or oversized problem %s / %s"
@@ -145,8 +147,9 @@ def _flash_forward_cuda(q, k, v, causal, sm_scale):
     b, h, sq, d = q.shape
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    kernel = _build.FLASH_FWD if d <= FLASH_MAX_D else _build.FLASH_WIDE_FWD
     with torch.cuda.device(q.device):
-        _build.FLASH_FWD.launch(
+        kernel.launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), b, h, sq, k.shape[2], d, sm_scale, int(causal),
             _DTYPE_CODE[q.dtype], torch.cuda.current_stream().cuda_stream)
@@ -156,7 +159,8 @@ def _flash_forward_cuda(q, k, v, causal, sm_scale):
 def flash_attention_forward(q, k, v, causal=False, sm_scale=None):
     """Flash-attention forward over (B, H, S, D): returns ``(out, lse)``,
     both float32 — the residuals a backward consumes. CPU tensors take the
-    plain version, CUDA tensors the ``flash_fwd`` kernel."""
+    plain version, CUDA tensors the ``flash_fwd`` kernel (``flash_wide_fwd``
+    past D 256)."""
     sm_scale = _scale(sm_scale, q.shape[-1])
     if q.device.type == "cuda":
         return _flash_forward_cuda(q, k, v, causal, sm_scale)
@@ -224,13 +228,17 @@ def _flash_backward_cuda(q, k, v, out, lse, g, causal, sm_scale):
     dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
     dv = torch.empty(k.shape, dtype=torch.float32, device=q.device)
     code = _DTYPE_CODE[q.dtype]
+    if d <= FLASH_MAX_D:
+        dkv, dq_kernel = _build.FLASH_BWD_DKV, _build.FLASH_BWD_DQ
+    else:
+        dkv, dq_kernel = _build.FLASH_WIDE_BWD_DKV, _build.FLASH_WIDE_BWD_DQ
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        _build.FLASH_BWD_DKV.launch(
+        dkv.launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             b, h, sq, sk, d, sm_scale, int(causal), code, stream)
-        _build.FLASH_BWD_DQ.launch(
+        dq_kernel.launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             b, h, sq, sk, d, sm_scale, int(causal), code, stream)
@@ -243,7 +251,7 @@ def flash_attention_backward(q, k, v, out, lse, g, causal=False,
     residuals (``out`` and float32 ``lse``) and the output gradient ``g``:
     returns ``(dq, dk, dv)`` in the dtypes of q, k and v. CPU tensors take
     the plain version, CUDA tensors the ``flash_bwd_dkv`` and
-    ``flash_bwd_dq`` kernels."""
+    ``flash_bwd_dq`` kernels (their ``flash_wide_*`` twins past D 256)."""
     sm_scale = _scale(sm_scale, q.shape[-1])
     if q.device.type == "cuda":
         return _flash_backward_cuda(q, k, v, out, lse, g, causal, sm_scale)

@@ -2,7 +2,8 @@
 
 Only what the Transformer-LM graph and ``Symbol`` arithmetic build: the
 binary elementwise and broadcast families, the scalar family, and
-``square``/``sqrt``/``negative``. The rest of the file waits for the
+``square``/``sqrt``/``negative``, and ``_copy`` (alias ``identity``,
+the first node of ResNet). The rest of the file waits for the
 operator-breadth slice (``ROADMAP.md`` A4). Each is one torch expression;
 shapes are inferred by running it on ``meta`` tensors.
 """
@@ -55,3 +56,7 @@ for _name, _fn in {
 }.items():
     register_simple(_name, (lambda fn: lambda attrs, x: fn(x))(_fn),
                     arg_names=("data",))
+
+# a copy of its input (the JAX package adds a zero to get one)
+register_simple("_copy", lambda attrs, x: x.clone(), arg_names=("data",),
+                alias=("identity",))

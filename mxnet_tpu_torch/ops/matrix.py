@@ -1,8 +1,8 @@
 """Shape ops of the port (counterpart of ``mxnet_tpu/ops/matrix.py``).
 
-Only ``Reshape``, with MXNet's special target codes (0 keep, -1 infer,
--2 copy the rest, -3 merge two, -4 split one) and ``reverse``. The rest
-of the file waits for ROADMAP A4.
+``Reshape``, with MXNet's special target codes (0 keep, -1 infer, -2
+copy the rest, -3 merge two, -4 split one) and ``reverse``, and
+``Flatten``. The rest of the file waits for ROADMAP A4.
 """
 from __future__ import annotations
 
@@ -80,4 +80,11 @@ register_simple(
         "keep_highest": Param.bool(False),
     },
     alias=("reshape",),
+)
+
+register_simple(
+    "Flatten",
+    lambda attrs, x: x.reshape(x.shape[0], -1),
+    arg_names=("data",),
+    alias=("flatten",),
 )

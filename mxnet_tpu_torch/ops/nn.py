@@ -1,14 +1,22 @@
 """Layer ops of the port (counterpart of ``mxnet_tpu/ops/nn.py``).
 
-Only ``FullyConnected`` and ``Activation``. The matrix product is
-``torch.matmul`` in full float32 (TF32 is off in the port), as the JAX
-package leaves it to XLA at HIGHEST precision. The rest of the file
-(convolution, pooling, BatchNorm, ...) waits for ROADMAP A3/A4.
+``FullyConnected``, ``Activation`` and what ResNet is built from:
+``Convolution``, ``Pooling`` and ``BatchNorm``. Matrix products and
+convolutions are torch's (``torch.matmul``, ``F.conv*d``) in full
+float32 (TF32 is off in the port for both), as the JAX package leaves
+them to XLA at HIGHEST precision; bfloat16 inputs accumulate in float32
+on both sides. BatchNorm is written out rather than handed to
+``F.batch_norm``: its statistics, moving averages and rounding are the
+JAX package's (see :func:`_batch_norm`). Deconvolution, LeakyReLU,
+Dropout, the normalisations and the sequence ops wait for ROADMAP A4.
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..base import MXNetError
 from .registry import Param, get_op, register
@@ -66,3 +74,276 @@ def _activation(octx, attrs, args, auxs):
     if fn is None:
         raise MXNetError("Activation: unknown act_type %s" % attrs["act_type"])
     return [fn(args[0])], []
+
+
+# ---------------------------------------------------------------- Convolution
+_CONV_PARAMS = {
+    "kernel": Param.shape(),
+    "stride": Param.shape(()),
+    "dilate": Param.shape(()),
+    "pad": Param.shape(()),
+    "num_filter": Param.int(),
+    "num_group": Param.int(1),
+    "no_bias": Param.bool(False),
+    "workspace": Param.int(1024),  # accepted and ignored, as in JAX
+    "cudnn_tune": Param.str(""),
+    "cudnn_off": Param.bool(False),
+    "layout": Param.str("None"),
+}
+
+_CONV_FNS = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+
+
+def _conv_tuples(attrs, nd):
+    stride = attrs["stride"] or (1,) * nd
+    dilate = attrs["dilate"] or (1,) * nd
+    pad = attrs["pad"] or (0,) * nd
+    return stride, dilate, pad
+
+
+def _layout(attrs, nd, op):
+    """Channel-first by default, or NHWC (2-d only), as the JAX package
+    takes its layout attr; anything else raises."""
+    layout = attrs.get("layout") or "None"
+    if layout in ("None", ""):
+        return "NC" + "DHW"[3 - nd:]
+    if layout == "NHWC":
+        if nd != 2:
+            raise MXNetError("%s: layout=NHWC is 2-d only" % op)
+        return "NHWC"
+    if layout in ("NCW", "NCHW", "NCDHW"):
+        return layout
+    raise MXNetError("%s: unsupported layout %s" % (op, layout))
+
+
+def _to_nchw(x):
+    return x.permute(0, 3, 1, 2)
+
+
+def _to_nhwc(x):
+    return x.permute(0, 2, 3, 1)
+
+
+@register(
+    "Convolution",
+    arg_names=lambda attrs: ["data", "weight"] + ([] if attrs.get("no_bias") else ["bias"]),
+    params=dict(_CONV_PARAMS),
+    alias=("Convolution_v1",),
+)
+def _convolution(octx, attrs, args, auxs):
+    """NC(D)HW data with (O, I/groups, k...) weights, or NHWC data with
+    OHWI weights (computed channel-first and permuted back)."""
+    data, weight = args[0], args[1]
+    nd = len(attrs["kernel"])
+    stride, dilate, pad = _conv_tuples(attrs, nd)
+    nhwc = _layout(attrs, nd, "Convolution") == "NHWC"
+    if nhwc:
+        data, weight = _to_nchw(data), _to_nchw(weight)
+    out = _CONV_FNS[nd](data, weight, None, stride, pad, dilate,
+                        attrs["num_group"])
+    if not attrs["no_bias"]:
+        out = out + args[2].reshape((1, -1) + (1,) * nd)
+    return [_to_nhwc(out) if nhwc else out], []
+
+
+def _conv_out_dim(x, k, s, p, d):
+    return (x + 2 * p - (d * (k - 1) + 1)) // s + 1
+
+
+def _conv_infer_shape(attrs, in_shapes, aux_shapes):
+    data = in_shapes[0]
+    if data is None:
+        raise MXNetError("Convolution: data shape required")
+    nd = len(attrs["kernel"])
+    stride, dilate, pad = _conv_tuples(attrs, nd)
+    nf, ng = attrs["num_filter"], attrs["num_group"]
+    kernel = tuple(attrs["kernel"])
+    if _layout(attrs, nd, "Convolution") == "NHWC":
+        wshape = (nf,) + kernel + (data[-1] // ng,)
+        spatial = tuple(_conv_out_dim(data[1 + i], kernel[i], stride[i],
+                                      pad[i], dilate[i]) for i in range(nd))
+        out = (data[0],) + spatial + (nf,)
+    else:
+        wshape = (nf, data[1] // ng) + kernel
+        spatial = tuple(_conv_out_dim(data[2 + i], kernel[i], stride[i],
+                                      pad[i], dilate[i]) for i in range(nd))
+        out = (data[0], nf) + spatial
+    shapes = [tuple(data), wshape] + ([] if attrs["no_bias"] else [(nf,)])
+    return shapes, [out], []
+
+
+get_op("Convolution")._infer_shape = _conv_infer_shape
+
+
+# ---------------------------------------------------------------- Pooling
+_MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
+_AVG_POOL = {2: F.avg_pool2d, 3: F.avg_pool3d}
+
+
+def _pool_window(attrs, x_spatial):
+    """(kernel, stride, [(lo, hi)] pads) of a pooling: ``global_pool``
+    spans the input and ignores ``kernel``; the ``full`` convention pads
+    the far edge by what a ceil-rounded output needs."""
+    nd = len(x_spatial)
+    if attrs["global_pool"]:
+        return tuple(x_spatial), (1,) * nd, [(0, 0)] * nd
+    kernel = tuple(attrs["kernel"])
+    stride = tuple(attrs["stride"] or (1,) * nd)
+    pad = attrs["pad"] or (0,) * nd
+    pads = []
+    for i in range(nd):
+        extra = 0
+        if attrs["pooling_convention"] == "full":
+            h = x_spatial[i]
+            out_full = -(-(h + 2 * pad[i] - kernel[i]) // stride[i]) + 1
+            extra = max(0, (out_full - 1) * stride[i] + kernel[i] - h
+                        - 2 * pad[i])
+        pads.append((pad[i], pad[i] + extra))
+    return kernel, stride, pads
+
+
+def _pad_spatial(x, pads, value):
+    flat = []
+    for lo, hi in reversed(pads):   # F.pad lists the last dimension first
+        flat += [lo, hi]
+    return F.pad(x, flat, value=value) if any(flat) else x
+
+
+def _window_sum(x, kernel, stride):
+    """Sum over each window of an unpadded channel-first x (1-d through a
+    dummy dimension)."""
+    nd = len(kernel)
+    if nd == 1:
+        return _window_sum(x.unsqueeze(-1), kernel + (1,),
+                           stride + (1,)).squeeze(-1)
+    return _AVG_POOL[nd](x, kernel, stride, divisor_override=1)
+
+
+@register(
+    "Pooling",
+    arg_names=("data",),
+    params={
+        "kernel": Param.shape(()),
+        "pool_type": Param.str("max"),
+        "global_pool": Param.bool(False),
+        "stride": Param.shape(()),
+        "pad": Param.shape(()),
+        "pooling_convention": Param.str("valid"),
+        "cudnn_off": Param.bool(False),
+        "layout": Param.str("None"),
+    },
+    alias=("Pooling_v1",),
+)
+def _pooling(octx, attrs, args, auxs):
+    """Max pooling pads with -inf; avg pooling divides each window's sum by
+    the count of its elements inside the input (padding excluded, as the
+    JAX package counts them); sum pooling does not divide."""
+    x = args[0]
+    nd = x.dim() - 2
+    nhwc = _layout(attrs, nd, "Pooling") == "NHWC"
+    if nhwc:
+        x = _to_nchw(x)
+    kernel, stride, pads = _pool_window(attrs, tuple(x.shape[2:]))
+    pt = attrs["pool_type"]
+    if pt == "max":
+        low = (-math.inf if x.is_floating_point()
+               else torch.iinfo(x.dtype).min)
+        out = _MAX_POOL[nd](_pad_spatial(x, pads, low), kernel, stride)
+    elif pt in ("avg", "sum"):
+        out = _window_sum(_pad_spatial(x, pads, 0), kernel, stride)
+        if pt == "avg":
+            ones = torch.ones((1, 1) + tuple(x.shape[2:]), dtype=x.dtype,
+                              device=x.device)
+            out = out / _window_sum(_pad_spatial(ones, pads, 0), kernel,
+                                    stride)
+    else:
+        raise MXNetError("Pooling: unknown pool_type %s" % pt)
+    return [_to_nhwc(out) if nhwc else out], []
+
+
+def _pool_infer_shape(attrs, in_shapes, aux_shapes):
+    data = in_shapes[0]
+    nd = len(data) - 2
+    nhwc = _layout(attrs, nd, "Pooling") == "NHWC"
+    sp0 = 1 if nhwc else 2
+    if attrs["global_pool"]:
+        out = (((data[0],) + (1,) * nd + (data[-1],)) if nhwc
+               else (tuple(data[:2]) + (1,) * nd))
+        return [tuple(data)], [out], []
+    kernel = attrs["kernel"]
+    stride = attrs["stride"] or (1,) * nd
+    pad = attrs["pad"] or (0,) * nd
+    sp = []
+    for i in range(nd):
+        span = data[sp0 + i] + 2 * pad[i] - kernel[i]
+        if attrs["pooling_convention"] == "full":
+            sp.append(-(-span // stride[i]) + 1)
+        else:
+            sp.append(span // stride[i] + 1)
+    out = (((data[0],) + tuple(sp) + (data[-1],)) if nhwc
+           else (tuple(data[:2]) + tuple(sp)))
+    return [tuple(data)], [out], []
+
+
+get_op("Pooling")._infer_shape = _pool_infer_shape
+
+
+# ---------------------------------------------------------------- BatchNorm
+@register(
+    "BatchNorm",
+    arg_names=("data", "gamma", "beta"),
+    aux_names=("moving_mean", "moving_var"),
+    params={
+        "eps": Param.float(1e-3),
+        "momentum": Param.float(0.9),
+        "fix_gamma": Param.bool(True),
+        "use_global_stats": Param.bool(False),
+        "output_mean_var": Param.bool(False),
+        "axis": Param.int(1),
+        "cudnn_off": Param.bool(False),
+    },
+    num_outputs=3,
+    num_visible_outputs=lambda attrs: 3 if attrs.get("output_mean_var") else 1,
+    output_names=("output", "mean", "var"),
+    alias=("BatchNorm_v1",),
+)
+def _batch_norm(octx, attrs, args, auxs):
+    """The JAX package's BatchNorm, not torch's: batch statistics in
+    float32 in one pass, ``var = max(E[x^2] - mean^2, 0)`` (biased) with x
+    converted to float32 inside each reduction; moving statistics updated
+    as ``m * old + (1 - m) * batch`` from stop-gradient statistics (torch's
+    momentum is ``1 - m`` and its running variance unbiased);
+    ``rsqrt(var + eps)`` in float32, cast to x's dtype, and the output
+    formed in x's dtype. ``fix_gamma`` replaces gamma by ones with no
+    gradient. Auxiliary states stay float32."""
+    x, gamma, beta = args
+    mmean, mvar = auxs
+    ax = attrs["axis"] % x.dim()
+    red = tuple(i for i in range(x.dim()) if i != ax)
+    bshape = tuple(x.shape[ax] if i == ax else 1 for i in range(x.dim()))
+    if attrs["fix_gamma"]:
+        gamma = torch.ones_like(gamma)
+    if octx.is_train and not attrs["use_global_stats"]:
+        mean = torch.mean(x, dim=red, dtype=torch.float32)
+        ex2 = torch.mean(torch.square(x.float()), dim=red)
+        var = torch.clamp_min(ex2 - torch.square(mean), 0.0)
+        m = attrs["momentum"]
+        new_mean = mmean * m + mean.detach() * (1 - m)
+        new_var = mvar * m + var.detach() * (1 - m)
+    else:
+        mean, var = mmean, mvar
+        new_mean, new_var = mmean, mvar
+    inv = torch.rsqrt(var.reshape(bshape).float() + attrs["eps"]).to(x.dtype)
+    out = ((x - mean.reshape(bshape).to(x.dtype)) * inv
+           * gamma.reshape(bshape).to(x.dtype)
+           + beta.reshape(bshape).to(x.dtype))
+    return [out, mean.to(x.dtype), var.to(x.dtype)], [new_mean, new_var]
+
+
+def _bn_infer_shape(attrs, in_shapes, aux_shapes):
+    data = in_shapes[0]
+    c = (data[attrs.get("axis", 1) % len(data)],)
+    return [tuple(data), c, c], [tuple(data), c, c], [c, c]
+
+
+get_op("BatchNorm")._infer_shape = _bn_infer_shape

@@ -7,9 +7,9 @@ neither ``_weight`` nor ``_gamma``), per-index update counts for Adam's
 bias correction, and its arithmetic in its order
 (:mod:`.ops.optimizer_ops`). The :class:`Updater` keeps per-index state
 and applies the update parameter by parameter with plain torch
-arithmetic on the parameters' own device; the JAX package's
-``FusedUpdater`` computes the same per-parameter math in one program
-(a fused step is later work, ``ROADMAP.md`` A3). The other optimizers
+arithmetic on the parameters' own device; the fused training step
+(:mod:`.parallel.fused_opt`) applies the same per-parameter math inside
+one step, a CUDA graph on the card. The other optimizers
 (NAG, SGLD, AdaGrad, RMSProp, ...) and optimizer-state checkpoints wait
 for ROADMAP A4.
 """
@@ -49,7 +49,7 @@ class Optimizer:
                  clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
                  sym=None, begin_num_update=0):
         if lr_scheduler is not None:
-            raise MXNetError("lr_scheduler is not ported yet (ROADMAP.md A3)")
+            raise MXNetError("lr_scheduler is not ported yet (ROADMAP.md A4)")
         self.rescale_grad = rescale_grad
         self.lr = learning_rate
         self.wd = wd

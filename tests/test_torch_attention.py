@@ -321,7 +321,7 @@ def _t(*shape, dtype=torch.float32):
 @pytest.mark.parametrize("q,k,v", [
     (_t(1, 2, 8, 16), _t(1, 2, 8, 16), _t(1, 2, 8, 16, dtype=torch.float16)),
     (_t(1, 2, 8, 12), _t(1, 2, 8, 12), _t(1, 2, 8, 12)),        # D % 8
-    (_t(1, 2, 8, 264), _t(1, 2, 8, 264), _t(1, 2, 8, 264)),     # D > 256
+    (_t(1, 2, 8, 268), _t(1, 2, 8, 268), _t(1, 2, 8, 268)),     # D % 8 past 256
     (_t(1, 2, 8, 16), _t(1, 3, 8, 16), _t(1, 3, 8, 16)),        # heads
     (_t(2, 8, 16), _t(2, 8, 16), _t(2, 8, 16)),                 # rank
 ])
@@ -445,7 +445,9 @@ def test_build_compiles_each_source_for_sm90a(tmp_path, monkeypatch):
                         lambda: _fake_nvcc(tmp_path, ok=True))
     kernels = list(_build.KERNELS.values())
     assert [k.name for k in kernels] == ["flash_fwd", "flash_bwd_dkv",
-                                         "flash_bwd_dq", "paged_decode",
+                                         "flash_bwd_dq", "flash_wide_fwd",
+                                         "flash_wide_bwd_dkv",
+                                         "flash_wide_bwd_dq", "paged_decode",
                                          "paged_decode_multi"]
     for k in kernels:
         assert os.path.exists(k.source)

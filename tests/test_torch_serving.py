@@ -356,7 +356,10 @@ def test_lock_witness_strict_clean_engine_and_catches_inversion():
 
 # ------------------------------------------------------- import hygiene
 def test_port_import_leaves_jax_out():
-    code = ("import sys, mxnet_tpu_torch.serving, mxnet_tpu_torch.ops._build;"
+    code = ("import sys, mxnet_tpu_torch.serving, mxnet_tpu_torch.ops._build,"
+            " mxnet_tpu_torch.module.fused_path, mxnet_tpu_torch.parallel.spmd,"
+            " mxnet_tpu_torch.parallel.fused_opt, mxnet_tpu_torch.ops.nn,"
+            " mxnet_tpu_torch.models.resnet;"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'mxnet_tpu' or "
             "m.startswith('mxnet_tpu.')];"
@@ -380,6 +383,10 @@ def test_port_sources_import_no_jax():
     files = glob.glob(os.path.join(ROOT, "mxnet_tpu_torch", "**", "*.py"),
                       recursive=True) + [os.path.join(ROOT, "chip_smoke.py")]
     assert len(files) > 10
+    rel = {os.path.relpath(f, ROOT) for f in files}
+    assert {os.path.join("mxnet_tpu_torch", p) for p in (
+        "module/fused_path.py", "parallel/spmd.py", "parallel/fused_opt.py",
+        "models/resnet.py", "ops/nn.py")} <= rel
     for f in files:
         roots = set(_imported_roots(f))
         assert not roots & {"jax", "jaxlib", "mxnet_tpu"}, (f, roots)

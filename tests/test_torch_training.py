@@ -428,9 +428,6 @@ def test_executor_forward_backward_matches_jax():
 def test_executor_rejects_unported_options():
     _, ts = _symbols()
     with pytest.raises(MXNetError):
-        ts.simple_bind(ctx=tmx.cpu(), compute_dtype="bfloat16", data=(B, T),
-                       softmax_label=(B, T))
-    with pytest.raises(MXNetError):
         ts.simple_bind(ctx=tmx.cpu(), group2ctx={"a": tmx.cpu()}, data=(B, T),
                        softmax_label=(B, T))
 
