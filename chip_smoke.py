@@ -25,7 +25,8 @@ Drives ``mxnet_tpu_torch`` (never the JAX package) on ``cuda:0``:
    the two flash-backward kernels through the autograd Function (D 136
    and 256 in f32, bf16 and f16, f16 at the training shape), and bitwise
    equal across two launches; the wide route (``flash_wide.cu``: forward,
-   dK/dV and dQ) at D 264, 384 and 512 in f32 and bf16, causal;
+   dK/dV and dQ) at D 264, 384, 512 and 1032 (past the 512 columns a
+   forward or dQ block holds) in f32, bf16 and f16, causal;
 4. serving — the zoo Transformer-LM at full width (vocab 32000, 4 layers,
    d 256, 4 heads, ffn 1024, max_len 128; pool bs 16, 257 blocks, batch
    32) with seeded random weights: ``warmup()``, then 32 seeded requests
@@ -66,6 +67,8 @@ Drives ``mxnet_tpu_torch`` (never the JAX package) on ``cuda:0``:
 8. training at head_dim 512 — the zoo LM at model_dim 1024 with 2 heads
    (2 layers, batch 8) fit for 4 fused steps: exactly one launch of each
    wide flash kernel per layer and step, none of the D <= 256 kernels;
+   then phase 6's check at head_dim 512 from the fit's parameters: one
+   ``forward_backward`` of 4 sequences on ``gpu(0)`` and on ``cpu()``;
 9. ResNet-50 through ``Module.fit`` at ``bench.py``'s configuration (1000
    classes, 3x224x224 NCHW, batch 32, ``compute_dtype`` bfloat16, SGD lr
    0.05 momentum 0.9 rescale 1/32, Xavier gaussian/in/2, Accuracy,
@@ -90,7 +93,8 @@ Drives ``mxnet_tpu_torch`` (never the JAX package) on ``cuda:0``:
    also at contexts 1024 and 4096 for B 32 and B 1 (printed lines); the
    device kernels that the flash-forward and multi-query yardsticks
    launch are printed (one ``torch.profiler`` pass each); the wide flash
-   kernels at phase 8's shape, their bound at the float32 rate;
+   kernels at phase 8's shape and at (2,8,2048,512) (printed lines), their
+   bound at the float32 rate;
 12. device profiles — three steps of each training path of phases 5 and 9
    under ``torch.profiler``: device busy time and share of the host wall,
    device operations per step, time by kernel class and the largest
@@ -177,6 +181,8 @@ CLASSIC_STEPS = 12
 WIDE = dict(vocab_size=32000, num_layers=2, model_dim=1024, num_heads=2,
             ffn_dim=2048, seq_len=128)
 WIDE_BATCH = 8
+# the wide kernels' second timed shape (phase 11): (b, h, s, d), causal
+WIDE_LONG = (2, 8, 2048, 512)
 
 TRAIN = dict(vocab_size=32000, num_layers=4, model_dim=256, num_heads=4,
              ffn_dim=1024, seq_len=128)
@@ -568,12 +574,14 @@ def check_flash_bwd(A):
 def check_flash_wide(A, build):
     """The wide route (D > 256: forward, dK/dV and dQ of flash_wide.cu)
     through the autograd Function against the plain versions on the same
-    card tensors, causal; bitwise equal on a second launch."""
+    card tensors, causal, in f32, bf16 and f16, at D 264, 384 and 512 (the
+    forward and dQ hold all of D in one block) and 1032 (three slices of
+    344 columns); bitwise equal on a second launch."""
     rng = np.random.default_rng(8)
     worst = {}
     before = {n: build.KERNELS[n].launches for n in WIDE_KERNELS}
-    for d in (264, 384, 512):
-        for dt in (torch.float32, torch.bfloat16):
+    for d in (264, 384, 512, 1032):
+        for dt in (torch.float32, torch.bfloat16, torch.float16):
             q, k, v = flash_inputs(rng, 2, 2, 70, 70, d, dt)
             g = flash_inputs(rng, 2, 2, 70, 70, d, dt)[0]
             out, lse = A.flash_attention_forward(q, k, v, True)
@@ -593,7 +601,8 @@ def check_flash_wide(A, build):
             if dt == torch.float32:
                 ftol, btol = F32_TOL, F32_TOL
             else:
-                ftol, btol = BF16_TOL, BF16_REL_TOL
+                ftol, btol = ((BF16_TOL, BF16_REL_TOL) if dt == torch.bfloat16
+                              else (F32_TOL, F16_REL_TOL))
                 berr = berr / max(r.float().abs().max().item() for r in ref)
             log("  flash_wide d=%d %s causal: fwd max_abs_err %.3e (tol %.0e); "
                 "bwd dq %.3e dk %.3e dv %.3e -> %s %.3e (tol %.0e)"
@@ -609,8 +618,8 @@ def check_flash_wide(A, build):
     ran = {n: build.KERNELS[n].launches - before[n] for n in WIDE_KERNELS}
     # per case: three forwards (one direct, two through autograd) and two
     # backwards
-    check(ran == {"flash_wide_fwd": 18, "flash_wide_bwd_dkv": 12,
-                  "flash_wide_bwd_dq": 12},
+    check(ran == {"flash_wide_fwd": 36, "flash_wide_bwd_dkv": 24,
+                  "flash_wide_bwd_dq": 24},
           "the wide kernels did not take D > 256: %s" % ran)
     log("  flash_wide: every case bitwise equal across two launches; "
         "launches %s" % ran)
@@ -747,10 +756,10 @@ def teacher_forced(S, M, cfg, params_np):
 
 
 # ---------------------------------------------------------------- training
-def lm_stream(n, seed=0):
+def lm_stream(n, seed=0, cfg=TRAIN):
     """``examples/train_lm.py``'s synthetic stream: token t+1 = token t + 1
     (mod V), each sequence from a random start (numpy seed)."""
-    V, T = TRAIN["vocab_size"], TRAIN["seq_len"]
+    V, T = cfg["vocab_size"], cfg["seq_len"]
     rng = np.random.RandomState(seed)
     X = (rng.randint(0, V, (n, 1)) + np.arange(T)) % V
     return X.astype(np.float32), ((X + 1) % V).astype(np.float32)
@@ -858,15 +867,16 @@ def fused_against_classic(fused, classic):
           "the fused and classic fits disagree")
 
 
-def train_step_card_vs_cpu(mx, params):
+def train_step_card_vs_cpu(mx, params, cfg=TRAIN):
     """One ``forward_backward`` of 4 sequences from the same parameters on
-    the card (kernels) and on the CPU (plain versions)."""
-    X, Y = lm_stream(4, seed=1)
+    the card (kernels) and on the CPU (plain versions), for the LM of
+    ``cfg``."""
+    X, Y = lm_stream(4, seed=1, cfg=cfg)
     batch = mx.io.DataBatch([mx.nd.array(X, ctx=mx.cpu())],
                             [mx.nd.array(Y, ctx=mx.cpu())])
     res = {}
     for ctx in (mx.gpu(0), mx.cpu()):
-        mod = mx.mod.Module(mx.models.transformer_lm(**TRAIN), context=ctx)
+        mod = mx.mod.Module(mx.models.transformer_lm(**cfg), context=ctx)
         mod.bind(data_shapes=[("data", X.shape)],
                  label_shapes=[("softmax_label", Y.shape)])
         mod.init_params(arg_params=params)
@@ -881,11 +891,11 @@ def train_step_card_vs_cpu(mx, params):
     rel = {n: float(np.abs(g_c[n] - g_h[n]).max() / max(np.abs(g_h[n]).max(), 1e-30))
            for n in params}
     worst = max(rel, key=rel.get)
-    log("  one step at batch 4 x %d: max abs output diff card vs CPU / max "
-        "abs output %.3e (tol %.0e); worst gradient %s: max abs diff / max abs grad %.3e "
-        "(tol %.0e over %d parameters)" % (TRAIN["seq_len"], out_err,
-                                           OUT_REL_TOL, worst, rel[worst],
-                                           GRAD_TOL, len(rel)))
+    log("  one step at batch 4 x %d, head_dim %d: max abs output diff card vs "
+        "CPU / max abs output %.3e (tol %.0e); worst gradient %s: max abs diff "
+        "/ max abs grad %.3e (tol %.0e over %d parameters)"
+        % (cfg["seq_len"], cfg["model_dim"] // cfg["num_heads"], out_err,
+           OUT_REL_TOL, worst, rel[worst], GRAD_TOL, len(rel)))
     check(out_err <= OUT_REL_TOL, "card outputs disagree with the CPU")
     check(all(np.isfinite(g_c[n]).all() for n in params), "non-finite gradient")
     check(rel[worst] <= GRAD_TOL, "card gradients disagree with the CPU")
@@ -929,7 +939,7 @@ def run_wide_training(mx, build):
               % (name, launches[name], steps))
     for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
         check(launches[name] == 0, "%s ran at head_dim 512" % name)
-    return launches
+    return launches, {n: a.asnumpy() for n, a in mod.get_params()[0].items()}
 
 
 # ---------------------------------------------------------------- ResNet-50
@@ -1612,7 +1622,10 @@ def main():
     spec_runs = run_spec_serving(mx, S, M, build, tel, t_mod)
 
     log("== 8. training at head_dim 512 (the wide flash kernels)")
-    w_launches = run_wide_training(mx, build)
+    w_launches, w_params = run_wide_training(mx, build)
+    # phase 6's check at head_dim 512: the wide kernels on the card against
+    # the plain versions on the CPU through a whole step
+    train_step_card_vs_cpu(mx, w_params, WIDE)
 
     log("== 9. ResNet-50 through Module.fit at bench.py's configuration")
     rn_fused = run_resnet(mx, build)
@@ -1706,6 +1719,23 @@ def main():
                res["flops"], res.get("peak_name", "67 TFLOP/s f32"),
                res["flops"] / PEAK_F32_FLOPS * 1e6, res["err"], per))
         check(res["err"] <= F32_TOL, "%s disagrees at the timed shape" % name)
+    # the wide route at a long sequence, beside its plain versions, SDPA
+    # and its bound
+    long_fwd = time_flash(A, *WIDE_LONG, wide=True)
+    long_dkv, long_dq = time_flash_bwd(A, build, *WIDE_LONG, wide=True)
+    for name, res in (("flash_wide_fwd", long_fwd),
+                      ("flash_wide_bwd_dkv", long_dkv),
+                      ("flash_wide_bwd_dq", long_dq)):
+        t_bytes = res["nbytes"] / PEAK_BYTES_PER_S * 1e3
+        t_ops = res["flops"] / res["peak"] * 1e3
+        log("  %s long sequence at %s: kernel_ms %.6f plain_ms %.6f "
+            "library_ms %.6f bound_ms %.6f (%s: %d bytes at 3.35 TB/s, %d "
+            "FLOP at %s) max_abs_err %.3e"
+            % (name, res["shape"], res["ms"], res["plain"], res["lib"],
+               max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+               "operations", res["nbytes"], res["flops"], res["peak_name"],
+               res["err"]))
+        check(res["err"] <= F32_TOL, "%s disagrees at a long sequence" % name)
     for B, ctx in ((32, 1024), (32, 4096), (1, 1024), (1, 4096)):
         res = time_paged(A, B=B, ctx=ctx)
         bound = max(res["nbytes"] / PEAK_BYTES_PER_S,

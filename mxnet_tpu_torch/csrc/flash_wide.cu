@@ -11,34 +11,64 @@
 // float16, any D % 8 == 0, computed in float32; out, lse, dk, dv and dq in
 // float32. Masked scores are pinned to -1e30, l is clamped at 1e-30.
 //
-// What bounds it here: the operations. Each block recomputes its score
-// tiles over the full D once per output slice, and every product runs on
-// the CUDA cores at the float32 rate; the route is for correctness at
-// widths no model of the repository's zoo uses, not for speed.
+// The forward and the backward agree on every score bit: each score is one
+// fmaf chain over d = 0, 1, ..., D-1 in that order, from 0 (an fmaf's
+// product is exact, so swapping its two factors, as dK/dV does with K's
+// rows owned, changes nothing), then multiplied by the scale once. The
+// backward's p = exp(s*scale - lse) therefore sees exactly the forward's
+// s. No chain is split across threads and none runs on the tensor cores.
 //
-// Design: the OUTPUT's head dimension is cut into slices of DS = 128 on
-// the grid's z axis. A block owns BR = 16 rows (queries for the forward
-// and dQ, keys for dK/dV) and one slice; it streams the other side in
-// tiles of BC = 32 rows. For each tile it forms the 16x32 score tile
-// S = Q.K^T (and dP = dO.V^T in the backward) over the FULL D, staging
-// both operands through shared memory in chunks of DC = 32 dimensions,
-// then accumulates P.V (or dS.K, P^T.dO and dS^T.Q) for its own slice
-// only, one output column per thread and 16 rows in registers. Only the
-// first slice writes lse.
+// Forward and dQ (wide_fwd_kernel, wide_dq_kernel). What bounds them, as
+// measured on an H100 (profile_kernels_torch.py's variants and a per-block
+// timeline): the fmaf chains of S (and dP), which stay one thread per
+// score, and the copies of K and V into shared memory, whose issue stalls
+// for most of a chunk's time; not the arithmetic's rate. The design forms
+// each score tile once:
+//   - a block of 256 threads owns RB = 16 rows (queries) and the whole
+//     output D up to WMAX = 512 columns; past that the output is cut into
+//     ceil(D / 512) equal slices (a multiple of 8 wide) on the grid's z
+//     axis, each forming S over the full D again; the cut depends on D
+//     alone;
+//   - for one slice (D <= 512) the block's Q rows (and dO's in dQ) are
+//     staged into shared memory once; past it they stream with K;
+//   - keys come in tiles of KB = 64. A tile's work is a run of chunks
+//     through a ring of 16-byte cp.async copies (dynamic shared memory,
+//     opted in past 48 KB; 2 stages in the forward, 4 in dQ), issued by
+//     the four warps that form neither S nor dP, so that the chains do not
+//     wait on the issue; one barrier per chunk: first K (and V in dQ) in
+//     chunks of 128 (dQ 64) dimensions for S (and dP), then V (dQ: K) in
+//     chunks of VC = 16 keys over the slice's columns for the output
+//     product;
+//   - S: four warps form the 16x64 tile in the forward, each thread 4 rows
+//     x 2 keys; in dQ two warps form S and two dP, each thread 4 rows x 4
+//     keys; every thread reads 4 dimensions of a row per 16-byte load
+//     (lanes: 4 row groups x 8 key groups) into 8 or 16 independent
+//     chains;
+//   - the online softmax (forward) or dS = p (dP - delta) scale (dQ) goes
+//     to shared memory; the output product is fmaf with one accumulator
+//     per output element, each thread 4 rows x 8 columns of its warp's 64.
 //
-// The forward and the backward agree on every score bit: all three
-// kernels form S through tile_dot(), whose every entry is one fmaf chain
-// over d = 0, 1, ..., D-1 in that order (an fmaf's product is exact, so
-// swapping its two factors, as dK/dV does with K's rows owned, changes
-// nothing), then multiply by the scale once. The backward's
-// p = exp(s*scale - lse) therefore sees exactly the forward's s.
+// dK/dV (wide_dkv_kernel, unchanged since it was written): the OUTPUT's
+// head dimension is cut into slices of DS = 128 on the grid's z axis. A
+// block owns BR = 16 keys and one slice; it streams the queries in tiles
+// of BC = 32 rows. For each tile it forms the 16x32 score tile S^T = K.Q^T
+// and dP^T = V.dO^T over the FULL D through tile_dot(), staging both
+// operands through shared memory in chunks of DC = 32 dimensions, then
+// accumulates P^T.dO and dS^T.Q for its own slice only, one output column
+// per thread and 16 rows in registers.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tf32_mma.cuh"  // cp.async and the shared-memory opt-in
+
 namespace {
+
+using tf32mma::cp_async16;
+using tf32mma::cp_async_commit;
+using tf32mma::cp_async_wait;
 
 constexpr float NEG_INF = -1e30f;
 constexpr int BR = 16;    // rows a block owns
@@ -114,88 +144,341 @@ struct Shared {
   float y[BC * DS];
 };
 
+// ------------------------------------------------ forward and dQ
+constexpr int FWD_RB = 16;   // rows (queries) a block owns: forward
+constexpr int DQ_RB = 16;    // dQ
+constexpr int KB = 64;       // keys per tile
+constexpr int WMAX = 512;    // output columns a block holds at most
+constexpr int FWD_DC = 128;  // dimensions per S chunk (forward)
+constexpr int DQ_DC = 64;    // dimensions per S/dP chunk (dQ)
+constexpr int VC = 16;       // keys per output-product chunk
+constexpr int FWD_STAGES = 2;  // depth of the cp.async ring (forward)
+constexpr int DQ_STAGES = 4;   // (dQ)
+constexpr int NT = 256;      // threads per block
+constexpr int WARPS = NT / 32;
+// the copies are issued by the threads from ISSUERS on: the warps that do
+// not form S or dP, so that those that do are not held up by the issue
+constexpr int ISSUERS = 128;
+
+// S: S_WARPS warps form the RB x KB tile (in dQ as many more form dP),
+// each thread RB / 4 rows x KB / (8 S_WARPS) keys; output: a warp holds
+// 64 columns of every row, each thread RB / 4 rows x 8 columns
+constexpr int FWD_S_WARPS = 4;
+constexpr int DQ_S_WARPS = 2;
+static_assert(KB % (8 * FWD_S_WARPS) == 0 && KB % (8 * DQ_S_WARPS) == 0 &&
+                  2 * DQ_S_WARPS <= WARPS && FWD_S_WARPS <= WARPS,
+              "S warp tiles must cover RB x KB");
+static_assert(WARPS * 64 == WMAX, "output warp tiles must cover WMAX");
+static_assert(ISSUERS % 32 == 0 && ISSUERS < NT, "whole warps issue");
+static_assert(KB % 32 == 0 && FWD_RB % 8 == 0 && DQ_RB % 8 == 0 &&
+                  KB % VC == 0 && VC % 4 == 0,
+              "tile shapes");
+
+// a row of staged elements is padded by 16 bytes, so that rows 1..7
+// apart fall on distinct banks
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+__host__ __device__ constexpr int pad() {
+  return 16 / static_cast<int>(sizeof(T));
+}
+
+__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
+
+// elements of T in one ring stage: an S chunk (Q's rows when they stream,
+// then K's; in dQ also dO's and V's) or an output-product chunk (VC rows
+// of WMAX columns)
+template <typename T, bool QRES, bool DQ, int RB = DQ ? DQ_RB : FWD_RB>
+__host__ __device__ constexpr int stage_elems() {
+  return cmax(((QRES ? 0 : RB) + KB) * (DQ ? 2 : 1) *
+                  ((DQ ? DQ_DC : FWD_DC) + pad<T>()),
+              VC * (WMAX + pad<T>()));
+}
+
+// dynamic shared memory of a block: resident Q (and dO) rows, the ring,
+// the probability or dS tile, and (forward) m, l and the correction
+template <typename T, bool QRES, bool DQ, int RB = DQ ? DQ_RB : FWD_RB>
+__host__ __device__ constexpr int smem_bytes() {
+  return (QRES ? (DQ ? 2 : 1) * RB * (WMAX + pad<T>()) : 0) *
+             static_cast<int>(sizeof(T)) +
+         (DQ ? DQ_STAGES : FWD_STAGES) * stage_elems<T, QRES, DQ>() *
+             static_cast<int>(sizeof(T)) +
+         (DQ ? 2 : 1) * RB * (KB + 4) * 4 + (DQ ? 2 : 3) * RB * 4;
+}
+
+// four consecutive elements as float (16 bytes of float, 8 of the others)
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ float4 load4(const __half* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __half22float2(*reinterpret_cast<const __half2*>(&u.x));
+  const float2 b = __half22float2(*reinterpret_cast<const __half2*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// rows [r0, r0 + n) x columns [c0, c0 + w) of x (rows of ld elements,
+// `rows` of them) into dst (row stride `stride` elements), 16 bytes per
+// cp.async from threads [ISSUERS, NT); rows past `rows` are zero-filled.
+// w is a multiple of 8.
+template <typename T>
+__device__ __forceinline__ void stage_async(T* dst, int stride,
+                                            const T* __restrict__ x, int ld,
+                                            int r0, int n, int rows, int c0,
+                                            int w) {
+  constexpr int E = 16 / static_cast<int>(sizeof(T));
+  const int per = w / E;
+  for (int e = threadIdx.x - ISSUERS; e < n * per; e += NT - ISSUERS) {
+    const int r = e / per, c = (e - r * per) * E;
+    const bool in = r0 + r < rows;
+    cp_async16(dst + r * stride + c,
+               in ? x + (size_t)(r0 + r) * ld + c0 + c : x, in ? 16 : 0);
+  }
+}
+
+// acc[i][k] += A[r + 4i] . B[c + 8k] over the staged dimensions [0, n):
+// MR x NC chains, each one fmaf per dimension in order of d
+template <typename T, int MR, int NC>
+__device__ __forceinline__ void chains(float (&acc)[MR][NC],
+                                       const T* __restrict__ a, int sa,
+                                       const T* __restrict__ b, int sb, int n,
+                                       int r, int c) {
+  float4 x[MR], y[NC];
+#pragma unroll 2
+  for (int j = 0; j < n; j += 4) {
+#pragma unroll
+    for (int i = 0; i < MR; ++i) x[i] = load4(a + (r + 4 * i) * sa + j);
+#pragma unroll
+    for (int k = 0; k < NC; ++k) y[k] = load4(b + (c + 8 * k) * sb + j);
+#pragma unroll
+    for (int i = 0; i < MR; ++i)
+#pragma unroll
+      for (int k = 0; k < NC; ++k) {
+        acc[i][k] = __fmaf_rn(x[i].x, y[k].x, acc[i][k]);
+        acc[i][k] = __fmaf_rn(x[i].y, y[k].y, acc[i][k]);
+        acc[i][k] = __fmaf_rn(x[i].z, y[k].z, acc[i][k]);
+        acc[i][k] = __fmaf_rn(x[i].w, y[k].w, acc[i][k]);
+      }
+  }
+}
+
+// o[a][b][e] += sum over the chunk's VC keys kc + t of
+// w[(li + 4a) * (KB + 4) + kc + t] * Y[t][oc + 32 b + e]: the output
+// product of one chunk, keys in order, one fmaf per key
+template <typename T, int TR>
+__device__ __forceinline__ void out_product(float (&o)[TR][2][4],
+                                            const float* __restrict__ w,
+                                            const T* __restrict__ y, int kc,
+                                            int li, int oc) {
+#pragma unroll
+  for (int t4 = 0; t4 < VC; t4 += 4) {
+    float4 p[TR];
+#pragma unroll
+    for (int a = 0; a < TR; ++a)
+      p[a] = *reinterpret_cast<const float4*>(w + (li + 4 * a) * (KB + 4) +
+                                              kc + t4);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const T* row = y + (t4 + e) * (WMAX + pad<T>()) + oc;
+      const float4 y0 = load4(row);
+      const float4 y1 = load4(row + 32);
+#pragma unroll
+      for (int a = 0; a < TR; ++a) {
+        const float pe = e == 0 ? p[a].x : e == 1 ? p[a].y : e == 2 ? p[a].z
+                                                                     : p[a].w;
+        o[a][0][0] = __fmaf_rn(pe, y0.x, o[a][0][0]);
+        o[a][0][1] = __fmaf_rn(pe, y0.y, o[a][0][1]);
+        o[a][0][2] = __fmaf_rn(pe, y0.z, o[a][0][2]);
+        o[a][0][3] = __fmaf_rn(pe, y0.w, o[a][0][3]);
+        o[a][1][0] = __fmaf_rn(pe, y1.x, o[a][1][0]);
+        o[a][1][1] = __fmaf_rn(pe, y1.y, o[a][1][1]);
+        o[a][1][2] = __fmaf_rn(pe, y1.z, o[a][1][2]);
+        o[a][1][3] = __fmaf_rn(pe, y1.w, o[a][1][3]);
+      }
+    }
+  }
+}
+
+// rows [row0, row0 + TR*4) of dst (ld columns) get o, columns c0 + oc +
+// 32 b + (0..3) where they lie below `width`, each row divided by div[a]
+template <int TR>
+__device__ __forceinline__ void store_out(float* __restrict__ dst,
+                                          const float (&o)[TR][2][4],
+                                          const float (&div)[TR], int q0,
+                                          int sq, int ld, int c0, int width,
+                                          int li, int oc) {
+#pragma unroll
+  for (int a = 0; a < TR; ++a) {
+    const int row = q0 + li + 4 * a;
+    if (row >= sq) continue;
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      const int col = oc + 32 * b;
+      if (col >= width) continue;
+      *reinterpret_cast<float4*>(dst + (size_t)row * ld + c0 + col) =
+          make_float4(o[a][b][0] / div[a], o[a][b][1] / div[a],
+                      o[a][b][2] / div[a], o[a][b][3] / div[a]);
+    }
+  }
+}
+
+// Forward for RB queries and one slice of the output's columns (all of
+// them up to WMAX). QRES: the block's Q rows stay in shared memory.
+template <typename T, bool QRES>
+__global__ void __launch_bounds__(NT, FWD_RB == 16 ? 2 : 1)
 wide_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, float* __restrict__ out,
-                float* __restrict__ lse, int sq, int sk, int d, float scale,
-                int causal) {
+                float* __restrict__ lse, int sq, int sk, int d, int w_slice,
+                float scale, int causal) {
+  constexpr int RB = FWD_RB;
+  constexpr int TR = RB / 4, MR = RB / 4, NC = KB / (8 * FWD_S_WARPS);
+  constexpr int P = pad<T>();
+  constexpr int SE = stage_elems<T, QRES, false>();
+  constexpr int KS = FWD_DC + P;       // row stride of an S chunk
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Shared& sh = *reinterpret_cast<Shared*>(smem_raw);
-  const int tid = threadIdx.x;
+  T* qres = reinterpret_cast<T*>(smem_raw);
+  T* ring = qres + (QRES ? RB * (WMAX + P) : 0);
+  float* ps = reinterpret_cast<float*>(ring + FWD_STAGES * SE);
+  float* m_s = ps + RB * (KB + 4);
+  float* l_s = m_s + RB;
+  float* corr_s = l_s + RB;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int li = lane >> 3, lj = lane & 7;
   const int bh = blockIdx.x;
-  const int q0 = blockIdx.y * BR;
-  const int c0 = blockIdx.z * DS;
+  const int q0 = blockIdx.y * RB;
+  const int c0 = blockIdx.z * w_slice;
+  const int width = min(w_slice, d - c0);
   const T* qb = q + (size_t)bh * sq * d;
   const T* kb = k + (size_t)bh * sk * d;
   const T* vb = v + (size_t)bh * sk * d;
-  if (tid < BR) {
-    sh.m[tid] = NEG_INF;
-    sh.l[tid] = 0.f;
+  const int kv_end = causal ? min(sk, q0 + RB) : sk;
+  const int nk = (d + FWD_DC - 1) / FWD_DC;   // S chunks per tile
+  const int per = nk + KB / VC;               // chunks per tile
+  const int ntiles = (kv_end + KB - 1) / KB;
+  const int total = ntiles * per;
+  const int qs_stride = QRES ? d + P : KS;
+  // S (warps below FWD_S_WARPS): rows li + 4i, keys sc + 8k of the tile
+  const int sc = warp * 8 * NC + lj;
+  // output: rows li + 4a, columns oc + 32b .. + 3 of the slice
+  const int oc = warp * 64 + 4 * lj;
+
+  if (tid < RB) {
+    m_s[tid] = NEG_INF;
+    l_s[tid] = 0.f;
   }
-  float o[BR];
-#pragma unroll
-  for (int r = 0; r < BR; ++r) o[r] = 0.f;
-  const int kv_end = causal ? min(sk, q0 + BR) : sk;
-  const int warp = tid >> 5, lane = tid & 31;
-  for (int t0 = 0; t0 < kv_end; t0 += BC) {
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    tile_dot(qb, q0, sq, kb, t0, sk, d, sh.as_, sh.bs_, acc);
-    const int r = tid >> 3;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int c = (tid & 7) + 8 * i;
-      const int key = t0 + c, row = q0 + r;
-      const bool ok = key < sk && (!causal || row >= key);
-      sh.p[r * (BC + 1) + c] = ok ? acc[i] * scale : NEG_INF;
-    }
-    stage_slice(vb, t0, sk, d, c0, sh.x);
-    __syncthreads();
-    // the online softmax: warp w updates rows 4w .. 4w+3, a key per lane
-    for (int rr = 0; rr < 4; ++rr) {
-      const int row = 4 * warp + rr;
-      const float s = sh.p[row * (BC + 1) + lane];
-      float mx = s;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_old = sh.m[row];
-      const float m_new = fmaxf(m_old, mx);
-      const float p = expf(s - m_new);
-      float sum = p;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      sh.p[row * (BC + 1) + lane] = p;
-      __syncwarp();
-      if (lane == 0) {
-        const float corr = expf(m_old - m_new);
-        sh.corr[row] = corr;
-        sh.l[row] = sh.l[row] * corr + sum;
-        sh.m[row] = m_new;
+  float o[TR][2][4] = {};
+  float acc[MR][NC] = {};
+
+  auto issue = [&](int n) {
+    T* st = ring + (n % FWD_STAGES) * SE;
+    const int t0 = n / per * KB, j = n % per;
+    if (j < nk) {
+      const int dc = j * FWD_DC, dn = min(FWD_DC, d - dc);
+      if (!QRES) {
+        stage_async(st, KS, qb, d, q0, RB, sq, dc, dn);
+        st += RB * KS;
       }
+      stage_async(st, KS, kb, d, t0, KB, sk, dc, dn);
+    } else {
+      stage_async(st, WMAX + P, vb, d, t0 + (j - nk) * VC, VC, sk, c0, width);
     }
+  };
+
+  if (QRES && tid >= ISSUERS) stage_async(qres, d + P, qb, d, q0, RB, sq, 0, d);
+  for (int n = 0; n < FWD_STAGES - 1; ++n) {
+    if (n < total && tid >= ISSUERS) issue(n);
+    cp_async_commit();
+  }
+  for (int n = 0; n < total; ++n) {
+    cp_async_wait<FWD_STAGES - 2>();
     __syncthreads();
+    if (n + FWD_STAGES - 1 < total && tid >= ISSUERS) issue(n + FWD_STAGES - 1);
+    cp_async_commit();
+    const T* st = ring + (n % FWD_STAGES) * SE;
+    const int t0 = n / per * KB, j = n % per;
+    if (j < nk) {
+      const int dc = j * FWD_DC;
+      if (warp < FWD_S_WARPS)
+        chains(acc, QRES ? qres + dc : st, qs_stride,
+               QRES ? st : st + RB * KS, KS, min(FWD_DC, d - dc), li, sc);
+      if (j == nk - 1) {
+        // the tile's scores, scaled once, masked
+        if (warp < FWD_S_WARPS) {
 #pragma unroll
-    for (int r2 = 0; r2 < BR; ++r2) {
-      float s = 0.f;
-#pragma unroll 8
-      for (int c = 0; c < BC; ++c)
-        s = __fmaf_rn(sh.p[r2 * (BC + 1) + c], sh.x[c * DS + tid], s);
-      o[r2] = o[r2] * sh.corr[r2] + s;
+          for (int a = 0; a < MR; ++a)
+#pragma unroll
+            for (int b = 0; b < NC; ++b) {
+              const int row = q0 + li + 4 * a, key = t0 + sc + 8 * b;
+              const bool ok = key < sk && (!causal || row >= key);
+              ps[(li + 4 * a) * (KB + 4) + sc + 8 * b] =
+                  ok ? acc[a][b] * scale : NEG_INF;
+              acc[a][b] = 0.f;
+            }
+        }
+        __syncthreads();
+        // the online softmax: a warp updates RB / 8 rows, KB / 32 keys a lane
+#pragma unroll
+        for (int rr = 0; rr < RB / 8; ++rr) {
+          const int row = warp * (RB / 8) + rr;
+          float* pr = ps + row * (KB + 4);
+          float s[KB / 32];
+          float mx = NEG_INF;
+#pragma unroll
+          for (int i = 0; i < KB / 32; ++i) {
+            s[i] = pr[lane + 32 * i];
+            mx = fmaxf(mx, s[i]);
+          }
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1)
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+          const float m_old = m_s[row];
+          const float m_new = fmaxf(m_old, mx);
+          float sum = 0.f;
+#pragma unroll
+          for (int i = 0; i < KB / 32; ++i) {
+            const float p = expf(s[i] - m_new);
+            pr[lane + 32 * i] = p;
+            sum += p;
+          }
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1)
+            sum += __shfl_xor_sync(0xffffffffu, sum, off);
+          if (lane == 0) {
+            const float corr = expf(m_old - m_new);
+            corr_s[row] = corr;
+            l_s[row] = l_s[row] * corr + sum;
+            m_s[row] = m_new;
+          }
+        }
+      }
+    } else {
+      if (j == nk) {
+        // the first V chunk of the tile: rescale by the softmax's correction
+#pragma unroll
+        for (int a = 0; a < TR; ++a) {
+          const float corr = corr_s[li + 4 * a];
+#pragma unroll
+          for (int b = 0; b < 2; ++b)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) o[a][b][e] *= corr;
+        }
+      }
+      out_product(o, ps, st, (j - nk) * VC, li, oc);
     }
-    __syncthreads();
   }
-  const int col = c0 + tid;
+  cp_async_wait<0>();
+  __syncthreads();
+  float lc[TR];
 #pragma unroll
-  for (int r = 0; r < BR; ++r) {
-    const int row = q0 + r;
-    if (row >= sq) break;
-    const float lc = fmaxf(sh.l[r], 1e-30f);
-    if (col < d) out[((size_t)bh * sq + row) * d + col] = o[r] / lc;
-    if (blockIdx.z == 0 && tid == 0)
-      lse[(size_t)bh * sq + row] = sh.m[r] + logf(lc);
-  }
+  for (int a = 0; a < TR; ++a) lc[a] = fmaxf(l_s[li + 4 * a], 1e-30f);
+  store_out(out + (size_t)bh * sq * d, o, lc, q0, sq, d, c0, width, li, oc);
+  if (blockIdx.z == 0 && tid < RB && q0 + tid < sq)
+    lse[(size_t)bh * sq + q0 + tid] = m_s[tid] + logf(fmaxf(l_s[tid], 1e-30f));
 }
 
 // dK and dV for 16 keys and one slice of their columns
@@ -266,74 +549,155 @@ wide_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// dQ for 16 queries and one slice of their columns
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
+// dQ for RB queries and one slice of their columns (all of them up to
+// WMAX). QRES: the block's Q and dO rows stay in shared memory.
+template <typename T, bool QRES>
+__global__ void __launch_bounds__(NT, 1)
 wide_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, const T* __restrict__ dout,
                const float* __restrict__ lse, const float* __restrict__ delta,
-               float* __restrict__ dq, int sq, int sk, int d, float scale,
-               int causal) {
+               float* __restrict__ dq, int sq, int sk, int d, int w_slice,
+               float scale, int causal) {
+  constexpr int RB = DQ_RB;
+  constexpr int TR = RB / 4, MR = RB / 4, NC = KB / (8 * DQ_S_WARPS);
+  constexpr int P = pad<T>();
+  constexpr int SE = stage_elems<T, QRES, true>();
+  constexpr int KS = DQ_DC + P;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Shared& sh = *reinterpret_cast<Shared*>(smem_raw);
-  const int tid = threadIdx.x;
+  T* qres = reinterpret_cast<T*>(smem_raw);
+  T* gres = qres + (QRES ? RB * (WMAX + P) : 0);
+  T* ring = gres + (QRES ? RB * (WMAX + P) : 0);
+  float* dss = reinterpret_cast<float*>(ring + DQ_STAGES * SE);
+  float* sss = dss + RB * (KB + 4);   // the tile's S chains, then dS in dss
+  float* lse_s = sss + RB * (KB + 4);
+  float* delta_s = lse_s + RB;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int li = lane >> 3, lj = lane & 7;
   const int bh = blockIdx.x;
-  const int q0 = blockIdx.y * BR;
-  const int c0 = blockIdx.z * DS;
+  const int q0 = blockIdx.y * RB;
+  const int c0 = blockIdx.z * w_slice;
+  const int width = min(w_slice, d - c0);
   const T* qb = q + (size_t)bh * sq * d;
   const T* kb = k + (size_t)bh * sk * d;
   const T* vb = v + (size_t)bh * sk * d;
   const T* gb = dout + (size_t)bh * sq * d;
-  const float* lb = lse + (size_t)bh * sq;
-  const float* db = delta + (size_t)bh * sq;
-  float aq[BR];
-#pragma unroll
-  for (int r = 0; r < BR; ++r) aq[r] = 0.f;
-  const int kv_end = causal ? min(sk, q0 + BR) : sk;
-  for (int t0 = 0; t0 < kv_end; t0 += BC) {
-    float s[4] = {0.f, 0.f, 0.f, 0.f};
-    float dp[4] = {0.f, 0.f, 0.f, 0.f};
-    tile_dot(qb, q0, sq, kb, t0, sk, d, sh.as_, sh.bs_, s);
-    tile_dot(gb, q0, sq, vb, t0, sk, d, sh.as_, sh.bs_, dp);
-    const int r = tid >> 3;
-    const int row = q0 + r;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int c = (tid & 7) + 8 * i;
-      const int key = t0 + c;
-      const bool ok = row < sq && key < sk && (!causal || row >= key);
-      const float p = ok ? expf(s[i] * scale - lb[row]) : 0.f;
-      sh.ds[r * (BC + 1) + c] = ok ? p * (dp[i] - db[row]) * scale : 0.f;
-    }
-    stage_slice(kb, t0, sk, d, c0, sh.x);
-    __syncthreads();
-#pragma unroll
-    for (int r2 = 0; r2 < BR; ++r2) {
-      float sq_ = 0.f;
-#pragma unroll 8
-      for (int c = 0; c < BC; ++c)
-        sq_ = __fmaf_rn(sh.ds[r2 * (BC + 1) + c], sh.x[c * DS + tid], sq_);
-      aq[r2] += sq_;
-    }
-    __syncthreads();
+  const int kv_end = causal ? min(sk, q0 + RB) : sk;
+  const int nk = (d + DQ_DC - 1) / DQ_DC;
+  const int per = nk + KB / VC;
+  const int ntiles = (kv_end + KB - 1) / KB;
+  const int total = ntiles * per;
+  const int qs_stride = QRES ? d + P : KS;
+  // S (warps below DQ_S_WARPS) and dP (the next DQ_S_WARPS): rows li + 4i,
+  // keys sc + 8k of the tile
+  const int sc = warp % DQ_S_WARPS * 8 * NC + lj;
+  const bool s_warp = warp < DQ_S_WARPS;
+  const bool dp_warp = !s_warp && warp < 2 * DQ_S_WARPS;
+  const int oc = warp * 64 + 4 * lj;
+  if (tid < RB) {
+    const int row = q0 + tid;
+    lse_s[tid] = row < sq ? lse[(size_t)bh * sq + row] : 0.f;
+    delta_s[tid] = row < sq ? delta[(size_t)bh * sq + row] : 0.f;
   }
-  const int col = c0 + tid;
-  if (col >= d) return;
-#pragma unroll
-  for (int r = 0; r < BR; ++r) {
-    const int row = q0 + r;
-    if (row >= sq) break;
-    dq[((size_t)bh * sq + row) * d + col] = aq[r];
+  float o[TR][2][4] = {};
+  float acc[MR][NC] = {};
+
+  // an S chunk holds [Q's rows, dO's rows when they stream,] K's, V's
+  auto issue = [&](int n) {
+    T* st = ring + (n % DQ_STAGES) * SE;
+    const int t0 = n / per * KB, j = n % per;
+    if (j < nk) {
+      const int dc = j * DQ_DC, dn = min(DQ_DC, d - dc);
+      if (!QRES) {
+        stage_async(st, KS, qb, d, q0, RB, sq, dc, dn);
+        stage_async(st + RB * KS, KS, gb, d, q0, RB, sq, dc, dn);
+        st += 2 * RB * KS;
+      }
+      stage_async(st, KS, kb, d, t0, KB, sk, dc, dn);
+      stage_async(st + KB * KS, KS, vb, d, t0, KB, sk, dc, dn);
+    } else {
+      stage_async(st, WMAX + P, kb, d, t0 + (j - nk) * VC, VC, sk, c0, width);
+    }
+  };
+
+  if (QRES && tid >= ISSUERS) {
+    stage_async(qres, d + P, qb, d, q0, RB, sq, 0, d);
+    stage_async(gres, d + P, gb, d, q0, RB, sq, 0, d);
   }
+  for (int n = 0; n < DQ_STAGES - 1; ++n) {
+    if (n < total && tid >= ISSUERS) issue(n);
+    cp_async_commit();
+  }
+  for (int n = 0; n < total; ++n) {
+    cp_async_wait<DQ_STAGES - 2>();
+    __syncthreads();
+    if (n + DQ_STAGES - 1 < total && tid >= ISSUERS) issue(n + DQ_STAGES - 1);
+    cp_async_commit();
+    const T* st = ring + (n % DQ_STAGES) * SE;
+    const int t0 = n / per * KB, j = n % per;
+    if (j < nk) {
+      const int dc = j * DQ_DC, dn = min(DQ_DC, d - dc);
+      const T* ks = QRES ? st : st + 2 * RB * KS;
+      if (s_warp)
+        chains(acc, QRES ? qres + dc : st, qs_stride, ks, KS, dn, li, sc);
+      else if (dp_warp)
+        chains(acc, QRES ? gres + dc : st + RB * KS, qs_stride, ks + KB * KS,
+               KS, dn, li, sc);
+      if (j == nk - 1) {
+        // S and dP of the tile into shared memory, then dS in place of dP,
+        // read after the next chunk's barrier
+        if (s_warp || dp_warp) {
+          float* dst = s_warp ? sss : dss;
+#pragma unroll
+          for (int a = 0; a < MR; ++a)
+#pragma unroll
+            for (int b = 0; b < NC; ++b) {
+              dst[(li + 4 * a) * (KB + 4) + sc + 8 * b] = acc[a][b];
+              acc[a][b] = 0.f;
+            }
+        }
+        __syncthreads();
+        for (int e = tid; e < RB * KB; e += NT) {
+          const int r = e / KB, c = e % KB;
+          const int row = q0 + r, key = t0 + c;
+          const bool ok = row < sq && key < sk && (!causal || row >= key);
+          const float sv = sss[r * (KB + 4) + c];
+          const float p = ok ? expf(sv * scale - lse_s[r]) : 0.f;
+          float& x = dss[r * (KB + 4) + c];
+          x = ok ? p * (x - delta_s[r]) * scale : 0.f;
+        }
+      }
+    } else {
+      out_product(o, dss, st, (j - nk) * VC, li, oc);
+    }
+  }
+  cp_async_wait<0>();
+  float one[TR];
+#pragma unroll
+  for (int a = 0; a < TR; ++a) one[a] = 1.f;
+  store_out(dq + (size_t)bh * sq * d, o, one, q0, sq, d, c0, width, li, oc);
 }
 
 constexpr int SMEM = sizeof(Shared);
 
 // 43,520 bytes: under the 48 KB a launch takes without an opt-in
 static_assert(SMEM <= 48 * 1024, "shared memory past the default limit");
+static_assert(smem_bytes<float, true, true>() <= 232448 &&
+                  smem_bytes<float, false, true>() <= 232448 &&
+                  smem_bytes<float, true, false>() <= 232448 &&
+                  smem_bytes<float, false, false>() <= 232448,
+              "shared memory past the 227 KB a block has");
 
 dim3 grid_for(int bh, int rows, int d) {
   return dim3(bh, (rows + BR - 1) / BR, (d + DS - 1) / DS);
+}
+
+// the forward's and dQ's cut of the output columns: ceil(d / WMAX) slices
+// of equal width, a multiple of 8, on the grid's z axis
+int slices(int d) { return (d + WMAX - 1) / WMAX; }
+int slice_width(int d) {
+  const int n = slices(d);
+  return ((d + n - 1) / n + 7) / 8 * 8;
 }
 
 bool shape_ok(int bh, int sq, int sk, int d) {
@@ -342,15 +706,31 @@ bool shape_ok(int bh, int sq, int sk, int d) {
          (d + DS - 1) / DS <= 65535;
 }
 
+template <typename T, bool QRES>
+cudaError_t fwd_launch(const void* q, const void* k, const void* v,
+                       void* out, void* lse, int bh, int sq, int sk, int d,
+                       float scale, int causal, cudaStream_t stream) {
+  constexpr int smem = smem_bytes<T, QRES, false>();
+  static bool opted_in[tf32mma::MAX_DEVICES];
+  const cudaError_t e =
+      tf32mma::smem_opt_in(wide_fwd_kernel<T, QRES>, opted_in, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(bh, (sq + FWD_RB - 1) / FWD_RB, slices(d));
+  wide_fwd_kernel<T, QRES><<<grid, NT, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<float*>(out),
+      static_cast<float*>(lse), sq, sk, d, slice_width(d), scale, causal);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* out,
                 void* lse, int bh, int sq, int sk, int d, float scale,
                 int causal, cudaStream_t stream) {
-  wide_fwd_kernel<T><<<grid_for(bh, sq, d), THREADS, SMEM, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<float*>(out),
-      static_cast<float*>(lse), sq, sk, d, scale, causal);
-  return cudaGetLastError();
+  return d <= WMAX ? fwd_launch<T, true>(q, k, v, out, lse, bh, sq, sk, d,
+                                         scale, causal, stream)
+                   : fwd_launch<T, false>(q, k, v, out, lse, bh, sq, sk, d,
+                                          scale, causal, stream);
 }
 
 template <typename T>
@@ -367,16 +747,33 @@ cudaError_t dkv(const void* q, const void* k, const void* v, const void* g,
   return cudaGetLastError();
 }
 
+template <typename T, bool QRES>
+cudaError_t dq_launch(const void* q, const void* k, const void* v,
+                      const void* g, const void* lse, const void* delta,
+                      void* dq_, int bh, int sq, int sk, int d, float scale,
+                      int causal, cudaStream_t stream) {
+  constexpr int smem = smem_bytes<T, QRES, true>();
+  static bool opted_in[tf32mma::MAX_DEVICES];
+  const cudaError_t e =
+      tf32mma::smem_opt_in(wide_dq_kernel<T, QRES>, opted_in, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(bh, (sq + DQ_RB - 1) / DQ_RB, slices(d));
+  wide_dq_kernel<T, QRES><<<grid, NT, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(g),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<float*>(dq_), sq, sk, d, slice_width(d), scale, causal);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t dq(const void* q, const void* k, const void* v, const void* g,
                const void* lse, const void* delta, void* dq_, int bh, int sq,
                int sk, int d, float scale, int causal, cudaStream_t stream) {
-  wide_dq_kernel<T><<<grid_for(bh, sq, d), THREADS, SMEM, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(g),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<float*>(dq_), sq, sk, d, scale, causal);
-  return cudaGetLastError();
+  return d <= WMAX ? dq_launch<T, true>(q, k, v, g, lse, delta, dq_, bh, sq,
+                                        sk, d, scale, causal, stream)
+                   : dq_launch<T, false>(q, k, v, g, lse, delta, dq_, bh, sq,
+                                         sk, d, scale, causal, stream);
 }
 
 }  // namespace

@@ -137,13 +137,14 @@ def _check_flash(q, k, v):
 
 def _aligned16(x):
     """``x``, or a fresh copy when its data does not start on 16 bytes:
-    the kernels stage K/V rows with 16-byte ``cp.async`` copies."""
+    the kernels stage their rows with 16-byte ``cp.async`` copies."""
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def _flash_forward_cuda(q, k, v, causal, sm_scale):
     _check_flash(q, k, v)
-    k, v = _aligned16(k), _aligned16(v)
+    # the kernels stage Q (the wide one), K and V with 16-byte cp.async
+    q, k, v = (_aligned16(x) for x in (q, k, v))
     b, h, sq, d = q.shape
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)

@@ -1,6 +1,7 @@
 """What the design choices of the flash-forward (K1), flash-backward (K2a
-dK/dV, K2b dQ), paged-decode (K3) and multi-query paged (K4) kernels are
-worth, for the PyTorch/CUDA port, on one GPU.
+dK/dV, K2b dQ), paged-decode (K3) and multi-query paged (K4) kernels, and
+of the wide route's forward and dQ (K1 wide, K2b wide), are worth, for the
+PyTorch/CUDA port, on one GPU.
 
     python3 profile_kernels_torch.py [--parent DIR]
 
@@ -16,7 +17,13 @@ instances at head dimension 64 (the training path's). K3 is timed at the
 serving shape and at contexts 1024 and 4096 (B 32 and B 1); with
 ``--parent DIR`` (a checkout of an earlier commit) that tree's
 ``paged_decode.cu`` is built beside and held against this one bit for bit
-on the smoke's inputs. The flash kernels are also timed at head dimension
+on the smoke's inputs, and its ``flash_wide.cu`` timed beside this one's.
+K1 wide and K2b wide are timed at chip_smoke.py phase 8's shape and at
+(2,8,2048,512), f32 causal, each in variants that undo one choice (rows
+per block, warps and chains of S, ring depth and chunk sizes, resident
+Q, register prefetch, the order of key tiles) or drop a part of the work (where
+the time goes), beside SDPA, with the ptxas registers and spills of their
+float32 instances. The flash kernels are also timed at head dimension
 256 (float32) and in float16 at the training shape, beside the ptxas
 registers and spills of every instance with 32 k-steps. Last, the rate of
 the ``mma.sync`` TF32 instruction that the flash kernels are built on,
@@ -155,6 +162,96 @@ K4_VARIANTS = {
                     "      <<<grid, 256, smem, stream>>>("},
     "2-slot ring": {"constexpr int STAGES = 4;": "constexpr int STAGES = 2;"},
 }
+# the wide route's forward (K1 wide) and dQ (K2b wide) in csrc/flash_wide.cu
+# (D > 256): the design's choices undone one at a time, and where the time
+# goes (wrong results): without the score chains, without the output
+# product, neither
+WIDE_FWD_S = ("      if (warp < FWD_S_WARPS)\n"
+              "        chains(acc, QRES ? qres + dc : st, qs_stride,\n"
+              "               QRES ? st : st + RB * KS, KS, min(FWD_DC, d - dc), li, sc);\n")
+WIDE_FWD_PV = "      out_product(o, ps, st, (j - nk) * VC, li, oc);\n"
+WIDE_DQ_S = ("        chains(acc, QRES ? qres + dc : st, qs_stride, ks, KS, dn, li, sc);\n"
+             "      else if (dp_warp)\n"
+             "        chains(acc, QRES ? gres + dc : st + RB * KS, qs_stride, ks + KB * KS,\n"
+             "               KS, dn, li, sc);\n")
+WIDE_DQ_PV = "      out_product(o, dss, st, (j - nk) * VC, li, oc);\n"
+# rotated: each row block starts at its own key tile (blockIdx.y mod its
+# tiles), so that the row blocks of one head do not read the same K/V
+# tile at once
+ROTATED = {"n / per * KB": "(n / per + blockIdx.y) % ntiles * KB"}
+Q_STREAMED = {
+    "  return d <= WMAX ? fwd_launch<T, true>": "  return false ? fwd_launch<T, true>",
+    "  return d <= WMAX ? dq_launch<T, true>": "  return false ? dq_launch<T, true>"}
+# the chains with the next step's operands loaded ahead (tried: no gain
+# once the copies are issued by other warps)
+PREFETCH = {
+    "  float4 x[MR], y[NC];\n"
+    "#pragma unroll 2\n"
+    "  for (int j = 0; j < n; j += 4) {\n"
+    "#pragma unroll\n"
+    "    for (int i = 0; i < MR; ++i) x[i] = load4(a + (r + 4 * i) * sa + j);\n"
+    "#pragma unroll\n"
+    "    for (int k = 0; k < NC; ++k) y[k] = load4(b + (c + 8 * k) * sb + j);\n":
+    "  float4 x[MR], y[NC];\n"
+    "  for (int i = 0; i < MR; ++i) x[i] = load4(a + (r + 4 * i) * sa);\n"
+    "  for (int k = 0; k < NC; ++k) y[k] = load4(b + (c + 8 * k) * sb);\n"
+    "#pragma unroll 2\n"
+    "  for (int j = 0; j < n; j += 4) {\n"
+    "    const int jn = j + 4 < n ? j + 4 : j;\n"
+    "    float4 xn[MR], yn[NC];\n"
+    "#pragma unroll\n"
+    "    for (int i = 0; i < MR; ++i) xn[i] = load4(a + (r + 4 * i) * sa + jn);\n"
+    "#pragma unroll\n"
+    "    for (int k = 0; k < NC; ++k) yn[k] = load4(b + (c + 8 * k) * sb + jn);\n",
+    "        acc[i][k] = __fmaf_rn(x[i].w, y[k].w, acc[i][k]);\n"
+    "      }\n"
+    "  }\n":
+    "        acc[i][k] = __fmaf_rn(x[i].w, y[k].w, acc[i][k]);\n"
+    "      }\n"
+    "    for (int i = 0; i < MR; ++i) x[i] = xn[i];\n"
+    "    for (int k = 0; k < NC; ++k) y[k] = yn[k];\n"
+    "  }\n"}
+ALL_ISSUE = {"constexpr int ISSUERS = 128;": "constexpr int ISSUERS = 0;"}
+WIDE_FWD_VARIANTS = {
+    "as built": {},
+    "register prefetch in the chains": PREFETCH,
+    "32 rows per block": {"constexpr int FWD_RB = 16;": "constexpr int FWD_RB = 32;"},
+    "copies issued by every warp": ALL_ISSUE,
+    "S on 8 warps (4x1 chains each)": dict(ALL_ISSUE, **{
+        "constexpr int FWD_S_WARPS = 4;": "constexpr int FWD_S_WARPS = 8;"}),
+    "S on 2 warps (4x4 chains each)": {"constexpr int FWD_S_WARPS = 4;":
+                                       "constexpr int FWD_S_WARPS = 2;"},
+    "3-stage ring": {"constexpr int FWD_STAGES = 2;": "constexpr int FWD_STAGES = 3;"},
+    "4-stage ring, 64-dim S chunks, 8-key V chunks": {
+        "constexpr int FWD_STAGES = 2;": "constexpr int FWD_STAGES = 4;",
+        "constexpr int FWD_DC = 128;": "constexpr int FWD_DC = 64;",
+        "constexpr int VC = 16;": "constexpr int VC = 8;"},
+    "Q streamed (no resident rows)": Q_STREAMED,
+    "tiles rotated by row block": ROTATED,
+    "no S chains": {WIDE_FWD_S: ""},
+    "no output product": {WIDE_FWD_PV: ""},
+    "neither": {WIDE_FWD_S: "", WIDE_FWD_PV: ""},
+}
+WIDE_DQ_VARIANTS = {
+    "as built": {},
+    "copies issued by every warp": ALL_ISSUE,
+    "register prefetch in the chains": PREFETCH,
+    "S and dP on 4 warps each (4x2 chains)": dict(ALL_ISSUE, **{
+        "constexpr int DQ_S_WARPS = 2;": "constexpr int DQ_S_WARPS = 4;"}),
+    "S and dP on 1 warp each (4x8 chains)": {
+        "constexpr int DQ_S_WARPS = 2;": "constexpr int DQ_S_WARPS = 1;"},
+    "2-stage ring": {"constexpr int DQ_STAGES = 4;": "constexpr int DQ_STAGES = 2;"},
+    "32-dim S chunks, 8-key chunks": {
+        "constexpr int DQ_DC = 64;": "constexpr int DQ_DC = 32;",
+        "constexpr int VC = 16;": "constexpr int VC = 8;"},
+    "Q streamed (no resident rows)": Q_STREAMED,
+    "tiles rotated by row block": ROTATED,
+    "no S/dP chains": {WIDE_DQ_S: "        ;\n"},
+    "no output product": {WIDE_DQ_PV: ""},
+    "neither": {WIDE_DQ_S: "        ;\n", WIDE_DQ_PV: ""},
+}
+# the shapes: chip_smoke.py phase 8's and a long one
+WIDE_SHAPES = ((8, 2, 128, 512), (2, 8, 2048, 512))
 MMA_BENCH = r"""
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -205,7 +302,8 @@ def _variants(kernel, variants, out_dir, build, nvcc):
         for path, text in texts.items():
             with open(os.path.join(vdir, os.path.basename(path)), "w") as f:
                 f.write(text)
-        stem = os.path.join(vdir, kernel.name)
+        stem = os.path.join(vdir, os.path.splitext(
+            os.path.basename(kernel.source))[0])
         cmd = [nvcc, *build.NVCC_FLAGS, "-o", stem + ".so", stem + ".cu"]
         procs[name] = (stem, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
@@ -274,6 +372,99 @@ def _k3_inputs(C, B, ctx, page_dtype=torch.float32):
         lens = [ctx] * B
     return C.paged_inputs(rng, B, page_dtype, lens, N=max(257, B * nb + 1),
                           nb=nb)
+
+
+def _wide_entry(regs, kernel, qres):
+    """ptxas (registers, spill stores) of the float32 instance of a wide
+    kernel with Q resident or streamed."""
+    tag = "%sIfLb%dE" % (kernel, int(qres))
+    return next(("%d/%d" % (r, st) for n, (r, st, _) in regs.items()
+                 if tag in n), "?")
+
+
+def time_wide(C, build, A, out_dir, nvcc, fwd_variants=None, dq_variants=None,
+              others=None):
+    """K1 wide and K2b wide variants (``flash_wide.cu`` copies) at
+    ``WIDE_SHAPES``, f32 causal, beside SDPA; ``others`` ({label: path} of
+    ``flash_wide.cu`` files, e.g. an earlier tree's) are built and timed
+    beside them. Prints us per call, the max abs error against the plain
+    version and the ptxas registers / spill store bytes of the f32
+    instances (Q resident, Q streamed)."""
+    fwd_variants = WIDE_FWD_VARIANTS if fwd_variants is None else fwd_variants
+    dq_variants = WIDE_DQ_VARIANTS if dq_variants is None else dq_variants
+    logs_f, logs_q = {}, {}
+    fwd = _bind(_variants(build.FLASH_WIDE_FWD, fwd_variants, out_dir, build,
+                          nvcc), build.FLASH_WIDE_FWD, logs_f)
+    dqs = _bind(_variants(build.FLASH_WIDE_BWD_DQ, dq_variants, out_dir,
+                          build, nvcc), build.FLASH_WIDE_BWD_DQ, logs_q)
+    procs = {}
+    for i, (label, path) in enumerate((others or {}).items()):
+        vdir = os.path.join(out_dir, "flash_wide-other-%d" % i)
+        shutil.rmtree(vdir, ignore_errors=True)
+        os.makedirs(vdir)
+        for src in [path] + glob.glob(os.path.join(build.CSRC, "*.cuh")):
+            shutil.copy(src, vdir)
+        shutil.move(os.path.join(vdir, os.path.basename(path)),
+                    os.path.join(vdir, "flash_wide.cu"))
+        stem = os.path.join(vdir, "flash_wide")
+        procs[label] = (stem, subprocess.Popen(
+            [nvcc, *build.NVCC_FLAGS, "-o", stem + ".so", stem + ".cu"],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    for label, (stem, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError("nvcc failed for %s:\n%s" % (label, log))
+        lib = ctypes.CDLL(os.path.abspath(stem + ".so"))
+        for fns, kernel, logs in ((fwd, build.FLASH_WIDE_FWD, logs_f),
+                                  (dqs, build.FLASH_WIDE_BWD_DQ, logs_q)):
+            fn = getattr(lib, kernel.symbol)
+            fn.argtypes = kernel.argtypes
+            fns[label] = fn
+            logs[label] = log
+    stream = torch.cuda.current_stream().cuda_stream
+    F = torch.nn.functional
+    for kernel, fns, logs in (("wide_fwd_kernel", fwd, logs_f),
+                              ("wide_dq_kernel", dqs, logs_q)):
+        print("%s ptxas registers/spill stores, f32 (Q resident; Q streamed): "
+              "%s" % (kernel, ", ".join(
+                  "%s %s; %s" % (name, _wide_entry(ptxas_report(log), kernel, 1),
+                                 _wide_entry(ptxas_report(log), kernel, 0))
+                  for name, log in logs.items())), flush=True)
+    rng = np.random.default_rng(9)
+    for b, h, s, d in WIDE_SHAPES:
+        q, k, v = C.flash_inputs(rng, b, h, s, s, d, torch.float32)
+        g = C.flash_inputs(rng, b, h, s, s, d, torch.float32)[0]
+        scale = d ** -0.5
+        ref_out, ref_lse = A._flash_forward_plain(q, k, v, True, scale)
+        ref_dq = A._flash_backward_plain(q, k, v, ref_out, ref_lse, g, True,
+                                         scale)[0]
+        delta = (ref_out * g).sum(dim=-1)
+        out, lse, dq = (torch.empty_like(x) for x in (q, ref_lse, q))
+        dims = (b, h, s, s, d, scale, 1, 0, stream)
+        for label, fns, call_args, outs, refs in (
+                ("K1 wide", fwd, lambda: (q.data_ptr(), k.data_ptr(),
+                                          v.data_ptr(), out.data_ptr(),
+                                          lse.data_ptr()),
+                 (out, lse), (ref_out, ref_lse)),
+                ("K2b wide", dqs, lambda: tuple(x.data_ptr() for x in (
+                    q, k, v, g, ref_lse, delta, dq)), (dq,), (ref_dq,))):
+            cells = []
+            for name, fn in fns.items():
+                def call(fn=fn):
+                    code = fn(*call_args(), *dims)
+                    assert code == 0, code
+                call()
+                torch.cuda.synchronize()
+                err = max((o - r).abs().max().item()
+                          for o, r in zip(outs, refs))
+                cells.append("%s %.4f (%.1e)" % (name, C.device_ms(call) * 1e3,
+                                                 err))
+            print("  %s (%d,%d,%d,%d): %s" % (label, b, h, s, d,
+                                              ", ".join(cells)), flush=True)
+        lib = C.device_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True)) * 1e3
+        print("  SDPA forward (%d,%d,%d,%d) %.4f" % (b, h, s, d, lib),
+              flush=True)
 
 
 def main():
@@ -431,9 +622,8 @@ def main():
             raise RuntimeError("nvcc failed for the parent's K3:\n" + log)
         fn = getattr(ctypes.CDLL(os.path.abspath(stem + ".so")),
                      "mxt_paged_decode")
-        # the parent's interface: q dtype beside the pages'
-        fn.argtypes = (build.PAGED_DECODE.argtypes[:13]
-                       + [ctypes.c_int] + build.PAGED_DECODE.argtypes[13:])
+        # the parent's interface is this tree's (PR 6 on)
+        fn.argtypes = build.PAGED_DECODE.argtypes
         print("K3 against the parent's (%s) build, bit for bit, and us per "
               "call (this tree | parent):" % parent)
         for B, ctx, pdt in ((32, None, torch.float32),
@@ -448,7 +638,7 @@ def main():
             def old():
                 code = fn(q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
                           bt.data_ptr(), cl.data_ptr(), theirs.data_ptr(), B,
-                          4, 64, kp.shape[0], 16, nb, 0.125, 0,
+                          4, 64, kp.shape[0], 16, nb, 0.125,
                           A._DTYPE_CODE[pdt], stream)
                 assert code == 0, code
             old()
@@ -508,6 +698,10 @@ def main():
                  for fn_name, (r, st, _) in sorted(ptxas_report(text).items())
                  if re.search(r"Li32ELi\dELb", fn_name)]
         print("  %s: %s" % (name, ", ".join(cells)), flush=True)
+
+    time_wide(C, build, A, out_dir, nvcc, others=None if parent is None else {
+        "parent": os.path.join(parent, "mxnet_tpu_torch", "csrc",
+                               "flash_wide.cu")})
 
     log, _ = mma.communicate()
     if mma.returncode:

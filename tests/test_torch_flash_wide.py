@@ -4,11 +4,15 @@ The wrapper's shape gate takes every D % 8 == 0, as the JAX package
 computes it, and picks the wide kernels from D > 256 alone; the plain
 forward and backward at D 264 (not a multiple of 16) and 512 match the JAX
 package's ``flash_attention`` (its scan path here) and its gradient. The
-kernels cannot run here, so their tiling is emulated in numpy float32 —
-16 owned rows, key or query tiles of 32, output slices of 128 columns, the
-online softmax of the forward, and the backward recomputing P from the
-forward's lse — and held against the JAX package. Float32 throughout:
-2e-5 absolute and relative (the summation order differs).
+kernels cannot run here, so their tiling is emulated in numpy float32 and
+held against the JAX package — the forward and dQ: 16 owned rows, key
+tiles of 64, the output's D whole up to 512 columns and in equal slices
+past it, S chains carried across staged chunks of dimensions, the online
+softmax, the output product one key at a time; dK/dV: 16 owned keys,
+query tiles of 32, output slices of 128 columns; the backward recomputing
+P from the forward's lse. The three kernels' scores agree bit for bit.
+Float32 throughout: 2e-5 absolute and relative (the summation order
+differs).
 """
 import jax
 import jax.numpy as jnp
@@ -22,7 +26,10 @@ from mxnet_tpu_torch.ops import _build
 from mxnet_tpu_torch.ops import attention as TA
 
 TOL = 2e-5
-BR, BC, DS = 16, 32, 128   # csrc/flash_wide.cu's tile sizes
+BR, BC, DS = 16, 32, 128   # csrc/flash_wide.cu's tile sizes for dK/dV
+# and for the forward and dQ: rows, key tile, output columns per block,
+# dimensions per staged S chunk
+RB, KB, WMAX, FWD_DC, DQ_DC = 16, 64, 512, 128, 64
 
 
 def _qkv(seed, b, h, sq, sk, d):
@@ -115,48 +122,93 @@ def _dot_chain(a, b):
     return acc
 
 
-def _emulate_fwd(q, k, v, causal, scale):
+def _chain_chunked(a, b, dc):
+    """S tile = a . b^T as the forward and dQ kernels form it: one float32
+    chain per entry over d in order, carried across the staged chunks of
+    dc dimensions."""
+    acc = np.zeros((a.shape[0], b.shape[0]), np.float32)
+    for c0 in range(0, a.shape[1], dc):
+        for j in range(c0, min(c0 + dc, a.shape[1])):
+            acc = (acc + np.outer(a[:, j], b[:, j])).astype(np.float32)
+    return acc
+
+
+def _slices(d):
+    """The forward's and dQ's output columns per block: all of D up to
+    WMAX, else ceil(D / WMAX) equal slices, a multiple of 8 wide."""
+    n = -(-d // WMAX)
+    w = (-(-d // n) + 7) // 8 * 8
+    return [(c0, min(c0 + w, d)) for c0 in range(0, d, w)]
+
+
+def _by_key(acc, w, y):
+    """acc + w . y, one key (row of y) at a time in order, as the kernels'
+    output product adds it."""
+    for i in range(y.shape[0]):
+        acc = (acc + w[:, i:i + 1] * y[i]).astype(np.float32)
+    return acc
+
+
+def _emulate_fwd(q, k, v, causal, scale, scores=None):
+    """The forward kernel's tiling; ``scores`` (sq, sk), if given, gets
+    every score chain it forms, before the scale."""
     sq, d = q.shape
     sk = k.shape[0]
     out = np.zeros((sq, d), np.float32)
     lse = np.zeros(sq, np.float32)
-    for q0 in range(0, sq, BR):
-        rows = np.arange(q0, min(q0 + BR, sq))
-        kv_end = min(sk, q0 + BR) if causal else sk
-        for c0 in range(0, d, DS):
-            cols = slice(c0, min(c0 + DS, d))
-            m = np.full(len(rows), -1e30, np.float32)
-            l = np.zeros(len(rows), np.float32)
-            o = np.zeros((len(rows), cols.stop - c0), np.float32)
-            for t0 in range(0, kv_end, BC):
-                keys = np.arange(t0, min(t0 + BC, sk))
-                s = _dot_chain(q[rows], k[keys]) * np.float32(scale)
-                if causal:
-                    s = np.where(rows[:, None] >= keys[None, :], s, -1e30)
-                m_new = np.maximum(m, s.max(axis=1))
-                p = np.exp(s - m_new[:, None]).astype(np.float32)
-                corr = np.exp(m - m_new).astype(np.float32)
-                l = l * corr + p.sum(axis=1)
-                o = o * corr[:, None] + p @ v[keys, cols]
-                m = m_new
-            lc = np.maximum(l, 1e-30)
-            out[rows, cols] = o / lc[:, None]
-            lse[rows] = m + np.log(lc)
+    for q0 in range(0, sq, RB):
+        rows = np.arange(q0, min(q0 + RB, sq))
+        kv_end = min(sk, q0 + RB) if causal else sk
+        for c0, c1 in _slices(d):
+            out[rows, c0:c1], lse[rows] = _softmax_pass(
+                q, k, v, rows, range(0, kv_end, KB), c0, c1, causal, scale,
+                scores)
     return out, lse
 
 
-def _emulate_bwd(q, k, v, g, lse, delta, causal, scale):
+def _softmax_pass(q, k, v, rows, tiles, c0, c1, causal, scale, scores):
+    """One forward block's online softmax over the key tiles starting at
+    ``tiles``: its normalised output columns [c0, c1) and lse."""
+    sk = k.shape[0]
+    m = np.full(len(rows), -1e30, np.float32)
+    l = np.zeros(len(rows), np.float32)
+    o = np.zeros((len(rows), c1 - c0), np.float32)
+    for t0 in tiles:
+        keys = np.arange(t0, min(t0 + KB, sk))
+        chain = _chain_chunked(q[rows], k[keys], FWD_DC)
+        if scores is not None:
+            scores[np.ix_(rows, keys)] = chain
+        s = chain * np.float32(scale)
+        if causal:
+            s = np.where(rows[:, None] >= keys[None, :], s, -1e30)
+        m_new = np.maximum(m, s.max(axis=1))
+        p = np.exp(s - m_new[:, None]).astype(np.float32)
+        corr = np.exp(m - m_new).astype(np.float32)
+        l = l * corr + p.sum(axis=1)
+        o = _by_key(o * corr[:, None], p, v[keys, c0:c1])
+        m = m_new
+    lc = np.maximum(l, 1e-30)
+    return o / lc[:, None], (m + np.log(lc)).astype(np.float32)
+
+
+def _emulate_bwd(q, k, v, g, lse, delta, causal, scale, scores=None):
+    """The dK/dV and dQ kernels' tilings; ``scores``, if given, a dict of
+    (sq, sk) arrays "dkv" and "dq" that get every score chain each forms,
+    before the scale."""
     sq, d = q.shape
     sk = k.shape[0]
     dq, dk, dv = (np.zeros_like(x) for x in (q, k, v))
 
-    def p_ds(qrows, keys):
-        s = _dot_chain(q[qrows], k[keys]) * np.float32(scale)
+    def p_ds(qrows, keys, chain=_dot_chain, kernel="dkv"):
+        raw = chain(q[qrows], k[keys])
+        if scores is not None:
+            scores[kernel][np.ix_(qrows, keys)] = raw
+        s = raw * np.float32(scale)
         ok = np.ones(s.shape, bool)
         if causal:
             ok = qrows[:, None] >= keys[None, :]
         p = np.where(ok, np.exp(s - lse[qrows, None]), 0).astype(np.float32)
-        dp = _dot_chain(g[qrows], v[keys])
+        dp = chain(g[qrows], v[keys])
         ds = np.where(ok, p * (dp - delta[qrows, None]) * scale, 0)
         return p, ds.astype(np.float32)
 
@@ -167,21 +219,28 @@ def _emulate_bwd(q, k, v, g, lse, delta, causal, scale):
             p, ds = p_ds(qrows, keys)
             dv[keys] += p.T @ g[qrows]
             dk[keys] += ds.T @ q[qrows]
-    for q0 in range(0, sq, BR):           # the dQ kernel's blocks
-        qrows = np.arange(q0, min(q0 + BR, sq))
-        for t0 in range(0, min(sk, q0 + BR) if causal else sk, BC):
-            keys = np.arange(t0, min(t0 + BC, sk))
-            _, ds = p_ds(qrows, keys)
-            dq[qrows] += ds @ k[keys]
+    for q0 in range(0, sq, RB):           # the dQ kernel's blocks
+        qrows = np.arange(q0, min(q0 + RB, sq))
+        for c0, c1 in _slices(d):
+            acc = np.zeros((len(qrows), c1 - c0), np.float32)
+            for t0 in range(0, min(sk, q0 + RB) if causal else sk, KB):
+                keys = np.arange(t0, min(t0 + KB, sk))
+                _, ds = p_ds(qrows, keys,
+                             lambda a, b: _chain_chunked(a, b, DQ_DC), "dq")
+                acc = _by_key(acc, ds, k[keys, c0:c1])
+            dq[qrows, c0:c1] = acc
     return dq, dk, dv
 
 
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("sq,sk,d", [(40, 40, 264), (37, 70, 384),
-                                     (33, 50, 512)])
+                                     (33, 50, 512), (70, 70, 264),
+                                     (50, 130, 384), (20, 40, 1032)])
 def test_wide_kernel_tiling_emulated_matches_jax(sq, sk, d, causal):
-    """Ragged rows and key tiles, sq != sk, a last slice of 8 columns at
-    D 264: the emulated kernels against the JAX package."""
+    """Ragged rows and key tiles, sq != sk, rows over several 16-row blocks
+    and keys over several 64-key tiles, a last dK/dV slice of 8 columns at
+    D 264, the forward's and dQ's three slices of 344 columns at D 1032:
+    the emulated kernels against the JAX package."""
     q, k, v = (x[0, 0] for x in _qkv(d + sq, 1, 1, sq, sk, d))
     g = np.random.default_rng(sq).standard_normal(q.shape).astype(np.float32)
     scale = 1.0 / np.sqrt(d)
@@ -200,3 +259,46 @@ def test_wide_kernel_tiling_emulated_matches_jax(sq, sk, d, causal):
     for a, r in zip(_emulate_bwd(q, k, v, g, lse, delta, causal, scale),
                     ref_grads):
         np.testing.assert_allclose(a, np.asarray(r)[0, 0], rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("sq,sk,d", [(70, 70, 264), (20, 40, 1032)])
+def test_wide_kernels_form_the_same_score_bits(sq, sk, d, causal):
+    """The forward's S (chains carried over 128-dimension chunks), dQ's
+    (64-dimension chunks) and dK/dV's (its own tiles) agree bit for bit on
+    every score the output needs, so the backward's exp(s * scale - lse)
+    sees the forward's s."""
+    q, k, v = (x[0, 0] for x in _qkv(d + sq, 1, 1, sq, sk, d))
+    g = np.random.default_rng(sq).standard_normal(q.shape).astype(np.float32)
+    scale = 1.0 / np.sqrt(d)
+    formed = {name: np.full((sq, sk), np.nan, np.float32)
+              for name in ("fwd", "dkv", "dq")}
+    out, lse = _emulate_fwd(q, k, v, causal, scale, formed["fwd"])
+    delta = (out * g).sum(axis=1).astype(np.float32)
+    _emulate_bwd(q, k, v, g, lse, delta, causal, scale, formed)
+    need = np.ones((sq, sk), bool)
+    if causal:
+        need = np.arange(sq)[:, None] >= np.arange(sk)[None, :]
+    for name, s in formed.items():
+        assert not np.isnan(s[need]).any(), name
+    assert np.array_equal(formed["fwd"][need], formed["dkv"][need])
+    assert np.array_equal(formed["dq"][need], formed["dkv"][need])
+
+
+def test_wide_forward_passes_16_byte_aligned_q_k_v(monkeypatch):
+    """The wide forward stages Q's rows with 16-byte copies too: a q, k or
+    v whose data starts off a 16-byte boundary reaches the kernel as an
+    aligned copy."""
+    x = torch.zeros(2 * 8 * 264 + 1)[1:].view(1, 2, 8, 264)
+    assert x.data_ptr() % 16 and x.is_contiguous()
+    seen = []
+
+    class Fake:
+        def launch(self, *args):
+            seen.extend(args[:3])
+
+    monkeypatch.setattr(_build, "FLASH_WIDE_FWD", Fake())
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: _Null())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: _Stream())
+    TA._flash_forward_cuda(x, x, x, True, 0.1)
+    assert len(seen) == 3 and all(p % 16 == 0 for p in seen)
