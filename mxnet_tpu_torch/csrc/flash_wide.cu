@@ -48,14 +48,34 @@
 //     to shared memory; the output product is fmaf with one accumulator
 //     per output element, each thread 4 rows x 8 columns of its warp's 64.
 //
-// dK/dV (wide_dkv_kernel, unchanged since it was written): the OUTPUT's
-// head dimension is cut into slices of DS = 128 on the grid's z axis. A
-// block owns BR = 16 keys and one slice; it streams the queries in tiles
-// of BC = 32 rows. For each tile it forms the 16x32 score tile S^T = K.Q^T
-// and dP^T = V.dO^T over the FULL D through tile_dot(), staging both
-// operands through shared memory in chunks of DC = 32 dimensions, then
-// accumulates P^T.dO and dS^T.Q for its own slice only, one output column
-// per thread and 16 rows in registers.
+// dK/dV (wide_dkv_kernel) mirrors them with the roles of rows and keys
+// swapped, so that each key's sums stay in one block (no atomics, the
+// result bitwise repeatable). What bounds it, as measured on an H100
+// (profile_kernels_torch.py's variants): the S^T and dP^T chains, on four
+// of the eight warps, take about two fifths of its time, the copies,
+// barriers and P/dS step about as much, the output products the rest; not
+// the arithmetic's rate. The design:
+//   - a block of 256 threads owns KR = 16 keys and all of dK and dV up to
+//     WMAX = 512 columns, in registers (each thread 4 keys x 8 columns of
+//     each), in the same ceil(D / 512) slices on z past that; S^T and dP^T
+//     are formed once per (key block, query tile) up to D 512;
+//   - for D <= 512 the block's K and V rows stay in shared memory in the
+//     input dtype; past it they stream with the queries;
+//   - the queries come in tiles of QT = 16 rows through a two-stage ring of
+//     cp.async copies issued by the four warps that form neither S^T nor
+//     dP^T, each warp taking whole rows: up to D 512 one stage holds a
+//     tile's Q and dO rows whole, with its lse and delta, so that the score
+//     chains and both output products read Q and dO from one copy (past
+//     it: S chunks of 128 dimensions, then output chunks of 8 query rows
+//     over the slice's columns);
+//   - two warps form S^T = K.Q^T and two dP^T = V.dO^T, each thread 4
+//     keys x 1 query, one in-order fmaf chain over d per score as above,
+//     32 dimensions per unrolled step; P^T and dS^T = P^T (dP^T - delta)
+//     scale go to shared memory; then all eight warps add dV += P^T.dO and
+//     dK += dS^T.Q, one fmaf per query in order;
+//   - causal: query tiles before the block's first key are skipped, the
+//     key blocks that see the most queries are dispatched first, and keys
+//     that no query sees (keys >= Sq) write exact zeros.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -67,84 +87,13 @@
 namespace {
 
 using tf32mma::cp_async16;
+using tf32mma::cp_async4;
 using tf32mma::cp_async_commit;
 using tf32mma::cp_async_wait;
 
 constexpr float NEG_INF = -1e30f;
-constexpr int BR = 16;    // rows a block owns
-constexpr int BC = 32;    // rows of a streamed tile
-constexpr int DC = 32;    // head dimensions per staged chunk
-constexpr int DS = 128;   // output columns per block (one per thread)
-constexpr int THREADS = 128;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
-
-// acc[i] += A[a0 + r] . B[b0 + c_i] over d = 0..D-1, one fmaf at a time in
-// order of d, for the thread's r = tid / 8 and c_i = tid % 8 + 8 i. Rows
-// past a_rows / b_rows read as zero. A is (*, d) row-major from a, B from
-// b. as_/bs_ are [BR][DC + 1] and [BC][DC + 1] floats of shared memory.
-template <typename T>
-__device__ void tile_dot(const T* __restrict__ a, int a0, int a_rows,
-                         const T* __restrict__ b, int b0, int b_rows, int d,
-                         float* as_, float* bs_, float (&acc)[4]) {
-  const int tid = threadIdx.x;
-  const int r = tid >> 3;
-  const int c = tid & 7;
-  for (int dc = 0; dc < d; dc += DC) {
-    for (int e = tid; e < BR * DC; e += THREADS) {
-      const int row = e / DC, col = e % DC;
-      const bool in = a0 + row < a_rows && dc + col < d;
-      as_[row * (DC + 1) + col] =
-          in ? to_float(a[(size_t)(a0 + row) * d + dc + col]) : 0.f;
-    }
-    for (int e = tid; e < BC * DC; e += THREADS) {
-      const int row = e / DC, col = e % DC;
-      const bool in = b0 + row < b_rows && dc + col < d;
-      bs_[row * (DC + 1) + col] =
-          in ? to_float(b[(size_t)(b0 + row) * d + dc + col]) : 0.f;
-    }
-    __syncthreads();
-    // zero-filled dimensions past d add fmaf(0, 0, acc) == acc exactly
-#pragma unroll 8
-    for (int j = 0; j < DC; ++j) {
-      const float x = as_[r * (DC + 1) + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        acc[i] = __fmaf_rn(x, bs_[(c + 8 * i) * (DC + 1) + j], acc[i]);
-    }
-    __syncthreads();
-  }
-}
-
-// rows [r0, r0 + BC) x columns [c0, c0 + DS) of x (n, d) into dst [BC][DS]
-// as float, zero outside
-template <typename T>
-__device__ void stage_slice(const T* __restrict__ x, int r0, int n, int d,
-                            int c0, float* dst) {
-  for (int e = threadIdx.x; e < BC * DS; e += THREADS) {
-    const int row = e / DS, col = e % DS;
-    const bool in = r0 + row < n && c0 + col < d;
-    dst[e] = in ? to_float(x[(size_t)(r0 + row) * d + c0 + col]) : 0.f;
-  }
-}
-
-struct Shared {
-  float as_[BR * (DC + 1)];
-  float bs_[BC * (DC + 1)];
-  float p[BR * (BC + 1)];
-  float ds[BR * (BC + 1)];
-  float corr[BR];
-  float m[BR];
-  float l[BR];
-  float x[BC * DS];
-  float y[BC * DS];
-};
-
-// ------------------------------------------------ forward and dQ
+// ------------------------------------------------ tiles
 constexpr int FWD_RB = 16;   // rows (queries) a block owns: forward
 constexpr int DQ_RB = 16;    // dQ
 constexpr int KB = 64;       // keys per tile
@@ -173,6 +122,31 @@ static_assert(ISSUERS % 32 == 0 && ISSUERS < NT, "whole warps issue");
 static_assert(KB % 32 == 0 && FWD_RB % 8 == 0 && DQ_RB % 8 == 0 &&
                   KB % VC == 0 && VC % 4 == 0,
               "tile shapes");
+
+// dK/dV: a block owns KR keys and streams the queries in tiles of QT rows.
+// With K/V resident (D <= WMAX) an S chunk covers DKV_DC dimensions; at
+// WMAX a tile's Q and dO rows are staged whole, once, and the output
+// products read that same stage. Otherwise (K/V streamed, or a narrower
+// DKV_DC) S chunks of DKV_SDC (DKV_DC) dimensions are followed by output
+// chunks of OC query rows over the slice's columns.
+constexpr int KR = 16;
+constexpr int QT = 16;
+constexpr int DKV_DC = WMAX;
+constexpr int DKV_SDC = 128;
+constexpr int OC = 8;
+constexpr int DKV_STAGES = 2;
+// S^T on warps [0, DKV_S_WARPS), dP^T on as many more: each thread KR / 4
+// keys x QT / (8 DKV_S_WARPS) queries, its chains' loop over d unrolled
+// DKV_UNROLL times; the outputs as the forward's, each thread KR / 4 keys x
+// 8 columns of dV and of dK
+constexpr int DKV_S_WARPS = 2;
+constexpr int DKV_UNROLL = 8;
+static_assert(QT % (8 * DKV_S_WARPS) == 0 && 2 * DKV_S_WARPS <= WARPS &&
+                  KR % 4 == 0 && QT % OC == 0 && OC % 4 == 0 &&
+                  DKV_DC % 8 == 0 && DKV_SDC % 8 == 0 && DKV_STAGES >= 2,
+              "dK/dV tile shapes");
+// every grid's y extent stays within 65535 for sq, sk <= 16 * 65535
+static_assert(FWD_RB >= 16 && DQ_RB >= 16 && KR >= 16, "grid y extent");
 
 // a row of staged elements is padded by 16 bytes, so that rows 1..7
 // apart fall on distinct banks
@@ -204,6 +178,36 @@ __host__ __device__ constexpr int smem_bytes() {
          (DQ ? 2 : 1) * RB * (KB + 4) * 4 + (DQ ? 2 : 3) * RB * 4;
 }
 
+// dK/dV: dimensions per S chunk, and whether the output products read the
+// S chunk's stage (KRES and one chunk holding Q's and dO's rows whole)
+template <bool KRES>
+__host__ __device__ constexpr int dkv_dc() {
+  return KRES ? DKV_DC : DKV_SDC;
+}
+template <bool KRES>
+__host__ __device__ constexpr bool dkv_fused() {
+  return KRES && DKV_DC >= WMAX;
+}
+
+// elements of T in one dK/dV ring stage: an S chunk (the tile's Q and dO
+// rows, then K's and V's when they stream) or an output-product chunk (OC
+// rows of Q and of dO over WMAX columns)
+template <typename T, bool KRES>
+__host__ __device__ constexpr int dkv_stage_elems() {
+  return cmax((2 * QT + (KRES ? 0 : 2 * KR)) * (dkv_dc<KRES>() + pad<T>()),
+              dkv_fused<KRES>() ? 0 : 2 * OC * (WMAX + pad<T>()));
+}
+
+// resident K and V rows, the ring, S^T then P^T and dP^T then dS^T, and a
+// ring of the tiles' lse and delta
+template <typename T, bool KRES>
+__host__ __device__ constexpr int dkv_smem_bytes() {
+  return ((KRES ? 2 * KR * (WMAX + pad<T>()) : 0) +
+          DKV_STAGES * dkv_stage_elems<T, KRES>()) *
+             static_cast<int>(sizeof(T)) +
+         (2 * KR * (QT + 4) + DKV_STAGES * 2 * QT) * 4;
+}
+
 // four consecutive elements as float (16 bytes of float, 8 of the others)
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -224,15 +228,27 @@ __device__ __forceinline__ float4 load4(const __half* p) {
 // rows [r0, r0 + n) x columns [c0, c0 + w) of x (rows of ld elements,
 // `rows` of them) into dst (row stride `stride` elements), 16 bytes per
 // cp.async from threads [ISSUERS, NT); rows past `rows` are zero-filled.
-// w is a multiple of 8.
-template <typename T>
+// w is a multiple of 8. ROWS: each issuing warp takes whole rows, its
+// lanes across the row, with no division per copy (for rows of 32 copies
+// or more; shorter rows leave lanes idle)
+template <typename T, bool ROWS = false>
 __device__ __forceinline__ void stage_async(T* dst, int stride,
                                             const T* __restrict__ x, int ld,
                                             int r0, int n, int rows, int c0,
                                             int w) {
   constexpr int E = 16 / static_cast<int>(sizeof(T));
   const int per = w / E;
-  for (int e = threadIdx.x - ISSUERS; e < n * per; e += NT - ISSUERS) {
+  const int t = threadIdx.x - ISSUERS;
+  if (ROWS) {
+    for (int r = t >> 5; r < n; r += (NT - ISSUERS) >> 5) {
+      const bool in = r0 + r < rows;
+      const T* src = in ? x + (size_t)(r0 + r) * ld + c0 : x;
+      for (int c = (t & 31) * E; c < per * E; c += 32 * E)
+        cp_async16(dst + r * stride + c, in ? src + c : x, in ? 16 : 0);
+    }
+    return;
+  }
+  for (int e = t; e < n * per; e += NT - ISSUERS) {
     const int r = e / per, c = (e - r * per) * E;
     const bool in = r0 + r < rows;
     cp_async16(dst + r * stride + c,
@@ -241,14 +257,15 @@ __device__ __forceinline__ void stage_async(T* dst, int stride,
 }
 
 // acc[i][k] += A[r + 4i] . B[c + 8k] over the staged dimensions [0, n):
-// MR x NC chains, each one fmaf per dimension in order of d
-template <typename T, int MR, int NC>
+// MR x NC chains, each one fmaf per dimension in order of d; the loop over
+// d unrolled UNROLL times (4 dimensions a step)
+template <typename T, int MR, int NC, int UNROLL = 2>
 __device__ __forceinline__ void chains(float (&acc)[MR][NC],
                                        const T* __restrict__ a, int sa,
                                        const T* __restrict__ b, int sb, int n,
                                        int r, int c) {
   float4 x[MR], y[NC];
-#pragma unroll 2
+#pragma unroll (UNROLL)
   for (int j = 0; j < n; j += 4) {
 #pragma unroll
     for (int i = 0; i < MR; ++i) x[i] = load4(a + (r + 4 * i) * sa + j);
@@ -266,24 +283,26 @@ __device__ __forceinline__ void chains(float (&acc)[MR][NC],
   }
 }
 
-// o[a][b][e] += sum over the chunk's VC keys kc + t of
-// w[(li + 4a) * (KB + 4) + kc + t] * Y[t][oc + 32 b + e]: the output
-// product of one chunk, keys in order, one fmaf per key
-template <typename T, int TR>
+// o[a][b][e] += sum over the chunk's N terms kc + t (keys; in dK/dV
+// queries) of w[(li + 4a) * WS + kc + t] * Y[t][oc + 32 b + e], Y's rows
+// YS elements apart: the output product of one chunk, terms in order, one
+// fmaf per term
+template <typename T, int TR, int N = VC, int WS = KB + 4,
+          int YS = WMAX + pad<T>()>
 __device__ __forceinline__ void out_product(float (&o)[TR][2][4],
                                             const float* __restrict__ w,
                                             const T* __restrict__ y, int kc,
                                             int li, int oc) {
 #pragma unroll
-  for (int t4 = 0; t4 < VC; t4 += 4) {
+  for (int t4 = 0; t4 < N; t4 += 4) {
     float4 p[TR];
 #pragma unroll
     for (int a = 0; a < TR; ++a)
-      p[a] = *reinterpret_cast<const float4*>(w + (li + 4 * a) * (KB + 4) +
-                                              kc + t4);
+      p[a] = *reinterpret_cast<const float4*>(w + (li + 4 * a) * WS + kc +
+                                              t4);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const T* row = y + (t4 + e) * (WMAX + pad<T>()) + oc;
+      const T* row = y + (t4 + e) * YS + oc;
       const float4 y0 = load4(row);
       const float4 y1 = load4(row + 32);
 #pragma unroll
@@ -481,72 +500,162 @@ wide_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     lse[(size_t)bh * sq + q0 + tid] = m_s[tid] + logf(fmaxf(l_s[tid], 1e-30f));
 }
 
-// dK and dV for 16 keys and one slice of their columns
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
+// dK and dV for KR keys and one slice of their columns (all of them up to
+// WMAX). KRES: the block's K and V rows stay in shared memory.
+template <typename T, bool KRES>
+__global__ void __launch_bounds__(NT, 1)
 wide_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const T* __restrict__ dout,
                 const float* __restrict__ lse,
                 const float* __restrict__ delta, float* __restrict__ dk,
-                float* __restrict__ dv, int sq, int sk, int d, float scale,
-                int causal) {
+                float* __restrict__ dv, int sq, int sk, int d, int w_slice,
+                float scale, int causal) {
+  constexpr int TR = KR / 4, MR = KR / 4, NC = QT / (8 * DKV_S_WARPS);
+  constexpr int P = pad<T>();
+  constexpr int DC = dkv_dc<KRES>();
+  constexpr bool FUSED = dkv_fused<KRES>();
+  constexpr int SE = dkv_stage_elems<T, KRES>();
+  constexpr int QS = DC + P;          // row stride of an S chunk
+  constexpr int RS = WMAX + P;        // of the resident rows, output chunks
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Shared& sh = *reinterpret_cast<Shared*>(smem_raw);
-  const int tid = threadIdx.x;
+  T* kres = reinterpret_cast<T*>(smem_raw);
+  T* vres = kres + (KRES ? KR * RS : 0);
+  T* ring = vres + (KRES ? KR * RS : 0);
+  // S^T, then P^T in place; dP^T, then dS^T in place: [key][query]
+  float* pss = reinterpret_cast<float*>(ring + DKV_STAGES * SE);
+  float* dss = pss + KR * (QT + 4);
+  float* rows = dss + KR * (QT + 4);  // per stage: lse [QT], delta [QT]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int li = lane >> 3, lj = lane & 7;
   const int bh = blockIdx.x;
-  const int k0 = blockIdx.y * BR;
-  const int c0 = blockIdx.z * DS;
+  const int k0 = blockIdx.y * KR;
+  const int c0 = blockIdx.z * w_slice;
+  const int width = min(w_slice, d - c0);
   const T* qb = q + (size_t)bh * sq * d;
   const T* kb = k + (size_t)bh * sk * d;
   const T* vb = v + (size_t)bh * sk * d;
   const T* gb = dout + (size_t)bh * sq * d;
   const float* lb = lse + (size_t)bh * sq;
   const float* db = delta + (size_t)bh * sq;
-  float ak[BR], av[BR];
-#pragma unroll
-  for (int r = 0; r < BR; ++r) ak[r] = av[r] = 0.f;
-  // causal: queries before this block's first key see none of its keys
-  const int q_begin = causal ? (k0 / BC) * BC : 0;
-  for (int t0 = q_begin; t0 < sq; t0 += BC) {
-    float s[4] = {0.f, 0.f, 0.f, 0.f};
-    float dp[4] = {0.f, 0.f, 0.f, 0.f};
-    tile_dot(kb, k0, sk, qb, t0, sq, d, sh.as_, sh.bs_, s);
-    tile_dot(vb, k0, sk, gb, t0, sq, d, sh.as_, sh.bs_, dp);
-    const int r = tid >> 3;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int c = (tid & 7) + 8 * i;
-      const int qi = t0 + c, key = k0 + r;
-      const bool ok = qi < sq && key < sk && (!causal || qi >= key);
-      const float p = ok ? expf(s[i] * scale - lb[qi]) : 0.f;
-      sh.p[r * (BC + 1) + c] = p;
-      sh.ds[r * (BC + 1) + c] = ok ? p * (dp[i] - db[qi]) * scale : 0.f;
-    }
-    stage_slice(gb, t0, sq, d, c0, sh.x);
-    stage_slice(qb, t0, sq, d, c0, sh.y);
-    __syncthreads();
-#pragma unroll
-    for (int r2 = 0; r2 < BR; ++r2) {
-      float sv = 0.f, sk_ = 0.f;
-#pragma unroll 8
-      for (int c = 0; c < BC; ++c) {
-        sv = __fmaf_rn(sh.p[r2 * (BC + 1) + c], sh.x[c * DS + tid], sv);
-        sk_ = __fmaf_rn(sh.ds[r2 * (BC + 1) + c], sh.y[c * DS + tid], sk_);
+  // causal: query tiles that end before the block's first key see none of
+  // its keys; keys that no query sees get no tile and write zeros
+  const int q_begin = causal ? k0 / QT * QT : 0;
+  const int ntiles = q_begin < sq ? (sq - q_begin + QT - 1) / QT : 0;
+  const int nk = (d + DC - 1) / DC;              // S chunks per tile
+  const int per = nk + (FUSED ? 0 : QT / OC);    // chunks per tile
+  const int total = ntiles * per;
+  // S^T (warps below DKV_S_WARPS) and dP^T (the next DKV_S_WARPS): keys
+  // li + 4i, queries sc + 8k of the tile
+  const int sc = warp % DKV_S_WARPS * 8 * NC + lj;
+  const bool s_warp = warp < DKV_S_WARPS;
+  const bool dp_warp = !s_warp && warp < 2 * DKV_S_WARPS;
+  // output: keys li + 4a, columns oc + 32b .. + 3 of the slice
+  const int oc = warp * 64 + 4 * lj;
+  float dka[TR][2][4] = {}, dva[TR][2][4] = {};
+  float acc[MR][NC] = {};
+
+  // an S chunk holds [Q's rows, dO's rows, K's and V's when they stream];
+  // the tile's last S chunk brings its lse and delta
+  auto issue = [&](int n) {
+    T* st = ring + (n % DKV_STAGES) * SE;
+    const int t0 = q_begin + n / per * QT, j = n % per;
+    if (j < nk) {
+      const int dc = j * DC, dn = min(DC, d - dc);
+      stage_async<T, true>(st, QS, qb, d, t0, QT, sq, dc, dn);
+      stage_async<T, true>(st + QT * QS, QS, gb, d, t0, QT, sq, dc, dn);
+      if (!KRES) {
+        stage_async<T, true>(st + 2 * QT * QS, QS, kb, d, k0, KR, sk, dc,
+                             dn);
+        stage_async<T, true>(st + (2 * QT + KR) * QS, QS, vb, d, k0, KR, sk,
+                             dc, dn);
       }
-      av[r2] += sv;
-      ak[r2] += sk_;
+      const int e = threadIdx.x - ISSUERS;
+      if (j == nk - 1 && e < QT) {
+        float* ls = rows + (n % DKV_STAGES) * 2 * QT;
+        const bool in = t0 + e < sq;
+        const int at = in ? t0 + e : 0;
+        cp_async4(ls + e, lb + at, in ? 4 : 0);
+        cp_async4(ls + QT + e, db + at, in ? 4 : 0);
+      }
+    } else {
+      const int r0 = t0 + (j - nk) * OC;
+      stage_async<T, true>(st, RS, qb, d, r0, OC, sq, c0, width);
+      stage_async<T, true>(st + OC * RS, RS, gb, d, r0, OC, sq, c0, width);
     }
+  };
+
+  if (KRES && total > 0 && tid >= ISSUERS) {
+    stage_async<T, true>(kres, RS, kb, d, k0, KR, sk, 0, d);
+    stage_async<T, true>(vres, RS, vb, d, k0, KR, sk, 0, d);
+  }
+  for (int n = 0; n < DKV_STAGES - 1; ++n) {
+    if (n < total && tid >= ISSUERS) issue(n);
+    cp_async_commit();
+  }
+  for (int n = 0; n < total; ++n) {
+    cp_async_wait<DKV_STAGES - 2>();
     __syncthreads();
-  }
-  const int col = c0 + tid;
-  if (col >= d) return;
+    if (n + DKV_STAGES - 1 < total && tid >= ISSUERS)
+      issue(n + DKV_STAGES - 1);
+    cp_async_commit();
+    const T* st = ring + (n % DKV_STAGES) * SE;
+    const int t0 = q_begin + n / per * QT, j = n % per;
+    if (j < nk) {
+      const int dc = j * DC, dn = min(DC, d - dc);
+      const T* ks = KRES ? kres + dc : st + 2 * QT * QS;
+      const T* vs = KRES ? vres + dc : st + (2 * QT + KR) * QS;
+      if (s_warp)
+        chains<T, MR, NC, DKV_UNROLL>(acc, ks, KRES ? RS : QS, st, QS, dn,
+                                      li, sc);
+      else if (dp_warp)
+        chains<T, MR, NC, DKV_UNROLL>(acc, vs, KRES ? RS : QS, st + QT * QS,
+                                      QS, dn, li, sc);
+      if (j == nk - 1) {
+        // S^T and dP^T of the tile into shared memory, then P^T and dS^T
+        // in their place
+        if (s_warp || dp_warp) {
+          float* dst = s_warp ? pss : dss;
 #pragma unroll
-  for (int r = 0; r < BR; ++r) {
-    const int key = k0 + r;
-    if (key >= sk) break;
-    dk[((size_t)bh * sk + key) * d + col] = ak[r];
-    dv[((size_t)bh * sk + key) * d + col] = av[r];
+          for (int a = 0; a < MR; ++a)
+#pragma unroll
+            for (int b = 0; b < NC; ++b) {
+              dst[(li + 4 * a) * (QT + 4) + sc + 8 * b] = acc[a][b];
+              acc[a][b] = 0.f;
+            }
+        }
+        __syncthreads();
+        const float* ls = rows + (n % DKV_STAGES) * 2 * QT;
+        for (int e = tid; e < KR * QT; e += NT) {
+          const int r = e / QT, c = e % QT;
+          const int key = k0 + r, row = t0 + c;
+          const bool ok = row < sq && key < sk && (!causal || row >= key);
+          float& s = pss[r * (QT + 4) + c];
+          float& x = dss[r * (QT + 4) + c];
+          const float p = ok ? expf(s * scale - ls[c]) : 0.f;
+          x = ok ? p * (x - ls[QT + c]) * scale : 0.f;
+          s = p;
+        }
+        if (FUSED) {
+          // the output products from the same stage: dO's and Q's rows
+          __syncthreads();
+          out_product<T, TR, QT, QT + 4, QS>(dva, pss, st + QT * QS, 0, li,
+                                             oc);
+          out_product<T, TR, QT, QT + 4, QS>(dka, dss, st, 0, li, oc);
+        }
+      }
+    } else {
+      const int kc = (j - nk) * OC;
+      out_product<T, TR, OC, QT + 4, RS>(dva, pss, st + OC * RS, kc, li, oc);
+      out_product<T, TR, OC, QT + 4, RS>(dka, dss, st, kc, li, oc);
+    }
   }
+  cp_async_wait<0>();
+  float one[TR];
+#pragma unroll
+  for (int a = 0; a < TR; ++a) one[a] = 1.f;
+  store_out(dk + (size_t)bh * sk * d, dka, one, k0, sk, d, c0, width, li, oc);
+  store_out(dv + (size_t)bh * sk * d, dva, one, k0, sk, d, c0, width, li, oc);
 }
 
 // dQ for RB queries and one slice of their columns (all of them up to
@@ -678,32 +787,28 @@ wide_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_out(dq + (size_t)bh * sq * d, o, one, q0, sq, d, c0, width, li, oc);
 }
 
-constexpr int SMEM = sizeof(Shared);
-
-// 43,520 bytes: under the 48 KB a launch takes without an opt-in
-static_assert(SMEM <= 48 * 1024, "shared memory past the default limit");
 static_assert(smem_bytes<float, true, true>() <= 232448 &&
                   smem_bytes<float, false, true>() <= 232448 &&
                   smem_bytes<float, true, false>() <= 232448 &&
-                  smem_bytes<float, false, false>() <= 232448,
+                  smem_bytes<float, false, false>() <= 232448 &&
+                  dkv_smem_bytes<float, true>() <= 232448 &&
+                  dkv_smem_bytes<float, false>() <= 232448,
               "shared memory past the 227 KB a block has");
 
-dim3 grid_for(int bh, int rows, int d) {
-  return dim3(bh, (rows + BR - 1) / BR, (d + DS - 1) / DS);
-}
-
-// the forward's and dQ's cut of the output columns: ceil(d / WMAX) slices
-// of equal width, a multiple of 8, on the grid's z axis
+// the three kernels' cut of the output columns: ceil(d / WMAX) slices of
+// equal width, a multiple of 8, on the grid's z axis
 int slices(int d) { return (d + WMAX - 1) / WMAX; }
 int slice_width(int d) {
   const int n = slices(d);
   return ((d + n - 1) / n + 7) / 8 * 8;
 }
 
+// the wide route's envelope: sq and sk up to 16 * 65535 (the grids' y
+// extent at 16 rows or keys a block), D a multiple of 8 up to 128 * 65535
 bool shape_ok(int bh, int sq, int sk, int d) {
   return d >= 8 && d % 8 == 0 && bh >= 1 && sq >= 1 && sk >= 1 &&
-         (sq + BR - 1) / BR <= 65535 && (sk + BR - 1) / BR <= 65535 &&
-         (d + DS - 1) / DS <= 65535;
+         (sq + 15) / 16 <= 65535 && (sk + 15) / 16 <= 65535 &&
+         (d + 127) / 128 <= 65535;
 }
 
 template <typename T, bool QRES>
@@ -733,18 +838,37 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* out,
                                           scale, causal, stream);
 }
 
+template <typename T, bool KRES>
+cudaError_t dkv_launch(const void* q, const void* k, const void* v,
+                       const void* g, const void* lse, const void* delta,
+                       void* dk, void* dv, int bh, int sq, int sk, int d,
+                       float scale, int causal, cudaStream_t stream) {
+  constexpr int smem = dkv_smem_bytes<T, KRES>();
+  static bool opted_in[tf32mma::MAX_DEVICES];
+  const cudaError_t e =
+      tf32mma::smem_opt_in(wide_dkv_kernel<T, KRES>, opted_in, smem);
+  if (e != cudaSuccess) return e;
+  // key blocks in order: causal, the first ones see the most queries and
+  // are dispatched first
+  const dim3 grid(bh, (sk + KR - 1) / KR, slices(d));
+  wide_dkv_kernel<T, KRES><<<grid, NT, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(g),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<float*>(dk), static_cast<float*>(dv), sq, sk, d,
+      slice_width(d), scale, causal);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t dkv(const void* q, const void* k, const void* v, const void* g,
                 const void* lse, const void* delta, void* dk, void* dv,
                 int bh, int sq, int sk, int d, float scale, int causal,
                 cudaStream_t stream) {
-  wide_dkv_kernel<T><<<grid_for(bh, sk, d), THREADS, SMEM, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(g),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<float*>(dk), static_cast<float*>(dv), sq, sk, d, scale,
-      causal);
-  return cudaGetLastError();
+  return d <= WMAX ? dkv_launch<T, true>(q, k, v, g, lse, delta, dk, dv, bh,
+                                         sq, sk, d, scale, causal, stream)
+                   : dkv_launch<T, false>(q, k, v, g, lse, delta, dk, dv, bh,
+                                          sq, sk, d, scale, causal, stream);
 }
 
 template <typename T, bool QRES>

@@ -1,7 +1,7 @@
 """What the design choices of the flash-forward (K1), flash-backward (K2a
 dK/dV, K2b dQ), paged-decode (K3) and multi-query paged (K4) kernels, and
-of the wide route's forward and dQ (K1 wide, K2b wide), are worth, for the
-PyTorch/CUDA port, on one GPU.
+of the wide route's forward, dK/dV and dQ (K1 wide, K2a wide, K2b wide),
+are worth, for the PyTorch/CUDA port, on one GPU.
 
     python3 profile_kernels_torch.py [--parent DIR]
 
@@ -18,11 +18,13 @@ serving shape and at contexts 1024 and 4096 (B 32 and B 1); with
 ``--parent DIR`` (a checkout of an earlier commit) that tree's
 ``paged_decode.cu`` is built beside and held against this one bit for bit
 on the smoke's inputs, and its ``flash_wide.cu`` timed beside this one's.
-K1 wide and K2b wide are timed at chip_smoke.py phase 8's shape and at
-(2,8,2048,512), f32 causal, each in variants that undo one choice (rows
-per block, warps and chains of S, ring depth and chunk sizes, resident
-Q, register prefetch, the order of key tiles) or drop a part of the work (where
-the time goes), beside SDPA, with the ptxas registers and spills of their
+K1 wide, K2a wide and K2b wide are timed at chip_smoke.py phase 8's
+shape and at (2,8,2048,512), f32 causal, each in variants that undo one
+choice (rows or keys per block, warps and chains of S, ring depth and
+chunk sizes, resident Q or K/V, Q and dO staged whole, who issues the
+copies, register prefetch, the order of tiles, tensor-core output
+products) or drop a part of the work (where the time goes), beside SDPA's
+forward and backward, with the ptxas registers and spills of their
 float32 instances. The flash kernels are also timed at head dimension
 256 (float32) and in float16 at the training shape, beside the ptxas
 registers and spills of every instance with 32 k-steps. Last, the rate of
@@ -186,7 +188,7 @@ Q_STREAMED = {
 # once the copies are issued by other warps)
 PREFETCH = {
     "  float4 x[MR], y[NC];\n"
-    "#pragma unroll 2\n"
+    "#pragma unroll (UNROLL)\n"
     "  for (int j = 0; j < n; j += 4) {\n"
     "#pragma unroll\n"
     "    for (int i = 0; i < MR; ++i) x[i] = load4(a + (r + 4 * i) * sa + j);\n"
@@ -195,7 +197,7 @@ PREFETCH = {
     "  float4 x[MR], y[NC];\n"
     "  for (int i = 0; i < MR; ++i) x[i] = load4(a + (r + 4 * i) * sa);\n"
     "  for (int k = 0; k < NC; ++k) y[k] = load4(b + (c + 8 * k) * sb);\n"
-    "#pragma unroll 2\n"
+    "#pragma unroll (UNROLL)\n"
     "  for (int j = 0; j < n; j += 4) {\n"
     "    const int jn = j + 4 < n ? j + 4 : j;\n"
     "    float4 xn[MR], yn[NC];\n"
@@ -212,8 +214,15 @@ PREFETCH = {
     "    for (int k = 0; k < NC; ++k) y[k] = yn[k];\n"
     "  }\n"}
 ALL_ISSUE = {"constexpr int ISSUERS = 128;": "constexpr int ISSUERS = 0;"}
+# the forward's and dQ's copies taken row by row by each issuing warp, and
+# their chains unrolled by 4, as dK/dV's
+ROW_COPIES = {"template <typename T, bool ROWS = false>":
+              "template <typename T, bool ROWS = true>"}
+CHAINS_UNROLL4 = {"int UNROLL = 2>": "int UNROLL = 4>"}
 WIDE_FWD_VARIANTS = {
     "as built": {},
+    "copies row by row": ROW_COPIES,
+    "chains unrolled by 4": CHAINS_UNROLL4,
     "register prefetch in the chains": PREFETCH,
     "32 rows per block": {"constexpr int FWD_RB = 16;": "constexpr int FWD_RB = 32;"},
     "copies issued by every warp": ALL_ISSUE,
@@ -234,6 +243,8 @@ WIDE_FWD_VARIANTS = {
 }
 WIDE_DQ_VARIANTS = {
     "as built": {},
+    "copies row by row": ROW_COPIES,
+    "chains unrolled by 4": CHAINS_UNROLL4,
     "copies issued by every warp": ALL_ISSUE,
     "register prefetch in the chains": PREFETCH,
     "S and dP on 4 warps each (4x2 chains)": dict(ALL_ISSUE, **{
@@ -249,6 +260,128 @@ WIDE_DQ_VARIANTS = {
     "no S/dP chains": {WIDE_DQ_S: "        ;\n"},
     "no output product": {WIDE_DQ_PV: ""},
     "neither": {WIDE_DQ_S: "        ;\n", WIDE_DQ_PV: ""},
+}
+# the wide dK/dV (K2a wide): the design's choices undone one at a time,
+# and where the time goes (wrong results)
+WIDE_DKV_S = ("      if (s_warp)\n"
+              "        chains<T, MR, NC, DKV_UNROLL>(acc, ks, KRES ? RS : QS, st, QS, dn,\n"
+              "                                      li, sc);\n"
+              "      else if (dp_warp)\n"
+              "        chains<T, MR, NC, DKV_UNROLL>(acc, vs, KRES ? RS : QS, st + QT * QS,\n"
+              "                                      QS, dn, li, sc);\n")
+WIDE_DKV_PV = {
+    "          out_product<T, TR, QT, QT + 4, QS>(dva, pss, st + QT * QS, 0, li,\n"
+    "                                             oc);\n"
+    "          out_product<T, TR, QT, QT + 4, QS>(dka, dss, st, 0, li, oc);\n": "",
+    "      out_product<T, TR, OC, QT + 4, RS>(dva, pss, st + OC * RS, kc, li, oc);\n"
+    "      out_product<T, TR, OC, QT + 4, RS>(dka, dss, st, kc, li, oc);\n": ""}
+DKV_CHUNKED = {"constexpr int DKV_DC = WMAX;": "constexpr int DKV_DC = 128;"}
+# key blocks of one head side by side on the grid's x axis (its Q and dO
+# shared in L2 by the blocks in flight), not the heads
+DKV_HEADS_OUTER = {
+    "  const int bh = blockIdx.x;\n  const int k0 = blockIdx.y * KR;":
+    "  const int bh = blockIdx.y;\n  const int k0 = blockIdx.x * KR;",
+    "  const dim3 grid(bh, (sk + KR - 1) / KR, slices(d));":
+    "  const dim3 grid((sk + KR - 1) / KR, bh, slices(d));"}
+# the copies spread over the issuing threads in turn, a division per copy
+FLAT_COPIES = {"stage_async<T, true>": "stage_async<T, false>"}
+# the output products on the tensor cores in 3xTF32 (tf32_mma.cuh's
+# kstep_split, as K2a at D <= 256): each warp one m16 tile of the 16 keys
+# x 8 n-tiles of its 64 columns, accumulators in C-fragment layout
+TC_OUT_FNS = r"""
+template <typename T, int N, int YS>
+__device__ __forceinline__ void tc_out(float (&acc)[8][4],
+                                       const float* __restrict__ w,
+                                       const T* __restrict__ y, int kc,
+                                       int lane, int col0) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int k8 = 0; k8 < N; k8 += 8) {
+    const float* w0 = w + kc + k8 + t;
+    const float a[4] = {w0[g * (QT + 4)], w0[(g + 8) * (QT + 4)],
+                        w0[g * (QT + 4) + 4], w0[(g + 8) * (QT + 4) + 4]};
+    float b[8][2];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      b[u][0] = tf32mma::to_float(y[(k8 + t) * YS + col0 + 8 * u + g]);
+      b[u][1] = tf32mma::to_float(y[(k8 + t + 4) * YS + col0 + 8 * u + g]);
+    }
+    tf32mma::kstep_split<sizeof(T) == 2, 8>(acc, a, b);
+  }
+}
+
+__device__ __forceinline__ void tc_store(float* __restrict__ dst,
+                                         const float (&acc)[8][4], int k0,
+                                         int sk, int ld, int c0, int width,
+                                         int lane, int col0) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int u = 0; u < 8; ++u) {
+    const int col = col0 + 8 * u + 2 * t;
+    if (col >= width) continue;
+    if (k0 + g < sk)
+      *reinterpret_cast<float2*>(dst + (size_t)(k0 + g) * ld + c0 + col) =
+          make_float2(acc[u][0], acc[u][1]);
+    if (k0 + g + 8 < sk)
+      *reinterpret_cast<float2*>(dst + (size_t)(k0 + g + 8) * ld + c0 + col) =
+          make_float2(acc[u][2], acc[u][3]);
+  }
+}
+
+// dK and dV for KR keys"""
+TC_OUT = {
+    "\n// dK and dV for KR keys": TC_OUT_FNS,
+    "  float dka[TR][2][4] = {}, dva[TR][2][4] = {};":
+    "  float dka[8][4] = {}, dva[8][4] = {};",
+    "          out_product<T, TR, QT, QT + 4, QS>(dva, pss, st + QT * QS, 0, li,\n"
+    "                                             oc);\n"
+    "          out_product<T, TR, QT, QT + 4, QS>(dka, dss, st, 0, li, oc);\n":
+    "          tc_out<T, QT, QS>(dva, pss, st + QT * QS, 0, lane, warp * 64);\n"
+    "          tc_out<T, QT, QS>(dka, dss, st, 0, lane, warp * 64);\n",
+    "      out_product<T, TR, OC, QT + 4, RS>(dva, pss, st + OC * RS, kc, li, oc);\n"
+    "      out_product<T, TR, OC, QT + 4, RS>(dka, dss, st, kc, li, oc);\n":
+    "      tc_out<T, OC, RS>(dva, pss, st + OC * RS, kc, lane, warp * 64);\n"
+    "      tc_out<T, OC, RS>(dka, dss, st, kc, lane, warp * 64);\n",
+    "  store_out(dk + (size_t)bh * sk * d, dka, one, k0, sk, d, c0, width, li, oc);\n"
+    "  store_out(dv + (size_t)bh * sk * d, dva, one, k0, sk, d, c0, width, li, oc);\n":
+    "  tc_store(dk + (size_t)bh * sk * d, dka, k0, sk, d, c0, width, lane, warp * 64);\n"
+    "  tc_store(dv + (size_t)bh * sk * d, dva, k0, sk, d, c0, width, lane, warp * 64);\n"}
+# S^T and dP^T: each thread 2 keys x 2 queries (4 loads per 16 fmaf, not
+# 5), a warp 8 keys x 16 queries
+CHAINS_2X2 = {
+    "static_assert(QT % (8 * DKV_S_WARPS) == 0 &&":
+    "static_assert(KR % (4 * DKV_S_WARPS) == 0 &&",
+    "constexpr int TR = KR / 4, MR = KR / 4, NC = QT / (8 * DKV_S_WARPS);":
+    "constexpr int TR = KR / 4, MR = KR / (4 * DKV_S_WARPS), NC = QT / 8;",
+    "  const int sc = warp % DKV_S_WARPS * 8 * NC + lj;":
+    "  const int sc = lj, kw = warp % DKV_S_WARPS * 4 * MR;",
+    "(acc, ks, KRES ? RS : QS,": "(acc, ks + kw * (KRES ? RS : QS), KRES ? RS : QS,",
+    "(acc, vs, KRES ? RS : QS,": "(acc, vs + kw * (KRES ? RS : QS), KRES ? RS : QS,",
+    "              dst[(li + 4 * a) * (QT + 4) + sc + 8 * b] = acc[a][b];":
+    "              dst[(kw + li + 4 * a) * (QT + 4) + sc + 8 * b] = acc[a][b];"}
+WIDE_DKV_VARIANTS = {
+    "as built": {},
+    "copies issued by every warp": ALL_ISSUE,
+    "copies spread over the issuers (a division per copy)": FLAT_COPIES,
+    "chains unrolled by 4": {"constexpr int DKV_UNROLL = 8;":
+                             "constexpr int DKV_UNROLL = 4;"},
+    "chains unrolled by 2": {"constexpr int DKV_UNROLL = 8;":
+                             "constexpr int DKV_UNROLL = 2;"},
+    "S and dP on 1 warp each (4x2 chains)": {
+        "constexpr int DKV_S_WARPS = 2;": "constexpr int DKV_S_WARPS = 1;"},
+    "2x2 chains (2 keys x 2 queries a thread)": CHAINS_2X2,
+    "Q/dO in 128-dim chunks, then 8-row output chunks": DKV_CHUNKED,
+    "128-dim chunks, 3-stage ring": dict(DKV_CHUNKED, **{
+        "constexpr int DKV_STAGES = 2;": "constexpr int DKV_STAGES = 3;"}),
+    "128-dim chunks, 4-stage ring": dict(DKV_CHUNKED, **{
+        "constexpr int DKV_STAGES = 2;": "constexpr int DKV_STAGES = 4;"}),
+    "32 keys per block (128-dim chunks)": dict(DKV_CHUNKED, **{
+        "constexpr int KR = 16;": "constexpr int KR = 32;"}),
+    "key blocks of a head side by side (heads outer)": DKV_HEADS_OUTER,
+    "output products on the tensor cores (3xTF32)": TC_OUT,
+    "no S/dP chains": {WIDE_DKV_S: ""},
+    "no output products": WIDE_DKV_PV,
+    "neither": dict(WIDE_DKV_PV, **{WIDE_DKV_S: ""}),
 }
 # the shapes: chip_smoke.py phase 8's and a long one
 WIDE_SHAPES = ((8, 2, 128, 512), (2, 8, 2048, 512))
@@ -383,20 +516,28 @@ def _wide_entry(regs, kernel, qres):
 
 
 def time_wide(C, build, A, out_dir, nvcc, fwd_variants=None, dq_variants=None,
-              others=None):
-    """K1 wide and K2b wide variants (``flash_wide.cu`` copies) at
-    ``WIDE_SHAPES``, f32 causal, beside SDPA; ``others`` ({label: path} of
+              others=None, dkv_variants=None):
+    """K1 wide, K2a wide and K2b wide variants (``flash_wide.cu`` copies)
+    at ``WIDE_SHAPES``, f32 causal, beside SDPA (forward; backward: autograd
+    through it less its forward); ``others`` ({label: path} of
     ``flash_wide.cu`` files, e.g. an earlier tree's) are built and timed
     beside them. Prints us per call, the max abs error against the plain
     version and the ptxas registers / spill store bytes of the f32
-    instances (Q resident, Q streamed)."""
+    instances (Q or K/V resident, streamed)."""
     fwd_variants = WIDE_FWD_VARIANTS if fwd_variants is None else fwd_variants
     dq_variants = WIDE_DQ_VARIANTS if dq_variants is None else dq_variants
-    logs_f, logs_q = {}, {}
-    fwd = _bind(_variants(build.FLASH_WIDE_FWD, fwd_variants, out_dir, build,
-                          nvcc), build.FLASH_WIDE_FWD, logs_f)
-    dqs = _bind(_variants(build.FLASH_WIDE_BWD_DQ, dq_variants, out_dir,
-                          build, nvcc), build.FLASH_WIDE_BWD_DQ, logs_q)
+    dkv_variants = (WIDE_DKV_VARIANTS if dkv_variants is None
+                    else dkv_variants)
+    logs_f, logs_q, logs_k = {}, {}, {}
+    procs_f = _variants(build.FLASH_WIDE_FWD, fwd_variants, out_dir, build,
+                        nvcc)
+    procs_q = _variants(build.FLASH_WIDE_BWD_DQ, dq_variants, out_dir, build,
+                        nvcc)
+    procs_k = _variants(build.FLASH_WIDE_BWD_DKV, dkv_variants, out_dir,
+                        build, nvcc)
+    fwd = _bind(procs_f, build.FLASH_WIDE_FWD, logs_f)
+    dqs = _bind(procs_q, build.FLASH_WIDE_BWD_DQ, logs_q)
+    dkvs = _bind(procs_k, build.FLASH_WIDE_BWD_DKV, logs_k)
     procs = {}
     for i, (label, path) in enumerate((others or {}).items()):
         vdir = os.path.join(out_dir, "flash_wide-other-%d" % i)
@@ -416,7 +557,8 @@ def time_wide(C, build, A, out_dir, nvcc, fwd_variants=None, dq_variants=None,
             raise RuntimeError("nvcc failed for %s:\n%s" % (label, log))
         lib = ctypes.CDLL(os.path.abspath(stem + ".so"))
         for fns, kernel, logs in ((fwd, build.FLASH_WIDE_FWD, logs_f),
-                                  (dqs, build.FLASH_WIDE_BWD_DQ, logs_q)):
+                                  (dqs, build.FLASH_WIDE_BWD_DQ, logs_q),
+                                  (dkvs, build.FLASH_WIDE_BWD_DKV, logs_k)):
             fn = getattr(lib, kernel.symbol)
             fn.argtypes = kernel.argtypes
             fns[label] = fn
@@ -424,8 +566,9 @@ def time_wide(C, build, A, out_dir, nvcc, fwd_variants=None, dq_variants=None,
     stream = torch.cuda.current_stream().cuda_stream
     F = torch.nn.functional
     for kernel, fns, logs in (("wide_fwd_kernel", fwd, logs_f),
-                              ("wide_dq_kernel", dqs, logs_q)):
-        print("%s ptxas registers/spill stores, f32 (Q resident; Q streamed): "
+                              ("wide_dq_kernel", dqs, logs_q),
+                              ("wide_dkv_kernel", dkvs, logs_k)):
+        print("%s ptxas registers/spill stores, f32 (resident; streamed): "
               "%s" % (kernel, ", ".join(
                   "%s %s; %s" % (name, _wide_entry(ptxas_report(log), kernel, 1),
                                  _wide_entry(ptxas_report(log), kernel, 0))
@@ -436,10 +579,11 @@ def time_wide(C, build, A, out_dir, nvcc, fwd_variants=None, dq_variants=None,
         g = C.flash_inputs(rng, b, h, s, s, d, torch.float32)[0]
         scale = d ** -0.5
         ref_out, ref_lse = A._flash_forward_plain(q, k, v, True, scale)
-        ref_dq = A._flash_backward_plain(q, k, v, ref_out, ref_lse, g, True,
-                                         scale)[0]
+        ref_dq, ref_dk, ref_dv = A._flash_backward_plain(
+            q, k, v, ref_out, ref_lse, g, True, scale)
         delta = (ref_out * g).sum(dim=-1)
-        out, lse, dq = (torch.empty_like(x) for x in (q, ref_lse, q))
+        out, lse, dq, dk, dv = (torch.empty_like(x)
+                                for x in (q, ref_lse, q, k, v))
         dims = (b, h, s, s, d, scale, 1, 0, stream)
         for label, fns, call_args, outs, refs in (
                 ("K1 wide", fwd, lambda: (q.data_ptr(), k.data_ptr(),
@@ -447,7 +591,10 @@ def time_wide(C, build, A, out_dir, nvcc, fwd_variants=None, dq_variants=None,
                                           lse.data_ptr()),
                  (out, lse), (ref_out, ref_lse)),
                 ("K2b wide", dqs, lambda: tuple(x.data_ptr() for x in (
-                    q, k, v, g, ref_lse, delta, dq)), (dq,), (ref_dq,))):
+                    q, k, v, g, ref_lse, delta, dq)), (dq,), (ref_dq,)),
+                ("K2a wide", dkvs, lambda: tuple(x.data_ptr() for x in (
+                    q, k, v, g, ref_lse, delta, dk, dv)), (dk, dv),
+                 (ref_dk, ref_dv))):
             cells = []
             for name, fn in fns.items():
                 def call(fn=fn):
@@ -463,8 +610,14 @@ def time_wide(C, build, A, out_dir, nvcc, fwd_variants=None, dq_variants=None,
                                               ", ".join(cells)), flush=True)
         lib = C.device_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True)) * 1e3
-        print("  SDPA forward (%d,%d,%d,%d) %.4f" % (b, h, s, d, lib),
-              flush=True)
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        lib_fb = C.device_ms(lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(*leaves, is_causal=True), leaves,
+            g)) * 1e3
+        lib_f = C.device_ms(lambda: F.scaled_dot_product_attention(
+            *leaves, is_causal=True)) * 1e3
+        print("  SDPA forward (%d,%d,%d,%d) %.4f, backward (fwd+bwd less fwd) "
+              "%.4f" % (b, h, s, d, lib, lib_fb - lib_f), flush=True)
 
 
 def main():

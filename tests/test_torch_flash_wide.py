@@ -5,14 +5,16 @@ computes it, and picks the wide kernels from D > 256 alone; the plain
 forward and backward at D 264 (not a multiple of 16) and 512 match the JAX
 package's ``flash_attention`` (its scan path here) and its gradient. The
 kernels cannot run here, so their tiling is emulated in numpy float32 and
-held against the JAX package — the forward and dQ: 16 owned rows, key
+held against the JAX package. The forward and dQ: 16 owned rows, key
 tiles of 64, the output's D whole up to 512 columns and in equal slices
 past it, S chains carried across staged chunks of dimensions, the online
-softmax, the output product one key at a time; dK/dV: 16 owned keys,
-query tiles of 32, output slices of 128 columns; the backward recomputing
-P from the forward's lse. The three kernels' scores agree bit for bit.
-Float32 throughout: 2e-5 absolute and relative (the summation order
-differs).
+softmax, the output product one key at a time. dK/dV: 16 owned keys in the
+same slices, query tiles of 16 from the block's first key on when causal,
+S^T and dP^T chains over the whole D up to 512 (chunks of 128 past it),
+P^T and dS^T from the forward's lse, dV and dK one query at a time; keys
+that no query sees stay exactly zero. The three kernels' scores agree bit
+for bit. Float32 throughout: 2e-5 absolute and relative (the summation
+order differs).
 """
 import jax
 import jax.numpy as jnp
@@ -26,10 +28,12 @@ from mxnet_tpu_torch.ops import _build
 from mxnet_tpu_torch.ops import attention as TA
 
 TOL = 2e-5
-BR, BC, DS = 16, 32, 128   # csrc/flash_wide.cu's tile sizes for dK/dV
-# and for the forward and dQ: rows, key tile, output columns per block,
-# dimensions per staged S chunk
+# csrc/flash_wide.cu's tiles. The forward and dQ: rows, key tile, output
+# columns per block, dimensions per staged S chunk
 RB, KB, WMAX, FWD_DC, DQ_DC = 16, 64, 512, 128, 64
+# dK/dV: keys per block, query rows per tile, dimensions per S chunk with
+# K/V resident (D <= WMAX) and streamed
+KR, QT, DKV_DC, DKV_SDC = 16, 16, 512, 128
 
 
 def _qkv(seed, b, h, sq, sk, d):
@@ -113,19 +117,10 @@ def test_plain_wide_forward_and_backward_match_jax(d, causal):
 
 
 # ------------------------------------- the wide kernels' tiling, emulated
-def _dot_chain(a, b):
-    """S tile = a . b^T as the kernels' tile_dot forms it: each entry one
-    float32 chain over d in order."""
-    acc = np.zeros((a.shape[0], b.shape[0]), np.float32)
-    for j in range(a.shape[1]):
-        acc = (acc + np.outer(a[:, j], b[:, j])).astype(np.float32)
-    return acc
-
-
 def _chain_chunked(a, b, dc):
-    """S tile = a . b^T as the forward and dQ kernels form it: one float32
-    chain per entry over d in order, carried across the staged chunks of
-    dc dimensions."""
+    """S tile = a . b^T as the three kernels form it: one float32 chain per
+    entry over d in order, carried across the staged chunks of dc
+    dimensions."""
     acc = np.zeros((a.shape[0], b.shape[0]), np.float32)
     for c0 in range(0, a.shape[1], dc):
         for j in range(c0, min(c0 + dc, a.shape[1])):
@@ -134,16 +129,16 @@ def _chain_chunked(a, b, dc):
 
 
 def _slices(d):
-    """The forward's and dQ's output columns per block: all of D up to
-    WMAX, else ceil(D / WMAX) equal slices, a multiple of 8 wide."""
+    """The three kernels' output columns per block: all of D up to WMAX,
+    else ceil(D / WMAX) equal slices, a multiple of 8 wide."""
     n = -(-d // WMAX)
     w = (-(-d // n) + 7) // 8 * 8
     return [(c0, min(c0 + w, d)) for c0 in range(0, d, w)]
 
 
 def _by_key(acc, w, y):
-    """acc + w . y, one key (row of y) at a time in order, as the kernels'
-    output product adds it."""
+    """acc + w . y, one term (row of y: a key; a query in dK/dV) at a time
+    in order, as the kernels' output products add it."""
     for i in range(y.shape[0]):
         acc = (acc + w[:, i:i + 1] * y[i]).astype(np.float32)
     return acc
@@ -199,8 +194,8 @@ def _emulate_bwd(q, k, v, g, lse, delta, causal, scale, scores=None):
     sk = k.shape[0]
     dq, dk, dv = (np.zeros_like(x) for x in (q, k, v))
 
-    def p_ds(qrows, keys, chain=_dot_chain, kernel="dkv"):
-        raw = chain(q[qrows], k[keys])
+    def p_ds(qrows, keys, dc, kernel):
+        raw = _chain_chunked(q[qrows], k[keys], dc)
         if scores is not None:
             scores[kernel][np.ix_(qrows, keys)] = raw
         s = raw * np.float32(scale)
@@ -208,25 +203,30 @@ def _emulate_bwd(q, k, v, g, lse, delta, causal, scale, scores=None):
         if causal:
             ok = qrows[:, None] >= keys[None, :]
         p = np.where(ok, np.exp(s - lse[qrows, None]), 0).astype(np.float32)
-        dp = chain(g[qrows], v[keys])
+        dp = _chain_chunked(g[qrows], v[keys], dc)
         ds = np.where(ok, p * (dp - delta[qrows, None]) * scale, 0)
         return p, ds.astype(np.float32)
 
-    for k0 in range(0, sk, BR):           # the dK/dV kernel's blocks
-        keys = np.arange(k0, min(k0 + BR, sk))
-        for t0 in range((k0 // BC) * BC if causal else 0, sq, BC):
-            qrows = np.arange(t0, min(t0 + BC, sq))
-            p, ds = p_ds(qrows, keys)
-            dv[keys] += p.T @ g[qrows]
-            dk[keys] += ds.T @ q[qrows]
+    dc = DKV_DC if d <= WMAX else DKV_SDC
+    for k0 in range(0, sk, KR):           # the dK/dV kernel's blocks
+        keys = np.arange(k0, min(k0 + KR, sk))
+        for c0, c1 in _slices(d):
+            acc_k = np.zeros((len(keys), c1 - c0), np.float32)
+            acc_v = np.zeros((len(keys), c1 - c0), np.float32)
+            # causal: query tiles that end before the first key are skipped
+            for t0 in range(k0 // QT * QT if causal else 0, sq, QT):
+                qrows = np.arange(t0, min(t0 + QT, sq))
+                p, ds = p_ds(qrows, keys, dc, "dkv")
+                acc_v = _by_key(acc_v, p.T, g[qrows, c0:c1])
+                acc_k = _by_key(acc_k, ds.T, q[qrows, c0:c1])
+            dk[keys, c0:c1], dv[keys, c0:c1] = acc_k, acc_v
     for q0 in range(0, sq, RB):           # the dQ kernel's blocks
         qrows = np.arange(q0, min(q0 + RB, sq))
         for c0, c1 in _slices(d):
             acc = np.zeros((len(qrows), c1 - c0), np.float32)
             for t0 in range(0, min(sk, q0 + RB) if causal else sk, KB):
                 keys = np.arange(t0, min(t0 + KB, sk))
-                _, ds = p_ds(qrows, keys,
-                             lambda a, b: _chain_chunked(a, b, DQ_DC), "dq")
+                _, ds = p_ds(qrows, keys, DQ_DC, "dq")
                 acc = _by_key(acc, ds, k[keys, c0:c1])
             dq[qrows, c0:c1] = acc
     return dq, dk, dv
@@ -235,12 +235,14 @@ def _emulate_bwd(q, k, v, g, lse, delta, causal, scale, scores=None):
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("sq,sk,d", [(40, 40, 264), (37, 70, 384),
                                      (33, 50, 512), (70, 70, 264),
-                                     (50, 130, 384), (20, 40, 1032)])
+                                     (50, 130, 384), (20, 40, 1032),
+                                     (16, 45, 512), (24, 37, 1032)])
 def test_wide_kernel_tiling_emulated_matches_jax(sq, sk, d, causal):
-    """Ragged rows and key tiles, sq != sk, rows over several 16-row blocks
-    and keys over several 64-key tiles, a last dK/dV slice of 8 columns at
-    D 264, the forward's and dQ's three slices of 344 columns at D 1032:
-    the emulated kernels against the JAX package."""
+    """Ragged rows, key blocks and query tiles (sk not a multiple of 16),
+    sq != sk, rows over several 16-row blocks and keys over several 64-key
+    tiles, causal key blocks past the last query, the three kernels' three
+    slices of 344 columns at D 1032 (dK/dV's S^T and dP^T over 128-dimension
+    chunks there): the emulated kernels against the JAX package."""
     q, k, v = (x[0, 0] for x in _qkv(d + sq, 1, 1, sq, sk, d))
     g = np.random.default_rng(sq).standard_normal(q.shape).astype(np.float32)
     scale = 1.0 / np.sqrt(d)
@@ -262,12 +264,14 @@ def test_wide_kernel_tiling_emulated_matches_jax(sq, sk, d, causal):
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("sq,sk,d", [(70, 70, 264), (20, 40, 1032)])
+@pytest.mark.parametrize("sq,sk,d", [(70, 70, 264), (33, 50, 512),
+                                     (20, 40, 1032)])
 def test_wide_kernels_form_the_same_score_bits(sq, sk, d, causal):
     """The forward's S (chains carried over 128-dimension chunks), dQ's
-    (64-dimension chunks) and dK/dV's (its own tiles) agree bit for bit on
-    every score the output needs, so the backward's exp(s * scale - lse)
-    sees the forward's s."""
+    (64-dimension chunks) and dK/dV's S^T (the whole D in one chunk up to
+    512, 128-dimension chunks past it, the key's row times the query's)
+    agree bit for bit on every score the output needs, so the backward's
+    exp(s * scale - lse) sees the forward's s."""
     q, k, v = (x[0, 0] for x in _qkv(d + sq, 1, 1, sq, sk, d))
     g = np.random.default_rng(sq).standard_normal(q.shape).astype(np.float32)
     scale = 1.0 / np.sqrt(d)
@@ -283,6 +287,52 @@ def test_wide_kernels_form_the_same_score_bits(sq, sk, d, causal):
         assert not np.isnan(s[need]).any(), name
     assert np.array_equal(formed["fwd"][need], formed["dkv"][need])
     assert np.array_equal(formed["dq"][need], formed["dkv"][need])
+
+
+@pytest.mark.parametrize("sq,sk,d", [(20, 50, 264), (16, 45, 512),
+                                     (9, 40, 1032)])
+def test_wide_dkv_keys_no_query_sees_stay_exactly_zero(sq, sk, d):
+    """Causal with sk > sq: the keys from sq on are seen by no query. The
+    key blocks past the last query get no tile, and a block that straddles
+    it adds only p = 0 and dS = 0 for them, so their dK and dV rows are
+    exactly 0 (the wrapper allocates dk and dv with torch.empty: the kernel
+    writes every row); the others match the JAX package."""
+    q, k, v = (x[0, 0] for x in _qkv(d + sk, 1, 1, sq, sk, d))
+    g = np.random.default_rng(sk).standard_normal(q.shape).astype(np.float32)
+    scale = 1.0 / np.sqrt(d)
+    out, lse = _emulate_fwd(q, k, v, True, scale)
+    delta = (out * g).sum(axis=1).astype(np.float32)
+    _, dk, dv = _emulate_bwd(q, k, v, g, lse, delta, True, scale)
+    assert (dk[sq:] == 0).all() and (dv[sq:] == 0).all()
+    assert (dk[:sq] != 0).any() and (dv[:sq] != 0).any()
+    _, ref = _jax_fwd_and_grads(q[None, None], k[None, None], v[None, None],
+                                g[None, None], True)
+    np.testing.assert_allclose(dk, ref[1][0, 0], rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(dv, ref[2][0, 0], rtol=TOL, atol=TOL)
+
+
+def test_wide_backward_passes_16_byte_aligned_inputs(monkeypatch):
+    """dK/dV and dQ stage Q, K, V and dO with 16-byte copies: inputs whose
+    data start off a 16-byte boundary reach both kernels as aligned
+    copies."""
+    x = torch.zeros(2 * 8 * 264 + 1)[1:].view(1, 2, 8, 264)
+    assert x.data_ptr() % 16 and x.is_contiguous()
+    seen = {}
+
+    class Fake:
+        def __init__(self, name):
+            self.name = name
+
+        def launch(self, *args):
+            seen[self.name] = args[:4]
+
+    for name in ("FLASH_WIDE_BWD_DKV", "FLASH_WIDE_BWD_DQ"):
+        monkeypatch.setattr(_build, name, Fake(name))
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: _Null())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: _Stream())
+    TA._flash_backward_cuda(x, x, x, x, torch.zeros(1, 2, 8), x, True, 0.1)
+    assert sorted(seen) == ["FLASH_WIDE_BWD_DKV", "FLASH_WIDE_BWD_DQ"]
+    assert all(p % 16 == 0 for ptrs in seen.values() for p in ptrs)
 
 
 def test_wide_forward_passes_16_byte_aligned_q_k_v(monkeypatch):
