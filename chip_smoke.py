@@ -105,7 +105,38 @@ Drives ``mxnet_tpu_torch`` (never the JAX package) on ``cuda:0``:
 12. device profiles — three steps of each training path of phases 5 and 9
    under ``torch.profiler``: device busy time and share of the host wall,
    device operations per step, time by kernel class and the largest
-   kernels.
+   kernels;
+13. the bucketed LSTM LM — ``examples/lstm_bucketing.py``'s defaults
+   (vocab 10000, embed and hidden 200, 2 layers of ``LSTMCell`` unrolled
+   in a ``SequentialRNNCell``, buckets 10/20/30/40/60, batch 32, SGD lr 0.01
+   momentum 0.9, Xavier, ``Perplexity(ignore_label=0)``, kvstore 'local')
+   through ``BucketingModule.fit`` for 4 epochs of 2000 seeded sentences
+   of 5-60 tokens (each token the previous + 1, Zipfian first tokens)
+   from ``BucketSentenceIter``: on the fused step (one CUDA graph per
+   bucket, every graph over one shared set of master parameters and
+   optimizer slots), then on the classic path. Perplexity falling every
+   epoch and ending below V/2, losses finite, exactly one capture per
+   bucket, the masters in as many distinct storages as there are
+   parameters, no port kernel launched, fused and classic parameters
+   within 1e-4; host wall per step per bucket, tokens/s, captures and
+   replays, peak memory, device busy time and operations per step of the
+   smallest and the largest bucket (one ``torch.profiler`` window each);
+14. the fused RNN op — ``models.lstm_lm(fused=True)`` at the same widths
+   for one epoch of 800 sentences on the fused step (a graph per bucket
+   stepped twice or more); then one ``forward_backward`` at the top bucket,
+   batch 4, card vs CPU for the fused and the unrolled LM: probabilities
+   within 1e-5 and gradients within 1e-3 of the largest, as phase 6;
+15. resume — phase 5's LM under Adam: 4 epochs uninterrupted; cut after
+   2 (``callback.module_checkpoint`` with the optimizer states) and
+   resumed by a fresh ``Module`` with ``fit(auto_resume=...)``; cut in
+   epoch 2 after 2 batches (a checkpoint and a ``.resume`` sidecar by
+   ``model.save_resume_state``, then the job raises) and resumed; the
+   iterator does not shuffle. Fused and classic: the resumed parameters
+   within 1e-6 of the largest parameter of the uninterrupted run (the
+   difference printed; bitwise expected), one launch of K1, K2a and K2b
+   per layer and step in each of the five runs (counted into the kernel
+   line), one captured graph per fused run, host wall per step, tokens/s,
+   peak memory and a device profile of the resumed step.
 
 Every phase that fails raises, so the exit code is not 0. The last two
 lines are the ``kernels`` JSON object and the ``ok`` JSON object; the card
@@ -888,13 +919,13 @@ def run_training(mx, build, fused=True):
     return launches, {"steps": steps, "step_s": step_s, "ppl": ppl}, params, mod
 
 
-def fused_against_classic(fused, classic):
-    """The final parameters of the LM's fused and classic fits."""
+def fused_against_classic(fused, classic, what="after 20 steps"):
+    """The final parameters of a model's fused and classic fits."""
     diff = {n: float(np.abs(fused[n] - classic[n]).max()) for n in fused}
     worst = max(diff, key=diff.get)
-    log("  fused against classic after 20 steps: worst parameter %s max abs "
+    log("  fused against classic %s: worst parameter %s max abs "
         "diff %.3e (tol %.0e over %d parameters)"
-        % (worst, diff[worst], FUSED_CLASSIC_TOL, len(diff)))
+        % (what, worst, diff[worst], FUSED_CLASSIC_TOL, len(diff)))
     check(diff[worst] <= FUSED_CLASSIC_TOL,
           "the fused and classic fits disagree")
 
@@ -1627,6 +1658,344 @@ def time_paged_multi(A, B=32, T=4, H=4, D=64, bs=16, nb=8):
                       "window context %.1f" % (window / B))
 
 
+# ------------------------------------------- the bucketed LSTM LM (13, 14)
+# examples/lstm_bucketing.py's defaults: its PTB-style stdlib_corpus vocab,
+# num_embed/num_hidden 200, 2 layers, its buckets and batch, SGD lr 0.01
+# momentum 0.9, Xavier, Perplexity(ignore_label=0)
+LSTM = dict(num_embed=200, num_hidden=200, num_layers=2, vocab_size=10000)
+LSTM_BUCKETS = [10, 20, 30, 40, 60]
+LSTM_BATCH = 32
+LSTM_SENTENCES = 2000
+LSTM_EPOCHS = 4
+LSTM_SGD = {"learning_rate": 0.01, "momentum": 0.9}
+# phase 14's short fused-RNN fit: every bucket stepped at least twice
+LSTM_RNN_SENTENCES = 800
+
+
+# Zipf exponent of the sentences' first tokens: with starts uniform over
+# the 10000 ids every (token, next) pair is seen ~6 times an epoch, and at
+# lr 0.01 the LM stays near perplexity V for more epochs than this run
+# affords; word frequencies are Zipfian, and with Zipfian starts the
+# recipe learns within its first epochs
+LSTM_ZIPF = 1.2
+
+
+def lstm_sentences(n, seed=0):
+    """``n`` sentences of 5-60 tokens with ``examples/train_lm.py``'s
+    structure: each token the previous + 1, over the ids 2..V-1 (0 stays
+    the pad, 1 the unknown word), the first token Zipf-distributed."""
+    V = LSTM["vocab_size"]
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        start = rng.zipf(LSTM_ZIPF) - 1
+        out.append(list(2 + (start + np.arange(rng.randint(5, 61))) % (V - 2)))
+    return out
+
+
+def bucket_stats(keys, per_step, warm):
+    """{bucket: (steps, median host wall after its first ``warm`` steps)}
+    and the tokens/s (padded positions) over the steps after warm-up."""
+    out, toks, secs = {}, 0, 0.0
+    for key in sorted(set(keys)):
+        times = [t for k, t in zip(keys, per_step) if k == key]
+        steady = times[warm:]
+        out[key] = (len(times), float(np.median(steady)) if steady else
+                    float("nan"))
+        toks += LSTM_BATCH * key * len(steady)
+        secs += sum(steady)
+    return out, toks / secs if secs else float("nan")
+
+
+def run_lstm(mx, build, fused=True, rnn_op=False):
+    """``BucketingModule.fit`` of the LSTM LM on the card: the unrolled
+    LSTMCells for LSTM_EPOCHS epochs of LSTM_SENTENCES sentences (phase 13),
+    or the fused RNN op for one epoch of LSTM_RNN_SENTENCES (phase 14); on
+    the fused step (a CUDA graph per bucket over one shared state) or the
+    classic path."""
+    n, seed, epochs = ((LSTM_RNN_SENTENCES, 1, 1) if rnn_op
+                       else (LSTM_SENTENCES, 0, LSTM_EPOCHS))
+    np.random.seed(seed)   # BucketSentenceIter shuffles with numpy's RNG
+    it = mx.rnn.BucketSentenceIter(lstm_sentences(n, seed), LSTM_BATCH,
+                                   buckets=LSTM_BUCKETS, invalid_label=0)
+    mod = mx.mod.BucketingModule(mx.models.lstm_lm(fused=rnn_op, **LSTM),
+                                 default_bucket_key=it.default_bucket_key,
+                                 context=mx.gpu(0))
+    metric = mx.metric.Perplexity(ignore_label=0)
+    stamps, keys, ppl = [], [], []
+
+    def batch_end(param):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        keys.append(param.locals["data_batch"].bucket_key)
+
+    def epoch_end(_epoch, _sym, _arg, _aux):
+        ppl.append(metric.get()[1])
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    for k in build.KERNELS.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    with (contextlib.nullcontext() if fused else no_fused()):
+        mod.fit(it, num_epoch=epochs, kvstore="local", optimizer="sgd",
+                optimizer_params=LSTM_SGD,
+                initializer=mx.init.Xavier(rng=torch.Generator().manual_seed(0)),
+                eval_metric=metric, batch_end_callback=batch_end,
+                epoch_end_callback=epoch_end)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = {n: k.launches for n, k in build.KERNELS.items() if k.launches}
+    per_step = np.diff([t0] + stamps)
+    path = ("fused" if fused else "classic") + (" RNN op" if rnn_op else "")
+    stats, tok_s = bucket_stats(keys, per_step, 2 if fused else 1)
+    check(len(stamps) == epochs * len(it.idx), "fit ran %d steps" % len(stamps))
+    mods = mod._buckets
+    check(sorted(mods) == LSTM_BUCKETS, "buckets bound: %s" % sorted(mods))
+    log("  [%s] %d epochs, %d steps of batch %d in %.3f s; peak memory %.3f "
+        "GB; tokens/s (padded positions, after warm-up) %.1f"
+        % (path, epochs, len(stamps), LSTM_BATCH, stamps[-1] - t0, peak / 1e9,
+           tok_s))
+    for key, (nsteps, med) in stats.items():
+        tr = mods[key]._fused.trainer if mods[key]._fused is not None else None
+        log("  [%s] bucket %d: %d steps, host wall per step (median after "
+            "warm-up, synchronized) %.5f s = %.1f tokens/s%s"
+            % (path, key, nsteps, med, LSTM_BATCH * key / med,
+               "; captures %d, replays %d" % (tr.captures, tr.replays)
+               if tr is not None else ""))
+        if fused:
+            check(tr is not None and tr.captures == (1 if nsteps > 1 else 0)
+                  and tr.replays == nsteps - 1,
+                  "bucket %d did not run one captured graph" % key)
+        else:
+            check(tr is None, "MXNET_MODULE_NO_FUSED=1 still fused")
+    if fused:
+        states = {id(m._fused.state) for m in mods.values()}
+        st = mods[it.default_bucket_key]._fused.state
+        names = mods[it.default_bucket_key]._param_names
+        storages = {t.untyped_storage().data_ptr() for t in st.params.values()}
+        log("  [%s] %d bucket(s) over %d shared state(s): %d master tensors in "
+            "%d distinct storages (%d parameters); optimizer state %.3f GB"
+            % (path, len(mods), len(states), len(st.params), len(storages),
+               len(names), sum(s.numel() * 4 for v in st.states.values()
+                               for s in v) / 1e9))
+        check(len(states) == 1 and len(storages) == len(names)
+              == len(st.params), "the buckets do not share one set of masters")
+    log("  [%s] training perplexity per epoch: %s" % (path, ["%.3f" % p for p in ppl]))
+    check(not launches, "a port kernel ran on the LSTM's path: %s" % launches)
+    check(all(math.isfinite(p) for p in ppl), "non-finite training loss")
+    if not rnn_op:
+        check(all(b < a for a, b in zip(ppl, ppl[1:])),
+              "training perplexity did not fall every epoch")
+        check(ppl[-1] < LSTM["vocab_size"] / 2,
+              "training perplexity ended near uniform guessing")
+    it.reset()
+    batches = {}
+    for b in it:
+        batches.setdefault(b.bucket_key, b)
+    for key in (min(LSTM_BUCKETS), max(LSTM_BUCKETS)):
+        if not math.isfinite(stats[key][1]):
+            continue   # no step after warm-up to profile against
+        def step(b=batches[key]):
+            mod.forward(b, is_train=True)
+            mod.backward()
+            mod.update()
+
+        log_profile("LSTM %s bucket %d" % (path, key), device_profile(step),
+                    stats[key][1])
+    params = {n: a.asnumpy() for n, a in mod.get_params()[0].items()}
+    return params, stats, ppl
+
+
+def lstm_step_card_vs_cpu(mx, params, rnn_op):
+    """One ``forward_backward`` of the LSTM LM (the fused RNN op, or the
+    unrolled cells) at the top bucket, batch 4, from the same parameters on
+    the card and on the CPU: probabilities relative to the largest,
+    gradients relative to each parameter's largest. An LSTM has no ReLU
+    kink: the point needs no smoothness check."""
+    T, V = max(LSTM_BUCKETS), LSTM["vocab_size"]
+    rng = np.random.RandomState(5)
+    X = (2 + (rng.randint(0, V - 2, (4, 1)) + np.arange(T)) % (V - 2)).astype(
+        np.float32)
+    Y = np.concatenate([X[:, 1:], np.zeros((4, 1), np.float32)], axis=1)
+    sym = mx.models.lstm_lm(fused=rnn_op, **LSTM)(T)[0]
+
+    def step(ctx):
+        mod = mx.mod.Module(sym, context=ctx)
+        mod.bind(data_shapes=[("data", X.shape)],
+                 label_shapes=[("softmax_label", Y.shape)])
+        mod.init_params(arg_params=params)
+        mod.forward_backward(mx.io.DataBatch([mx.nd.array(X, ctx=mx.cpu())],
+                                             [mx.nd.array(Y, ctx=mx.cpu())]))
+        exe = mod._exec_group.execs[0]
+        return (mod.get_outputs()[0].asnumpy(),
+                {n: exe.grad_dict[n].asnumpy() for n in params})
+
+    out_h, g_h = step(mx.cpu())
+    out_c, g_c = step(mx.gpu(0))
+    check(np.isfinite(out_c).all() and out_c.shape == out_h.shape,
+          "card outputs not finite or misshapen")
+    out_err = float(np.abs(out_c - out_h).max() / np.abs(out_h).max())
+    grel = {n: float(np.abs(g_c[n] - g_h[n]).max()
+                     / max(np.abs(g_h[n]).max(), 1e-30)) for n in params}
+    worst = max(grel, key=grel.get)
+    log("  [%s] one step at batch 4 x %d: max abs probability diff card vs "
+        "CPU / max abs probability %.3e (tol %.0e); worst gradient %s: max abs "
+        "diff / max abs grad %.3e (tol %.0e over %d parameters)"
+        % ("RNN op" if rnn_op else "LSTMCells", T, out_err, OUT_REL_TOL,
+           worst, grel[worst], GRAD_TOL, len(grel)))
+    check(out_err <= OUT_REL_TOL, "card outputs disagree with the CPU")
+    check(all(np.isfinite(g_c[n]).all() for n in params), "non-finite gradient")
+    check(grel[worst] <= GRAD_TOL, "card gradients disagree with the CPU")
+
+
+# ------------------------------------------------ resume of the LM (15)
+RESUME_TOL = 1e-6   # relative to the largest parameter; bitwise expected
+RESUME_EPOCHS = 4
+
+
+class _Cut(Exception):
+    """The job dies (phase 15's mid-epoch cut)."""
+
+
+def run_resume(mx, build, fused=True):
+    """Phase 5's LM under Adam through ``fit``: uninterrupted for
+    RESUME_EPOCHS epochs; cut after 2 (``module_checkpoint`` with the
+    optimizer states) and resumed by a fresh Module with
+    ``fit(auto_resume=...)``; cut in epoch 2 after 2 batches (a checkpoint
+    and a ``.resume`` sidecar by ``model.save_resume_state``) and resumed.
+    The iterator does not shuffle, so its order does not depend on the
+    process's history. Returns the K1/K2a/K2b launches of all five runs."""
+    import tempfile
+
+    X, Y = lm_stream(128)
+    batch = 32
+    per_epoch = len(X) // batch
+    L = TRAIN["num_layers"]
+    path = "fused" if fused else "classic"
+    total = {}
+
+    def fit(mod, epochs, **kw):
+        it = mx.io.NDArrayIter(X, Y, batch_size=batch, shuffle=False)
+        stamps = []
+
+        def stamp(_param):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+
+        cbs = [stamp] + list(kw.pop("batch_end_callback", []))
+        for k in build.KERNELS.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            with (contextlib.nullcontext() if fused else no_fused()):
+                mod.fit(it, num_epoch=epochs, optimizer="adam",
+                        optimizer_params={"learning_rate": TRAIN_LR},
+                        initializer=mx.init.Xavier(
+                            rng=torch.Generator().manual_seed(0)),
+                        eval_metric=mx.metric.Perplexity(ignore_label=None),
+                        batch_end_callback=cbs, **kw)
+        finally:
+            torch.cuda.synchronize()
+            launches = {n: k.launches for n, k in build.KERNELS.items()
+                        if k.launches}
+            steps = len(stamps)
+            for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+                check(launches.get(name, 0) == L * steps,
+                      "%s launched %d times in %d steps" % (
+                          name, launches.get(name, 0), steps))
+                total[name] = total.get(name, 0) + launches[name]
+            tr = mod._fused.trainer if mod._fused is not None else None
+            if fused:
+                check(tr is not None and tr.captures == 1
+                      and tr.replays == steps - 1,
+                      "the %d-step run did not run one captured graph" % steps)
+            else:
+                check(tr is None, "MXNET_MODULE_NO_FUSED=1 still fused")
+        return mod, np.diff([t0] + stamps)
+
+    def module():
+        return mx.mod.Module(mx.models.transformer_lm(**TRAIN), context=mx.gpu(0))
+
+    def params(mod):
+        return {n: a.asnumpy() for n, a in mod.get_params()[0].items()}
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    full, per_step = fit(module(), RESUME_EPOCHS)
+    peak = torch.cuda.max_memory_allocated() - base
+    ref = params(full)
+    scale = max(np.abs(v).max() for v in ref.values())
+    step_s = float(np.median(per_step[2 if fused else 1:]))
+    log("  [%s] uninterrupted: %d steps; host wall per step (median after "
+        "warm-up, synchronized) %.5f s = %.1f tokens/s; peak memory %.3f GB"
+        % (path, len(per_step), step_s, batch * TRAIN["seq_len"] / step_s,
+           peak / 1e9))
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = tmp + "/lm"
+        cut = module()
+        fit(cut, 2, epoch_end_callback=mx.callback.module_checkpoint(
+            cut, prefix, save_optimizer_states=True))
+        seen = []
+        resumed, _ = fit(module(), RESUME_EPOCHS, auto_resume=prefix,
+                         batch_end_callback=[lambda p: seen.append(
+                             (p.epoch, p.nbatch))])
+        check(seen[0] == (2, 0) and len(seen) == 2 * per_epoch,
+              "the epoch-boundary resume did not start at epoch 2: %s" % seen[:2])
+        prefix = tmp + "/mid"
+        holder = {"mod": module()}
+
+        def cut_mid(param):
+            if (param.epoch, param.nbatch) == (2, 1):
+                mod = holder["mod"]
+                mod.save_checkpoint(prefix, 2, save_optimizer_states=True)
+                mx.model.save_resume_state(
+                    prefix, 2, param.nbatch + 1, numpy_rng=np.random.get_state(),
+                    optimizer_counts=mx.model.optimizer_counts(mod))
+                raise _Cut()
+
+        try:
+            fit(holder["mod"], RESUME_EPOCHS, batch_end_callback=[cut_mid])
+        except _Cut:
+            pass
+        else:
+            check(False, "the mid-epoch cut did not happen")
+        seen = []
+        mid, _ = fit(module(), RESUME_EPOCHS, auto_resume=prefix,
+                     batch_end_callback=[lambda p: seen.append((p.epoch, p.nbatch))])
+        check(seen[0] == (2, 2) and len(seen) == 2 * per_epoch - 2,
+              "the mid-epoch resume did not start at epoch 2 batch 2: %s"
+              % seen[:2])
+    for label, mod in (("at the epoch boundary", resumed), ("mid-epoch", mid)):
+        got = params(mod)
+        diff = max(float(np.abs(got[n] - ref[n]).max()) for n in ref)
+        log("  [%s] resumed %s: max abs parameter diff against the "
+            "uninterrupted run %.3e (%.3e of the largest |parameter| %.4f; tol "
+            "%.0e), bitwise %s; Adam update count %d"
+            % (path, label, diff, diff / scale, scale, RESUME_TOL,
+               all(np.array_equal(got[n], ref[n]) for n in ref),
+               mod._optimizer.num_update))
+        check(mod._optimizer.num_update == full._optimizer.num_update,
+              "the resumed update count differs")
+        check(diff / scale <= RESUME_TOL,
+              "the resumed run left the uninterrupted one")
+    it = mx.io.NDArrayIter(X, Y, batch_size=batch, shuffle=False)
+    b0 = next(iter(it))
+
+    def step():
+        mid.forward(b0, is_train=True)
+        mid.backward()
+        mid.update()
+
+    log_profile("LM resumed " + path, device_profile(step), step_s)
+    log("  [%s] launches over the five runs: %s" % (path, total))
+    return total
+
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1823,6 +2192,25 @@ def main():
     log("== 12. device profiles of the training steps")
     for label, step, step_s in PROFILES:
         log_profile(label, device_profile(step), step_s)
+
+    log("== 13. the bucketed LSTM LM through BucketingModule.fit (%s)" % card)
+    l_fused, _, _ = run_lstm(mx, build)
+    l_classic, _, _ = run_lstm(mx, build, fused=False)
+    # the same 1e-4 as the LM's (phase 5): the embedding's backward sums
+    # its rows in an order that changes from run to run
+    fused_against_classic(l_fused, l_classic, "of the LSTM LM after %d "
+                          "epochs" % LSTM_EPOCHS)
+
+    log("== 14. the fused RNN op (models.lstm_lm(fused=True))")
+    r_fused, _, _ = run_lstm(mx, build, rnn_op=True)
+    lstm_step_card_vs_cpu(mx, r_fused, rnn_op=True)
+    lstm_step_card_vs_cpu(mx, l_fused, rnn_op=False)
+
+    log("== 15. resume on the Transformer-LM (fit(auto_resume=...)) (%s)" % card)
+    for fused in (True, False):
+        for name, n in run_resume(mx, build, fused).items():
+            row = next(r for r in rows if r["name"] == name)
+            row["launches"] += n
 
     log(card)
     print(json.dumps({"kernels": rows}), flush=True)

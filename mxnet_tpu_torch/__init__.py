@@ -14,7 +14,10 @@ Transformer-LM's ops, initializers, SGD and Adam, ``NDArrayIter``,
 metrics) with the flash-attention backward kernels; speculative decoding
 with the multi-query paged kernel, and checkpoints (``nd.save``/``load``,
 ``model.save_checkpoint``/``load_checkpoint``, ``Module.load``) in the JAX
-package's file format. The namespaces are
+package's file format; ResNet-50 on the fused step (one CUDA graph per
+input shape); the bucketed LSTM LM (``mx.rnn``, the ``RNN`` op,
+``BucketingModule`` over one shared fused state), optimizer-state files
+and ``fit(auto_resume=...)``. The namespaces are
 the JAX package's, so a training script needs only its import line
 changed: ``import mxnet_tpu_torch as mx``.
 """
@@ -39,7 +42,7 @@ from . import initializer  # noqa: E402
 from . import initializer as init  # noqa: E402
 from . import optimizer  # noqa: E402
 from . import optimizer as opt  # noqa: E402
-from . import metric, io, callback, models  # noqa: E402
+from . import metric, io, callback, rnn, models  # noqa: E402
 from . import module  # noqa: E402
 from . import module as mod  # noqa: E402
 from . import model  # noqa: E402
@@ -49,4 +52,5 @@ __version__ = "0.1.0"
 __all__ = ["base", "context", "MXNetError", "cpu", "gpu", "default_device",
            "nd", "ndarray", "sym", "symbol", "AttrScope", "NameManager",
            "Prefix", "Executor", "init", "initializer", "opt", "optimizer",
-           "metric", "io", "callback", "models", "mod", "module", "model"]
+           "metric", "io", "callback", "rnn", "models", "mod", "module",
+           "model"]

@@ -1,7 +1,9 @@
-"""Training callbacks of the port (counterpart of ``mxnet_tpu/callback.py``):
-``Speedometer`` only, the batch-end callback ``examples/train_lm.py``
-passes to ``fit``. The checkpoint callbacks (``do_checkpoint``,
-``module_checkpoint``) wait for ``ROADMAP.md`` A4."""
+"""Training callbacks of the port (counterpart of ``mxnet_tpu/callback.py``;
+reference: python/mxnet/callback.py): the epoch-end checkpoint callbacks
+``module_checkpoint`` and ``do_checkpoint`` (file names carry the count
+of completed epochs), and ``Speedometer``, the batch-end throughput
+logger. ``log_train_metric`` and ``ProgressBar`` wait for ``ROADMAP.md``
+A4."""
 from __future__ import annotations
 
 import logging
@@ -9,7 +11,36 @@ import time
 
 from . import telemetry
 
-__all__ = ["Speedometer"]
+__all__ = ["module_checkpoint", "do_checkpoint", "Speedometer"]
+
+
+def _every(period, fn):
+    """Epoch-end callback running ``fn(epoch_1based, sym, arg, aux)`` every
+    ``period`` epochs."""
+    period = max(1, int(period))
+
+    def _callback(iter_no, sym=None, arg=None, aux=None):
+        epoch = iter_no + 1
+        if epoch % period == 0:
+            fn(epoch, sym, arg, aux)
+
+    return _callback
+
+
+def module_checkpoint(mod, prefix, period=1, save_optimizer_states=False):
+    """``mod.save_checkpoint(prefix, epoch, save_optimizer_states)`` every
+    ``period`` epochs."""
+    return _every(period, lambda epoch, *_: mod.save_checkpoint(
+        prefix, epoch, save_optimizer_states))
+
+
+def do_checkpoint(prefix, period=1):
+    """``model.save_checkpoint`` of the epoch's symbol and parameters every
+    ``period`` epochs."""
+    from .model import save_checkpoint
+
+    return _every(period, lambda epoch, sym, arg, aux: save_checkpoint(
+        prefix, epoch, sym, arg, aux))
 
 
 class Speedometer:

@@ -93,7 +93,8 @@ def build_graph_fn(symbol):
     def graph_fn(arg_list, aux_list, is_train):
         vals = {}
         new_aux = list(aux_list)
-        octx = OpContext(is_train=is_train)
+        octx = OpContext(is_train=is_train,
+                         device=arg_list[0].device if arg_list else None)
         for node in order:
             if node.is_variable:
                 is_aux, slot = slots[id(node)]

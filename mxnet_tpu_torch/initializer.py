@@ -13,9 +13,9 @@ parent's generator. The draws match the JAX package's threefry draws in
 distribution only, not value for value; drawing on the CPU makes a card
 run and a CPU run from one seed start from the same weights.
 
-This slice carries Zero, One, Uniform, Normal and Xavier with
-``create``/``register``; Orthogonal, MSRAPrelu, Bilinear, LSTMBias,
-FusedRNN, Constant, Load and Mixed wait for ROADMAP A4.
+This slice carries Zero, One, Uniform, Normal, Xavier and the RNN
+cells' LSTMBias and FusedRNN with ``create``/``register``; Orthogonal,
+MSRAPrelu, Bilinear, Constant, Load and Mixed wait for ROADMAP A4.
 """
 from __future__ import annotations
 
@@ -27,7 +27,7 @@ import torch
 from .base import string_types
 
 __all__ = ["Initializer", "Uniform", "Normal", "Xavier", "One", "Zero",
-           "InitDesc", "register", "create"]
+           "LSTMBias", "FusedRNN", "InitDesc", "register", "create"]
 
 _INIT_REGISTRY = {}
 
@@ -204,3 +204,81 @@ class Xavier(Initializer):
             arr[:] = self._draw("normal", shape, 0.0, scale)
         else:
             raise ValueError("Unknown random type")
+
+
+@register
+class LSTMBias(Initializer):
+    """Zero, with ``forget_bias`` in the forget gate's quarter (gate order
+    i, f, c, o)."""
+
+    def __init__(self, forget_bias=1.0, rng=None):
+        super().__init__(rng=rng, forget_bias=forget_bias)
+        self.forget_bias = forget_bias
+
+    def _init_weight(self, name, arr):
+        num_hidden = int(arr.shape[0] / 4)
+        a = np.zeros(arr.shape, dtype="float32")
+        a[num_hidden:2 * num_hidden] = self.forget_bias
+        arr[:] = a
+
+    # the bias suffix routes here in __call__'s dispatch; same fill
+    _init_bias = _init_weight
+
+
+@register
+class FusedRNN(Initializer):
+    """The packed parameter vector of the ``RNN`` op
+    (:mod:`.ops.rnn_ops`): each weight block drawn by ``init`` (the
+    enclosing initializer when None) as a separate ``weight``, each bias
+    block zero (LSTM: with the forget bias), in the packing order."""
+
+    def __init__(self, init, num_hidden, num_layers, mode, bidirectional=False,
+                 forget_bias=1.0, rng=None):
+        if isinstance(init, str):
+            klass, kwargs = json.loads(init)
+            init = create(klass, **kwargs)
+        super().__init__(
+            rng=rng, init=init.dumps() if init is not None else None,
+            num_hidden=num_hidden, num_layers=num_layers, mode=mode,
+            bidirectional=bidirectional, forget_bias=forget_bias)
+        self._init = init
+        self._num_hidden = num_hidden
+        self._num_layers = num_layers
+        self._mode = mode
+        self._bidirectional = bidirectional
+        self._forget_bias = forget_bias
+
+    def _init_weight(self, desc, arr):
+        from .context import cpu
+        from .ndarray import zeros
+        from .ops.rnn_ops import _gates
+
+        init = self._init
+        if init is None:
+            init = getattr(desc, "global_init", None) or Uniform(0.07)
+        if init.rng is None:
+            init.rng = self.rng
+        H, L = self._num_hidden, self._num_layers
+        g = _gates(self._mode)
+        d = 2 if self._bidirectional else 1
+        total = arr.size
+        # the input size from the parameter count:
+        # total = d*(g*H*(I+H) + 2*g*H) + (L-1)*d*(g*H*(H*d+H) + 2*g*H)
+        rest = total - (L - 1) * d * (g * H * (H * d + H) + 2 * g * H)
+        I = rest // (d * g * H) - H - 2
+        flat = np.zeros(total, dtype="float32")
+        off = 0
+        for layer in range(L):
+            isz = I if layer == 0 else H * d
+            for _ in range(d):
+                for shape, is_bias in (((g * H, isz), False), ((g * H, H), False),
+                                       ((g * H,), True), ((g * H,), True)):
+                    n = int(np.prod(shape))
+                    block = zeros(shape, ctx=cpu())
+                    if not is_bias:
+                        init("weight", block)
+                    elif self._mode == "lstm":
+                        LSTMBias(self._forget_bias)("bias", block)
+                    flat[off:off + n] = block.asnumpy().reshape(-1)
+                    off += n
+        arr[:] = flat

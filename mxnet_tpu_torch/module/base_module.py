@@ -6,20 +6,27 @@ python/mxnet/module/base_module.py).
 epochs of ``forward_backward`` → ``update`` → ``update_metric`` over the
 batches, with batch-end and epoch-end callbacks, the epoch-end
 ``get_params``/``set_params`` round trip and an optional evaluation pass;
-``score`` and ``predict`` run inference passes. The JAX package's
-``auto_resume``, health ``guard``, ``monitor``, elastic membership and
-telemetry hooks are not ported yet: passing the first three raises
-(``ROADMAP.md`` A7).
+``score`` and ``predict`` run inference passes.
+
+``fit(auto_resume=prefix)`` continues a job that was cut: from the newest
+intact checkpoint under ``prefix`` (``model.load_latest_valid_checkpoint``),
+with its ``.states`` file when there is one (else a warm start, logged),
+and, when a ``.resume`` sidecar lies beside it, at the exact batch, numpy
+RNG and optimizer update counts it recorded. The JAX package's health
+``guard``, ``monitor``, elastic membership and telemetry hooks are not
+ported yet: passing ``guard`` or ``monitor`` raises (``ROADMAP.md`` A7).
 """
 from __future__ import annotations
 
 import logging
+import os
 import time
 from collections import namedtuple
 
 import numpy as np
 
 from .. import metric as metric_mod
+from .. import model as model_mod
 from .. import ndarray as nd
 from ..base import MXNetError
 from ..context import cpu
@@ -131,25 +138,43 @@ class BaseModule:
             begin_epoch=0, num_epoch=None, validation_metric=None, monitor=None,
             auto_resume=None, guard=None):
         """Train for ``num_epoch`` epochs. ``arg_params``/``aux_params`` may
-        be dicts of NDArrays, tensors or numpy arrays."""
+        be dicts of NDArrays, tensors or numpy arrays. ``auto_resume`` is a
+        checkpoint prefix to continue from (see the module docstring); with
+        no loadable checkpoint under it training starts afresh."""
         from .. import initializer as init_mod
 
         if num_epoch is None:
             raise MXNetError("please specify number of epochs")
-        for name, value in (("monitor", monitor), ("auto_resume", auto_resume),
-                            ("guard", guard)):
+        for name, value in (("monitor", monitor), ("guard", guard)):
             if value is not None:
                 raise MXNetError("fit(%s=...) is not ported yet (ROADMAP.md A7)" % name)
         if initializer is None:
             initializer = init_mod.Uniform(0.01)
+        resume_epoch = resume_state = None
+        if auto_resume is not None:
+            ckpt = model_mod.load_latest_valid_checkpoint(auto_resume)
+            if ckpt is not None:
+                _, arg_params, aux_params, resume_epoch = ckpt
+                # the file name counts completed epochs: resuming at that
+                # index repeats and skips nothing
+                begin_epoch = max(begin_epoch, resume_epoch)
+                if begin_epoch == resume_epoch:
+                    resume_state = model_mod.load_resume_state(auto_resume,
+                                                               resume_epoch)
+                self.logger.info(
+                    "auto-resume: restored '%s' epoch %d, continuing at epoch "
+                    "%d%s", auto_resume, resume_epoch, begin_epoch,
+                    " batch %d" % resume_state["nbatch"] if resume_state else "")
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label,
                   for_training=True, force_rebind=force_rebind)
         self.init_params(initializer=initializer, arg_params=arg_params,
                          aux_params=aux_params, allow_missing=allow_missing,
-                         force_init=force_init)
+                         force_init=force_init or resume_epoch is not None)
         self.init_optimizer(kvstore=kvstore, optimizer=optimizer,
                             optimizer_params=optimizer_params)
+        if resume_epoch is not None:
+            self._resume_optimizer(auto_resume, resume_epoch, resume_state)
         if validation_metric is None:
             validation_metric = eval_metric
         if not isinstance(eval_metric, metric_mod.EvalMetric):
@@ -159,11 +184,15 @@ class BaseModule:
             tic = time.time()
             eval_metric.reset()
             nbatch = 0
+            if resume_state is not None and epoch == begin_epoch:
+                nbatch = self._resume_fast_forward(train_data, resume_state)
+                resume_state = None
             data_iter = iter(train_data)
             end_of_batch = False
             try:
                 next_data_batch = next(data_iter)
             except StopIteration:
+                # a mid-epoch resume may land on the epoch's end
                 end_of_batch = True
             while not end_of_batch:
                 data_batch = next_data_batch
@@ -198,6 +227,51 @@ class BaseModule:
                 for name, val in res:
                     self.logger.info("Epoch[%d] Validation-%s=%f", epoch, name, val)
             train_data.reset()
+
+    def _resume_optimizer(self, prefix, epoch, resume_state):
+        """Restore the optimizer states of checkpoint ``epoch`` (a warm
+        start, logged, when the file is missing or does not load) and the
+        sidecar's numpy RNG and update counts."""
+        # the writer's %04d name first, then the unpadded one a hand-saved
+        # 'prefix-N.params' would have beside it
+        states = next((f for f in ("%s-%04d.states" % (prefix, epoch),
+                                   "%s-%d.states" % (prefix, epoch))
+                       if os.path.exists(f)), None)
+        if states is None:
+            self.logger.warning("auto-resume: no optimizer states for epoch %d "
+                                "of '%s': a warm start", epoch, prefix)
+        elif not hasattr(self, "load_optimizer_states"):
+            self.logger.warning("auto-resume: a %s does not load optimizer "
+                                "states: a warm start", type(self).__name__)
+        else:
+            try:
+                self.load_optimizer_states(states)
+                self.logger.info("auto-resume: restored optimizer states from %s",
+                                 states)
+            except Exception as exc:  # noqa: BLE001 — the params are restored
+                self.logger.warning("auto-resume: ignoring unloadable optimizer "
+                                    "states %s (a warm start): %s", states, exc)
+        if resume_state is not None:
+            rng = model_mod.decode_rng(resume_state.get("numpy_rng"))
+            if rng is not None:
+                np.random.set_state(rng)
+            model_mod.restore_optimizer_counts(
+                self, resume_state.get("optimizer_counts"))
+
+    def _resume_fast_forward(self, train_data, resume_state):
+        """Position ``train_data`` at the sidecar's batch by drawing that
+        many batches (the port's iterators have no ``load_state`` seek yet,
+        ``ROADMAP.md`` A5); returns the batch number to continue from."""
+        nbatch = int(resume_state.get("nbatch") or 0)
+        it = iter(train_data)
+        for done in range(nbatch):
+            try:
+                next(it)
+            except StopIteration:
+                self.logger.warning("auto-resume: iterator exhausted after %d "
+                                    "of %d skipped batches", done, nbatch)
+                break
+        return nbatch
 
     # ---- symbol ----------------------------------------------------------
     @property

@@ -7,6 +7,11 @@ each batch into its bound data and label arrays (host to device), and
 exposes its parameter, gradient and output arrays to the module. A list
 of several contexts raises; data parallelism over several cards waits
 for ``ROADMAP.md`` A6.
+
+``shared_group`` (a bucket of a ``BucketingModule``): the executor binds
+the lender's parameter, gradient and auxiliary NDArrays themselves, not
+copies, so an update through either group is seen by both. ``reshape``
+rebinds at new batch shapes over the same arrays.
 """
 from __future__ import annotations
 
@@ -25,6 +30,12 @@ def _descs(shapes):
     return [x if isinstance(x, DataDesc) else DataDesc(*x) for x in shapes]
 
 
+def _check_shared(name, arr, shape):
+    if tuple(arr.shape) != tuple(shape):
+        raise MXNetError("%s: shape %s here, %s in the executor it shares "
+                         "arrays with" % (name, tuple(shape), tuple(arr.shape)))
+
+
 class DataParallelExecutorGroup:
     def __init__(self, symbol, contexts, workload, data_shapes, label_shapes,
                  param_names, for_training, inputs_need_grad, shared_group=None,
@@ -34,9 +45,7 @@ class DataParallelExecutorGroup:
             raise MXNetError("the port binds one context per module; %d "
                              "contexts need data parallelism (ROADMAP.md A6)"
                              % len(contexts))
-        if shared_group is not None:
-            raise MXNetError("shared executor groups (bucketing) are not "
-                             "ported yet (ROADMAP.md A1)")
+        self.shared_group = shared_group
         self.compute_dtype = compute_dtype
         self.param_names = param_names
         self.arg_names = symbol.list_arguments()
@@ -70,8 +79,10 @@ class DataParallelExecutorGroup:
             raise ValueError("invalid grad_req")
         self.bind_exec(data_shapes, label_shapes)
 
-    def bind_exec(self, data_shapes, label_shapes):
-        """Bind the executor at these batch shapes."""
+    def bind_exec(self, data_shapes, label_shapes, shared_exec=None):
+        """Bind the executor at these batch shapes, over the parameter,
+        gradient and auxiliary arrays of ``shared_exec`` (else the shared
+        group's executor) where it has them."""
         self.data_shapes = _descs(data_shapes)
         self.label_shapes = _descs(label_shapes) if label_shapes is not None else None
         descs = self.data_shapes + (self.label_shapes or [])
@@ -86,12 +97,28 @@ class DataParallelExecutorGroup:
             **{d.name: d.shape for d in descs})
         if arg_shapes is None:
             raise MXNetError("shape inference failed")
+        if shared_exec is None and self.shared_group is not None:
+            shared_exec = self.shared_group.execs[0]
+        shared_args = shared_exec.arg_dict if shared_exec is not None else {}
+        shared_grads = shared_exec.grad_dict if shared_exec is not None else {}
+        shared_auxs = shared_exec.aux_dict if shared_exec is not None else {}
         args, grads = [], []
         for name, shape in zip(self.arg_names, arg_shapes):
+            if name in self.param_names and name in shared_args:
+                _check_shared(name, shared_args[name], shape)
+                args.append(shared_args[name])
+                grads.append(shared_grads.get(name))
+                continue
             args.append(nd.zeros(shape, ctx=ctx, dtype=np.float32))
             grads.append(nd.zeros(shape, ctx=ctx, dtype=np.float32)
                          if self.grad_req.get(name, "null") != "null" else None)
-        auxs = [nd.zeros(s, ctx=ctx) for s in aux_shapes]
+        auxs = []
+        for name, shape in zip(self.aux_names, aux_shapes):
+            if name in shared_auxs:
+                _check_shared(name, shared_auxs[name], shape)
+                auxs.append(shared_auxs[name])
+            else:
+                auxs.append(nd.zeros(shape, ctx=ctx))
         exe = self.symbol.bind(ctx, args, args_grad=grads,
                                grad_req=self.grad_req, aux_states=auxs,
                                compute_dtype=self.compute_dtype,
@@ -110,6 +137,15 @@ class DataParallelExecutorGroup:
         self.input_grad_arrays = ([[exe.grad_dict[d.name]] for d in self.data_shapes]
                                   if self.inputs_need_grad else None)
         self.aux_arrays = [[a] for a in exe.aux_arrays]
+
+    def reshape(self, data_shapes, label_shapes):
+        """Rebind at new batch shapes over the same parameter, gradient and
+        auxiliary arrays."""
+        data_shapes = _descs(data_shapes)
+        label_shapes = _descs(label_shapes) if label_shapes is not None else None
+        if data_shapes == self.data_shapes and label_shapes == self.label_shapes:
+            return
+        self.bind_exec(data_shapes, label_shapes, shared_exec=self.execs[0])
 
     def set_params(self, arg_params, aux_params):
         self.execs[0].copy_params_from(arg_params, aux_params)

@@ -14,24 +14,49 @@ auxiliary states and optimizer slots on the device are the truth
 (``device_dirty``); :meth:`FusedFitPath.sync_to_module` writes them back
 into the Module's host dicts and its executor group whenever a
 classic-path consumer (an eval forward, ``get_params``, a checkpoint)
-needs them. The device tensors are allocated once and refreshed in place,
-so a captured graph stays valid across :meth:`FusedFitPath.invalidate`.
+needs them.
 
-Bucketing's shared fused state and the distributed hybrid step wait for
-``ROADMAP.md`` A1 and A6.
+Bucketing: the buckets of a ``BucketingModule`` share one
+:class:`_SharedFusedState` (``Module.borrow_optimizer``). Each bucket has
+its own trainer, shape-specialized, with its own CUDA graph, and every
+graph is captured on the shared state's tensors. Those tensors are
+allocated once and only ever written in place (``set_params``, optimizer
+states from a file, a rebind, a resume all ``copy_`` into them), so every
+bucket's graph stays valid and a bucket switch moves nothing through the
+host. The update count is the one optimizer's that the buckets share.
+
+Optimizer states travel in the JAX package's ``.states`` format
+(:meth:`FusedFitPath.get_states_bytes`/``set_states_bytes``): a pickled
+``{index: numpy state}`` keyed by ``enumerate(param_names)``, what the
+classic ``Updater`` reads, so either package's file, from either path,
+loads here. The distributed hybrid step waits for ``ROADMAP.md`` A6.
 """
 from __future__ import annotations
 
+import pickle
+
+import numpy as np
 import torch
 
+from ..base import MXNetError
 from ..io import DataDesc
 from ..ndarray import NDArray
 
 __all__ = ["FusedFitPath", "batch_axes_standard"]
 
 
-class _FusedState:
-    """The device-resident training state of one fused path."""
+def _tensor(x):
+    """A state leaf (NDArray, tensor or numpy array) as a tensor."""
+    if isinstance(x, NDArray):
+        return x.data
+    if isinstance(x, np.ndarray):
+        return torch.from_numpy(x)
+    return x
+
+
+class _SharedFusedState:
+    """The device-resident training state of the fused paths bound to one
+    set of parameters (one, or every bucket of a BucketingModule)."""
 
     __slots__ = ("params", "auxs", "states", "host_states", "device_dirty",
                  "fresh")
@@ -40,17 +65,17 @@ class _FusedState:
         self.params = None    # name -> float32 master tensor
         self.auxs = None      # name -> float32 tensor
         self.states = None    # name -> tuple of optimizer slot tensors
-        self.host_states = None  # classic Updater states awaiting upload
+        self.host_states = None  # name -> serial state awaiting upload
         self.device_dirty = False
         self.fresh = False    # params/auxs hold the Module's values
 
 
 class FusedFitPath:
-    def __init__(self, module):
+    def __init__(self, module, share_state=None):
         from ..parallel.spmd import SPMDTrainer
 
         self._mod = module
-        self.state = _FusedState()
+        self.state = share_state if share_state is not None else _SharedFusedState()
         self._data_shapes = [(d.name, tuple(d.shape))
                              for d in module._data_shapes]
         self._label_shapes = [(d.name, tuple(d.shape))
@@ -69,39 +94,67 @@ class FusedFitPath:
         return self.state.device_dirty
 
     # ---- state movement --------------------------------------------------
-    def _ensure_device_state(self):
+    def _allocate(self):
+        """Device tensors for every parameter, auxiliary state and slot of
+        this trainer that the shared state lacks (once per name)."""
         st, tr = self.state, self.trainer
-        if st.fresh:
-            return
-        mod = self._mod
-        if mod._params_dirty:
-            # the executor group's copies are newer (a classic update ran)
-            mod._sync_params_from_devices()
         dev = tr.device
         if st.params is None:
-            st.params = {n: torch.empty(tr.arg_shapes[n], dtype=torch.float32,
-                                        device=dev) for n in tr.param_names}
-            st.auxs = {n: torch.empty(tr.aux_shapes[n], dtype=torch.float32,
-                                      device=dev) for n in tr.aux_names}
-            st.states = tr.init_opt_state()
+            st.params, st.auxs, st.states = {}, {}, {}
+        for n in tr.param_names:
+            if n not in st.params:
+                st.params[n] = torch.empty(tr.arg_shapes[n], dtype=torch.float32,
+                                           device=dev)
+                st.states[n] = tr.rule.init_state(tr.arg_shapes[n], dev)
+        for n in tr.aux_names:
+            if n not in st.auxs:
+                st.auxs[n] = torch.empty(tr.aux_shapes[n], dtype=torch.float32,
+                                         device=dev)
+
+    def _upload_states(self):
+        """Copy the staged serial states into the slots that exist."""
+        st, rule = self.state, self.trainer.rule
+        if st.host_states is None:
+            return
         with torch.no_grad():
-            for n in tr.param_names:
-                st.params[n].copy_(mod._arg_params[n].data)
-            for n in tr.aux_names:
-                st.auxs[n].copy_(mod._aux_params[n].data)
-            if st.host_states is not None:
-                for n, serial in st.host_states.items():
-                    for dst, src in zip(st.states[n],
-                                        tr.rule.from_serial(serial)):
-                        dst.copy_(src.data if isinstance(src, NDArray)
-                                  else src)
-                st.host_states = None
+            for n in [n for n in st.host_states if n in st.states]:
+                for dst, src in zip(st.states[n],
+                                    rule.from_serial(st.host_states.pop(n))):
+                    dst.copy_(_tensor(src))
+        if not st.host_states:
+            st.host_states = None
+
+    def _ensure_device_state(self):
+        """Bring the shared device state up to date for this trainer's
+        step: every name it needs allocated, the parameters refreshed
+        from the Module's copies when those are the truth (all of them)
+        or new (a bucket whose symbol adds names), staged optimizer
+        states uploaded."""
+        st, mod, tr = self.state, self._mod, self.trainer
+        if st.fresh:
+            params = [n for n in tr.param_names if n not in (st.params or {})]
+            auxs = [n for n in tr.aux_names if n not in (st.auxs or {})]
+        else:
+            if mod._params_dirty:
+                # the executor group's copies are newer (a classic update ran)
+                mod._sync_params_from_devices()
+            params = list(set(st.params or ()) | set(tr.param_names))
+            auxs = list(set(st.auxs or ()) | set(tr.aux_names))
+        self._allocate()
+        with torch.no_grad():
+            for n in params:
+                if n in mod._arg_params:
+                    st.params[n].copy_(mod._arg_params[n].data)
+            for n in auxs:
+                if n in mod._aux_params:
+                    st.auxs[n].copy_(mod._aux_params[n].data)
+        self._upload_states()
         st.fresh = True
 
     def invalidate(self):
         """The Module's copies became the truth (``set_params``, a classic
-        update): the device parameters are refreshed from them before the
-        next step. Optimizer slots stay on the device."""
+        update): the device parameters are refreshed from them, in place,
+        before the next step. Optimizer slots stay on the device."""
         self.state.fresh = False
         self.state.device_dirty = False
         self.drop_batch()
@@ -121,38 +174,99 @@ class FusedFitPath:
         if not st.device_dirty or st.params is None:
             return
         for n, t in st.params.items():
-            mod._arg_params[n][:] = t
+            if n in mod._arg_params:
+                mod._arg_params[n][:] = t
         for n, t in st.auxs.items():
-            mod._aux_params[n][:] = t
-        mod._exec_group.set_params(mod._arg_params, mod._aux_params)
+            if n in mod._aux_params:
+                mod._aux_params[n][:] = t
+        mod._exec_group.set_params(
+            {n: mod._arg_params[n] for n in mod._exec_group.param_names},
+            {n: mod._aux_params[n] for n in mod._exec_group.aux_names})
         st.device_dirty = False
 
     # ---- optimizer-state handover to and from the classic Updater --------
-    def states_for_updater(self):
-        """The optimizer slots in the classic ``Updater``'s layout
-        (``{index: state}`` by ``param_names`` order), as NDArrays on the
-        device."""
+    def _serial_by_name(self):
+        """``{name: serial state}`` for this trainer's parameters: the
+        device slots, or the staged ones, or fresh zeros."""
         st, tr = self.state, self.trainer
-        index = {n: i for i, n in enumerate(self._mod._exec_group.param_names)}
         out = {}
         for n in tr.param_names:
             if st.host_states is not None and n in st.host_states:
-                out[index[n]] = st.host_states[n]
-                continue
-            serial = tr.rule.to_serial(st.states[n]) if st.states else None
+                out[n] = st.host_states[n]
+            elif st.states is not None and n in st.states:
+                out[n] = tr.rule.to_serial(st.states[n])
+            else:
+                out[n] = tr.rule.to_serial(
+                    tr.rule.init_state(tr.arg_shapes[n], "cpu"))
+        return out
+
+    def states_for_updater(self):
+        """The optimizer slots in the classic ``Updater``'s layout
+        (``{index: state}`` by ``param_names`` order), as NDArrays."""
+        index = {n: i for i, n in enumerate(self._mod._exec_group.param_names)}
+        out = {}
+        for n, serial in self._serial_by_name().items():
             if isinstance(serial, tuple):
-                serial = tuple(NDArray(s.clone()) for s in serial)
+                serial = tuple(NDArray(_tensor(s).clone()) for s in serial)
             elif serial is not None:
-                serial = NDArray(serial.clone())
+                serial = NDArray(_tensor(serial).clone())
             out[index[n]] = serial
         return out
 
     def set_states_from_updater(self, states):
         """Stage the classic Updater's states for the next fused step."""
         names = self._mod._exec_group.param_names
-        self.state.host_states = {names[i]: s for i, s in states.items()
-                                  if s is not None}
-        self.state.fresh = False
+        self._stage_states({names[i]: s for i, s in states.items()
+                            if s is not None})
+
+    def _stage_states(self, by_name):
+        """Stage serial states; the next step's ``stage`` copies them into
+        the slots."""
+        st = self.state
+        st.host_states = dict(st.host_states or {}, **by_name)
+
+    def get_states_bytes(self):
+        """The ``.states`` file payload: ``{i: numpy state}`` keyed by
+        ``enumerate(param_names)``, the classic Updater's layout."""
+        def host(s):
+            if s is None:
+                return None
+            if isinstance(s, tuple):
+                return tuple(host(x) for x in s)
+            return _tensor(s).detach().cpu().numpy().copy()
+
+        return pickle.dumps({i: host(s) for i, s in
+                             enumerate(self._serial_by_name().values())})
+
+    def set_states_bytes(self, data):
+        """Adopt a ``.states`` payload of either package (one context's
+        ``{i: state}``, or one replica per context: the first is taken).
+        A file that does not fit these parameters raises."""
+        serial = pickle.loads(data)
+        tr = self.trainer
+        names = tr.param_names
+        P = len(names)
+        keys = set(serial.keys())
+        if keys == set(range(P)):
+            canon = {names[i]: serial[i] for i in range(P)}
+        elif P and len(serial) % P == 0 and keys == set(range(len(serial))):
+            stride = len(serial) // P
+            canon = {names[i]: serial[i * stride] for i in range(P)}
+        else:
+            raise MXNetError("optimizer states file does not match this "
+                             "module's %d parameters (keys %s)"
+                             % (P, sorted(keys)[:8]))
+        for n, s in canon.items():
+            leaves = s if isinstance(s, tuple) else (() if s is None else (s,))
+            want = tr.rule.nslot
+            if len(leaves) != want or any(
+                    tuple(np.shape(x)) != tuple(tr.arg_shapes[n]) for x in leaves):
+                raise MXNetError(
+                    "optimizer states do not match this model: %s has %d "
+                    "state(s) of shapes %s, the optimizer keeps %d of %s"
+                    % (n, len(leaves), [tuple(np.shape(x)) for x in leaves],
+                       want, tuple(tr.arg_shapes[n])))
+        self._stage_states(canon)
 
     # ---- fit-loop hooks --------------------------------------------------
     def accepts(self, data_batch):

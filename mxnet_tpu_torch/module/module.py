@@ -15,10 +15,16 @@ float32 master parameters on both paths. A ``Module`` built without a
 ``context`` runs on the card (:func:`~..context.default_device`, which
 raises when there is none); tests pass ``context=cpu()``.
 
-Checkpoints (``save_checkpoint``/``Module.load``) are the JAX package's
-files, readable by either package. Not in this slice: kvstores and
-several contexts, optimizer-state files, ``BucketingModule`` and monitors
-(``ROADMAP.md`` A1, A6, A7).
+Checkpoints (``save_checkpoint``/``Module.load``, with the optimizer's
+``.states`` file when asked) are the JAX package's files, readable by
+either package; ``save_optimizer_states``/``load_optimizer_states`` go
+through the fused path's or the Updater's states, whichever is live.
+
+``bind(shared_module=...)`` binds over another module's parameter arrays
+and ``borrow_optimizer`` shares its optimizer, updater and fused state:
+the buckets of a ``BucketingModule``. ``reshape`` rebinds at new batch
+shapes over the same arrays. Not in this slice: kvstores and several
+contexts, and monitors (``ROADMAP.md`` A6, A7).
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ import warnings
 import torch
 
 from .. import context as ctx_mod
+from .. import model as model_mod
 from .. import optimizer as opt
 from ..base import MXNetError, env_flag
 from ..io import DataDesc
@@ -85,35 +92,76 @@ class Module(BaseModule):
         self._label_shapes = None
         self._fused = None    # the fused path, set by init_optimizer
         self._fused_kvstore_arg = None
+        self._preload_opt_states = None   # a .states file for init_optimizer
 
     @staticmethod
     def load(prefix, epoch, load_optimizer_states=False, **kwargs):
         """A Module from a checkpoint written by :meth:`save_checkpoint` or
         ``model.save_checkpoint`` (of either package); ``kwargs`` go to the
-        constructor. The parameters are set at the next ``bind``."""
-        from ..model import load_checkpoint
-
-        if load_optimizer_states:
-            raise MXNetError("optimizer-state files are not ported yet "
-                             "(ROADMAP.md A)")
-        sym, args, auxs = load_checkpoint(prefix, epoch)
+        constructor. The parameters are set at the next ``bind``, the
+        optimizer states (``prefix-%04d.states``) at ``init_optimizer``."""
+        sym, args, auxs = model_mod.load_checkpoint(prefix, epoch)
         mod = Module(symbol=sym, **kwargs)
         mod._arg_params = args
         mod._aux_params = auxs
         mod.params_initialized = True
+        if load_optimizer_states:
+            mod._preload_opt_states = "%s-%04d.states" % (prefix, epoch)
         return mod
 
     def save_checkpoint(self, prefix, epoch, save_optimizer_states=False):
         """Write ``prefix-symbol.json`` and ``prefix-%04d.params``, both
-        crash-safely, in the JAX package's format."""
-        if save_optimizer_states:
-            raise MXNetError("optimizer-state files are not ported yet "
-                             "(ROADMAP.md A)")
+        crash-safely, in the JAX package's format, and retire a stale
+        ``.resume`` sidecar of this epoch number. With
+        ``save_optimizer_states`` also ``prefix-%04d.states`` and a
+        sidecar at batch 0 that carries the optimizer's update counts (the
+        ``.states`` format has no room for them; without them an
+        epoch-boundary resume restarts Adam's bias correction at t = 1,
+        which the JAX package does)."""
         self._symbol.save("%s-symbol.json" % prefix)
         param_name = "%s-%04d.params" % (prefix, epoch)
         self.save_params(param_name)
-        # the JAX package also retires a stale .resume sidecar here: not ported
+        model_mod.clear_resume_state(prefix, epoch)
         logging.info('Saved checkpoint to "%s"', param_name)
+        if save_optimizer_states:
+            state_name = "%s-%04d.states" % (prefix, epoch)
+            self.save_optimizer_states(state_name)
+            model_mod.save_resume_state(
+                prefix, epoch, 0,
+                optimizer_counts=model_mod.optimizer_counts(self))
+            logging.info('Saved optimizer state to "%s"', state_name)
+
+    def save_optimizer_states(self, fname):
+        """Write the optimizer's states to ``fname`` crash-safely, with a
+        CRC footer, as the JAX package's ``.states`` payload."""
+        from ..utils.atomic_file import atomic_write
+
+        if not self.optimizer_initialized:
+            raise MXNetError("init_optimizer first")
+        with atomic_write(fname) as fout:
+            fout.write(self._fused.get_states_bytes() if self._fused is not None
+                       else self._updater.get_states())
+
+    def load_optimizer_states(self, fname):
+        """Read a ``.states`` file of either package, from either path.
+        States that do not fit the bound parameters raise
+        :class:`MXNetError` (``fit(auto_resume=...)`` then warm-starts)."""
+        from ..utils.atomic_file import read_verified
+
+        if not self.optimizer_initialized:
+            raise MXNetError("init_optimizer first")
+        data = read_verified(fname)
+        if self._fused is not None:
+            self._fused.set_states_bytes(data)
+        else:
+            self._updater.set_states(data)
+            self._updater.check_state_shapes(self._expected_state_shapes(),
+                                             source=fname)
+
+    def _expected_state_shapes(self):
+        """``{index: weight shape}`` in the classic Updater's layout."""
+        return {i: tuple(w[0].shape)
+                for i, w in enumerate(self._exec_group.param_arrays)}
 
     # ---- properties ------------------------------------------------------
     def _reset_bind(self):
@@ -243,9 +291,11 @@ class Module(BaseModule):
         if self.binded:
             self.logger.warning("Already binded, ignoring bind()")
             return
-        if shared_module is not None:
-            raise MXNetError("shared_module (bucketing) is not ported yet "
-                             "(ROADMAP.md A1)")
+        if shared_module is not None and not (
+                isinstance(shared_module, Module) and shared_module.binded
+                and shared_module.params_initialized):
+            raise MXNetError("shared_module must be a bound Module with "
+                             "initialized parameters")
         if not for_training and inputs_need_grad:
             raise MXNetError("inputs_need_grad needs for_training")
         self.for_training = for_training
@@ -260,9 +310,18 @@ class Module(BaseModule):
         self._exec_group = DataParallelExecutorGroup(
             self._symbol, self._context, self._work_load_list, self._data_shapes,
             self._label_shapes, self._param_names, for_training, inputs_need_grad,
-            None, logger=self.logger, fixed_param_names=self._fixed_param_names,
+            None if shared_module is None else shared_module._exec_group,
+            logger=self.logger, fixed_param_names=self._fixed_param_names,
             grad_req=grad_req, state_names=self._state_names,
             compute_dtype=self._compute_dtype)
+        if shared_module is not None:
+            # the lender's arrays are bound, its host dicts shared
+            self.params_initialized = True
+            self._arg_params = shared_module._arg_params
+            self._aux_params = shared_module._aux_params
+            if shared_module.optimizer_initialized:
+                self.borrow_optimizer(shared_module)
+            return
         if self.params_initialized:
             self._exec_group.set_params(self._arg_params, self._aux_params)
         if fused is not None and self.optimizer_initialized:
@@ -272,6 +331,23 @@ class Module(BaseModule):
             self._fused = self._build_fused_path(self._fused_kvstore_arg)
             if self._fused is not None:
                 self._fused.set_states_from_updater(states)
+
+    def reshape(self, data_shapes, label_shapes=None):
+        """Rebind at new batch shapes over the same parameter arrays; a
+        fused path gets a trainer (and graph) for the new shapes over the
+        same device state."""
+        if not self.binded:
+            raise MXNetError("bind first")
+        self._data_shapes = [x if isinstance(x, DataDesc) else DataDesc(*x)
+                             for x in data_shapes]
+        self._label_shapes = ([x if isinstance(x, DataDesc) else DataDesc(*x)
+                               for x in label_shapes]
+                              if label_shapes is not None else None)
+        self._exec_group.reshape(self._data_shapes, self._label_shapes)
+        if self._fused is not None:
+            self._fused.drop_batch()
+            self._fused = self._build_fused_path(self._fused_kvstore_arg,
+                                                 share_state=self._fused.state)
 
     # ---- optimizer -------------------------------------------------------
     def init_optimizer(self, kvstore="local", optimizer="sgd",
@@ -305,6 +381,24 @@ class Module(BaseModule):
         self._updater = opt.get_updater(optimizer)
         self._fused_kvstore_arg = kvstore
         self._fused = self._build_fused_path(kvstore)
+        self.optimizer_initialized = True
+        if self._preload_opt_states is not None:
+            self.load_optimizer_states(self._preload_opt_states)
+            self._preload_opt_states = None
+
+    def borrow_optimizer(self, shared_module):
+        """Share ``shared_module``'s optimizer and updater (one update
+        count for both) and, when it trains on the fused path, its device
+        state: this module gets a fused path of its own shapes over the
+        same master parameters and optimizer slots."""
+        if not shared_module.optimizer_initialized:
+            raise MXNetError("the lender's optimizer is not initialized")
+        self._optimizer = shared_module._optimizer
+        self._updater = shared_module._updater
+        self._fused_kvstore_arg = shared_module._fused_kvstore_arg
+        self._fused = (None if shared_module._fused is None else
+                       self._build_fused_path(self._fused_kvstore_arg,
+                                              share_state=shared_module._fused.state))
         self.optimizer_initialized = True
 
     def _fused_veto(self, kvstore_arg):
@@ -346,7 +440,7 @@ class Module(BaseModule):
         return ("kvstore=%r on a CPU context (pass kvstore='device' to opt "
                 "in)" % (kvstore_arg,))
 
-    def _build_fused_path(self, kvstore_arg):
+    def _build_fused_path(self, kvstore_arg, share_state=None):
         veto = self._fused_veto(kvstore_arg)
         if veto is not None:
             # loud when the user plausibly expected the fused path: a card's
@@ -368,7 +462,7 @@ class Module(BaseModule):
         try:
             from .fused_path import FusedFitPath
 
-            return FusedFitPath(self)
+            return FusedFitPath(self, share_state=share_state)
         except ValueError as e:   # an optimizer without a fused rule
             self.logger.info("fused SPMD path unavailable (%s); using the "
                              "executor-group path", e)
@@ -452,6 +546,9 @@ class Module(BaseModule):
             self._fused.update_metric(eval_metric, labels)
             return
         self._exec_group.update_metric(eval_metric, labels)
+
+    def install_monitor(self, mon):
+        raise MXNetError("monitors are not ported yet (ROADMAP.md A7)")
 
 
 def _init_desc(name, attrs):

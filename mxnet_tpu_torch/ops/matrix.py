@@ -1,15 +1,18 @@
 """Shape ops of the port (counterpart of ``mxnet_tpu/ops/matrix.py``).
 
 ``Reshape``, with MXNet's special target codes (0 keep, -1 infer, -2
-copy the rest, -3 merge two, -4 split one) and ``reverse``, and
-``Flatten``. The rest of the file waits for ROADMAP A4.
+copy the rest, -3 merge two, -4 split one) and ``reverse``, ``Flatten``,
+and what the ``mx.rnn`` cells build their graphs from: ``expand_dims``,
+``SwapAxis``, ``Concat`` and ``SliceChannel`` (alias ``split``; one node
+with ``num_outputs`` outputs). The rest of the file waits for ROADMAP A4.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..base import MXNetError
-from .registry import Param, register_simple
+from .registry import Param, register, register_simple
 
 
 def mx_reshape(shape, target, reverse=False):
@@ -88,3 +91,50 @@ register_simple(
     arg_names=("data",),
     alias=("flatten",),
 )
+
+register_simple(
+    "expand_dims",
+    lambda attrs, x: x.unsqueeze(attrs["axis"]),
+    arg_names=("data",),
+    params={"axis": Param.int()},
+)
+
+register_simple(
+    "SwapAxis",
+    lambda attrs, x: x.transpose(attrs["dim1"], attrs["dim2"]),
+    arg_names=("data",),
+    params={"dim1": Param.int(0), "dim2": Param.int(0)},
+    alias=("swapaxes",),
+)
+
+
+@register(
+    "Concat",
+    arg_names=lambda attrs: ["arg%d" % i for i in range(int(attrs.get("num_args", 1)))],
+    params={"num_args": Param.int(1), "dim": Param.int(1)},
+    key_var_num_args="num_args",
+    alias=("concat",),
+)
+def _concat(octx, attrs, args, auxs):
+    return [torch.cat(args, dim=attrs["dim"])], []
+
+
+@register(
+    "SliceChannel",
+    arg_names=("data",),
+    params={"num_outputs": Param.int(), "axis": Param.int(1),
+            "squeeze_axis": Param.bool(False)},
+    num_outputs=lambda attrs: int(attrs["num_outputs"]),
+    output_names=lambda attrs: ["output%d" % i for i in range(int(attrs["num_outputs"]))],
+    alias=("split",),
+)
+def _slice_channel(octx, attrs, args, auxs):
+    x = args[0]
+    n, axis = attrs["num_outputs"], attrs["axis"]
+    if x.shape[axis] % n:
+        raise MXNetError("SliceChannel: axis %d of %s does not split into %d "
+                         "equal parts" % (axis, tuple(x.shape), n))
+    parts = x.chunk(n, dim=axis)
+    if attrs["squeeze_axis"]:
+        parts = [p.squeeze(axis) for p in parts]
+    return list(parts), []

@@ -1,8 +1,8 @@
 """Reductions of the port (counterpart of ``mxnet_tpu/ops/reduce.py``).
 
-Only ``mean``, with MXNet's axis semantics: ``axis`` unset or ``()``
-reduces over everything, ``keepdims`` keeps singleton axes, ``exclude``
-reduces over the complement. The other reductions wait for ROADMAP A4.
+``sum`` (alias ``sum_axis``) and ``mean``, with MXNet's axis semantics:
+``axis`` unset or ``()`` reduces over everything, ``keepdims`` keeps
+singleton axes, ``exclude`` reduces over the complement. The other reductions wait for ROADMAP A4.
 """
 from __future__ import annotations
 
@@ -33,16 +33,21 @@ def _norm_axes(axis, ndim, exclude=False):
     return axes
 
 
-def _mean(attrs, x):
-    # an empty axis set reduces over everything, as the JAX package's
-    # ``axis=axes if axes else None`` does
-    axes = _norm_axes(attrs["axis"], x.dim(), attrs["exclude"]) \
-        or tuple(range(x.dim()))
-    return torch.mean(x, dim=axes, keepdim=attrs["keepdims"])
+def _reduce(fn):
+    def _apply(attrs, x):
+        # an empty axis set reduces over everything, as the JAX package's
+        # ``axis=axes if axes else None`` does
+        axes = _norm_axes(attrs["axis"], x.dim(), attrs["exclude"]) \
+            or tuple(range(x.dim()))
+        return fn(x, dim=axes, keepdim=attrs["keepdims"])
+
+    return _apply
 
 
-register_simple("mean", _mean, arg_names=("data",), params={
-    "axis": _axis_param(None),
-    "keepdims": Param.bool(False),
-    "exclude": Param.bool(False),
-})
+for _name, _fn, _aliases in (("sum", torch.sum, ("sum_axis",)),
+                             ("mean", torch.mean, ())):
+    register_simple(_name, _reduce(_fn), arg_names=("data",), params={
+        "axis": _axis_param(None),
+        "keepdims": Param.bool(False),
+        "exclude": Param.bool(False),
+    }, alias=_aliases)

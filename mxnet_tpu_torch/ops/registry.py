@@ -31,13 +31,16 @@ _OP_REGISTRY = {}
 
 class OpContext:
     """Per-invocation execution context handed to op forwards: the training
-    flag and a ``torch.Generator`` for stochastic ops (None otherwise)."""
+    flag, a ``torch.Generator`` for stochastic ops (None otherwise) and the
+    device the graph runs on (where ops without inputs, ``_zeros`` and its
+    kin, create their outputs; None is the CPU)."""
 
-    __slots__ = ("is_train", "rng")
+    __slots__ = ("is_train", "rng", "device")
 
-    def __init__(self, is_train=False, rng=None):
+    def __init__(self, is_train=False, rng=None, device=None):
         self.is_train = is_train
         self.rng = rng
+        self.device = device
 
 
 def _parse_dtype(v):
@@ -103,7 +106,7 @@ class Operator:
         self.params = params or {}
         self._infer_shape = infer_shape
         self._infer_type = infer_type
-        self.stochastic = stochastic
+        self._stochastic = stochastic
         self.key_var_num_args = key_var_num_args
         self._num_visible_outputs = num_visible_outputs
         self.alias = alias
@@ -111,6 +114,11 @@ class Operator:
         self.is_loss = False
 
     # ---- introspection ---------------------------------------------------
+    def stochastic(self, attrs):
+        """Whether a node with these attrs draws random numbers."""
+        st = self._stochastic
+        return bool(st(attrs)) if callable(st) else bool(st)
+
     def arg_names(self, attrs):
         a = self._arg_names
         return list(a(attrs)) if callable(a) else list(a)
@@ -192,7 +200,8 @@ class Operator:
             return torch.empty(tuple(s), dtype=torch.float32, device="meta")
 
         with torch.no_grad():
-            outs, new_auxs = self.forward(OpContext(is_train=True),
+            outs, new_auxs = self.forward(OpContext(is_train=True,
+                                                    device="meta"),
                                           attrs, [meta(s) for s in in_shapes],
                                           [meta(s) for s in aux_shapes])
         return [tuple(o.shape) for o in outs], [tuple(a.shape) for a in new_auxs]

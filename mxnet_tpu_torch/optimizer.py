@@ -9,17 +9,22 @@ bias correction, and its arithmetic in its order
 and applies the update parameter by parameter with plain torch
 arithmetic on the parameters' own device; the fused training step
 (:mod:`.parallel.fused_opt`) applies the same per-parameter math inside
-one step, a CUDA graph on the card. The other optimizers
-(NAG, SGLD, AdaGrad, RMSProp, ...) and optimizer-state checkpoints wait
-for ROADMAP A4.
+one step, a CUDA graph on the card. ``Updater.get_states``/``set_states``
+are the JAX package's ``.states`` file payload (a pickled ``{index:
+numpy state}``), so either package reads the other's. The other
+optimizers (NAG, SGLD, AdaGrad, RMSProp, ...) wait for ROADMAP A4.
 """
 from __future__ import annotations
 
 import logging
 import math
+import pickle
+
+import numpy as np
 
 from .base import MXNetError
-from .ndarray import NDArray, zeros
+from .context import cpu
+from .ndarray import NDArray, array, zeros
 from .ops import optimizer_ops
 
 __all__ = ["Optimizer", "SGD", "Adam", "Updater", "get_updater", "create",
@@ -198,18 +203,89 @@ class Updater:
     def __init__(self, optimizer):
         self.optimizer = optimizer
         self.states = {}
+        self._on_host = set()   # indices whose states set_states left on the host
 
     def __call__(self, index, grad, weight):
         if not isinstance(weight, NDArray) or not isinstance(grad, NDArray):
             raise TypeError("Updater takes NDArray weights and gradients")
         if index not in self.states:
             self.states[index] = self.optimizer.create_state(index, weight)
+        elif index in self._on_host:
+            self.states[index] = _as_in(self.states[index], weight.context)
+            self._on_host.discard(index)
         self.optimizer.update(index, weight, grad, self.states[index])
 
     def update_all(self, pairs):
         """``pairs``: (index, grad, weight) triples, updated in order."""
         for index, g, w in pairs:
             self(index, g, w)
+
+    def get_states(self):
+        """The states as the JAX package pickles them: ``{index: numpy
+        state}`` (a tuple of arrays for Adam, None for plain SGD)."""
+        return pickle.dumps({k: _to_np(v) for k, v in self.states.items()})
+
+    def set_states(self, states):
+        """Adopt :meth:`get_states` bytes of either package. The states
+        are host NDArrays until their parameter's next update moves them
+        to its device."""
+        self.states = {k: _from_np(v) for k, v in pickle.loads(states).items()}
+        self._on_host = set(self.states)
+
+    def check_state_shapes(self, shapes_by_index, source=None):
+        """Raise :class:`MXNetError`, and forget the states, when a state
+        does not fit the weight its index updates (a ``.states`` file of
+        another model)."""
+        bad = []
+        for idx, state in self.states.items():
+            expected = shapes_by_index.get(idx)
+            if expected is None:
+                bad.append("index %s not among the %d bound parameters"
+                           % (idx, len(shapes_by_index)))
+                continue
+            for shape in _leaf_shapes(state):
+                if shape != tuple(expected):
+                    bad.append("index %s: state shape %s != weight shape %s"
+                               % (idx, shape, tuple(expected)))
+        if bad:
+            self.states = {}
+            raise MXNetError(
+                "optimizer states%s do not match this model (%s) — was the "
+                "model edited between runs? Discarding them for a warm start."
+                % (" from %r" % source if source else "",
+                   "; ".join(bad[:4]) + ("; ..." if len(bad) > 4 else "")))
+
+
+def _leaf_shapes(state):
+    if isinstance(state, NDArray):
+        return [tuple(state.shape)]
+    if isinstance(state, (tuple, list)):
+        return [s for part in state for s in _leaf_shapes(part)]
+    return []
+
+
+def _to_np(state):
+    if isinstance(state, NDArray):
+        return state.asnumpy()
+    if isinstance(state, (tuple, list)):
+        return type(state)(_to_np(i) for i in state)
+    return state
+
+
+def _as_in(state, ctx):
+    if isinstance(state, NDArray):
+        return state.as_in_context(ctx)
+    if isinstance(state, (tuple, list)):
+        return type(state)(_as_in(i, ctx) for i in state)
+    return state
+
+
+def _from_np(state):
+    if isinstance(state, np.ndarray):
+        return array(state, ctx=cpu())
+    if isinstance(state, (tuple, list)):
+        return type(state)(_from_np(i) for i in state)
+    return state
 
 
 def get_updater(optimizer):

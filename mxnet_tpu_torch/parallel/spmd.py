@@ -75,7 +75,7 @@ class SPMDTrainer:
         self._loss_flags = [not node.is_variable and get_op(node.op).is_loss
                             for node, _ in symbol._entries]
         self._stochastic = any(
-            not node.is_variable and get_op(node.op).stochastic
+            not node.is_variable and get_op(node.op).stochastic(node.attrs)
             for node in _topo_order(symbol._entries))
         # the step's learning rate: written before each step, read by the
         # graph

@@ -11,9 +11,10 @@ graph with torch tensors.
 Each registered op is a module-level constructor (``sym.FullyConnected``,
 ``sym.Reshape``, ...); ``_contrib_*`` ops are also reachable as
 ``sym.contrib.<name>``. ``Symbol.save`` and :func:`load` write and read
-the JSON file (the write crash-safe, as in the JAX package). Left for
-later slices: ``eval`` and the module functions
-``pow``/``maximum``/``minimum``/``hypot``/``zeros``/``ones``/``arange``.
+the JSON file (the write crash-safe, as in the JAX package). ``zeros`` and
+``ones`` build ``_zeros``/``_ones`` nodes. Left for later slices:
+``eval`` and the module functions
+``pow``/``maximum``/``minimum``/``hypot``/``arange``.
 """
 from __future__ import annotations
 
@@ -31,7 +32,8 @@ from .base import MXNetError, attr_str
 from .name import NameManager
 from .ops.registry import get_op, list_ops
 
-__all__ = ["Symbol", "Variable", "var", "Group", "load", "load_json"]
+__all__ = ["Symbol", "Variable", "var", "Group", "load", "load_json", "zeros",
+           "ones"]
 
 
 class _Node:
@@ -508,8 +510,8 @@ def _make_symbol_function(op_name):
 def _register_ops():
     """Import the op modules (they register at import) and make one
     constructor per op, plus the ``contrib`` namespace."""
-    from .ops import (attention, elemwise, indexing, loss, matrix,  # noqa: F401
-                      nn, reduce)
+    from .ops import (attention, elemwise, indexing, init_ops,  # noqa: F401
+                      loss, matrix, nn, reduce, rnn_ops)
 
     mod = sys.modules[__name__]
     contrib = types.SimpleNamespace()
@@ -522,3 +524,13 @@ def _register_ops():
 
 
 _register_ops()
+
+
+def zeros(shape, dtype=None, **kwargs):
+    """A ``_zeros`` node (a 0 in ``shape`` is the unknown batch: 1,
+    broadcast downstream)."""
+    return _zeros(shape=shape, dtype=dtype, **kwargs)  # noqa: F821
+
+
+def ones(shape, dtype=None, **kwargs):
+    return _ones(shape=shape, dtype=dtype, **kwargs)  # noqa: F821

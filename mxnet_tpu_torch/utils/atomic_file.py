@@ -17,10 +17,10 @@ Footer layout (little-endian), byte-identical to the JAX package's:
 without the footer (written by the reference, or before the footer
 existed) verify as legacy and load unchanged.
 
-Not carried over: the ``checkpoint_write`` fault-injection point
-(``crash_after_bytes``) and the whole-buffer helpers ``verify_and_strip``,
-``read_verified`` and ``footer_crc`` (the ``.resume`` sidecar's binding
-token), which no ported path uses.
+The whole-buffer helpers ``verify_and_strip`` and ``read_verified`` read
+``.states`` files; ``footer_crc`` is the ``.resume`` sidecar's binding
+token. Not carried over: the ``checkpoint_write`` fault-injection point
+(``crash_after_bytes``).
 """
 from __future__ import annotations
 
@@ -34,7 +34,8 @@ from contextlib import contextmanager
 from ..base import MXNetError
 
 __all__ = ["atomic_write", "ChecksumError", "ChecksummingReader",
-           "PushbackReader", "FOOTER_LEN"]
+           "PushbackReader", "FOOTER_LEN", "verify_and_strip", "footer_crc",
+           "read_verified"]
 
 _FOOTER_MAGIC = b"MXCR"
 FOOTER_LEN = 16  # magic(4) + crc32(4) + payload_len(8)
@@ -123,6 +124,51 @@ def _fsync_dir(dirname):
         pass
     finally:
         os.close(fd)
+
+
+def verify_and_strip(data):
+    """``data`` without its CRC footer, the checksum verified. Bytes
+    without a well-formed footer are legacy and come back unchanged;
+    :class:`ChecksumError` when a footer is there and the payload does
+    not match it."""
+    if len(data) < FOOTER_LEN:
+        return data
+    magic, crc, length = struct.unpack("<4sIQ", data[-FOOTER_LEN:])
+    if magic != _FOOTER_MAGIC or length != len(data) - FOOTER_LEN:
+        return data
+    payload = data[:-FOOTER_LEN]
+    actual = zlib.crc32(payload) & 0xFFFFFFFF
+    if actual != crc:
+        raise ChecksumError(
+            "checksum mismatch: footer says crc32=0x%08x over %d bytes, "
+            "payload has crc32=0x%08x — file is corrupt" % (crc, length, actual))
+    return payload
+
+
+def footer_crc(path):
+    """The CRC32 in ``path``'s footer, or None for a legacy (footer-less)
+    or missing file: a sidecar that names another CRC belongs to an older
+    write of the same path."""
+    try:
+        with open(path, "rb") as f:
+            f.seek(0, os.SEEK_END)
+            size = f.tell()
+            if size < FOOTER_LEN:
+                return None
+            f.seek(size - FOOTER_LEN)
+            tail = f.read(FOOTER_LEN)
+    except OSError:
+        return None
+    magic, crc, length = struct.unpack("<4sIQ", tail)
+    if magic != _FOOTER_MAGIC or length != size - FOOTER_LEN:
+        return None
+    return crc
+
+
+def read_verified(path):
+    """Read ``path`` whole and :func:`verify_and_strip` it."""
+    with open(path, "rb") as f:
+        return verify_and_strip(f.read())
 
 
 # thread-confined: wraps one stream for one parser

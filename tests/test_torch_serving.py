@@ -359,7 +359,11 @@ def test_port_import_leaves_jax_out():
     code = ("import sys, mxnet_tpu_torch.serving, mxnet_tpu_torch.ops._build,"
             " mxnet_tpu_torch.module.fused_path, mxnet_tpu_torch.parallel.spmd,"
             " mxnet_tpu_torch.parallel.fused_opt, mxnet_tpu_torch.ops.nn,"
-            " mxnet_tpu_torch.models.resnet;"
+            " mxnet_tpu_torch.models.resnet, mxnet_tpu_torch.models.lstm_lm,"
+            " mxnet_tpu_torch.rnn.rnn_cell, mxnet_tpu_torch.rnn.io,"
+            " mxnet_tpu_torch.rnn.rnn, mxnet_tpu_torch.ops.rnn_ops,"
+            " mxnet_tpu_torch.ops.init_ops,"
+            " mxnet_tpu_torch.module.bucketing_module;"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'mxnet_tpu' or "
             "m.startswith('mxnet_tpu.')];"
@@ -386,7 +390,9 @@ def test_port_sources_import_no_jax():
     rel = {os.path.relpath(f, ROOT) for f in files}
     assert {os.path.join("mxnet_tpu_torch", p) for p in (
         "module/fused_path.py", "parallel/spmd.py", "parallel/fused_opt.py",
-        "models/resnet.py", "ops/nn.py")} <= rel
+        "models/resnet.py", "ops/nn.py", "models/lstm_lm.py", "rnn/__init__.py",
+        "rnn/rnn_cell.py", "rnn/io.py", "rnn/rnn.py", "ops/rnn_ops.py",
+        "ops/init_ops.py", "module/bucketing_module.py")} <= rel
     for f in files:
         roots = set(_imported_roots(f))
         assert not roots & {"jax", "jaxlib", "mxnet_tpu"}, (f, roots)

@@ -550,7 +550,9 @@ def test_module_without_context_needs_cuda(monkeypatch):
 def test_fit_rejects_unported_options():
     _, ts = _symbols()
     X, Y = _lm_data(8)
-    for kw in ({"monitor": object()}, {"auto_resume": "ckpt"}, {"guard": "skip"}):
+    # auto_resume is ported (tests/test_torch_resume.py); monitor and guard
+    # are not
+    for kw in ({"monitor": object()}, {"guard": "skip"}):
         with pytest.raises(MXNetError, match="ROADMAP"):
             tmx.mod.Module(ts, context=tmx.cpu()).fit(
                 tmx.io.NDArrayIter(X, Y, batch_size=B), num_epoch=1, **kw)
