@@ -31,11 +31,15 @@ Drives ``mxnet_tpu_torch`` (never the JAX package) on ``cuda:0``:
    0);
 4. serving — the zoo Transformer-LM at full width (vocab 32000, 4 layers,
    d 256, 4 heads, ffn 1024, max_len 128; pool bs 16, 257 blocks, batch
-   32) with seeded random weights: ``warmup()``, then 32 seeded requests
-   through ``submit``/``step`` until all finish, with the kernels' launch
-   counters set to 0 just before and read just after; then a
-   teacher-forced check of prefill + decode logits on the card against
-   the same port functions on CPU tensors;
+   32) with seeded random weights: ``warmup()`` (one CUDA graph captured
+   per prefill length bucket and per decode batch bucket, counted in
+   ``stats()["compiles"]``), then 32 seeded requests through
+   ``submit``/``step`` until all finish, every step a replay of its
+   bucket's graph, with the kernels' launch counters set to 0 just before
+   and read just after (a replay adds its graph's captured launches) and
+   no capture in that window; then a teacher-forced check of prefill +
+   decode logits on the card against the same port functions on CPU
+   tensors;
 5. training — the same model trained through ``Module.fit`` on the card
    (Adam, lr 1e-3, seeded Xavier, ``Perplexity``) for 5 epochs of 4
    batches of 32 sequences of ``examples/train_lm.py``'s synthetic
@@ -63,7 +67,9 @@ Drives ``mxnet_tpu_torch`` (never the JAX package) on ``cuda:0``:
    at phase 4's width and prompt mix four times: target-only
    (``spec_k`` 0), ``spec_k`` 3 with the ``small`` draft and with the
    ``self`` draft, and ``spec_k`` 16 with the ``self`` draft (17 verify
-   lanes). The four token streams must be equal (else the first
+   lanes), each on its bucket graphs (draft prefill and decode, verify:
+   one capture per bucket in ``warmup()``, none while serving). The four
+   token streams must be equal (else the first
    diverging request and position and the target's top-2 logit margin
    there are printed, and the run fails); launch counts exact per run
    (the multi-query kernel once per target layer and speculative step,
@@ -136,7 +142,28 @@ Drives ``mxnet_tpu_torch`` (never the JAX package) on ``cuda:0``:
    difference printed; bitwise expected), one launch of K1, K2a and K2b
    per layer and step in each of the five runs (counted into the kernel
    line), one captured graph per fused run, host wall per step, tokens/s,
-   peak memory and a device profile of the resumed step.
+   peak memory and a device profile of the resumed step;
+16. serving graphs and the decode symbol — (a) phase 4's prompts served
+   through the bucket graphs and through the same engine loop run
+   eagerly (every bucket's step called directly on the card), target-only
+   and with ``spec_k`` 3 and the ``small`` draft: equal token streams,
+   every call's logits within 1e-5 of the largest (bitwise equality
+   printed), the speculative stream equal to target-only; (b)
+   ``get_decode_symbol`` bound at (32, 1) with phase 5's trained
+   parameters and stepped 128 positions through ``decode_step``: the
+   probabilities within 2e-4 relative / 2e-5 absolute of the training
+   symbol's full forward at every position, the card within 1e-5 of the
+   largest of the CPU's, ``decode_step`` at position 128 raising and a raw
+   forward there returning NaN with both caches bitwise unchanged; (c)
+   ``_contrib_PagedAttention`` from ``mx.sym`` at K3's serving shape
+   (float32 tables and lengths, as a bound graph holds them) against
+   ``paged_attention_reference`` within the phase-3 tolerance, one
+   ``paged_decode`` launch per forward; (d) what the graphs recover: host
+   wall per decode step at batch 32, per speculative step (``spec_k`` 3,
+   drafts ``small`` and ``self``) and per prefill call at every length
+   bucket, graphs against eager, with device busy time, idle share and
+   device operations per step (one ``torch.profiler`` window each),
+   beside the card's name and power limit.
 
 Every phase that fails raises, so the exit code is not 0. The last two
 lines are the ``kernels`` JSON object and the ``ok`` JSON object; the card
@@ -706,14 +733,33 @@ def prompt_mix(vocab):
     return [[int(t) for t in rng.randint(0, vocab, n)] for n in lengths]
 
 
+def bucket_counts(cfg):
+    """The bucket graphs an engine of ``cfg`` captures, per program."""
+    n_pre, n_dec = len(cfg.prefill_buckets()), len(cfg.decode_buckets())
+    want = {"serving.prefill": n_pre, "serving.decode": n_dec}
+    if cfg.spec_k:
+        want.update({"serving.draft": n_pre + n_dec, "serving.verify": n_dec})
+    return want
+
+
+def check_captures(eng, when):
+    """``stats()["compiles"]`` counts one capture per bucket per program."""
+    got = {p: c["count"] for p, c in eng.stats()["compiles"].items()}
+    check(got == bucket_counts(eng.config),
+          "captures per program %s %s, want one per bucket %s"
+          % (got, when, bucket_counts(eng.config)))
+    return got
+
+
 def run_serving(S, M, build, tel):
     cfg = S.ServingConfig(**SERVE)
     params = M.random_params(cfg, seed=0)
     eng = S.ServingEngine(cfg, arg_params=params, device="cuda")
     t0 = time.perf_counter()
     eng.warmup()
-    log("  warmup (every prefill and decode bucket): %.3f s"
+    log("  warmup (every prefill and decode bucket's CUDA graph): %.3f s"
         % (time.perf_counter() - t0))
+    captured = check_captures(eng, "after warmup()")
     prompts = prompt_mix(cfg.vocab_size)
     lengths = [len(p) for p in prompts]
     pre0 = tel.histogram("serving.prefill_seconds").count
@@ -748,7 +794,12 @@ def run_serving(S, M, build, tel):
     check(launches["paged_decode"] >= L * decodes > 0,
           "paged_decode launched %d times for %d decode steps"
           % (launches["paged_decode"], decodes))
+    check(check_captures(eng, "after the timed window") == captured,
+          "a bucket was captured in the timed window")
     st = eng.stats()
+    log("  captures per program %s (one per bucket, none in the timed "
+        "window); replays %s" % (captured, {p: c["runs"] for p, c in
+                                            st["compiles"].items()}))
     ntok = sum(len(r.generated) for r in reqs)
     log("  32 requests, prompts %d..%d tokens, 16 new each: %d engine "
         "steps, %d prefills (incl. replays), %d decode steps, %d preemptions"
@@ -1355,6 +1406,7 @@ def serve_once(S, build, tel, params, prompts, **over):
     cfg = S.ServingConfig(**dict(SERVE, **over))
     eng = S.ServingEngine(cfg, arg_params=params, device="cuda")
     eng.warmup()
+    captured = check_captures(eng, "after warmup()")
     pre0 = tel.histogram("serving.prefill_seconds").count
     dec0 = tel.histogram("serving.decode_batch").count
     for k in build.KERNELS.values():
@@ -1372,6 +1424,8 @@ def serve_once(S, build, tel, params, prompts, **over):
     launches = {name: k.launches for name, k in build.KERNELS.items()}
     check(all(r.state == S.FINISHED for r in reqs), "a request did not finish")
     check(all(len(r.generated) == 16 for r in reqs), "wrong token count")
+    check(check_captures(eng, "after the timed window") == captured,
+          "a bucket was captured in the timed window")
     return eng, [list(r.generated) for r in reqs], launches, {
         "wall": wall, "steps": steps,
         "prefills": tel.histogram("serving.prefill_seconds").count - pre0,
@@ -1432,7 +1486,9 @@ def run_spec_serving(mx, S, M, build, tel, mod):
             % (name, c["steps"], c["prefills"], c["decodes"],
                st["preemptions"], ntok, c["wall"], ntok / c["wall"],
                st["ttft_p50_s"], st["ttft_p99_s"]))
-        log("    launches: %s" % launches)
+        log("    launches: %s; captures per program %s (one per bucket, none "
+            "in the timed window)" % (launches, {
+                p: c["count"] for p, c in st["compiles"].items()}))
         if spec["enabled"]:
             Ld = eng.draft_config.num_layers
             k = spec["k"]
@@ -1996,6 +2052,308 @@ def run_resume(mx, build, fused=True):
 
 
 
+# ------------------------------------------------ serving graphs (phase 16)
+GRAPH_LOGIT_TOL = 1e-5    # graphs vs eager, relative to the largest logit
+DECODE_RTOL, DECODE_ATOL = 2e-4, 2e-5   # tests/test_models.py's tolerance
+DECODE_CARD_TOL = 1e-5    # decode symbol card vs CPU, of the largest prob
+DECODE_BATCH = 32
+TIMED_STEPS = 8
+
+
+def make_eager(eng):
+    """Run every bucket of ``eng`` eagerly on the card: each bucket graph
+    takes the path it takes on the CPU (the step called on its static
+    inputs at every call, nothing captured) — the reference the graphs are
+    held against."""
+    for g in eng.bucket_graphs():
+        g._cuda = False
+
+
+class _Recorder:
+    """A bucket graph whose every call's logits are kept on the host."""
+
+    def __init__(self, graph, calls):
+        self._graph = graph
+        self._calls = calls
+
+    def __getattr__(self, name):
+        return getattr(self._graph, name)
+
+    def __call__(self, *arrays):
+        outs = self._graph(*arrays)
+        self._calls.append((self._graph.program, outs[1].cpu()))
+        return outs
+
+
+def record_calls(eng):
+    calls = []
+    for name in ("_prefill_graphs", "_decode_graphs", "_draft_prefill_graphs",
+                 "_draft_decode_graphs", "_verify_graphs"):
+        graphs = getattr(eng, name, None)
+        for key in list(graphs or ()):
+            graphs[key] = _Recorder(graphs[key], calls)
+    return calls
+
+
+def rel_diff(a, b):
+    """max |a - b| over the largest |b|, where b is finite; a and b must
+    hold NaN at the same places (the overflow contract's poisoned lanes)."""
+    nan = torch.isnan(b)
+    check(torch.equal(torch.isnan(a), nan), "NaN at different places")
+    a, b = a[~nan], b[~nan]
+    if not b.numel():
+        return 0.0
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def graphs_against_eager(S, M, build, params, prompts):
+    """16(a): the prompts through the bucket graphs and through the same
+    engine loop run eagerly, target-only and with ``spec_k`` 3 and the
+    ``small`` draft: equal token streams, every call's logits within
+    GRAPH_LOGIT_TOL of the largest; the speculative stream equals
+    target-only. Returns the graph runs' launches (counters set to 0 just
+    before each graph run)."""
+    total = {n: 0 for n in build.KERNELS}
+    streams = {}
+    for label, over in (("target-only", dict(spec_k=0)),
+                        ("spec_k=3 small", dict(spec_k=3, draft="small"))):
+        runs = {}
+        for mode in ("graphs", "eager"):
+            cfg = S.ServingConfig(**dict(SERVE, **over))
+            eng = S.ServingEngine(cfg, arg_params=params, device="cuda")
+            if mode == "eager":
+                make_eager(eng)
+            eng.warmup()
+            calls = record_calls(eng)
+            for k in build.KERNELS.values():
+                k.launches = 0
+            torch.cuda.synchronize()
+            toks = eng.generate(prompts, 16)
+            torch.cuda.synchronize()
+            if mode == "graphs":
+                for n, k in build.KERNELS.items():
+                    total[n] += k.launches
+                check(check_captures(eng, "after the graph run")
+                      == bucket_counts(cfg), "captures changed")
+            runs[mode] = (toks, calls)
+        (gt, gc), (et, ec) = runs["graphs"], runs["eager"]
+        check(gt == et, "%s: graph and eager token streams differ" % label)
+        check(len(gc) == len(ec) and all(a[0] == b[0] for a, b in zip(gc, ec)),
+              "%s: graph and eager runs made different calls" % label)
+        worst = max(rel_diff(a[1], b[1]) for a, b in zip(gc, ec))
+        bitwise = all(torch.allclose(a[1], b[1], rtol=0, atol=0,
+                                     equal_nan=True) for a, b in zip(gc, ec))
+        log("  %s: %d calls (%s), token streams equal; worst logit diff "
+            "%.3e of the largest (tol %.0e); bitwise equal: %s"
+            % (label, len(gc), {p: sum(1 for c in gc if c[0] == p)
+                               for p in sorted({c[0] for c in gc})},
+               worst, GRAPH_LOGIT_TOL, bitwise))
+        check(worst <= GRAPH_LOGIT_TOL, "%s: graph logits disagree with "
+              "eager" % label)
+        streams[label] = gt
+    check(streams["spec_k=3 small"] == streams["target-only"],
+          "spec_k=3 (graphs) tokens differ from target-only")
+    log("  spec_k=3 small through the graphs = target-only (32 x 16 tokens)")
+    return total
+
+
+def decode_symbol_check(mx, params, cfg=TRAIN):
+    """16(b): ``get_decode_symbol`` bound at (32, 1) with phase 5's trained
+    parameters, stepped 128 positions through ``decode_step`` on the card
+    and on the CPU, against the training symbol's full forward; then the
+    overflow contract at position 128."""
+    import importlib
+
+    # the module (mx.models.transformer_lm is the symbol builder)
+    tlm = importlib.import_module("mxnet_tpu_torch.models.transformer_lm")
+
+    T, V = cfg["seq_len"], cfg["vocab_size"]
+    rng = np.random.RandomState(16)
+    toks = rng.randint(0, V, (DECODE_BATCH, T)).astype(np.float32)
+    train = tlm.get_symbol(**cfg)
+    ex = train.simple_bind(ctx=mx.gpu(0), grad_req="null",
+                           data=(DECODE_BATCH, T),
+                           softmax_label=(DECODE_BATCH, T))
+    for n, a in ex.arg_dict.items():
+        if n in params:
+            a[:] = params[n]
+    ex.arg_dict["data"][:] = toks
+    ex.forward(is_train=False)
+    full = ex.outputs[0].asnumpy().reshape(DECODE_BATCH, T, V)
+    del ex
+    dec = tlm.get_decode_symbol(**cfg)
+    exes = {}
+    for dev, ctx in (("card", mx.gpu(0)), ("cpu", mx.cpu())):
+        e = dec.simple_bind(ctx=ctx, grad_req="null", data=(DECODE_BATCH, 1))
+        for n, a in e.arg_dict.items():
+            if n in params:
+                a[:] = params[n]
+        exes[dev] = e
+    worst_full = worst_cpu = 0.0
+    t0 = time.perf_counter()
+    for t in range(T):
+        probs = {dev: tlm.decode_step(e, toks[:, t], t, T)
+                 for dev, e in exes.items()}
+        check(np.isfinite(probs["card"]).all(), "non-finite decode output")
+        np.testing.assert_allclose(probs["card"], full[:, t], rtol=DECODE_RTOL,
+                                   atol=DECODE_ATOL)
+        worst_full = max(worst_full, float(np.abs(probs["card"]
+                                                  - full[:, t]).max()))
+        worst_cpu = max(worst_cpu, float(
+            np.abs(probs["card"] - probs["cpu"]).max()
+            / np.abs(probs["cpu"]).max()))
+    log("  decode symbol at (%d, 1), %d positions through decode_step (%.2f s "
+        "card + CPU): card against the training symbol's full forward max "
+        "abs %.3e (rtol %.0e, atol %.0e); card against CPU %.3e of the "
+        "largest (tol %.0e)" % (DECODE_BATCH, T, time.perf_counter() - t0,
+                                worst_full, DECODE_RTOL, DECODE_ATOL,
+                                worst_cpu, DECODE_CARD_TOL))
+    check(worst_cpu <= DECODE_CARD_TOL, "decode symbol: card disagrees with "
+          "the CPU")
+    e = exes["card"]
+    try:
+        tlm.decode_step(e, toks[:, 0], T, T)
+        check(False, "decode_step at position %d did not raise" % T)
+    except ValueError as err:
+        log("  decode_step at position %d raises: %s" % (T, err))
+    before = {n: a.asnumpy().copy() for n, a in e.aux_dict.items()}
+    e.arg_dict["position"][:] = np.array([T], np.float32)
+    e.forward(is_train=True)
+    out = e.outputs[0].asnumpy()
+    same = all(np.array_equal(before[n], a.asnumpy())
+               for n, a in e.aux_dict.items())
+    log("  raw forward at position %d: output all NaN %s; %d caches bitwise "
+        "unchanged %s" % (T, bool(np.isnan(out).all()), len(before), same))
+    check(np.isnan(out).all() and same, "the overflow contract broke")
+
+
+def paged_op_check(mx, A, build):
+    """16(c): ``_contrib_PagedAttention`` from ``mx.sym`` at K3's serving
+    shape (B 32, 257 blocks of 16, H 4, D 64), float32 tables and lengths
+    as a bound graph takes them: equal to the plain reference within
+    F32_TOL, one ``paged_decode`` launch per forward."""
+    rng = np.random.RandomState(3)
+    lens = rng.randint(1, 128, 32)
+    q, kp, vp, bt, cl = paged_inputs(rng, 32, torch.float32, lens)
+    names = ("query", "key_pages", "value_pages", "block_table",
+             "context_len")
+    net = mx.sym.contrib.PagedAttention(*[mx.sym.Variable(n) for n in names])
+    args = {n: mx.nd.NDArray(t.float() if n in ("block_table", "context_len")
+                             else t)
+            for n, t in zip(names, (q, kp, vp, bt, cl))}
+    ex = net.bind(mx.gpu(0), args, grad_req="null")
+    want = A.paged_attention_reference(q, kp, vp, bt, cl)
+    build.PAGED_DECODE.launches = 0
+    errs = []
+    for _ in range(3):
+        ex.forward(is_train=False)
+        errs.append(float((ex.outputs[0].data - want).abs().max()))
+    torch.cuda.synchronize()
+    launches = build.PAGED_DECODE.launches
+    log("  _contrib_PagedAttention through mx.sym at %s: max abs err %.3e "
+        "(tol %.0e) against paged_attention_reference; %d paged_decode "
+        "launches in 3 forwards" % (tuple(q.shape), max(errs), F32_TOL,
+                                   launches))
+    check(max(errs) <= F32_TOL, "_contrib_PagedAttention disagrees")
+    check(launches == 3, "_contrib_PagedAttention launched paged_decode %d "
+          "times in 3 forwards" % launches)
+
+
+def _steady_engine(S, params, over, n_new=72):
+    cfg = S.ServingConfig(**dict(SERVE, prefills_per_step=DECODE_BATCH,
+                                 prefix_cache=False, **over))
+    eng = S.ServingEngine(cfg, arg_params=params, device="cuda")
+    return eng, cfg, n_new
+
+
+def time_steps(S, params, over, eager):
+    """Host wall per engine step at batch 32 once every request decodes
+    (median of TIMED_STEPS synchronized steps), then one profiler window of
+    3 steps: (wall ms, busy ms, device ops per step)."""
+    eng, cfg, n_new = _steady_engine(S, params, over)
+    if eager:
+        make_eager(eng)
+    eng.warmup()
+    rng = np.random.RandomState(5)
+    for n in rng.randint(1, 49, DECODE_BATCH):
+        eng.submit([int(t) for t in rng.randint(0, cfg.vocab_size, n)], n_new)
+    eng.step()                                 # every prefill + one step
+    check(not eng.scheduler.waiting, "not every request was admitted")
+    walls = []
+    for _ in range(TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    check(len(eng.scheduler.running) == DECODE_BATCH,
+          "a stream finished inside the timed window")
+    prof = device_profile(eng.step)
+    wall_ms = float(np.median(walls)) * 1e3
+    return wall_ms, prof
+
+
+def time_prefills(S, params, eager):
+    """Host wall of one prefill call per length bucket (the graph call and
+    the token read, as the engine makes them; median of 20), and the
+    device busy time of one."""
+    eng, cfg, _ = _steady_engine(S, params, {})
+    if eager:
+        make_eager(eng)
+    eng.warmup()
+    out = {}
+    for S_, g in eng._prefill_graphs.items():
+        args = (np.zeros((1, S_), np.int32), np.array([S_], np.int32),
+                np.zeros(S_ // cfg.block_size, np.int32))
+
+        def call():
+            int(g(*args)[0].cpu()[0])
+        walls = []
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            walls.append(time.perf_counter() - t0)
+        out[S_] = (float(np.median(walls)) * 1e3, device_profile(call))
+    return out
+
+
+def graph_recovery(S, params, card):
+    """16(d): graphs against eager — decode step and speculative steps at
+    batch 32, prefill per length bucket — with device busy and idle share.
+    Returns the numbers for the log's summary."""
+    rows = []
+    for label, over in (("decode step", dict(spec_k=0)),
+                        ("speculative step, spec_k=3 small",
+                         dict(spec_k=3, draft="small")),
+                        ("speculative step, spec_k=3 self",
+                         dict(spec_k=3, draft="self"))):
+        for mode in ("graphs", "eager"):
+            wall, prof = time_steps(S, params, over, mode == "eager")
+            if prof is None:
+                log("  [%s] %s at batch %d, %s: host wall %.4f ms per step; "
+                    "device busy not measured (the profiler saw no device "
+                    "operation)" % (card, label, DECODE_BATCH, mode, wall))
+                continue
+            log("  [%s] %s at batch %d, %s: host wall %.4f ms per step; "
+                "device busy %.4f ms (idle share %.3f), %.1f device "
+                "operations per step; by class %s"
+                % (card, label, DECODE_BATCH, mode, wall, prof[0],
+                   max(0.0, 1 - prof[0] / wall), prof[1],
+                   ", ".join("%s %.3f" % kv for kv in sorted(
+                       prof[3].items(), key=lambda kv: -kv[1]))))
+            rows.append((label, mode, wall, prof[0]))
+    for mode in ("graphs", "eager"):
+        for S_, (wall, prof) in time_prefills(S, params,
+                                              mode == "eager").items():
+            busy = "not measured" if prof is None else "%.4f ms (idle share " \
+                "%.3f), %.1f device operations" % (
+                    prof[0], max(0.0, 1 - prof[0] / wall), prof[1])
+            log("  [%s] prefill at length bucket %d, %s: host wall %.4f ms "
+                "per call; device busy %s" % (card, S_, mode, wall, busy))
+
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -2211,6 +2569,16 @@ def main():
         for name, n in run_resume(mx, build, fused).items():
             row = next(r for r in rows if r["name"] == name)
             row["launches"] += n
+
+    log("== 16. serving through the bucket graphs; the decode symbol (%s)"
+        % card)
+    g_launches = graphs_against_eager(S, M, build, params,
+                                      prompt_mix(SERVE["vocab_size"]))
+    for row in rows:
+        row["launches"] += g_launches[row["name"]]
+    decode_symbol_check(mx, t_params)
+    paged_op_check(mx, A, build)
+    graph_recovery(S, params, card)
 
     log(card)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -6,8 +6,14 @@ training touch: shape, dtype, context, ``asnumpy``, full-slice
 assignment, basic slicing, ``copyto``/``as_in_context`` and the
 constructors, and ``save``/``load`` of ``.params`` files in the
 reference's binary format with the JAX package's CRC footer, byte for byte.
-The imperative op namespace (``nd.dot``, ``nd.exp``, ...) waits for a later
-slice (``ROADMAP.md`` A4).
+Every registered op is also an imperative function here
+(``nd.take``, ``nd.softmax``, ``nd.contrib.PagedAttention``, ...), made
+on first use: its inputs are NDArrays (positional, or by keyword for the
+trailing inputs), its attrs keywords; it runs the op's forward once
+without autograd on the inputs' device, and an op's updated aux states
+are written back into the aux NDArrays passed in (as the JAX package
+does). The rest of the imperative surface (arithmetic operators,
+``autograd``) waits for ``ROADMAP.md`` A4.
 
 Writes replace or update the held tensor: an executor, an optimizer and
 a module that share one NDArray object all see the newest value.
@@ -23,8 +29,10 @@ import torch
 
 from . import context as _context
 from .base import MXNetError, torch_dtype
+from .ops.registry import OpContext, get_op, has_op
 
-__all__ = ["NDArray", "array", "empty", "zeros", "ones", "save", "load"]
+__all__ = ["NDArray", "array", "empty", "zeros", "ones", "save", "load",
+           "imperative_invoke"]
 
 
 def _np_dtype(dtype):
@@ -331,3 +339,86 @@ def _load_stream(f):
     if n_names:
         return dict(zip(names, arrays))
     return arrays
+
+
+# ---- the imperative op namespace ------------------------------------------
+def imperative_invoke(op_name, ndargs, attrs, out=None):
+    """Run registered op ``op_name`` once on NDArrays ``ndargs`` (its
+    arguments, then optionally its aux states) with ``attrs``: returns the
+    visible output NDArray (a list when there are several). Updated aux
+    states are written into the aux NDArrays given."""
+    op = get_op(op_name)
+    attrs, _extra = op.canonicalize_attrs(attrs)
+    n_args = len(op.arg_names(attrs))
+    n_aux = len(op.aux_names(attrs))
+    if len(ndargs) not in (n_args, n_args + n_aux) or not all(
+            isinstance(a, NDArray) for a in ndargs):
+        raise MXNetError("op %s expects %d NDArray args (+%d aux), got %d"
+                         % (op_name, n_args, n_aux, len(ndargs)))
+    tensors = [a.data for a in ndargs]
+    if len(ndargs) == n_args and n_aux:
+        raise MXNetError("op %s needs its %d aux states passed in"
+                         % (op_name, n_aux))
+    octx = OpContext(is_train=False,
+                     device=tensors[0].device if tensors else None)
+    with torch.no_grad():
+        outs, new_auxs = op.forward(octx, attrs, tensors[:n_args],
+                                    tensors[n_args:])
+    for nda, new in zip(ndargs[n_args:], new_auxs):
+        nda._set_data(new)
+    results = [NDArray(o) for o in outs[:builtins.max(
+        op.num_visible_outputs(attrs), 1)]]
+    if out is not None:
+        outs_nd = [out] if isinstance(out, NDArray) else list(out)
+        for dst, src in zip(outs_nd, results):
+            dst[:] = src
+        return out
+    return results[0] if len(results) == 1 else results
+
+
+def _make_ndarray_function(op_name):
+    op = get_op(op_name)
+
+    def fn(*args, **kwargs):
+        out = kwargs.pop("out", None)
+        kwargs.pop("name", None)
+        nd_kwargs = {k: v for k, v in kwargs.items() if isinstance(v, NDArray)}
+        attrs = {k: v for k, v in kwargs.items() if k not in nd_kwargs}
+        ndargs = list(args)
+        if nd_kwargs:
+            cattrs, _ = op.canonicalize_attrs(attrs)
+            names = op.arg_names(cattrs) + op.aux_names(cattrs)
+            want = names[len(ndargs):len(ndargs) + len(nd_kwargs)]
+            if sorted(nd_kwargs) != sorted(want):
+                raise MXNetError(
+                    "op %s: NDArray keyword(s) %s must fill exactly the "
+                    "inputs after the %d positional one(s) (%s)"
+                    % (op_name, sorted(nd_kwargs), len(ndargs), want))
+            ndargs += [nd_kwargs[n] for n in want]
+        return imperative_invoke(op_name, ndargs, attrs, out=out)
+
+    fn.__name__ = op_name
+    fn.__doc__ = "Imperative form of operator ``%s``." % op_name
+    return fn
+
+
+class _Contrib:
+    """``nd.contrib.<name>``: the registered ``_contrib_<name>`` ops."""
+
+    def __getattr__(self, name):
+        if has_op("_contrib_" + name):
+            return _make_ndarray_function("_contrib_" + name)
+        raise AttributeError("no contrib op %r" % name)
+
+
+contrib = _Contrib()
+
+
+def __getattr__(name):
+    # registered ops resolve on first use (the op modules register when
+    # the symbol module is imported, after this one)
+    if not name.startswith("__") and has_op(name):
+        fn = _make_ndarray_function(name)
+        globals()[name] = fn
+        return fn
+    raise AttributeError("module %r has no attribute %r" % (__name__, name))

@@ -2,9 +2,9 @@
 paged decode and multi-query paged attention (the speculative verify
 pass).
 
-The PyTorch counterpart of ``mxnet_tpu/ops/attention.py`` without the
-cached decode op, in the same layouts: (B, H, S, D) for flash attention
-and (N, bs, H, D) pool pages for paged attention.
+The PyTorch counterpart of ``mxnet_tpu/ops/attention.py``, in the same
+layouts: (B, H, S, D) for flash attention and (N, bs, H, D) pool pages
+for paged attention.
 
 Each public function dispatches on ``q.device.type``:
 
@@ -25,7 +25,10 @@ Each public function dispatches on ``q.device.type``:
 Nothing falls back: a CUDA tensor reaches its kernel or raises.
 :func:`flash_attention` is a ``torch.autograd.Function`` whose backward
 runs the two backward kernels; the ops ``_contrib_FlashAttention`` and
-``_contrib_MultiHeadAttention`` are registered on top of it.
+``_contrib_MultiHeadAttention`` are registered on top of it,
+``_contrib_PagedAttention`` on :func:`paged_attention`, and
+``_contrib_CachedMultiHeadAttention`` (the decode symbol's cached step,
+dense torch attention over its aux caches) beside them.
 """
 from __future__ import annotations
 
@@ -357,6 +360,81 @@ def _mha_infer_shape(attrs, in_shapes, aux_shapes):
 get_op("_contrib_MultiHeadAttention")._infer_shape = _mha_infer_shape
 
 
+# ---------------------------------------------------- incremental decoding
+@register(
+    "_contrib_CachedMultiHeadAttention",
+    arg_names=("data", "in_weight", "out_weight", "position"),
+    aux_names=("cache_k", "cache_v"),
+    params={
+        "num_heads": Param.int(),
+        "max_len": Param.int(),
+    },
+)
+def _cached_mha_op(octx, attrs, args, auxs):
+    """One autoregressive decode step over static-shape KV caches, the
+    aux states ``cache_k``/``cache_v`` of shape (batch, heads, max_len,
+    head_dim): the step's k/v are written at ``position`` and the query
+    attends over positions <= it. data (B, 1, model); position (1,) float.
+
+    Overflow contract, as in the JAX package: a position outside
+    [0, max_len) drops both cache writes (the index is clipped first, so
+    the dropped write never leaves the cache) and poisons the output to
+    NaN. The position stays on the device: nothing here waits for the
+    host. The attention over the cache is dense torch, as the JAX op
+    leaves it to XLA. The new caches come back detached, so an aux never
+    carries autograd history from one step into the next."""
+    x, w_in, w_out, position = args
+    cache_k, cache_v = auxs
+    bsz, _one, model = x.shape
+    heads = attrs["num_heads"]
+    max_len = attrs["max_len"]
+    hd = model // heads
+    pos_raw = position.reshape(()).to(torch.int32)
+    in_range = (pos_raw >= 0) & (pos_raw < max_len)
+    pos = pos_raw.clamp(0, max_len - 1).to(torch.int64).reshape(1)
+    qkv = torch.matmul(x, w_in.t())                       # (B, 1, 3*model)
+    q, k_new, v_new = qkv.split(model, dim=-1)
+
+    def heads_first(t):                                   # (B, H, 1, hd)
+        return t.reshape(bsz, 1, heads, hd).transpose(1, 2)
+
+    q, k_new, v_new = heads_first(q), heads_first(k_new), heads_first(v_new)
+    new_k = cache_k.index_copy(2, pos, k_new.to(cache_k.dtype))
+    new_v = cache_v.index_copy(2, pos, v_new.to(cache_v.dtype))
+    new_k = torch.where(in_range, new_k, cache_k)
+    new_v = torch.where(in_range, new_v, cache_v)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), new_k.float()) \
+        / math.sqrt(hd)
+    valid = torch.arange(max_len, device=x.device) <= pos
+    s = torch.where(valid, s, _NEG_INF)
+    p = torch.softmax(s, dim=-1).to(new_v.dtype)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, new_v)
+    out = out.transpose(1, 2).reshape(bsz, 1, model)
+    out = torch.matmul(out, w_out.t())
+    out = torch.where(in_range, out, math.nan)
+    return [out], [new_k.detach(), new_v.detach()]
+
+
+def _cached_mha_infer(attrs, in_shapes, aux_shapes):
+    data = in_shapes[0]
+    if data is None:
+        raise ValueError("CachedMultiHeadAttention: data shape required")
+    b, _one, model = data
+    heads = attrs["num_heads"]
+    hd = model // heads
+    if in_shapes[1] is None:
+        in_shapes[1] = (3 * model, model)
+    if in_shapes[2] is None:
+        in_shapes[2] = (model, model)
+    if in_shapes[3] is None:
+        in_shapes[3] = (1,)
+    cache = (b, heads, attrs["max_len"], hd)
+    return in_shapes, [tuple(data)], [cache, cache]
+
+
+get_op("_contrib_CachedMultiHeadAttention")._infer_shape = _cached_mha_infer
+
+
 # ------------------------------------------------------------- paged decode
 def paged_attention_reference(q, k_pages, v_pages, block_tables, context_lens,
                               sm_scale=None):
@@ -565,3 +643,36 @@ def paged_attention_multi(q, k_pages, v_pages, block_tables, context_lens,
                                                sm_scale)
     raise MXNetError("multi-query paged attention: no implementation on %s"
                      % q.device)
+
+
+@register(
+    "_contrib_PagedAttention",
+    arg_names=("query", "key_pages", "value_pages", "block_table",
+               "context_len"),
+    params={
+        "sm_scale": Param.float(-1.0),
+    },
+)
+def _paged_attention_op(octx, attrs, args, auxs):
+    """Paged decode attention from ``mx.sym``/``mx.nd``: query (B, heads,
+    head_dim), pages (num_blocks, block_size, heads, head_dim), block
+    table (B, nb) and context lengths (B,), any numeric dtype (a graph's
+    inputs are float32). Tables and lengths are cast to contiguous int32
+    on their own device, then :func:`paged_attention` runs: the
+    ``paged_decode`` kernel on the card, the plain version on the CPU."""
+    q, kp, vp, bt, cl = args
+    scale = attrs["sm_scale"]
+    out = paged_attention(q, kp, vp, bt.to(torch.int32).contiguous(),
+                          cl.to(torch.int32).contiguous(),
+                          None if scale <= 0 else scale)
+    return [out], []
+
+
+def _paged_infer_shape(attrs, in_shapes, aux_shapes):
+    qs = in_shapes[0]
+    if qs is None:
+        raise ValueError("PagedAttention: query shape required")
+    return in_shapes, [tuple(qs)], []
+
+
+get_op("_contrib_PagedAttention")._infer_shape = _paged_infer_shape

@@ -1,6 +1,7 @@
 """Layer ops of the port (counterpart of ``mxnet_tpu/ops/nn.py``).
 
-``FullyConnected``, ``Activation`` and what ResNet is built from:
+``FullyConnected``, ``Activation``, ``softmax``/``log_softmax`` (the
+decode symbol's head) and what ResNet is built from:
 ``Convolution``, ``Pooling`` and ``BatchNorm``. Matrix products and
 convolutions are torch's (``torch.matmul``, ``F.conv*d``) in full
 float32 (TF32 is off in the port for both), as the JAX package leaves
@@ -19,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from ..base import MXNetError
-from .registry import Param, get_op, register
+from .registry import Param, get_op, register, register_simple
 
 
 @register(
@@ -74,6 +75,19 @@ def _activation(octx, attrs, args, auxs):
     if fn is None:
         raise MXNetError("Activation: unknown act_type %s" % attrs["act_type"])
     return [fn(args[0])], []
+
+
+# ------------------------------------------------------------ softmax family
+# Both read ``axis`` only: ``temperature`` is accepted and ignored, as in
+# the JAX package.
+register_simple(
+    "softmax", lambda attrs, x: torch.softmax(x, dim=attrs["axis"]),
+    arg_names=("data",),
+    params={"axis": Param.int(-1), "temperature": Param.float(1.0)})
+register_simple(
+    "log_softmax", lambda attrs, x: torch.log_softmax(x, dim=attrs["axis"]),
+    arg_names=("data",),
+    params={"axis": Param.int(-1), "temperature": Param.float(1.0)})
 
 
 # ---------------------------------------------------------------- Convolution

@@ -14,10 +14,17 @@ Layers:
   fused one-token paged decode step (``csrc/paged_decode.cu``).
 * :mod:`.scheduler` — admission queue, per-request state machine, FCFS
   continuous batching, block-exhaustion preemption (host-only).
+* :mod:`.graphs`    — :class:`~.graphs.BucketGraph`: one program per
+  shape bucket, a CUDA graph captured once and replayed on the card.
 * :mod:`.engine`    — :class:`ServingEngine`: ``submit``/``step``/``generate``.
 * :mod:`.obs`       — per-request lifecycle events, phase attribution, SLOs.
 * :mod:`.resilience` — load shedding, deadlines/cancellation and
   :class:`EngineSupervisor`.
+
+Front ends: ``python -m mxnet_tpu_torch.tools.serve`` (HTTP/JSON standing
+server with live stat columns) and ``python -m
+mxnet_tpu_torch.tools.bench_serving`` (offline benchmark, one JSON
+record).
 """
 from .engine import ServingConfig, ServingEngine
 from .kv_cache import KVBlockPool, KVCacheOOM

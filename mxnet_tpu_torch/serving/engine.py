@@ -3,13 +3,18 @@
 
 One engine owns: the weights (a trained checkpoint's ``arg_params`` or
 deterministic ``random_params``) as torch tensors on its device, one
-:class:`~.kv_cache.KVBlockPool`, and one :class:`~.scheduler.Scheduler`.
-PyTorch runs eagerly, so where the JAX package compiles one program per
-padded shape bucket the port calls :func:`.model.prefill` /
-:func:`.model.decode` directly at the same buckets: the hand-written
-kernels of :mod:`..ops.attention` take any bucket, and the padded shapes
-keep the batch composition (and so every row's result) independent of
-the other rows.
+:class:`~.kv_cache.KVBlockPool`, one :class:`~.scheduler.Scheduler`, and
+one :class:`~.graphs.BucketGraph` per program and padded shape bucket,
+as the JAX package compiles one program per bucket and replays it:
+``serving.prefill`` per prompt-length bucket, ``serving.decode`` per
+batch bucket and, with ``spec_k > 0``, ``serving.draft`` (the draft's
+prefill per length bucket and its decode per batch bucket) and
+``serving.verify`` per batch bucket. On the card each is a CUDA graph
+captured at the bucket's first call (:meth:`ServingEngine.warmup` calls
+every one) and replayed after; on the CPU it runs eagerly. The padded
+shapes keep the batch composition (and so every row's result)
+independent of the other rows. A call that has to capture debits its
+wall to the requests' ``compile_stall`` phase.
 
 Each :meth:`step` runs the scheduler's plan: admitted prompts prefill into
 the shared block pool (one call per request at its length bucket), then
@@ -21,16 +26,18 @@ one :func:`.model.extend` pass (the multi-query paged kernel) and greedy
 acceptance emits the target's tokens, so the stream equals target-only
 decoding. The step inputs go up as one int32 buffer per
 call; the ONLY device->host reads are the next-token vectors (``.cpu()``)
-— that read IS the product (tokens leave for clients). The pool pages are
-written in place call to call.
+— that read IS the product (tokens leave for clients) — and the draft's
+proposals between its inner steps. The pool pages are allocated once and
+written in place call to call, so every graph keeps its addresses.
 
 Thread model: ``submit()`` is safe from any thread; ``step()`` /
 ``run_loop()`` must run on one stepping thread. Per-request latency metrics
 (TTFT, end-to-end, tokens/sec) flow through the telemetry registry.
 
-Not ported yet: the compile plane (``compileobs`` / ``compile_cache``):
-nothing compiles here, so ``compile_stall`` is 0 and ``stats()`` has no
-``compiles`` block.
+``stats()["compiles"]`` counts each program's captures, their seconds and
+the replays after them, keyed as the JAX package's ``compiles`` block.
+CUDA graphs do not outlive the process, so there is no persistent cache
+and no ``compile_cache`` block (``ROADMAP.md`` A7).
 """
 import itertools
 import threading
@@ -44,6 +51,7 @@ from .. import context, fault, telemetry
 from ..analysis import witness
 from ..base import env_bool, env_int, env_str, torch_dtype
 from . import model as _model
+from .graphs import BucketGraph
 from .kv_cache import KVBlockPool
 from .obs import ServingObs
 from .resilience import ServingOverloadError, retry_after_s
@@ -197,6 +205,14 @@ class ServingEngine:
         self.engine_id = next(_engine_ids)
         self.obs = ServingObs(self.engine_id)
 
+        # ---- the programs: one graph per bucket over weights and pages --
+        self._prefill_graphs = self._prefill_bucket_graphs(
+            "serving.prefill", self.params, self.pool.k_pages,
+            self.pool.v_pages, cfg)
+        self._decode_graphs = self._decode_bucket_graphs(
+            "serving.decode", self.params, self.pool.k_pages,
+            self.pool.v_pages, cfg)
+
         # ---- speculative decoding: the draft model and its own pages ----
         self._draft_params = None
         self._draft_kp = self._draft_vp = None
@@ -221,6 +237,56 @@ class ServingEngine:
                                          device=self.device)
             self._draft_vp = torch.zeros(dshape, dtype=cfg.kv_dtype,
                                          device=self.device)
+            self._draft_prefill_graphs = self._prefill_bucket_graphs(
+                "serving.draft", self._draft_params, self._draft_kp,
+                self._draft_vp, dcfg)
+            self._draft_decode_graphs = self._decode_bucket_graphs(
+                "serving.draft", self._draft_params, self._draft_kp,
+                self._draft_vp, dcfg)
+            T = self.spec_k + 1
+            self._verify_graphs = {
+                B: BucketGraph(
+                    "serving.verify", self._step_fn(
+                        _model.extend, self.params, self.pool.k_pages,
+                        self.pool.v_pages, cfg),
+                    [(B, T), (B, T), (B, self._nb_max), (B, T)], self.device)
+                for B in cfg.decode_buckets()}
+
+    # a graph returns (next tokens, logits); the pages are written in place
+    @staticmethod
+    def _step_fn(step, params, k_pages, v_pages, cfg):
+        def fn(*inputs):
+            return step(params, *inputs, k_pages, v_pages, cfg)[:2]
+        return fn
+
+    def _prefill_bucket_graphs(self, program, params, k_pages, v_pages, cfg):
+        bs = self.config.block_size
+        fn = self._step_fn(_model.prefill, params, k_pages, v_pages, cfg)
+        return {S: BucketGraph(program, fn, [(1, S), (1,), (S // bs,)],
+                               self.device)
+                for S in self.config.prefill_buckets()}
+
+    def _decode_bucket_graphs(self, program, params, k_pages, v_pages, cfg):
+        fn = self._step_fn(_model.decode, params, k_pages, v_pages, cfg)
+        return {B: BucketGraph(program, fn,
+                               [(B,), (B,), (B, self._nb_max), (B,)],
+                               self.device)
+                for B in self.config.decode_buckets()}
+
+    def bucket_graphs(self):
+        """Every bucket graph of this engine, program by program."""
+        out = list(self._prefill_graphs.values()) \
+            + list(self._decode_graphs.values())
+        if self._spec:
+            out += list(self._draft_prefill_graphs.values()) \
+                + list(self._draft_decode_graphs.values()) \
+                + list(self._verify_graphs.values())
+        return out
+
+    @staticmethod
+    def _capture_totals(graphs):
+        return (sum(g.captures for g in graphs),
+                sum(g.capture_s for g in graphs))
 
     # ------------------------------------------------------------------ API
     def submit(self, prompt, max_new_tokens, eos_id=None, request_id=None,
@@ -456,49 +522,32 @@ class ServingEngine:
         return req
 
     def warmup(self):
-        """Run every prefill length bucket and decode batch bucket once
-        (all-trash block tables, no requests involved): builds the CUDA
-        kernels on first use and touches every shape the traffic will
-        take, so the first real request pays no build or setup wall."""
+        """Capture every program at every bucket in one pass (one call
+        each, all-trash block tables, no requests involved): builds the
+        CUDA kernels at first use and records each bucket's graph, so the
+        first real traffic pays no build or capture wall and the capture
+        counts in ``stats()["compiles"]`` stay flat from step one."""
         cfg = self.config
+        nb = self._nb_max
         with self._lock:
-            for S in cfg.prefill_buckets():
-                toks, table = self._upload(np.zeros((1, S), np.int32),
-                                           np.zeros(S // cfg.block_size,
-                                                    np.int32))
-                _model.prefill(self.params, toks, 1, table,
-                               self.pool.k_pages, self.pool.v_pages, cfg)
-            for B in cfg.decode_buckets():
-                args = self._upload(np.zeros(B, np.int32),
-                                    np.zeros(B, np.int32),
-                                    np.zeros((B, self._nb_max), np.int32),
-                                    np.ones(B, np.int32))
-                _model.decode(self.params, *args, self.pool.k_pages,
-                              self.pool.v_pages, cfg)
+            prefills = [self._prefill_graphs]
+            decodes = [self._decode_graphs]
             if self._spec:
-                # the draft's prefill and decode and the verify pass, at
-                # every bucket
-                dcfg = self.draft_config
+                prefills.append(self._draft_prefill_graphs)
+                decodes.append(self._draft_decode_graphs)
+            for graphs in prefills:
+                for S, g in graphs.items():
+                    g(np.zeros((1, S), np.int32), np.ones(1, np.int32),
+                      np.zeros(S // cfg.block_size, np.int32))
+            for graphs in decodes:
+                for B, g in graphs.items():
+                    g(np.zeros(B, np.int32), np.zeros(B, np.int32),
+                      np.zeros((B, nb), np.int32), np.ones(B, np.int32))
+            if self._spec:
                 T = self.spec_k + 1
-                for S in cfg.prefill_buckets():
-                    toks, table = self._upload(np.zeros((1, S), np.int32),
-                                               np.zeros(S // cfg.block_size,
-                                                        np.int32))
-                    _model.prefill(self._draft_params, toks, 1, table,
-                                   self._draft_kp, self._draft_vp, dcfg)
-                for B in cfg.decode_buckets():
-                    args = self._upload(np.zeros(B, np.int32),
-                                        np.zeros(B, np.int32),
-                                        np.zeros((B, self._nb_max), np.int32),
-                                        np.ones(B, np.int32))
-                    _model.decode(self._draft_params, *args, self._draft_kp,
-                                  self._draft_vp, dcfg)
-                    args = self._upload(np.zeros((B, T), np.int32),
-                                        np.zeros((B, T), np.int32),
-                                        np.zeros((B, self._nb_max), np.int32),
-                                        np.ones((B, T), np.int32))
-                    _model.extend(self.params, *args, self.pool.k_pages,
-                                  self.pool.v_pages, cfg)
+                for B, g in self._verify_graphs.items():
+                    g(np.zeros((B, T), np.int32), np.zeros((B, T), np.int32),
+                      np.zeros((B, nb), np.int32), np.ones((B, T), np.int32))
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
 
@@ -545,22 +594,6 @@ class ServingEngine:
         return failed
 
     # ------------------------------------------------------------ internals
-    def _upload(self, *arrays):
-        """Host int32 arrays -> device tensors of the same shapes, through
-        ONE host->device copy of their concatenation (contiguous views).
-        On the card the copy is staged in pinned memory and queued on the
-        stream without waiting for it."""
-        host = torch.from_numpy(np.concatenate([a.reshape(-1)
-                                                for a in arrays]))
-        if self.device.type == "cuda":
-            host = host.pin_memory()
-        buf = host.to(self.device, non_blocking=True)
-        out, off = [], 0
-        for a in arrays:
-            out.append(buf[off:off + a.size].view(a.shape))
-            off += a.size
-        return out
-
     def _table_row(self, req, width):
         # the admission grant includes the first decode slot's headroom
         # block, so a boundary-length replay holds one block more than its
@@ -582,23 +615,27 @@ class ServingEngine:
         # the scatter cannot touch a shared block (copy-on-write contract)
         write_table = self._table_row(req, S // cfg.block_size)
         write_table[:min(req.shared_blocks, len(write_table))] = 0
+        length = np.array([L], np.int32)
+        graphs = [self._prefill_graphs[S]]
+        if self._spec:
+            graphs.append(self._draft_prefill_graphs[S])
+        # capture-tally delta around the call: a bump means THIS call sat
+        # behind a cold bucket — that wall is the request's compile_stall
+        c0, s0 = self._capture_totals(graphs)
         # chaos: injected dispatch failure — escapes step(), which aborts
         fault.hit("dispatch_error")
         t0 = time.time()
-        toks_d, table_d = self._upload(toks, write_table)
-        tok, _logits, _kp, _vp = _model.prefill(
-            self.params, toks_d, L, table_d, self.pool.k_pages,
-            self.pool.v_pages, cfg)
+        tok, _logits = graphs[0](toks, length, write_table)
         if self._spec:
             # the draft caches the same replay through the same write table
             # into its OWN pages; shared blocks were draft-cached by the
             # prefix's original prefill, as the target pages were
-            _model.prefill(self._draft_params, toks_d, L, table_d,
-                           self._draft_kp, self._draft_vp,
-                           self.draft_config)
+            graphs[1](toks, length, write_table)
         # the per-request token egress: serving's output IS this transfer
         tok = int(tok.cpu()[0])
         wall = time.time() - t0
+        c1, s1 = self._capture_totals(graphs)
+        stall = min(s1 - s0, wall) if c1 > c0 else 0.0
         telemetry.histogram("serving.prefill_seconds").observe(wall)
         telemetry.counter("serving.prefill_tokens").inc(L)
         # register this prefix's full blocks for later admissions
@@ -609,7 +646,7 @@ class ServingEngine:
         if not was_replay:
             # fresh prompt: the prefill's greedy token is the first output
             self._note_token(req, tok)
-        self.obs.prefill_done(req, 0.0, was_replay)
+        self.obs.prefill_done(req, stall, was_replay)
 
     def _run_decode(self, reqs):
         cfg = self.config
@@ -623,12 +660,17 @@ class ServingEngine:
             poss[i] = req.context_len
             tables[i] = self._table_row(req, self._nb_max)
             ctx[i] = req.context_len + 1
+        g = self._decode_graphs[B]
+        c0, s0 = g.captures, g.capture_s
         fault.hit("dispatch_error")
-        nxt, _logits, _kp, _vp = _model.decode(
-            self.params, *self._upload(toks, poss, tables, ctx),
-            self.pool.k_pages, self.pool.v_pages, cfg)
+        t0 = time.time()
+        nxt, _logits = g(toks, poss, tables, ctx)
         # the fused step's single device->host read: the next-token vector
         nxt = nxt.cpu().numpy()
+        if g.captures > c0:
+            # a cold batch bucket stalls EVERY stream in the batch
+            self.obs.decode_stall(reqs, min(g.capture_s - s0,
+                                            time.time() - t0))
         telemetry.histogram("serving.decode_batch").observe(len(reqs))
         for i, req in enumerate(reqs):
             req.context_len += 1
@@ -679,18 +721,16 @@ class ServingEngine:
         cur = np.zeros(B, np.int32)
         cur[:n] = [r.pending_token for r in reqs]
         proposals = np.zeros((n, k), np.int32)
+        dg = self._draft_decode_graphs[B]
+        c0, s0 = dg.captures, dg.capture_s
         fault.hit("dispatch_error")
         t0 = time.time()
-        (tables_d,) = self._upload(tables)   # the draft and verify share it
         for j in range(k + 1):
             poss = np.zeros(B, np.int32)
             ctx = np.ones(B, np.int32)
             poss[:n] = base_ctx + j
             ctx[:n] = base_ctx + j + 1
-            toks_d, poss_d, ctx_d = self._upload(cur, poss, ctx)
-            dnxt, _dl, _dk, _dv = _model.decode(
-                self._draft_params, toks_d, poss_d, tables_d, ctx_d,
-                self._draft_kp, self._draft_vp, self.draft_config)
+            dnxt, _dl = dg(cur, poss, tables, ctx)
             if j < k:
                 # the proposal steers the next inner step's input token:
                 # one device->host read of B int32s per draft step
@@ -698,6 +738,8 @@ class ServingEngine:
                 proposals[:, j] = dnxt[:n]
                 cur[:n] = dnxt[:n]
         draft_wall = time.time() - t0
+        draft_stall = min(dg.capture_s - s0, draft_wall) \
+            if dg.captures > c0 else 0.0
         # verify: lane j consumes [pending, d_1..d_k][j] at position ctx+j;
         # its greedy argmax is what the stream emits if lane j is reached
         T = k + 1
@@ -708,14 +750,17 @@ class ServingEngine:
         toks2[:n, 1:] = proposals
         poss2[:n] = base_ctx[:, None] + np.arange(T)[None, :]
         ctx2[:n] = poss2[:n] + 1
+        vg = self._verify_graphs[B]
+        c0, s0 = vg.captures, vg.capture_s
         t0 = time.time()
-        toks2_d, poss2_d, ctx2_d = self._upload(toks2, poss2, ctx2)
-        nxt2, _logits, _kp, _vp = _model.extend(
-            self.params, toks2_d, poss2_d, tables_d, ctx2_d,
-            self.pool.k_pages, self.pool.v_pages, cfg)
+        nxt2, _logits = vg(toks2, poss2, tables, ctx2)
         # token egress to clients: B x (k+1) int32s per step
         nxt2 = nxt2.cpu().numpy()
         verify_wall = time.time() - t0
+        verify_stall = min(vg.capture_s - s0, verify_wall) \
+            if vg.captures > c0 else 0.0
+        if draft_stall or verify_stall:
+            self.obs.decode_stall(reqs, draft_stall + verify_stall)
         # greedy acceptance: emit the TARGET's token at every reached lane.
         # Lane j+1 is reached only if the draft's proposal d_{j+1} matched
         # the target's lane-j output (the window's K/V past a mismatch
@@ -739,7 +784,8 @@ class ServingEngine:
         self._spec_draft_s += draft_wall
         self._spec_verify_s += verify_wall
         telemetry.histogram("serving.decode_batch").observe(len(reqs))
-        self.obs.spec_step(reqs, draft_wall, verify_wall, proposed, accepted)
+        self.obs.spec_step(reqs, draft_wall - draft_stall,
+                           verify_wall - verify_stall, proposed, accepted)
 
     def _note_token(self, req, tok):
         now = time.time()
@@ -831,4 +877,19 @@ class ServingEngine:
                 },
                 "slo": self.obs.slo_snapshot(),
                 "phases": self.obs.phase_snapshot(),
+                "compiles": self._compiles(),
             }
+
+    def _compiles(self):
+        """Per program: its bucket graphs' captures, capture seconds and
+        replays (the JAX package's ``compiles`` block)."""
+        out = {}
+        for g in self.bucket_graphs():
+            c = out.setdefault(g.program, {"count": 0, "seconds": 0.0,
+                                           "runs": 0})
+            c["count"] += g.captures
+            c["seconds"] += g.capture_s
+            c["runs"] += g.replays
+        for c in out.values():
+            c["seconds"] = round(c["seconds"], 3)
+        return out

@@ -11,7 +11,11 @@ kernels of :mod:`..ops.attention` on the card.
 
 Where the JAX step functions are pure and the engine donates the pool
 pages, here ``prefill``, ``decode`` and ``extend`` write their K/V into
-``k_pages`` / ``v_pages`` IN PLACE and return the same tensors.
+``k_pages`` / ``v_pages`` IN PLACE and return the same tensors. None of
+them waits for the host (no ``.item()``, no branch on a tensor's value,
+no ``nonzero``; the prompt length is a device tensor), so each can be
+captured once per shape bucket as a CUDA graph and replayed
+(:mod:`.graphs`).
 
 Padded-lane safety contract, as in the JAX package: dead lanes write
 through the block table's TRASH entries (block 0) and read under a
@@ -184,7 +188,10 @@ def prefill(params, tokens, length, block_table, k_pages, v_pages, cfg):
 
     tokens:      (1, S) int tensor, S a multiple of the pool block size
                  (prompt left-aligned, tail padded with 0s)
-    length:      int — true prompt length (1 <= length <= S)
+    length:      true prompt length (1 <= length <= S): a (1,) int32
+                 tensor on the tokens' device (what a bucket's CUDA graph
+                 takes: one graph serves every length in its bucket) or a
+                 host int
     block_table: (S // block_size,) int tensor — the request's blocks in
                  position order; tail entries past the prompt = 0 (trash)
     k/v_pages:   the pool pages, (L, N, bs, H, D), written in place
@@ -227,8 +234,12 @@ def prefill(params, tokens, length, block_table, k_pages, v_pages, cfg):
     v_pages[:, table] = vw.to(v_pages.dtype)
 
     x = _layer_norm(x, params["final_ln_gamma"], params["final_ln_beta"])
-    h_last = x[0, length - 1]                                   # (M,)
-    logits = h_last[None] @ params["lm_head_weight"].T + params["lm_head_bias"]
+    if not isinstance(length, torch.Tensor):
+        length = torch.tensor([length], dtype=torch.int32,
+                              device=tokens.device)
+    last = length.reshape(1).to(torch.int64) - 1                # on device
+    h_last = x[0].index_select(0, last)                         # (1, M)
+    logits = h_last @ params["lm_head_weight"].T + params["lm_head_bias"]
     next_token = torch.argmax(logits, dim=-1).to(torch.int32)
     return next_token, logits, k_pages, v_pages
 
