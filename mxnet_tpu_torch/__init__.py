@@ -17,7 +17,12 @@ with the multi-query paged kernel, and checkpoints (``nd.save``/``load``,
 package's file format; ResNet-50 on the fused step (one CUDA graph per
 input shape); the bucketed LSTM LM (``mx.rnn``, the ``RNN`` op,
 ``BucketingModule`` over one shared fused state), optimizer-state files
-and ``fit(auto_resume=...)``. The namespaces are
+and ``fit(auto_resume=...)``; the image-classification zoo through
+``tools/train_imagenet.py`` with ``mx.random`` (one generator per
+device, registered with every CUDA graph that draws), the sampling ops,
+``Dropout``/``LRN``/``LeakyReLU``, ``mx.lr_scheduler``, the rest of the
+optimizers, initializers and metrics, and ``model.FeedForward``. The
+namespaces are
 the JAX package's, so a training script needs only its import line
 changed: ``import mxnet_tpu_torch as mx``.
 """
@@ -40,6 +45,8 @@ from .name import NameManager, Prefix  # noqa: E402
 from .executor import Executor  # noqa: E402
 from . import initializer  # noqa: E402
 from . import initializer as init  # noqa: E402
+from . import random  # noqa: E402
+from . import lr_scheduler  # noqa: E402
 from . import optimizer  # noqa: E402
 from . import optimizer as opt  # noqa: E402
 from . import metric, io, callback, rnn, models  # noqa: E402
@@ -51,6 +58,7 @@ __version__ = "0.1.0"
 
 __all__ = ["base", "context", "MXNetError", "cpu", "gpu", "default_device",
            "nd", "ndarray", "sym", "symbol", "AttrScope", "NameManager",
-           "Prefix", "Executor", "init", "initializer", "opt", "optimizer",
+           "Prefix", "Executor", "init", "initializer", "random",
+           "lr_scheduler", "opt", "optimizer",
            "metric", "io", "callback", "rnn", "models", "mod", "module",
            "model"]

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import torch
 
+from . import random as _random
 from .base import MXNetError, torch_dtype
 from .ops.registry import OpContext, get_op
 from .symbol import _topo_order
@@ -77,7 +78,9 @@ def cast_compute(names, tensors, compute_dtype, exempt):
 def build_graph_fn(symbol):
     """Build ``fn(arg_list, aux_list, is_train) -> (outputs, new_auxs)``
     over torch tensors, with arguments and aux states in the symbol's
-    ``list_arguments``/``list_auxiliary_states`` order."""
+    ``list_arguments``/``list_auxiliary_states`` order. A graph with a
+    stochastic op draws from the :mod:`.random` generator of the device
+    its arguments lie on, in the graph's topological order."""
     order = _topo_order(symbol._entries)
     _, aux_vars = symbol._arg_aux_split()
     arg_names = symbol.list_arguments()
@@ -90,11 +93,17 @@ def build_graph_fn(symbol):
             slots[id(node)] = ((True, aux_slot[node.name]) if id(node) in aux_vars
                                else (False, arg_slot[node.name]))
 
+    stochastic = any(not node.is_variable
+                     and get_op(node.op).stochastic(node.attrs)
+                     for node in order)
+
     def graph_fn(arg_list, aux_list, is_train):
         vals = {}
         new_aux = list(aux_list)
-        octx = OpContext(is_train=is_train,
-                         device=arg_list[0].device if arg_list else None)
+        device = arg_list[0].device if arg_list else None
+        octx = OpContext(is_train=is_train, device=device,
+                         rng=(_random.generator(device)
+                              if stochastic and device is not None else None))
         for node in order:
             if node.is_variable:
                 is_aux, slot = slots[id(node)]

@@ -7,27 +7,33 @@ initializer; otherwise the parameter's name suffix picks the rule
 (``*_weight`` draws, ``*_bias``/``*_beta`` zero, ``*_gamma`` one, ...).
 
 Random draws come from a ``torch.Generator`` on the CPU: the ``rng``
-given to the initializer, else PyTorch's default generator (seeded by
-``torch.manual_seed``). A nested ``__init__`` spec draws from its
-parent's generator. The draws match the JAX package's threefry draws in
-distribution only, not value for value; drawing on the CPU makes a card
-run and a CPU run from one seed start from the same weights.
+given to the initializer, else :mod:`.random`'s CPU generator (PyTorch's
+default one, seeded by ``mx.random.seed`` and ``torch.manual_seed``
+alike). A nested ``__init__`` spec draws from its parent's generator.
+The draws match the JAX package's threefry draws in distribution only,
+not value for value; drawing on the CPU makes a card run and a CPU run
+from one seed start from the same weights.
 
-This slice carries Zero, One, Uniform, Normal, Xavier and the RNN
-cells' LSTMBias and FusedRNN with ``create``/``register``; Orthogonal,
-MSRAPrelu, Bilinear, Constant, Load and Mixed wait for ROADMAP A4.
+All of the JAX package's initializers: Zero, One, Constant, Uniform,
+Normal, Orthogonal, Xavier, MSRAPrelu, Bilinear (also any parameter
+whose name ends in ``upsampling``), the RNN cells' LSTMBias and
+FusedRNN, Load (from a dict of arrays, ``arg:``/``aux:`` prefixes
+stripped) and Mixed (by regular expression), with
+``create``/``register``.
 """
 from __future__ import annotations
 
 import json
+import re
 
 import numpy as np
 import torch
 
 from .base import string_types
 
-__all__ = ["Initializer", "Uniform", "Normal", "Xavier", "One", "Zero",
-           "LSTMBias", "FusedRNN", "InitDesc", "register", "create"]
+__all__ = ["Initializer", "Uniform", "Normal", "Orthogonal", "Xavier",
+           "MSRAPrelu", "Bilinear", "One", "Zero", "Constant", "InitDesc",
+           "Load", "Mixed", "LSTMBias", "FusedRNN", "register", "create"]
 
 _INIT_REGISTRY = {}
 
@@ -77,7 +83,9 @@ class Initializer:
             sub._init_weight(desc, arr)
             return
         name = desc.lower()
-        if name.endswith("bias"):
+        if name.endswith("upsampling"):
+            self._init_bilinear(desc, arr)
+        elif name.endswith("bias"):
             self._init_bias(desc, arr)
         elif name.endswith("gamma"):
             self._init_gamma(desc, arr)
@@ -102,6 +110,18 @@ class Initializer:
             return x * (b - a) + a
         return torch.randn(tuple(shape), generator=self.rng,
                            dtype=torch.float32) * b
+
+    def _init_bilinear(self, _, arr):
+        """The bilinear upsampling kernel over the last two axes."""
+        weight = np.zeros(arr.shape, dtype="float32").reshape(-1)
+        shape = arr.shape
+        f = np.ceil(shape[3] / 2.0)
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        for i in range(int(np.prod(shape))):
+            x = i % shape[3]
+            y = (i // shape[3]) % shape[2]
+            weight[i] = (1 - abs(x / f - c)) * (1 - abs(y / f - c))
+        arr[:] = weight.reshape(shape)
 
     def _init_zero(self, _, arr):
         arr[:] = 0.0
@@ -129,6 +149,48 @@ class Initializer:
 
 
 @register
+class Load:
+    """Values from a dict of arrays (``arg:``/``aux:`` prefixes stripped);
+    a name it lacks goes to ``default_init``, or raises."""
+
+    def __init__(self, param, default_init=None, verbose=False):
+        self.param = {(k[4:] if k.startswith(("arg:", "aux:")) else k): v
+                      for k, v in param.items()}
+        self.default_init = default_init
+        self.verbose = verbose
+
+    def __call__(self, name, arr):
+        if name in self.param:
+            value = self.param[name]
+            if tuple(value.shape) != tuple(arr.shape):
+                raise AssertionError("Parameter %s cannot be initialized from "
+                                     "loading. " % name)
+            arr[:] = value
+        else:
+            if self.default_init is None:
+                raise AssertionError("Cannot Initialize parameter %s." % name)
+            self.default_init(name, arr)
+
+
+@register
+class Mixed:
+    """The first initializer whose pattern (``re.match``) fits the name."""
+
+    def __init__(self, patterns, initializers):
+        if len(patterns) != len(initializers):
+            raise AssertionError("patterns and initializers must have the "
+                                 "same length")
+        self.map = list(zip([re.compile(p) for p in patterns], initializers))
+
+    def __call__(self, name, arr):
+        for prog, init in self.map:
+            if prog.match(name):
+                init(name, arr)
+                return
+        raise ValueError("Parameter name %s did not match any pattern." % name)
+
+
+@register
 class Zero(Initializer):
     def _init_weight(self, _, arr):
         arr[:] = 0.0
@@ -140,6 +202,18 @@ class Zero(Initializer):
 class One(Initializer):
     def _init_weight(self, _, arr):
         arr[:] = 1.0
+
+    _init_default = _init_weight
+
+
+@register
+class Constant(Initializer):
+    def __init__(self, value=0.0):
+        super().__init__(value=value)
+        self.value = value
+
+    def _init_weight(self, _, arr):
+        arr[:] = self.value
 
     _init_default = _init_weight
 
@@ -204,6 +278,49 @@ class Xavier(Initializer):
             arr[:] = self._draw("normal", shape, 0.0, scale)
         else:
             raise ValueError("Unknown random type")
+
+
+@register
+class Orthogonal(Initializer):
+    """An orthogonal (nout, prod(rest)) matrix, scaled: the SVD factor of
+    a U(-1, 1) (``rand_type='uniform'``) or N(0, 1) draw that has its
+    shape."""
+
+    def __init__(self, scale=1.414, rand_type="uniform", rng=None):
+        super().__init__(rng=rng, scale=scale, rand_type=rand_type)
+        self.scale = scale
+        self.rand_type = rand_type
+
+    def _init_weight(self, _, arr):
+        nout = arr.shape[0]
+        nin = int(np.prod(arr.shape[1:]))
+        if self.rand_type == "uniform":
+            tmp = self._draw("uniform", (nout, nin), -1.0, 1.0)
+        else:
+            tmp = self._draw("normal", (nout, nin), 0.0, 1.0)
+        tmp = tmp.numpy()
+        u, _, v = np.linalg.svd(tmp, full_matrices=False)
+        q = u if u.shape == tmp.shape else v
+        arr[:] = (self.scale * q).reshape(arr.shape)
+
+
+@register
+class MSRAPrelu(Xavier):
+    """He et al.'s initialization for PReLU nets: Xavier gaussian with
+    magnitude ``2 / (1 + slope^2)``."""
+
+    def __init__(self, factor_type="avg", slope=0.25, rng=None):
+        super().__init__("gaussian", factor_type, 2.0 / (1 + slope ** 2),
+                         rng=rng)
+        self._kwargs = {"factor_type": factor_type, "slope": slope}
+
+
+@register
+class Bilinear(Initializer):
+    """The bilinear upsampling kernel (for Deconvolution weights)."""
+
+    def _init_weight(self, _, arr):
+        self._init_bilinear(_, arr)
 
 
 @register

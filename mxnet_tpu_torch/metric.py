@@ -1,23 +1,27 @@
 """Evaluation metrics of the port (counterpart of ``mxnet_tpu/metric.py``;
 reference: python/mxnet/metric.py).
 
-``Accuracy`` and ``Perplexity`` compute their per-batch statistic with
-torch ops on the predictions' device and add it into a running tensor
-there, as the JAX package accumulates on the device: nothing waits for
-the card until :meth:`EvalMetric.get` (once per epoch in ``fit``).
-``CrossEntropy`` and the composite metric complete what ``create``
-offers in this slice; F1, MAE/MSE/RMSE, TopK, Loss and custom metrics
-wait for ROADMAP A4.
+``Accuracy``, ``TopKAccuracy`` and ``Perplexity`` compute their
+per-batch statistic with torch ops on the predictions' device and add it
+into a running tensor there, as the JAX package accumulates on the
+device: nothing waits for the card until :meth:`EvalMetric.get` (once
+per epoch in ``fit``), so a CUDA graph step reads no logits to the host.
+``F1``, ``MAE``, ``MSE``, ``RMSE``, ``CrossEntropy``, ``Loss`` (and its
+``Torch``/``Caffe`` names) and ``CustomMetric`` (``np``) compute on the
+host, as the JAX package does. ``MApMetric`` waits with SSD (ROADMAP
+A4).
 """
 from __future__ import annotations
 
+import numpy
 import torch
 
 from .base import string_types
 from .ndarray import NDArray
 
-__all__ = ["EvalMetric", "CompositeEvalMetric", "Accuracy", "Perplexity",
-           "CrossEntropy", "create"]
+__all__ = ["EvalMetric", "CompositeEvalMetric", "Accuracy", "TopKAccuracy",
+           "F1", "Perplexity", "MAE", "MSE", "RMSE", "CrossEntropy", "Loss",
+           "Torch", "Caffe", "CustomMetric", "np", "create"]
 
 
 def _tensor(x, device=None):
@@ -25,10 +29,24 @@ def _tensor(x, device=None):
     return t.detach() if device is None else t.detach().to(device)
 
 
-def check_label_shapes(labels, preds):
-    if len(labels) != len(preds):
+def _host(x):
+    """An NDArray, tensor or array-like as a numpy array."""
+    if isinstance(x, NDArray):
+        return x.asnumpy()
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().cpu().numpy() if x.dtype == torch.bfloat16 \
+            else x.detach().cpu().numpy()
+    return numpy.asarray(x)
+
+
+def check_label_shapes(labels, preds, shape=0):
+    if shape == 0:
+        label_shape, pred_shape = len(labels), len(preds)
+    else:
+        label_shape, pred_shape = labels.shape, preds.shape
+    if label_shape != pred_shape:
         raise ValueError("Shape of labels {} does not match shape of "
-                         "predictions {}".format(len(labels), len(preds)))
+                         "predictions {}".format(label_shape, pred_shape))
 
 
 class EvalMetric:
@@ -117,6 +135,107 @@ class Accuracy(_DeviceSumMetric):
             self._add(torch.stack([hits, hits.new_tensor(float(lab.numel()))]))
 
 
+class TopKAccuracy(_DeviceSumMetric):
+    """Share of samples whose label is among the ``top_k`` highest
+    predictions (``torch.topk`` on the predictions' device; 1-d
+    predictions are class ids)."""
+
+    def __init__(self, top_k=1, name="top_k_accuracy"):
+        super().__init__(name)
+        self.top_k = top_k
+        if self.top_k <= 1:
+            raise ValueError("Please use Accuracy if top_k is no more than 1")
+        self.name += "_%d" % self.top_k
+
+    def update(self, labels, preds):
+        check_label_shapes(labels, preds)
+        for label, pred in zip(labels, preds):
+            p = _tensor(pred)
+            if p.dim() > 2:
+                raise ValueError("Predictions should be no more than 2 dims")
+            lab = _tensor(label, p.device).reshape(-1).to(torch.int32)
+            if lab.numel() != p.shape[0]:
+                raise ValueError("Shape of labels %d does not match shape of "
+                                 "predictions %d" % (lab.numel(), p.shape[0]))
+            if p.dim() == 1:
+                hits = p.to(torch.int32) == lab
+            else:
+                k = min(p.shape[1], self.top_k)
+                top = torch.topk(p.float(), k, dim=1).indices.to(torch.int32)
+                hits = (top == lab[:, None]).any(dim=1)
+            hits = hits.sum().to(torch.float64)
+            self._add(torch.stack([hits, hits.new_tensor(float(p.shape[0]))]))
+
+
+class F1(EvalMetric):
+    """Binary F1 of the argmax predictions, averaged over updates."""
+
+    def __init__(self, name="f1"):
+        super().__init__(name)
+
+    def update(self, labels, preds):
+        check_label_shapes(labels, preds)
+        for label, pred in zip(labels, preds):
+            pred_label = numpy.argmax(_host(pred), axis=1)
+            label_np = _host(label).astype("int32")
+            check_label_shapes(label_np, pred_label)
+            if len(numpy.unique(label_np)) > 2:
+                raise ValueError("F1 currently only supports binary "
+                                 "classification.")
+            tp = float(numpy.sum((pred_label == 1) & (label_np == 1)))
+            fp = float(numpy.sum((pred_label == 1) & (label_np == 0)))
+            fn = float(numpy.sum((pred_label == 0) & (label_np == 1)))
+            precision = tp / (tp + fp) if tp + fp > 0 else 0.0
+            recall = tp / (tp + fn) if tp + fn > 0 else 0.0
+            if precision + recall > 0:
+                f1_score = 2 * precision * recall / (precision + recall)
+            else:
+                f1_score = 0.0
+            self.sum_metric += f1_score
+            self.num_inst += 1
+
+
+class _Regression(EvalMetric):
+    """Mean of a per-update error of (label, pred), 1-d labels as a
+    column."""
+
+    def _error(self, label, pred):
+        raise NotImplementedError()
+
+    def update(self, labels, preds):
+        check_label_shapes(labels, preds)
+        for label, pred in zip(labels, preds):
+            label_np = _host(label)
+            if len(label_np.shape) == 1:
+                label_np = label_np.reshape(label_np.shape[0], 1)
+            self.sum_metric += self._error(label_np, _host(pred))
+            self.num_inst += 1
+
+
+class MAE(_Regression):
+    def __init__(self, name="mae"):
+        super().__init__(name)
+
+    def _error(self, label, pred):
+        return numpy.abs(label - pred).mean()
+
+
+class MSE(_Regression):
+    def __init__(self, name="mse"):
+        super().__init__(name)
+
+    def _error(self, label, pred):
+        return ((label - pred) ** 2.0).mean()
+
+
+class RMSE(_Regression):
+    def __init__(self, name="rmse"):
+        super().__init__(name)
+
+    def _error(self, label, pred):
+        return numpy.sqrt(((label - pred) ** 2.0).mean())
+
+
 class Perplexity(_DeviceSumMetric):
     """exp(mean negative log-likelihood), averaged per update weighted by
     its token count, as the reference: each update adds
@@ -175,6 +294,66 @@ class CrossEntropy(EvalMetric):
             self.num_inst += lab.shape[0]
 
 
+class Loss(EvalMetric):
+    """Mean of the raw outputs (for ``MakeLoss`` nets)."""
+
+    def __init__(self, name="loss"):
+        super().__init__(name)
+
+    def update(self, _, preds):
+        for pred in preds:
+            p = _host(pred)
+            self.sum_metric += numpy.sum(p)
+            self.num_inst += p.size
+
+
+class Torch(Loss):
+    def __init__(self, name="torch"):
+        super().__init__(name)
+
+
+class Caffe(Loss):
+    def __init__(self, name="caffe"):
+        super().__init__(name)
+
+
+class CustomMetric(EvalMetric):
+    """``feval(label, pred)`` on numpy arrays: a value per update, or a
+    (sum, count) pair."""
+
+    def __init__(self, feval, name=None, allow_extra_outputs=False):
+        if name is None:
+            name = feval.__name__
+            if name.find("<") != -1:
+                name = "custom(%s)" % name
+        super().__init__(name)
+        self._feval = feval
+        self._allow_extra_outputs = allow_extra_outputs
+
+    def update(self, labels, preds):
+        if not self._allow_extra_outputs:
+            check_label_shapes(labels, preds)
+        for pred, label in zip(preds, labels):
+            reval = self._feval(_host(label), _host(pred))
+            if isinstance(reval, tuple):
+                sum_metric, num_inst = reval
+                self.sum_metric += sum_metric
+                self.num_inst += num_inst
+            else:
+                self.sum_metric += reval
+                self.num_inst += 1
+
+
+def np(numpy_feval, name=None, allow_extra_outputs=False):
+    """A CustomMetric from a numpy ``feval(label, pred)``."""
+
+    def feval(label, pred):
+        return numpy_feval(label, pred)
+
+    feval.__name__ = numpy_feval.__name__
+    return CustomMetric(feval, name, allow_extra_outputs)
+
+
 class CompositeEvalMetric(EvalMetric):
     """Several metrics updated together."""
 
@@ -208,7 +387,10 @@ class CompositeEvalMetric(EvalMetric):
 
 
 def create(metric, **kwargs):
-    """A metric by name, an EvalMetric as it is, or a composite of a list."""
+    """A metric by name, an EvalMetric as it is, a CustomMetric of a
+    callable, or a composite of a list."""
+    if callable(metric):
+        return CustomMetric(metric)
     if isinstance(metric, EvalMetric):
         return metric
     if isinstance(metric, list):
@@ -217,7 +399,10 @@ def create(metric, **kwargs):
             composite.add(create(child, **kwargs))
         return composite
     metrics = {"acc": Accuracy, "accuracy": Accuracy, "ce": CrossEntropy,
-               "perplexity": Perplexity}
+               "f1": F1, "mae": MAE, "mse": MSE, "rmse": RMSE,
+               "top_k_accuracy": TopKAccuracy, "topkaccuracy": TopKAccuracy,
+               "perplexity": Perplexity, "loss": Loss, "torch": Torch,
+               "caffe": Caffe}
     try:
         return metrics[metric.lower()](**kwargs)
     except (KeyError, AttributeError):

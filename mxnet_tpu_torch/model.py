@@ -14,7 +14,11 @@ ones skipped. The ``.resume`` sidecar (``prefix-%04d.resume``, JSON, the
 JAX package's format) adds the position within the epoch in progress:
 batches consumed, the iterator's state, the numpy RNG and the optimizer's
 update counts, bound to its params file by the file's CRC footer.
-``FeedForward`` waits for ``ROADMAP.md`` A1.
+
+``FeedForward`` is the reference's legacy estimator (``fit``,
+``predict``, ``score``, ``save``/``load``, ``create``), a thin adapter
+over ``Module`` as in the JAX package: it runs on the card unless given
+``ctx=mx.cpu()``.
 """
 from __future__ import annotations
 
@@ -25,11 +29,14 @@ import re
 
 import numpy as np
 
+from . import io
 from . import ndarray as nd
 from . import symbol as sym
+from .context import default_device
 from .utils.atomic_file import atomic_write, footer_crc
 
-__all__ = ["save_checkpoint", "load_checkpoint", "load_latest_valid_checkpoint",
+__all__ = ["FeedForward", "save_checkpoint", "load_checkpoint",
+           "load_latest_valid_checkpoint",
            "save_resume_state", "load_resume_state", "clear_resume_state",
            "decode_rng", "optimizer_counts", "restore_optimizer_counts"]
 
@@ -210,3 +217,152 @@ def restore_optimizer_counts(module, counts):
     opt._index_update_count = {
         (int(k) if re.fullmatch(r"-?\d+", str(k)) else k): v
         for k, v in counts["index_update_count"].items()}
+
+
+class FeedForward:
+    """The reference's legacy estimator (reference: model.py:387): a thin
+    adapter over ``Module``. Parameters are kept as host NDArrays between
+    calls; ``kwargs`` are the optimizer's parameters."""
+
+    def __init__(self, symbol, ctx=None, num_epoch=None, epoch_size=None,
+                 optimizer="sgd", initializer=None, numpy_batch_size=128,
+                 arg_params=None, aux_params=None, allow_extra_params=False,
+                 begin_epoch=0, **kwargs):
+        from . import initializer as init_mod
+
+        self.symbol = symbol
+        if ctx is None:
+            ctx = [default_device()]
+        elif not isinstance(ctx, list):
+            ctx = [ctx]
+        self.ctx = ctx
+        self.num_epoch = num_epoch
+        self.epoch_size = epoch_size
+        self.kwargs = kwargs.copy()
+        self.optimizer = optimizer
+        self.initializer = (initializer if initializer is not None
+                            else init_mod.Uniform(0.01))
+        self.numpy_batch_size = numpy_batch_size
+        self.arg_params = arg_params
+        self.aux_params = aux_params
+        self.allow_extra_params = allow_extra_params
+        self.begin_epoch = begin_epoch
+        self._module = None
+
+    @staticmethod
+    def _names(descs):
+        return [d[0] if isinstance(d, tuple) else d.name for d in descs]
+
+    def _module_for(self, data, with_label):
+        from .module import Module
+
+        return Module(self.symbol, data_names=self._names(data.provide_data),
+                      label_names=(self._names(data.provide_label)
+                                   if with_label else None),
+                      context=self.ctx)
+
+    def fit(self, X, y=None, eval_data=None, eval_metric="acc",
+            epoch_end_callback=None, batch_end_callback=None, kvstore="local",
+            logger=None, work_load_list=None, monitor=None,
+            eval_end_callback=None, eval_batch_end_callback=None,
+            auto_resume=None):
+        """Train through ``Module.fit`` (reference: model.py
+        FeedForward.fit); ``auto_resume`` as there."""
+        from .module import Module
+
+        data = self._prepare_iter(X, y, is_train=True)
+        mod = Module(self.symbol, data_names=self._names(data.provide_data),
+                     label_names=self._names(data.provide_label),
+                     context=self.ctx, logger=logger or logging)
+        mod.fit(data, eval_data=eval_data, eval_metric=eval_metric,
+                epoch_end_callback=epoch_end_callback,
+                batch_end_callback=batch_end_callback, kvstore=kvstore,
+                optimizer=self.optimizer,
+                optimizer_params=dict({"learning_rate": 0.01}, **self.kwargs),
+                eval_end_callback=eval_end_callback,
+                eval_batch_end_callback=eval_batch_end_callback,
+                initializer=self.initializer, arg_params=self.arg_params,
+                aux_params=self.aux_params, allow_missing=True,
+                begin_epoch=self.begin_epoch, num_epoch=self.num_epoch,
+                monitor=monitor, auto_resume=auto_resume)
+        self.arg_params, self.aux_params = mod.get_params()
+        self._module = mod
+
+    def predict(self, X, num_batch=None, return_data=False, reset=True):
+        """The outputs over ``X`` as numpy arrays (a list when the symbol
+        has several)."""
+        data = self._prepare_iter(X, None, is_train=False)
+        if reset:
+            data.reset()
+        mod = self._module_for(data, with_label=False)
+        mod.bind(data.provide_data, for_training=False)
+        mod.set_params(self.arg_params, self.aux_params or {},
+                       allow_missing=True)
+        outputs = mod.predict(data, num_batch=num_batch)
+        if isinstance(outputs, list):
+            return [o.asnumpy() for o in outputs]
+        return outputs.asnumpy()
+
+    def score(self, X, eval_metric="acc", num_batch=None,
+              batch_end_callback=None, reset=True):
+        """The value of ``eval_metric`` over ``X``."""
+        data = self._prepare_iter(X, None, is_train=False)
+        if reset:
+            data.reset()
+        mod = self._module_for(data, with_label=True)
+        mod.bind(data.provide_data, data.provide_label, for_training=False)
+        mod.set_params(self.arg_params, self.aux_params or {},
+                       allow_missing=True)
+        res = mod.score(data, eval_metric, num_batch=num_batch,
+                        batch_end_callback=batch_end_callback)
+        return res[0][1]
+
+    def _prepare_iter(self, X, y, is_train):
+        if isinstance(X, io.DataIter):
+            return X
+        if isinstance(X, (np.ndarray, nd.NDArray)):
+            if y is None and is_train:
+                raise ValueError("y must be specified when X is numpy.ndarray")
+            if isinstance(X, nd.NDArray):
+                X = X.asnumpy()
+            y = y if y is not None else np.zeros(X.shape[0])
+            return io.NDArrayIter(
+                X, y, batch_size=min(self.numpy_batch_size, X.shape[0]),
+                shuffle=is_train,
+                last_batch_handle="roll_over" if is_train else "pad")
+        raise TypeError("X must be DataIter or numpy/NDArray")
+
+    def save(self, prefix, epoch=None):
+        if epoch is None:
+            epoch = self.num_epoch
+        if epoch is None:
+            raise ValueError("save: give the epoch (num_epoch is unset)")
+        save_checkpoint(prefix, epoch, self.symbol, self.arg_params,
+                        self.aux_params)
+
+    @staticmethod
+    def load(prefix, epoch, ctx=None, **kwargs):
+        symbol, arg_params, aux_params = load_checkpoint(prefix, epoch)
+        return FeedForward(symbol, ctx=ctx, arg_params=arg_params,
+                           aux_params=aux_params, begin_epoch=epoch, **kwargs)
+
+    @staticmethod
+    def create(symbol, X, y=None, ctx=None, num_epoch=None, epoch_size=None,
+               optimizer="sgd", initializer=None, eval_data=None,
+               eval_metric="acc", epoch_end_callback=None,
+               batch_end_callback=None, kvstore="local", logger=None,
+               work_load_list=None, eval_end_callback=None,
+               eval_batch_end_callback=None, **kwargs):
+        """A FeedForward made and fitted in one call."""
+        from . import initializer as init_mod
+
+        model = FeedForward(symbol, ctx=ctx, num_epoch=num_epoch,
+                            epoch_size=epoch_size, optimizer=optimizer,
+                            initializer=initializer or init_mod.Uniform(0.01),
+                            **kwargs)
+        model.fit(X, y, eval_data=eval_data, eval_metric=eval_metric,
+                  epoch_end_callback=epoch_end_callback,
+                  batch_end_callback=batch_end_callback, kvstore=kvstore,
+                  logger=logger, eval_end_callback=eval_end_callback,
+                  eval_batch_end_callback=eval_batch_end_callback)
+        return model

@@ -1,12 +1,25 @@
-"""Model zoo of the port (counterpart of ``mxnet_tpu/models``): the
-decoder-only Transformer LM, the pre-activation ResNet and the bucketed
-LSTM LM, exposed as the JAX package exposes them
-(``models.transformer_lm(...)`` and ``models.resnet(num_classes,
-num_layers, image_shape, layout)`` build the training symbols,
-``models.lstm_lm(...)`` a ``BucketingModule``'s ``sym_gen``). The other
-zoo models wait for ``ROADMAP.md`` A4."""
+"""Model zoo of the port (counterpart of ``mxnet_tpu/models``), exposed as
+the JAX package exposes it: ``models.transformer_lm(...)``,
+``models.resnet(num_classes, num_layers, image_shape, layout)``, and
+the image-classification zoo (``mlp``, ``lenet``, ``alexnet``,
+``vgg``, ``googlenet``, ``inception_bn``, ``inception_v3``,
+``inception_resnet_v2``, ``resnext``) build the training symbols;
+``models.lstm_lm(...)`` a ``BucketingModule``'s ``sym_gen``. ``dcgan``
+and ``ssd`` wait for ``ROADMAP.md`` A4 (they need ``Deconvolution``,
+``LogisticRegressionOutput`` and the ``MultiBox*`` ops)."""
+from .alexnet import get_symbol as alexnet
+from .googlenet import get_symbol as googlenet
+from .inception_bn import get_symbol as inception_bn
+from .inception_resnet_v2 import get_symbol as inception_resnet_v2
+from .inception_v3 import get_symbol as inception_v3
+from .lenet import get_symbol as lenet
 from .lstm_lm import get_symbol as lstm_lm
+from .mlp import get_symbol as mlp
 from .resnet import get_symbol as resnet
+from .resnext import get_symbol as resnext
 from .transformer_lm import get_symbol as transformer_lm
+from .vgg import get_symbol as vgg
 
-__all__ = ["lstm_lm", "resnet", "transformer_lm"]
+__all__ = ["alexnet", "googlenet", "inception_bn", "inception_resnet_v2",
+           "inception_v3", "lenet", "lstm_lm", "mlp", "resnet", "resnext",
+           "transformer_lm", "vgg"]

@@ -10,9 +10,11 @@ Every registered op is also an imperative function here
 (``nd.take``, ``nd.softmax``, ``nd.contrib.PagedAttention``, ...), made
 on first use: its inputs are NDArrays (positional, or by keyword for the
 trailing inputs), its attrs keywords; it runs the op's forward once
-without autograd on the inputs' device, and an op's updated aux states
-are written back into the aux NDArrays passed in (as the JAX package
-does). The rest of the imperative surface (arithmetic operators,
+without autograd on the inputs' device (an op without inputs on
+``ctx=``, the card by default; the sampling ops of :mod:`.ops.sample`
+draw from that device's :mod:`.random` generator), and an op's updated
+aux states are written back into the aux NDArrays passed in (as the JAX
+package does). The rest of the imperative surface (arithmetic operators,
 ``autograd``) waits for ``ROADMAP.md`` A4.
 
 Writes replace or update the held tensor: an executor, an optimizer and
@@ -28,6 +30,7 @@ import numpy as np
 import torch
 
 from . import context as _context
+from . import random as _random
 from .base import MXNetError, torch_dtype
 from .ops.registry import OpContext, get_op, has_op
 
@@ -342,11 +345,13 @@ def _load_stream(f):
 
 
 # ---- the imperative op namespace ------------------------------------------
-def imperative_invoke(op_name, ndargs, attrs, out=None):
+def imperative_invoke(op_name, ndargs, attrs, out=None, ctx=None):
     """Run registered op ``op_name`` once on NDArrays ``ndargs`` (its
     arguments, then optionally its aux states) with ``attrs``: returns the
     visible output NDArray (a list when there are several). Updated aux
-    states are written into the aux NDArrays given."""
+    states are written into the aux NDArrays given. An op runs on its
+    inputs' device; one without inputs on ``ctx`` (default: the card). A
+    stochastic op draws from that device's :mod:`.random` generator."""
     op = get_op(op_name)
     attrs, _extra = op.canonicalize_attrs(attrs)
     n_args = len(op.arg_names(attrs))
@@ -359,8 +364,10 @@ def imperative_invoke(op_name, ndargs, attrs, out=None):
     if len(ndargs) == n_args and n_aux:
         raise MXNetError("op %s needs its %d aux states passed in"
                          % (op_name, n_aux))
-    octx = OpContext(is_train=False,
-                     device=tensors[0].device if tensors else None)
+    device = tensors[0].device if tensors else _device(ctx)
+    octx = OpContext(is_train=False, device=device,
+                     rng=(_random.generator(device) if op.stochastic(attrs)
+                          else None))
     with torch.no_grad():
         outs, new_auxs = op.forward(octx, attrs, tensors[:n_args],
                                     tensors[n_args:])
@@ -381,6 +388,7 @@ def _make_ndarray_function(op_name):
 
     def fn(*args, **kwargs):
         out = kwargs.pop("out", None)
+        ctx = kwargs.pop("ctx", None)
         kwargs.pop("name", None)
         nd_kwargs = {k: v for k, v in kwargs.items() if isinstance(v, NDArray)}
         attrs = {k: v for k, v in kwargs.items() if k not in nd_kwargs}
@@ -395,7 +403,7 @@ def _make_ndarray_function(op_name):
                     "inputs after the %d positional one(s) (%s)"
                     % (op_name, sorted(nd_kwargs), len(ndargs), want))
             ndargs += [nd_kwargs[n] for n in want]
-        return imperative_invoke(op_name, ndargs, attrs, out=out)
+        return imperative_invoke(op_name, ndargs, attrs, out=out, ctx=ctx)
 
     fn.__name__ = op_name
     fn.__doc__ = "Imperative form of operator ``%s``." % op_name

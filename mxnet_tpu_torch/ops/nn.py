@@ -8,8 +8,11 @@ float32 (TF32 is off in the port for both), as the JAX package leaves
 them to XLA at HIGHEST precision; bfloat16 inputs accumulate in float32
 on both sides. BatchNorm is written out rather than handed to
 ``F.batch_norm``: its statistics, moving averages and rounding are the
-JAX package's (see :func:`_batch_norm`). Deconvolution, LeakyReLU,
-Dropout, the normalisations and the sequence ops wait for ROADMAP A4.
+JAX package's (see :func:`_batch_norm`). Also
+``LeakyReLU`` (leaky, elu, prelu, rrelu), ``LRN`` and ``Dropout``, which
+draws its mask through :func:`.sample.dropout_mask` from the graph's
+generator. Deconvolution, the other normalisations and the sequence ops
+wait for ROADMAP A4.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from ..base import MXNetError
+from . import sample
 from .registry import Param, get_op, register, register_simple
 
 
@@ -361,3 +365,136 @@ def _bn_infer_shape(attrs, in_shapes, aux_shapes):
 
 
 get_op("BatchNorm")._infer_shape = _bn_infer_shape
+
+
+# ---------------------------------------------------------------- LeakyReLU
+@register(
+    "LeakyReLU",
+    arg_names=lambda attrs: (["data", "gamma"] if attrs.get("act_type") == "prelu"
+                             else ["data"]),
+    params={
+        "act_type": Param.str("leaky"),
+        "slope": Param.float(0.25),
+        "lower_bound": Param.float(0.125),
+        "upper_bound": Param.float(0.334),
+    },
+    stochastic=lambda attrs: attrs["act_type"] == "rrelu",
+)
+def _leaky_relu(octx, attrs, args, auxs):
+    """``rrelu`` draws one slope per sample in training, U(lower_bound,
+    upper_bound), and takes their mean in inference."""
+    x = args[0]
+    t = attrs["act_type"]
+    if t == "leaky":
+        out = torch.where(x > 0, x, attrs["slope"] * x)
+    elif t == "elu":
+        out = torch.where(x > 0, x, attrs["slope"] * (torch.exp(x) - 1))
+    elif t == "prelu":
+        gamma = (args[1].reshape((1, -1) + (1,) * (x.dim() - 2))
+                 if x.dim() > 1 else args[1])
+        out = torch.where(x > 0, x, gamma * x)
+    elif t == "rrelu":
+        lo, hi = attrs["lower_bound"], attrs["upper_bound"]
+        if octx.is_train:
+            if octx.rng is None:
+                raise MXNetError("LeakyReLU(rrelu) draws its slopes in "
+                                 "training and was given no generator")
+            u = torch.rand((x.shape[0],) + (1,) * (x.dim() - 1),
+                           generator=octx.rng, device=x.device)
+            slope = (u * (hi - lo) + lo).to(x.dtype)
+        else:
+            slope = (lo + hi) / 2.0
+        out = torch.where(x > 0, x, slope * x)
+    else:
+        raise MXNetError("LeakyReLU: unknown act_type %s" % t)
+    return [out], []
+
+
+def _lrelu_infer_shape(attrs, in_shapes, aux_shapes):
+    data = in_shapes[0]
+    shapes = [tuple(data)]
+    if attrs.get("act_type") == "prelu":
+        shapes.append((data[1],))
+    return shapes, [tuple(data)], []
+
+
+get_op("LeakyReLU")._infer_shape = _lrelu_infer_shape
+
+
+# ---------------------------------------------------------------- LRN
+@register(
+    "LRN",
+    arg_names=("data",),
+    params={
+        "alpha": Param.float(1e-4),
+        "beta": Param.float(0.75),
+        "knorm": Param.float(2.0),
+        "nsize": Param.int(),
+    },
+    num_outputs=2,
+    num_visible_outputs=1,
+    output_names=("output", "tmp_norm"),
+)
+def _lrn(octx, attrs, args, auxs):
+    """Across-channel normalisation of NCHW data, the JAX package's:
+    ``norm = (knorm + alpha / nsize * S) ** -beta`` with S the sum of
+    squares over the window of ``nsize`` channels padded by ``nsize // 2``
+    zeros on each side (``reduce_window``), output ``x * norm``. An even
+    ``nsize`` makes that window's output one channel longer than the data,
+    which the JAX package cannot broadcast either: it raises.
+    (``F.local_response_norm`` pads an even window unevenly instead.)"""
+    x = args[0]
+    n = attrs["nsize"]
+    if n % 2 == 0:
+        raise MXNetError("LRN: nsize %d is even; the window (nsize // 2 "
+                         "channels each side) gives C + 1 channels" % n)
+    half = n // 2
+    # the windowed sum over channels as a 3-d sum pooling of (N, 1, C, H, W)
+    ssum = F.avg_pool3d(torch.square(x).unsqueeze(1), (n, 1, 1), stride=1,
+                        padding=(half, 0, 0), divisor_override=1).squeeze(1)
+    norm = torch.pow(attrs["knorm"] + (attrs["alpha"] / n) * ssum,
+                     -attrs["beta"])
+    return [x * norm, norm], []
+
+
+def _lrn_infer_shape(attrs, in_shapes, aux_shapes):
+    data = tuple(in_shapes[0])
+    if attrs["nsize"] % 2 == 0:
+        raise MXNetError("LRN: nsize %d is even; the window (nsize // 2 "
+                         "channels each side) gives C + 1 channels"
+                         % attrs["nsize"])
+    return [data], [data, data], []
+
+
+get_op("LRN")._infer_shape = _lrn_infer_shape
+
+
+# ---------------------------------------------------------------- Dropout
+@register(
+    "Dropout",
+    arg_names=("data",),
+    params={"p": Param.float(0.5), "mode": Param.str("training")},
+    stochastic=True,
+    num_outputs=2,
+    num_visible_outputs=1,
+    output_names=("output", "mask"),
+)
+def _dropout(octx, attrs, args, auxs):
+    """In training (or always, with ``mode='always'``) ``x * mask``, the
+    mask drawn by :func:`.sample.dropout_mask` (``1 / (1 - p)`` kept, 0
+    dropped), so the gradient is ``grad * mask``; otherwise the identity
+    with a mask of ones. Training without a generator raises: the data
+    never passes through undropped by accident."""
+    x = args[0]
+    p = attrs["p"]
+    if not (octx.is_train or attrs["mode"] == "always") or p <= 0.0:
+        return [x, torch.ones_like(x)], []
+    if octx.rng is None:
+        raise MXNetError("Dropout draws its mask and was given no generator")
+    mask = sample.dropout_mask(octx.rng, x.shape, 1.0 - p, x.dtype, x.device)
+    return [x * mask, mask], []
+
+
+get_op("Dropout")._infer_shape = (
+    lambda attrs, in_shapes, aux_shapes: (
+        [tuple(in_shapes[0])], [tuple(in_shapes[0])] * 2, []))

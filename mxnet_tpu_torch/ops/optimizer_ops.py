@@ -5,14 +5,16 @@ Plain functions of torch tensors with the JAX package's arithmetic in
 its order: the gradient is rescaled, clipped when ``clip_gradient > 0``
 and gets ``wd * weight`` added (``_prep_grad``), then each rule updates.
 They return new tensors; the optimizer rebinds its NDArrays to them.
-SGD, SGD with momentum and Adam only; the RMSProp rules wait for
-ROADMAP A4.
+SGD, SGD with momentum, Adam, and RMSProp (``rmsprop_update``,
+Tieleman & Hinton; ``rmspropalex_update``, the centered variant of
+Graves).
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["sgd_update", "sgd_mom_update", "adam_update"]
+__all__ = ["sgd_update", "sgd_mom_update", "adam_update", "rmsprop_update",
+           "rmspropalex_update"]
 
 
 def _prep_grad(grad, weight, rescale_grad, clip_gradient, wd):
@@ -44,3 +46,23 @@ def adam_update(weight, grad, mean, var, lr, beta1=0.9, beta2=0.999,
     new_var = beta2 * var + (1 - beta2) * torch.square(g)
     new_w = weight - lr * new_mean / (torch.sqrt(new_var) + epsilon)
     return new_w, new_mean, new_var
+
+
+def rmsprop_update(weight, grad, n, lr, gamma1=0.95, epsilon=1e-8, wd=0.0,
+                   rescale_grad=1.0, clip_gradient=-1.0):
+    """Returns (new weight, new n)."""
+    g = _prep_grad(grad, weight, rescale_grad, clip_gradient, wd)
+    new_n = (1 - gamma1) * torch.square(g) + gamma1 * n
+    return weight - lr * g / torch.sqrt(new_n + epsilon), new_n
+
+
+def rmspropalex_update(weight, grad, n, gbar, delta, lr, gamma1=0.95,
+                       gamma2=0.9, epsilon=1e-8, wd=0.0, rescale_grad=1.0,
+                       clip_gradient=-1.0):
+    """Returns (new weight, new n, new g, new delta)."""
+    g = _prep_grad(grad, weight, rescale_grad, clip_gradient, wd)
+    new_n = (1 - gamma1) * torch.square(g) + gamma1 * n
+    new_g = (1 - gamma1) * g + gamma1 * gbar
+    new_delta = gamma2 * delta - lr * g / torch.sqrt(
+        new_n - torch.square(new_g) + epsilon)
+    return weight + new_delta, new_n, new_g, new_delta

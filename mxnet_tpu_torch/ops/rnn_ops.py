@@ -18,14 +18,17 @@ LSTM ``[i, f, c, o]``, GRU ``[r, z, n]``.
 
 Modes ``lstm``, ``gru``, ``rnn_tanh`` and ``rnn_relu``; any
 ``num_layers``; ``bidirectional``; ``state_outputs``. Dropout between
-layers (``p > 0``) needs the port's random ops (``ROADMAP.md`` A4): a
-training forward with it raises.
+layers (``p > 0``, training only) multiplies each layer's output but the
+last by a mask from :func:`.sample.dropout_mask`, drawn from the graph's
+generator, as the JAX package does; inside a bucket's CUDA graph each
+replay draws a fresh mask.
 """
 from __future__ import annotations
 
 import torch
 
 from ..base import MXNetError
+from . import sample
 from .registry import Param, get_op, register
 
 __all__ = ["rnn_param_size"]
@@ -151,9 +154,10 @@ def _rnn(octx, attrs, args, auxs):
     L = attrs["num_layers"]
     bidir = attrs["bidirectional"]
     d = 2 if bidir else 1
-    if attrs["p"] > 0 and octx.is_train and L > 1:
-        raise MXNetError("RNN: dropout between layers (p=%g) needs the "
-                         "port's random ops (ROADMAP.md A4)" % attrs["p"])
+    dropout = attrs["p"] > 0 and octx.is_train and L > 1
+    if dropout and octx.rng is None:
+        raise MXNetError("RNN: dropout between layers (p=%g) draws masks and "
+                         "was given no generator" % attrs["p"])
     x, params, h0 = args[0], args[1], args[2]
     c0 = args[3] if mode == "lstm" else None
     T, N, I = x.shape
@@ -176,6 +180,10 @@ def _rnn(octx, attrs, args, auxs):
             if mode == "lstm":
                 c_finals.append(carry[1])
         inp = outs[0] if d == 1 else torch.cat(outs, dim=-1)
+        if dropout and li < L - 1:
+            inp = inp * sample.dropout_mask(octx.rng, inp.shape,
+                                            1.0 - attrs["p"], inp.dtype,
+                                            inp.device)
     outputs = [inp]
     if attrs["state_outputs"]:
         outputs.append(torch.stack(h_finals))

@@ -11,8 +11,11 @@ arithmetic on the parameters' own device; the fused training step
 (:mod:`.parallel.fused_opt`) applies the same per-parameter math inside
 one step, a CUDA graph on the card. ``Updater.get_states``/``set_states``
 are the JAX package's ``.states`` file payload (a pickled ``{index:
-numpy state}``), so either package reads the other's. The other
-optimizers (NAG, SGLD, AdaGrad, RMSProp, ...) wait for ROADMAP A4.
+numpy state}``), so either package reads the other's. Also NAG, SGLD (its noise drawn by the ``_random_normal`` op from
+:mod:`.random`), DCASGD, ccSGD, AdaGrad, RMSProp (plain and centered),
+AdaDelta, Ftrl and Test, each in the JAX package's order of operations,
+and ``lr_scheduler``: the rate at ``num_update`` before this update's
+increment, times the parameter's ``lr_mult``.
 """
 from __future__ import annotations
 
@@ -21,14 +24,16 @@ import math
 import pickle
 
 import numpy as np
+import torch
 
 from .base import MXNetError
 from .context import cpu
 from .ndarray import NDArray, array, zeros
 from .ops import optimizer_ops
 
-__all__ = ["Optimizer", "SGD", "Adam", "Updater", "get_updater", "create",
-           "register"]
+__all__ = ["Optimizer", "SGD", "NAG", "SGLD", "DCASGD", "ccSGD", "Adam",
+           "AdaGrad", "RMSProp", "AdaDelta", "Ftrl", "Test", "Updater",
+           "get_updater", "create", "register"]
 
 
 class Optimizer:
@@ -53,10 +58,11 @@ class Optimizer:
     def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0,
                  clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
                  sym=None, begin_num_update=0):
-        if lr_scheduler is not None:
-            raise MXNetError("lr_scheduler is not ported yet (ROADMAP.md A4)")
         self.rescale_grad = rescale_grad
         self.lr = learning_rate
+        self.lr_scheduler = lr_scheduler
+        if lr_scheduler is not None:
+            self.lr_scheduler.base_lr = learning_rate
         self.wd = wd
         self.lr_mult = {}
         self.wd_mult = {}
@@ -110,7 +116,10 @@ class Optimizer:
         self.num_update = max(self._index_update_count[index], self.num_update)
 
     def _get_lr(self, index):
-        lr = self.lr
+        if self.lr_scheduler is not None:
+            lr = self.lr_scheduler(self.num_update)
+        else:
+            lr = self.lr
         if index in self.lr_mult:
             lr *= self.lr_mult[index]
         elif index in self.idx2name:
@@ -129,6 +138,14 @@ class Optimizer:
         return dict(rescale_grad=self.rescale_grad,
                     clip_gradient=(self.clip_gradient
                                    if self.clip_gradient is not None else -1.0))
+
+    def _grad(self, grad):
+        """The rescaled gradient, clipped when ``clip_gradient`` is set
+        (the rules that do not go through :mod:`.ops.optimizer_ops`)."""
+        g = grad.data * self.rescale_grad
+        if self.clip_gradient is not None:
+            g = torch.clamp(g, -self.clip_gradient, self.clip_gradient)
+        return g
 
 
 register = Optimizer.register
@@ -195,6 +212,222 @@ class Adam(Optimizer):
         weight._set_data(w)
         mean._set_data(m)
         var._set_data(v)
+
+
+@register
+class NAG(SGD):
+    """Nesterov accelerated SGD: the momentum buffer, then the lookahead
+    ``g + momentum * mom``."""
+
+    def update(self, index, weight, grad, state):
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        self._update_count(index)
+        g = self._grad(grad)
+        w = weight.data
+        if state is not None:
+            mom = state.data * self.momentum
+            g = g + wd * w
+            mom = mom + g
+            g = g + self.momentum * mom
+            state._set_data(mom)
+            weight._set_data(w + -lr * g)
+        else:
+            weight._set_data(w + -lr * (g + wd * w))
+
+
+@register
+class SGLD(Optimizer):
+    """Stochastic gradient Langevin dynamics: half a gradient step plus
+    N(0, sqrt(lr)) noise from the weight's device generator."""
+
+    def update(self, index, weight, grad, state):
+        from .ndarray import random_normal
+
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        self._update_count(index)
+        g = self._grad(grad)
+        noise = random_normal(loc=0.0, scale=math.sqrt(lr), shape=weight.shape,
+                              ctx=weight.context)
+        w = weight.data
+        weight._set_data(w + (-lr / 2 * (g + wd * w) + noise.data))
+
+
+@register
+class DCASGD(Optimizer):
+    """Delay-compensated asynchronous SGD: the state is (momentum buffer
+    or None, the previous weight). The JAX package tests the buffer's
+    truth (``if mon:``), which raises for a buffer of more than one
+    element; the port tests ``is not None``."""
+
+    def __init__(self, momentum=0.0, lamda=0.04, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+        self.weight_previous = {}
+        self.lamda = lamda
+
+    def create_state(self, index, weight):
+        prev = NDArray(weight.data.clone())
+        if self.momentum == 0.0:
+            return (None, prev)
+        return (zeros(weight.shape, weight.context, dtype=weight.dtype), prev)
+
+    def update(self, index, weight, grad, state):
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        self._update_count(index)
+        g = self._grad(grad)
+        mon, previous_weight = state
+        w = weight.data
+        step = -lr * (g + wd * w + self.lamda * g * g * (w - previous_weight.data))
+        if mon is not None:
+            step = mon.data * self.momentum + step
+            mon._set_data(step)
+        previous_weight._set_data(w.clone())
+        weight._set_data(w + step)
+
+
+@register
+class ccSGD(SGD):
+    """SGD under its legacy name (the reference keeps it for old
+    scripts)."""
+
+
+@register
+class AdaGrad(Optimizer):
+    """AdaGrad: the squared gradients summed in the state."""
+
+    def __init__(self, eps=1e-7, **kwargs):
+        super().__init__(**kwargs)
+        self.float_stable_eps = eps
+
+    def create_state(self, index, weight):
+        return zeros(weight.shape, weight.context)
+
+    def update(self, index, weight, grad, state):
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        self._update_count(index)
+        g = self._grad(grad)
+        history = state.data + g * g
+        state._set_data(history)
+        w = weight.data
+        weight._set_data(w + -lr * (g / torch.sqrt(history + self.float_stable_eps)
+                                    + wd * w))
+
+
+@register
+class RMSProp(Optimizer):
+    """RMSProp (Tieleman & Hinton), or with ``centered`` the variant of
+    Graves; ``clip_weights`` clips the weight after the update."""
+
+    def __init__(self, learning_rate=0.001, gamma1=0.9, gamma2=0.9,
+                 epsilon=1e-8, centered=False, clip_weights=None, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.gamma1 = gamma1
+        self.gamma2 = gamma2
+        self.centered = centered
+        self.epsilon = epsilon
+        self.clip_weights = clip_weights
+
+    def create_state(self, index, weight):
+        n = 3 if self.centered else 1
+        return tuple(zeros(weight.shape, weight.context) for _ in range(n))
+
+    def update(self, index, weight, grad, state):
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        self._update_count(index)
+        kw = dict(lr=lr, wd=wd, gamma1=self.gamma1, epsilon=self.epsilon,
+                  **self._common())
+        if not self.centered:
+            w, n = optimizer_ops.rmsprop_update(weight.data, grad.data,
+                                                state[0].data, **kw)
+            new = (n,)
+        else:
+            w, *new = optimizer_ops.rmspropalex_update(
+                weight.data, grad.data, *(s.data for s in state),
+                gamma2=self.gamma2, **kw)
+        for s, v in zip(state, new):
+            s._set_data(v)
+        if self.clip_weights:
+            w = torch.clamp(w, -self.clip_weights, self.clip_weights)
+        weight._set_data(w)
+
+
+@register
+class AdaDelta(Optimizer):
+    """AdaDelta: running averages of squared gradients and of squared
+    updates; no learning rate."""
+
+    def __init__(self, rho=0.90, epsilon=1e-5, **kwargs):
+        super().__init__(**kwargs)
+        self.rho = rho
+        self.epsilon = epsilon
+
+    def create_state(self, index, weight):
+        return (zeros(weight.shape, weight.context),   # accumulated g
+                zeros(weight.shape, weight.context))   # accumulated delta
+
+    def update(self, index, weight, grad, state):
+        wd = self._get_wd(index)
+        self._update_count(index)
+        g = self._grad(grad)
+        acc_g, acc_delta = state
+        ag = acc_g.data * self.rho + (1.0 - self.rho) * g * g
+        cur = (torch.sqrt(acc_delta.data + self.epsilon)
+               / torch.sqrt(ag + self.epsilon) * g)
+        ad = acc_delta.data * self.rho + (1.0 - self.rho) * cur * cur
+        acc_g._set_data(ag)
+        acc_delta._set_data(ad)
+        w = weight.data
+        weight._set_data(w - cur - wd * w)
+
+
+@register
+class Ftrl(Optimizer):
+    """Follow the regularized leader (FTRL-proximal): the state is (z,
+    n); the weight is recomputed from them, 0 where ``|z| <= lamda1``."""
+
+    def __init__(self, lamda1=0.01, learning_rate=0.1, beta=1, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.lamda1 = lamda1
+        self.beta = beta
+
+    def create_state(self, index, weight):
+        return (zeros(weight.shape, weight.context),   # z
+                zeros(weight.shape, weight.context))   # n
+
+    def update(self, index, weight, grad, state):
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        self._update_count(index)
+        g = self._grad(grad)
+        z, n = state
+        w = weight.data
+        zv = z.data + (g - (torch.sqrt(n.data + g * g) - torch.sqrt(n.data))
+                       / lr * w)
+        nv = n.data + g * g
+        z._set_data(zv)
+        n._set_data(nv)
+        weight._set_data((torch.sign(zv) * self.lamda1 - zv)
+                         / ((self.beta + torch.sqrt(nv)) / lr + wd)
+                         * (torch.abs(zv) > self.lamda1).to(zv.dtype))
+
+
+@register
+class Test(Optimizer):
+    """Adds the rescaled gradient and keeps the new weight as its state
+    (the reference's kvstore test optimizer)."""
+
+    def create_state(self, index, weight):
+        return zeros(weight.shape, weight.context)
+
+    def update(self, index, weight, grad, state):
+        w = weight.data + grad.data * self.rescale_grad
+        weight._set_data(w)
+        state._set_data(w.clone())
 
 
 class Updater:

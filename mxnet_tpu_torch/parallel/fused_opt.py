@@ -12,9 +12,11 @@ on the host in double precision as the serial Adam does), so a captured
 CUDA graph replays with new values; per-parameter multipliers,
 ``rescale_grad`` and the clip threshold are constants of the run.
 
-SGD (with or without momentum) and Adam are ported; any other optimizer
-(a subclass included) raises ``ValueError`` and the Module keeps the
-classic path, as the JAX package does with the rules it lacks.
+The rules are the JAX package's: SGD (with or without momentum; ccSGD
+under its rule), NAG, Adam, AdaGrad, RMSProp (plain and centered),
+AdaDelta and Ftrl. Any other optimizer (SGLD, DCASGD, a subclass) raises
+``ValueError`` and the Module keeps the classic path, as the JAX package
+does.
 """
 from __future__ import annotations
 
@@ -32,6 +34,15 @@ def _prep(rule):
     """(rescale_grad, clip_gradient) as optimizer_ops takes them."""
     return dict(rescale_grad=rule.rescale,
                 clip_gradient=rule.clip if rule.clip is not None else -1.0)
+
+
+def _grad(rule, g):
+    """The rescaled gradient, clipped when the clip is positive (the rules
+    that do not go through optimizer_ops)."""
+    g = g * rule.rescale
+    if rule.clip is not None and rule.clip > 0:
+        g = torch.clamp(g, -rule.clip, rule.clip)
+    return g
 
 
 class _Rule:
@@ -115,20 +126,148 @@ class _AdamRule(_Rule):
         w.copy_(new_w)
 
 
+class _NAGRule(_Rule):
+    """optimizer.py NAG: the momentum buffer, then the lookahead."""
+
+    def __init__(self, momentum, rescale, clip):
+        self.momentum = momentum
+        self.rescale = rescale
+        self.clip = clip
+        self.nslot = 1 if momentum else 0
+
+    def apply_(self, w, g, state, lr, wd):
+        g = _grad(self, g)
+        if self.momentum:
+            m = state[0] * self.momentum
+            g = g + wd * w
+            m = m + g
+            g = g + self.momentum * m
+            state[0].copy_(m)
+            w.copy_(w + -lr * g)
+        else:
+            w.copy_(w + -lr * (g + wd * w))
+
+
+class _AdaGradRule(_Rule):
+    """optimizer.py AdaGrad."""
+
+    nslot = 1
+
+    def __init__(self, eps, rescale, clip):
+        self.eps = eps
+        self.rescale = rescale
+        self.clip = clip
+
+    def apply_(self, w, g, state, lr, wd):
+        g = _grad(self, g)
+        hist = state[0] + g * g
+        state[0].copy_(hist)
+        w.copy_(w + -lr * (g / torch.sqrt(hist + self.eps) + wd * w))
+
+
+class _RMSPropRule(_Rule):
+    """optimizer.py RMSProp via rmsprop_update / rmspropalex_update, then
+    ``clip_weights``. Its serial state is a tuple even with one slot."""
+
+    def __init__(self, gamma1, gamma2, eps, centered, clip_weights, rescale,
+                 clip):
+        self.gamma1, self.gamma2, self.eps = gamma1, gamma2, eps
+        self.centered = centered
+        self.clip_weights = clip_weights
+        self.rescale = rescale
+        self.clip = clip
+        self.nslot = 3 if centered else 1
+
+    def apply_(self, w, g, state, lr, wd):
+        kw = dict(gamma1=self.gamma1, epsilon=self.eps, wd=wd, **_prep(self))
+        if self.centered:
+            new_w, *new = optimizer_ops.rmspropalex_update(
+                w, g, *state, lr, gamma2=self.gamma2, **kw)
+        else:
+            new_w, *new = optimizer_ops.rmsprop_update(w, g, state[0], lr, **kw)
+        for s, v in zip(state, new):
+            s.copy_(v)
+        if self.clip_weights:
+            new_w = torch.clamp(new_w, -self.clip_weights, self.clip_weights)
+        w.copy_(new_w)
+
+    def to_serial(self, state):
+        return tuple(state)
+
+    def from_serial(self, st):
+        # the JAX package's fused path writes a lone slot bare
+        return tuple(st) if isinstance(st, (tuple, list)) else (st,)
+
+
+class _AdaDeltaRule(_Rule):
+    """optimizer.py AdaDelta (no learning rate)."""
+
+    nslot = 2
+
+    def __init__(self, rho, eps, rescale, clip):
+        self.rho, self.eps = rho, eps
+        self.rescale = rescale
+        self.clip = clip
+
+    def apply_(self, w, g, state, lr, wd):
+        acc_g, acc_delta = state
+        g = _grad(self, g)
+        ag = acc_g * self.rho + (1.0 - self.rho) * g * g
+        cur = torch.sqrt(acc_delta + self.eps) / torch.sqrt(ag + self.eps) * g
+        ad = acc_delta * self.rho + (1.0 - self.rho) * cur * cur
+        acc_g.copy_(ag)
+        acc_delta.copy_(ad)
+        w.copy_(w - cur - wd * w)
+
+
+class _FtrlRule(_Rule):
+    """optimizer.py Ftrl."""
+
+    nslot = 2
+
+    def __init__(self, lamda1, beta, rescale, clip):
+        self.lamda1, self.beta = lamda1, beta
+        self.rescale = rescale
+        self.clip = clip
+
+    def apply_(self, w, g, state, lr, wd):
+        z, n = state
+        g = _grad(self, g)
+        zv = z + (g - (torch.sqrt(n + g * g) - torch.sqrt(n)) / lr * w)
+        nv = n + g * g
+        z.copy_(zv)
+        n.copy_(nv)
+        w.copy_((torch.sign(zv) * self.lamda1 - zv)
+                / ((self.beta + torch.sqrt(nv)) / lr + wd)
+                * (torch.abs(zv) > self.lamda1).to(zv.dtype))
+
+
 def make_rule(optimizer):
     """The fused rule of an Optimizer instance; ``ValueError`` if there is
     none. ``type() is``, not ``isinstance``: a subclass may change the
-    math."""
+    math; ccSGD is the one deliberate alias (declared SGD-identical)."""
     t = type(optimizer)
     o = optimizer
-    if t is _opt.SGD:
-        return _SGDRule(o.momentum, o.rescale_grad, o.clip_gradient)
+    clip = o.clip_gradient
+    if t is _opt.SGD or t is _opt.ccSGD:
+        return _SGDRule(o.momentum, o.rescale_grad, clip)
+    if t is _opt.NAG:
+        return _NAGRule(o.momentum, o.rescale_grad, clip)
     if t is _opt.Adam:
-        return _AdamRule(o.beta1, o.beta2, o.epsilon, o.rescale_grad,
-                         o.clip_gradient)
+        return _AdamRule(o.beta1, o.beta2, o.epsilon, o.rescale_grad, clip)
+    if t is _opt.AdaGrad:
+        return _AdaGradRule(o.float_stable_eps, o.rescale_grad, clip)
+    if t is _opt.RMSProp:
+        return _RMSPropRule(o.gamma1, o.gamma2, o.epsilon, o.centered,
+                            o.clip_weights, o.rescale_grad, clip)
+    if t is _opt.AdaDelta:
+        return _AdaDeltaRule(o.rho, o.epsilon, o.rescale_grad, clip)
+    if t is _opt.Ftrl:
+        return _FtrlRule(o.lamda1, o.beta, o.rescale_grad, clip)
     raise ValueError(
-        "optimizer %s is not supported by the fused step (supported: SGD, "
-        "Adam); the Module keeps the per-index Updater path" % t.__name__)
+        "optimizer %s is not supported by the fused step (supported: "
+        "SGD/ccSGD, NAG, Adam, AdaGrad, RMSProp, AdaDelta, Ftrl); the Module "
+        "keeps the per-index Updater path" % t.__name__)
 
 
 def supported(optimizer):
@@ -140,14 +279,25 @@ def supported(optimizer):
 
 
 def host_step_values(optimizer, param_names):
-    """The step's (base lr, t), kept in step with the serial path's
-    bookkeeping: every parameter's update count advances by one and ``t``
-    is ``num_update`` after the increments (Adam's bias correction). The
-    port has no lr scheduler yet (ROADMAP A4), so the lr is
-    ``optimizer.lr``."""
+    """The step's (base lr, t), ordered exactly like the serial path
+    (``SGD.update``): the lr scheduler sees ``num_update`` BEFORE this
+    step's increments, Adam's bias-correction ``t`` is the count AFTER
+    them; every parameter's update count advances by one, so schedulers
+    and a handover to the serial Updater (a resume) see the same counts.
+
+    One-step boundary skew against the serial Updater (the JAX package's,
+    kept): the scheduler is evaluated once per fused step, while the
+    serial path evaluates it per parameter as ``num_update`` advances
+    within a step; on the step that crosses a boundary the serial path's
+    first parameter still gets the old rate and the rest the new one,
+    the fused step the old rate for all."""
+    if optimizer.lr_scheduler is not None:
+        lr = optimizer.lr_scheduler(optimizer.num_update)
+    else:
+        lr = optimizer.lr
     for n in param_names:
         optimizer._update_count(n)
-    return float(optimizer.lr), int(optimizer.num_update)
+    return float(lr), int(optimizer.num_update)
 
 
 def mults_for(optimizer, param_names):

@@ -17,12 +17,19 @@ Capture follows the rules CUDA graphs impose:
 * every tensor the graph reads or writes is static: the parameters, the
   auxiliary states and the optimizer slots are updated in place, the
   batch is copied into input buffers (:meth:`SPMDTrainer.input_buffers`)
-  and the step's learning rate (with Adam's bias correction at this
-  step's ``t``) is a device scalar written before each replay;
+  and the step's learning rate (the lr scheduler's at this step, with
+  Adam's bias correction at this step's ``t``) is a device scalar
+  written before each replay (:attr:`SPMDTrainer.step_lr` is its host
+  value);
 * nothing in the step waits for the host, and the outputs are the
   graph's own tensors, read after the replay;
-* a graph with an op that draws random numbers is refused
-  (:class:`MXNetError`): no generator is registered with the graph.
+* a graph with an op that draws random numbers (``Dropout``, the
+  ``RNN`` op's dropout, ...) registers the device's :mod:`..random`
+  generator with the graph before capturing
+  (``CUDAGraph.register_generator_state``): each replay then draws fresh
+  numbers from the generator's current state, the numbers an eager step
+  from that state would draw, and advances it. A torch without that call
+  raises (:class:`MXNetError`); nothing falls back to another generator.
 
 Nothing falls back: a failed capture or replay raises. A kernel's launch
 count (``ops._build.Kernel.launches``) goes up by its launches in the
@@ -32,6 +39,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import random as _random
 from ..base import MXNetError, torch_dtype
 from ..executor import build_graph_fn, cast_compute, index_like_inputs
 from ..ops.registry import get_op
@@ -80,6 +88,8 @@ class SPMDTrainer:
         # the step's learning rate: written before each step, read by the
         # graph
         self._lr = torch.zeros((), dtype=torch.float32, device=self.device)
+        #: the value last written into it
+        self.step_lr = None
         self._inputs = None
         self._graph = None
         self._graph_outs = None
@@ -152,7 +162,8 @@ class SPMDTrainer:
         on a side stream, the second captures the step as a CUDA graph,
         and that call and every later one replay it."""
         lr, t = fused_opt.host_step_values(self.optimizer, self.param_names)
-        self._lr.fill_(self.rule.step_lr(lr, t))
+        self.step_lr = self.rule.step_lr(lr, t)
+        self._lr.fill_(self.step_lr)
         inputs = self.input_buffers()
         if self.device.type != "cuda":
             return self._run(params, auxs, states, inputs)
@@ -180,13 +191,15 @@ class SPMDTrainer:
         replay adds, and are taken back from the counters."""
         from ..ops import _build
 
-        if self._stochastic:
-            raise MXNetError(
-                "fused step: the graph draws random numbers, and no "
-                "generator is registered with the CUDA graph; train it "
-                "with MXNET_MODULE_NO_FUSED=1")
-        before = {n: k.launches for n, k in _build.KERNELS.items()}
         graph = torch.cuda.CUDAGraph()
+        if self._stochastic:
+            if not hasattr(graph, "register_generator_state"):
+                raise MXNetError(
+                    "fused step: the graph draws random numbers and torch "
+                    "%s cannot register a generator with a CUDA graph; "
+                    "train it with MXNET_MODULE_NO_FUSED=1" % torch.__version__)
+            graph.register_generator_state(_random.generator(self.device))
+        before = {n: k.launches for n, k in _build.KERNELS.items()}
         torch.cuda.synchronize(self.device)
         with torch.cuda.graph(graph):
             outs = self._run(params, auxs, states, inputs)

@@ -9,9 +9,10 @@ equivalent stack of written-out cells over the same packed parameters.
 The graphs, names and attrs are the JAX package's, so a cell's symbol
 JSON is the same in both packages.
 
-``DropoutCell``, ``ZoneoutCell``, ``ResidualCell``, ``BidirectionalCell``
-and ``ModifierCell`` wait for ``ROADMAP.md`` A4 (dropout needs the port's
-random ops): building one raises :class:`~..base.MXNetError`.
+``DropoutCell`` puts a ``Dropout`` node after each
+step. ``ZoneoutCell``, ``ResidualCell``, ``BidirectionalCell`` and
+``ModifierCell`` wait for ``ROADMAP.md`` A4: building one raises
+:class:`~..base.MXNetError`.
 """
 from __future__ import annotations
 
@@ -485,7 +486,24 @@ def _waits(name):
     return _Waiting
 
 
-DropoutCell = _waits("DropoutCell")
+class DropoutCell(BaseRNNCell):
+    """Dropout on the output (reference: rnn_cell.py DropoutCell): a
+    ``Dropout`` node per step, no state."""
+
+    def __init__(self, dropout, prefix="dropout_", params=None):
+        super().__init__(prefix, params)
+        self.dropout = dropout
+
+    @property
+    def state_info(self):
+        return []
+
+    def __call__(self, inputs, states):
+        if self.dropout > 0:
+            inputs = symbol.Dropout(data=inputs, p=self.dropout)
+        return inputs, states
+
+
 ZoneoutCell = _waits("ZoneoutCell")
 ResidualCell = _waits("ResidualCell")
 BidirectionalCell = _waits("BidirectionalCell")

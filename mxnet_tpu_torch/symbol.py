@@ -511,7 +511,7 @@ def _register_ops():
     """Import the op modules (they register at import) and make one
     constructor per op, plus the ``contrib`` namespace."""
     from .ops import (attention, elemwise, indexing, init_ops,  # noqa: F401
-                      loss, matrix, nn, reduce, rnn_ops)
+                      loss, matrix, nn, reduce, rnn_ops, sample)
 
     mod = sys.modules[__name__]
     contrib = types.SimpleNamespace()

@@ -471,9 +471,13 @@ def test_bf16_compute_dtype_matches_jax(kvstore):
                                        err_msg=n)
 
 
-def test_capture_refuses_a_graph_that_draws_random_numbers():
-    """No generator is registered with the CUDA graph, so a step with a
-    stochastic op raises before anything is captured."""
+def test_capture_refuses_a_graph_that_draws_random_numbers(monkeypatch):
+    """A step with a stochastic op registers the device's generator with
+    the CUDA graph before capturing; a torch whose CUDAGraph cannot
+    register one refuses the capture (no fallback to another generator).
+    The CUDA graph API is stubbed: the test runs on the CPU."""
+    import contextlib
+
     from mxnet_tpu_torch.base import MXNetError
 
     mod, _ = _bound()
@@ -481,6 +485,26 @@ def test_capture_refuses_a_graph_that_draws_random_numbers():
     assert not tr._stochastic
     tr._stochastic = True
     st = mod._fused.state
+
+    class OldGraph:
+        pass
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", OldGraph)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
     with pytest.raises(MXNetError, match="random numbers"):
         tr._capture(st.params, st.auxs, st.states, tr.input_buffers())
     assert tr.captures == 0
+
+    registered = []
+
+    class Graph:
+        def register_generator_state(self, gen):
+            registered.append(gen)
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", Graph)
+    mod._fused._ensure_device_state()
+    monkeypatch.setattr(torch.cuda, "graph",
+                        lambda g, **k: contextlib.nullcontext())
+    tr._capture(st.params, st.auxs, st.states, tr.input_buffers())
+    assert registered == [tmx.random.generator(tr.device)]
+    assert tr.captures == 1

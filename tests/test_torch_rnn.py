@@ -112,13 +112,40 @@ def test_rnn_op_output_only_and_names():
 
 
 def test_rnn_dropout_between_layers_raises_in_training():
-    """Dropout needs the port's random ops (ROADMAP A4); inference runs."""
+    """Dropout between layers draws its mask from the graph's generator:
+    the op raises in training when it is given none; bound, it runs, and
+    the first layer's output is dropped (inference draws nothing)."""
+    from mxnet_tpu_torch.ops import sample
+    from mxnet_tpu_torch.ops.registry import OpContext, get_op
+
     s = tmx.sym.RNN(data=tmx.sym.Variable("data"), state_size=H, num_layers=2,
                     mode="lstm", p=0.5, name="r")
     exe = s.simple_bind(ctx=tmx.cpu(), data=(T, N, I))
-    exe.forward(is_train=False)
-    with pytest.raises(MXNetError, match="A4"):
-        exe.forward(is_train=True)
+    rng = np.random.RandomState(4)
+    for n, a in exe.arg_dict.items():
+        a[:] = rng.randn(*a.shape).astype(np.float32) * 0.3
+    ref = exe.forward(is_train=False)[0].asnumpy()
+    op = get_op("RNN")
+    attrs = s._entries[0][0].attrs
+    args = [a.data for a in exe.arg_arrays]
+    with pytest.raises(MXNetError, match="no generator"):
+        op.forward(OpContext(is_train=True, device="cpu"), attrs, args, [])
+    drawn = []
+    orig = sample.dropout_mask
+
+    def ones(rng_, shape, keep, dtype, device):
+        drawn.append(tuple(shape))
+        return torch.ones(shape, dtype=dtype)
+
+    sample.dropout_mask = ones
+    try:
+        kept = exe.forward(is_train=True)[0].asnumpy()
+    finally:
+        sample.dropout_mask = orig
+    assert drawn == [(T, N, H)]
+    np.testing.assert_allclose(kept, ref, rtol=1e-6, atol=1e-7)
+    dropped = exe.forward(is_train=True)[0].asnumpy()
+    assert not np.allclose(dropped, ref)
 
 
 # ----------------------------------------------------------------- cells
@@ -259,7 +286,8 @@ def test_begin_state_and_waiting_cells():
     states = cell.begin_state()
     assert [s.name for s in states] == ["b_begin_state_0", "b_begin_state_1"]
     assert states[0].attr("__layout__") == "NC"
-    for name in ("DropoutCell", "ZoneoutCell", "ResidualCell", "BidirectionalCell",
+    assert tmx.rnn.DropoutCell(0.5).state_info == []
+    for name in ("ZoneoutCell", "ResidualCell", "BidirectionalCell",
                  "ModifierCell"):
         with pytest.raises(MXNetError, match="A4"):
             getattr(tmx.rnn, name)(0.5)
