@@ -191,6 +191,25 @@ Drives ``mxnet_tpu_torch`` (never the JAX package) on ``cuda:0``:
    LSTM LM with dropout 0.2 between its layers, the RNN op's and
    ``DropoutCell``'s, three steps of one bucket: the two replays draw
    different masks. No port kernel runs in phase 17.
+18. DCGAN through two Modules and the operator sweep — (a) the zoo's
+   ``make_generator``/``make_discriminator`` at MXNet's example widths
+   (ngf = ndf = 64, 3 channels, batch 64, z 100, 64x64 images, Adam lr
+   2e-4 beta1 0.5, ``Normal(0.02)``, seeded images in [-1, 1]) through
+   ``tools/dcgan.train``: 45 steps of the example's five-call loop
+   (G forward; D on fake and on real, gradients summed by hand; D update;
+   D on fake with label 1; G backward from D's input gradient; G update),
+   every loss finite, host wall per step, images/s, peak memory, the
+   losses by third, one ``torch.profiler`` window (busy share, device
+   operations); no port kernel on its path; (b) one GAN step at batch 8
+   card vs CPU from the trained parameters: D's and G's parameter
+   gradients and G's input gradient within 1e-3 of the largest at a
+   point the CPU finds smooth (17(b)'s rule for kinks the card crosses);
+   (c) every registered op name and the sweep's variants
+   (``mxnet_tpu_torch.test_utils``) forward and backward on the card
+   against the CPU: arrays on cuda:0, smooth ops within 1e-5 of the
+   largest, comparison, rounding, indexing and ordering ops exactly, the
+   samplers by shape and finiteness; (d) ``tools/dcgan.py`` at the
+   example's defaults (ngf 32, one channel) for 10 steps, its JSON line.
 
 Every phase that fails raises, so the exit code is not 0. The last two
 lines are the ``kernels`` JSON object and the ``ok`` JSON object; the card
@@ -355,6 +374,23 @@ def device_ms(fn, n=100):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / n
+
+
+def host_us_per_op(n=5000):
+    """Host microseconds to enqueue one small op on the card (the median
+    of five runs of ``n`` in-place adds): the per-op overhead that a
+    host-bound step pays; logged in phase 1 and again in phase 18, to
+    see whether the process itself slowed over the run."""
+    x = torch.zeros(16, device="cuda")
+    runs = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            x.add_(1.0)
+        runs.append((time.perf_counter() - t0) / n * 1e6)
+        torch.cuda.synchronize()
+    return float(np.median(runs))
 
 
 def device_kernels(fn):
@@ -2952,6 +2988,196 @@ def run_image_zoo(mx, build, card):
     run_rnn_dropout(mx, rnn_op=False)
 
 
+# --------------------------------------- DCGAN and the op sweep (phase 18)
+# MXNet's example/gan/dcgan.py widths (the zoo model's defaults): 64x64
+# images, 3 channels, batch 64, z 100
+DCGAN = dict(ngf=64, nc=3)
+DCGAN_BATCH = 64
+DCGAN_Z = 100
+DCGAN_STEPS = 45
+DCGAN_LR = 2e-4
+DCGAN_CPU_BATCH = 8
+# the op sweep, card vs CPU: relative to the largest CPU value of each
+# output and gradient for smooth float32 ops; exact for the rest
+SWEEP_TOL = 1e-5
+
+
+def run_dcgan(mx, build, card):
+    """18(a): DCGAN at the reference widths through tools/dcgan.train:
+    DCGAN_STEPS steps of the example's loop; every loss finite; host wall
+    per step, images/s, peak memory, losses by third, then one
+    torch.profiler window of three steps. Returns the generator and
+    discriminator modules."""
+    from mxnet_tpu_torch.tools import dcgan
+
+    for k in build.KERNELS.values():
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    gen, dis, feed, rec = dcgan.train(DCGAN_BATCH, DCGAN_Z, DCGAN_LR,
+                                      DCGAN_STEPS, torch.device("cuda", 0),
+                                      **DCGAN)
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    launched = {k.name: k.launches for k in build.KERNELS.values() if k.launches}
+    log("  DCGAN ngf=ndf=%d nc %d batch %d z %d, %d steps (%s): host wall per "
+        "step %.5f s (median after 2; first %.3f s), %.1f images/s, peak "
+        "memory %.3f GiB over what earlier phases hold; D loss first/last third %.4f / %.4f, G loss %.4f / "
+        "%.4f; port kernels launched: %s"
+        % (DCGAN["ngf"], DCGAN["nc"], DCGAN_BATCH, DCGAN_Z, rec["steps"], card,
+           rec["step_s"], rec["first_step_s"], rec["images_per_sec"], peak,
+           rec["d_loss"]["first_third"], rec["d_loss"]["last_third"],
+           rec["g_loss"]["first_third"], rec["g_loss"]["last_third"],
+           launched or "none"))
+    check(rec["finite"], "DCGAN: a non-finite loss")
+    check(not launched, "a port kernel ran on DCGAN's path")
+
+    def step():
+        dcgan.gan_step(gen, dis, feed.noise(), feed.real[0], feed.ones,
+                       feed.zeros)
+
+    log_profile("DCGAN GAN step", device_profile(step), rec["step_s"])
+    return gen, dis
+
+
+def dcgan_step_card_vs_cpu(mx, gen, dis):
+    """18(b): one GAN step's gradients at batch DCGAN_CPU_BATCH, card vs
+    CPU, from the same parameters (the trained ones) and inputs: D's
+    parameter gradients summed over its fake and real passes, and G's
+    parameter and input gradients from D's input gradient on the fake
+    batch with label 1 (the loop's calls, without the updates), within
+    GRAD_TOL of each one's largest CPU value, at a point the CPU finds
+    smooth (phase 6's rule); where the card still lands across a kink of
+    LeakyReLU or ReLU there, the next such point (17(b)'s rule)."""
+    from mxnet_tpu_torch.tools import dcgan
+
+    b = DCGAN_CPU_BATCH
+    rng = np.random.RandomState(11)
+    z = rng.randn(b, DCGAN_Z, 1, 1).astype(np.float32)
+    real = (rng.rand(b, DCGAN["nc"], 64, 64) * 2 - 1).astype(np.float32)
+    g_args, g_auxs = ({n: a.asnumpy() for n, a in d.items()} for d in gen.get_params())
+    d_args, d_auxs = ({n: a.asnumpy() for n, a in d.items()} for d in dis.get_params())
+    params = {"G:" + n: v for n, v in g_args.items()}
+    params.update({"D:" + n: v for n, v in d_args.items()})
+
+    def step(ctx, point):
+        g, d = dcgan.make_modules(b, DCGAN_Z, DCGAN_LR, ctx, **DCGAN)
+        g.set_params({n[2:]: v for n, v in point.items() if n[0] == "G"}, g_auxs)
+        d.set_params({n[2:]: v for n, v in point.items() if n[0] == "D"}, d_auxs)
+        ones = mx.nd.ones((b,), ctx=ctx)
+        zeros = mx.nd.zeros((b,), ctx=ctx)
+        g.forward(mx.io.DataBatch([mx.nd.array(z, ctx=ctx)], None), is_train=True)
+        fake = g.get_outputs()[0]
+        d.forward(mx.io.DataBatch([fake], [zeros]), is_train=True)
+        d.backward()
+        dex = d._exec_group.execs[0]
+        grads = {"D:" + n: dex.grad_dict[n].asnumpy() for n in d_args}
+        d.forward(mx.io.DataBatch([mx.nd.array(real, ctx=ctx)], [ones]),
+                  is_train=True)
+        d.backward()
+        for n in d_args:
+            grads["D:" + n] += dex.grad_dict[n].asnumpy()
+        d.forward(mx.io.DataBatch([fake], [ones]), is_train=True)
+        out = d.get_outputs()[0].asnumpy()
+        d.backward()
+        g.backward([d.get_input_grads()[0]])
+        gex = g._exec_group.execs[0]
+        grads.update({"G:" + n: gex.grad_dict[n].asnumpy() for n in g_args})
+        grads["G:rand (input)"] = g.get_input_grads()[0].asnumpy()
+        return out, grads
+
+    crossed = []
+    k = 0
+    while True:
+        point, k, move, kink, out_h, g_h = smooth_point(mx, step, params, first=k)
+        out_c, g_c = step(mx.gpu(0), point)
+        grel = rel(g_c, g_h)
+        worst = max(grel, key=grel.get)
+        if grel[worst] <= GRAD_TOL or k == KINK_TRIES:
+            break
+        crossed.append(k)
+        log("  %s, smooth on the CPU: the card's gradient of %s is %.3e of its "
+            "largest away: the card crossed a kink there; the next seeded point"
+            % ("the trained parameters" if k == 0 else "seeded point %d" % k,
+               worst, grel[worst]))
+        k += 1
+    out_err = float(np.abs(out_c - out_h).max() / np.abs(out_h).max())
+    log("  one GAN step at batch %d, card vs CPU, %s (CPU gradient's largest "
+        "move under a +-%.0e parameter move %.3e, %s; points where the card "
+        "crossed a kink: %s): D(fake) max abs diff / max %.3e; worst gradient "
+        "%s: max abs diff / max abs grad %.3e (tol %.0e over %d gradients)"
+        % (b, "at the trained parameters" if k == 0 else
+           "at seeded point %d within %.0e of the trained parameters"
+           % (k, KINK_STEP), PERTURBATION, move, kink, crossed, out_err,
+           worst, grel[worst], GRAD_TOL, len(grel)))
+    check(all(np.isfinite(v).all() for v in g_c.values()), "non-finite gradient")
+    check(grel[worst] <= GRAD_TOL, "DCGAN gradients: card disagrees with CPU")
+
+
+def op_sweep(mx):
+    """18(c): every registered op name (and the sweep's variants) forward
+    and backward on the card against the port's own CPU result, at the
+    CPU tests' shapes and seeds (mxnet_tpu_torch.test_utils): every
+    output, gradient and aux array on cuda:0; smooth float32 ops within
+    SWEEP_TOL of the largest CPU value, the rest exactly; the samplers by
+    shape, dtype and finiteness."""
+    from mxnet_tpu_torch.ops.registry import list_ops
+    from mxnet_tpu_torch.test_utils import op_cases, run_case
+
+    cases = op_cases(list_ops())
+    worst, failures, kinds = (None, -1.0), [], {}
+    for cid in sorted(cases):
+        case = cases[cid]
+        kinds[case.kind] = kinds.get(case.kind, 0) + 1
+        devices = []
+        try:
+            c_out, c_grad, c_aux = run_case(mx, case, mx.gpu(0), devices)
+            h_out, h_grad, h_aux = run_case(mx, case, mx.cpu())
+        except Exception as e:  # noqa: BLE001 - every failure is listed
+            failures.append("%s: %s" % (cid, e))
+            continue
+        if any(d != "cuda:0" for d in devices):
+            failures.append("%s: arrays on %s" % (cid, sorted(set(devices))))
+        pairs = (list(zip(c_out, h_out)) + [(c_grad[n], h_grad[n]) for n in h_grad]
+                 + list(zip(c_aux, h_aux)))
+        for a, h in pairs:
+            if a.shape != h.shape or a.dtype != h.dtype:
+                failures.append("%s: %s %s against %s %s"
+                                % (cid, a.shape, a.dtype, h.shape, h.dtype))
+            elif case.kind == "random":
+                if not np.isfinite(a).all():
+                    failures.append("%s: non-finite draw" % cid)
+            elif case.kind == "exact":
+                if not np.array_equal(a, h, equal_nan=True):
+                    failures.append("%s: not bitwise equal" % cid)
+            else:
+                a64, h64 = a.astype(np.float64), h.astype(np.float64)
+                err = float(np.nanmax(np.abs(a64 - h64)) / max(np.nanmax(np.abs(h64)), 1e-30)) \
+                    if h.size else 0.0
+                if not np.array_equal(np.isnan(a64), np.isnan(h64)):
+                    err = math.inf
+                if err > worst[1]:
+                    worst = (cid, err)
+                if err > SWEEP_TOL:
+                    failures.append("%s: %.3e of the largest" % (cid, err))
+    log("  op sweep, card vs CPU: %d cases over %d registered op names (%s); "
+        "worst smooth case %s at %.3e of the largest CPU value (tol %.0e); "
+        "%d failures%s"
+        % (len(cases), len(list_ops()), ", ".join("%d %s" % (n, k) for k, n in
+                                                   sorted(kinds.items())),
+           worst[0], worst[1], SWEEP_TOL, len(failures),
+           "".join("\n    " + f for f in failures)))
+    check(not failures, "the op sweep failed on the card")
+
+
+def run_dcgan_tool():
+    """18(d): tools/dcgan.py at the example's defaults for a few steps."""
+    from mxnet_tpu_torch.tools import dcgan
+
+    rc = dcgan.main(["--num-epochs", "1", "--steps-per-epoch", "10"])
+    check(rc == 0, "tools/dcgan.py failed (a non-finite loss)")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -2970,6 +3196,8 @@ def main():
     kind = torch.cuda.get_device_name(0)
     log("  %s | torch %s | CUDA %s | %s" % (card, torch.__version__,
                                             torch.version.cuda, sys.version))
+    op_us = host_us_per_op()
+    log("  host time to enqueue a small op: %.3f us" % op_us)
 
     log("== 2. build")
     t0 = time.perf_counter()
@@ -3181,6 +3409,19 @@ def main():
     log("== 17. the image-classification zoo through tools/train_imagenet "
         "(%s)" % card)
     run_image_zoo(mx, build, card)
+
+    log("== 18. DCGAN through two Modules; the operator sweep (%s)" % card)
+    log("  host time to enqueue a small op: %.3f us (phase 1: %.3f us)"
+        % (host_us_per_op(), op_us))
+    log("  (a) DCGAN at the reference widths")
+    gen, dis = run_dcgan(mx, build, card)
+    log("  (b) one GAN step, card vs CPU")
+    dcgan_step_card_vs_cpu(mx, gen, dis)
+    del gen, dis
+    log("  (c) every registered op, card vs CPU")
+    op_sweep(mx)
+    log("  (d) tools/dcgan.py at the example's defaults")
+    run_dcgan_tool()
 
     log(card)
     print(json.dumps({"kernels": rows}), flush=True)

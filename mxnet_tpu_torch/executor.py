@@ -76,11 +76,13 @@ def cast_compute(names, tensors, compute_dtype, exempt):
 
 
 def build_graph_fn(symbol):
-    """Build ``fn(arg_list, aux_list, is_train) -> (outputs, new_auxs)``
-    over torch tensors, with arguments and aux states in the symbol's
-    ``list_arguments``/``list_auxiliary_states`` order. A graph with a
-    stochastic op draws from the :mod:`.random` generator of the device
-    its arguments lie on, in the graph's topological order."""
+    """Build ``fn(arg_list, aux_list, is_train, device=None) -> (outputs,
+    new_auxs)`` over torch tensors, with arguments and aux states in the
+    symbol's ``list_arguments``/``list_auxiliary_states`` order. The graph
+    runs on the device its arguments lie on (``device`` for a graph with
+    none, where its creation and sampling ops make their outputs); a
+    stochastic op draws from that device's :mod:`.random` generator, in
+    the graph's topological order."""
     order = _topo_order(symbol._entries)
     _, aux_vars = symbol._arg_aux_split()
     arg_names = symbol.list_arguments()
@@ -97,10 +99,10 @@ def build_graph_fn(symbol):
                      and get_op(node.op).stochastic(node.attrs)
                      for node in order)
 
-    def graph_fn(arg_list, aux_list, is_train):
+    def graph_fn(arg_list, aux_list, is_train, device=None):
         vals = {}
         new_aux = list(aux_list)
-        device = arg_list[0].device if arg_list else None
+        device = arg_list[0].device if arg_list else device
         octx = OpContext(is_train=is_train, device=device,
                          rng=(_random.generator(device)
                               if stochastic and device is not None else None))
@@ -204,12 +206,14 @@ class Executor:
                 args[i] = args[i].detach().requires_grad_(True)
                 leaves.append(args[i])
             with torch.enable_grad():
-                outs, new_aux = self._graph_fn(self._cast(args), auxs, True)
+                outs, new_aux = self._graph_fn(self._cast(args), auxs, True,
+                                               self._ctx)
             self._pending = (leaves, outs)
             self._outputs = [o.detach() for o in outs]
         else:
             with torch.no_grad():
-                outs, new_aux = self._graph_fn(self._cast(args), auxs, False)
+                outs, new_aux = self._graph_fn(self._cast(args), auxs, False,
+                                               self._ctx)
             self._pending = None
             self._outputs = outs
         if is_train:
@@ -297,4 +301,4 @@ class Executor:
                 raise ValueError("Find name %s that is not in the auxiliary states" % name)
 
     def set_monitor_callback(self, callback, is_active=None):
-        raise MXNetError("monitor callbacks are not ported yet (ROADMAP.md A4)")
+        raise MXNetError("monitor callbacks are not ported yet (ROADMAP.md A7)")

@@ -4,10 +4,11 @@ the JAX package exposes it: ``models.transformer_lm(...)``,
 the image-classification zoo (``mlp``, ``lenet``, ``alexnet``,
 ``vgg``, ``googlenet``, ``inception_bn``, ``inception_v3``,
 ``inception_resnet_v2``, ``resnext``) build the training symbols;
-``models.lstm_lm(...)`` a ``BucketingModule``'s ``sym_gen``. ``dcgan``
-and ``ssd`` wait for ``ROADMAP.md`` A4 (they need ``Deconvolution``,
-``LogisticRegressionOutput`` and the ``MultiBox*`` ops)."""
+``models.lstm_lm(...)`` a ``BucketingModule``'s ``sym_gen``;
+``make_generator``/``make_discriminator`` DCGAN's two symbols. ``ssd``
+waits for the ``MultiBox*`` contrib ops (``ROADMAP.md`` A4)."""
 from .alexnet import get_symbol as alexnet
+from .dcgan import make_discriminator, make_generator
 from .googlenet import get_symbol as googlenet
 from .inception_bn import get_symbol as inception_bn
 from .inception_resnet_v2 import get_symbol as inception_resnet_v2
@@ -20,6 +21,6 @@ from .resnext import get_symbol as resnext
 from .transformer_lm import get_symbol as transformer_lm
 from .vgg import get_symbol as vgg
 
-__all__ = ["alexnet", "googlenet", "inception_bn", "inception_resnet_v2",
+__all__ = ["alexnet", "make_discriminator", "make_generator", "googlenet", "inception_bn", "inception_resnet_v2",
            "inception_v3", "lenet", "lstm_lm", "mlp", "resnet", "resnext",
            "transformer_lm", "vgg"]

@@ -1,11 +1,11 @@
 """NDArray of the port (counterpart of ``mxnet_tpu/ndarray.py``).
 
 An :class:`NDArray` holds one ``torch.Tensor`` on one device (a
-:mod:`~.context` ``torch.device``). This slice carries what binding and
-training touch: shape, dtype, context, ``asnumpy``, full-slice
-assignment, basic slicing, ``copyto``/``as_in_context`` and the
-constructors, and ``save``/``load`` of ``.params`` files in the
-reference's binary format with the JAX package's CRC footer, byte for byte.
+:mod:`~.context` ``torch.device``): shape, dtype, context, ``asnumpy``,
+full-slice assignment, basic slicing, ``copyto``/``as_in_context``/
+``copy``, ``astype``/``reshape``/``broadcast_to``/``T``, the constructors,
+and ``save``/``load`` of ``.params`` files in the reference's binary
+format with the JAX package's CRC footer, byte for byte.
 Every registered op is also an imperative function here
 (``nd.take``, ``nd.softmax``, ``nd.contrib.PagedAttention``, ...), made
 on first use: its inputs are NDArrays (positional, or by keyword for the
@@ -14,8 +14,14 @@ without autograd on the inputs' device (an op without inputs on
 ``ctx=``, the card by default; the sampling ops of :mod:`.ops.sample`
 draw from that device's :mod:`.random` generator), and an op's updated
 aux states are written back into the aux NDArrays passed in (as the JAX
-package does). The rest of the imperative surface (arithmetic operators,
-``autograd``) waits for ``ROADMAP.md`` A4.
+package does), and an op that mutates its inputs (the ``*_update``
+optimizer ops) writes them in place. The Python operators dispatch as
+the JAX package's do: an NDArray operand takes the ``broadcast_*`` op, a
+number the ``*_scalar`` op (``+ - * / % **``, the comparisons, which
+give 0/1 in the input's dtype, and ``==``/``!=`` against ``None``, which
+give False/True); an NDArray hashes by identity, so it can key a dict.
+The module functions ``add`` ... ``lesser_equal`` take a number on
+either side. ``autograd`` waits for ``ROADMAP.md`` A7.
 
 Writes replace or update the held tensor: an executor, an optimizer and
 a module that share one NDArray object all see the newest value.
@@ -34,8 +40,11 @@ from . import random as _random
 from .base import MXNetError, torch_dtype
 from .ops.registry import OpContext, get_op, has_op
 
-__all__ = ["NDArray", "array", "empty", "zeros", "ones", "save", "load",
-           "imperative_invoke"]
+__all__ = ["NDArray", "array", "empty", "zeros", "ones", "full", "arange",
+           "concatenate", "moveaxis", "onehot_encode", "add", "subtract",
+           "multiply", "divide", "true_divide", "power", "maximum", "minimum",
+           "equal", "not_equal", "greater", "greater_equal", "lesser",
+           "lesser_equal", "save", "load", "imperative_invoke"]
 
 
 def _np_dtype(dtype):
@@ -138,6 +147,140 @@ class NDArray:
             self._data[key] = src
 
 
+    # ---- views and conversions ------------------------------------------
+    @property
+    def T(self):
+        return imperative_invoke("transpose", [self], {})
+
+    def copy(self):
+        return NDArray(self._data.detach().clone())
+
+    def astype(self, dtype):
+        return imperative_invoke("Cast", [self], {"dtype": np.dtype(dtype)})
+
+    def reshape(self, shape, **kwargs):
+        if isinstance(shape, builtins.int):
+            shape = (shape,)
+        return imperative_invoke("Reshape", [self], {"shape": tuple(shape)})
+
+    def broadcast_to(self, shape):
+        return imperative_invoke("broadcast_to", [self], {"shape": tuple(shape)})
+
+    def asscalar(self):
+        if self.size != 1:
+            raise ValueError("The current array is not a scalar")
+        return self.asnumpy().reshape(-1)[0]
+
+    def wait_to_read(self):
+        if self._data.is_cuda:
+            torch.cuda.current_stream(self._data.device).synchronize()
+
+    # ---- arithmetic (the JAX package's dispatch) --------------------------
+    def _binary(self, other, op, scalar_op, reverse=False):
+        if isinstance(other, NDArray):
+            a, b = (other, self) if reverse else (self, other)
+            return imperative_invoke(op, [a, b], {})
+        if isinstance(other, (builtins.int, builtins.float, np.generic)):
+            return imperative_invoke(scalar_op, [self], {"scalar": builtins.float(other)})
+        return NotImplemented
+
+    def _rscalar(self, other, rscalar_op, op, scalar_op):
+        if isinstance(other, (builtins.int, builtins.float, np.generic)):
+            return imperative_invoke(rscalar_op, [self], {"scalar": builtins.float(other)})
+        return self._binary(other, op, scalar_op, reverse=True)
+
+    def __add__(self, o):
+        return self._binary(o, "broadcast_add", "_plus_scalar")
+
+    __radd__ = __add__
+
+    def __sub__(self, o):
+        return self._binary(o, "broadcast_sub", "_minus_scalar")
+
+    def __rsub__(self, o):
+        return self._rscalar(o, "_rminus_scalar", "broadcast_sub", "_minus_scalar")
+
+    def __mul__(self, o):
+        return self._binary(o, "broadcast_mul", "_mul_scalar")
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, o):
+        return self._binary(o, "broadcast_div", "_div_scalar")
+
+    def __rtruediv__(self, o):
+        return self._rscalar(o, "_rdiv_scalar", "broadcast_div", "_div_scalar")
+
+    def __mod__(self, o):
+        return self._binary(o, "broadcast_mod", "_mod_scalar")
+
+    def __pow__(self, o):
+        return self._binary(o, "broadcast_power", "_power_scalar")
+
+    def __neg__(self):
+        return imperative_invoke("negative", [self], {})
+
+    def __abs__(self):
+        return imperative_invoke("abs", [self], {})
+
+    def __eq__(self, o):
+        if o is None:
+            return False
+        return self._binary(o, "broadcast_equal", "_equal_scalar")
+
+    def __ne__(self, o):
+        if o is None:
+            return True
+        return self._binary(o, "broadcast_not_equal", "_not_equal_scalar")
+
+    def __gt__(self, o):
+        return self._binary(o, "broadcast_greater", "_greater_scalar")
+
+    def __ge__(self, o):
+        return self._binary(o, "broadcast_greater_equal", "_greater_equal_scalar")
+
+    def __lt__(self, o):
+        return self._binary(o, "broadcast_lesser", "_lesser_scalar")
+
+    def __le__(self, o):
+        return self._binary(o, "broadcast_lesser_equal", "_lesser_equal_scalar")
+
+    def __hash__(self):
+        return id(self)
+
+    def _inplace(self, result):
+        """``a op= b``: the result written into the held tensor where its
+        shape and dtype allow (so whoever holds the tensor sees it), else
+        the array rebound to it."""
+        if result is NotImplemented:
+            return result
+        r = result.data
+        if r.shape == self._data.shape and r.dtype == self._data.dtype:
+            with torch.no_grad():
+                self._data.copy_(r)
+        else:
+            self._set_data(r)
+        return self
+
+    def __iadd__(self, o):
+        return self._inplace(self.__add__(o))
+
+    def __isub__(self, o):
+        return self._inplace(self.__sub__(o))
+
+    def __imul__(self, o):
+        return self._inplace(self.__mul__(o))
+
+    def __itruediv__(self, o):
+        return self._inplace(self.__truediv__(o))
+
+    def __bool__(self):
+        if self.size == 1:
+            return bool(self.asscalar())
+        raise ValueError("The truth value of an NDArray with multiple "
+                         "elements is ambiguous")
+
+
 # ---- creation -----------------------------------------------------------
 def _device(ctx):
     return _context.resolve(ctx)
@@ -184,6 +327,122 @@ def zeros(shape, ctx=None, dtype=None, **kwargs):
 
 def ones(shape, ctx=None, dtype=None, **kwargs):
     return _full(shape, 1, ctx, dtype)
+
+
+def full(shape, val, ctx=None, dtype=None):
+    return _full(shape, builtins.float(val), ctx, dtype)
+
+
+def arange(start, stop=None, step=1.0, repeat=1, ctx=None, dtype=None):
+    """The ``_arange`` op on ``ctx`` (default: the card)."""
+    return imperative_invoke("_arange", [], {
+        "start": builtins.float(start),
+        "stop": None if stop is None else builtins.float(stop),
+        "step": builtins.float(step), "repeat": builtins.int(repeat),
+        "dtype": np.dtype(dtype) if dtype else None}, ctx=ctx)
+
+
+def concatenate(arrays, axis=0, always_copy=True):
+    return imperative_invoke("Concat", list(arrays),
+                             {"num_args": len(arrays), "dim": axis})
+
+
+def moveaxis(tensor, source, destination):
+    """``tensor`` with axis ``source`` moved to ``destination`` (numpy's
+    rule: a negative axis counts from the end, one out of range raises)."""
+    nd_ = tensor.ndim
+
+    def _norm(ax, what):
+        if not -nd_ <= ax < nd_:
+            raise ValueError("%s %d out of bounds for %d-d array" % (what, ax, nd_))
+        return ax + nd_ if ax < 0 else ax
+
+    source = _norm(source, "source")
+    destination = _norm(destination, "destination")
+    axes = list(range(nd_))
+    axes.pop(source)
+    axes.insert(destination, source)
+    return imperative_invoke("transpose", [tensor], {"axes": tuple(axes)})
+
+
+def onehot_encode(indices, out):
+    """Write the one-hot rows of ``indices`` (depth ``out.shape[1]``) into
+    ``out``."""
+    res = imperative_invoke("one_hot", [indices], {"depth": out.shape[1]})
+    out._set_data(res.data.to(out.data.dtype))
+    return out
+
+
+# ---- module-level binary functions: an NDArray or a number on each side --
+def _module_binary(lhs, rhs, op, scalar_op, rscalar_op=None):
+    if isinstance(lhs, NDArray):
+        if isinstance(rhs, NDArray):
+            return imperative_invoke(op, [lhs, rhs], {})
+        return imperative_invoke(scalar_op, [lhs], {"scalar": builtins.float(rhs)})
+    if isinstance(rhs, NDArray):
+        # a commutative op takes the scalar op itself
+        return imperative_invoke(rscalar_op or scalar_op, [rhs],
+                                 {"scalar": builtins.float(lhs)})
+    raise TypeError("at least one operand must be an NDArray")
+
+
+def add(lhs, rhs):
+    return _module_binary(lhs, rhs, "broadcast_add", "_plus_scalar")
+
+
+def subtract(lhs, rhs):
+    return _module_binary(lhs, rhs, "broadcast_sub", "_minus_scalar", "_rminus_scalar")
+
+
+def multiply(lhs, rhs):
+    return _module_binary(lhs, rhs, "broadcast_mul", "_mul_scalar")
+
+
+def divide(lhs, rhs):
+    return _module_binary(lhs, rhs, "broadcast_div", "_div_scalar", "_rdiv_scalar")
+
+
+true_divide = divide
+
+
+def power(lhs, rhs):
+    return _module_binary(lhs, rhs, "broadcast_power", "_power_scalar", "_rpower_scalar")
+
+
+def maximum(lhs, rhs):
+    return _module_binary(lhs, rhs, "broadcast_maximum", "_maximum_scalar")
+
+
+def minimum(lhs, rhs):
+    return _module_binary(lhs, rhs, "broadcast_minimum", "_minimum_scalar")
+
+
+def equal(lhs, rhs):
+    return _module_binary(lhs, rhs, "broadcast_equal", "_equal_scalar")
+
+
+def not_equal(lhs, rhs):
+    return _module_binary(lhs, rhs, "broadcast_not_equal", "_not_equal_scalar")
+
+
+def greater(lhs, rhs):
+    return _module_binary(lhs, rhs, "broadcast_greater", "_greater_scalar",
+                          "_lesser_scalar")
+
+
+def greater_equal(lhs, rhs):
+    return _module_binary(lhs, rhs, "broadcast_greater_equal",
+                          "_greater_equal_scalar", "_lesser_equal_scalar")
+
+
+def lesser(lhs, rhs):
+    return _module_binary(lhs, rhs, "broadcast_lesser", "_lesser_scalar",
+                          "_greater_scalar")
+
+
+def lesser_equal(lhs, rhs):
+    return _module_binary(lhs, rhs, "broadcast_lesser_equal",
+                          "_lesser_equal_scalar", "_greater_equal_scalar")
 
 
 
@@ -371,10 +630,17 @@ def imperative_invoke(op_name, ndargs, attrs, out=None, ctx=None):
     with torch.no_grad():
         outs, new_auxs = op.forward(octx, attrs, tensors[:n_args],
                                     tensors[n_args:])
+        n_vis = builtins.max(op.num_visible_outputs(attrs), 1)
+        # the reference's FMutateInputs: states written in place
+        for pos, new in zip(op.mutate_inputs, outs[n_vis:]):
+            ndargs[pos].data.copy_(new)
     for nda, new in zip(ndargs[n_args:], new_auxs):
         nda._set_data(new)
-    results = [NDArray(o) for o in outs[:builtins.max(
-        op.num_visible_outputs(attrs), 1)]]
+    # an output that is a view of an input (transpose, broadcast_to, a
+    # slice) gets its own memory, as every JAX array has
+    held = {t.untyped_storage().data_ptr() for t in tensors}
+    results = [NDArray(o.clone() if o.untyped_storage().data_ptr() in held
+                       else o) for o in outs[:n_vis]]
     if out is not None:
         outs_nd = [out] if isinstance(out, NDArray) else list(out)
         for dst, src in zip(outs_nd, results):
@@ -403,6 +669,8 @@ def _make_ndarray_function(op_name):
                     "inputs after the %d positional one(s) (%s)"
                     % (op_name, sorted(nd_kwargs), len(ndargs), want))
             ndargs += [nd_kwargs[n] for n in want]
+        if op.key_var_num_args and op.key_var_num_args not in attrs:
+            attrs[op.key_var_num_args] = len(ndargs)
         return imperative_invoke(op_name, ndargs, attrs, out=out, ctx=ctx)
 
     fn.__name__ = op_name

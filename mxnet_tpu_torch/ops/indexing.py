@@ -7,8 +7,15 @@ wraps to ``id + V``, and any other id outside ``[0, V)`` yields a row of
 NaN with no gradient. The gather reads a clamped index, so no id ever
 reads outside the table, on the CPU or on the card, and nothing syncs
 with the host to check them. ``take`` clips or wraps its indices into
-range (``mode``), as ``jnp.take`` does. The rest of the file waits for
-ROADMAP A4.
+range (``mode``), as ``jnp.take`` does.
+
+``batch_take``, ``pick`` (alias ``choose_element_0index``),
+``fill_element_0index``, ``one_hot``, ``gather_nd`` and ``scatter_nd``.
+A negative index counts from the end, as numpy's; the gathers clamp
+the index they read, so none reads outside its input. ``one_hot`` gives
+an all-``off_value`` row for an index outside ``[0, depth)``, as
+``jax.nn.one_hot`` does. ``scatter_nd`` adds where indices repeat
+(the JAX package's ``.at[].add``). Indices carry no gradient.
 """
 from __future__ import annotations
 
@@ -16,6 +23,7 @@ import math
 
 import torch
 
+from ..base import torch_dtype
 from .registry import Param, get_op, register, register_simple
 
 
@@ -63,3 +71,91 @@ def _take(attrs, a, indices):
 register_simple(
     "take", _take, arg_names=("a", "indices"),
     params={"axis": Param.int(0), "mode": Param.str("clip")})
+
+
+
+def _index(t, n=None):
+    """Float indices as int64, truncated toward zero; with ``n``, a
+    negative one counts from the end and all are clamped into range."""
+    idx = t.detach().to(torch.int32).to(torch.int64)
+    if n is None:
+        return idx
+    return torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)
+
+
+def _batch_take(attrs, a, indices):
+    idx = _index(indices, a.shape[1])
+    return a.gather(1, idx[:, None])[:, 0]
+
+
+register_simple("batch_take", _batch_take, arg_names=("a", "indices"))
+
+
+def _one_hot(attrs, indices):
+    idx = _index(indices)
+    depth = attrs["depth"]
+    hot = (idx[..., None] == torch.arange(depth, device=idx.device)).to(torch.float32)
+    on, off = attrs["on_value"], attrs["off_value"]
+    dt = torch_dtype(attrs["dtype"] if attrs["dtype"] is not None else "float32")
+    return (hot * (on - off) + off).to(dt)
+
+
+register_simple(
+    "one_hot", _one_hot, arg_names=("indices",),
+    params={
+        "depth": Param.int(),
+        "on_value": Param.float(1.0),
+        "off_value": Param.float(0.0),
+        "dtype": Param.dtype(None),
+    })
+
+
+def _opt_int(v):
+    return None if v in (None, "None", "") else int(float(v))
+
+
+def _pick(attrs, data, index):
+    ax = attrs["axis"]
+    ax = data.dim() - 1 if ax is None else ax % data.dim()
+    idx = _index(index, data.shape[ax])
+    if idx.dim() < data.dim():
+        idx = idx.unsqueeze(ax)
+    out = data.gather(ax, idx)
+    return out if attrs["keepdims"] else out.squeeze(ax)
+
+
+register_simple("pick", _pick, arg_names=("data", "index"),
+                params={"axis": Param(_opt_int, -1), "keepdims": Param.bool(False)},
+                alias=("choose_element_0index",))
+
+
+def _fill_element_0index(attrs, lhs, mhs, rhs):
+    out = lhs.clone()
+    rows = torch.arange(lhs.shape[0], device=lhs.device)
+    out[rows, _index(rhs, lhs.shape[1])] = mhs.to(lhs.dtype)
+    return out
+
+
+register_simple("fill_element_0index", _fill_element_0index,
+                arg_names=("lhs", "mhs", "rhs"))
+
+
+def _nd_index(data_shape, indices):
+    idx = _index(indices)
+    return tuple(torch.where(idx[i] < 0, idx[i] + data_shape[i], idx[i])
+                 .clamp(0, data_shape[i] - 1) for i in range(idx.shape[0]))
+
+
+register_simple("gather_nd",
+                lambda attrs, data, indices: data[_nd_index(data.shape, indices)],
+                arg_names=("data", "indices"))
+
+
+def _scatter_nd(attrs, data, indices):
+    shape = tuple(attrs["shape"])
+    out = torch.zeros(shape, dtype=data.dtype, device=data.device)
+    return out.index_put(_nd_index(shape, indices), data, accumulate=True)
+
+
+register_simple("scatter_nd", _scatter_nd, arg_names=("data", "indices"),
+                params={"shape": Param.shape()})

@@ -8,7 +8,8 @@ graph runs on (``OpContext.device``). MXNet writes 0 for the batch it
 does not know yet in a creation shape (``BaseRNNCell.begin_state`` asks
 for ``(0, H)``); as in the JAX package that dimension becomes 1 and the
 ops downstream broadcast it to the real batch, with the same values and
-gradients. ``_arange`` waits for ``ROADMAP.md`` A4.
+gradients. ``_arange`` (``start``, ``stop``, ``step``, each value
+``repeat`` times) counts in float64 and rounds once to its dtype.
 """
 from __future__ import annotations
 
@@ -49,3 +50,24 @@ register_simple("zeros_like", lambda attrs, x: torch.zeros_like(x),
                 arg_names=("data",))
 register_simple("ones_like", lambda attrs, x: torch.ones_like(x),
                 arg_names=("data",))
+
+
+
+def _arange(octx, attrs, args, auxs):
+    start, stop, step = attrs["start"], attrs["stop"], attrs["step"]
+    if stop is None:
+        start, stop = 0.0, start
+    out = torch.arange(start, stop, step, dtype=torch.float64,
+                       device=octx.device).to(_dtype_or(attrs))
+    if attrs["repeat"] > 1:
+        out = out.repeat_interleave(attrs["repeat"])
+    return [out], []
+
+
+register("_arange", arg_names=(), params={
+    "start": Param.float(0.0),
+    "stop": Param(lambda v: None if v in (None, "None", "") else float(v), None),
+    "step": Param.float(1.0),
+    "repeat": Param.int(1),
+    "dtype": Param.dtype(None),
+})(_arange)

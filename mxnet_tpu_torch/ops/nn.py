@@ -11,8 +11,10 @@ on both sides. BatchNorm is written out rather than handed to
 JAX package's (see :func:`_batch_norm`). Also
 ``LeakyReLU`` (leaky, elu, prelu, rrelu), ``LRN`` and ``Dropout``, which
 draws its mask through :func:`.sample.dropout_mask` from the graph's
-generator. Deconvolution, the other normalisations and the sequence ops
-wait for ROADMAP A4.
+generator. ``Deconvolution`` (``conv_transpose``), ``InstanceNorm``,
+``L2Normalization``, ``SoftmaxActivation``, ``UpSampling`` (nearest, and
+bilinear through the deconvolution) and ``SequenceMask``/``Last``/
+``Reverse``.
 """
 from __future__ import annotations
 
@@ -191,6 +193,78 @@ def _conv_infer_shape(attrs, in_shapes, aux_shapes):
 
 
 get_op("Convolution")._infer_shape = _conv_infer_shape
+
+
+# ---------------------------------------------------------------- Deconvolution
+_DECONV_PARAMS = dict(_CONV_PARAMS)
+_DECONV_PARAMS.update({"adj": Param.shape(()), "target_shape": Param.shape(())})
+_DECONV_FNS = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+               3: F.conv_transpose3d}
+
+
+def _check_channel_first(attrs):
+    if (attrs.get("layout") or "None") not in ("None", "", "NCW", "NCHW",
+                                               "NCDHW"):
+        raise MXNetError("Deconvolution: only channel-first layouts supported")
+
+
+def _deconvolve(data, weight, attrs):
+    """The transposed convolution of the JAX package's ``Deconvolution``
+    (no bias): output length ``(in - 1) * stride - 2 * pad + dilate *
+    (kernel - 1) + 1 + adj`` per axis. MXNet's weight layout
+    ``(C_in, num_filter / num_group, k...)`` is ``conv_transpose``'s own;
+    ``adj`` is its ``output_padding``, which torch takes only below the
+    stride or the dilation: past that, the whole transposed convolution
+    is cut to the same window (zeros past its end)."""
+    nd = len(attrs["kernel"])
+    stride, dilate, pad = _conv_tuples(attrs, nd)
+    adj = attrs["adj"] or (0,) * nd
+    fn = _DECONV_FNS[nd]
+    ng = attrs["num_group"]
+    if all(a < max(s, d) for a, s, d in zip(adj, stride, dilate)):
+        return fn(data, weight, None, stride, pad, adj, ng, dilate)
+    full = fn(data, weight, None, stride, 0, 0, ng, dilate)
+    k = attrs["kernel"]
+    lens = [(data.shape[2 + i] - 1) * stride[i] - 2 * pad[i]
+            + dilate[i] * (k[i] - 1) + 1 + adj[i] for i in range(nd)]
+    extra = [max(0, pad[i] + lens[i] - full.shape[2 + i]) for i in range(nd)]
+    full = F.pad(full, [e for x in reversed(extra) for e in (0, x)])
+    return full[(slice(None), slice(None))
+                + tuple(slice(pad[i], pad[i] + lens[i]) for i in range(nd))]
+
+
+@register(
+    "Deconvolution",
+    arg_names=lambda attrs: ["data", "weight"] + ([] if attrs.get("no_bias") else ["bias"]),
+    params=_DECONV_PARAMS,
+)
+def _deconvolution(octx, attrs, args, auxs):
+    _check_channel_first(attrs)
+    out = _deconvolve(args[0], args[1], attrs)
+    if not attrs["no_bias"]:
+        out = out + args[2].reshape((1, -1) + (1,) * (out.dim() - 2))
+    return [out], []
+
+
+def _deconv_infer_shape(attrs, in_shapes, aux_shapes):
+    # the JAX package's rule, line for line: target_shape is not read
+    _check_channel_first(attrs)
+    data = in_shapes[0]
+    nd = len(attrs["kernel"])
+    stride, dilate, pad = _conv_tuples(attrs, nd)
+    nf, ng = attrs["num_filter"], attrs["num_group"]
+    adj = attrs["adj"] or (0,) * nd
+    wshape = (data[1], nf // ng) + tuple(attrs["kernel"])
+    spatial = tuple(
+        (data[2 + i] - 1) * stride[i] - 2 * pad[i]
+        + (dilate[i] * (attrs["kernel"][i] - 1) + 1) + adj[i]
+        for i in range(nd))
+    out = (data[0], nf) + spatial
+    shapes = [tuple(data), wshape] + ([] if attrs["no_bias"] else [(nf,)])
+    return shapes, [out], []
+
+
+get_op("Deconvolution")._infer_shape = _deconv_infer_shape
 
 
 # ---------------------------------------------------------------- Pooling
@@ -498,3 +572,186 @@ def _dropout(octx, attrs, args, auxs):
 get_op("Dropout")._infer_shape = (
     lambda attrs, in_shapes, aux_shapes: (
         [tuple(in_shapes[0])], [tuple(in_shapes[0])] * 2, []))
+
+
+# ---------------------------------------------------------------- InstanceNorm
+@register("InstanceNorm", arg_names=("data", "gamma", "beta"),
+          params={"eps": Param.float(1e-3)})
+def _instance_norm(octx, attrs, args, auxs):
+    x, gamma, beta = args
+    red = tuple(range(2, x.dim()))
+    mean = x.mean(dim=red, keepdim=True)
+    var = torch.square(x - mean).mean(dim=red, keepdim=True)   # as jnp.var
+    bshape = (1, -1) + (1,) * (x.dim() - 2)
+    out = (x - mean) * torch.rsqrt(var + attrs["eps"])
+    return [out * gamma.reshape(bshape) + beta.reshape(bshape)], []
+
+
+def _in_infer_shape(attrs, in_shapes, aux_shapes):
+    data = in_shapes[0]
+    c = (data[1],)
+    return [tuple(data), c, c], [tuple(data)], []
+
+
+get_op("InstanceNorm")._infer_shape = _in_infer_shape
+
+
+# ---------------------------------------------------------------- L2Normalization
+@register("L2Normalization", arg_names=("data",),
+          params={"eps": Param.float(1e-10), "mode": Param.str("instance")})
+def _l2_normalization(octx, attrs, args, auxs):
+    x = args[0]
+    red = {"instance": tuple(range(1, x.dim())), "channel": (1,),
+           "spatial": tuple(range(2, x.dim()))}.get(attrs["mode"])
+    if red is None:
+        raise MXNetError("L2Normalization: unknown mode %s" % attrs["mode"])
+    norm = torch.sqrt(torch.square(x).sum(dim=red, keepdim=True) + attrs["eps"])
+    return [x / norm], []
+
+
+# ---------------------------------------------------------------- SoftmaxActivation
+@register("SoftmaxActivation", arg_names=("data",),
+          params={"mode": Param.str("instance")})
+def _softmax_activation(octx, attrs, args, auxs):
+    x = args[0]
+    if attrs["mode"] == "channel":
+        return [torch.softmax(x, dim=1)], []
+    return [torch.softmax(x.reshape(x.shape[0], -1), dim=-1).reshape(x.shape)], []
+
+
+# ---------------------------------------------------------------- UpSampling
+def _nearest(x, s):
+    return x.repeat_interleave(s, dim=2).repeat_interleave(s, dim=3)
+
+
+@register(
+    "UpSampling",
+    arg_names=lambda attrs: (
+        ["arg%d" % i for i in range(int(attrs.get("num_args", 1)))]
+        if attrs.get("sample_type") == "nearest" else ["data", "weight"]),
+    params={
+        "scale": Param.int(),
+        "num_filter": Param.int(0),
+        "sample_type": Param.str("nearest"),
+        "multi_input_mode": Param.str("concat"),
+        "num_args": Param.int(1),
+        "workspace": Param.int(512),
+    },
+    key_var_num_args="num_args",
+)
+def _upsampling(octx, attrs, args, auxs):
+    s = attrs["scale"]
+    if attrs["sample_type"] == "nearest":
+        # the first input scales by ``scale``, the others to its size
+        first = _nearest(args[0], s)
+        ups = [first] + [_nearest(x, first.shape[2] // x.shape[2])
+                         for x in args[1:]]
+        if len(ups) == 1:
+            return [ups[0]], []
+        if attrs["multi_input_mode"] == "sum":
+            out = ups[0]
+            for u in ups[1:]:
+                out = out + u
+            return [out], []
+        return [torch.cat(ups, dim=1)], []
+    # bilinear: a grouped deconvolution with the given weight
+    k = 2 * s - s % 2
+    p = (k - s) // 2
+    nf = attrs["num_filter"]
+    dattrs = {"kernel": (k, k), "stride": (s, s), "pad": (p, p),
+              "adj": (s % 2, s % 2), "num_group": nf, "dilate": (1, 1)}
+    return [_deconvolve(args[0], args[1], dattrs)], []
+
+
+def _upsampling_infer_shape(attrs, in_shapes, aux_shapes):
+    s = attrs["scale"]
+    data = in_shapes[0]
+    if attrs["sample_type"] == "nearest":
+        oh, ow = data[2] * s, data[3] * s
+        if len(in_shapes) == 1:
+            c = data[1]
+        else:
+            c = (sum(sh[1] for sh in in_shapes)
+                 if attrs["multi_input_mode"] == "concat" else data[1])
+        return [tuple(d) for d in in_shapes], [(data[0], c, oh, ow)], []
+    k = 2 * s - s % 2
+    nf = attrs["num_filter"]
+    return ([tuple(data), (data[1], 1, k, k)],
+            [(data[0], nf, data[2] * s, data[3] * s)], [])
+
+
+get_op("UpSampling")._infer_shape = _upsampling_infer_shape
+
+
+# ---------------------------------------------------------------- Sequence ops
+def _seq_args(attrs):
+    return ["data", "sequence_length"] if attrs.get("use_sequence_length") else ["data"]
+
+
+def _lengths(t):
+    """Per-sequence lengths as int64, truncated toward zero."""
+    return t.detach().to(torch.int32).to(torch.int64)
+
+
+@register("SequenceMask", arg_names=_seq_args,
+          params={"use_sequence_length": Param.bool(False),
+                  "value": Param.float(0.0), "axis": Param.int(0)})
+def _sequence_mask(octx, attrs, args, auxs):
+    x = args[0]
+    if not attrs["use_sequence_length"]:
+        return [x], []
+    ax = attrs["axis"]
+    xs = x.transpose(0, ax) if ax != 0 else x
+    ar = torch.arange(xs.shape[0], dtype=torch.float32, device=x.device)[:, None]
+    mask = (ar < args[1].detach().to(torch.float32)[None, :]).to(xs.dtype)
+    mask = mask.reshape(mask.shape + (1,) * (xs.dim() - 2))
+    out = xs * mask + attrs["value"] * (1 - mask)
+    return [out.transpose(0, ax) if ax != 0 else out], []
+
+
+def _take_time(xs, idx):
+    """``xs[idx[b], b, ...]`` per sequence b: the gather along time of
+    ``jnp.take_along_axis`` (a negative index counts from the end)."""
+    t = xs.shape[0]
+    idx = torch.where(idx < 0, idx + t, idx).clamp(0, t - 1)
+    idx = idx.reshape(idx.shape + (1,) * (xs.dim() - idx.dim())).expand(
+        idx.shape + xs.shape[idx.dim():])
+    return xs.gather(0, idx)
+
+
+@register("SequenceLast", arg_names=_seq_args,
+          params={"use_sequence_length": Param.bool(False), "axis": Param.int(0)})
+def _sequence_last(octx, attrs, args, auxs):
+    x = args[0]
+    ax = attrs["axis"]
+    xs = x.transpose(0, ax) if ax != 0 else x
+    if attrs["use_sequence_length"]:
+        out = _take_time(xs, (_lengths(args[1]) - 1)[None, :])[0]
+    else:
+        out = xs[-1]
+    return [out], []
+
+
+def _seqlast_infer_shape(attrs, in_shapes, aux_shapes):
+    data = in_shapes[0]
+    ax = attrs.get("axis", 0)
+    rest = tuple(d for i, d in enumerate(data) if i != ax)
+    shapes = [tuple(data)]
+    if attrs.get("use_sequence_length"):
+        shapes.append((data[1 - ax],))
+    return shapes, [rest], []
+
+
+get_op("SequenceLast")._infer_shape = _seqlast_infer_shape
+
+
+@register("SequenceReverse", arg_names=_seq_args,
+          params={"use_sequence_length": Param.bool(False), "axis": Param.int(0)})
+def _sequence_reverse(octx, attrs, args, auxs):
+    # time is axis 0 whatever ``axis`` says, as in the JAX package
+    x = args[0]
+    if not attrs["use_sequence_length"]:
+        return [torch.flip(x, (0,))], []
+    length = _lengths(args[1])[None, :]
+    ar = torch.arange(x.shape[0], device=x.device)[:, None]
+    return [_take_time(x, torch.where(ar < length, length - 1 - ar, ar))], []

@@ -8,10 +8,19 @@ They return new tensors; the optimizer rebinds its NDArrays to them.
 SGD, SGD with momentum, Adam, and RMSProp (``rmsprop_update``,
 Tieleman & Hinton; ``rmspropalex_update``, the centered variant of
 Graves).
+
+Each is also a registered op of the same name (``mx.nd.sgd_mom_update(w,
+g, mom, lr=..., out=w)``): its visible output is the new weight, and its
+state arguments are written in place, as the reference declares them
+(``FMutateInputs``, src/operator/optimizer_op.cc). The JAX package
+returns the states as hidden outputs that its imperative call drops, so
+there they stay as they were (``ROADMAP.md`` C7).
 """
 from __future__ import annotations
 
 import torch
+
+from .registry import Param, register
 
 __all__ = ["sgd_update", "sgd_mom_update", "adam_update", "rmsprop_update",
            "rmspropalex_update"]
@@ -66,3 +75,38 @@ def rmspropalex_update(weight, grad, n, gbar, delta, lr, gamma1=0.95,
     new_delta = gamma2 * delta - lr * g / torch.sqrt(
         new_n - torch.square(new_g) + epsilon)
     return weight + new_delta, new_n, new_g, new_delta
+
+
+
+# ---- the registered ops ------------------------------------------------
+_COMMON = {
+    "lr": Param.float(),
+    "wd": Param.float(0.0),
+    "rescale_grad": Param.float(1.0),
+    "clip_gradient": Param.float(-1.0),
+}
+
+
+def _register_update(name, fn, states, **params):
+    n = len(states)
+
+    @register(name, arg_names=("weight", "grad") + states,
+              params=dict(_COMMON, **params), num_outputs=1 + n,
+              num_visible_outputs=1,
+              mutate_inputs=tuple(range(2, 2 + n)))
+    def _update(octx, attrs, args, auxs):
+        out = fn(*args, **attrs)
+        return list(out) if n else [out], []
+
+
+_register_update("sgd_update", sgd_update, ())
+_register_update("sgd_mom_update", sgd_mom_update, ("mom",),
+                 momentum=Param.float(0.0))
+_register_update("adam_update", adam_update, ("mean", "var"),
+                 beta1=Param.float(0.9), beta2=Param.float(0.999),
+                 epsilon=Param.float(1e-8))
+_register_update("rmsprop_update", rmsprop_update, ("n",),
+                 gamma1=Param.float(0.95), epsilon=Param.float(1e-8))
+_register_update("rmspropalex_update", rmspropalex_update, ("n", "g", "delta"),
+                 gamma1=Param.float(0.95), gamma2=Param.float(0.9),
+                 epsilon=Param.float(1e-8))

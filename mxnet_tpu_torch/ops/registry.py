@@ -96,7 +96,8 @@ class Operator:
     def __init__(self, name, forward, arg_names=("data",), aux_names=(),
                  num_outputs=1, output_names=None, params=None,
                  infer_shape=None, infer_type=None, stochastic=False,
-                 key_var_num_args=None, num_visible_outputs=None, alias=()):
+                 key_var_num_args=None, num_visible_outputs=None, alias=(),
+                 mutate_inputs=()):
         self.name = name
         self.forward = forward
         self._arg_names = arg_names
@@ -110,6 +111,10 @@ class Operator:
         self.key_var_num_args = key_var_num_args
         self._num_visible_outputs = num_visible_outputs
         self.alias = alias
+        #: the reference's FMutateInputs: the argument positions that an
+        #: imperative call overwrites in place with the op's outputs after
+        #: the visible ones, in order (an optimizer update's states)
+        self.mutate_inputs = tuple(mutate_inputs)
         #: loss heads: the executor seeds their head gradient with ones
         self.is_loss = False
 

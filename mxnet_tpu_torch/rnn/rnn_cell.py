@@ -9,10 +9,16 @@ equivalent stack of written-out cells over the same packed parameters.
 The graphs, names and attrs are the JAX package's, so a cell's symbol
 JSON is the same in both packages.
 
-``DropoutCell`` puts a ``Dropout`` node after each
-step. ``ZoneoutCell``, ``ResidualCell``, ``BidirectionalCell`` and
-``ModifierCell`` wait for ``ROADMAP.md`` A4: building one raises
-:class:`~..base.MXNetError`.
+``DropoutCell`` puts a ``Dropout`` node after each step. The modifier
+cells wrap a base cell (``ModifierCell``): ``ZoneoutCell`` keeps each
+output and state unit from the step before with probability
+``zoneout_outputs``/``zoneout_states``, its masks ``Dropout`` nodes over
+ones (drawn through :func:`..ops.sample.dropout_mask`, as every dropout
+mask is, so a captured CUDA graph draws fresh ones on each replay);
+``ResidualCell`` adds the input to the output. ``BidirectionalCell`` runs
+one cell forward and one backward in time and concatenates their
+outputs; ``FusedRNNCell.unfuse`` gives one per layer of a bidirectional
+fused cell.
 """
 from __future__ import annotations
 
@@ -475,17 +481,6 @@ class SequentialRNNCell(BaseRNNCell):
         return inputs, next_states
 
 
-def _waits(name):
-    """A cell of the JAX package that the port does not carry yet."""
-
-    class _Waiting(BaseRNNCell):
-        def __init__(self, *args, **kwargs):
-            raise MXNetError("rnn.%s is not ported yet (ROADMAP.md A4)" % name)
-
-    _Waiting.__name__ = _Waiting.__qualname__ = name
-    return _Waiting
-
-
 class DropoutCell(BaseRNNCell):
     """Dropout on the output (reference: rnn_cell.py DropoutCell): a
     ``Dropout`` node per step, no state."""
@@ -504,10 +499,190 @@ class DropoutCell(BaseRNNCell):
         return inputs, states
 
 
-ZoneoutCell = _waits("ZoneoutCell")
-ResidualCell = _waits("ResidualCell")
-BidirectionalCell = _waits("BidirectionalCell")
-ModifierCell = _waits("ModifierCell")
+class ModifierCell(BaseRNNCell):
+    """A cell wrapped around a base cell, whose parameters and states it
+    takes over (the base cell is marked modified and may not be called
+    directly)."""
+
+    def __init__(self, base_cell):
+        super().__init__()
+        base_cell._modified = True
+        self.base_cell = base_cell
+
+    @property
+    def params(self):
+        self._own_params = False
+        return self.base_cell.params
+
+    @property
+    def state_info(self):
+        return self.base_cell.state_info
+
+    def begin_state(self, init_sym=symbol.zeros, **kwargs):
+        if self._modified:
+            raise MXNetError("After applying modifier cells the base cell "
+                             "cannot be called directly.")
+        self.base_cell._modified = False
+        begin = self.base_cell.begin_state(init_sym, **kwargs)
+        self.base_cell._modified = True
+        return begin
+
+    def unpack_weights(self, args):
+        return self.base_cell.unpack_weights(args)
+
+    def pack_weights(self, args):
+        return self.base_cell.pack_weights(args)
+
+    def __call__(self, inputs, states):
+        raise NotImplementedError
+
+
+class ZoneoutCell(ModifierCell):
+    """Zoneout (Krueger et al.): each output and state unit keeps its
+    value from the step before with probability ``zoneout_outputs`` /
+    ``zoneout_states`` in training."""
+
+    def __init__(self, base_cell, zoneout_outputs=0.0, zoneout_states=0.0):
+        if isinstance(base_cell, FusedRNNCell):
+            raise MXNetError("FusedRNNCell doesn't support zoneout. Please "
+                             "unfuse first.")
+        if isinstance(base_cell, BidirectionalCell):
+            raise MXNetError("BidirectionalCell doesn't support zoneout since "
+                             "it doesn't support step. Please add ZoneoutCell "
+                             "to the cells underneath instead.")
+        super().__init__(base_cell)
+        self.zoneout_outputs = zoneout_outputs
+        self.zoneout_states = zoneout_states
+        self.prev_output = None
+
+    def reset(self):
+        super().reset()
+        self.prev_output = None
+
+    def __call__(self, inputs, states):
+        cell, p_outputs, p_states = (self.base_cell, self.zoneout_outputs,
+                                     self.zoneout_states)
+        next_output, next_states = cell(inputs, states)
+
+        def mask(p, like):
+            return symbol.Dropout(symbol.ones_like(like), p=p)
+
+        prev_output = (self.prev_output if self.prev_output is not None
+                       else symbol.zeros((0, 0)))
+        output = (symbol.where(mask(p_outputs, next_output), next_output,
+                               prev_output)
+                  if p_outputs != 0.0 else next_output)
+        states = ([symbol.where(mask(p_states, new_s), new_s, old_s)
+                   for new_s, old_s in zip(next_states, states)]
+                  if p_states != 0.0 else next_states)
+        self.prev_output = output
+        return output, states
+
+
+class ResidualCell(ModifierCell):
+    """The base cell's output plus its input."""
+
+    def __call__(self, inputs, states):
+        output, states = self.base_cell(inputs, states)
+        output = symbol._plus(output, inputs,  # noqa: F821 - a registered op
+                              name="%s_plus_residual" % (output.name or "res"))
+        return output, states
+
+    def unroll(self, length, inputs=None, begin_state=None, input_prefix="",
+               layout="NTC", merge_outputs=None):
+        self.reset()
+        self.base_cell._modified = False
+        outputs, states = self.base_cell.unroll(
+            length, inputs=inputs, begin_state=begin_state, layout=layout,
+            merge_outputs=merge_outputs)
+        self.base_cell._modified = True
+        merge_outputs = (isinstance(outputs, symbol.Symbol)
+                         if merge_outputs is None else merge_outputs)
+        inputs, _ = _normalize_sequence(length, inputs, layout, merge_outputs)
+        if merge_outputs:
+            outputs = symbol._plus(outputs, inputs)  # noqa: F821
+        else:
+            outputs = [symbol._plus(i, j)  # noqa: F821
+                       for i, j in zip(outputs, inputs)]
+        return outputs, states
+
+
+class BidirectionalCell(BaseRNNCell):
+    """``l_cell`` over the sequence and ``r_cell`` over it reversed, their
+    outputs concatenated per step (``output_prefix + "out%d"``; one
+    ``output_prefix + "out"`` when merged). It has no single step."""
+
+    def __init__(self, l_cell, r_cell, params=None, output_prefix="bi_"):
+        super().__init__("", params=params)
+        self._output_prefix = output_prefix
+        self._override_cell_params = params is not None
+        if self._override_cell_params:
+            if not (l_cell._own_params and r_cell._own_params):
+                raise MXNetError("Either specify params for BidirectionalCell "
+                                 "or child cells, not both.")
+            l_cell.params._params.update(self.params._params)
+            r_cell.params._params.update(self.params._params)
+        self.params._params.update(l_cell.params._params)
+        self.params._params.update(r_cell.params._params)
+        self._cells = [l_cell, r_cell]
+
+    def unpack_weights(self, args):
+        return _cells_unpack_weights(self._cells, args)
+
+    def pack_weights(self, args):
+        return _cells_pack_weights(self._cells, args)
+
+    def __call__(self, inputs, states):
+        raise NotImplementedError("Bidirectional cannot be stepped. Please use unroll")
+
+    @property
+    def state_info(self):
+        return _cells_state_info(self._cells)
+
+    def begin_state(self, **kwargs):
+        if self._modified:
+            raise MXNetError("After applying modifier cells the base cell "
+                             "cannot be called directly.")
+        return _cells_begin_state(self._cells, **kwargs)
+
+    def unroll(self, length, inputs=None, begin_state=None, input_prefix="",
+               layout="NTC", merge_outputs=None):
+        self.reset()
+        inputs, axis = _normalize_sequence(length, inputs, layout, False, input_prefix)
+        if begin_state is None:
+            begin_state = self.begin_state()
+        states = begin_state
+        l_cell, r_cell = self._cells
+        n_l = len(l_cell.state_info)
+        l_outputs, l_states = l_cell.unroll(
+            length, inputs=inputs, begin_state=states[:n_l], layout=layout,
+            merge_outputs=merge_outputs)
+        r_outputs, r_states = r_cell.unroll(
+            length, inputs=list(reversed(inputs)), begin_state=states[n_l:],
+            layout=layout, merge_outputs=merge_outputs)
+        if merge_outputs is None:
+            merge_outputs = (isinstance(l_outputs, symbol.Symbol)
+                             and isinstance(r_outputs, symbol.Symbol))
+            if not merge_outputs:
+                if isinstance(l_outputs, symbol.Symbol):
+                    l_outputs = list(symbol.SliceChannel(
+                        l_outputs, axis=axis, num_outputs=length, squeeze_axis=1))
+                if isinstance(r_outputs, symbol.Symbol):
+                    r_outputs = list(symbol.SliceChannel(
+                        r_outputs, axis=axis, num_outputs=length, squeeze_axis=1))
+        if merge_outputs:
+            l_outputs = [l_outputs]
+            r_outputs = [symbol.reverse(r_outputs, axis=axis)]
+        else:
+            r_outputs = list(reversed(r_outputs))
+        outputs = [
+            symbol.Concat(l_o, r_o, dim=1 + merge_outputs,
+                          name=("%sout" % self._output_prefix if merge_outputs
+                                else "%sout%d" % (self._output_prefix, i)))
+            for i, (l_o, r_o) in enumerate(zip(l_outputs, r_outputs))]
+        if merge_outputs:
+            outputs = outputs[0]
+        return outputs, l_states + r_states
 
 
 def _cells_state_info(cells):

@@ -11,10 +11,11 @@ graph with torch tensors.
 Each registered op is a module-level constructor (``sym.FullyConnected``,
 ``sym.Reshape``, ...); ``_contrib_*`` ops are also reachable as
 ``sym.contrib.<name>``. ``Symbol.save`` and :func:`load` write and read
-the JSON file (the write crash-safe, as in the JAX package). ``zeros`` and
-``ones`` build ``_zeros``/``_ones`` nodes. Left for later slices:
-``eval`` and the module functions
-``pow``/``maximum``/``minimum``/``hypot``/``arange``.
+the JSON file (the write crash-safe, as in the JAX package). ``zeros``,
+``ones`` and ``arange`` build ``_zeros``/``_ones``/``_arange`` nodes;
+``pow``, ``maximum``, ``minimum`` and ``hypot`` take a Symbol or a number
+on either side, and ``**`` builds ``_power``/``_power_scalar``, as in the
+JAX package. ``Symbol.eval`` is left for a later slice.
 """
 from __future__ import annotations
 
@@ -33,7 +34,7 @@ from .name import NameManager
 from .ops.registry import get_op, list_ops
 
 __all__ = ["Symbol", "Variable", "var", "Group", "load", "load_json", "zeros",
-           "ones"]
+           "ones", "arange", "pow", "maximum", "minimum", "hypot"]
 
 
 class _Node:
@@ -160,6 +161,11 @@ class Symbol:
 
     def __rtruediv__(self, o):
         return _create("_rdiv_scalar", [self], {"scalar": float(o)})
+
+    def __pow__(self, o):
+        if isinstance(o, Symbol):
+            return _create("_power", [self, o], {})
+        return _create("_power_scalar", [self], {"scalar": float(o)})
 
     def __neg__(self):
         return _create("negative", [self], {})
@@ -511,7 +517,8 @@ def _register_ops():
     """Import the op modules (they register at import) and make one
     constructor per op, plus the ``contrib`` namespace."""
     from .ops import (attention, elemwise, indexing, init_ops,  # noqa: F401
-                      loss, matrix, nn, reduce, rnn_ops, sample)
+                      loss, matrix, nn, optimizer_ops, ordering, reduce,
+                      rnn_ops, sample, spatial)
 
     mod = sys.modules[__name__]
     contrib = types.SimpleNamespace()
@@ -534,3 +541,36 @@ def zeros(shape, dtype=None, **kwargs):
 
 def ones(shape, dtype=None, **kwargs):
     return _ones(shape=shape, dtype=dtype, **kwargs)  # noqa: F821
+
+
+def arange(start, stop=None, step=1.0, repeat=1, name=None, dtype=None):
+    return _arange(start=start, stop=stop, step=step, repeat=repeat,  # noqa: F821
+                   name=name, dtype=dtype)
+
+
+def _module_binary(lhs, rhs, op, scalar_op, rscalar_op=None):
+    """A Symbol or a number on either side (a commutative op takes its
+    scalar op for a number on the left)."""
+    if isinstance(lhs, Symbol):
+        if isinstance(rhs, Symbol):
+            return _create(op, [lhs, rhs], {})
+        return _create(scalar_op, [lhs], {"scalar": float(rhs)})
+    if isinstance(rhs, Symbol):
+        return _create(rscalar_op or scalar_op, [rhs], {"scalar": float(lhs)})
+    raise TypeError("at least one operand must be a Symbol")
+
+
+def pow(lhs, rhs):  # noqa: A001 - the reference's name
+    return _module_binary(lhs, rhs, "_power", "_power_scalar", "_rpower_scalar")
+
+
+def maximum(lhs, rhs):
+    return _module_binary(lhs, rhs, "_maximum", "_maximum_scalar")
+
+
+def minimum(lhs, rhs):
+    return _module_binary(lhs, rhs, "_minimum", "_minimum_scalar")
+
+
+def hypot(lhs, rhs):
+    return _module_binary(lhs, rhs, "_hypot", "_hypot_scalar")

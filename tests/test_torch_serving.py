@@ -366,7 +366,10 @@ def test_port_import_leaves_jax_out():
             " mxnet_tpu_torch.module.bucketing_module,"
             " mxnet_tpu_torch.random, mxnet_tpu_torch.lr_scheduler,"
             " mxnet_tpu_torch.ops.sample, mxnet_tpu_torch.model,"
-            " mxnet_tpu_torch.models, mxnet_tpu_torch.tools.train_imagenet;"
+            " mxnet_tpu_torch.models, mxnet_tpu_torch.tools.train_imagenet,"
+            " mxnet_tpu_torch.ops.ordering, mxnet_tpu_torch.ops.spatial,"
+            " mxnet_tpu_torch.ops.optimizer_ops, mxnet_tpu_torch.models.dcgan,"
+            " mxnet_tpu_torch.tools.dcgan, mxnet_tpu_torch.test_utils;"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'mxnet_tpu' or "
             "m.startswith('mxnet_tpu.')];"
@@ -400,7 +403,10 @@ def test_port_sources_import_no_jax():
         "models/alexnet.py", "models/vgg.py", "models/googlenet.py",
         "models/inception_bn.py", "models/inception_v3.py",
         "models/inception_resnet_v2.py", "models/resnext.py",
-        "models/lenet.py", "models/mlp.py")} <= rel
+        "models/lenet.py", "models/mlp.py", "ops/ordering.py",
+        "ops/spatial.py", "ops/optimizer_ops.py", "ops/elemwise.py",
+        "ops/matrix.py", "ops/reduce.py", "ops/indexing.py", "ops/loss.py",
+        "models/dcgan.py", "tools/dcgan.py", "test_utils.py")} <= rel
     for f in files:
         roots = set(_imported_roots(f))
         assert not roots & {"jax", "jaxlib", "mxnet_tpu"}, (f, roots)
