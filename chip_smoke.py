@@ -210,6 +210,32 @@ Drives ``mxnet_tpu_torch`` (never the JAX package) on ``cuda:0``:
    largest, comparison, rounding, indexing and ordering ops exactly, the
    samplers by shape and finiteness; (d) ``tools/dcgan.py`` at the
    example's defaults (ngf 32, one channel) for 10 steps, its JSON line.
+19. SSD-300, Custom and SequentialModule — (a) the zoo's SSD-300
+   (VGG16-reduced, 8732 anchors) through ``tools/train_ssd.fit`` at the
+   reference's training configuration (VOC's 20 classes, batch 32,
+   300x300, labels (32, 8, 5), SGD lr 0.004 momentum 0.9 wd 5e-4,
+   Xavier, the example's seeded synthetic set): 20 fused steps (one CUDA
+   graph: the matching, the mining and the 400-row NMS inside it) and 5
+   classic, every metric finite, host wall per step, images/s, peak
+   memory, one ``torch.profiler`` window of each path's step (busy share,
+   device operations); the fused and classic parameters after the first
+   step within 1e-4 when both chose the same targets (else the next seed,
+   logged); no port kernel on its path; (b) one step at batch 2 card vs
+   CPU from the trained parameters with the CPU's ReLU masks and
+   max-pooling choices installed on the card (``test_utils.
+   installed_decisions``; the count of ReLU inputs the card's rounding put
+   across zero natively logged): targets exact (else the next seeded
+   point, logged), outputs within 1e-4 of the largest, detections equal
+   up to rows of equal score trading places, gradients within 1e-3; (c)
+   the sweep's cases of the slice's 22 op names (held in 18(c)): their
+   count and worst error; MultiBoxTarget and MultiBoxDetection at batch 32
+   over SSD's anchors card vs CPU: targets, masks and the kept set exact,
+   encodings, boxes and scores within 1e-5, and their device time; (d)
+   ``tools/train_ssd.py --evaluate`` at the example's defaults as a
+   subprocess, its JSON line, mAP finite; (e) a fit of a symbol holding a
+   ``Custom`` op (classic path: host Python is never replayed from a
+   graph) and of a ``SequentialModule`` of two Modules, each card vs CPU
+   within 1e-4.
 
 Every phase that fails raises, so the exit code is not 0. The last two
 lines are the ``kernels`` JSON object and the ``ok`` JSON object; the card
@@ -3125,7 +3151,7 @@ def op_sweep(mx):
     from mxnet_tpu_torch.test_utils import op_cases, run_case
 
     cases = op_cases(list_ops())
-    worst, failures, kinds = (None, -1.0), [], {}
+    worst, failures, kinds, errors = (None, -1.0), [], {}, {}
     for cid in sorted(cases):
         case = cases[cid]
         kinds[case.kind] = kinds.get(case.kind, 0) + 1
@@ -3158,6 +3184,7 @@ def op_sweep(mx):
                     err = math.inf
                 if err > worst[1]:
                     worst = (cid, err)
+                errors[cid] = max(errors.get(cid, 0.0), err)
                 if err > SWEEP_TOL:
                     failures.append("%s: %.3e of the largest" % (cid, err))
     log("  op sweep, card vs CPU: %d cases over %d registered op names (%s); "
@@ -3168,6 +3195,7 @@ def op_sweep(mx):
            worst[0], worst[1], SWEEP_TOL, len(failures),
            "".join("\n    " + f for f in failures)))
     check(not failures, "the op sweep failed on the card")
+    return cases, errors
 
 
 def run_dcgan_tool():
@@ -3176,6 +3204,424 @@ def run_dcgan_tool():
 
     rc = dcgan.main(["--num-epochs", "1", "--steps-per-epoch", "10"])
     check(rc == 0, "tools/dcgan.py failed (a non-finite loss)")
+
+
+# ------------------------------ SSD-300, Custom and SequentialModule (phase 19)
+# the reference's SSD training configuration (example/ssd/train.py, which
+# examples/train_ssd.py mirrors): VOC's 20 classes, 300x300, labels of 8
+# rows, SGD lr 0.004 momentum 0.9 wd 5e-4, Xavier; batch 32
+SSD_BATCH = 32
+SSD_CLASSES = 20
+SSD_POOL = 4              # batches in the fused fit's set: 5 epochs, 20 steps
+SSD_EPOCHS = 5
+SSD_CLASSIC_STEPS = 5
+SSD_CPU_BATCH = 2
+SSD_OUT_TOL = 1e-4        # outputs card vs CPU, of the largest
+MULTIBOX_TOL = 1e-5       # boxes, scores, encodings card vs CPU
+SSD_TRIES = 3             # seeded points tried under the tie rule
+# the six SSD-300 feature maps (38x38 ... 1x1) that MultiBoxPrior spans
+SSD_MAPS = (38, 19, 10, 5, 3, 1)
+# 19(e): a few fits of small symbols, card vs CPU
+SMALL_FIT_TOL = 1e-4
+
+
+def ssd_args(num_examples, epochs):
+    from mxnet_tpu_torch.tools import train_ssd
+
+    return train_ssd.parse_args(["--batch-size", str(SSD_BATCH), "--num-examples",
+                                 str(num_examples), "--num-epochs", str(epochs),
+                                 "--num-classes", str(SSD_CLASSES)])
+
+
+def ssd_batch(mx, batch, ctx):
+    """The tool's first ``batch`` images and labels, on ``ctx``."""
+    from mxnet_tpu_torch.tools import train_ssd
+
+    X, Y = train_ssd.synthetic_set(batch, SSD_CLASSES)
+    return mx.io.DataBatch([mx.nd.array(X, ctx=ctx)], [mx.nd.array(Y, ctx=ctx)], pad=0)
+
+
+def run_ssd(mx, build, fused=True):
+    """19(a): SSD-300 through tools/train_ssd.fit on the card, fused (one
+    CUDA graph, replayed) or classic: every metric finite, host wall per
+    step, images/s, peak memory; no port kernel on the path."""
+    from mxnet_tpu_torch.tools import train_ssd
+
+    steps = SSD_POOL * SSD_EPOCHS if fused else SSD_CLASSIC_STEPS
+    args = (ssd_args(SSD_BATCH * SSD_POOL, SSD_EPOCHS) if fused
+            else ssd_args(SSD_BATCH * SSD_CLASSIC_STEPS, 1))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    for k in build.KERNELS.values():
+        k.launches = 0
+    with contextlib.nullcontext() if fused else no_fused():
+        mod, record = train_ssd.fit(args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = {n: k.launches for n, k in build.KERNELS.items() if k.launches}
+    path = "fused" if fused else "classic"
+    check(record["steps"] == steps, "SSD fit ran %d steps" % record["steps"])
+    check(not launches, "a port kernel ran on SSD's path: %s" % launches)
+    check(all(np.isfinite(v) for v in record["train"].values()),
+          "SSD: a non-finite metric %s" % record["train"])
+    if fused:
+        tr = mod._fused.trainer if mod._fused is not None else None
+        check(tr is not None and tr.captures == 1 and tr.replays == steps - 1,
+              "SSD's fit did not run one captured graph")
+    else:
+        check(mod._fused is None, "MXNET_MODULE_NO_FUSED=1 still fused")
+    log("  [%s] %d steps of batch %d: first step %.4f s; host wall per step "
+        "(median after 2, synchronized; the metric's host pass included) "
+        "%.5f s = %.1f images/s; peak memory %.3f GB; last CrossEntropy %.4f "
+        "SmoothL1 %.4f; %s"
+        % (path, steps, SSD_BATCH, record["first_step_s"], record["step_s"],
+           record["images_per_sec"], peak / 1e9, record["train"]["CrossEntropy"],
+           record["train"]["SmoothL1"], record["device"]["nvidia_smi"]))
+    return mod, record, peak
+
+
+def ssd_first_step(mx, fused, seed):
+    """The parameters and matching targets after one step of the tool's
+    fit at seed ``seed`` (parameters and data order), fused or classic."""
+    from mxnet_tpu_torch.tools import train_ssd
+
+    args = ssd_args(SSD_BATCH, 1)
+    seen = []
+    real_seed = mx.random.seed
+
+    def first(param):
+        seen.append(param.locals["self"].get_outputs()[2].asnumpy())
+
+    mx.random.seed = lambda s: real_seed(s + seed)
+    try:
+        with contextlib.nullcontext() if fused else no_fused():
+            mod, _ = train_ssd.fit(args, batch_end_callback=[first])
+    finally:
+        mx.random.seed = real_seed
+    return ({n: a.asnumpy() for n, a in mod.get_params()[0].items()}, seen[0])
+
+
+def ssd_fused_against_classic(mx):
+    """19(a): the fused and classic parameters after the first step, when
+    both steps chose the same matching targets (the tie rule: where the
+    hard-negative boundary differs, the next seed, logged)."""
+    for k in range(SSD_TRIES):
+        f_par, f_cls = ssd_first_step(mx, True, k)
+        c_par, c_cls = ssd_first_step(mx, False, k)
+        if np.array_equal(f_cls, c_cls):
+            break
+        log("  seed %d: the fused and classic steps' targets differ at %d "
+            "anchors (a mining boundary within rounding); the next seed"
+            % (k, int((f_cls != c_cls).sum())))
+    check(np.array_equal(f_cls, c_cls), "fused and classic targets differ at "
+          "every seed")
+    fused_against_classic(f_par, c_par, "of SSD-300 after the first step "
+                          "(seed %d)" % k)
+
+
+def ssd_anchors(mx, ctx):
+    """SSD-300's 8732 anchors (1, 8732, 4), from MultiBoxPrior over the
+    six feature maps with the zoo's sizes and ratios."""
+    from mxnet_tpu_torch.models import ssd
+
+    parts = []
+    for hw, sizes, ratios in zip(SSD_MAPS, ssd.SIZES, ssd.RATIOS):
+        fm = mx.nd.zeros((1, 1, hw, hw), ctx=ctx)
+        parts.append(mx.nd.contrib.MultiBoxPrior(fm, sizes=tuple(sizes),
+                                                 ratios=tuple(ratios)).data)
+    return mx.nd.NDArray(torch.cat(parts, 1))
+
+
+def multibox_inputs(seed):
+    """Seeded inputs of SSD's matching and detection at batch ``batch``:
+    labels as the tool draws them, class logits N(0, 1), their softmax,
+    offsets N(0, 0.1^2)."""
+    r = np.random.RandomState(seed)
+    batch = SSD_BATCH
+    A = sum(hw * hw * k for hw, k in zip(SSD_MAPS, (4, 6, 6, 6, 4, 4)))
+    lab = -np.ones((batch, 8, 5), np.float32)
+    for i in range(batch):
+        for j in range(r.randint(1, 4)):
+            x0, y0 = r.rand(2) * 0.6
+            lab[i, j] = [r.randint(0, SSD_CLASSES), x0, y0,
+                         x0 + 0.2 + r.rand() * 0.2, y0 + 0.2 + r.rand() * 0.2]
+    logits = r.standard_normal((batch, SSD_CLASSES + 1, A)).astype(np.float32)
+    e = np.exp(logits - logits.max(1, keepdims=True))
+    prob = (e / e.sum(1, keepdims=True)).astype(np.float32)
+    loc = (0.1 * r.standard_normal((batch, A * 4))).astype(np.float32)
+    return lab, logits, prob, loc
+
+
+MULTIBOX_TARGET = dict(overlap_threshold=0.5, ignore_label=-1,
+                       negative_mining_ratio=3, minimum_negative_samples=0,
+                       negative_mining_thresh=0.5, variances=(0.1, 0.1, 0.2, 0.2))
+MULTIBOX_DETECTION = dict(nms_threshold=0.5, force_suppress=False,
+                          variances=(0.1, 0.1, 0.2, 0.2), nms_topk=400)
+
+
+def multibox_ops(mx, ctx, lab, logits, prob, loc):
+    """MultiBoxTarget and MultiBoxDetection at SSD's attrs on ``ctx``."""
+    anchors = ssd_anchors(mx, ctx)
+    arr = lambda a: mx.nd.array(a, ctx=ctx)            # noqa: E731
+    target = mx.nd.contrib.MultiBoxTarget(anchors, arr(lab), arr(logits),
+                                          **MULTIBOX_TARGET)
+    det = mx.nd.contrib.MultiBoxDetection(arr(prob), arr(loc), anchors,
+                                          **MULTIBOX_DETECTION)
+    return target, det
+
+
+def multibox_card_vs_cpu(mx):
+    """19(c): SSD's matching and detection at batch 32 over its 8732
+    anchors, card vs CPU on the same inputs: targets' classes and mask
+    and the detections' classes (so the kept set) exact, encodings,
+    boxes and scores within MULTIBOX_TOL; where an exact part differs,
+    the next seeded point, logged. Returns the device ms of the two ops
+    together."""
+    for k in range(SSD_TRIES):
+        inputs = multibox_inputs(k)
+        (c_t, c_d), (h_t, h_d) = (multibox_ops(mx, ctx, *inputs)
+                                   for ctx in (mx.gpu(0), mx.cpu()))
+        c_t, h_t = [a.asnumpy() for a in c_t], [a.asnumpy() for a in h_t]
+        c_d, h_d = c_d.asnumpy(), h_d.asnumpy()
+        exact = (np.array_equal(c_t[2], h_t[2]) and np.array_equal(c_t[1], h_t[1])
+                 and np.array_equal(c_d[..., 0], h_d[..., 0]))
+        if exact:
+            break
+        log("  seeded point %d: the card's targets or kept set differ from the "
+            "CPU's (%d target, %d detection rows); the next seeded point"
+            % (k, int((c_t[2] != h_t[2]).sum()),
+               int((c_d[..., 0] != h_d[..., 0]).sum())))
+    check(exact, "MultiBox targets or kept sets differ at every seeded point")
+    loc_err = float(np.abs(c_t[0] - h_t[0]).max() / np.abs(h_t[0]).max())
+    det_err = float(np.abs(c_d[..., 1:] - h_d[..., 1:]).max())
+    kept = int((h_d[..., 0] >= 0).sum())
+    log("  MultiBoxTarget/MultiBoxDetection at batch %d, 8732 anchors, card vs "
+        "CPU (seeded point %d): targets (%d positive, %d mined negatives) and "
+        "the kept set (%d rows) exact; encodings %.3e of the largest, boxes and "
+        "scores max abs diff %.3e (tol %.0e)"
+        % (SSD_BATCH, k, int((h_t[2] > 0).sum()), int((h_t[2] == 0).sum()),
+           kept, loc_err, det_err, MULTIBOX_TOL))
+    check(loc_err <= MULTIBOX_TOL and det_err <= MULTIBOX_TOL,
+          "MultiBox encodings, boxes or scores differ on the card")
+    lab, logits, prob, loc = multibox_inputs(0)
+    anchors = ssd_anchors(mx, mx.gpu(0))
+    arrs = [mx.nd.array(a, ctx=mx.gpu(0)) for a in (lab, logits, prob, loc)]
+
+    def both():
+        mx.nd.contrib.MultiBoxTarget(anchors, arrs[0], arrs[1], **MULTIBOX_TARGET)
+        mx.nd.contrib.MultiBoxDetection(arrs[2], arrs[3], anchors, **MULTIBOX_DETECTION)
+
+    ms = device_ms(both, n=5)
+    log("  MultiBoxTarget + MultiBoxDetection (400 NMS rows) at batch %d: "
+        "%.3f device ms per call" % (SSD_BATCH, ms))
+    return ms
+
+
+def ssd_step(mx, ctx, point, names=(), install=None):
+    """One SSD-300 training step at batch SSD_CPU_BATCH on ``ctx`` through
+    ``simple_bind`` from ``point`` (parameters) and the tool's first
+    images: (outputs, the internal values ``names``, gradients); with
+    ``install``, the port takes its ReLU and max-pooling choices from it
+    (mxnet_tpu_torch.test_utils.installed_decisions)."""
+    from mxnet_tpu_torch.models import ssd
+    from mxnet_tpu_torch.test_utils import installed_decisions
+    from mxnet_tpu_torch.tools import train_ssd
+
+    X, Y = train_ssd.synthetic_set(SSD_CPU_BATCH, SSD_CLASSES)
+    net = ssd.get_symbol_train(num_classes=SSD_CLASSES)
+    ints = net.get_internals()
+    group = mx.sym.Group([net] + [ints[n] for n in names])
+    exe = group.simple_bind(ctx=ctx, data=X.shape, label=Y.shape)
+    exe.arg_dict["data"][:] = X
+    exe.arg_dict["label"][:] = Y
+    exe.copy_params_from(point)
+    with (contextlib.nullcontext() if install is None
+          else installed_decisions(group, install)):
+        outs = [o.asnumpy() for o in exe.forward(is_train=True)]
+        exe.backward()
+    grads = {n: exe.grad_dict[n].asnumpy() for n in point}
+    return outs[:4], dict(zip(names, outs[4:])), grads
+
+
+def ssd_step_card_vs_cpu(mx, params):
+    """19(b): one SSD-300 step at batch SSD_CPU_BATCH, card vs CPU, from
+    the fused fit's parameters: the CPU runs first and records its ReLU
+    masks and max-pooling inputs; the card runs natively (to count where
+    its rounding crossed a ReLU kink) and then with the CPU's choices
+    installed (test_utils.installed_decisions). Targets exact (the tie
+    rule: where they differ, the next seeded point, logged), outputs
+    within SSD_OUT_TOL of the largest, detections under the trading rule,
+    gradients within GRAD_TOL of each one's largest."""
+    from mxnet_tpu_torch.models import ssd
+    from mxnet_tpu_torch.test_utils import decision_names, detections_match
+
+    names = decision_names(ssd.get_symbol_train(num_classes=SSD_CLASSES))
+    relus = [n for n in names if n.startswith("relu")]
+    for k in range(SSD_TRIES):
+        point = params if k == 0 else moved(params, KINK_STEP, k)
+        h_out, ref, h_grad = ssd_step(mx, mx.cpu(), point, names)
+        _, native, _ = ssd_step(mx, mx.gpu(0), point, relus)
+        c_out, _, c_grad = ssd_step(mx, mx.gpu(0), point, install=ref)
+        if np.array_equal(c_out[2], h_out[2]):
+            break
+        log("  %s: the card's targets differ at %d anchors (a mining boundary "
+            "within rounding); the next seeded point"
+            % ("the trained parameters" if k == 0 else "seeded point %d" % k,
+               int((c_out[2] != h_out[2]).sum())))
+    check(np.array_equal(c_out[2], h_out[2]), "SSD targets differ at every point")
+    crossed = sum(int(((native[n] > 0) != (ref[n] > 0)).sum()) for n in relus)
+    out_err = [float(np.abs(c_out[i] - h_out[i]).max() / np.abs(h_out[i]).max())
+               for i in (0, 1)]
+    traded = detections_match(c_out[3], h_out[3], SSD_OUT_TOL)
+    grel = rel(c_grad, h_grad)
+    worst = max(grel, key=grel.get)
+    log("  one SSD-300 step at batch %d, card vs CPU (%s; ReLU inputs the card's "
+        "rounding put across zero natively: %d): targets exact (%d positive); "
+        "cls_prob %.3e, loc_loss %.3e of the largest (tol %.0e); detections "
+        "%s; worst gradient %s %.3e of its largest (tol %.0e over %d)"
+        % (SSD_CPU_BATCH, "at the trained parameters" if k == 0 else
+           "at seeded point %d" % k, crossed, int((h_out[2] > 0).sum()),
+           out_err[0], out_err[1], SSD_OUT_TOL,
+           "differ" if traded is None else "equal (%d rows traded places)" % traded,
+           worst, grel[worst], GRAD_TOL, len(grel)))
+    check(max(out_err) <= SSD_OUT_TOL, "SSD outputs: card disagrees with CPU")
+    check(traded is not None, "SSD detections: card disagrees with CPU")
+    check(grel[worst] <= GRAD_TOL, "SSD gradients: card disagrees with CPU")
+
+
+def run_ssd_tool():
+    """19(d): tools/train_ssd.py --evaluate at the example's defaults, as a
+    subprocess; its JSON record, mAP finite."""
+    import os
+
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "mxnet_tpu_torch.tools.train_ssd",
+                          "--evaluate"], capture_output=True, text=True,
+                         timeout=900, cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(out.returncode == 0, "tools/train_ssd.py failed: %s" % out.stderr[-2000:])
+    rec = json.loads(out.stdout.strip().splitlines()[-1])
+    log("  tools/train_ssd.py --evaluate (%.1f s): %s"
+        % (time.perf_counter() - t0, json.dumps(rec)))
+    check(np.isfinite(rec["mAP"]), "tools/train_ssd.py: mAP not finite")
+
+
+def small_fit(mx, ctx, kind):
+    """19(e): a few epochs of a small symbol on ``ctx`` from seeded
+    parameters: ``"custom"`` (two FullyConnected into the sweep's Custom op
+    ``sweep_mul_add`` under a SoftmaxOutput) or ``"sequential"`` (a
+    SequentialModule of two Modules). Returns (module, parameters)."""
+    from mxnet_tpu_torch.test_utils import _register_sweep_custom
+
+    r = np.random.RandomState(3)
+    X = r.rand(40, 5).astype(np.float32)
+    y = r.randint(0, 6, (40,)).astype(np.float32)
+    it = mx.io.NDArrayIter(X, y, batch_size=10)
+    sym = mx.sym
+    if kind == "custom":
+        _register_sweep_custom(mx)
+        d = sym.Variable("data")
+        net = sym.Custom(sym.FullyConnected(d, num_hidden=6, name="fa"),
+                         sym.FullyConnected(d, num_hidden=6, name="fb"),
+                         op_type="sweep_mul_add", name="cop")
+        mod = mx.mod.Module(sym.SoftmaxOutput(net, name="softmax"), context=ctx)
+        shapes = {"fa_weight": (6, 5), "fb_weight": (6, 5)}
+    else:
+        net1 = sym.Activation(sym.FullyConnected(sym.Variable("data"), num_hidden=8,
+                                                 name="fc1"), act_type="tanh")
+        net2 = sym.SoftmaxOutput(sym.FullyConnected(sym.Variable("data"), num_hidden=6,
+                                                    name="fc2"), name="softmax")
+        mod = mx.mod.SequentialModule()
+        mod.add(mx.mod.Module(net1, label_names=None, context=ctx))
+        mod.add(mx.mod.Module(net2, context=ctx), take_labels=True, auto_wiring=True)
+        shapes = {"fc1_weight": (8, 5), "fc2_weight": (6, 8)}
+    params = {n: r.uniform(-0.3, 0.3, s).astype(np.float32) for n, s in shapes.items()}
+    params.update({n.replace("weight", "bias"): np.zeros(s[0], np.float32)
+                   for n, s in shapes.items()})
+    mod.bind(it.provide_data, it.provide_label)
+    mod.init_params()
+    stages = [s.module for s in mod._stages] if kind == "sequential" else [mod]
+    for m in stages:
+        m.set_params({n: mx.nd.array(params[n], ctx=ctx)
+                      for n in m.get_params()[0]}, {})
+    mod.fit(it, num_epoch=3, optimizer="sgd", kvstore="local",
+            optimizer_params={"learning_rate": 0.1, "momentum": 0.9})
+    return mod, {n: a.asnumpy() for n, a in mod.get_params()[0].items()}
+
+
+def custom_and_sequential_card_vs_cpu(mx):
+    """19(e): the Custom fit and the SequentialModule fit on the card equal
+    the same fits on the CPU; the Custom symbol trains on the classic path
+    (host Python is never replayed from a captured graph)."""
+    for kind in ("custom", "sequential"):
+        c_mod, c_par = small_fit(mx, mx.gpu(0), kind)
+        _, h_par = small_fit(mx, mx.cpu(), kind)
+        diff = {n: float(np.abs(c_par[n] - h_par[n]).max() / np.abs(h_par[n]).max())
+                for n in h_par}
+        worst = max(diff, key=diff.get)
+        veto = c_mod._fused_veto("local") if kind == "custom" else "-"
+        log("  %s fit (3 epochs of 4 steps) on the card against the CPU: worst "
+            "parameter %s %.3e of its largest (tol %.0e); %s"
+            % (kind, worst, diff[worst], SMALL_FIT_TOL,
+               "classic path: %s" % veto if kind == "custom"
+               else "%d stages" % len(c_mod._stages)))
+        check(diff[worst] <= SMALL_FIT_TOL, "%s fit: card disagrees with CPU" % kind)
+        if kind == "custom":
+            check(c_mod._fused is None and "Custom" in veto,
+                  "a symbol with a Custom op took the captured step")
+
+
+def run_ssd_phase(mx, build, card, sweep):
+    """Phase 19."""
+    log("  (a) SSD-300 through Module.fit at the reference's training "
+        "configuration (%s)" % card)
+    mod, f_record, f_peak = run_ssd(mx, build, True)
+    c_mod, c_record, c_peak = run_ssd(mx, build, False)
+    log("  host wall per step: fused graph %.5f s (%.1f images/s), classic "
+        "%.5f s (%.1f images/s), %.2fx; peak memory fused %.3f GB, classic "
+        "%.3f GB"
+        % (f_record["step_s"], f_record["images_per_sec"], c_record["step_s"],
+           c_record["images_per_sec"], c_record["step_s"] / f_record["step_s"],
+           f_peak / 1e9, c_peak / 1e9))
+    batch = ssd_batch(mx, SSD_BATCH, mx.gpu(0))
+    for path, m in (("fused", mod), ("classic", c_mod)):
+        def step(m=m):
+            m.forward(batch, is_train=True)
+            m.backward()
+            m.update()
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / 3
+        log("  [%s] the step alone (no metric): host wall %.5f s per step"
+            % (path, step_s))
+        log_profile("SSD-300 " + path, device_profile(step), step_s)
+    del c_mod
+    ssd_fused_against_classic(mx)
+    log("  (b) one SSD-300 step, card vs CPU")
+    ssd_step_card_vs_cpu(mx, {n: a.asnumpy() for n, a in mod.get_params()[0].items()})
+    del mod
+    log("  (c) the contrib ops and Custom in the operator sweep; MultiBox at "
+        "SSD's shapes")
+    from mxnet_tpu_torch.ops.registry import get_op, list_ops
+
+    cases, errors = sweep
+    names = {n for n in list_ops() if get_op(n).forward.__module__ in
+             ("mxnet_tpu_torch.ops.contrib_ops", "mxnet_tpu_torch.operator")}
+    check(len(names) == 22, "the slice registers %d op names" % len(names))
+    new = [cid for cid in cases if cases[cid].name in names]
+    worst = max(new, key=lambda c: errors.get(c, 0.0))
+    log("  the sweep held %d cases of the slice's 22 op names card vs CPU (phase "
+        "18(c)): worst smooth case %s at %.3e of the largest (tol %.0e)"
+        % (len(new), worst, errors.get(worst, 0.0), SWEEP_TOL))
+    multibox_card_vs_cpu(mx)
+    log("  (d) tools/train_ssd.py --evaluate at the example's defaults")
+    run_ssd_tool()
+    log("  (e) Custom and SequentialModule, card vs CPU")
+    custom_and_sequential_card_vs_cpu(mx)
 
 
 def main():
@@ -3419,9 +3865,13 @@ def main():
     dcgan_step_card_vs_cpu(mx, gen, dis)
     del gen, dis
     log("  (c) every registered op, card vs CPU")
-    op_sweep(mx)
+    sweep = op_sweep(mx)
     log("  (d) tools/dcgan.py at the example's defaults")
     run_dcgan_tool()
+
+    log("== 19. SSD-300 through Module.fit; Custom and SequentialModule (%s)"
+        % card)
+    run_ssd_phase(mx, build, card, sweep)
 
     log(card)
     print(json.dumps({"kernels": rows}), flush=True)

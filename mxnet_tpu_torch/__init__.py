@@ -21,7 +21,11 @@ and ``fit(auto_resume=...)``; the image-classification zoo through
 ``tools/train_imagenet.py`` with ``mx.random`` (one generator per
 device, registered with every CUDA graph that draws), the sampling ops,
 ``Dropout``/``LRN``/``LeakyReLU``, ``mx.lr_scheduler``, the rest of the
-optimizers, initializers and metrics, and ``model.FeedForward``. The
+optimizers, initializers and metrics, and ``model.FeedForward``; the
+operator surface and DCGAN; SSD-300 with the contrib ops (``MultiBox*``,
+``Proposal``, ``CTCLoss``, ``fft``, ``count_sketch``, ``quantize``),
+``metric.MApMetric`` and ``tools/train_ssd.py``; ``Custom`` operators
+(:mod:`.operator`) and ``SequentialModule``/``PythonModule``. The
 namespaces are
 the JAX package's, so a training script needs only its import line
 changed: ``import mxnet_tpu_torch as mx``.
@@ -38,6 +42,7 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 from . import ndarray, symbol  # noqa: E402
+from . import operator  # noqa: E402
 from . import ndarray as nd  # noqa: E402
 from . import symbol as sym  # noqa: E402
 from .attribute import AttrScope  # noqa: E402
@@ -53,12 +58,15 @@ from . import metric, io, callback, rnn, models  # noqa: E402
 from . import module  # noqa: E402
 from . import module as mod  # noqa: E402
 from . import model  # noqa: E402
+from . import visualization  # noqa: E402
+from . import visualization as viz  # noqa: E402
+from . import log  # noqa: E402
 
 __version__ = "0.1.0"
 
 __all__ = ["base", "context", "MXNetError", "cpu", "gpu", "default_device",
-           "nd", "ndarray", "sym", "symbol", "AttrScope", "NameManager",
+           "nd", "ndarray", "operator", "sym", "symbol", "AttrScope", "NameManager",
            "Prefix", "Executor", "init", "initializer", "random",
            "lr_scheduler", "opt", "optimizer",
            "metric", "io", "callback", "rnn", "models", "mod", "module",
-           "model"]
+           "model", "visualization", "viz", "log"]

@@ -1,17 +1,19 @@
 """Training callbacks of the port (counterpart of ``mxnet_tpu/callback.py``;
 reference: python/mxnet/callback.py): the epoch-end checkpoint callbacks
 ``module_checkpoint`` and ``do_checkpoint`` (file names carry the count
-of completed epochs), and ``Speedometer``, the batch-end throughput
-logger. ``log_train_metric`` and ``ProgressBar`` wait for ``ROADMAP.md``
-A4."""
+of completed epochs), and the batch-end callbacks ``Speedometer`` (the
+throughput logger), ``log_train_metric`` and ``ProgressBar``."""
 from __future__ import annotations
 
 import logging
+import math
+import sys
 import time
 
 from . import telemetry
 
-__all__ = ["module_checkpoint", "do_checkpoint", "Speedometer"]
+__all__ = ["module_checkpoint", "do_checkpoint", "log_train_metric",
+           "Speedometer", "ProgressBar"]
 
 
 def _every(period, fn):
@@ -41,6 +43,22 @@ def do_checkpoint(prefix, period=1):
 
     return _every(period, lambda epoch, sym, arg, aux: save_checkpoint(
         prefix, epoch, sym, arg, aux))
+
+
+def log_train_metric(period, auto_reset=False):
+    """Log the training metric every ``period`` batches (and reset it
+    after each log with ``auto_reset``)."""
+
+    def _callback(param):
+        if param.nbatch % period or param.eval_metric is None:
+            return
+        for name, value in param.eval_metric.get_name_value():
+            logging.info("Iter[%d] Batch[%d] Train-%s=%f",
+                         param.epoch, param.nbatch, name, value)
+        if auto_reset:
+            param.eval_metric.reset()
+
+    return _callback
 
 
 class Speedometer:
@@ -85,3 +103,17 @@ class Speedometer:
             logging.info("Iter[%d] Batch [%d]\tSpeed: %.2f samples/sec",
                          param.epoch, param.nbatch, speed)
         self._window_start = now
+
+
+class ProgressBar:
+    """An in-place ASCII progress bar over ``total`` batches."""
+
+    def __init__(self, total, length=80):
+        self.bar_len = length
+        self.total = total
+
+    def __call__(self, param):
+        frac = param.nbatch / float(self.total)
+        filled = int(round(self.bar_len * frac))
+        bar = "=" * filled + "-" * (self.bar_len - filled)
+        sys.stdout.write("[%s] %s%%\r" % (bar, math.ceil(100.0 * frac)))

@@ -8,10 +8,13 @@ device: nothing waits for the card until :meth:`EvalMetric.get` (once
 per epoch in ``fit``), so a CUDA graph step reads no logits to the host.
 ``F1``, ``MAE``, ``MSE``, ``RMSE``, ``CrossEntropy``, ``Loss`` (and its
 ``Torch``/``Caffe`` names) and ``CustomMetric`` (``np``) compute on the
-host, as the JAX package does. ``MApMetric`` waits with SSD (ROADMAP
-A4).
+host, as the JAX package does, and so does ``MApMetric`` (VOC mean
+average precision of ``MultiBoxDetection`` rows, the JAX package's
+matching protocol).
 """
 from __future__ import annotations
+
+import math
 
 import numpy
 import torch
@@ -21,7 +24,7 @@ from .ndarray import NDArray
 
 __all__ = ["EvalMetric", "CompositeEvalMetric", "Accuracy", "TopKAccuracy",
            "F1", "Perplexity", "MAE", "MSE", "RMSE", "CrossEntropy", "Loss",
-           "Torch", "Caffe", "CustomMetric", "np", "create"]
+           "Torch", "Caffe", "CustomMetric", "MApMetric", "np", "create"]
 
 
 def _tensor(x, device=None):
@@ -344,6 +347,136 @@ class CustomMetric(EvalMetric):
                 self.num_inst += 1
 
 
+class MApMetric(EvalMetric):
+    """Mean average precision for detection, VOC-style.
+
+    (Reference: example/ssd/evaluate/eval_metric.py MApMetric — same
+    update contract and matching protocol.)
+
+    ``update(labels, preds)``:
+
+    * ``labels[0]``: ``(batch, max_objects, >=5)`` ground truth, rows
+      ``[cls, x0, y0, x1, y1, (difficult)]``, ``cls < 0`` = padding —
+      exactly what ``ImageDetRecordIter`` emits;
+    * ``preds[pred_idx]``: ``(batch, num_dets, 6)`` rows
+      ``[cls, score, x0, y0, x1, y1]`` — ``MultiBoxDetection`` output,
+      ``cls < 0`` = suppressed.
+
+    Per-class AP uses VOC07 11-point interpolation by default
+    (``voc07=False`` switches to all-points precision-envelope
+    integration). With ``class_names``, ``get()`` returns each class AP
+    plus the mean; otherwise just the mean.
+    """
+
+    def __init__(self, ovp_thresh=0.5, use_difficult=False,
+                 class_names=None, pred_idx=0, voc07=True,
+                 score_thresh=0.0):
+        self.ovp_thresh = float(ovp_thresh)
+        self.use_difficult = bool(use_difficult)
+        self.class_names = list(class_names) if class_names else None
+        self.pred_idx = int(pred_idx)
+        self.voc07 = bool(voc07)
+        self.score_thresh = float(score_thresh)
+        super().__init__("mAP")
+
+    def reset(self):
+        # per class: list of (score, is_tp); ground-truth count
+        self._records = {}
+        self._npos = {}
+        self._img = 0
+        self.num_inst = 0
+        self.sum_metric = 0.0
+
+    def update(self, labels, preds):
+        gts = _host(labels[0])
+        dets = _host(preds[self.pred_idx])
+        for i in range(gts.shape[0]):
+            gt = gts[i][gts[i, :, 0] >= 0]
+            difficult = (gt[:, 5] > 0 if gt.shape[1] > 5
+                         else numpy.zeros(gt.shape[0], bool))
+            if self.use_difficult:
+                difficult = numpy.zeros(gt.shape[0], bool)
+            for c in numpy.unique(gt[:, 0]).astype(int):
+                mask = gt[:, 0] == c
+                self._npos[c] = (self._npos.get(c, 0)
+                                 + int((mask & ~difficult).sum()))
+            det = dets[i][(dets[i, :, 0] >= 0)
+                          & (dets[i, :, 1] >= self.score_thresh)]
+            # VOC protocol: each detection (best score first) matches its
+            # HIGHEST-IoU same-class gt; a second match of a taken gt is a
+            # false positive, not a match of the next-best gt
+            taken = numpy.zeros(gt.shape[0], bool)
+            for row in det[numpy.argsort(-det[:, 1])]:
+                c = int(row[0])
+                cand = numpy.where(gt[:, 0] == c)[0]
+                best_iou, best_j = 0.0, -1
+                if cand.size:
+                    g = gt[cand]
+                    iw = (numpy.minimum(row[4], g[:, 3])
+                          - numpy.maximum(row[2], g[:, 1]))
+                    ih = (numpy.minimum(row[5], g[:, 4])
+                          - numpy.maximum(row[3], g[:, 2]))
+                    inter = numpy.maximum(iw, 0.0) * numpy.maximum(ih, 0.0)
+                    union = ((row[4] - row[2]) * (row[5] - row[3])
+                             + (g[:, 3] - g[:, 1]) * (g[:, 4] - g[:, 2])
+                             - inter)
+                    iou = numpy.where(union > 0, inter / union, 0.0)
+                    k = int(iou.argmax())
+                    best_iou, best_j = float(iou[k]), int(cand[k])
+                rec = self._records.setdefault(c, [])
+                if best_j >= 0 and best_iou >= self.ovp_thresh:
+                    if difficult[best_j]:
+                        continue  # matched a difficult gt: ignore entirely
+                    if taken[best_j]:
+                        rec.append((float(row[1]), 0))  # duplicate: FP
+                    else:
+                        taken[best_j] = True
+                        rec.append((float(row[1]), 1))
+                else:
+                    rec.append((float(row[1]), 0))
+            self._img += 1
+        self.num_inst = self._img
+
+    def _class_ap(self, c):
+        npos = self._npos.get(c, 0)
+        if npos == 0:
+            return float("nan")
+        rec = sorted(self._records.get(c, []), key=lambda r: -r[0])
+        tp = numpy.cumsum([r[1] for r in rec]) if rec else numpy.zeros(0)
+        n = numpy.arange(1, len(rec) + 1)
+        recall = tp / npos if len(rec) else numpy.zeros(0)
+        precision = tp / n if len(rec) else numpy.zeros(0)
+        if self.voc07:
+            ap = 0.0
+            for k in range(11):
+                # t - 1e-9: recall==k/10 computed as tp/npos must not miss
+                # its own threshold to float error
+                hit = recall >= (k / 10.0 - 1e-9)
+                ap += (precision[hit].max() if hit.any() else 0.0) / 11.0
+            return float(ap)
+        # all-points: integrate the precision envelope over recall
+        mrec = numpy.concatenate([[0.0], recall, [1.0]])
+        mpre = numpy.concatenate([[0.0], precision, [0.0]])
+        for k in range(len(mpre) - 2, -1, -1):
+            mpre[k] = max(mpre[k], mpre[k + 1])
+        idx = numpy.where(mrec[1:] != mrec[:-1])[0]
+        return float(numpy.sum((mrec[idx + 1] - mrec[idx]) * mpre[idx + 1]))
+
+    def get(self):
+        classes = sorted(self._npos)
+        aps = [self._class_ap(c) for c in classes]
+        mean = (float(numpy.nanmean(aps))
+                if aps and not all(math.isnan(a) for a in aps)
+                else float("nan"))
+        if self.class_names is None:
+            return (self.name, mean)
+        by_c = dict(zip(classes, aps))
+        names = self.class_names + ["mAP"]
+        values = [by_c.get(i, float("nan"))
+                  for i in range(len(self.class_names))] + [mean]
+        return (names, values)
+
+
 def np(numpy_feval, name=None, allow_extra_outputs=False):
     """A CustomMetric from a numpy ``feval(label, pred)``."""
 
@@ -402,7 +535,7 @@ def create(metric, **kwargs):
                "f1": F1, "mae": MAE, "mse": MSE, "rmse": RMSE,
                "top_k_accuracy": TopKAccuracy, "topkaccuracy": TopKAccuracy,
                "perplexity": Perplexity, "loss": Loss, "torch": Torch,
-               "caffe": Caffe}
+               "caffe": Caffe, "map": MApMetric, "mapmetric": MApMetric}
     try:
         return metrics[metric.lower()](**kwargs)
     except (KeyError, AttributeError):

@@ -408,6 +408,11 @@ class Module(BaseModule):
         'device' fuse on a card, only 'device' on the CPU."""
         if env_flag("MXNET_MODULE_NO_FUSED"):
             return "MXNET_MODULE_NO_FUSED=1 (explicit opt-out)"
+        from ..symbol import _topo_order
+
+        if any(node.op == "Custom" for node in _topo_order(self._symbol._entries)):
+            return ("the symbol holds a Custom op (host Python: a captured "
+                    "step would replay what it did at capture time)")
         if self._grad_req != "write":
             return "grad_req=%r (fused step supports 'write' only)" % (
                 self._grad_req,)

@@ -97,7 +97,7 @@ class Operator:
                  num_outputs=1, output_names=None, params=None,
                  infer_shape=None, infer_type=None, stochastic=False,
                  key_var_num_args=None, num_visible_outputs=None, alias=(),
-                 mutate_inputs=()):
+                 mutate_inputs=(), keep_extras=False):
         self.name = name
         self.forward = forward
         self._arg_names = arg_names
@@ -117,6 +117,9 @@ class Operator:
         self.mutate_inputs = tuple(mutate_inputs)
         #: loss heads: the executor seeds their head gradient with ones
         self.is_loss = False
+        #: an op with open-ended attrs (``Custom`` hands them to the user's
+        #: prop): unknown attrs stay in its params, not on the node
+        self.keep_extras = keep_extras
 
     # ---- introspection ---------------------------------------------------
     def stochastic(self, attrs):
@@ -171,6 +174,12 @@ class Operator:
                 if p.required:
                     raise MXNetError("op %s: required attr '%s' missing" % (self.name, k))
                 out[k] = p.default
+        if self.keep_extras:
+            # graph attrs (__key__, ctx_group) still go on the node
+            node_attrs = {k: v for k, v in extra.items()
+                          if k.startswith("__") or k == "ctx_group"}
+            out.update({k: v for k, v in extra.items() if k not in node_attrs})
+            return out, node_attrs
         return out, extra
 
     # ---- inference -------------------------------------------------------

@@ -245,6 +245,18 @@ class Symbol:
     def list_inputs(self):
         return self.list_arguments() + self.list_auxiliary_states()
 
+    def get_internals(self):
+        """Every internal output, one entry per node output, in
+        topological order."""
+        entries = []
+        for node in _topo_order(self._entries):
+            if node.is_variable:
+                entries.append((node, 0))
+            else:
+                op = get_op(node.op)
+                entries += [(node, i) for i in range(op.num_visible_outputs(node.attrs))]
+        return Symbol(entries)
+
     # ---- inference ------------------------------------------------------
     def infer_shape(self, *args, **kwargs):
         """(arg_shapes, out_shapes, aux_shapes); all three None when the
@@ -340,6 +352,14 @@ class Symbol:
         return Executor(self, ctx, args, args_grad, grad_req, aux_states,
                         group2ctx=group2ctx, shared_exec=shared_exec,
                         compute_dtype=compute_dtype, cast_exempt=cast_exempt)
+
+    def eval(self, ctx=None, **kwargs):
+        """Bind to the NDArrays ``kwargs`` (by argument name) on ``ctx``
+        (default: the card), run one inference forward and return the
+        outputs."""
+        ex = self.bind(_context.resolve(ctx), kwargs)
+        ex.forward()
+        return ex.outputs
 
     def __repr__(self):
         name = self.name
@@ -516,9 +536,10 @@ def _make_symbol_function(op_name):
 def _register_ops():
     """Import the op modules (they register at import) and make one
     constructor per op, plus the ``contrib`` namespace."""
-    from .ops import (attention, elemwise, indexing, init_ops,  # noqa: F401
-                      loss, matrix, nn, optimizer_ops, ordering, reduce,
-                      rnn_ops, sample, spatial)
+    from .ops import (attention, contrib_ops, elemwise,  # noqa: F401
+                      indexing, init_ops, loss, matrix, nn, optimizer_ops,
+                      ordering, reduce, rnn_ops, sample, spatial)
+    from . import operator  # noqa: F401 - registers Custom
 
     mod = sys.modules[__name__]
     contrib = types.SimpleNamespace()

@@ -1,4 +1,5 @@
-"""Test utilities of the port: the operator sweep.
+"""Test utilities of the port: the operator sweep, and the discrete
+choices of a deep network held fixed across two runs.
 
 :func:`op_cases` gives one seeded case for every registered op name
 (aliases run their op's case under their own name) and a few variants
@@ -17,28 +18,47 @@ valued where ties and indices matter; ``scatter_nd`` gets unique
 indices. ``kind`` says how a case is held: ``"smooth"`` to a relative
 tolerance, ``"exact"`` bit for bit (comparisons, rounding, indexing,
 ordering and integer-valued results), ``"random"`` by shape and
-finiteness only (samplers draw from each device's own generator).
+finiteness only (samplers draw from each device's own generator). A
+case's ``setup(mx)`` runs first (``Custom`` registers its operator in
+the package at hand); inputs that are not float32 (``dequantize``'s
+uint8) are bound in their own dtype.
+
+Two correct runs of a deep ReLU network in float32 (two packages, or the
+card and the CPU) disagree wherever a ReLU input or the gap between the
+two largest values of a max-pooling window lies within their rounding of
+zero: the gradient jumps there. SSD-300 at batch 2 has about 50 million
+ReLU inputs and several such places at any point. :func:`decision_names`
+names the values that fix those choices and :class:`installed_decisions`
+makes the port take them from a reference run (as ``chip_smoke`` installs
+the card's dropout masks on both sides), so the rest of the step is held
+to its tolerances.
 """
 from __future__ import annotations
 
+import importlib
+import math
 import zlib
 
 import numpy as np
 
-__all__ = ["Case", "op_cases", "run_case"]
+__all__ = ["Case", "op_cases", "run_case", "decision_names",
+           "installed_decisions", "detections_match"]
 
 
 class Case:
     """One sweep case: the op ``name``, its ``attrs``, its input arrays
     (arguments then aux states, in the op's order), how it is held
     (``kind``), whether its forward runs in training mode (``train``) and
-    whether it has a gradient to compare (``grad``)."""
+    whether it has a gradient to compare (``grad``), and what runs
+    before it is built (``setup(mx)``, or None)."""
 
-    __slots__ = ("name", "attrs", "inputs", "kind", "train", "grad")
+    __slots__ = ("name", "attrs", "inputs", "kind", "train", "grad", "setup")
 
-    def __init__(self, name, attrs, inputs, kind="smooth", train=True, grad=True):
+    def __init__(self, name, attrs, inputs, kind="smooth", train=True, grad=True,
+                 setup=None):
         self.name, self.attrs, self.inputs = name, attrs, inputs
         self.kind, self.train, self.grad = kind, train, grad
+        self.setup = setup
 
 
 def _rng(key):
@@ -60,14 +80,66 @@ def _ints(r, shape, lo=-2, hi=3):
     return _f(r.randint(lo, hi, shape))
 
 
+def _boxes(r, *lead):
+    """Corner boxes (..., 4) in [0, 1]: corners in [0, 0.7), sides 0.1-0.3."""
+    xy = r.uniform(0, 0.7, lead + (2,))
+    return _f(np.concatenate([xy, xy + r.uniform(0.1, 0.3, lead + (2,))], -1))
+
+
+def _det_target_inputs(r):
+    """MultiBoxTarget's case: 16 anchors (1, 16, 4); labels (2, 3, 5)
+    [class, x0, y0, x1, y1], image 0 with two objects and a padded row
+    (class -1), image 1 with one object and two padded rows; class
+    predictions (2, 3, 16). Each object is an anchor other than anchor 0
+    moved by up to 0.02, so it is that anchor's best match: where a valid
+    row's best anchor is anchor 0 and padded rows follow it, the JAX
+    package drops the match (``ROADMAP.md`` C9; held by
+    ``tests/test_torch_contrib.py``)."""
+    anchors = _boxes(r, 16)
+    lab = -np.ones((2, 3, 5))
+    for (i, j), k in zip(((0, 0), (0, 1), (1, 0)), (3, 7, 11)):
+        lab[i, j] = [r.randint(0, 2)] + list(anchors[k] + r.uniform(-0.02, 0.02, 4))
+    return [anchors[None], _f(lab), _f(r.standard_normal((2, 3, 16)))]
+
+
+def _softmax(x, axis):
+    e = np.exp(x - x.max(axis, keepdims=True))
+    return _f(e / e.sum(axis, keepdims=True))
+
+
+def _register_sweep_custom(mx):
+    """Register the Custom case's operator ``sweep_mul_add`` in package
+    ``mx``: ``a * b + a`` on the host, in numpy, with its gradient."""
+    op_mod = importlib.import_module(mx.__name__ + ".operator")
+
+    class _MulAdd(op_mod.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            a, b = (x.asnumpy() for x in in_data)
+            self.assign(out_data[0], req[0], a * b + a)
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            a, b = (x.asnumpy() for x in in_data)
+            g = out_grad[0].asnumpy()
+            self.assign(in_grad[0], req[0], g * (b + 1))
+            self.assign(in_grad[1], req[1], g * a)
+
+    @op_mod.register("sweep_mul_add")
+    class _MulAddProp(op_mod.CustomOpProp):
+        def list_arguments(self):
+            return ["a", "b"]
+
+        def create_operator(self, ctx, in_shapes, in_dtypes):
+            return _MulAdd()
+
+
 def _specs():
-    """name -> (attrs, inputs(rng), kind, train, grad)."""
+    """name -> (attrs, inputs(rng), kind, train, grad, setup)."""
     N = lambda r, *s: _f(r.standard_normal(s))            # noqa: E731
     U = lambda r, lo, hi, *s: _f(r.uniform(lo, hi, s))     # noqa: E731
     S = {}
 
-    def add(name, attrs, inputs, kind="smooth", train=True, grad=True):
-        S[name] = (attrs, inputs, kind, train, grad)
+    def add(name, attrs, inputs, kind="smooth", train=True, grad=True, setup=None):
+        S[name] = (attrs, inputs, kind, train, grad, setup)
 
     sh = (3, 4)
     # ---- unary maths
@@ -330,6 +402,34 @@ def _specs():
         add(name, {"shape": (2,)}, lambda r: [_f([1, 3])], kind="random", grad=False)
     add("_sample_multinomial", {"shape": (3,)},
         lambda r: [_f([[0.2, 0.3, 0.5], [0.6, 0.2, 0.2]])], kind="random", grad=False)
+
+    # ---- contrib: detection (no gradient: zeros on both sides)
+    add("_contrib_MultiBoxPrior", {"sizes": (0.2, 0.35), "ratios": (1, 2, 0.5),
+                                   "clip": True}, lambda r: [N(r, 1, 3, 4, 5)],
+        kind="exact")
+    add("_contrib_MultiBoxTarget", {"negative_mining_ratio": 3.0},
+        _det_target_inputs)
+    add("_contrib_MultiBoxDetection", {"nms_threshold": 0.3, "threshold": 0.1},
+        lambda r: [_softmax(N(r, 2, 3, 16), 1), _f(0.1 * N(r, 2, 64)),
+                   _boxes(r, 1, 16)])
+    add("_contrib_Proposal", {"scales": (2, 4), "feature_stride": 4,
+                              "rpn_pre_nms_top_n": 30, "rpn_post_nms_top_n": 12,
+                              "threshold": 0.5, "rpn_min_size": 4,
+                              "output_score": True},
+        lambda r: [U(r, 0, 1, 1, 12, 4, 4), _f(0.2 * N(r, 1, 24, 4, 4)),
+                   _f([[16, 16, 1]])])
+    # ---- contrib: the rest
+    add("_contrib_CTCLoss", {}, lambda r: [N(r, 6, 2, 4), _f([[1, 2, 0], [3, 3, 1]])])
+    add("_contrib_fft", {}, lambda r: [N(r, 2, 8)])
+    add("_contrib_ifft", {}, lambda r: [N(r, 2, 8)])
+    add("_contrib_count_sketch", {"out_dim": 4},
+        lambda r: [N(r, 3, 6), _f([[0, 2, 1, 2, 0, 3]]), _f([[1, -1, 1, 1, -1, 1]])])
+    add("_contrib_quantize", {}, lambda r: [U(r, 0, 1, 3, 4), _f([0.1]), _f([0.9])],
+        kind="exact")
+    add("_contrib_dequantize", {}, lambda r: [_ints(r, (3, 4), -127, 128),
+                                              _f([-0.5]), _f([2.0])])
+    add("Custom", {"op_type": "sweep_mul_add"}, lambda r: [N(r, *sh), N(r, *sh)],
+        setup=_register_sweep_custom)
     return S
 
 
@@ -372,6 +472,19 @@ _VARIANTS = {
     "repeat[axis=None]": ("repeat", {"repeats": 3}),
     "one_hot[on,off,dtype]": ("one_hot", {"depth": 4, "on_value": 2.5,
                                           "off_value": -1.0, "dtype": "float16"}),
+    "_contrib_MultiBoxPrior[steps,offsets]": ("_contrib_MultiBoxPrior", {
+        "sizes": (0.3,), "ratios": (1, 3), "steps": (0.2, 0.25),
+        "offsets": (0.4, 0.6)}),
+    "_contrib_MultiBoxTarget[no mining]": ("_contrib_MultiBoxTarget", {
+        "overlap_threshold": 0.3}),
+    "_contrib_MultiBoxDetection[force,topk]": ("_contrib_MultiBoxDetection", {
+        "nms_threshold": 0.3, "force_suppress": True, "nms_topk": 5,
+        "clip": False}),
+    "_contrib_Proposal[one output]": ("_contrib_Proposal", {
+        "scales": (2, 4), "feature_stride": 4, "rpn_pre_nms_top_n": 100,
+        "rpn_post_nms_top_n": 30, "rpn_min_size": 4}),
+    "_contrib_quantize[int8]": ("_contrib_quantize", {"out_type": "int8"}),
+    "_contrib_dequantize[uint8]": ("_contrib_dequantize", {}, False),
 }
 
 
@@ -398,6 +511,8 @@ def _variant_inputs(key, r, base):
         return [N(2, 3, 7, 6), N(2, 1, 4, 3)]
     if key == "SequenceLast[axis=1]":
         return [N(3, 5, 4), _f([2, 5, 1])]
+    if key == "_contrib_dequantize[uint8]":
+        return [r.randint(0, 256, (3, 4)).astype(np.uint8), _f([-0.5]), _f([2.0])]
     return base(r)
 
 
@@ -413,14 +528,15 @@ def op_cases(names):
         key = name if name in specs else get_op(name).name
         if key not in specs:
             raise KeyError("no sweep case for op %r" % name)
-        attrs, inputs, kind, train, grad = specs[key]
-        cases[name] = Case(name, dict(attrs), inputs(_rng(name)), kind, train, grad)
+        attrs, inputs, kind, train, grad, setup = specs[key]
+        cases[name] = Case(name, dict(attrs), inputs(_rng(name)), kind, train,
+                           grad, setup)
     for vid, (op, attrs, *no_grad) in _VARIANTS.items():
         if op in names:
-            _, inputs, kind, train, grad = specs[op]
+            _, inputs, kind, train, grad, setup = specs[op]
             cases[vid] = Case(op, dict(attrs),
                               _variant_inputs(vid, _rng(vid), inputs),
-                              kind, train, grad and not no_grad)
+                              kind, train, grad and not no_grad, setup)
     return cases
 
 
@@ -431,6 +547,8 @@ def run_case(mx, case, ctx, devices=None):
     Returns (outputs, {argument: gradient}, aux states) as numpy; with a
     list ``devices``, appends the device of every output, gradient and
     aux array to it."""
+    if case.setup is not None:
+        case.setup(mx)
     op = getattr(mx.sym, case.name)
     probe = op(name="probe", **case.attrs)
     n_args = len(probe.list_arguments())
@@ -441,8 +559,10 @@ def run_case(mx, case, ctx, devices=None):
         else op(name="op", **case.attrs)
     arg_names = sym.list_arguments()
     shapes = {n: a.shape for n, a in zip(arg_names, case.inputs)}
+    types = ({n: a.dtype for n, a in zip(arg_names, case.inputs)}
+             if any(a.dtype != np.float32 for a in case.inputs) else None)
     exe = sym.simple_bind(ctx=ctx, grad_req="write" if case.grad else "null",
-                          **shapes)
+                          type_dict=types, **shapes)
     for n, a in zip(arg_names, case.inputs):
         exe.arg_dict[n][:] = a
     for n, a in zip(sym.list_auxiliary_states(), case.inputs[n_args:]):
@@ -460,3 +580,111 @@ def run_case(mx, case, ctx, devices=None):
     if devices is not None:
         devices.extend(str(a.context) for a in held + list(exe.aux_arrays))
     return outs, grads, [a.asnumpy() for a in exe.aux_arrays]
+
+
+def _decision_nodes(symbol):
+    """(node, reference output name) of each ReLU (its output) and each
+    2-d max pooling (its input) of the port's ``symbol``."""
+    from .symbol import Symbol, _topo_order
+
+    out = []
+    for node in _topo_order(symbol._entries):
+        if node.op == "Activation" and node.attrs["act_type"] == "relu":
+            out.append((node, node.name + "_output"))
+        elif (node.op == "Pooling" and node.attrs["pool_type"] == "max"
+              and not node.attrs["global_pool"] and len(node.attrs["kernel"]) == 2):
+            out.append((node, Symbol([node.inputs[0]]).list_outputs()[0]))
+    return out
+
+
+def decision_names(symbol):
+    """The internal outputs (``symbol.get_internals()`` names) whose values
+    fix the discrete choices of ``symbol``: each ReLU's output and each
+    2-d max pooling's input. The same names exist in the JAX package's
+    symbol."""
+    return list(dict.fromkeys(name for _, name in _decision_nodes(symbol)))
+
+
+class installed_decisions:
+    """Within the block, the port's ReLUs and 2-d max poolings in
+    ``symbol`` (the port's, as bound) take their choices from
+    ``reference`` ({name: numpy array}, :func:`decision_names`' values of
+    a reference run): a ReLU passes the units whose reference output is
+    positive, a max pooling takes, in each window, the element where the
+    reference input is largest. The values passed are this run's own, so
+    only the choices come from the reference."""
+
+    def __init__(self, symbol, reference):
+        self._ref = {id(node.attrs): reference[name]
+                     for node, name in _decision_nodes(symbol)}
+        self._saved = None
+
+    def _lookup(self, attrs, x):
+        import torch
+
+        ref = self._ref.get(id(attrs))
+        if ref is None or x.device.type == "meta":
+            return None
+        return torch.as_tensor(np.array(ref), device=x.device)
+
+    def __enter__(self):
+        import torch.nn.functional as F
+
+        from .ops import nn
+        from .ops.registry import get_op
+
+        act, pool = get_op("Activation"), get_op("Pooling")
+        self._saved = (act.forward, pool.forward)
+        act_fwd, pool_fwd = self._saved
+
+        def relu(octx, attrs, args, auxs):
+            ref = self._lookup(attrs, args[0])
+            if ref is None:
+                return act_fwd(octx, attrs, args, auxs)
+            return [args[0] * (ref > 0).to(args[0].dtype)], []
+
+        def max_pool(octx, attrs, args, auxs):
+            x = args[0]
+            ref = self._lookup(attrs, x)
+            if ref is None:
+                return pool_fwd(octx, attrs, args, auxs)
+            kernel, stride, pads = nn._pool_window(attrs, tuple(x.shape[2:]))
+            xp = nn._pad_spatial(x, pads, -math.inf)
+            _, idx = F.max_pool2d(nn._pad_spatial(ref, pads, -math.inf), kernel,
+                                  stride, return_indices=True)
+            return [xp.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)], []
+
+        act.forward, pool.forward = relu, max_pool
+        return self
+
+    def __exit__(self, *exc):
+        from .ops.registry import get_op
+
+        get_op("Activation").forward, get_op("Pooling").forward = self._saved
+        return False
+
+
+def detections_match(got, want, tol):
+    """Whether two runs' ``MultiBoxDetection`` outputs (N, A, 6) agree: per
+    image the same kept rows ([class, score, x0, y0, x1, y1], class >= 0)
+    in score order, classes exact and the rest within ``tol``, a row
+    trading places only with one of the four rows either side whose
+    score is within ``tol`` of its own (two runs' rounding may order
+    equal scores either way). Returns the number of places traded, or
+    None where the rows differ."""
+    traded = 0
+    for g, w in zip(got, want):
+        g, w = g[g[:, 0] >= 0], w[w[:, 0] >= 0]
+        if g.shape != w.shape:
+            return None
+        used = np.zeros(len(w), bool)
+        for i, row in enumerate(g):
+            hits = [j for j in range(max(0, i - 4), min(len(w), i + 5))
+                    if not used[j] and row[0] == w[j, 0]
+                    and np.abs(row[1:] - w[j, 1:]).max() <= tol]
+            if not hits:
+                return None
+            j = i if i in hits else hits[0]
+            traded += j != i
+            used[j] = True
+    return traded

@@ -2,8 +2,8 @@
 
 Every op name the port registers beyond its first 107 (the core
 operator surface: elementwise, matrix, reduction, indexing, ordering,
-layer, loss, creation, optimizer-update and spatial ops, aliases
-included) and a few variants of their modes: the same ``mx.sym.<op>`` is
+layer, loss, creation, optimizer-update and spatial ops; the contrib ops
+and ``Custom``; aliases included) and a few variants of their modes: the same ``mx.sym.<op>`` is
 built in both packages, bound with ``simple_bind`` on the CPU, fed the
 same seeded inputs (``mxnet_tpu_torch.test_utils``) and the same seeded
 head gradient, and the outputs, input gradients and aux states are
@@ -44,15 +44,8 @@ sample_multinomial sample_negative_binomial sample_normal sample_poisson
 sample_uniform softmax split sqrt square sum sum_axis swapaxes take uniform
 zeros_like""".split())
 
-#: what the port leaves for later: contrib_ops.py's 21 names (with ssd and
-#: MApMetric), Custom (operator.py) and the uint8 wire's decode (A5)
-NOT_PORTED = frozenset("""
-CTCLoss MultiBoxDetection MultiBoxPrior MultiBoxTarget WarpCTC
-_contrib_CTCLoss _contrib_MultiBoxDetection _contrib_MultiBoxPrior
-_contrib_MultiBoxTarget _contrib_Proposal _contrib_count_sketch
-_contrib_ctc_loss _contrib_dequantize _contrib_fft _contrib_ifft
-_contrib_quantize count_sketch dequantize fft ifft quantize Custom
-_image_wire_normalize""".split())
+#: what the port leaves for later: the uint8 wire's decode (A5)
+NOT_PORTED = frozenset(["_image_wire_normalize"])
 
 NEW = sorted(set(TR.list_ops()) - PORTED_BEFORE)
 CASES = op_cases(NEW)
@@ -61,9 +54,10 @@ CASES = op_cases(NEW)
 def test_coverage_is_all_but_contrib_custom_and_the_wire():
     import mxnet_tpu.operator  # noqa: F401 - registers Custom
     assert set(JR.list_ops()) - set(TR.list_ops()) == NOT_PORTED
-    assert len(NOT_PORTED) == 23
+    assert len(NOT_PORTED) == 1
     assert PORTED_BEFORE <= set(TR.list_ops())
-    assert len(NEW) == 167
+    # 167 names of the core surface, contrib_ops.py's 21 and Custom
+    assert len(NEW) == 189
     assert set(NEW) <= set(CASES)
 
 
@@ -109,6 +103,8 @@ def test_infer_shape_and_json_match_jax():
     for cid, case in sorted(CASES.items()):
         syms = []
         for mx in (J, T):
+            if case.setup is not None:
+                case.setup(mx)
             with mx.name.NameManager():
                 syms.append(getattr(mx.sym, case.name)(name="op", **case.attrs))
         assert syms[0].tojson() == syms[1].tojson(), cid

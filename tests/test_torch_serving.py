@@ -369,7 +369,12 @@ def test_port_import_leaves_jax_out():
             " mxnet_tpu_torch.models, mxnet_tpu_torch.tools.train_imagenet,"
             " mxnet_tpu_torch.ops.ordering, mxnet_tpu_torch.ops.spatial,"
             " mxnet_tpu_torch.ops.optimizer_ops, mxnet_tpu_torch.models.dcgan,"
-            " mxnet_tpu_torch.tools.dcgan, mxnet_tpu_torch.test_utils;"
+            " mxnet_tpu_torch.tools.dcgan, mxnet_tpu_torch.test_utils,"
+            " mxnet_tpu_torch.ops.contrib_ops, mxnet_tpu_torch.operator,"
+            " mxnet_tpu_torch.models.ssd, mxnet_tpu_torch.tools.train_ssd,"
+            " mxnet_tpu_torch.module.python_module,"
+            " mxnet_tpu_torch.module.sequential_module,"
+            " mxnet_tpu_torch.visualization, mxnet_tpu_torch.log;"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'mxnet_tpu' or "
             "m.startswith('mxnet_tpu.')];"
@@ -406,7 +411,10 @@ def test_port_sources_import_no_jax():
         "models/lenet.py", "models/mlp.py", "ops/ordering.py",
         "ops/spatial.py", "ops/optimizer_ops.py", "ops/elemwise.py",
         "ops/matrix.py", "ops/reduce.py", "ops/indexing.py", "ops/loss.py",
-        "models/dcgan.py", "tools/dcgan.py", "test_utils.py")} <= rel
+        "models/dcgan.py", "tools/dcgan.py", "test_utils.py",
+        "ops/contrib_ops.py", "operator.py", "models/ssd.py", "tools/train_ssd.py",
+        "module/python_module.py", "module/sequential_module.py",
+        "visualization.py", "log.py")} <= rel
     for f in files:
         roots = set(_imported_roots(f))
         assert not roots & {"jax", "jaxlib", "mxnet_tpu"}, (f, roots)
