@@ -236,6 +236,34 @@ Drives ``mxnet_tpu_torch`` (never the JAX package) on ``cuda:0``:
    ``Custom`` op (classic path: host Python is never replayed from a
    graph) and of a ``SequentialModule`` of two Modules, each card vs CPU
    within 1e-4.
+20. autograd and the data pipeline — (a) ``contrib.autograd`` over
+   ``_contrib_FlashAttention`` at the training shape (32, 4, 128, 64)
+   float32 causal and over one Transformer-LM attention block
+   (``_contrib_MultiHeadAttention``, d 256, 4 heads, residual, ReLU) at
+   batch 32, seq 128: one launch each of K1, K2a and K2b per backward (the
+   launch counters set to 0 just before each run and read just after),
+   outputs within 1e-4 and gradients within 1e-3 of the largest (phase 3's
+   and phase 6's tolerances) of the same graph with the plain versions on
+   the card; ``test_utils.check_consistency`` over [cpu, gpu(0)] on five
+   ops, forward and backward (1e-3, the reference's float32 tolerance);
+   (b) the native host stage built (its JPEG decoder named on its own
+   line), its decode against PIL's (pixel difference), 320 synthetic
+   JPEGs of ImageNet-like size (short side 256-500) packed by the port's
+   ``tools/im2rec.py`` and read by ``ImageRecordIter`` (random 224 crop,
+   mirror, mean/std on the uint8 wire) into a null consumer: images/s on
+   the native and Python backends with the thread count; (c) ResNet-50 at
+   bench.py's configuration through ``tools/train_imagenet.py
+   --data-dir`` on those records (native backend, DeviceFeedIter, the
+   uint8 batch as the fused CUDA graph's static input): images/s, host
+   wall per step and the device's busy share (``torch.profiler``) against
+   phase 9's synthetic-data step, at 8 decode threads and at 4; (d)
+   ``_image_wire_normalize`` card vs CPU (bitwise), and three fused
+   float32 ResNet-50 steps at batch 4 fed
+   the uint8 wire against the same steps fed host-normalized float32
+   batches, both with cuDNN's deterministic algorithms (outputs and BN
+   statistics within 1e-4, phase 10's, updates within 1e-4 of the
+   largest; bitwise expected); (e) ``tools/train_ssd.py --data-dir``
+   over ``ImageDetRecordIter`` records for a few steps.
 
 Every phase that fails raises, so the exit code is not 0. The last two
 lines are the ``kernels`` JSON object and the ``ok`` JSON object; the card
@@ -3624,6 +3652,473 @@ def run_ssd_phase(mx, build, card, sweep):
     custom_and_sequential_card_vs_cpu(mx)
 
 
+# ---------------------------------------------------------------- phase 20
+AG_SHAPE = (32, 4, 128, 64)   # K1/K2a/K2b's training shape (phase 11)
+MHA_BATCH, MHA_SEQ = 32, 128  # one attention block of phase 5's LM
+AG_OUT_TOL = F32_TOL          # phase 3's float32 flash tolerance
+PIPE_IMAGES = 320
+PIPE_BATCH = 32
+PIPE_THREADS = 8              # the card machine's host cores
+PIPE_PASSES = 2
+REC_EPOCHS = 2
+WIRE_BATCH = 4                # phase 10's batch
+WIRE_STEPS = 3                # eager, capture, replay
+SSD_REC_IMAGES = 40          # 5 steps: the Speedometer (every 5) resets after the 6th
+SSD_REC_BATCH = 8
+MEAN_RGB, STD_RGB = (123.68, 116.779, 103.939), (58.393, 57.12, 57.375)
+
+
+class plain_flash:
+    """Within the block, the flash ops' autograd Function runs the plain
+    forward and backward (on card tensors too), not the kernels."""
+
+    def __init__(self, A):
+        self.A = A
+
+    def __enter__(self):
+        A = self.A
+        self.saved = A.flash_attention_forward, A.flash_attention_backward
+        A.flash_attention_forward = lambda q, k, v, causal=False, sm_scale=None: \
+            A._flash_forward_plain(q, k, v, causal, A._scale(sm_scale, q.shape[-1]))
+        A.flash_attention_backward = lambda q, k, v, out, lse, g, causal=False, \
+            sm_scale=None: A._flash_backward_plain(
+                q, k, v, out, lse, g, causal, A._scale(sm_scale, q.shape[-1]))
+
+    def __exit__(self, *exc):
+        self.A.flash_attention_forward, self.A.flash_attention_backward = self.saved
+
+
+def recorded_grads(mx, make_out, inputs, head):
+    """``contrib.autograd`` over ``make_out(*arrays)`` on the card: marks
+    the ``inputs`` (numpy), records, backward with head gradient ``head``;
+    returns (output, gradients) as numpy."""
+    ag = mx.contrib.autograd
+    ctx = mx.gpu(0)
+    arrs = [mx.nd.array(x, ctx=ctx) for x in inputs]
+    grads = [mx.nd.zeros(x.shape, ctx=ctx) for x in inputs]
+    ag.mark_variables(arrs, grads)
+    with ag.train_section():
+        out = make_out(*arrs)
+    ag.backward([out], out_grads=[mx.nd.array(head, ctx=ctx)])
+    torch.cuda.synchronize()
+    ag._MARKED.clear()
+    return out.asnumpy(), [g.asnumpy() for g in grads]
+
+
+def autograd_phase(mx, A, build):
+    """20(a): returns the kernels' launches in the two recorded runs."""
+    rng = np.random.RandomState(20)
+    b, h, s, d = AG_SHAPE
+    qkv = [rng.standard_normal(AG_SHAPE).astype(np.float32) for _ in range(3)]
+    dm = TRAIN["model_dim"]
+    x = rng.standard_normal((MHA_BATCH, MHA_SEQ, dm)).astype(np.float32)
+    wi = (rng.standard_normal((3 * dm, dm)) / math.sqrt(dm)).astype(np.float32)
+    wo = (rng.standard_normal((dm, dm)) / math.sqrt(dm)).astype(np.float32)
+    cases = (
+        ("FlashAttention %s float32 causal" % (AG_SHAPE,),
+         lambda q, k, v: mx.nd.contrib.FlashAttention(q, k, v, causal=True),
+         qkv, rng.standard_normal(AG_SHAPE).astype(np.float32)),
+        ("MultiHeadAttention block (%d, %d, %d), %d heads" % (
+            MHA_BATCH, MHA_SEQ, dm, TRAIN["num_heads"]),
+         lambda xx, w1, w2: mx.nd.relu(mx.nd.contrib.MultiHeadAttention(
+             xx, w1, w2, num_heads=TRAIN["num_heads"], causal=True) + xx),
+         [x, wi, wo], rng.standard_normal(x.shape).astype(np.float32)))
+    total = {}
+    for what, fn, inputs, head in cases:
+        for k in build.KERNELS.values():
+            k.launches = 0
+        out, grads = recorded_grads(mx, fn, inputs, head)
+        launched = {n: k.launches for n, k in build.KERNELS.items() if k.launches}
+        with plain_flash(A):
+            p_out, p_grads = recorded_grads(mx, fn, inputs, head)
+        check(not any(k.launches != launched.get(n, 0)
+                      for n, k in build.KERNELS.items()),
+              "the plain run launched a kernel")
+        out_err = float(np.abs(out - p_out).max())
+        g_err = [float(np.abs(g - p).max() / np.abs(p).max())
+                 for g, p in zip(grads, p_grads)]
+        log("  %s under contrib.autograd: launches %s; output max abs diff "
+            "%.3e (tol %.0e); gradients' max abs diff / largest %s (tol %.0e) "
+            "against the plain versions on the card"
+            % (what, launched, out_err, AG_OUT_TOL,
+               ", ".join("%.3e" % e for e in g_err), GRAD_TOL))
+        check(launched == {"flash_fwd": 1, "flash_bwd_dkv": 1, "flash_bwd_dq": 1},
+              "the recorded graph did not launch K1, K2a and K2b once each")
+        check(np.isfinite(out).all() and all(np.isfinite(g).all() for g in grads),
+              "autograd gave non-finite values")
+        check(out_err <= AG_OUT_TOL, "autograd output: kernels disagree with plain")
+        check(max(g_err) <= GRAD_TOL, "autograd gradients: kernels disagree with plain")
+        for n, v in launched.items():
+            total[n] = total.get(n, 0) + v
+    sym = mx.sym
+    data = sym.Variable("data")
+    ops = (("FullyConnected+tanh", sym.tanh(sym.FullyConnected(data, num_hidden=16)),
+            (8, 32)),
+           ("Convolution", sym.Convolution(data, num_filter=8, kernel=(3, 3),
+                                           pad=(1, 1)), (4, 3, 16, 16)),
+           ("BatchNorm", sym.BatchNorm(data, fix_gamma=False), (4, 6, 8, 8)),
+           ("softmax", sym.softmax(data), (8, 100)),
+           ("Pooling", sym.Pooling(data, kernel=(2, 2), stride=(2, 2),
+                                   pool_type="max"), (4, 3, 16, 16)))
+    from mxnet_tpu_torch import test_utils as tu
+
+    for what, net, shape in ops:
+        worst = tu.check_consistency(
+            net, [{"ctx": mx.cpu(), "shapes": {"data": shape}},
+                  {"ctx": mx.gpu(0), "shapes": {"data": shape}}],
+            raise_on_err=False)
+        log("  check_consistency [cpu, gpu(0)] %s %s: worst violation %.3f of "
+            "the float32 tolerance 1e-3 (outputs and gradients)"
+            % (what, shape, worst))
+        check(worst <= 1.0, "check_consistency: %s differs card vs CPU" % what)
+    return total
+
+
+def synthetic_jpegs(root, n, seed, boxes=False):
+    """``n`` JPEGs of ImageNet-like size (short side 256-500, aspect up to
+    1.5) under ``root``: smooth seeded colour fields with noise, two class
+    folders. Returns their paths."""
+    import os
+
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    paths = []
+    for i in range(n):
+        short = rng.randint(256, 501)
+        long_ = int(short * rng.uniform(1.0, 1.5))
+        hh, ww = (short, long_) if rng.rand() < 0.5 else (long_, short)
+        base = Image.fromarray((rng.rand(6, 8, 3) * 255).astype(np.uint8))
+        img = np.asarray(base.resize((ww, hh), Image.BILINEAR), np.float32)
+        img = np.clip(img + rng.standard_normal(img.shape) * 12, 0, 255)
+        d = os.path.join(root, "class%d" % (i % 2))
+        os.makedirs(d, exist_ok=True)
+        path = os.path.join(d, "%04d.jpg" % i)
+        Image.fromarray(img.astype(np.uint8)).save(path, quality=90)
+        paths.append(path)
+    return paths
+
+
+def decoder_against_pil(mx, rec_path, n=32):
+    """The native decoder's pixels against PIL's on the first ``n``
+    records: (max abs diff, mean abs diff)."""
+    import ctypes
+    import io as _io
+
+    from PIL import Image
+
+    from mxnet_tpu_torch import _native
+
+    lib = _native.load()
+    rec = mx.recordio.MXRecordIO(rec_path, "r")
+    worst, mean = 0, []
+    for _ in range(n):
+        raw = rec.read()
+        if raw is None:
+            break
+        _, img = mx.recordio.unpack(raw)
+        ptr = ctypes.POINTER(ctypes.c_uint8)()
+        hh, ww = ctypes.c_int(), ctypes.c_int()
+        check(lib.mxt_decode_jpeg(img, len(img), ctypes.byref(ptr),
+                                  ctypes.byref(hh), ctypes.byref(ww)) == 0,
+              "the native decoder failed on a record")
+        got = np.ctypeslib.as_array(ptr, shape=(hh.value, ww.value, 3)).astype(np.int16)
+        lib.mxt_rec_free(ctypes.cast(ptr, ctypes.POINTER(ctypes.c_char)),
+                         hh.value * ww.value * 3)
+        want = np.asarray(Image.open(_io.BytesIO(img)).convert("RGB")).astype(np.int16)
+        check(got.shape == want.shape, "decoded shape differs from PIL's")
+        diff = np.abs(got - want)
+        worst = max(worst, int(diff.max()))
+        mean.append(float(diff.mean()))
+    rec.close()
+    return worst, float(np.mean(mean))
+
+
+def pipeline_rate(mx, rec_path, backend, threads):
+    """Images/s of ImageRecordIter into a null consumer over
+    ``PIPE_PASSES`` passes (start-up included)."""
+    it = mx.io_image.ImageRecordIter(
+        rec_path, (3, 224, 224), PIPE_BATCH, rand_crop=True, rand_mirror=True,
+        mean_r=MEAN_RGB[0], mean_g=MEAN_RGB[1], mean_b=MEAN_RGB[2],
+        std_r=STD_RGB[0], std_g=STD_RGB[1], std_b=STD_RGB[2],
+        backend=backend, preprocess_threads=threads, wire_dtype="uint8")
+    images = 0
+    t0 = time.perf_counter()
+    for p in range(PIPE_PASSES):
+        if p:
+            it.reset()
+        for b in it:
+            images += PIPE_BATCH - b.pad
+    dt = time.perf_counter() - t0
+    native = it._native is not None
+    it.close()
+    check(native == (backend == "native"), "the %s backend did not run" % backend)
+    return images / dt, images
+
+
+def imagenet_args(data_dir, threads, extra=()):
+    from mxnet_tpu_torch.tools import train_imagenet as ti
+
+    return ti.parse_args(["--network", "resnet", "--num-layers", "50",
+                          "--batch-size", str(RESNET_BATCH), "--dtype", "bfloat16",
+                          "--num-classes", "1000", "--kv-store", "device",
+                          "--data-dir", data_dir,
+                          "--data-nthreads", str(threads),
+                          "--num-examples", str(PIPE_IMAGES),
+                          "--num-epochs", str(REC_EPOCHS), "--lr", "0.05",
+                          "--rgb-std", ",".join(str(v) for v in STD_RGB)]
+                         + list(extra))
+
+
+def record_fit(mx, build, data_dir, rn_fused, threads):
+    """20(c): ResNet-50 from the records through tools/train_imagenet.fit
+    with ``threads`` decode threads."""
+    from mxnet_tpu_torch.tools import train_imagenet as ti
+
+    args = imagenet_args(data_dir, threads)
+    for k in build.KERNELS.values():
+        k.launches = 0
+    mod, rec = ti.fit(args, eval_data=False)
+    torch.cuda.synchronize()
+    launches = {n: k.launches for n, k in build.KERNELS.items() if k.launches}
+    log("  tools/train_imagenet.py --data-dir (ResNet-50, batch %d, bf16 over "
+        "f32 masters, fused): %s" % (args.batch_size, json.dumps(rec)))
+    tr = mod._fused.trainer if mod._fused is not None else None
+    check(tr is not None and tr.captures == 1 and tr.replays == rec["steps"] - 1,
+          "the record fit did not replay one captured graph")
+    buf = tr.input_buffers()["data"]
+    c, hh, ww = (int(v) for v in args.image_shape.split(","))
+    check(tr.wire is not None and buf.dtype == torch.uint8
+          and tuple(buf.shape) == (args.batch_size, hh, ww, c),
+          "the fused step's static input is not the uint8 NHWC batch")
+    check(rec["data"]["backend"] == "native" and rec["data"]["wire"] == "uint8",
+          "the record fit did not read through the native stage's uint8 wire")
+    check(all(np.isfinite(v) for v in rec["train"].values()), "non-finite metric")
+    check(not launches, "a port kernel ran on ResNet's path: %s" % launches)
+    # the steps again, each with its batch drawn from the records, under
+    # one profiler window
+    train, _ = ti.make_iters(args, (c, hh, ww), mx.context.default_device())
+
+    def step():
+        try:
+            batch = train.next()
+        except StopIteration:
+            train.reset()
+            batch = train.next()
+        mod.forward(batch, is_train=True)
+        mod.backward()
+        mod.update()
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(6):
+        step()
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / 6
+    prof = device_profile(step)
+    train.close()
+    busy = prof[0] / (step_s * 1e3) if prof else float("nan")
+    log_profile("ResNet-50 from records", prof, step_s)
+    syn = rn_fused["step_s"]
+    # input bound: the fit's step more than 5 % over the synthetic one while
+    # the device idles more than a tenth of the step
+    bound = rec["step_s"] > 1.05 * syn and busy < 0.9
+    log("  records, %d decode threads: host wall per step %.5f s in the fit "
+        "(%.1f images/s, %.3fx phase 9's), %.5f s in the profiled steps, busy "
+        "share %.3f; phase 9's synthetic-data step %.5f s (%.1f images/s): the "
+        "fit is %s" % (threads, rec["step_s"], rec["images_per_sec"],
+                       rec["step_s"] / syn, step_s, busy, syn,
+                       args.batch_size / syn,
+                       "input bound" if bound else "not input bound"))
+    return rec
+
+
+def wire_checks(mx, A):
+    """20(d): the wire's op card vs CPU; fused steps fed the uint8 wire
+    against the same steps fed host-normalized float32 batches."""
+    rng = np.random.RandomState(21)
+    x = rng.randint(0, 256, (8, 224, 224, 3)).astype(np.uint8)
+    attrs = dict(mean=MEAN_RGB, std=STD_RGB)
+    got = mx.nd._image_wire_normalize(mx.nd.array(x, ctx=mx.gpu(0), dtype=np.uint8),
+                                      **attrs).asnumpy()
+    want = mx.nd._image_wire_normalize(mx.nd.array(x, ctx=mx.cpu(), dtype=np.uint8),
+                                       **attrs).asnumpy()
+    log("  _image_wire_normalize (8, 224, 224, 3) uint8 on the card against the "
+        "CPU: %s (max abs diff %.3e)"
+        % ("bitwise equal" if np.array_equal(got, want) else "differ",
+           float(np.abs(got - want).max())))
+    check(np.array_equal(got, want), "_image_wire_normalize: card differs from CPU")
+    sym = mx.models.resnet(**RESNET)
+    X = rng.randint(0, 256, (WIRE_STEPS, WIRE_BATCH, 224, 224, 3)).astype(np.uint8)
+    Y = rng.randint(0, 1000, (WIRE_STEPS, WIRE_BATCH)).astype(np.float32)
+    init = mx.mod.Module(sym, context=mx.cpu())
+    init.bind(data_shapes=[("data", (WIRE_BATCH, 3, 224, 224))],
+              label_shapes=[("softmax_label", (WIRE_BATCH,))])
+    init.init_params(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                    magnitude=2, rng=torch.Generator().manual_seed(3)))
+    args0, auxs0 = ({n: a.asnumpy() for n, a in d.items()} for d in init.get_params())
+    wire = mx.io.WireSpec(MEAN_RGB, STD_RGB, "NHWC")
+    mean = np.asarray(MEAN_RGB, np.float32)
+    std = np.asarray(STD_RGB, np.float32)
+
+    def steps(fed, deterministic):
+        """WIRE_STEPS fused steps fed ``fed``: (outputs, params, auxs)."""
+        saved = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = deterministic
+        try:
+            mod = mx.mod.Module(sym, context=mx.gpu(0))
+            mod.bind(data_shapes=[("data", (WIRE_BATCH, 3, 224, 224))],
+                     label_shapes=[("softmax_label", (WIRE_BATCH,))])
+            mod.init_params(arg_params=args0, aux_params=auxs0)
+            mod.init_optimizer(kvstore="device", optimizer="sgd",
+                               optimizer_params={"learning_rate": 0.05,
+                                                 "momentum": 0.9,
+                                                 "rescale_grad": 1.0 / WIRE_BATCH})
+            for i in range(WIRE_STEPS):
+                if fed == "wire":
+                    data = mx.nd.array(X[i], ctx=mx.cpu(), dtype=np.uint8)
+                else:
+                    data = mx.nd.array(((X[i].astype(np.float32) - mean) / std)
+                                       .transpose(0, 3, 1, 2), ctx=mx.cpu())
+                batch = mx.io.DataBatch([data], [mx.nd.array(Y[i], ctx=mx.cpu())],
+                                        wire=wire if fed == "wire" else None)
+                mod.forward(batch, is_train=True)
+                mod.update()
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cudnn.deterministic = saved
+        tr = mod._fused.trainer
+        check(tr.captures == 1 and tr.replays == WIRE_STEPS - 1,
+              "the %s-fed steps did not replay a graph" % fed)
+        check((tr.wire is not None) == (fed == "wire"), "the step's input format")
+        return (mod.get_outputs()[0].asnumpy(),
+                *({n: a.asnumpy() for n, a in d.items()} for d in mod.get_params()))
+
+    def differ(a, b):
+        (o_a, a_a, x_a), (o_b, a_b, x_b) = a, b
+        out_err = float(np.abs(o_a - o_b).max() / np.abs(o_b).max())
+        aux = max(float(np.abs(x_a[n] - x_b[n]).max() / np.abs(x_b[n]).max())
+                  for n in x_b)
+        _, glob = compare_step(args0, a_a, args0, a_b)
+        same = np.array_equal(o_a, o_b) and all(
+            np.array_equal(a_a[n], a_b[n]) for n in a_b)
+        return out_err, aux, glob, same
+
+    # cuDNN's default convolution algorithms are not run-to-run
+    # deterministic, and three steps of ResNet-50 at batch 4 amplify their
+    # differences, so the feeds are compared under its deterministic ones
+    noise = differ(steps("float32", False), steps("float32", False))
+    log("  two float-fed runs of %d fused float32 steps at batch %d with cuDNN's "
+        "default algorithms: outputs %.3e of the largest, worst BN statistic "
+        "%.3e, updates %.3e of the largest (%s)"
+        % (WIRE_STEPS, WIRE_BATCH, *noise[:3],
+           "bitwise equal" if noise[3] else "not bitwise equal"))
+    out_err, aux, glob, same = differ(steps("wire", True), steps("float32", True))
+    log("  %d fused float32 steps at batch %d (eager, capture, replay; cuDNN's "
+        "deterministic algorithms) fed the uint8 wire against host-normalized "
+        "float32: outputs %.3e of the largest (tol %.0e), worst BN statistic "
+        "%.3e (tol %.0e), updates %.3e of the largest (tol %.0e); %s"
+        % (WIRE_STEPS, WIRE_BATCH, out_err, RESNET_OUT_TOL, aux, RESNET_AUX_TOL,
+           glob, RESNET_OUT_TOL, "bitwise equal" if same else "not bitwise equal"))
+    check(out_err <= RESNET_OUT_TOL and aux <= RESNET_AUX_TOL
+          and glob <= RESNET_OUT_TOL, "the wire-fed step differs from the float one")
+
+
+def det_records(mx, path, n, seed):
+    """``n`` detection records of synthetic JPEGs with one to three boxes
+    each (label [2, 5, cls, x0, y0, x1, y1, ...])."""
+    import os
+    import tempfile
+
+    rng = np.random.RandomState(seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = synthetic_jpegs(tmp, n, seed)
+        w = mx.recordio.MXIndexedRecordIO(os.path.splitext(path)[0] + ".idx",
+                                          path, "w")
+        for i, p in enumerate(paths):
+            boxes = []
+            for _ in range(rng.randint(1, 4)):
+                x0, y0 = rng.rand(2) * 0.6
+                boxes += [rng.randint(0, SSD_CLASSES), x0, y0,
+                          x0 + 0.2 + 0.2 * rng.rand(), y0 + 0.2 + 0.2 * rng.rand()]
+            with open(p, "rb") as f:
+                w.write_idx(i, mx.recordio.pack(
+                    mx.recordio.IRHeader(0, np.array([2, 5] + boxes, np.float32),
+                                         i, 0), f.read()))
+        w.close()
+
+
+def run_data_phase(mx, A, build, card, rn_fused):
+    """Phase 20; returns the kernels' launches of (a)'s recorded runs."""
+    import os
+    import tempfile
+
+    log("  (a) contrib.autograd over the flash kernels at full width")
+    launches = autograd_phase(mx, A, build)
+    log("  (b) the pipeline alone")
+    from mxnet_tpu_torch import _native
+
+    t0 = time.perf_counter()
+    lib_decoder = _native.decoder()
+    log("  decoder: %s (the native stage, built in %.2f s); the Python "
+        "pipeline decodes with %s" % (lib_decoder, time.perf_counter() - t0,
+                                       mx.image.python_decoder()))
+    check(lib_decoder != "none", "the native stage has no JPEG decoder")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        synthetic_jpegs(os.path.join(tmp, "images"), PIPE_IMAGES, 0)
+        data_dir = os.path.join(tmp, "data")
+        os.makedirs(data_dir)
+        from mxnet_tpu_torch.tools import im2rec
+
+        prefix = os.path.join(data_dir, "train")
+        im2rec.main([prefix, os.path.join(tmp, "images"), "--list", "--recursive"])
+        im2rec.main([prefix, os.path.join(tmp, "images"), "--pass-through"])
+        rec_path = prefix + ".rec"
+        log("  %d JPEGs (short side 256-500) packed by tools/im2rec.py into %s "
+            "(%.1f MB) in %.1f s" % (PIPE_IMAGES, os.path.basename(rec_path),
+                                     os.path.getsize(rec_path) / 1e6,
+                                     time.perf_counter() - t0))
+        worst, mean = decoder_against_pil(mx, rec_path)
+        log("  %s against PIL on 32 records: max abs pixel diff %d, mean %.4f"
+            % (lib_decoder, worst, mean))
+        for backend in ("native", "python"):
+            rate, n = pipeline_rate(mx, rec_path, backend, PIPE_THREADS)
+            log("  ImageRecordIter %s backend, %d threads, batch %d, random 224 "
+                "crop + mirror, uint8 wire: %.1f images/s into a null consumer "
+                "(%d images, %d passes, start-up included) (%s)"
+                % (backend, PIPE_THREADS, PIPE_BATCH, rate, n, PIPE_PASSES, card))
+        log("  (c) ResNet-50 from the records through tools/train_imagenet.py "
+            "--data-dir")
+        os.remove(prefix + ".idx")
+        for threads in (PIPE_THREADS, PIPE_THREADS // 2):
+            record_fit(mx, build, data_dir, rn_fused, threads)
+    log("  (d) the uint8 wire: the op and the fused step")
+    wire_checks(mx, A)
+    log("  (e) tools/train_ssd.py --data-dir over ImageDetRecordIter records")
+    with tempfile.TemporaryDirectory() as tmp:
+        det_records(mx, os.path.join(tmp, "train.rec"), SSD_REC_IMAGES, 1)
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "mxnet_tpu_torch.tools.train_ssd", "--data-dir",
+             tmp, "--batch-size", str(SSD_REC_BATCH), "--num-epochs", "1",
+             "--data-nthreads", str(PIPE_THREADS)],
+            capture_output=True, text=True, timeout=900,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        check(out.returncode == 0, "tools/train_ssd.py --data-dir failed: %s"
+              % out.stderr[-2000:])
+        rec = json.loads(out.stdout.strip().splitlines()[-1])
+        log("  tools/train_ssd.py --data-dir (%.1f s): %s"
+            % (time.perf_counter() - t0, json.dumps(rec)))
+        check(rec["data"] == "ImageDetRecordIter" and rec["steps"] ==
+              SSD_REC_IMAGES // SSD_REC_BATCH, "train_ssd did not read the records")
+        check(all(np.isfinite(v) for v in rec["train"].values()),
+              "train_ssd from records: non-finite loss")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -3872,6 +4367,10 @@ def main():
     log("== 19. SSD-300 through Module.fit; Custom and SequentialModule (%s)"
         % card)
     run_ssd_phase(mx, build, card, sweep)
+
+    log("== 20. autograd over the flash kernels; the data pipeline (%s)" % card)
+    for name, n in run_data_phase(mx, A, build, card, rn_fused).items():
+        next(r for r in rows if r["name"] == name)["launches"] += n
 
     log(card)
     print(json.dumps({"kernels": rows}), flush=True)

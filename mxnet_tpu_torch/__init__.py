@@ -25,7 +25,14 @@ optimizers, initializers and metrics, and ``model.FeedForward``; the
 operator surface and DCGAN; SSD-300 with the contrib ops (``MultiBox*``,
 ``Proposal``, ``CTCLoss``, ``fft``, ``count_sketch``, ``quantize``),
 ``metric.MApMetric`` and ``tools/train_ssd.py``; ``Custom`` operators
-(:mod:`.operator`) and ``SequentialModule``/``PythonModule``. The
+(:mod:`.operator`) and ``SequentialModule``/``PythonModule``; imperative
+autograd (``contrib.autograd``, over the flash kernels too), the Caffe
+layers, the torch bridge, the notebook callbacks, the op docs and the
+reference's test helpers; the data pipeline: RecordIO (``recordio``),
+``image``/``image_det`` augmenters, ``ImageRecordIter`` and
+``ImageDetRecordIter`` (``io_image``) on the Python pipeline or the
+native host stage (``csrc/native``, built with ``g++`` at first use), and
+the uint8 wire decoded inside the fused step's CUDA graph. The
 namespaces are
 the JAX package's, so a training script needs only its import line
 changed: ``import mxnet_tpu_torch as mx``.
@@ -61,6 +68,15 @@ from . import model  # noqa: E402
 from . import visualization  # noqa: E402
 from . import visualization as viz  # noqa: E402
 from . import log  # noqa: E402
+from . import recordio, image, image_det, io_image  # noqa: E402
+from . import image as img  # noqa: E402
+from . import contrib  # noqa: E402
+from . import test_utils  # noqa: E402
+from . import notebook  # noqa: E402
+from . import op_doc, symbol_doc, ndarray_doc  # noqa: E402
+from . import torch_bridge  # noqa: E402
+from . import torch_bridge as th  # noqa: E402
+from . import torch_bridge as torch  # noqa: E402,F811
 
 __version__ = "0.1.0"
 
@@ -69,4 +85,7 @@ __all__ = ["base", "context", "MXNetError", "cpu", "gpu", "default_device",
            "Prefix", "Executor", "init", "initializer", "random",
            "lr_scheduler", "opt", "optimizer",
            "metric", "io", "callback", "rnn", "models", "mod", "module",
-           "model", "visualization", "viz", "log"]
+           "model", "visualization", "viz", "log", "recordio", "image", "img",
+           "image_det", "io_image", "contrib", "test_utils", "notebook",
+           "op_doc", "symbol_doc", "ndarray_doc", "torch_bridge", "th",
+           "torch"]

@@ -26,6 +26,7 @@ from collections import namedtuple
 import numpy as np
 
 from .. import metric as metric_mod
+from .. import io as io_mod
 from .. import model as model_mod
 from .. import ndarray as nd
 from ..base import MXNetError
@@ -259,10 +260,18 @@ class BaseModule:
                 self, resume_state.get("optimizer_counts"))
 
     def _resume_fast_forward(self, train_data, resume_state):
-        """Position ``train_data`` at the sidecar's batch by drawing that
-        many batches (the port's iterators have no ``load_state`` seek yet,
-        ``ROADMAP.md`` A5); returns the batch number to continue from."""
+        """Position ``train_data`` at the sidecar's batch; returns the batch
+        number to continue from. An iterator that can seek (its
+        ``state_dict()`` is not None) seeks to the sidecar's ``iter_state``
+        with ``load_state``; one that cannot, or a sidecar without a state,
+        is drawn batch by batch to the same position."""
         nbatch = int(resume_state.get("nbatch") or 0)
+        state = resume_state.get("iter_state")
+        if state is not None and io_mod._state_of(train_data) is not None:
+            train_data.load_state(state)
+            self.logger.info("auto-resume: iterator repositioned to batch %d",
+                             nbatch)
+            return nbatch
         it = iter(train_data)
         for done in range(nbatch):
             try:

@@ -271,10 +271,15 @@ class FusedFitPath:
     # ---- fit-loop hooks --------------------------------------------------
     def accepts(self, data_batch):
         """Fused only for a batch of the bound shapes (the trainer, and
-        its graph, are shape-specialized)."""
+        its graph, are shape-specialized) and, once its input buffers
+        exist, of their format (a uint8 wire batch, or not)."""
+        wire = getattr(data_batch, "wire", None)
+        if self.trainer.started and wire != self.trainer.wire:
+            return False
         try:
-            shapes = [(n, tuple(a.shape)) for (n, _), a in
-                      zip(self._data_shapes, data_batch.data)]
+            shapes = [(n, tuple(wire.decoded_desc(n, a.shape).shape
+                                if wire is not None else a.shape))
+                      for (n, _), a in zip(self._data_shapes, data_batch.data)]
             if shapes != self._data_shapes:
                 return False
             if self._label_shapes:
@@ -288,8 +293,11 @@ class FusedFitPath:
         return True
 
     def stage(self, data_batch):
-        """Copy the batch into the step's input buffers."""
+        """Copy the batch into the step's input buffers (a uint8 wire
+        batch into uint8 buffers: the step decodes it, inside its graph)."""
         self._ensure_device_state()
+        if not self.trainer.started:
+            self.trainer.set_wire(getattr(data_batch, "wire", None))
         buffers = self.trainer.input_buffers()
         pairs = list(zip(self._data_shapes, data_batch.data))
         pairs += list(zip(self._label_shapes, data_batch.label or []))

@@ -34,6 +34,7 @@ import warnings
 import torch
 
 from .. import context as ctx_mod
+from .. import io as io_mod
 from .. import model as model_mod
 from .. import optimizer as opt
 from ..base import MXNetError, env_flag
@@ -487,6 +488,10 @@ class Module(BaseModule):
             # sees the fused updates, and no stale staged batch or outputs
             self._fused.sync_to_module()
             self._fused.drop_batch()
+        # a uint8-wire batch (io.WireSpec) is decoded here, on the bound
+        # device, into the float32 NCHW arrays the executors were bound for
+        data_batch = io_mod.apply_wire(
+            data_batch, ctx=io_mod.wire_decode_ctx(self._context))
         self._exec_group.forward(data_batch, is_train)
 
     def backward(self, out_grads=None):
@@ -497,7 +502,9 @@ class Module(BaseModule):
                 return   # the gradient is computed inside update()
             # explicit head gradients cannot be seeded into the fused
             # step: replay the staged batch on the classic path
-            batch = self._fused.staged_batch
+            batch = io_mod.apply_wire(
+                self._fused.staged_batch,
+                ctx=io_mod.wire_decode_ctx(self._context))
             self._fused.sync_to_module()
             self._fused.drop_batch()
             self._exec_group.forward(batch, True)

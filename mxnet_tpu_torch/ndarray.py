@@ -21,7 +21,9 @@ number the ``*_scalar`` op (``+ - * / % **``, the comparisons, which
 give 0/1 in the input's dtype, and ``==``/``!=`` against ``None``, which
 give False/True); an NDArray hashes by identity, so it can key a dict.
 The module functions ``add`` ... ``lesser_equal`` take a number on
-either side. ``autograd`` waits for ``ROADMAP.md`` A7.
+either side. Inside a ``contrib.autograd`` ``train_section`` the ops run
+in training mode and torch autograd records them on the marked
+variables (:func:`imperative_invoke`).
 
 Writes replace or update the held tensor: an executor, an optimizer and
 a module that share one NDArray object all see the newest value.
@@ -31,6 +33,7 @@ from __future__ import annotations
 import builtins
 import math
 import struct
+import sys
 
 import numpy as np
 import torch
@@ -604,13 +607,45 @@ def _load_stream(f):
 
 
 # ---- the imperative op namespace ------------------------------------------
+#: training mode of imperative calls: set by ``contrib.autograd``'s
+#: ``train_section``/``set_is_training`` (thread-confined, as the JAX
+#: package's: the imperative tape records on the user's training thread)
+_TRAIN_MODE = [False]
+
+
+def _refuse_marked(dst, what):
+    """Raise when ``dst`` (a tensor) is a variable that
+    ``contrib.autograd`` marked and a train section is recording: the
+    graph recorded so far holds its old value, and a gradient over a value
+    overwritten after its use is undefined."""
+    if dst.requires_grad and _autograd_recording():
+        raise MXNetError(
+            "%s: cannot write into a variable marked for autograd inside a "
+            "train_section (write into another array, or outside the "
+            "section)" % what)
+
+
+def _autograd_recording():
+    from .contrib import autograd as _ag
+
+    return _ag.is_recording()
+
+
 def imperative_invoke(op_name, ndargs, attrs, out=None, ctx=None):
     """Run registered op ``op_name`` once on NDArrays ``ndargs`` (its
     arguments, then optionally its aux states) with ``attrs``: returns the
     visible output NDArray (a list when there are several). Updated aux
     states are written into the aux NDArrays given. An op runs on its
     inputs' device; one without inputs on ``ctx`` (default: the card). A
-    stochastic op draws from that device's :mod:`.random` generator."""
+    stochastic op draws from that device's :mod:`.random` generator.
+
+    Inside a ``contrib.autograd`` ``train_section`` the op runs in
+    training mode (``Dropout`` draws its mask) and torch autograd records
+    it on the variables that ``mark_variables`` marked; elsewhere it runs
+    in inference mode without autograd. Writes are never recorded: aux
+    states, the states of the ``*_update`` ops and ``out=`` receive
+    detached values, so a later op reads them as constants, as the JAX
+    package's replay does (a write into a marked variable raises)."""
     op = get_op(op_name)
     attrs, _extra = op.canonicalize_attrs(attrs)
     n_args = len(op.arg_names(attrs))
@@ -624,26 +659,35 @@ def imperative_invoke(op_name, ndargs, attrs, out=None, ctx=None):
         raise MXNetError("op %s needs its %d aux states passed in"
                          % (op_name, n_aux))
     device = tensors[0].device if tensors else _device(ctx)
-    octx = OpContext(is_train=False, device=device,
+    is_train = _TRAIN_MODE[0]
+    recording = is_train and _autograd_recording()
+    octx = OpContext(is_train=is_train, device=device,
                      rng=(_random.generator(device) if op.stochastic(attrs)
                           else None))
-    with torch.no_grad():
+    with torch.enable_grad() if recording else torch.no_grad():
         outs, new_auxs = op.forward(octx, attrs, tensors[:n_args],
                                     tensors[n_args:])
-        n_vis = builtins.max(op.num_visible_outputs(attrs), 1)
-        # the reference's FMutateInputs: states written in place
-        for pos, new in zip(op.mutate_inputs, outs[n_vis:]):
+    n_vis = builtins.max(op.num_visible_outputs(attrs), 1)
+    # the reference's FMutateInputs: states written in place
+    for pos, new in zip(op.mutate_inputs, outs[n_vis:]):
+        _refuse_marked(ndargs[pos].data, op_name)
+        with torch.no_grad():
             ndargs[pos].data.copy_(new)
     for nda, new in zip(ndargs[n_args:], new_auxs):
-        nda._set_data(new)
+        nda._set_data(new.detach())
     # an output that is a view of an input (transpose, broadcast_to, a
     # slice) gets its own memory, as every JAX array has
     held = {t.untyped_storage().data_ptr() for t in tensors}
     results = [NDArray(o.clone() if o.untyped_storage().data_ptr() in held
                        else o) for o in outs[:n_vis]]
+    if recording:
+        from .contrib import autograd as _ag
+
+        _ag.record_op(op_name, attrs, ndargs, results)
     if out is not None:
         outs_nd = [out] if isinstance(out, NDArray) else list(out)
         for dst, src in zip(outs_nd, results):
+            _refuse_marked(dst.data, op_name)
             dst[:] = src
         return out
     return results[0] if len(results) == 1 else results
@@ -694,7 +738,10 @@ def __getattr__(name):
     # registered ops resolve on first use (the op modules register when
     # the symbol module is imported, after this one)
     if not name.startswith("__") and has_op(name):
+        from . import op_doc
+
         fn = _make_ndarray_function(name)
         globals()[name] = fn
+        op_doc.attach_docs(sys.modules[__name__], [name], "imperative")
         return fn
     raise AttributeError("module %r has no attribute %r" % (__name__, name))

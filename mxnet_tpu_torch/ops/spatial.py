@@ -10,13 +10,14 @@ coordinate ``g`` in [-1, 1] maps to pixel ``(g + 1) * (size - 1) / 2``
 (corners aligned), and each of the four neighbours outside the image
 adds 0 (so a sample within one pixel outside the border fades in). Grid
 coordinates come from ``linspace(-1, 1, n)`` counted in float64 and
-rounded once. ``_image_wire_normalize`` waits for the uint8 input wire
-(``ROADMAP.md`` A5).
+rounded once. ``_image_wire_normalize`` is the uint8 input wire's
+decode (:func:`wire_normalize`, captured inside the fused step's graph).
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -296,3 +297,53 @@ def _kl_infer(attrs, in_shapes, aux_shapes):
 
 
 get_op("IdentityAttachKLSparseReg")._infer_shape = _kl_infer
+
+
+# --------------------------------------------------- uint8-wire input decode
+def _parse_rgb(v):
+    """Optional per-channel float tuple: None / '' / 'None' stay None."""
+    if v is None or (isinstance(v, str) and v in ("None", "")):
+        return None
+    if isinstance(v, str):
+        v = v.strip("()[] ").split(",")
+        v = [x for x in (s.strip() for s in v) if x]
+    try:
+        return tuple(float(x) for x in v)
+    except TypeError:
+        return (float(v),)
+
+
+def wire_normalize(x, mean=None, std=None, layout="NHWC"):
+    """Decode a wire-format image batch: cast to float32, subtract the
+    per-channel ``mean``, divide by ``std`` (float sequences, or float32
+    tensors on ``x``'s device, along the last axis of ``layout``) and
+    transpose NHWC to NCHW. Torch ops on ``x``'s device, so a CUDA graph
+    that reads a uint8 input buffer captures them (given tensors)."""
+    y = x.to(torch.float32)
+    if mean is not None:
+        y = y - torch.as_tensor(mean, dtype=torch.float32, device=x.device)
+    if std is not None:
+        y = y / torch.as_tensor(std, dtype=torch.float32, device=x.device)
+    if layout == "NHWC" and y.dim() == 4:
+        y = y.permute(0, 3, 1, 2).contiguous()
+    return y
+
+
+@register(
+    "_image_wire_normalize",
+    params={
+        "mean": Param(_parse_rgb, None, kind="float tuple or None"),
+        "std": Param(_parse_rgb, None, kind="float tuple or None"),
+        "layout": Param.str("NHWC"),
+    },
+    infer_type=lambda attrs, dts: (
+        [dts[0] if dts[0] is not None else np.uint8], [np.float32], []),
+)
+def _image_wire_normalize(octx, attrs, args, auxs):
+    """The uint8 wire's decode (``io.WireSpec``): cast to float32,
+    subtract the per-channel mean, divide by the std and transpose NHWC
+    to NCHW (the reference normalizes in HWC before its own transpose,
+    image_aug_default.cc). Differentiable for a float input, so
+    ``inputs_need_grad`` reaches through it."""
+    return [wire_normalize(args[0], attrs["mean"], attrs["std"],
+                           attrs["layout"])], []

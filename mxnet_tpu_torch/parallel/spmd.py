@@ -16,7 +16,10 @@ Capture follows the rules CUDA graphs impose:
   cuDNN make their handles), and it is a real training step;
 * every tensor the graph reads or writes is static: the parameters, the
   auxiliary states and the optimizer slots are updated in place, the
-  batch is copied into input buffers (:meth:`SPMDTrainer.input_buffers`)
+  batch is copied into input buffers (:meth:`SPMDTrainer.input_buffers`;
+  for a uint8 wire batch, :meth:`SPMDTrainer.set_wire`, the data buffers
+  hold the uint8 NHWC batch and the step's first ops are the wire's
+  cast, normalize and transpose, captured with the rest)
   and the step's learning rate (the lr scheduler's at this step, with
   Adam's bias correction at this step's ``t``) is a device scalar
   written before each replay (:attr:`SPMDTrainer.step_lr` is its host
@@ -30,6 +33,10 @@ Capture follows the rules CUDA graphs impose:
   numbers from the generator's current state, the numbers an eager step
   from that state would draw, and advances it. A torch without that call
   raises (:class:`MXNetError`); nothing falls back to another generator.
+
+The capture is thread-local (``capture_error_mode="thread_local"``): the
+input pipeline's threads (an nvJPEG decode, a pinned upload) may call
+the CUDA runtime while the step is captured on this thread.
 
 Nothing falls back: a failed capture or replay raises. A kernel's launch
 count (``ops._build.Kernel.launches``) goes up by its launches in the
@@ -91,6 +98,8 @@ class SPMDTrainer:
         #: the value last written into it
         self.step_lr = None
         self._inputs = None
+        #: the io.WireSpec of the data inputs (None: float32 inputs)
+        self.wire = None
         self._graph = None
         self._graph_outs = None
         self._per_replay = {}
@@ -105,14 +114,41 @@ class SPMDTrainer:
         return {n: self.rule.init_state(self.arg_shapes[n], self.device)
                 for n in self.param_names}
 
+    @property
+    def started(self):
+        """Whether the input buffers exist (their format is then fixed)."""
+        return self._inputs is not None
+
+    def set_wire(self, wire):
+        """Take the data inputs in ``wire``'s format (an io.WireSpec:
+        uint8 NHWC, decoded as the step's first ops), or float32 for
+        None. Only before the input buffers exist."""
+        if self.started and wire != self.wire:
+            raise MXNetError("fused step: the input format is fixed once "
+                             "its buffers exist")
+        self.wire = wire
+
     def input_buffers(self):
         """The static input tensors the step reads (name -> tensor), made
         once; a batch is copied into them before each step."""
         if self._inputs is None:
-            self._inputs = {n: torch.zeros(s, dtype=torch.float32,
-                                           device=self.device)
-                            for n, s in self.input_shapes.items()}
+            self._inputs = {}
+            for n, s in self.input_shapes.items():
+                if self.wire is not None and n in self.data_names:
+                    self._inputs[n] = torch.zeros(self.wire.wire_shape(s),
+                                                  dtype=torch.uint8,
+                                                  device=self.device)
+                else:
+                    self._inputs[n] = torch.zeros(s, dtype=torch.float32,
+                                                  device=self.device)
         return self._inputs
+
+    def _decoded(self, inputs):
+        """The step's inputs with the wire's data decoded."""
+        if self.wire is None:
+            return inputs
+        return {n: self.wire.decode_tensor(t) if n in self.data_names else t
+                for n, t in inputs.items()}
 
     # ---- the step --------------------------------------------------------
     def _run(self, params, auxs, states, inputs, train=True):
@@ -120,6 +156,7 @@ class SPMDTrainer:
         parameters before the update). With ``train`` the auxiliary
         states, parameters and slots are updated in place."""
         names = self.arg_names
+        inputs = self._decoded(inputs)
         if not train:
             with torch.no_grad():
                 args = [params[n] if n in params else inputs[n] for n in names]
@@ -201,7 +238,7 @@ class SPMDTrainer:
             graph.register_generator_state(_random.generator(self.device))
         before = {n: k.launches for n, k in _build.KERNELS.items()}
         torch.cuda.synchronize(self.device)
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             outs = self._run(params, auxs, states, inputs)
         for n, k in _build.KERNELS.items():
             if k.launches != before[n]:

@@ -549,6 +549,9 @@ def _register_ops():
         if op_name.startswith("_contrib_"):
             setattr(contrib, op_name[len("_contrib_"):], fn)
     mod.contrib = contrib
+    from . import op_doc
+
+    op_doc.attach_docs(mod, list_ops(), "symbolic")
 
 
 _register_ops()

@@ -46,7 +46,8 @@ __all__ = ["Counter", "Gauge", "Histogram", "counter", "gauge", "histogram",
            "span", "event", "events", "enable", "disable", "enabled",
            "dump", "prometheus_text", "reset", "state_summary", "totals",
            "flush", "start_flusher", "stop_flusher", "register_collector",
-           "set_rank", "get_rank", "METRIC_HELP"]
+           "set_rank", "get_rank", "METRIC_HELP", "pipeline_stage",
+           "PIPELINE_STAGES"]
 
 # Latency buckets in seconds, as in the JAX package: 16 buckets + overflow,
 # so a histogram's memory never grows with observation count.
@@ -453,6 +454,19 @@ def totals(name):
     return count, total
 
 
+# Input-pipeline stage attribution (the JAX package's ladder): the Python
+# decode workers' per-record decode+augment and the batcher's assembly, the
+# device feed's upload and the consumer's wait on it, and the native stage's
+# summed decode, augment and assembly walls (polled per batch)
+PIPELINE_STAGES = ("decode", "assemble", "upload", "feed_wait",
+                   "decode_native", "augment_native", "assemble_native")
+
+
+def pipeline_stage(stage):
+    """The ``pipeline.stage_seconds{stage=...}`` histogram for one stage."""
+    return histogram("pipeline.stage_seconds", stage=stage)
+
+
 # One row per metric NAME the port registers (the JAX package's catalog cut
 # to these names, its wording kept where the meaning is the same); the
 # Prometheus exposition emits each entry as a ``# HELP`` line.
@@ -464,6 +478,14 @@ METRIC_HELP = {
         "capture wall per program: warm-up run + graph capture (on the "
         "CPU, the bucket's first run) (always-on)",
     "speedometer.samples_per_sec": "last Speedometer window sample",
+    "pipeline.stage_seconds":
+        "input-pipeline wall per stage (decode, assemble, upload, "
+        "feed_wait, decode_native, augment_native, assemble_native)",
+    "io.batch_fetch_seconds": "per-iterator batch fetch latency",
+    "io.bad_records": "corrupt records quarantined by source (always-on)",
+    "io.native_decode_fallback":
+        "ImageRecordIter configs that asked for the native decode stage "
+        "and took the Python pipeline, by reason (always-on)",
     "fault.injections": "fired fault-injection rules by point (always-on)",
     "serving.kv_blocks_total": "usable KV pool blocks (pool size minus the "
                                "reserved trash block)",

@@ -1,5 +1,10 @@
-"""Test utilities of the port: the operator sweep, and the discrete
-choices of a deep network held fixed across two runs.
+"""Test utilities of the port: the operator sweep, the discrete choices
+of a deep network held fixed across two runs, and the reference's test
+helpers (counterpart of ``mxnet_tpu/test_utils.py``: tolerance checks,
+``numeric_grad``/``check_numeric_gradient``, ``check_symbolic_forward``/
+``check_symbolic_backward``, ``simple_forward`` and ``check_consistency``,
+the reference's GPU-vs-CPU harness, here the card against the host,
+forward and backward).
 
 :func:`op_cases` gives one seeded case for every registered op name
 (aliases run their op's case under their own name) and a few variants
@@ -42,7 +47,12 @@ import zlib
 import numpy as np
 
 __all__ = ["Case", "op_cases", "run_case", "decision_names",
-           "installed_decisions", "detections_match"]
+           "installed_decisions", "detections_match", "default_context",
+           "rand_shape_2d", "rand_shape_3d", "rand_ndarray",
+           "assert_almost_equal", "almost_equal", "same", "reldiff",
+           "find_max_violation", "numeric_grad", "check_numeric_gradient",
+           "check_symbolic_forward", "check_symbolic_backward",
+           "check_consistency", "simple_forward"]
 
 
 class Case:
@@ -428,6 +438,11 @@ def _specs():
         kind="exact")
     add("_contrib_dequantize", {}, lambda r: [_ints(r, (3, 4), -127, 128),
                                               _f([-0.5]), _f([2.0])])
+    # the uint8 wire's decode: a uint8 NHWC batch (no gradient); its float
+    # NCHW variant below has one
+    add("_image_wire_normalize", {"mean": (120.0, 110.0, 100.0),
+                                  "std": (58.0, 57.0, 57.5)},
+        lambda r: [r.randint(0, 256, (2, 5, 4, 3)).astype(np.uint8)], grad=False)
     add("Custom", {"op_type": "sweep_mul_add"}, lambda r: [N(r, *sh), N(r, *sh)],
         setup=_register_sweep_custom)
     return S
@@ -485,6 +500,8 @@ _VARIANTS = {
         "rpn_post_nms_top_n": 30, "rpn_min_size": 4}),
     "_contrib_quantize[int8]": ("_contrib_quantize", {"out_type": "int8"}),
     "_contrib_dequantize[uint8]": ("_contrib_dequantize", {}, False),
+    "_image_wire_normalize[float,NCHW]": ("_image_wire_normalize", {
+        "mean": (0.5,), "layout": "NCHW"}),
 }
 
 
@@ -511,6 +528,8 @@ def _variant_inputs(key, r, base):
         return [N(2, 3, 7, 6), N(2, 1, 4, 3)]
     if key == "SequenceLast[axis=1]":
         return [N(3, 5, 4), _f([2, 5, 1])]
+    if key == "_image_wire_normalize[float,NCHW]":
+        return [N(2, 3, 4, 5)]
     if key == "_contrib_dequantize[uint8]":
         return [r.randint(0, 256, (3, 4)).astype(np.uint8), _f([-0.5]), _f([2.0])]
     return base(r)
@@ -688,3 +707,346 @@ def detections_match(got, want, tol):
             traded += j != i
             used[j] = True
     return traded
+
+
+# ---- the reference's test helpers (mxnet_tpu/test_utils.py) ---------------
+# reference: python/mxnet/test_utils.py — assert_almost_equal :129,
+# find_max_violation :101, check_numeric_gradient :420 (central finite
+# differences against the symbolic backward), check_symbolic_forward :533,
+# check_symbolic_backward :598 and check_consistency :765, the GPU-vs-CPU
+# harness (here the card against the host)
+
+_hrng = np.random.RandomState(1234)
+
+
+def default_context():
+    """Where the helpers bind without a ``ctx``: the card
+    (``context.default_device``; raises without CUDA)."""
+    from .context import default_device
+
+    return default_device()
+
+
+def default_dtype():
+    return np.float32
+
+
+def rand_shape_2d(dim0=10, dim1=10):
+    return tuple(_hrng.randint(1, (dim0, dim1)[i] + 1) for i in range(2))
+
+
+def rand_shape_3d(dim0=10, dim1=10, dim2=10):
+    return tuple(_hrng.randint(1, (dim0, dim1, dim2)[i] + 1) for i in range(3))
+
+
+def rand_ndarray(shape, ctx=None, dtype=np.float32):
+    from . import ndarray as nd
+
+    return nd.array(_hrng.standard_normal(shape).astype(dtype),
+                    ctx=ctx if ctx is not None else default_context())
+
+
+def same(a, b):
+    return np.array_equal(a, b)
+
+
+def reldiff(a, b):
+    """Sum of absolute differences over the sum of absolute values."""
+    diff = np.sum(np.abs(a - b))
+    norm = np.sum(np.abs(a)) + np.sum(np.abs(b))
+    if diff == 0:
+        return 0
+    return diff / norm
+
+
+def almost_equal(a, b, rtol=None, atol=None):
+    return np.allclose(a, b, rtol=rtol or 1e-5, atol=atol or 1e-20)
+
+
+def find_max_violation(a, b, rtol=None, atol=None):
+    """The index of the worst violation of ``|a - b| <= atol + rtol*|b|``
+    and its ratio to the tolerance."""
+    rtol = rtol or 1e-5
+    atol = atol or 1e-20
+    diff = np.abs(a - b)
+    tol = atol + rtol * np.abs(b)
+    violation = diff / (tol + 1e-20)
+    loc = np.argmax(violation)
+    idx = np.unravel_index(loc, violation.shape)
+    return idx, np.max(violation)
+
+
+def _host(x):
+    from .ndarray import NDArray
+
+    return x.asnumpy() if isinstance(x, NDArray) else np.asarray(x)
+
+
+def assert_almost_equal(a, b, rtol=None, atol=None, names=("a", "b")):
+    """Raise ``AssertionError`` naming the worst element unless ``a`` and
+    ``b`` (NDArrays or array-likes) agree within ``rtol``/``atol``."""
+    a, b = _host(a), _host(b)
+    rtol = rtol or 1e-5
+    atol = atol or 1e-20
+    if almost_equal(a, b, rtol, atol):
+        return
+    index, rel = find_max_violation(a, b, rtol, atol)
+    raise AssertionError(
+        "Items are not equal:\nError %f exceeds tolerance rtol=%f, atol=%f. "
+        " Location of maximum error:%s, %s=%f, %s=%f"
+        % (rel, rtol, atol, str(index), names[0], a[index], names[1], b[index]))
+
+
+def simple_forward(symbol, ctx=None, is_train=False, **inputs):
+    """Bind ``symbol`` to numpy ``inputs`` on ``ctx``, run forward and
+    return its outputs as numpy (one array when there is one)."""
+    from . import ndarray as nd
+
+    ctx = ctx if ctx is not None else default_context()
+    inputs = {k: nd.array(v, ctx=ctx) if isinstance(v, np.ndarray) else v
+              for k, v in inputs.items()}
+    exe = symbol.bind(ctx, args=inputs)
+    exe.forward(is_train=is_train)
+    outputs = [x.asnumpy() for x in exe.outputs]
+    return outputs[0] if len(outputs) == 1 else outputs
+
+
+def _parse_location(symbol, location, ctx):
+    from . import ndarray as nd
+
+    if isinstance(location, dict):
+        if set(location) != set(symbol.list_arguments()):
+            raise ValueError(
+                "Symbol arguments and keys of the given location do not "
+                "match. symbol args:%s, location.keys():%s"
+                % (set(symbol.list_arguments()), set(location)))
+    else:
+        location = dict(zip(symbol.list_arguments(), location))
+    return {k: nd.array(v, ctx=ctx) if isinstance(v, np.ndarray) else v
+            for k, v in location.items()}
+
+
+def _parse_aux_states(symbol, aux_states, ctx):
+    from . import ndarray as nd
+
+    if aux_states is None:
+        return None
+    if isinstance(aux_states, dict):
+        if set(aux_states) != set(symbol.list_auxiliary_states()):
+            raise ValueError("Symbol aux_states names and given aux_states "
+                             "do not match.")
+    else:
+        aux_states = dict(zip(symbol.list_auxiliary_states(), aux_states))
+    return {k: nd.array(v, ctx=ctx) for k, v in aux_states.items()}
+
+
+def numeric_grad(executor, location, aux_states=None, eps=1e-4,
+                 use_forward_train=True):
+    """Central finite differences of the sum of ``executor``'s outputs
+    with respect to each array of ``location`` (numpy, by argument)."""
+    del aux_states
+    approx = {k: np.zeros(v.shape, dtype=np.float32) for k, v in location.items()}
+    for k, v in location.items():
+        executor.arg_dict[k][:] = v
+    for k in location:
+        old = location[k].copy()
+        for i in range(int(np.prod(old.shape))):
+            loc = np.unravel_index(i, old.shape) if old.shape else ()
+            values = []
+            for step in (eps / 2.0, -eps / 2.0):
+                tmp = old.copy()
+                tmp[loc] += step
+                executor.arg_dict[k][:] = tmp
+                executor.forward(is_train=use_forward_train)
+                values.append(sum(np.sum(o.asnumpy()) for o in executor.outputs))
+            approx[k][loc] = (values[0] - values[1]) / eps
+        executor.arg_dict[k][:] = old
+    return approx
+
+
+def check_numeric_gradient(sym_, location, aux_states=None, numeric_eps=1e-3,
+                           rtol=1e-2, atol=None, grad_nodes=None,
+                           use_forward_train=True, ctx=None):
+    """Hold ``sym_``'s backward against central finite differences of
+    ``sum(sym_ * P)`` for a seeded random projection ``P``."""
+    from . import ndarray as nd
+    from . import symbol as sym
+
+    ctx = ctx if ctx is not None else default_context()
+    location = _parse_location(sym_, location, ctx)
+    location_npy = {k: v.asnumpy() for k, v in location.items()}
+    aux_states = _parse_aux_states(sym_, aux_states, ctx)
+    if grad_nodes is None:
+        grad_nodes = sym_.list_arguments()
+        grad_req = {k: "write" for k in grad_nodes}
+    elif isinstance(grad_nodes, (list, tuple)):
+        grad_nodes = list(grad_nodes)
+        grad_req = {k: "write" for k in grad_nodes}
+    elif isinstance(grad_nodes, dict):
+        grad_req = grad_nodes.copy()
+        grad_nodes = list(grad_nodes)
+    else:
+        raise ValueError("grad_nodes: a list or a dict of grad_req")
+    if len(sym_.list_outputs()) != 1:
+        raise NotImplementedError("multi-output check_numeric_gradient")
+    proj = sym.Variable("__random_proj")
+    out = sym.MakeLoss(sym.sum(sym_ * proj))
+    location = dict(location)
+    _, out_shapes, _ = sym_.infer_shape(**{k: v.shape for k, v in location.items()})
+    proj_arr = _hrng.standard_normal(out_shapes[0]).astype(np.float32)
+    location["__random_proj"] = nd.array(proj_arr, ctx=ctx)
+    args_grad = {k: nd.zeros(location[k].shape, ctx=ctx)
+                 for k in list(grad_nodes) + ["__random_proj"]}
+    grad_req = dict(grad_req, __random_proj="write")
+    executor = out.bind(ctx, args=location, args_grad=args_grad,
+                        grad_req=grad_req, aux_states=aux_states)
+    executor.forward(is_train=True)
+    executor.backward()
+    symbolic = {k: executor.grad_dict[k].asnumpy() for k in grad_nodes}
+    numeric = numeric_grad(executor, dict(location_npy, __random_proj=proj_arr),
+                           eps=numeric_eps, use_forward_train=use_forward_train)
+    for name in grad_nodes:
+        want = numeric[name] if grad_req[name] == "write" else \
+            np.zeros_like(symbolic[name])
+        if grad_req[name] in ("write", "null"):
+            assert_almost_equal(want, symbolic[name], rtol, atol,
+                                ("NUMERICAL_%s" % name, "BACKWARD_%s" % name))
+
+
+def check_symbolic_forward(sym_, location, expected, rtol=1e-5, atol=None,
+                           aux_states=None, ctx=None):
+    """Hold ``sym_``'s inference forward at ``location`` against the
+    ``expected`` numpy outputs; returns the outputs."""
+    ctx = ctx if ctx is not None else default_context()
+    location = _parse_location(sym_, location, ctx)
+    aux_states = _parse_aux_states(sym_, aux_states, ctx)
+    executor = sym_.bind(ctx, args=location, aux_states=aux_states)
+    executor.forward(is_train=False)
+    for name, expect, output in zip(sym_.list_outputs(), expected,
+                                    executor.outputs):
+        assert_almost_equal(expect, output.asnumpy(), rtol, atol,
+                            ("EXPECTED_%s" % name, name))
+    return executor.outputs
+
+
+def check_symbolic_backward(sym_, location, out_grads, expected, rtol=1e-5,
+                            atol=None, aux_states=None, grad_req="write",
+                            ctx=None):
+    """Hold ``sym_``'s gradients at ``location`` under head gradients
+    ``out_grads`` against ``expected`` (by argument), for each argument's
+    ``grad_req`` (``add`` onto a seeded start, ``null`` leaves it);
+    returns the gradient arrays."""
+    from . import ndarray as nd
+
+    ctx = ctx if ctx is not None else default_context()
+    location = _parse_location(sym_, location, ctx)
+    aux_states = _parse_aux_states(sym_, aux_states, ctx)
+    if isinstance(expected, (list, tuple)):
+        expected = dict(zip(sym_.list_arguments(), expected))
+    start = {k: _hrng.normal(size=v.shape).astype(np.float32)
+             for k, v in expected.items()}
+    args_grad = {k: nd.array(v, ctx=ctx) for k, v in start.items()}
+    if isinstance(grad_req, str):
+        grad_req = {k: grad_req for k in sym_.list_arguments()}
+    elif isinstance(grad_req, (list, tuple)):
+        grad_req = dict(zip(sym_.list_arguments(), grad_req))
+    executor = sym_.bind(ctx, args=location, args_grad=args_grad,
+                         aux_states=aux_states, grad_req=grad_req)
+    executor.forward(is_train=True)
+    if isinstance(out_grads, np.ndarray):
+        out_grads = [out_grads]
+    out_grads = [nd.array(v, ctx=ctx) if isinstance(v, np.ndarray) else v
+                 for v in out_grads]
+    executor.backward(out_grads)
+    grads = {k: v.asnumpy() for k, v in executor.grad_dict.items()
+             if v is not None}
+    for name in expected:
+        got = {"write": grads[name], "add": grads[name] - start[name],
+               "null": grads[name]}[grad_req[name]]
+        want = start[name] if grad_req[name] == "null" else expected[name]
+        assert_almost_equal(want, got, rtol, atol,
+                            ("EXPECTED_%s" % name, "BACKWARD_%s" % name))
+    return executor.grad_arrays
+
+
+#: check_consistency's default tolerance by dtype (the reference's: a card
+#: in float32 is held to 1e-3 of the host)
+CONSISTENCY_TOL = {np.dtype(np.float16): 1e-1, np.dtype(np.float32): 1e-3,
+                   np.dtype(np.float64): 1e-5, np.dtype(np.uint8): 0,
+                   np.dtype(np.int32): 0}
+
+
+def check_consistency(sym_, ctx_list, scale=1.0, grad_req="write",
+                      arg_params=None, aux_params=None, tol=None,
+                      raise_on_err=True, ground_truth=None, seed=0):
+    """Run one symbol on each entry of ``ctx_list`` (dicts of ``ctx``,
+    ``shapes`` and optional ``type_dict``) from the same seeded
+    parameters and hold every run's outputs and, unless ``grad_req`` is
+    ``null``, its gradients under the same seeded head gradients against
+    the first run's (or ``ground_truth``'s outputs), to the tolerance of
+    the dtype (:data:`CONSISTENCY_TOL`, or ``tol``). Returns the
+    executors; with ``raise_on_err`` False, the worst violation ratio
+    instead of raising."""
+    from . import ndarray as nd
+    from . import symbol as sym
+
+    if tol is None:
+        tol = dict(CONSISTENCY_TOL)
+    elif isinstance(tol, float):
+        tol = dict.fromkeys(CONSISTENCY_TOL, tol)
+    if len(ctx_list) < 2:
+        raise ValueError("check_consistency needs two or more contexts")
+    syms = [sym_] * len(ctx_list) if isinstance(sym_, sym.Symbol) else list(sym_)
+    output_names = syms[0].list_outputs()
+    arg_names = syms[0].list_arguments()
+    rng = np.random.RandomState(seed)
+    exe_list = []
+    for s, c in zip(syms, ctx_list):
+        if s.list_arguments() != arg_names or s.list_outputs() != output_names:
+            raise ValueError("check_consistency: the symbols differ")
+        exe_list.append(s.simple_bind(ctx=c["ctx"], grad_req=grad_req,
+                                      type_dict=c.get("type_dict") or None,
+                                      **c["shapes"]))
+    arg_params = dict(arg_params or {})
+    aux_params = dict(aux_params or {})
+    for n, arr in exe_list[0].arg_dict.items():
+        if n not in arg_params:
+            arg_params[n] = rng.normal(size=arr.shape, scale=scale)
+    for n in exe_list[0].aux_dict:
+        aux_params.setdefault(n, 0)
+    for exe in exe_list:
+        for name, arr in exe.arg_dict.items():
+            arr[:] = np.asarray(arg_params[name]).astype(np.float32)
+        for name, arr in exe.aux_dict.items():
+            arr[:] = aux_params[name]
+    train = grad_req != "null"
+    outputs = []
+    grads = []
+    for exe in exe_list:
+        exe.forward(is_train=train)
+        outs = [o.asnumpy() for o in exe.outputs]
+        outputs.append(outs)
+        if train:
+            heads = [np.random.RandomState(seed + 1 + i).normal(
+                size=o.shape).astype(np.float32) for i, o in enumerate(outs)]
+            exe.backward([nd.array(h, ctx=exe.outputs[0].context)
+                          for h in heads])
+            grads.append({n: g.asnumpy() for n, g in exe.grad_dict.items()
+                          if g is not None})
+    worst = 0.0
+    ref_out = ground_truth or outputs[0]
+    for i in range(1, len(exe_list)):
+        pairs = [("out_" + n, g, o) for n, g, o in
+                 zip(output_names, ref_out, outputs[i])]
+        if train:
+            pairs += [("grad_" + n, grads[0][n], grads[i][n]) for n in grads[0]]
+        for name, want, got in pairs:
+            rt = tol[np.dtype(got.dtype)] if np.dtype(got.dtype) in tol else \
+                tol[np.dtype(np.float32)]
+            if raise_on_err:
+                assert_almost_equal(want, got, rtol=rt, atol=rt,
+                                    names=("ctx0_" + name, "ctx%d_%s" % (i, name)))
+            elif want.size:
+                worst = max(worst, float(find_max_violation(
+                    got, want, rt or 1e-20, rt or 1e-20)[1]))
+    return exe_list if raise_on_err else worst

@@ -15,13 +15,21 @@ the module's float32-master mixed precision. The kvstore name goes to
 ``fit`` as a string (``--kv-store device``, the default, and ``local`` on
 a card take the fused step: one CUDA graph per input shape).
 
-Data is synthetic and seeded (as is ``mx.random``, at 0): images whose
+With a ``--data-dir`` holding ``train.rec`` (and optionally
+``val.rec``; pack them with ``tools/im2rec.py``) the data comes through
+``ImageRecordIter`` with the example's flags: a random 224 crop (or the
+``--image-shape``) and a random mirror for training, the centre crop for
+validation, ``--rgb-mean``/``--rgb-std`` applied on the device over the
+uint8 wire (inside the fused step's CUDA graph) and ``--data-nthreads``
+decode threads: on the native stage, which reads the file in order, or,
+with a ``train.idx`` beside it, shuffled on the Python pipeline. On a card the training batches go through ``io.DeviceFeedIter``
+(pinned buffers, a side stream).
+
+Otherwise data is synthetic and seeded (as is ``mx.random``, at 0): images whose
 label sets a per-class mean (a coarse 7x7 grid of +-0.25 colour blocks
 drawn per class) plus N(0, 0.25^2) noise, made once, in bulk, on the
 device, so the loss falls and top-5 accuracy rises within a short run
-(top-1 of a 1000-way head barely moves in 30 steps). ``ImageRecordIter`` is
-not ported (``ROADMAP.md`` A5): a ``--data-dir`` holding ``train.rec``
-raises.
+(top-1 of a 1000-way head barely moves in 30 steps).
 
 The run prints one JSON line: images/s and host wall per step (median of
 the steps after the first two, each synchronized), the train metrics the
@@ -42,7 +50,7 @@ import numpy as np
 import torch
 
 import mxnet_tpu_torch as mx
-from mxnet_tpu_torch import models
+from mxnet_tpu_torch import _native, models
 from mxnet_tpu_torch.base import MXNetError
 
 NETWORKS = {
@@ -89,6 +97,9 @@ def parse_args(argv=None):
     ap.add_argument("--num-epochs", type=int, default=1)
     ap.add_argument("--kv-store", default="device")
     ap.add_argument("--data-dir", default="imagenet/")
+    ap.add_argument("--data-nthreads", type=int, default=4)
+    ap.add_argument("--rgb-mean", default="123.68,116.779,103.939")
+    ap.add_argument("--rgb-std", default="1,1,1")
     ap.add_argument("--model-prefix", default=None)
     ap.add_argument("--dtype", default="float32",
                     choices=["float32", "bfloat16"])
@@ -138,14 +149,42 @@ class SyntheticImageIter(mx.io.DataIter):
                                label=[mx.nd.NDArray(self._label[i])], pad=0)
 
 
+def record_iters(args, data_shape, device):
+    """(train, val) over ``--data-dir``'s ``train.rec`` and ``val.rec``
+    (val None without one), with the example's augmentation and the
+    mean/std on the uint8 wire; on a card the training batches are fed
+    through a ``DeviceFeedIter``."""
+    if os.path.getsize(os.path.join(args.data_dir, "train.rec")) == 0:
+        raise MXNetError("%s: train.rec holds no records" % args.data_dir)
+    mean = [float(x) for x in args.rgb_mean.split(",")]
+    std = [float(x) for x in args.rgb_std.split(",")]
+    common = dict(data_shape=data_shape, batch_size=args.batch_size,
+                  mean_r=mean[0], mean_g=mean[1], mean_b=mean[2],
+                  std_r=std[0], std_g=std[1], std_b=std[2],
+                  preprocess_threads=args.data_nthreads)
+    # a train.idx lets the Python pipeline shuffle; without one the native
+    # stage (where its gate passes) reads the file in order
+    idx = os.path.join(args.data_dir, "train.idx")
+    shuffled = os.path.exists(idx)
+    train = mx.io_image.ImageRecordIter(
+        path_imgrec=os.path.join(args.data_dir, "train.rec"),
+        path_imgidx=idx if shuffled else None, shuffle=shuffled,
+        rand_crop=True, rand_mirror=True, **common)
+    if device.type == "cuda":
+        train = mx.io.DeviceFeedIter(train, ctx=device)
+    val_rec = os.path.join(args.data_dir, "val.rec")
+    val = (mx.io_image.ImageRecordIter(path_imgrec=val_rec, **common)
+           if os.path.exists(val_rec) else None)
+    return train, val
+
+
 def make_iters(args, data_shape, device):
-    """(train, val): the synthetic batches, and the first four of them as
-    the validation set (the JAX example's fallback takes its first four
-    batches too). A ``--data-dir`` with ``train.rec`` raises."""
+    """(train, val): the records of ``--data-dir`` when it holds
+    ``train.rec``, else the synthetic batches and the first four of them
+    as the validation set (the JAX example's fallback takes its first
+    four batches too)."""
     if os.path.exists(os.path.join(args.data_dir, "train.rec")):
-        raise MXNetError("ImageRecordIter is not ported yet (ROADMAP.md A5): "
-                         "%s holds train.rec; the port trains on synthetic "
-                         "data only" % args.data_dir)
+        return record_iters(args, data_shape, device)
     num_batches = max(args.num_examples // args.batch_size, 1)
     train = SyntheticImageIter(args.batch_size, data_shape, args.num_classes,
                                num_batches, device)
@@ -179,6 +218,22 @@ def device_record(device):
             "nvidia_smi": smi.stdout.strip()}
 
 
+def data_record(train):
+    """Where the batches came from: the iterator, and for records the
+    pipeline's backend, decoder and decode threads."""
+    inner = getattr(train, "_iter", train)
+    if not isinstance(inner, mx.io_image.ImageRecordIter):
+        return {"source": type(inner).__name__}
+    native = inner._native is not None
+    return {"source": "ImageRecordIter",
+            "backend": "native" if native else "python",
+            "decoder": (_native.decoder() if native
+                        else mx.image.python_decoder()),
+            "threads": inner.preprocess_threads,
+            "wire": "uint8" if inner._wire is not None else "float32",
+            "feed": type(train).__name__}
+
+
 def fit(args, batch_end_callback=(), eval_data=True):
     """Build the network and train it as the example does; returns
     ``(module, record)``. ``batch_end_callback``: more callbacks after the
@@ -206,7 +261,7 @@ def fit(args, batch_end_callback=(), eval_data=True):
                                                 args.disp_batches)]
     callbacks += list(batch_end_callback)
     t0 = time.perf_counter()
-    mod.fit(train, eval_data=val if eval_data else None,
+    mod.fit(train, eval_data=val if eval_data and val is not None else None,
             num_epoch=args.num_epochs, kvstore=args.kv_store, optimizer="sgd",
             optimizer_params={"learning_rate": args.lr, "momentum": 0.9,
                               "wd": 1e-4, "lr_scheduler": sched},
@@ -226,7 +281,9 @@ def fit(args, batch_end_callback=(), eval_data=True):
         "first_step_s": float(per_step[0]), "step_s": step_s,
         "images_per_sec": args.batch_size / step_s,
         "train": dict(metric.get_name_value()),
-        "val": dict(val_metric.get_name_value()) if eval_data else None,
+        "val": (dict(val_metric.get_name_value())
+                if eval_data and val is not None else None),
+        "data": data_record(train),
         "device": device_record(device),
     }
     return mod, record

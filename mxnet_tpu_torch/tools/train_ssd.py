@@ -17,8 +17,13 @@ Data is the example's seeded synthetic set (numpy ``RandomState(0)``):
 uniform images in [0, 1) and one to three boxes per image, labels
 (n, 8, 5) rows [class, x0, y0, x1, y1] padded with -1;
 ``np.random`` is seeded at 0 for the iterator's shuffle and
-``mx.random`` at 0. ``ImageDetRecordIter`` is not ported (``ROADMAP.md``
-A5): a ``--data-dir`` holding ``train.rec`` raises.
+``mx.random`` at 0. A ``--data-dir`` holding ``train.rec`` (detection
+records: a label of ``[2, 5, class, x0, y0, x1, y1, ...]``, as
+``im2rec --pack-label`` writes) is read through ``ImageDetRecordIter``
+with the example's SSD augmentation (0.5 mirror, up to 4x zoom-out pad,
+five crop samplers at the paper's IoU floors, mean subtraction), with
+``--data-nthreads`` decode threads; ``--evaluate`` then reads the same
+records without augmentation.
 
 With ``--evaluate`` the trained parameters go into the inference symbol
 (``get_symbol``: softmax, MultiBoxDetection) and ``MApMetric`` (IoU
@@ -90,6 +95,7 @@ def parse_args(argv=None):
     ap.add_argument("--lr", type=float, default=0.004)
     ap.add_argument("--kv-store", default="device")
     ap.add_argument("--data-dir", default="voc/")
+    ap.add_argument("--data-nthreads", type=int, default=4)
     ap.add_argument("--model-prefix", default=None)
     ap.add_argument("--evaluate", action="store_true",
                     help="after training, score mAP@0.5 through "
@@ -115,12 +121,26 @@ def synthetic_set(num_examples, num_classes):
 
 def get_iter(args, shuffle=True):
     """The training iterator (the example's ``get_iter``); with
-    ``shuffle`` False the same set in order, for ``--evaluate``. A
-    ``--data-dir`` holding ``train.rec`` raises."""
-    if os.path.exists(os.path.join(args.data_dir, "train.rec")):
-        raise MXNetError("ImageDetRecordIter is not ported yet (ROADMAP.md A5): "
-                         "%s holds train.rec; the port trains on synthetic "
-                         "data only" % args.data_dir)
+    ``shuffle`` False the same data in order without augmentation (the
+    example's ``get_eval_iter``), for ``--evaluate``."""
+    rec = os.path.join(args.data_dir, "train.rec")
+    if os.path.exists(rec):
+        if os.path.getsize(rec) == 0:
+            raise MXNetError("%s: train.rec holds no records" % args.data_dir)
+        common = dict(path_imgrec=rec, data_shape=IMAGE_SHAPE,
+                      batch_size=args.batch_size, label_name="label",
+                      mean_r=123.68, mean_g=116.779, mean_b=103.939,
+                      preprocess_threads=args.data_nthreads)
+        if not shuffle:
+            return mx.io_image.ImageDetRecordIter(**common)
+        return mx.io_image.ImageDetRecordIter(
+            rand_mirror_prob=0.5,
+            rand_pad_prob=0.5, max_pad_scale=4.0, fill_value=123,
+            rand_crop_prob=0.833, num_crop_sampler=5,
+            min_crop_scales=0.3, max_crop_scales=1.0,
+            min_crop_aspect_ratios=0.5, max_crop_aspect_ratios=2.0,
+            min_crop_overlaps=(0.1, 0.3, 0.5, 0.7, 0.9),
+            max_crop_overlaps=1.0, max_crop_trials=50, **common)
     X, Y = synthetic_set(args.num_examples, args.num_classes)
     return mx.io.NDArrayIter({"data": X}, {"label": Y}, args.batch_size,
                              shuffle=shuffle, label_name="label")
@@ -165,6 +185,7 @@ def fit(args, batch_end_callback=()):
         "first_step_s": float(per_step[0]), "step_s": step_s,
         "images_per_sec": args.batch_size / step_s,
         "train": dict(zip(*metric.get())),
+        "data": type(train).__name__,
         "device": device_record(device),
     }
     return mod, record

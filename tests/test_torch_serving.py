@@ -374,7 +374,18 @@ def test_port_import_leaves_jax_out():
             " mxnet_tpu_torch.models.ssd, mxnet_tpu_torch.tools.train_ssd,"
             " mxnet_tpu_torch.module.python_module,"
             " mxnet_tpu_torch.module.sequential_module,"
-            " mxnet_tpu_torch.visualization, mxnet_tpu_torch.log;"
+            " mxnet_tpu_torch.visualization, mxnet_tpu_torch.log,"
+            " mxnet_tpu_torch.contrib, mxnet_tpu_torch.contrib.autograd,"
+            " mxnet_tpu_torch.contrib.caffe, mxnet_tpu_torch.contrib.ndarray,"
+            " mxnet_tpu_torch.contrib.symbol,"
+            " mxnet_tpu_torch.tools.caffe_converter,"
+            " mxnet_tpu_torch.torch_bridge, mxnet_tpu_torch.notebook,"
+            " mxnet_tpu_torch.notebook.callback, mxnet_tpu_torch.op_doc,"
+            " mxnet_tpu_torch.symbol_doc, mxnet_tpu_torch.ndarray_doc,"
+            " mxnet_tpu_torch.recordio, mxnet_tpu_torch._native,"
+            " mxnet_tpu_torch.image, mxnet_tpu_torch.image_det,"
+            " mxnet_tpu_torch.io_image, mxnet_tpu_torch.io,"
+            " mxnet_tpu_torch.tools.im2rec;"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'mxnet_tpu' or "
             "m.startswith('mxnet_tpu.')];"

@@ -169,10 +169,31 @@ def test_train_ssd_tool_on_cpu(capsys):
 
 
 def test_train_ssd_data_dir_with_rec_raises(tmp_path):
+    """An empty train.rec raises; detection records train through
+    ImageDetRecordIter, augmented, and are read in order for --evaluate."""
     (tmp_path / "train.rec").write_bytes(b"")
     args = train_ssd.parse_args(["--device", "cpu", "--data-dir", str(tmp_path)])
-    with pytest.raises(MXNetError, match="A5"):
+    with pytest.raises(MXNetError, match="holds no records"):
         train_ssd.get_iter(args)
+    w = T.recordio.MXRecordIO(str(tmp_path / "train.rec"), "w")
+    r = np.random.RandomState(0)
+    for i in range(4):
+        img = (r.rand(40, 50, 3) * 255).astype(np.uint8)
+        label = np.array([2, 5, i % 3, 0.1, 0.2, 0.6, 0.7], np.float32)
+        w.write(T.recordio.pack_img(T.recordio.IRHeader(0, label, i, 0), img))
+    w.close()
+    args = train_ssd.parse_args(["--device", "cpu", "--data-dir", str(tmp_path),
+                                 "--batch-size", "2", "--data-nthreads", "1"])
+    for shuffle in (True, False):
+        it = train_ssd.get_iter(args, shuffle=shuffle)
+        batches = list(it)
+        it.close()
+        assert type(it).__name__ == "ImageDetRecordIter" and len(batches) == 2
+        assert batches[0].data[0].shape == (2, 3, 300, 300)
+        assert batches[0].label[0].shape == (2, 32, 5)
+    first = batches[0].label[0].asnumpy()
+    np.testing.assert_allclose(first[0, 0], [0, 0.1, 0.2, 0.6, 0.7], rtol=1e-6)
+    assert (first[0, 1:] == -1).all()
 
 
 def test_synthetic_set_is_the_examples():
