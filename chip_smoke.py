@@ -265,6 +265,26 @@ Drives ``mxnet_tpu_torch`` (never the JAX package) on ``cuda:0``:
    largest; bitwise expected); (e) ``tools/train_ssd.py --data-dir``
    over ``ImageDetRecordIter`` records for a few steps.
 
+21. the example scripts and ``mx.kv`` — (a) ``examples/train_lm.py``
+   from its own source with only its import lines pointed at the port, at
+   its defaults (``mx.tpu()``, the fused step; ``mx.context.auto()`` must
+   be ``cuda:0``): one capture, perplexity falling, one launch of K1, K2a
+   and K2b per layer and step (counts set to 0 just before, read just
+   after); (b) ``tools/launch.py -n 2 -s 1``: two workers on ``cuda:0`` and
+   one server on the host train the zoo Transformer-LM at phase 5's width
+   (batch 32 per worker, 3 epochs of 4 batches of each worker's half of
+   256 sequences, Adam on the server) with ``kvstore='dist_sync'``, fused
+   (the gradient step one CUDA graph, the exchange on the host, the
+   pulled weights copied into the captured masters) and then with
+   ``MXNET_MODULE_NO_FUSED=1``: each worker's perplexity finite and
+   falling, one launch of each flash kernel per layer and step in each
+   worker, the two workers' final parameters bitwise equal, fused
+   against classic within phase 5's 1e-4, the server's exit line saying
+   it never initialized CUDA, and each path's host wall per step beside
+   phase 5's fused ``local`` one; every cluster in its own process group,
+   killed past its time limit; (c) ``examples/train_mnist.py --kv-store
+   dist_sync`` under the same launcher.
+
 Every phase that fails raises, so the exit code is not 0. The last two
 lines are the ``kernels`` JSON object and the ``ok`` JSON object; the card
 line comes just before them.
@@ -4119,6 +4139,278 @@ def run_data_phase(mx, A, build, card, rn_fused):
     return launches
 
 
+# ------------------------------- mx.kv and the example scripts (phase 21)
+# (b): each worker of the cluster trains on every other one of these
+# sequences (its shard), 4 batches of 32 per epoch
+DIST_SEQS = 256
+DIST_BATCH = 32
+DIST_EPOCHS = 3
+# each cluster's own limit: the launcher's process group is killed past it
+DIST_TIMEOUT = 420
+# (c): train_mnist's epochs under the launcher
+MNIST_EPOCHS = 2
+
+
+def example_source(name):
+    """``examples/<name>.py`` with only its import lines pointed at the
+    port (``mxnet_tpu`` -> ``mxnet_tpu_torch``)."""
+    import os
+    import re
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples", name + ".py")
+    out = []
+    with open(path) as f:
+        for line in f:
+            if (re.match(r"\s*(import|from)\s+mxnet_tpu\b", line)
+                    or 'import_module("mxnet_tpu' in line):
+                line = re.sub(r"\bmxnet_tpu\b", "mxnet_tpu_torch", line)
+            out.append(line)
+    return path, "".join(out)
+
+
+def exec_example(name, argv):
+    """Run ``examples/<name>.py`` from its source (import lines rewritten)
+    as ``__main__`` with ``argv``; a launcher's worker and server both run
+    this (the server serves inside the script's ``import``)."""
+    path, src = example_source(name)
+    sys.argv = [path] + list(argv)
+    exec(compile(src, path, "exec"), {"__name__": "__main__", "__file__": path})
+
+
+def _free_port():
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def run_cluster(command, env_extra, what):
+    """``tools/launch.py -n 2 -s 1 <command>`` in its own process group,
+    killed past ``DIST_TIMEOUT``: returns (stdout, stderr); a failed or
+    hung cluster fails the phase. The server must report on exit that it
+    never initialized CUDA."""
+    import os
+    import signal
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if not k.startswith("DMLC_")}
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    env.update(env_extra)
+    cmd = [sys.executable, os.path.join(root, "tools", "launch.py"), "-n", "2",
+           "-s", "1", "--port", str(_free_port())] + command
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, env=env, cwd=root, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=DIST_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(os.getpgid(proc.pid), signal.SIGKILL)
+        out, err = proc.communicate()
+        check(False, "%s: the cluster hung past %d s: %s" % (what, DIST_TIMEOUT,
+                                                             err[-3000:]))
+    log("  %s: launcher exit %d after %.1f s" % (what, proc.returncode,
+                                                 time.perf_counter() - t0))
+    check(proc.returncode == 0, "%s: the cluster failed: %s" % (what, err[-3000:]))
+    lines = [l for l in err.splitlines() if l.startswith("kvstore-server")]
+    for line in lines:
+        log("  %s" % line)
+    check(len(lines) == 1 and lines[0].endswith("cuda initialized: False"),
+          "%s: the server did not report that it kept off CUDA" % what)
+    return out, err
+
+
+def dist_lm_worker():
+    """One process of phase 21(b), started by ``tools/launch.py`` (a server
+    serves inside the ``import`` and exits there): the zoo Transformer-LM
+    at phase 5's width trained by ``Module.fit`` with ``kvstore=
+    'dist_sync'`` on ``cuda:0``, fused unless ``MXNET_MODULE_NO_FUSED=1``;
+    writes its final parameters and a JSON record to ``SMOKE_OUT``."""
+    import os
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import _build as build
+
+    out_dir = os.environ["SMOKE_OUT"]
+    kv = mx.kv.create("dist_sync")
+    rank = kv.rank
+    X, Y = lm_stream(DIST_SEQS)
+    shard = slice(rank, None, kv.num_workers)
+    it = mx.io.NDArrayIter(X[shard], Y[shard], batch_size=DIST_BATCH,
+                           shuffle=False)
+    mod = mx.mod.Module(mx.models.transformer_lm(**TRAIN), context=mx.gpu(0))
+    metric = mx.metric.Perplexity(ignore_label=None)
+    stamps, ppl = [], []
+
+    def batch_end(_param):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    for k in build.KERNELS.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    # each worker draws other initial weights: the servers keep rank 0's
+    mod.fit(it, num_epoch=DIST_EPOCHS, kvstore=kv, optimizer="adam",
+            optimizer_params={"learning_rate": TRAIN_LR},
+            initializer=mx.init.Xavier(rng=torch.Generator().manual_seed(rank)),
+            eval_metric=metric, batch_end_callback=batch_end,
+            epoch_end_callback=lambda *a: ppl.append(metric.get()[1]))
+    per_step = np.diff([t0] + stamps)
+    tr = mod._fused.trainer if mod._fused is not None else None
+    rec = {"rank": rank, "fused": mod._fused is not None, "ppl": ppl,
+           "steps": len(stamps), "step_s": float(np.median(per_step[2:])),
+           "first_steps_s": [float(x) for x in per_step[:2]],
+           "launches": {n: k.launches for n, k in build.KERNELS.items()},
+           "captures": None if tr is None else tr.captures,
+           "replays": None if tr is None else tr.replays,
+           "update_on_kvstore": mod._update_on_kvstore,
+           "context": str(mod._context[0])}
+    params = {n: a.asnumpy() for n, a in mod.get_params()[0].items()}
+    tag = "fused" if rec["fused"] else "classic"
+    np.savez(os.path.join(out_dir, "%s-%d.npz" % (tag, rank)), **params)
+    with open(os.path.join(out_dir, "%s-%d.json" % (tag, rank)), "w") as f:
+        json.dump(rec, f)
+    kv.barrier()
+    if rank == 0:
+        kv._stop_servers()
+
+
+def run_train_lm_example(mx, build):
+    """21(a): ``examples/train_lm.py`` at its defaults, in this process."""
+    import torch as _torch
+
+    auto = mx.context.auto()
+    check(auto == mx.tpu(0) and _torch.device(auto) == _torch.device("cuda", 0),
+          "mx.context.auto() returned %r" % (auto,))
+    log("  mx.context.auto() = %r -> %s; mx.current_context() = %r"
+        % (auto, _torch.device(auto), mx.current_context()))
+    fits = []
+    fit = mx.mod.Module.fit
+
+    def recording_fit(self, *a, **kw):
+        metric = kw["eval_metric"]
+        ppl = []
+        kw["epoch_end_callback"] = [lambda *x: ppl.append(metric.get()[1])]
+        fits.append((self, ppl))
+        return fit(self, *a, **kw)
+
+    mx.mod.Module.fit = recording_fit
+    argv = sys.argv
+    np.random.seed(0)
+    _torch.manual_seed(0)
+    for k in build.KERNELS.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        exec_example("train_lm", [])
+    finally:
+        del mx.mod.Module.fit
+        sys.argv = argv
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: k.launches for n, k in build.KERNELS.items()}
+    check(len(fits) == 1, "train_lm did not fit one module")
+    mod, ppl = fits[0]
+    tr = mod._fused.trainer if mod._fused is not None else None
+    check(tr is not None and tr.captures == 1,
+          "train_lm's fit did not run one captured graph")
+    steps = tr.replays + 1
+    L = 4  # the example's default --num-layers
+    log("  examples/train_lm.py (defaults: vocab 64, 4 layers, d 256, batch "
+        "32, seq 128, 5 epochs) on %s: %d steps in %.2f s (%.5f s per step, "
+        "start-up included); perplexity per epoch %s; launches %s"
+        % (mod._context[0], steps, wall, wall / steps,
+           ["%.3f" % p for p in ppl], launches))
+    check(str(mod._context[0]) == "cuda:0", "train_lm ran on %s" % mod._context[0])
+    check(len(ppl) == 5 and all(math.isfinite(p) for p in ppl)
+          and ppl[-1] < ppl[0], "train_lm's perplexity did not fall")
+    for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+        check(launches[name] == L * steps, "train_lm: %s launched %d times "
+              "in %d steps" % (name, launches[name], steps))
+    return launches
+
+
+def run_dist_phase(mx, build, card, t_counts):
+    """Phase 21; returns the kernels' launches of its main paths."""
+    import os
+    import tempfile
+
+    log("  (a) examples/train_lm.py through mx.tpu() and the fused step")
+    launches = run_train_lm_example(mx, build)
+    log("  (b) tools/launch.py -n 2 -s 1: two workers on cuda:0 and a server "
+        "on the host train the LM at phase 5's width, kvstore='dist_sync'")
+    L = TRAIN["num_layers"]
+    recs, params = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for tag, extra in (("fused", {}),
+                           ("classic", {"MXNET_MODULE_NO_FUSED": "1"})):
+            run_cluster([sys.executable, "-c",
+                         "import chip_smoke; chip_smoke.dist_lm_worker()"],
+                        dict(extra, SMOKE_OUT=tmp), "dist_sync %s" % tag)
+            for r in (0, 1):
+                with open(os.path.join(tmp, "%s-%d.json" % (tag, r))) as f:
+                    recs[tag, r] = json.load(f)
+                with np.load(os.path.join(tmp, "%s-%d.npz" % (tag, r))) as z:
+                    params[tag, r] = {k: z[k] for k in z.files}
+    steps = DIST_EPOCHS * (DIST_SEQS // 2 // DIST_BATCH)
+    for (tag, r), rec in sorted(recs.items()):
+        log("  [%s, worker %d] %s: %d steps, perplexity per epoch %s, host wall "
+            "per step %.5f s (median after the first two: %s), captures %s, "
+            "replays %s, launches %s"
+            % (tag, r, rec["context"], rec["steps"],
+               ["%.3f" % p for p in rec["ppl"]], rec["step_s"],
+               ["%.3f" % x for x in rec["first_steps_s"]], rec["captures"],
+               rec["replays"], {n: rec["launches"][n] for n in
+                                ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")}))
+        check(rec["context"] == "cuda:0" and rec["update_on_kvstore"],
+              "worker %d did not train on cuda:0 with the servers' updates" % r)
+        check(rec["fused"] == (tag == "fused"), "%s worker %d took the other "
+              "path" % (tag, r))
+        check(rec["steps"] == steps, "%s worker %d ran %d steps"
+              % (tag, r, rec["steps"]))
+        check(all(math.isfinite(p) for p in rec["ppl"])
+              and rec["ppl"][-1] < rec["ppl"][0],
+              "%s worker %d: the perplexity did not fall" % (tag, r))
+        if tag == "fused":
+            check(rec["captures"] == 1 and rec["replays"] == steps - 1,
+                  "fused worker %d did not replay one gradient graph" % r)
+        for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+            n = rec["launches"][name]
+            check(n == L * steps, "%s worker %d: %s launched %d times in %d "
+                  "steps" % (tag, r, name, n, steps))
+            launches[name] += n
+    for tag in ("fused", "classic"):
+        differ = [k for k in params[tag, 0]
+                  if not np.array_equal(params[tag, 0][k], params[tag, 1][k])]
+        log("  [%s] the two workers' final parameters: %s"
+            % (tag, "bitwise equal" if not differ else "differ in %s" % differ))
+        check(not differ, "%s: the workers' parameters differ" % tag)
+    fused_against_classic(params["fused", 0], params["classic", 0],
+                          "of the dist_sync LM after %d steps" % steps)
+    f_s, c_s = recs["fused", 0]["step_s"], recs["classic", 0]["step_s"]
+    log("  host wall per step (%s): dist_sync fused %.5f s, dist_sync classic "
+        "%.5f s, phase 5's fused local %.5f s (dist_sync fused / local "
+        "%.2fx)" % (card, f_s, c_s, t_counts["step_s"], f_s / t_counts["step_s"]))
+    log("  (c) examples/train_mnist.py --kv-store dist_sync under the launcher")
+    _, err = run_cluster(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "chip_smoke.exec_example('train_mnist', sys.argv[1:])",
+         "--kv-store", "dist_sync", "--num-epochs", str(MNIST_EPOCHS)],
+        {}, "train_mnist dist_sync")
+    acc = [float(l.rsplit("=", 1)[1]) for l in err.splitlines()
+           if "Validation-accuracy=" in l]
+    log("  train_mnist validation accuracy per epoch and worker: %s" % acc)
+    check(len(acc) == 2 * MNIST_EPOCHS and all(math.isfinite(a) for a in acc)
+          and min(acc[-2:]) > 0.5, "train_mnist under dist_sync did not learn")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -4370,6 +4662,11 @@ def main():
 
     log("== 20. autograd over the flash kernels; the data pipeline (%s)" % card)
     for name, n in run_data_phase(mx, A, build, card, rn_fused).items():
+        next(r for r in rows if r["name"] == name)["launches"] += n
+
+    log("== 21. the example scripts and mx.kv: train_lm, dist_sync across "
+        "two workers and a server (%s)" % card)
+    for name, n in run_dist_phase(mx, build, card, t_counts).items():
         next(r for r in rows if r["name"] == name)["launches"] += n
 
     log(card)

@@ -32,16 +32,26 @@ reference's test helpers; the data pipeline: RecordIO (``recordio``),
 ``image``/``image_det`` augmenters, ``ImageRecordIter`` and
 ``ImageDetRecordIter`` (``io_image``) on the Python pipeline or the
 native host stage (``csrc/native``, built with ``g++`` at first use), and
-the uint8 wire decoded inside the fused step's CUDA graph. The
-namespaces are
-the JAX package's, so a training script needs only its import line
-changed: ``import mxnet_tpu_torch as mx``.
+the uint8 wire decoded inside the fused step's CUDA graph; the script
+surface (``mx.Context`` and its ``with`` scope, ``mx.tpu``,
+``mx.current_context``, ``mx.context.auto``, ``mx.utils``, the rest of
+``mx.io``) and ``mx.kv``: the single-process store and the
+parameter-server cluster of ``tools/launch.py`` (``dist_sync``,
+``dist_async``; :mod:`.kvstore_server`, the engine and the transport in
+``csrc/native``), whose fused step runs its gradient and its update as
+two CUDA graphs with the exchange on the host between them. The
+namespaces are the JAX package's, so a training script needs only its
+import line changed: ``import mxnet_tpu_torch as mx``.
+
+A process started with ``DMLC_ROLE=server`` serves its key shard inside
+this import and exits when the cluster stops (a ``scheduler`` exits at
+once), as ``import mxnet_tpu`` does.
 """
 import torch
 
 from . import base, context
 from .base import MXNetError
-from .context import cpu, default_device, gpu
+from .context import Context, cpu, current_context, default_device, gpu, tpu
 
 # the JAX package contracts float32 at full precision (ops/registry.py
 # fp32_precision); TF32 would keep about three decimal digits
@@ -77,10 +87,32 @@ from . import op_doc, symbol_doc, ndarray_doc  # noqa: E402
 from . import torch_bridge  # noqa: E402
 from . import torch_bridge as th  # noqa: E402
 from . import torch_bridge as torch  # noqa: E402,F811
+from . import utils  # noqa: E402
+from . import engine  # noqa: E402
+from . import kvstore  # noqa: E402
+from . import kvstore as kv  # noqa: E402
+from .kvstore import KVStore  # noqa: E402
+from . import kvstore_server  # noqa: E402
+from . import fault, analysis, parallel  # noqa: E402
+from . import random as rnd  # noqa: E402
+from .model import FeedForward  # noqa: E402
+from .optimizer import Optimizer  # noqa: E402
+from .base import not_ported as _not_ported  # noqa: E402
+
+# the JAX package's top-level names the port has not reached yet
+__getattr__ = _not_ported(__name__, {
+    "compile_cache": "A7", "compileobs": "A7", "graphpass": "A7",
+    "guard": "A7", "monitor": "A7", "mon": "A7", "profiler": "A7",
+    "rtc": "A7", "executor_manager": "A6b", "export_artifact": "A8",
+    "export_predict_artifact": "A8", "export_train_artifact": "A8"})
 
 __version__ = "0.1.0"
 
-__all__ = ["base", "context", "MXNetError", "cpu", "gpu", "default_device",
+__all__ = ["base", "context", "MXNetError", "Context", "cpu", "gpu", "tpu",
+           "current_context", "default_device", "utils", "engine", "kv",
+           "kvstore", "KVStore", "kvstore_server", "fault", "analysis",
+           "parallel", "rnd",
+           "FeedForward", "Optimizer",
            "nd", "ndarray", "operator", "sym", "symbol", "AttrScope", "NameManager",
            "Prefix", "Executor", "init", "initializer", "random",
            "lr_scheduler", "opt", "optimizer",
@@ -89,3 +121,8 @@ __all__ = ["base", "context", "MXNetError", "cpu", "gpu", "default_device",
            "image_det", "io_image", "contrib", "test_utils", "notebook",
            "op_doc", "symbol_doc", "ndarray_doc", "torch_bridge", "th",
            "torch"]
+
+# a server-role process serves here until the cluster stops (reference:
+# python/mxnet/__init__.py -> kvstore_server._init_kvstore_server_module)
+if __import__("os").environ.get("DMLC_ROLE") in ("server", "scheduler"):
+    kvstore_server._init_kvstore_server_module()

@@ -1,11 +1,13 @@
 """Build, load and bind the port's native host stage (counterpart of
 ``mxnet_tpu/_native.py``).
 
-The stage is the port's own copy of the JAX package's host runtime
+The library is the port's own copy of the JAX package's host runtime
 sources (``csrc/native/``: the sharded RecordIO reader ``recordio.cc``,
-the pooled host allocator ``allocator.cc``, and the
+the pooled host allocator ``allocator.cc``, the
 decode -> augment -> batch pipeline ``decode.cc``, ``augment.cc``,
-``pipe.cc``). :func:`load` compiles them with ``g++`` at first use into
+``pipe.cc``, the threaded dependency engine ``engine.cc`` and the
+parameter-server transport ``ps.cc``). Only sources under
+``csrc/native/`` are compiled (:data:`SOURCES`). :func:`load` compiles them with ``g++`` at first use into
 one library in ``build/mxnet_tpu_torch/``, named by a digest of the
 sources and the flags, and binds it with ``ctypes``.
 
@@ -33,12 +35,14 @@ import threading
 
 from .base import MXNetError
 
-__all__ = ["load", "decoder", "MXTPipeConfig", "SRC_DIR"]
+__all__ = ["load", "decoder", "MXTPipeConfig", "SRC_DIR", "SOURCES",
+           "ENGINE_FN", "UPDATER_FN", "COMMAND_FN"]
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(_PKG, "csrc", "native")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "mxnet_tpu_torch")
-SOURCES = ("allocator.cc", "recordio.cc", "decode.cc", "augment.cc", "pipe.cc")
+SOURCES = ("allocator.cc", "recordio.cc", "decode.cc", "augment.cc", "pipe.cc",
+           "engine.cc", "ps.cc")
 CXXFLAGS = ("-O2", "-std=c++17", "-fPIC", "-pthread", "-shared")
 CUDA_HOME = "/usr/local/cuda"
 
@@ -157,6 +161,65 @@ def _declare(lib):
         c.c_char_p, c.c_int, c.c_int, c.c_int, c.POINTER(c.c_uint8),
         c.c_int, c.c_int]
     lib.mxt_resize_bilinear.restype = None
+    # the threaded dependency engine (engine.cc)
+    lib.mxt_engine_create.restype = c.c_void_p
+    lib.mxt_engine_create.argtypes = [c.c_int]
+    lib.mxt_engine_destroy.argtypes = [c.c_void_p]
+    lib.mxt_engine_new_var.restype = c.c_void_p
+    lib.mxt_engine_new_var.argtypes = [c.c_void_p]
+    lib.mxt_engine_delete_var.argtypes = [c.c_void_p, c.c_void_p]
+    lib.mxt_engine_push.argtypes = [
+        c.c_void_p, c.c_void_p, c.c_void_p,
+        c.POINTER(c.c_void_p), c.c_int, c.POINTER(c.c_void_p), c.c_int, c.c_int]
+    lib.mxt_engine_wait_for_var.argtypes = [c.c_void_p, c.c_void_p]
+    lib.mxt_engine_wait_all.argtypes = [c.c_void_p]
+    lib.mxt_engine_outstanding.restype = c.c_longlong
+    lib.mxt_engine_outstanding.argtypes = [c.c_void_p]
+    # the parameter-server transport (ps.cc)
+    lib.mxt_ps_server_create.restype = c.c_void_p
+    lib.mxt_ps_server_create.argtypes = [c.c_int, c.c_int, c.c_int]
+    lib.mxt_ps_server_set_updater.argtypes = [c.c_void_p, c.c_void_p]
+    lib.mxt_ps_server_set_command_handler.argtypes = [c.c_void_p, c.c_void_p]
+    lib.mxt_ps_server_wait.argtypes = [c.c_void_p]
+    lib.mxt_ps_server_trace_stats.restype = c.c_int
+    lib.mxt_ps_server_trace_stats.argtypes = [
+        c.c_void_p, c.POINTER(c.c_double), c.c_int]
+    lib.mxt_ps_server_destroy.argtypes = [c.c_void_p]
+    lib.mxt_ps_client_create.restype = c.c_void_p
+    lib.mxt_ps_client_create.argtypes = [c.c_char_p, c.c_int]
+    lib.mxt_ps_client_create2.restype = c.c_void_p
+    lib.mxt_ps_client_create2.argtypes = [c.c_char_p, c.c_int, c.c_int]
+    lib.mxt_ps_client_is_dead.restype = c.c_int
+    lib.mxt_ps_client_is_dead.argtypes = [c.c_void_p]
+    lib.mxt_ps_client_push.restype = c.c_int
+    lib.mxt_ps_client_push.argtypes = [
+        c.c_void_p, c.c_int, c.POINTER(c.c_float), c.c_ulonglong]
+    lib.mxt_ps_client_init.restype = c.c_int
+    lib.mxt_ps_client_init.argtypes = [
+        c.c_void_p, c.c_int, c.POINTER(c.c_float), c.c_ulonglong]
+    lib.mxt_ps_client_set_epoch.argtypes = [c.c_void_p, c.c_longlong]
+    lib.mxt_ps_client_set_identity.argtypes = [c.c_void_p, c.c_int]
+    lib.mxt_ps_client_set_step.argtypes = [c.c_void_p, c.c_longlong]
+    lib.mxt_ps_client_get_epoch.restype = c.c_longlong
+    lib.mxt_ps_client_get_epoch.argtypes = [c.c_void_p]
+    lib.mxt_ps_client_pull.restype = c.c_longlong
+    lib.mxt_ps_client_pull.argtypes = [
+        c.c_void_p, c.c_int, c.POINTER(c.c_float), c.c_ulonglong]
+    lib.mxt_ps_client_pushpull.restype = c.c_longlong
+    lib.mxt_ps_client_pushpull.argtypes = [
+        c.c_void_p, c.c_int, c.POINTER(c.c_float), c.c_ulonglong,
+        c.POINTER(c.c_float), c.c_ulonglong]
+    lib.mxt_ps_client_barrier.restype = c.c_int
+    lib.mxt_ps_client_barrier.argtypes = [c.c_void_p]
+    lib.mxt_ps_client_command.restype = c.c_int
+    lib.mxt_ps_client_command.argtypes = [c.c_void_p, c.c_char_p]
+    lib.mxt_ps_client_probe.restype = c.c_int
+    lib.mxt_ps_client_probe.argtypes = [c.c_void_p, c.c_char_p, c.c_int]
+    lib.mxt_ps_probe.restype = c.c_int
+    lib.mxt_ps_probe.argtypes = [c.c_char_p, c.c_int, c.c_int]
+    lib.mxt_ps_client_stop.restype = c.c_int
+    lib.mxt_ps_client_stop.argtypes = [c.c_void_p]
+    lib.mxt_ps_client_destroy.argtypes = [c.c_void_p]
     return lib
 
 
@@ -198,3 +261,13 @@ class MXTPipeConfig(ctypes.Structure):
         ("max_bad", ctypes.c_longlong),
         ("prefetch", ctypes.c_int),
     ]
+
+
+# C callback signatures: an engine op (engine.cc), the server's updater and
+# command handler (ps.cc)
+ENGINE_FN = ctypes.CFUNCTYPE(None, ctypes.c_void_p)
+UPDATER_FN = ctypes.CFUNCTYPE(
+    None, ctypes.c_int, ctypes.POINTER(ctypes.c_float),
+    ctypes.POINTER(ctypes.c_float), ctypes.c_uint64)
+COMMAND_FN = ctypes.CFUNCTYPE(None, ctypes.POINTER(ctypes.c_char),
+                              ctypes.c_uint64)

@@ -22,7 +22,7 @@ except labels and index-like inputs (``cast_exempt`` and
 :data:`_INDEX_ARG_POSITIONS`); auxiliary states keep their float32.
 
 Not in this slice (they raise :class:`MXNetError`): ``group2ctx`` model
-parallelism and monitor callbacks — ``ROADMAP.md`` A6/A7. The JAX
+parallelism and monitor callbacks — ``ROADMAP.md`` A6b/A7. The JAX
 package's graph passes and compile cache have no counterpart yet (A7).
 """
 from __future__ import annotations
@@ -132,7 +132,7 @@ class Executor:
                  compute_dtype=None, cast_exempt=()):
         if group2ctx:
             raise MXNetError("group2ctx (model-parallel placement) is not "
-                             "ported yet (ROADMAP.md A6)")
+                             "ported yet (ROADMAP.md A6b)")
         del shared_exec   # no memory pool to share
         self._compute_dtype = (None if compute_dtype is None
                                else torch_dtype(compute_dtype))
@@ -302,3 +302,7 @@ class Executor:
 
     def set_monitor_callback(self, callback, is_active=None):
         raise MXNetError("monitor callbacks are not ported yet (ROADMAP.md A7)")
+
+    def memory_analysis(self):
+        raise MXNetError("the compiled program's memory analysis "
+                         "(compileobs) is not ported yet (ROADMAP.md A7)")

@@ -15,12 +15,20 @@ executor boundary decodes them (``_image_wire_normalize``: cast, mean,
 std, transpose to float32 NCHW) on the device, and the fused step does
 so inside its CUDA graph, whose static input is then the uint8 batch.
 :class:`DeviceFeedIter` uploads batches from pinned host buffers on a
-side stream while the card computes. The record readers are
-:mod:`.io_image` (``ImageRecordIter``, ``ImageDetRecordIter``).
+side stream while the card computes; ``fit`` wraps its training
+iterator in one when ``MXNET_FEED_DEPTH`` is set
+(:func:`maybe_device_feed`). The record readers are :mod:`.io_image`
+(``ImageRecordIter``, ``ImageDetRecordIter``); ``MNISTIter`` and
+``CSVIter`` read their files into an ``NDArrayIter``, and ``ResizeIter``
+and ``PrefetchingIter`` wrap other iterators. Every iterator here that
+can seek joins the ``state_dict`` position protocol.
 """
 from __future__ import annotations
 
+import gzip
+import os
 import queue
+import struct
 import threading
 import time
 from collections import namedtuple
@@ -29,12 +37,14 @@ import numpy as np
 import torch
 
 from . import telemetry
-from .base import MXNetError
+from .base import MXNetError, env_int
 from .context import cpu
 from .ndarray import NDArray, array
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "WireSpec",
-           "apply_wire", "wire_decode_ctx", "DeviceFeedIter"]
+           "apply_wire", "wire_decode_ctx", "DeviceFeedIter", "ResizeIter",
+           "PrefetchingIter", "maybe_device_feed", "MNISTIter", "CSVIter",
+           "ImageRecordIter"]
 
 
 class DataDesc(namedtuple("DataDesc", ["name", "shape"])):
@@ -339,6 +349,341 @@ class NDArrayIter(DataIter):
         return 0
 
 
+class ResizeIter(DataIter):
+    """``data_iter`` cut or stretched to ``size`` batches per epoch: it is
+    reset and read again when it ends early (reference: io.py:254)."""
+
+    def __init__(self, data_iter, size, reset_internal=True):
+        super().__init__()
+        self.data_iter = data_iter
+        self.size = size
+        self.reset_internal = reset_internal
+        self.cur = 0
+        self.current_batch = None
+        self.provide_data = data_iter.provide_data
+        self.provide_label = data_iter.provide_label
+        self.batch_size = data_iter.batch_size
+        if hasattr(data_iter, "default_bucket_key"):
+            self.default_bucket_key = data_iter.default_bucket_key
+
+    def reset(self):
+        self.cur = 0
+        if self.reset_internal:
+            self.data_iter.reset()
+
+    def state_dict(self):
+        inner = _state_of(self.data_iter)
+        if inner is None:
+            return None
+        return {"type": "ResizeIter", "cur": self.cur, "inner": inner}
+
+    def load_state(self, state):
+        self.data_iter.load_state(state["inner"])
+        self.cur = int(state["cur"])
+        self.current_batch = None
+
+    def iter_next(self):
+        if self.cur == self.size:
+            return False
+        try:
+            self.current_batch = self.data_iter.next()
+        except StopIteration:
+            self.data_iter.reset()
+            self.current_batch = self.data_iter.next()
+        self.cur += 1
+        return True
+
+    def next(self):
+        if self.iter_next():
+            return self.current_batch
+        raise StopIteration
+
+    def getdata(self):
+        return self.current_batch.data
+
+    def getlabel(self):
+        return self.current_batch.label
+
+    def getindex(self):
+        return self.current_batch.index
+
+    def getpad(self):
+        return self.current_batch.pad
+
+
+def _renamed(descs, rename):
+    return [DataDesc(rename[d.name], d.shape, d.dtype)
+            if isinstance(d, DataDesc) else DataDesc(rename[d[0]], d[1])
+            for d in descs]
+
+
+class PrefetchingIter(DataIter):
+    """One thread per inner iterator reads its next batch while the
+    consumer works on this one; the batches of all the iterators are
+    joined into one (reference: io.py:319).
+
+    Each producer and the consumer take strict turns on a slot through
+    the ``data_taken``/``data_ready`` events, so a slot has one owner at a
+    time. The producers run a batch ahead: the position
+    (``state_dict``) is each inner iterator's as of the batch the
+    consumer last took, not the one fetched ahead."""
+
+    def __init__(self, iters, rename_data=None, rename_label=None):
+        super().__init__()
+        if not isinstance(iters, list):
+            iters = [iters]
+        if not iters:
+            raise MXNetError("PrefetchingIter needs at least one iterator")
+        self.n_iter = len(iters)
+        self.iters = iters
+        self.rename_data = rename_data
+        self.rename_label = rename_label
+        self.batch_size = self.provide_data[0][1][0]
+        self.data_ready = [threading.Event() for _ in range(self.n_iter)]
+        self.data_taken = [threading.Event() for _ in range(self.n_iter)]
+        for e in self.data_taken:
+            e.set()
+        self.started = True
+        self.current_batch = None
+        self.next_batch = [None] * self.n_iter
+        self.next_state = [None] * self.n_iter
+        self._delivered_states = [_state_of(i) for i in self.iters]
+
+        def prefetch(i):
+            while True:
+                self.data_taken[i].wait()
+                if not self.started:
+                    break
+                try:
+                    self.next_batch[i] = self.iters[i].next()
+                    self.next_state[i] = _state_of(self.iters[i])
+                except StopIteration:
+                    self.next_batch[i] = None
+                self.data_taken[i].clear()
+                self.data_ready[i].set()
+
+        self.prefetch_threads = [
+            threading.Thread(target=prefetch, args=(i,), daemon=True,
+                             name="mxnet-prefetch-%d" % i)
+            for i in range(self.n_iter)]
+        for t in self.prefetch_threads:
+            t.start()
+
+    def __del__(self):
+        self.started = False
+        for e in self.data_taken:
+            e.set()
+        for t in self.prefetch_threads:
+            t.join()
+
+    @property
+    def provide_data(self):
+        if self.rename_data is None:
+            return sum([i.provide_data for i in self.iters], [])
+        return sum([_renamed(i.provide_data, r)
+                    for r, i in zip(self.rename_data, self.iters)], [])
+
+    @property
+    def provide_label(self):
+        if self.rename_label is None:
+            return sum([i.provide_label for i in self.iters], [])
+        return sum([_renamed(i.provide_label, r)
+                    for r, i in zip(self.rename_label, self.iters)], [])
+
+    def _park_and(self, fn):
+        """Wait until every producer has parked a batch, run ``fn``, drop
+        the parked batches and let the producers go on."""
+        for e in self.data_ready:
+            e.wait()
+        fn()
+        for e in self.data_ready:
+            e.clear()
+        for e in self.data_taken:
+            e.set()
+
+    def reset(self):
+        def rewind():
+            for i in self.iters:
+                i.reset()
+            self._delivered_states = [_state_of(i) for i in self.iters]
+        self._park_and(rewind)
+
+    def state_dict(self):
+        states = list(self._delivered_states)
+        if any(s is None for s in states):
+            return None
+        return {"type": "PrefetchingIter", "inner": states}
+
+    def load_state(self, state):
+        def seek():
+            for it, s in zip(self.iters, state["inner"]):
+                it.load_state(s)
+            self._delivered_states = list(state["inner"])
+        self._park_and(seek)
+
+    def iter_next(self):
+        for e in self.data_ready:
+            e.wait()
+        if self.next_batch[0] is None:
+            if any(b is not None for b in self.next_batch):
+                raise MXNetError("the prefetched iterators ended at "
+                                 "different batches")
+            return False
+        if any(b.pad != self.next_batch[0].pad for b in self.next_batch):
+            raise MXNetError("the prefetched iterators' batches differ in "
+                             "padding")
+        self.current_batch = DataBatch(
+            sum([b.data for b in self.next_batch], []),
+            sum([b.label for b in self.next_batch], []),
+            self.next_batch[0].pad, self.next_batch[0].index,
+            provide_data=self.provide_data, provide_label=self.provide_label)
+        self._delivered_states = list(self.next_state)
+        for e in self.data_ready:
+            e.clear()
+        for e in self.data_taken:
+            e.set()
+        return True
+
+    def next(self):
+        if self.iter_next():
+            return self.current_batch
+        raise StopIteration
+
+    def getdata(self):
+        return self.current_batch.data
+
+    def getlabel(self):
+        return self.current_batch.label
+
+    def getindex(self):
+        return self.current_batch.index
+
+    def getpad(self):
+        return self.current_batch.pad
+
+
+class _ArrayFileIter(DataIter):
+    """An iterator whose file contents were read into an ``NDArrayIter``
+    (``self._iter``): everything forwards to it."""
+
+    @property
+    def provide_data(self):
+        return self._iter.provide_data
+
+    @property
+    def provide_label(self):
+        return self._iter.provide_label
+
+    def reset(self):
+        self._iter.reset()
+
+    def state_dict(self):
+        return _state_of(self._iter)
+
+    def load_state(self, state):
+        self._iter.load_state(state)
+
+    def next(self):
+        return self._iter.next()
+
+    def iter_next(self):
+        return self._iter.iter_next()
+
+    def getdata(self):
+        return self._iter.getdata()
+
+    def getlabel(self):
+        return self._iter.getlabel()
+
+    def getpad(self):
+        return self._iter.getpad()
+
+
+class MNISTIter(_ArrayFileIter):
+    """MNIST's idx files (``.gz`` too), scaled to [0, 1], shuffled with
+    ``seed``, ``flat`` (N, 784) or (N, 1, 28, 28), partial batches
+    discarded (reference: src/io/iter_mnist.cc:241)."""
+
+    def __init__(self, image="train-images-idx3-ubyte",
+                 label="train-labels-idx1-ubyte", batch_size=128,
+                 shuffle=True, flat=False, seed=0, silent=False, num_parts=1,
+                 part_index=0, input_shape=None, **kwargs):
+        super().__init__(batch_size)
+        imgs = self._read_images(image)
+        labels = self._read_labels(label)
+        if num_parts > 1:
+            n = imgs.shape[0] // num_parts
+            imgs = imgs[part_index * n:(part_index + 1) * n]
+            labels = labels[part_index * n:(part_index + 1) * n]
+        if shuffle:
+            perm = np.random.RandomState(seed).permutation(imgs.shape[0])
+            imgs, labels = imgs[perm], labels[perm]
+        imgs = imgs.astype(np.float32) / 255.0
+        if flat:
+            imgs = imgs.reshape(imgs.shape[0], -1)
+        else:
+            imgs = imgs.reshape(imgs.shape[0], 1, 28, 28)
+        if input_shape is not None:
+            imgs = imgs.reshape((imgs.shape[0],) + tuple(input_shape))
+        self._iter = NDArrayIter(imgs, labels.astype(np.float32),
+                                 batch_size=batch_size, shuffle=False,
+                                 last_batch_handle="discard")
+
+    @staticmethod
+    def _open(path):
+        if path.endswith(".gz"):
+            return gzip.open(path, "rb")
+        if not os.path.exists(path) and os.path.exists(path + ".gz"):
+            return gzip.open(path + ".gz", "rb")
+        return open(path, "rb")
+
+    def _read_images(self, path):
+        with self._open(path) as f:
+            magic, n, rows, cols = struct.unpack(">IIII", f.read(16))
+            if magic != 2051:
+                raise MXNetError("Invalid MNIST image file %s" % path)
+            return np.frombuffer(f.read(n * rows * cols),
+                                 dtype=np.uint8).reshape(n, rows, cols)
+
+    def _read_labels(self, path):
+        with self._open(path) as f:
+            magic, n = struct.unpack(">II", f.read(8))
+            if magic != 2049:
+                raise MXNetError("Invalid MNIST label file %s" % path)
+            return np.frombuffer(f.read(n), dtype=np.uint8)
+
+
+class CSVIter(_ArrayFileIter):
+    """Rows of a CSV file reshaped to ``data_shape``, labels from
+    ``label_csv`` (zeros without one); the last batch is padded with
+    ``round_batch``, else dropped (reference: src/io/iter_csv.cc:132)."""
+
+    def __init__(self, data_csv, data_shape, label_csv=None, label_shape=(1,),
+                 batch_size=128, round_batch=True, **kwargs):
+        super().__init__(batch_size)
+        data = np.loadtxt(data_csv, delimiter=",", dtype=np.float32, ndmin=2)
+        data = data.reshape((-1,) + tuple(data_shape))
+        if label_csv is not None:
+            label = np.loadtxt(label_csv, delimiter=",", dtype=np.float32,
+                               ndmin=2)
+            label = label.reshape((-1,) + tuple(label_shape))
+            if tuple(label_shape) == (1,):
+                label = label.reshape(-1)
+        else:
+            label = np.zeros(data.shape[0], dtype=np.float32)
+        self._iter = NDArrayIter(
+            data, label, batch_size=batch_size,
+            last_batch_handle="pad" if round_batch else "discard",
+            label_name="label")
+
+
+def ImageRecordIter(**kwargs):
+    """``mx.io.ImageRecordIter``: :class:`.io_image.ImageRecordIter`."""
+    from .io_image import ImageRecordIter as _Impl
+
+    return _Impl(**kwargs)
+
+
 class _PinnedSlot:
     """One slot of the feed's ring: pinned host buffers by position and
     shape, and the event of the last upload that read them."""
@@ -524,3 +869,15 @@ class DeviceFeedIter(DataIter):
         self.close()
         self._iter.reset()
         self._start()
+
+
+def maybe_device_feed(data_iter, contexts):
+    """``data_iter`` wrapped in a :class:`DeviceFeedIter` of
+    ``MXNET_FEED_DEPTH`` batches onto :func:`wire_decode_ctx`'s device when
+    that variable is set above 0 (``fit`` calls this), else unchanged, as
+    is a feed already."""
+    depth = env_int("MXNET_FEED_DEPTH", 0)
+    if depth <= 0 or isinstance(data_iter, DeviceFeedIter):
+        return data_iter
+    return DeviceFeedIter(data_iter, ctx=wire_decode_ctx(contexts),
+                          depth=depth)

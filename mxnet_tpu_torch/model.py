@@ -15,6 +15,12 @@ JAX package's format) adds the position within the epoch in progress:
 batches consumed, the iterator's state, the numpy RNG and the optimizer's
 update counts, bound to its params file by the file's CRC footer.
 
+The kvstore helpers (``_create_kvstore``, ``_initialize_kvstore``,
+``_update_params_on_kvstore``, ``_update_params``) are the JAX package's,
+which ``Module`` calls: which store a ``kvstore`` argument makes, whether
+the store runs the optimizer (``update_on_kvstore``), and one classic
+update through the store.
+
 ``FeedForward`` is the reference's legacy estimator (``fit``,
 ``predict``, ``score``, ``save``/``load``, ``create``), a thin adapter
 over ``Module`` as in the JAX package: it runs on the card unless given
@@ -32,13 +38,88 @@ import numpy as np
 from . import io
 from . import ndarray as nd
 from . import symbol as sym
-from .context import default_device
+from .context import current_context
 from .utils.atomic_file import atomic_write, footer_crc
 
 __all__ = ["FeedForward", "save_checkpoint", "load_checkpoint",
            "load_latest_valid_checkpoint",
            "save_resume_state", "load_resume_state", "clear_resume_state",
            "decode_rng", "optimizer_counts", "restore_optimizer_counts"]
+
+
+def _create_kvstore(kvstore, num_device, arg_params):
+    """``(store, update_on_kvstore)`` for a ``kvstore`` argument
+    (reference: model.py:40-77): None or a non-distributed type string
+    with one device make no store; a type string otherwise makes one with
+    :func:`.kvstore.create`, a store object is taken as it is. The store
+    runs the optimizer unless it is 'local' and a parameter holds more
+    than 16M values."""
+    from . import kvstore as kvs
+
+    update_on_kvstore = True
+    if kvstore is None:
+        kv = None
+    elif isinstance(kvstore, kvs.KVStore):
+        kv = kvstore
+    elif isinstance(kvstore, str):
+        if num_device == 1 and "dist" not in kvstore:
+            kv = None
+        else:
+            kv = kvs.create(kvstore)
+            if kvstore == "local":
+                max_size = max(np.prod(p.shape) for p in arg_params.values())
+                if max_size > 1024 * 1024 * 16:
+                    update_on_kvstore = False
+    else:
+        raise TypeError("kvstore must be KVStore, str or None")
+    if kv is None:
+        update_on_kvstore = False
+    return kv, update_on_kvstore
+
+
+def _initialize_kvstore(kvstore, param_arrays, arg_params, param_names,
+                        update_on_kvstore):
+    """Initialize every parameter's key (its index) from ``arg_params``;
+    when the store updates, pull its value back into the device copies
+    (reference: model.py:79)."""
+    for idx, param_on_devs in enumerate(param_arrays):
+        kvstore.init(idx, arg_params[param_names[idx]])
+        if update_on_kvstore:
+            kvstore.pull(idx, param_on_devs, priority=-idx)
+
+
+def _update_params_on_kvstore(param_arrays, grad_arrays, kvstore):
+    """Push each gradient and pull the updated weight (reference:
+    model.py:88); a dist store runs its bucketed sync
+    (``bucketed_push_pull``), else key by key. Parameters without a
+    gradient are skipped."""
+    pairs = [(index, grad_list, arg_list)
+             for index, (arg_list, grad_list)
+             in enumerate(zip(param_arrays, grad_arrays))
+             if grad_list[0] is not None]
+    bucketed = getattr(kvstore, "bucketed_push_pull", None)
+    if bucketed is not None and bucketed(pairs):
+        return
+    for index, grad_list, arg_list in pairs:
+        kvstore.push(index, grad_list, priority=-index)
+        kvstore.pull(index, arg_list, priority=-index)
+
+
+def _update_params(param_arrays, grad_arrays, updater, num_device,
+                   kvstore=None):
+    """The worker's update (reference: model.py:99): with a store, push
+    each gradient and pull the sum back into it first."""
+    pairs = []
+    for index, (arg_list, grad_list) in enumerate(zip(param_arrays,
+                                                       grad_arrays)):
+        if grad_list[0] is None:
+            continue
+        if kvstore:
+            kvstore.push(index, grad_list, priority=-index)
+            kvstore.pull(index, grad_list, priority=-index)
+        for k, (w, g) in enumerate(zip(arg_list, grad_list)):
+            pairs.append((index * num_device + k, g, w))
+    updater.update_all(pairs)
 
 
 def save_checkpoint(prefix, epoch, symbol, arg_params, aux_params):
@@ -232,7 +313,7 @@ class FeedForward:
 
         self.symbol = symbol
         if ctx is None:
-            ctx = [default_device()]
+            ctx = [current_context()]
         elif not isinstance(ctx, list):
             ctx = [ctx]
         self.ctx = ctx

@@ -10,6 +10,12 @@ from .bucketing_module import BucketingModule
 from .module import Module
 from .python_module import PythonLossModule, PythonModule
 from .sequential_module import SequentialModule
+from .executor_group import DataParallelExecutorGroup
+from ..base import not_ported as _not_ported
 
 __all__ = ["BaseModule", "BatchEndParam", "BucketingModule", "Module",
-           "PythonLossModule", "PythonModule", "SequentialModule"]
+           "PythonLossModule", "PythonModule", "SequentialModule",
+           "DataParallelExecutorGroup"]
+
+__getattr__ = _not_ported(__name__, {"ParallelLMModule": "A6b",
+                                     "parallel_module": "A6b"})

@@ -166,68 +166,77 @@ class BaseModule:
                     "auto-resume: restored '%s' epoch %d, continuing at epoch "
                     "%d%s", auto_resume, resume_epoch, begin_epoch,
                     " batch %d" % resume_state["nbatch"] if resume_state else "")
-        self.bind(data_shapes=train_data.provide_data,
-                  label_shapes=train_data.provide_label,
-                  for_training=True, force_rebind=force_rebind)
-        self.init_params(initializer=initializer, arg_params=arg_params,
-                         aux_params=aux_params, allow_missing=allow_missing,
-                         force_init=force_init or resume_epoch is not None)
-        self.init_optimizer(kvstore=kvstore, optimizer=optimizer,
-                            optimizer_params=optimizer_params)
-        if resume_epoch is not None:
-            self._resume_optimizer(auto_resume, resume_epoch, resume_state)
-        if validation_metric is None:
-            validation_metric = eval_metric
-        if not isinstance(eval_metric, metric_mod.EvalMetric):
-            eval_metric = metric_mod.create(eval_metric)
+        # MXNET_FEED_DEPTH: a transfer thread keeps the next batches on the
+        # device (the feed is this fit's own and closed when it returns)
+        inner_data = train_data
+        train_data = io_mod.maybe_device_feed(
+            train_data, getattr(self, "_context", None))
+        try:
+            self.bind(data_shapes=train_data.provide_data,
+                      label_shapes=train_data.provide_label,
+                      for_training=True, force_rebind=force_rebind)
+            self.init_params(initializer=initializer, arg_params=arg_params,
+                             aux_params=aux_params, allow_missing=allow_missing,
+                             force_init=force_init or resume_epoch is not None)
+            self.init_optimizer(kvstore=kvstore, optimizer=optimizer,
+                                optimizer_params=optimizer_params)
+            if resume_epoch is not None:
+                self._resume_optimizer(auto_resume, resume_epoch, resume_state)
+            if validation_metric is None:
+                validation_metric = eval_metric
+            if not isinstance(eval_metric, metric_mod.EvalMetric):
+                eval_metric = metric_mod.create(eval_metric)
 
-        for epoch in range(begin_epoch, num_epoch):
-            tic = time.time()
-            eval_metric.reset()
-            nbatch = 0
-            if resume_state is not None and epoch == begin_epoch:
-                nbatch = self._resume_fast_forward(train_data, resume_state)
-                resume_state = None
-            data_iter = iter(train_data)
-            end_of_batch = False
-            try:
-                next_data_batch = next(data_iter)
-            except StopIteration:
-                # a mid-epoch resume may land on the epoch's end
-                end_of_batch = True
-            while not end_of_batch:
-                data_batch = next_data_batch
-                self.forward_backward(data_batch)
-                self.update()
+            for epoch in range(begin_epoch, num_epoch):
+                tic = time.time()
+                eval_metric.reset()
+                nbatch = 0
+                if resume_state is not None and epoch == begin_epoch:
+                    nbatch = self._resume_fast_forward(train_data, resume_state)
+                    resume_state = None
+                data_iter = iter(train_data)
+                end_of_batch = False
                 try:
-                    # fetch the next batch while the card works on this one
                     next_data_batch = next(data_iter)
-                    self.prepare(next_data_batch)
                 except StopIteration:
+                    # a mid-epoch resume may land on the epoch's end
                     end_of_batch = True
-                self.update_metric(eval_metric, data_batch.label)
-                if batch_end_callback is not None:
-                    params = BatchEndParam(epoch=epoch, nbatch=nbatch,
-                                           eval_metric=eval_metric, locals=locals())
-                    for callback in _as_list(batch_end_callback):
-                        callback(params)
-                nbatch += 1
-            for name, val in eval_metric.get_name_value():
-                self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
-            self.logger.info("Epoch[%d] Time cost=%.3f", epoch, time.time() - tic)
-            arg_params_, aux_params_ = self.get_params()
-            self.set_params(arg_params_, aux_params_)
-            if epoch_end_callback is not None:
-                for callback in _as_list(epoch_end_callback):
-                    callback(epoch, self.symbol, arg_params_, aux_params_)
-            if eval_data:
-                res = self.score(eval_data, validation_metric,
-                                 score_end_callback=eval_end_callback,
-                                 batch_end_callback=eval_batch_end_callback,
-                                 epoch=epoch)
-                for name, val in res:
-                    self.logger.info("Epoch[%d] Validation-%s=%f", epoch, name, val)
-            train_data.reset()
+                while not end_of_batch:
+                    data_batch = next_data_batch
+                    self.forward_backward(data_batch)
+                    self.update()
+                    try:
+                        # fetch the next batch while the card works on this one
+                        next_data_batch = next(data_iter)
+                        self.prepare(next_data_batch)
+                    except StopIteration:
+                        end_of_batch = True
+                    self.update_metric(eval_metric, data_batch.label)
+                    if batch_end_callback is not None:
+                        params = BatchEndParam(epoch=epoch, nbatch=nbatch,
+                                               eval_metric=eval_metric, locals=locals())
+                        for callback in _as_list(batch_end_callback):
+                            callback(params)
+                    nbatch += 1
+                for name, val in eval_metric.get_name_value():
+                    self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
+                self.logger.info("Epoch[%d] Time cost=%.3f", epoch, time.time() - tic)
+                arg_params_, aux_params_ = self.get_params()
+                self.set_params(arg_params_, aux_params_)
+                if epoch_end_callback is not None:
+                    for callback in _as_list(epoch_end_callback):
+                        callback(epoch, self.symbol, arg_params_, aux_params_)
+                if eval_data:
+                    res = self.score(eval_data, validation_metric,
+                                     score_end_callback=eval_end_callback,
+                                     batch_end_callback=eval_batch_end_callback,
+                                     epoch=epoch)
+                    for name, val in res:
+                        self.logger.info("Epoch[%d] Validation-%s=%f", epoch, name, val)
+                train_data.reset()
+        finally:
+            if train_data is not inner_data:
+                train_data.close()
 
     def _resume_optimizer(self, prefix, epoch, resume_state):
         """Restore the optimizer states of checkpoint ``epoch`` (a warm

@@ -6,7 +6,7 @@ One context only in this slice: the group binds one executor, copies
 each batch into its bound data and label arrays (host to device), and
 exposes its parameter, gradient and output arrays to the module. A list
 of several contexts raises; data parallelism over several cards waits
-for ``ROADMAP.md`` A6.
+for ``ROADMAP.md`` A6b.
 
 ``shared_group`` (a bucket of a ``BucketingModule``): the executor binds
 the lender's parameter, gradient and auxiliary NDArrays themselves, not
@@ -43,7 +43,7 @@ class DataParallelExecutorGroup:
                  state_names=None, compute_dtype=None):
         if len(contexts) != 1:
             raise MXNetError("the port binds one context per module; %d "
-                             "contexts need data parallelism (ROADMAP.md A6)"
+                             "contexts need data parallelism (ROADMAP.md A6b)"
                              % len(contexts))
         self.shared_group = shared_group
         self.compute_dtype = compute_dtype

@@ -29,7 +29,20 @@ Optimizer states travel in the JAX package's ``.states`` format
 (:meth:`FusedFitPath.get_states_bytes`/``set_states_bytes``): a pickled
 ``{index: numpy state}`` keyed by ``enumerate(param_names)``, what the
 classic ``Updater`` reads, so either package's file, from either path,
-loads here. The distributed hybrid step waits for ``ROADMAP.md`` A6.
+loads here.
+
+Distributed (a ``dist*`` kvstore, :meth:`FusedFitPath._step_dist`): the
+step runs as two CUDA graphs with the parameter-server exchange on the
+host between them, the JAX package's hybrid step. The gradient graph
+writes float32 gradients into static buffers; they are pushed by integer
+key (the classic path's: the index in ``param_names``), bucketed
+(``KVStoreDist.bucketed_push_pull``) where the store has it. When the
+servers run the optimizer (``update_on_kvstore``, every dist type) the
+pulled values are the new weights and are copied into the master tensors;
+otherwise the pulled sums are copied into the gradient buffers and the
+update graph applies the rule. Everything pulled is written in place
+into the tensors the graphs captured (a rebind would leave every replay
+reading the first step's).
 """
 from __future__ import annotations
 
@@ -313,14 +326,50 @@ class FusedFitPath:
     def pending(self):
         return self._pending
 
+    def _dist_kv(self):
+        """The module's store when it trains distributed, else None."""
+        kv = self._mod._kvstore
+        if kv is not None and "dist" in getattr(kv, "type", ""):
+            return kv
+        return None
+
     def step(self):
         if not self._pending:
             raise RuntimeError("no staged batch: call forward first")
         st = self.state
-        self._outs = self.trainer.step(st.params, st.auxs, st.states)
+        kv = self._dist_kv()
+        if kv is not None:
+            self._step_dist(kv)
+        else:
+            self._outs = self.trainer.step(st.params, st.auxs, st.states)
         self._pending = False
         self.staged_batch = None
         st.device_dirty = True
+
+    def _step_dist(self, kv):
+        """One distributed step (see the module docstring): the gradient
+        graph, the push and pull on the host, the pulled weights written
+        in place into the masters, or the pulled sums into the gradient
+        buffers and then the update graph."""
+        st, tr = self.state, self.trainer
+        self._outs = tr.grad_step(st.params, st.auxs)
+        grads = tr.grad_buffers()
+        update_on_kv = self._mod._update_on_kvstore
+        # a pull writes into its out in place (NDArray[:] = value): these
+        # outs are the tensors the graphs captured
+        dst = st.params if update_on_kv else grads
+        pairs = [(idx, NDArray(grads[name]), NDArray(dst[name]))
+                 for idx, name in enumerate(self._mod._exec_group.param_names)
+                 if name in grads]
+        bucketed = getattr(kv, "bucketed_push_pull", None)
+        if bucketed is None or not bucketed(pairs):
+            # key by key (MXNET_KV_BUCKET_MB=0, or the single-process
+            # store of a dist type without a launcher)
+            for idx, grad, out in pairs:
+                kv.push(idx, grad, priority=-idx)
+                kv.pull(idx, out=out, priority=-idx)
+        if not update_on_kv:
+            tr.apply_grads(st.params, st.states)
 
     @property
     def has_outputs(self):

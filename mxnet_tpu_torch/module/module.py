@@ -12,8 +12,9 @@ the JAX package creates no kvstore, sets ``rescale_grad = 1 / batch_size``
 and lets the :class:`~..optimizer.Updater` update each parameter — so
 does the port. ``compute_dtype`` runs the graph in that dtype over
 float32 master parameters on both paths. A ``Module`` built without a
-``context`` runs on the card (:func:`~..context.default_device`, which
-raises when there is none); tests pass ``context=cpu()``.
+``context`` runs on the current context (:func:`~..context.current_context`:
+the card outside a ``with`` block, which raises when there is none); tests
+pass ``context=cpu()`` or run inside ``with mx.cpu():``.
 
 Checkpoints (``save_checkpoint``/``Module.load``, with the optimizer's
 ``.states`` file when asked) are the JAX package's files, readable by
@@ -23,8 +24,11 @@ through the fused path's or the Updater's states, whichever is live.
 ``bind(shared_module=...)`` binds over another module's parameter arrays
 and ``borrow_optimizer`` shares its optimizer, updater and fused state:
 the buckets of a ``BucketingModule``. ``reshape`` rebinds at new batch
-shapes over the same arrays. Not in this slice: kvstores and several
-contexts, and monitors (``ROADMAP.md`` A6, A7).
+shapes over the same arrays. A kvstore is a type string or a
+``mx.kv`` store (``init_optimizer``); a ``dist*`` one trains with the
+workers of a ``tools/launch.py`` cluster, fused on a card (or with a
+``*_device`` type) and classic otherwise. Not ported: several contexts
+per module and monitors (``ROADMAP.md`` A6b, A7).
 """
 from __future__ import annotations
 
@@ -51,7 +55,7 @@ class Module(BaseModule):
                  fixed_param_names=None, state_names=None, compute_dtype=None):
         super().__init__(logger=logger)
         if context is None:
-            context = [ctx_mod.default_device()]
+            context = [ctx_mod.current_context()]
         if isinstance(context, (torch.device, str)):
             context = [torch.device(context)]
         self._context = [torch.device(c) for c in context]
@@ -87,6 +91,8 @@ class Module(BaseModule):
         self._params_dirty = False
         self._optimizer = None
         self._updater = None
+        self._kvstore = None
+        self._update_on_kvstore = False
         self._grad_req = None
         self._exec_group = None
         self._data_shapes = None
@@ -139,6 +145,9 @@ class Module(BaseModule):
 
         if not self.optimizer_initialized:
             raise MXNetError("init_optimizer first")
+        if self._fused is None and self._update_on_kvstore:
+            self._kvstore.save_optimizer_states(fname)
+            return
         with atomic_write(fname) as fout:
             fout.write(self._fused.get_states_bytes() if self._fused is not None
                        else self._updater.get_states())
@@ -151,6 +160,9 @@ class Module(BaseModule):
 
         if not self.optimizer_initialized:
             raise MXNetError("init_optimizer first")
+        if self._fused is None and self._update_on_kvstore:
+            self._kvstore.load_optimizer_states(fname)
+            return
         data = read_verified(fname)
         if self._fused is not None:
             self._fused.set_states_bytes(data)
@@ -353,17 +365,26 @@ class Module(BaseModule):
     # ---- optimizer -------------------------------------------------------
     def init_optimizer(self, kvstore="local", optimizer="sgd",
                        optimizer_params=(("learning_rate", 0.01),), force_init=False):
-        """The optimizer and its updater. With one context and a kvstore
-        that is None or not distributed no kvstore is created, and
-        ``rescale_grad`` defaults to ``1 / batch_size``."""
+        """The optimizer, and the kvstore when one is made (the JAX
+        package's rules, ``model._create_kvstore``): a type string or a
+        ``KVStore``. With one context and a kvstore that is None or not
+        distributed no store is made and the Updater updates each
+        parameter; otherwise the store does (``update_on_kvstore``; a
+        dist store's servers run the optimizer). ``rescale_grad``
+        defaults to ``1 / batch_size``, the batch of all the workers for a
+        ``dist*_sync*`` store."""
         if not (self.binded and self.params_initialized):
             raise MXNetError("bind and initialize the parameters first")
         if self.optimizer_initialized and not force_init:
             self.logger.warning("optimizer already initialized, ignoring...")
             return
-        if kvstore is not None and (not isinstance(kvstore, str) or "dist" in kvstore):
-            raise MXNetError("kvstore %r is not ported yet (ROADMAP.md A6)" % (kvstore,))
-        rescale_grad = 1.0 / self._exec_group.batch_size
+        kvstore_arg = kvstore
+        kvstore, update_on_kvstore = model_mod._create_kvstore(
+            kvstore, len(self._context), self._arg_params)
+        batch_size = self._exec_group.batch_size
+        if kvstore and "dist" in kvstore.type and "_sync" in kvstore.type:
+            batch_size *= kvstore.num_workers
+        rescale_grad = 1.0 / batch_size
         if isinstance(optimizer, str):
             idx2name = dict(enumerate(self._exec_group.param_names))
             optimizer_params = dict(optimizer_params)
@@ -376,12 +397,25 @@ class Module(BaseModule):
         elif optimizer.rescale_grad != rescale_grad:
             warnings.warn(
                 "Optimizer created manually outside Module but rescale_grad "
-                "is not normalized to 1.0/batch_size (%s vs. %s). Is this "
-                "intended?" % (optimizer.rescale_grad, rescale_grad), stacklevel=2)
+                "is not normalized to 1.0/batch_size/num_workers (%s vs. %s). "
+                "Is this intended?" % (optimizer.rescale_grad, rescale_grad),
+                stacklevel=2)
         self._optimizer = optimizer
-        self._updater = opt.get_updater(optimizer)
-        self._fused_kvstore_arg = kvstore
-        self._fused = self._build_fused_path(kvstore)
+        self._kvstore = kvstore
+        self._update_on_kvstore = update_on_kvstore
+        self._updater = None if update_on_kvstore else opt.get_updater(optimizer)
+        self._fused_kvstore_arg = kvstore_arg
+        self._fused = self._build_fused_path(kvstore_arg)
+        if kvstore:
+            model_mod._initialize_kvstore(
+                kvstore=kvstore, param_arrays=self._exec_group.param_arrays,
+                arg_params=self._arg_params, param_names=self._param_names,
+                update_on_kvstore=update_on_kvstore)
+            if update_on_kvstore:
+                # the pulled values (rank 0's, on a cluster) are the truth
+                self._params_dirty = True
+        if update_on_kvstore:
+            kvstore.set_optimizer(self._optimizer)
         self.optimizer_initialized = True
         if self._preload_opt_states is not None:
             self.load_optimizer_states(self._preload_opt_states)
@@ -396,6 +430,8 @@ class Module(BaseModule):
             raise MXNetError("the lender's optimizer is not initialized")
         self._optimizer = shared_module._optimizer
         self._updater = shared_module._updater
+        self._kvstore = shared_module._kvstore
+        self._update_on_kvstore = shared_module._update_on_kvstore
         self._fused_kvstore_arg = shared_module._fused_kvstore_arg
         self._fused = (None if shared_module._fused is None else
                        self._build_fused_path(self._fused_kvstore_arg,
@@ -409,6 +445,9 @@ class Module(BaseModule):
         'device' fuse on a card, only 'device' on the CPU."""
         if env_flag("MXNET_MODULE_NO_FUSED"):
             return "MXNET_MODULE_NO_FUSED=1 (explicit opt-out)"
+        kvstore_arg = _kv_type(kvstore_arg)
+        if not isinstance(kvstore_arg, str) and kvstore_arg is not None:
+            return "non-string kvstore object"
         from ..symbol import _topo_order
 
         if any(node.op == "Custom" for node in _topo_order(self._symbol._entries)):
@@ -437,8 +476,13 @@ class Module(BaseModule):
                    for node, _ in self._symbol._entries):
             return "symbol has no loss output (trained via out_grads)"
         if kvstore_arg is not None and "dist" in kvstore_arg:
-            return ("distributed kvstore %r (the hybrid fused step is not "
-                    "ported: ROADMAP.md A6)" % (kvstore_arg,))
+            # the hybrid step (fused_path._step_dist): 'device' in the type
+            # opts in anywhere, plain dist types fuse on a card
+            if "device" in kvstore_arg or self._context[0].type == "cuda":
+                return None
+            return ("distributed kvstore %r on a CPU context (pass "
+                    "kvstore='dist_sync_device' to opt into the hybrid "
+                    "fused step)" % (kvstore_arg,))
         if kvstore_arg in ("device", "local_allreduce_device"):
             return None
         if self._context[0].type == "cuda" and kvstore_arg in (None, "local"):
@@ -448,6 +492,7 @@ class Module(BaseModule):
 
     def _build_fused_path(self, kvstore_arg, share_state=None):
         veto = self._fused_veto(kvstore_arg)
+        kvstore_arg = _kv_type(kvstore_arg)
         if veto is not None:
             # loud when the user plausibly expected the fused path: a card's
             # context or an explicit kvstore='device' (CPU + local is the
@@ -512,14 +557,15 @@ class Module(BaseModule):
 
     def update(self):
         """One optimizer step over every parameter that has a gradient: the
-        fused step when a batch is staged for it, else the Updater."""
+        fused step when a batch is staged for it, else the kvstore's update
+        (``update_on_kvstore``) or the Updater's."""
         if not (self.binded and self.params_initialized and self.optimizer_initialized):
             raise MXNetError("bind, initialize and init_optimizer first")
         self._params_dirty = True
         if self._fused is not None and self._fused.pending:
             self._fused.step()
             return
-        handover = self._fused is not None and (
+        handover = self._fused is not None and self._updater is not None and (
             self._fused.state.states is not None
             or self._fused.state.host_states is not None)
         if handover:
@@ -529,10 +575,14 @@ class Module(BaseModule):
             self._optimizer.begin_num_update = self._optimizer.num_update
             self._optimizer._index_update_count = {}
             self._updater.states = self._fused.states_for_updater()
-        pairs = [(index, grads[0], params[0]) for index, (params, grads) in enumerate(
-                     zip(self._exec_group.param_arrays, self._exec_group.grad_arrays))
-                 if grads[0] is not None]
-        self._updater.update_all(pairs)
+        if self._update_on_kvstore:
+            model_mod._update_params_on_kvstore(
+                self._exec_group.param_arrays, self._exec_group.grad_arrays,
+                self._kvstore)
+        else:
+            model_mod._update_params(
+                self._exec_group.param_arrays, self._exec_group.grad_arrays,
+                self._updater, len(self._context), self._kvstore)
         if self._fused is not None:
             # the executor group's parameters are now the truth, and the
             # classic step's optimizer state goes back to the fused path
@@ -561,6 +611,13 @@ class Module(BaseModule):
 
     def install_monitor(self, mon):
         raise MXNetError("monitors are not ported yet (ROADMAP.md A7)")
+
+
+def _kv_type(kvstore):
+    """A kvstore argument by its type string (a store object's ``type``)."""
+    from ..kvstore import KVStore
+
+    return kvstore.type if isinstance(kvstore, KVStore) else kvstore
 
 
 def _init_desc(name, attrs):

@@ -47,7 +47,8 @@ __all__ = ["NDArray", "array", "empty", "zeros", "ones", "full", "arange",
            "concatenate", "moveaxis", "onehot_encode", "add", "subtract",
            "multiply", "divide", "true_divide", "power", "maximum", "minimum",
            "equal", "not_equal", "greater", "greater_equal", "lesser",
-           "lesser_equal", "save", "load", "imperative_invoke"]
+           "lesser_equal", "save", "load", "imperative_invoke", "waitall",
+           "imdecode"]
 
 
 def _np_dtype(dtype):
@@ -118,14 +119,14 @@ class NDArray:
         if isinstance(other, NDArray):
             other[:] = self
             return other
-        if isinstance(other, torch.device):
-            return NDArray(self._data.to(other, copy=True))
+        if isinstance(other, (torch.device, str)):
+            return NDArray(self._data.to(_context.resolve(other), copy=True))
         raise TypeError("copyto does not support type " + str(type(other)))
 
     def as_in_context(self, context):
-        if torch.device(context) == self.context:
+        if _context.resolve(context) == self.context:
             return self
-        return self.copyto(torch.device(context))
+        return self.copyto(_context.resolve(context))
 
     # ---- indexing --------------------------------------------------------
     def __getitem__(self, key):
@@ -366,6 +367,38 @@ def moveaxis(tensor, source, destination):
     axes.pop(source)
     axes.insert(destination, source)
     return imperative_invoke("transpose", [tensor], {"axes": tuple(axes)})
+
+
+def imdecode(str_img, clip_rect=(0, 0, 0, 0), out=None, index=0, channels=3,
+             mean=None):
+    """Decode an image buffer to a CHW NDArray on the host (the JAX
+    package's ``ndarray.imdecode``, through :func:`.image.imdecode`):
+    ``clip_rect`` crops (x0, y0, x1, y1), ``mean`` is subtracted, and a
+    4-d ``out`` takes the image at ``index``."""
+    from . import image as _image
+
+    arr = _image.imdecode(str_img, flag=1 if channels == 3 else 0)
+    arr = NDArray(arr.data.permute(2, 0, 1).contiguous())
+    if any(clip_rect):
+        x0, y0, x1, y1 = clip_rect
+        arr = arr[:, y0:y1, x0:x1]
+    if mean is not None:
+        arr = arr - mean
+    if out is not None:
+        if out.ndim == 4:
+            out[index] = arr
+        else:
+            out._set_data(arr.data.to(out.data.device, out.data.dtype))
+        return out
+    return arr
+
+
+def waitall():
+    """Block until the work queued on every card in use is done
+    (reference: MXNDArrayWaitAll); nothing to wait for on the host."""
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
 
 
 def onehot_encode(indices, out):

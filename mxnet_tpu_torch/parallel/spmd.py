@@ -41,6 +41,15 @@ the CUDA runtime while the step is captured on this thread.
 Nothing falls back: a failed capture or replay raises. A kernel's launch
 count (``ops._build.Kernel.launches``) goes up by its launches in the
 captured step on every replay, and the capture itself counts none.
+
+The distributed step (``module.fused_path``'s ``_step_dist``) splits the
+step in two, each its own graph under the same rules:
+:meth:`SPMDTrainer.grad_step` (forward and backward, the float32
+gradients written into the static :meth:`SPMDTrainer.grad_buffers`) and
+:meth:`SPMDTrainer.apply_grads` (the rule of each parameter, reading
+those buffers). The parameter-server exchange runs on the host between
+them and writes what it pulls into the captured tensors with ``copy_``:
+a rebind would leave every replay reading the first step's tensors.
 """
 from __future__ import annotations
 
@@ -54,6 +63,19 @@ from ..symbol import _topo_order
 from . import fused_opt
 
 __all__ = ["SPMDTrainer"]
+
+
+class _Graph:
+    """One captured program of a trainer: the CUDA graph, its output
+    tensors and the kernel launches each replay adds."""
+
+    __slots__ = ("graph", "outs", "per_replay", "warm")
+
+    def __init__(self):
+        self.graph = None
+        self.outs = None
+        self.per_replay = {}
+        self.warm = False
 
 
 class SPMDTrainer:
@@ -98,13 +120,13 @@ class SPMDTrainer:
         #: the value last written into it
         self.step_lr = None
         self._inputs = None
+        self._grad_bufs = None
         #: the io.WireSpec of the data inputs (None: float32 inputs)
         self.wire = None
-        self._graph = None
-        self._graph_outs = None
-        self._per_replay = {}
-        self.warm = False
-        #: CUDA graphs captured by this trainer (at most one) and replays
+        # "step", or "grad" and "apply" (the distributed step's two)
+        self._graphs = {}
+        #: CUDA graphs captured by this trainer (one per program) and
+        #: replays of them
         self.captures = 0
         self.replays = 0
 
@@ -113,6 +135,25 @@ class SPMDTrainer:
         """Fresh optimizer slots: name -> tuple of float32 tensors."""
         return {n: self.rule.init_state(self.arg_shapes[n], self.device)
                 for n in self.param_names}
+
+    @property
+    def _per_replay(self):
+        """Kernel launches per replay, over the captured programs."""
+        out = {}
+        for g in self._graphs.values():
+            for n, k in g.per_replay.items():
+                out[n] = out.get(n, 0) + k
+        return out
+
+    def grad_buffers(self):
+        """The static float32 gradient tensors of :meth:`grad_step` (name
+        -> tensor), made once; :meth:`apply_grads` reads them."""
+        if self._grad_bufs is None:
+            self._grad_bufs = {
+                n: torch.zeros(self.arg_shapes[n], dtype=torch.float32,
+                               device=self.device)
+                for n in self.param_names}
+        return self._grad_bufs
 
     @property
     def started(self):
@@ -151,20 +192,11 @@ class SPMDTrainer:
                 for n, t in inputs.items()}
 
     # ---- the step --------------------------------------------------------
-    def _run(self, params, auxs, states, inputs, train=True):
-        """The step's work, eagerly: returns the forward's outputs (of the
-        parameters before the update). With ``train`` the auxiliary
-        states, parameters and slots are updated in place."""
+    def _forward_backward(self, params, auxs, inputs):
+        """Forward and backward of the batch: returns the outputs and
+        ``[(name, gradient or None)]`` in ``param_names`` order; the
+        auxiliary states are updated in place."""
         names = self.arg_names
-        inputs = self._decoded(inputs)
-        if not train:
-            with torch.no_grad():
-                args = [params[n] if n in params else inputs[n] for n in names]
-                outs, _ = self._graph_fn(
-                    cast_compute(names, args, self.compute_dtype,
-                                 self._cast_exempt),
-                    [auxs[n] for n in self.aux_names], False)
-            return outs
         leaves = {n: params[n].detach().requires_grad_(True)
                   for n in self.param_names}
         args = [leaves[n] if n in leaves else inputs[n] for n in names]
@@ -182,54 +214,126 @@ class SPMDTrainer:
                                         [leaves[n] for n in order],
                                         [g for _, g in pairs],
                                         allow_unused=True)
-        base_wd = self.optimizer.wd
         with torch.no_grad():
             for n, new in zip(self.aux_names, new_aux):
                 auxs[n].copy_(new)
-            for n, g in zip(order, grads):
+        return [o.detach() for o in outs], list(zip(order, grads))
+
+    def _apply_rule(self, params, states, grads):
+        """Each parameter's rule over ``[(name, gradient or None)]``, in
+        place, at the learning rate in ``self._lr``."""
+        base_wd = self.optimizer.wd
+        with torch.no_grad():
+            for n, g in grads:
                 w = params[n]
                 g = torch.zeros_like(w) if g is None else g.to(w.dtype)
                 self.rule.apply_(w, g, states[n], self._lr * self.lr_mult[n],
                                  base_wd * self.wd_mult[n])
-        return [o.detach() for o in outs]
+
+    def _run(self, params, auxs, states, inputs, train=True):
+        """The step's work, eagerly: returns the forward's outputs (of the
+        parameters before the update). With ``train`` the auxiliary
+        states, parameters and slots are updated in place."""
+        inputs = self._decoded(inputs)
+        if not train:
+            names = self.arg_names
+            with torch.no_grad():
+                args = [params[n] if n in params else inputs[n] for n in names]
+                outs, _ = self._graph_fn(
+                    cast_compute(names, args, self.compute_dtype,
+                                 self._cast_exempt),
+                    [auxs[n] for n in self.aux_names], False)
+            return outs
+        outs, grads = self._forward_backward(params, auxs, inputs)
+        self._apply_rule(params, states, grads)
+        return outs
+
+    def _set_lr(self):
+        """Write this step's learning rate (the scheduler's, with the
+        rule's correction at this step's count) for the graph to read."""
+        lr, t = fused_opt.host_step_values(self.optimizer, self.param_names)
+        self.step_lr = self.rule.step_lr(lr, t)
+        self._lr.fill_(self.step_lr)
 
     def step(self, params, auxs, states):
         """One training step over the batch in :meth:`input_buffers`:
         returns its outputs. On a CUDA device the first call runs eagerly
         on a side stream, the second captures the step as a CUDA graph,
         and that call and every later one replay it."""
-        lr, t = fused_opt.host_step_values(self.optimizer, self.param_names)
-        self.step_lr = self.rule.step_lr(lr, t)
-        self._lr.fill_(self.step_lr)
+        self._set_lr()
         inputs = self.input_buffers()
+        return self._launch(
+            "step", lambda: self._run(params, auxs, states, inputs))
+
+    def grad_step(self, params, auxs):
+        """Forward and backward of the batch in :meth:`input_buffers`, the
+        gradients written into :meth:`grad_buffers` (float32) and the
+        auxiliary states updated: returns the outputs. Its own graph, as
+        :meth:`step`'s."""
+        inputs = self.input_buffers()
+        bufs = self.grad_buffers()
+
+        def run():
+            outs, grads = self._forward_backward(params, auxs,
+                                                 self._decoded(inputs))
+            with torch.no_grad():
+                for n, g in grads:
+                    if g is None:
+                        bufs[n].zero_()
+                    else:
+                        bufs[n].copy_(g)
+            return outs
+
+        return self._launch("grad", run)
+
+    def apply_grads(self, params, states):
+        """The optimizer update of every parameter with the gradients in
+        :meth:`grad_buffers` (written there by the caller, e.g. summed
+        over the workers), the learning rate advanced as by :meth:`step`.
+        Its own graph, as :meth:`step`'s."""
+        self._set_lr()
+        bufs = self.grad_buffers()
+        self._launch("apply", lambda: self._apply_rule(
+            params, states, [(n, bufs[n]) for n in self.param_names]))
+
+    def _launch(self, slot, fn):
+        """``fn()`` (the work of program ``slot``): eagerly off the card;
+        on a CUDA device eagerly on a side stream the first time, captured
+        the second, replayed from then on."""
         if self.device.type != "cuda":
-            return self._run(params, auxs, states, inputs)
-        if self._graph is None:
-            if not self.warm:
+            return fn()
+        g = self._graphs.setdefault(slot, _Graph())
+        if g.graph is None:
+            if not g.warm:
                 side = torch.cuda.Stream(self.device)
                 side.wait_stream(torch.cuda.current_stream(self.device))
                 with torch.cuda.stream(side):
-                    outs = self._run(params, auxs, states, inputs)
+                    outs = fn()
                 torch.cuda.current_stream(self.device).wait_stream(side)
-                self.warm = True
+                g.warm = True
                 return outs
-            self._capture(params, auxs, states, inputs)
-        self._graph.replay()
+            self._capture_slot(g, fn, draws=slot != "apply")
+        g.graph.replay()
         self.replays += 1
         from ..ops import _build
 
-        for name, n in self._per_replay.items():
+        for name, n in g.per_replay.items():
             _build.KERNELS[name].launches += n
-        return self._graph_outs
+        return g.outs
 
     def _capture(self, params, auxs, states, inputs):
-        """Record one step into a CUDA graph (nothing runs); the launches
-        its kernel wrappers count while recording become the count each
-        replay adds, and are taken back from the counters."""
+        """Record one training step into a CUDA graph (nothing runs)."""
+        self._capture_slot(self._graphs.setdefault("step", _Graph()),
+                           lambda: self._run(params, auxs, states, inputs))
+
+    def _capture_slot(self, g, fn, draws=True):
+        """Record ``fn`` into ``g``'s CUDA graph (nothing runs); the
+        launches its kernel wrappers count while recording become the
+        count each replay adds, and are taken back from the counters."""
         from ..ops import _build
 
         graph = torch.cuda.CUDAGraph()
-        if self._stochastic:
+        if draws and self._stochastic:
             if not hasattr(graph, "register_generator_state"):
                 raise MXNetError(
                     "fused step: the graph draws random numbers and torch "
@@ -239,13 +343,13 @@ class SPMDTrainer:
         before = {n: k.launches for n, k in _build.KERNELS.items()}
         torch.cuda.synchronize(self.device)
         with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            outs = self._run(params, auxs, states, inputs)
+            outs = fn()
         for n, k in _build.KERNELS.items():
             if k.launches != before[n]:
-                self._per_replay[n] = k.launches - before[n]
+                g.per_replay[n] = k.launches - before[n]
                 k.launches = before[n]
-        self._graph = graph
-        self._graph_outs = outs
+        g.graph = graph
+        g.outs = outs
         self.captures += 1
 
     def forward(self, params, auxs, inputs):

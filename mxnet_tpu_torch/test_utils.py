@@ -720,11 +720,12 @@ _hrng = np.random.RandomState(1234)
 
 
 def default_context():
-    """Where the helpers bind without a ``ctx``: the card
-    (``context.default_device``; raises without CUDA)."""
-    from .context import default_device
+    """Where the helpers bind without a ``ctx``: the current context
+    (``context.current_context``: the card outside a ``with`` block, which
+    raises without CUDA)."""
+    from .context import current_context
 
-    return default_device()
+    return current_context()
 
 
 def default_dtype():

@@ -6,13 +6,21 @@ and the layer-to-symbol conversion behind ``mx.contrib.caffe.CaffeOp``
 tools/caffe_converter/ and plugin/caffe).
 
 It builds symbols through the package it is handed (``mx``), so the
-symbols, their argument names and their JSON are the converter's. The
-weight-file decoder and the command line stay with the repository's
-converter: a port symbol file loads in either package.
+symbols, their argument names and their JSON are the converter's, and a
+port symbol file loads in either package. ``convert_symbol`` and
+``convert_model`` (with the ``.caffemodel`` protobuf decoder) build
+through the port itself; ``python -m mxnet_tpu_torch.tools.caffe_converter
+deploy.prototxt [weights.caffemodel] prefix`` writes the symbol and
+parameter files.
 """
 from __future__ import annotations
 
+import argparse
 import re
+import struct
+import sys
+
+import numpy as np
 
 _TOKEN = re.compile(
     r"""\s*(?:(?P<comment>\#[^\n]*)
@@ -402,3 +410,336 @@ def _convert_layer(mx, ltype, l, name, bottoms):
     if ltype in ("Accuracy", "Silence"):
         return None
     raise ValueError("caffe layer type %r is not supported" % (ltype,))
+
+
+# ---------------------------------------------------------------------------
+# protobuf wire format (.caffemodel) — schema-driven minimal decoder
+# ---------------------------------------------------------------------------
+# Field numbers from the reference's tools/caffe_converter/caffe.proto
+# (NetParameter :64, LayerParameter :310, V1LayerParameter :1205,
+# BlobProto :10, BlobShape :6).
+
+BLOB_SHAPE = {1: ("dim", "packed_varint")}
+BLOB_PROTO = {
+    1: ("num", "varint"),
+    2: ("channels", "varint"),
+    3: ("height", "varint"),
+    4: ("width", "varint"),
+    5: ("data", "packed_f32"),
+    7: ("shape", ("msg", BLOB_SHAPE)),
+    8: ("double_data", "packed_f64"),
+}
+LAYER_V2 = {
+    1: ("name", "string"),
+    2: ("type", "string"),
+    3: ("bottom", "string"),
+    4: ("top", "string"),
+    7: ("blobs", ("msg", BLOB_PROTO)),
+}
+LAYER_V1 = {
+    2: ("bottom", "string"),
+    3: ("top", "string"),
+    4: ("name", "string"),
+    5: ("type", "varint"),
+    6: ("blobs", ("msg", BLOB_PROTO)),
+}
+NET_PARAM = {
+    1: ("name", "string"),
+    2: ("layers", ("msg", LAYER_V1)),
+    100: ("layer", ("msg", LAYER_V2)),
+}
+
+# V1LayerParameter.LayerType enum values -> new-style type strings
+V1_TYPE_NAMES = {
+    3: "Concat", 4: "Convolution", 5: "Data", 6: "Dropout", 8: "Flatten",
+    14: "InnerProduct", 15: "LRN", 17: "Pooling", 18: "ReLU", 19: "Sigmoid",
+    20: "Softmax", 21: "SoftmaxWithLoss", 22: "Split", 23: "TanH",
+    25: "Eltwise", 26: "Power", 30: "ArgMax", 33: "Slice", 35: "AbsVal",
+    39: "Deconvolution",
+}
+# prototxt V1 enum names (type: CONVOLUTION) -> new-style
+V1_ENUM_NAMES = {
+    "CONCAT": "Concat", "CONVOLUTION": "Convolution", "DATA": "Data",
+    "DROPOUT": "Dropout", "FLATTEN": "Flatten", "INNER_PRODUCT":
+    "InnerProduct", "LRN": "LRN", "POOLING": "Pooling", "RELU": "ReLU",
+    "SIGMOID": "Sigmoid", "SOFTMAX": "Softmax", "SOFTMAX_LOSS":
+    "SoftmaxWithLoss", "SPLIT": "Split", "TANH": "TanH", "ELTWISE":
+    "Eltwise", "ABSVAL": "AbsVal", "DECONVOLUTION": "Deconvolution",
+    "POWER": "Power",
+}
+
+
+def _read_varint(buf, pos):
+    out = 0
+    shift = 0
+    while True:
+        b = buf[pos]
+        pos += 1
+        out |= (b & 0x7F) << shift
+        if not b & 0x80:
+            return out, pos
+        shift += 7
+
+
+def decode_message(buf, schema):
+    """Decode one message per `schema` {field_no: (name, kind)}; unknown
+    fields are skipped by wire type. Every field decodes to a list."""
+    msg = {}
+    pos = 0
+    end = len(buf)
+    while pos < end:
+        tag, pos = _read_varint(buf, pos)
+        field_no, wire = tag >> 3, tag & 7
+        if wire == 0:
+            val, pos = _read_varint(buf, pos)
+            payload = None
+        elif wire == 2:
+            n, pos = _read_varint(buf, pos)
+            payload = buf[pos:pos + n]
+            pos += n
+            val = None
+        elif wire == 5:
+            payload = buf[pos:pos + 4]
+            pos += 4
+            val = None
+        elif wire == 1:
+            payload = buf[pos:pos + 8]
+            pos += 8
+            val = None
+        else:
+            raise ValueError("unsupported wire type %d" % wire)
+        spec = schema.get(field_no)
+        if spec is None:
+            continue
+        name, kind = spec
+        if kind == "varint":
+            out = val
+        elif kind == "string":
+            out = payload.decode("utf-8")
+        elif kind == "packed_f32":
+            if payload is not None:
+                out = np.frombuffer(payload, dtype="<f4")
+            else:  # unpacked encoding of a packed-capable field
+                out = np.frombuffer(struct.pack("<I", val), dtype="<f4")
+        elif kind == "packed_f64":
+            out = np.frombuffer(payload, dtype="<f8")
+        elif kind == "packed_varint":
+            if payload is not None:
+                out, p2 = [], 0
+                while p2 < len(payload):
+                    v, p2 = _read_varint(payload, p2)
+                    out.append(v)
+            else:
+                out = [val]
+        elif isinstance(kind, tuple) and kind[0] == "msg":
+            out = decode_message(payload, kind[1])
+        else:
+            raise ValueError("bad schema kind %r" % (kind,))
+        if kind in ("packed_f32", "packed_f64") and name in msg:
+            msg[name] = [np.concatenate([msg[name][0], out])]
+        elif kind == "packed_varint":
+            # flatten: packed payloads and repeated unpacked varints both
+            # decode to one list of ints
+            msg.setdefault(name, []).extend(out)
+        else:
+            msg.setdefault(name, []).append(out)
+    return msg
+
+
+def read_caffemodel(path):
+    """-> list of {name, type, blobs:[np.ndarray]} in network order."""
+    with open(path, "rb") as f:
+        net = decode_message(f.read(), NET_PARAM)
+    layers = []
+    for raw in _all(net, "layer") + _all(net, "layers"):
+        ltype = _one(raw, "type", "")
+        if isinstance(ltype, int):
+            ltype = V1_TYPE_NAMES.get(ltype, str(ltype))
+        blobs = []
+        for b in _all(raw, "blobs"):
+            data = _one(b, "data")
+            if data is None:
+                data = _one(b, "double_data")
+            if data is None:
+                continue
+            shape_msg = _one(b, "shape")
+            if shape_msg is not None and _all(shape_msg, "dim"):
+                shape = tuple(_all(shape_msg, "dim"))
+            else:
+                legacy = [_one(b, k, 0) or 0
+                          for k in ("num", "channels", "height", "width")]
+                shape = tuple(d for d in legacy if d) or (len(data),)
+            blobs.append(np.asarray(data, dtype=np.float32).reshape(shape))
+        layers.append({"name": _one(raw, "name", ""), "type": ltype,
+                       "blobs": blobs})
+    return layers
+
+
+# ---------------------------------------------------------------------------
+# symbol conversion
+# ---------------------------------------------------------------------------
+
+
+def convert_symbol(prototxt_text):
+    """Convert a deploy prototxt to a Symbol.
+
+    Returns (symbol, input_name, input_dim_or_None). The graph is built
+    layer-name-keyed so convert_model's parameters bind directly.
+    """
+    net = parse_prototxt(prototxt_text)
+    layers = _get_layers(net)
+    return _build_symbol(net, layers)
+
+
+def _build_symbol(net, layers):
+    import mxnet_tpu_torch as mx
+
+    scale_to_bn = _bn_scale_map(layers)
+
+    # input discovery (reference order: input_dim > input_shape > Input layer)
+    input_name, input_dim = "data", None
+    if _all(net, "input"):
+        input_name = _one(net, "input")
+        if _all(net, "input_dim"):
+            input_dim = [int(d) for d in _all(net, "input_dim")][:4]
+        elif _all(net, "input_shape"):
+            input_dim = [int(d) for d in _all(_one(net, "input_shape"), "dim")]
+    blobs = {}  # caffe top name -> Symbol
+    first_real = None
+    for ltype, l in layers:
+        if ltype in _DATA_LAYER_TYPES:
+            tops = _all(l, "top") or ["data"]
+            input_name = tops[0]
+            if ltype == "Input":
+                shape_msg = _one(_one(l, "input_param", {}), "shape")
+                if shape_msg:
+                    input_dim = [int(d) for d in _all(shape_msg, "dim")]
+            continue
+        if first_real is None:
+            first_real = l
+    if first_real is not None and input_name not in blobs:
+        bottoms = _all(first_real, "bottom")
+        if bottoms and _one(net, "input") is None and not any(
+                t in _DATA_LAYER_TYPES for t, _ in layers):
+            input_name = bottoms[0]
+    blobs[input_name] = mx.sym.Variable(input_name)
+
+    sym = None
+    for ltype, l in layers:
+        if ltype in _DATA_LAYER_TYPES:
+            continue
+        name = _one(l, "name", "")
+        declared = _all(l, "bottom")
+        missing = [b for b in declared if b not in blobs]
+        # the only bottom a layer may legitimately shed is a loss/eval
+        # layer's label, fed by a TEST-phase data layer we skipped — and the
+        # label is never the first bottom. Anything else (a typo'd bottom, a
+        # skipped branch of Concat/Eltwise) would silently detach part of
+        # the network.
+        sheddable = "Loss" in ltype or ltype == "Accuracy"
+        bad = [b for b in missing
+               if not (sheddable and declared and b != declared[0])]
+        if bad:
+            raise ValueError(
+                "%s layer %r: bottom(s) %r are not produced by any converted "
+                "layer — refusing to build a silently-wrong network"
+                % (ltype, name, bad))
+        bottoms = [blobs[b] for b in declared if b in blobs]
+        tops = _all(l, "top") or [name]
+        if ltype == "Scale" and name not in scale_to_bn:
+            raise ValueError(
+                "standalone Scale layer %r (no preceding BatchNorm) is not "
+                "supported — its learned scaling cannot be silently dropped"
+                % (name,))
+        converted = _convert_layer(mx, ltype, l, name, bottoms)
+        if converted is None:
+            continue
+        sym = converted
+        for t in tops:
+            blobs[t] = sym
+    if sym is None:
+        raise ValueError("prototxt has no convertible layers")
+    # the network output is the last non-data layer's top
+    return sym, input_name, input_dim
+
+
+def convert_model(prototxt_text, caffemodel_path):
+    """-> (symbol, arg_params, aux_params) with this framework's naming
+    (`<layer>_weight/_bias/_gamma/_beta`, aux `<bn>_moving_mean/_var`)."""
+    net = parse_prototxt(prototxt_text)
+    proto_layers = _get_layers(net)
+    sym, input_name, input_dim = _build_symbol(net, proto_layers)
+    layers = read_caffemodel(caffemodel_path)
+    bn_for_scale = _bn_scale_map(proto_layers)
+    arg_params, aux_params = {}, {}
+    for layer in layers:
+        name, ltype, blobs = layer["name"], layer["type"], layer["blobs"]
+        if not blobs:
+            continue
+        if ltype in ("Convolution", "Deconvolution", "InnerProduct",
+                     "Scale", "PReLU"):
+            if ltype == "Scale":
+                bn = bn_for_scale.get(name)
+                if bn is None:
+                    continue
+                arg_params[bn + "_gamma"] = blobs[0].reshape(-1)
+                if len(blobs) > 1:
+                    arg_params[bn + "_beta"] = blobs[1].reshape(-1)
+            elif ltype == "PReLU":
+                arg_params[name + "_gamma"] = blobs[0].reshape(-1)
+            else:
+                w = blobs[0]
+                if ltype == "InnerProduct" and w.ndim > 2:
+                    # legacy caffemodels store FC weights 4-D with leading
+                    # singleton num/channels dims
+                    w = w.reshape(w.shape[-2], w.shape[-1])
+                arg_params[name + "_weight"] = w
+                if len(blobs) > 1:
+                    arg_params[name + "_bias"] = blobs[1].reshape(-1)
+        elif ltype == "BatchNorm":
+            # blobs: mean, var, scale_factor — caffe stores UNNORMALIZED
+            # accumulators; divide by the scale factor
+            sf = float(blobs[2].reshape(-1)[0]) if len(blobs) > 2 else 1.0
+            sf = 1.0 / sf if sf != 0 else 0.0
+            aux_params[name + "_moving_mean"] = blobs[0].reshape(-1) * sf
+            aux_params[name + "_moving_var"] = blobs[1].reshape(-1) * sf
+            arg_params.setdefault(
+                name + "_gamma",
+                np.ones_like(aux_params[name + "_moving_mean"]))
+            arg_params.setdefault(
+                name + "_beta",
+                np.zeros_like(aux_params[name + "_moving_mean"]))
+    return sym, arg_params, aux_params
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(
+        description="Convert Caffe prototxt (+caffemodel) to symbol/params")
+    ap.add_argument("prototxt")
+    ap.add_argument("caffemodel", nargs="?",
+                    help="optional binary weights file")
+    ap.add_argument("prefix", help="output prefix")
+    args = ap.parse_args(argv)
+
+    import mxnet_tpu_torch as mx
+
+    with open(args.prototxt) as f:
+        text = f.read()
+    if args.caffemodel:
+        sym, arg_params, aux_params = convert_model(text, args.caffemodel)
+        nd_args = {"arg:%s" % k: mx.nd.array(v, ctx=mx.cpu()) for k, v in
+                   arg_params.items()}
+        nd_args.update({"aux:%s" % k: mx.nd.array(v, ctx=mx.cpu()) for k, v in
+                        aux_params.items()})
+        mx.nd.save("%s-0000.params" % args.prefix, nd_args)
+        print("saved %s-0000.params (%d arrays)"
+              % (args.prefix, len(nd_args)))
+    else:
+        sym, _, _ = convert_symbol(text)
+    with open("%s-symbol.json" % args.prefix, "w") as f:
+        f.write(sym.tojson())
+    print("saved %s-symbol.json" % args.prefix)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -293,17 +293,48 @@ def test_native_batches_survive_a_slow_consumer(recs):
         np.testing.assert_array_equal(nd_arr.asnumpy(), copy)
 
 
-def test_c12_jax_native_batches_alias_the_stage_buffers(recs):
+def _jax_native_lib():
+    """The JAX package's native library, built once under a file lock.
+    ``mxnet_tpu._native.get_lib`` runs ``make`` at first use and never
+    retries in a process whose build failed; test processes of another
+    file may be building it at the same moment. So: take a lock, and
+    where this process's first try found no library, clear its
+    no-retry flag and try again after the other build had time to end."""
+    import fcntl
+
+    from mxnet_tpu import _native as jn
+
+    lock_dir = os.path.join(ROOT, "build")
+    os.makedirs(lock_dir, exist_ok=True)
+    with open(os.path.join(lock_dir, "jax-native-test.lock"), "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        for _ in range(5):
+            lib = jn.get_lib()
+            if lib is not None:
+                return lib
+            jn._tried = False
+            time.sleep(3)
+    return jn.get_lib()
+
+
+def test_c12_jax_native_batches_alias_the_stage_buffers(recs, tmp_path):
     """The JAX package's native batches are views of the stage's pooled
     buffers, released one pop later: a batch held past the next
-    iterator's run changes under its holder; the port's do not."""
+    iterator's run (over other images, so reused buffers take other
+    pixels) changes under its holder; the port's do not. Both iterators
+    must run on their native stage: a fallback to the Python pipeline
+    fails here with its reason."""
+    assert _jax_native_lib() is not None, "the JAX native library did not build"
+    other = _write_rec(J, str(tmp_path / "other"), seed=5)
     kw = dict(data_shape=(3, 28, 28), resize=36, backend="native",
               preprocess_threads=1)
     drift = {}
     for mx in (J, T):
         runs = []
-        for _ in range(2):
-            it = mx.io_image.ImageRecordIter(recs["cls"], batch_size=5, **kw)
+        for rec in (recs["cls"], other):
+            it = mx.io_image.ImageRecordIter(rec, batch_size=5, **kw)
+            assert it._native is not None, "%s fell back to the Python " \
+                "pipeline" % mx.__name__
             held = [b.data[0] for b in it]
             it.close()
             runs.append((held, np.concatenate([h.asnumpy().copy()

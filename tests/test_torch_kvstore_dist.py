@@ -1,0 +1,232 @@
+"""Clusters of the port under ``tools/launch.py`` on the CPU: two workers
+and one server, each process ``import mxnet_tpu_torch as mx``. Every
+cluster runs on a free port, in its own process group, with its own
+timeout; a hang kills the group and fails the test. Nothing here needs
+the JAX package's native library: the JAX side of a comparison is its
+single-process store."""
+import os
+import signal
+import socket
+import subprocess
+import sys
+
+import numpy as np
+
+import mxnet_tpu as J
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TIMEOUT = 180
+
+SHAPES = {0: (4, 5), 1: (7,), 2: (3, 2, 2)}
+
+WORKER_VALUES = r"""
+import os
+import numpy as np
+import mxnet_tpu_torch as mx
+
+SHAPES = %(shapes)r
+with mx.cpu():
+    kv = mx.kv.create("dist_sync")
+    rank = kv.rank
+    assert kv.num_workers == 2 and type(kv).__name__ == "KVStoreDist"
+    for k, s in SHAPES.items():
+        kv.init(k, mx.nd.array(np.random.RandomState(k).randn(*s), ctx=mx.cpu()))
+    kv.set_optimizer(mx.optimizer.Adam(learning_rate=0.05, wd=1e-3,
+                                       rescale_grad=0.25))
+    pulled = {}
+    for step in range(3):
+        for key, s in SHAPES.items():
+            r = np.random.RandomState(1000 * rank + 10 * step + key)
+            kv.push(key, mx.nd.array(r.randn(*s), ctx=mx.cpu()))
+        outs = [mx.nd.zeros(s, ctx=mx.cpu()) for s in SHAPES.values()]
+        kv.pull(list(SHAPES), out=outs)
+        for key, o in zip(SHAPES, outs):
+            pulled["%%d_%%d" %% (step, key)] = o.asnumpy()
+    # the bucketed sync of the dist step paths, in one small bucket each
+    os.environ["MXNET_KV_BUCKET_MB"] = "0.00001"
+    pairs = [(k, mx.nd.ones(s, ctx=mx.cpu()), mx.nd.zeros(s, ctx=mx.cpu()))
+             for k, s in SHAPES.items()]
+    seen = []
+    assert kv.bucketed_push_pull(pairs, on_bucket=seen.append)
+    assert len(seen) == len(SHAPES)
+    for k, _, out in pairs:
+        pulled["bucketed_%%d" %% k] = out.asnumpy()
+    np.savez(os.path.join(os.environ["OUT_DIR"], "values-%%d.npz" %% rank), **pulled)
+    kv.barrier()
+    if rank == 0:
+        kv._stop_servers()
+print("WORKER_OK", rank)
+""" % {"shapes": SHAPES}
+
+WORKER_ASYNC = r"""
+import numpy as np
+import mxnet_tpu_torch as mx
+
+with mx.cpu():
+    kv = mx.kv.create("dist_async")
+    rank = kv.rank
+    kv.init(5, mx.nd.zeros((3,), ctx=mx.cpu()))
+    kv.set_optimizer(mx.optimizer.SGD(learning_rate=1.0, rescale_grad=1.0))
+    out = mx.nd.zeros((3,), ctx=mx.cpu())
+    if rank == 0:
+        # no barrier and no peer: each push is applied when it arrives
+        for k in range(1, 4):
+            kv.push(5, mx.nd.ones((3,), ctx=mx.cpu()) * -1)
+            kv.pull(5, out=out)
+            assert np.allclose(out.asnumpy(), k), (k, out.asnumpy())
+    kv.barrier()
+    if rank == 1:
+        for k in range(1, 4):
+            kv.push(5, mx.nd.ones((3,), ctx=mx.cpu()) * -1)
+            kv.pull(5, out=out)
+            assert np.allclose(out.asnumpy(), 3 + k), (k, out.asnumpy())
+    kv.barrier()
+    kv.pull(5, out=out)
+    assert np.allclose(out.asnumpy(), 6.0), out.asnumpy()
+    kv.barrier()
+    if rank == 0:
+        kv._stop_servers()
+print("WORKER_OK", rank)
+"""
+
+WORKER_FIT = r"""
+import os
+import numpy as np
+import mxnet_tpu_torch as mx
+
+kvstore = os.environ["KV_TYPE"]
+with mx.cpu():
+    kv = mx.kv.create(kvstore)
+    rank = kv.rank
+    r = np.random.RandomState(0)
+    X = r.randn(96, 6).astype(np.float32)
+    Y = (X[:, 0] + X[:, 1] > 0).astype(np.float32) + (X[:, 2] > 1)
+    shard = slice(rank, None, kv.num_workers)
+    h = mx.sym.FullyConnected(mx.sym.Variable("data"), num_hidden=16, name="fc1")
+    h = mx.sym.Activation(h, act_type="relu")
+    h = mx.sym.FullyConnected(h, num_hidden=3, name="fc2")
+    net = mx.sym.SoftmaxOutput(h, name="softmax")
+    # rank-dependent initial weights: the servers' copy (rank 0's) wins
+    init = mx.init.Xavier(rng=__import__("torch").Generator().manual_seed(rank))
+    mod = mx.mod.Module(net, context=mx.cpu())
+    metric = mx.metric.create("ce")
+    losses = []
+    mod.fit(mx.io.NDArrayIter(X[shard], Y[shard], batch_size=8), num_epoch=3,
+            kvstore=kv, initializer=init, optimizer="sgd",
+            optimizer_params={"learning_rate": 0.1, "momentum": 0.9},
+            eval_metric=metric,
+            epoch_end_callback=lambda *a: losses.append(metric.get()[1]))
+    assert (mod._fused is not None) == ("device" in kvstore), mod._fused
+    assert mod._update_on_kvstore
+    params = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+    params["losses"] = np.array(losses)
+    np.savez(os.path.join(os.environ["OUT_DIR"], "fit-%s-%d.npz" % (kvstore, rank)),
+             **params)
+    kv.barrier()
+    if rank == 0:
+        kv._stop_servers()
+print("WORKER_OK", rank)
+"""
+
+
+def _free_port():
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _run_cluster(script, out_dir, n_workers=2, **env_extra):
+    env = dict(os.environ)
+    for k in [k for k in env if k.startswith("DMLC_")]:
+        del env[k]
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    env["OUT_DIR"] = str(out_dir)
+    # three processes beside other test processes: two threads each
+    env.setdefault("OMP_NUM_THREADS", "2")
+    env.update(env_extra)
+    path = os.path.join(str(out_dir), "worker.py")
+    with open(path, "w") as f:
+        f.write(script)
+    cmd = [sys.executable, os.path.join(ROOT, "tools", "launch.py"),
+           "-n", str(n_workers), "-s", "1", "--port", str(_free_port()),
+           sys.executable, path]
+    proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(os.getpgid(proc.pid), signal.SIGKILL)
+        out, err = proc.communicate()
+        raise AssertionError("cluster hung: %s %s" % (out, err[-4000:]))
+    assert proc.returncode == 0, (out, err[-4000:])
+    assert out.count("WORKER_OK") == n_workers, (out, err[-4000:])
+    # the server says on exit whether it ever initialized CUDA
+    assert "cuda initialized: False" in err, err[-4000:]
+    return out, err
+
+
+def test_cluster_pulls_match_the_jax_store_fed_the_summed_pushes(tmp_path):
+    """Two port workers push seeded values to one server under
+    ``dist_sync`` with Adam on the server; every pulled value equals the
+    JAX package's single-process store given, per step, the sum of both
+    workers' pushes (within 1e-6), on both workers."""
+    _run_cluster(WORKER_VALUES, tmp_path)
+    got = [dict(np.load(str(tmp_path / ("values-%d.npz" % r)))) for r in (0, 1)]
+    for k in got[0]:
+        np.testing.assert_array_equal(got[0][k], got[1][k])
+    kv = J.kv.create("local")
+    for k, s in SHAPES.items():
+        kv.init(k, J.nd.array(np.random.RandomState(k).randn(*s)))
+    kv.set_optimizer(J.optimizer.Adam(learning_rate=0.05, wd=1e-3,
+                                      rescale_grad=0.25))
+    for step in range(3):
+        for key, s in SHAPES.items():
+            pushes = []
+            for rank in (0, 1):
+                # the workers' seed of rank's push of key at step
+                r = np.random.RandomState(1000 * rank + 10 * step + key)
+                pushes.append(J.nd.array(r.randn(*s)))
+            kv.push(key, pushes)
+        for key, s in SHAPES.items():
+            out = J.nd.zeros(s)
+            kv.pull(key, out=out)
+            want = out.asnumpy()
+            np.testing.assert_allclose(got[0]["%d_%d" % (step, key)], want,
+                                       rtol=0, atol=1e-6 * max(1, np.abs(want).max()))
+    for key, s in SHAPES.items():
+        kv.push(key, [J.nd.ones(s), J.nd.ones(s)])
+        out = J.nd.zeros(s)
+        kv.pull(key, out=out)
+        want = out.asnumpy()
+        np.testing.assert_allclose(got[0]["bucketed_%d" % key], want,
+                                   rtol=0, atol=1e-6 * max(1, np.abs(want).max()))
+
+
+def test_dist_async_applies_each_push_without_a_barrier(tmp_path):
+    _run_cluster(WORKER_ASYNC, tmp_path)
+
+
+def test_module_fit_fused_against_classic_under_dist_sync(tmp_path):
+    """``Module.fit`` over ``dist_sync_device`` (the fused path's
+    distributed step) and over ``dist_sync`` (the classic path): in each,
+    the two workers end bitwise equal (BSP, the servers' weights); the two
+    paths agree within 1e-5, and the loss falls."""
+    runs = {}
+    for kind in ("dist_sync_device", "dist_sync"):
+        d = tmp_path / kind
+        d.mkdir()
+        _run_cluster(WORKER_FIT, d, KV_TYPE=kind)
+        w = [dict(np.load(str(d / ("fit-%s-%d.npz" % (kind, r))))) for r in (0, 1)]
+        for k in w[0]:
+            if k != "losses":
+                np.testing.assert_array_equal(w[0][k], w[1][k], err_msg=k)
+        assert w[0]["losses"][-1] < w[0]["losses"][0], w[0]["losses"]
+        runs[kind] = w[0]
+    for k in runs["dist_sync"]:
+        if k != "losses":
+            np.testing.assert_allclose(runs["dist_sync_device"][k],
+                                       runs["dist_sync"][k], rtol=0, atol=1e-5,
+                                       err_msg=k)

@@ -425,7 +425,93 @@ def test_port_sources_import_no_jax():
         "models/dcgan.py", "tools/dcgan.py", "test_utils.py",
         "ops/contrib_ops.py", "operator.py", "models/ssd.py", "tools/train_ssd.py",
         "module/python_module.py", "module/sequential_module.py",
-        "visualization.py", "log.py")} <= rel
+        "visualization.py", "log.py", "kvstore.py", "kvstore_server.py",
+        "engine.py", "context.py", "utils/__init__.py", "_native.py",
+        "tools/caffe_converter.py")} <= rel
     for f in files:
         roots = set(_imported_roots(f))
         assert not roots & {"jax", "jaxlib", "mxnet_tpu"}, (f, roots)
+
+
+def test_native_build_compiles_only_the_ports_sources(tmp_path, monkeypatch):
+    """The port's native library is built from ``mxnet_tpu_torch/csrc/
+    native`` alone: the compile command, captured, names no source
+    elsewhere (nothing of ``mxnet_tpu/src``)."""
+    from mxnet_tpu_torch import _native
+
+    native = os.path.join(ROOT, "mxnet_tpu_torch", "csrc", "native")
+    assert os.path.realpath(_native.SRC_DIR) == os.path.realpath(native)
+    assert {"engine.cc", "ps.cc", "pipe.cc"} <= set(_native.SOURCES)
+    for src in _native.SOURCES:
+        assert os.path.exists(os.path.join(native, src)), src
+    commands = []
+
+    class Done:
+        returncode = 0
+        stderr = ""
+
+    def fake_run(cmd, **kw):
+        commands.append(list(cmd))
+        if "-o" in cmd and cmd[cmd.index("-o") + 1] != os.devnull:
+            open(cmd[cmd.index("-o") + 1], "wb").close()
+        return Done()
+
+    monkeypatch.setattr(_native, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(_native.subprocess, "run", fake_run)
+    monkeypatch.setattr(_native.shutil, "which", lambda _: "/usr/bin/g++")
+    assert os.path.dirname(_native._build()) == str(tmp_path)
+    build = [c for c in commands if any(a.endswith(".cc") for a in c)]
+    assert len(build) == 1
+    sources = [a for a in build[0] if a.endswith((".cc", ".cu", ".c", ".cpp"))]
+    assert len(sources) == len(_native.SOURCES)
+    for a in sources:
+        assert os.path.dirname(os.path.realpath(a)) == os.path.realpath(native), a
+    assert not any("mxnet_tpu/" in a or "mxnet_tpu" + os.sep + "src" in a
+                   for a in build[0])
+
+
+def test_server_role_import_loads_neither_jax_nor_the_jax_package(tmp_path):
+    """``import mxnet_tpu_torch`` in a process with ``DMLC_ROLE=server``
+    serves until a client stops it, then exits; by then neither ``jax`` nor
+    ``mxnet_tpu`` was loaded, and CUDA was never initialized."""
+    import socket
+    import time
+
+    from mxnet_tpu_torch import _native
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    code = ("import atexit, sys\n"
+            "def report():\n"
+            "    import torch\n"
+            "    bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'mxnet_tpu'))\n"
+            "    print('LOADED', bad, 'CUDA', torch.cuda.is_initialized(), flush=True)\n"
+            "atexit.register(report)\n"
+            "import mxnet_tpu_torch\n")
+    env = dict(os.environ, DMLC_ROLE="server", DMLC_PS_ROOT_PORT=str(port),
+               DMLC_SERVER_ID="0", DMLC_NUM_WORKER="1", DMLC_NUM_SERVER="1",
+               PYTHONPATH=ROOT)
+    env.pop("JAX_PLATFORMS", None)
+    proc = subprocess.Popen([sys.executable, "-c", code], env=env, cwd=str(tmp_path),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True)
+    lib = _native.load()
+    try:
+        deadline = time.time() + 120
+        while lib.mxt_ps_probe(b"127.0.0.1", port, 1000) != 0:
+            assert proc.poll() is None, proc.communicate()
+            assert time.time() < deadline, "the server did not come up"
+            time.sleep(0.2)
+        c = lib.mxt_ps_client_create(b"127.0.0.1", port)
+        assert lib.mxt_ps_client_stop(c) == 0
+        lib.mxt_ps_client_destroy(c)
+        out, err = proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            os.killpg(os.getpgid(proc.pid), 9)
+    assert proc.returncode == 0, err
+    assert "LOADED [] CUDA False" in out, (out, err)
+    assert "cuda initialized: False" in err
