@@ -39,7 +39,12 @@ surface (``mx.Context`` and its ``with`` scope, ``mx.tpu``,
 parameter-server cluster of ``tools/launch.py`` (``dist_sync``,
 ``dist_async``; :mod:`.kvstore_server`, the engine and the transport in
 ``csrc/native``), whose fused step runs its gradient and its update as
-two CUDA graphs with the exchange on the host between them. The
+two CUDA graphs with the exchange on the host between them; model
+parallelism: meshes of positions over the cards (``parallel``), ring and
+Ulysses attention over the flash kernels, the GPipe pipeline, the Switch
+MoE, the dense, sp, pp and ep LM trainers behind
+``mod.ParallelLMModule``, ``group2ctx`` placement (:mod:`.placed`) and
+several contexts per module (``executor_manager``). The
 namespaces are the JAX package's, so a training script needs only its
 import line changed: ``import mxnet_tpu_torch as mx``.
 
@@ -94,6 +99,7 @@ from . import kvstore as kv  # noqa: E402
 from .kvstore import KVStore  # noqa: E402
 from . import kvstore_server  # noqa: E402
 from . import fault, analysis, parallel  # noqa: E402
+from . import placed, executor_manager  # noqa: E402
 from . import random as rnd  # noqa: E402
 from .model import FeedForward  # noqa: E402
 from .optimizer import Optimizer  # noqa: E402
@@ -103,7 +109,7 @@ from .base import not_ported as _not_ported  # noqa: E402
 __getattr__ = _not_ported(__name__, {
     "compile_cache": "A7", "compileobs": "A7", "graphpass": "A7",
     "guard": "A7", "monitor": "A7", "mon": "A7", "profiler": "A7",
-    "rtc": "A7", "executor_manager": "A6b", "export_artifact": "A8",
+    "rtc": "A7", "export_artifact": "A8",
     "export_predict_artifact": "A8", "export_train_artifact": "A8"})
 
 __version__ = "0.1.0"
@@ -111,7 +117,7 @@ __version__ = "0.1.0"
 __all__ = ["base", "context", "MXNetError", "Context", "cpu", "gpu", "tpu",
            "current_context", "default_device", "utils", "engine", "kv",
            "kvstore", "KVStore", "kvstore_server", "fault", "analysis",
-           "parallel", "rnd",
+           "parallel", "placed", "executor_manager", "rnd",
            "FeedForward", "Optimizer",
            "nd", "ndarray", "operator", "sym", "symbol", "AttrScope", "NameManager",
            "Prefix", "Executor", "init", "initializer", "random",

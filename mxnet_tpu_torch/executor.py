@@ -21,8 +21,15 @@ gradients stay the float32 masters, so gradients come back float32),
 except labels and index-like inputs (``cast_exempt`` and
 :data:`_INDEX_ARG_POSITIONS`); auxiliary states keep their float32.
 
-Not in this slice (they raise :class:`MXNetError`): ``group2ctx`` model
-parallelism and monitor callbacks — ``ROADMAP.md`` A6b/A7. The JAX
+``group2ctx`` places the graph (:mod:`.placed`) when its group contexts
+and ``ctx`` name at least two distinct torch devices, as the JAX
+executor does with jax devices: each group's arrays live on its device
+and the graph runs as per-context segments joined by explicit copies
+(``_placed``). Otherwise ``_placed`` is None and the graph runs as one
+segment: every ``cpu(i)`` is the one CPU device, and on one card every
+``tpu(i)`` the card (``ROADMAP.md`` C15). A card and the host do place.
+
+Monitor callbacks raise :class:`MXNetError` (``ROADMAP.md`` A7). The JAX
 package's graph passes and compile cache have no counterpart yet (A7).
 """
 from __future__ import annotations
@@ -130,9 +137,6 @@ class Executor:
     def __init__(self, symbol, ctx, args, args_grad=None, grad_req="write",
                  aux_states=None, group2ctx=None, shared_exec=None,
                  compute_dtype=None, cast_exempt=()):
-        if group2ctx:
-            raise MXNetError("group2ctx (model-parallel placement) is not "
-                             "ported yet (ROADMAP.md A6b)")
         del shared_exec   # no memory pool to share
         self._compute_dtype = (None if compute_dtype is None
                                else torch_dtype(compute_dtype))
@@ -188,6 +192,35 @@ class Executor:
             for node, _ in symbol._entries]
         self._outputs = None
         self._pending = None   # (leaves, outputs with their autograd graph)
+        self._placed = None
+        if group2ctx:
+            base = ctx[0] if isinstance(ctx, (list, tuple)) else ctx
+            devices = {torch.device(c) for c in group2ctx.values()}
+            if len(devices | {torch.device(base)}) > 1:
+                from .placed import PlacedGraph
+
+                self._placed = PlacedGraph(symbol, group2ctx, base,
+                                           self._arg_names, self._aux_names,
+                                           self._cast_one)
+                self._place_arrays()
+
+    def _cast_one(self, name, t):
+        return cast_compute([name], [t], self._compute_dtype,
+                            self._cast_exempt)[0]
+
+    def _place_arrays(self):
+        """Each bound array on its group's device: the user-visible face of
+        model parallelism (``arg_dict[name].context``)."""
+        placed = self._placed
+        for names, arrays, where in (
+                (self._arg_names, (self.arg_arrays, self.grad_arrays),
+                 placed.arg_ctx),
+                (self._aux_names, (self.aux_arrays,), placed.aux_ctx)):
+            for i, name in enumerate(names):
+                for group in arrays:
+                    arr = group[i]
+                    if arr is not None and name in where:
+                        arr._set_data(arr.data.to(torch.device(where[name])))
 
     # ---- forward ------------------------------------------------------
     def forward(self, is_train=False, **kwargs):
@@ -200,7 +233,11 @@ class Executor:
             self.arg_arrays[self._arg_names.index(k)][:] = v
         args = [a.data for a in self.arg_arrays]
         auxs = [a.data for a in self.aux_arrays]
-        if is_train:
+        if self._placed is not None:
+            outs, new_aux = self._placed.forward(args, auxs, is_train)
+            self._pending = (None, outs) if is_train else None
+            self._outputs = outs
+        elif is_train:
             leaves = []
             for i in self._diff_idx:
                 args[i] = args[i].detach().requires_grad_(True)
@@ -254,20 +291,26 @@ class Executor:
                 out_grads = [out_grads]
             ogs = [(g.data if isinstance(g, NDArray) else torch.as_tensor(g))
                    .to(o.device, o.dtype) for g, o in zip(out_grads, outs)]
-        pairs = [(o, g) for o, g in zip(outs, ogs) if o.requires_grad]
-        grads = [None] * len(leaves)
-        if pairs and leaves:
-            grads = torch.autograd.grad([o for o, _ in pairs],
-                                        leaves, [g for _, g in pairs],
-                                        allow_unused=True)
+        if self._placed is not None:
+            every = self._placed.backward(ogs)
+            grads = [every[i] for i in self._diff_idx]
+            leaves = [self.arg_arrays[i].data for i in self._diff_idx]
+        else:
+            pairs = [(o, g) for o, g in zip(outs, ogs) if o.requires_grad]
+            grads = [None] * len(leaves)
+            if pairs and leaves:
+                grads = torch.autograd.grad([o for o, _ in pairs],
+                                            leaves, [g for _, g in pairs],
+                                            allow_unused=True)
         for i, leaf, g in zip(self._diff_idx, leaves, grads):
             if g is None:
                 g = torch.zeros_like(leaf)
             dst = self.grad_arrays[i]
+            g = g.to(dst.data.device, dst.data.dtype)
             if self._grad_req[self._arg_names[i]] == "write":
-                dst._set_data(g.to(dst.data.dtype))
+                dst._set_data(g)
             else:
-                dst._set_data(dst.data + g.to(dst.data.dtype))
+                dst._set_data(dst.data + g)
 
     # ---- dicts ---------------------------------------------------------
     @property

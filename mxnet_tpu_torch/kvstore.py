@@ -23,7 +23,7 @@ package's names:
   pull stay ordered while different keys overlap. The servers
   (:mod:`.kvstore_server`) run the optimizer on the host.
 
-Not ported (``ROADMAP.md`` A6b; each raises where it is asked for): server
+Not ported (``ROADMAP.md`` A6c; each raises where it is asked for): server
 replicas (``MXNET_KV_REPLICAS``), elastic membership (``MXNET_ELASTIC``),
 a relaunched worker's recovery (``DMLC_PS_RECOVERY``), the cluster-stats
 publisher and straggler attribution, and the server trace statistics.
@@ -61,7 +61,7 @@ TYPES = ("local", "local_allreduce_cpu", "local_update_cpu", "device",
 
 
 def _later(what):
-    return MXNetError("%s is not ported yet (ROADMAP.md A6b)" % what)
+    return MXNetError("%s is not ported yet (ROADMAP.md A6c)" % what)
 
 
 def plan_buckets(nbytes_list, bucket_bytes):

@@ -31,7 +31,7 @@ The optimizer is pickled under ``mxnet_tpu_torch.optimizer`` names: a
 cluster is one package. A worker of the JAX package cannot drive a server
 of the port, or the reverse, though the wire is the same.
 
-Not ported (``ROADMAP.md`` A6b): replicas and their failover, the
+Not ported (``ROADMAP.md`` A6c): replicas and their failover, the
 membership registry, server checkpoints, the statistics and trace
 channels.
 """
@@ -153,7 +153,7 @@ class KVStoreServer:
         elif not cmd.startswith((b"ping", b"sync:")):
             # (the transport itself handles ping and sync:)
             log.error("kvstore-server: command %r is not ported yet "
-                      "(ROADMAP.md A6b); ignored", cmd[:32])
+                      "(ROADMAP.md A6c); ignored", cmd[:32])
 
     def _note_update_failure(self, key, err):
         """Count a failed update (the weight kept its value); past the

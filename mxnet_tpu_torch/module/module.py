@@ -27,8 +27,10 @@ the buckets of a ``BucketingModule``. ``reshape`` rebinds at new batch
 shapes over the same arrays. A kvstore is a type string or a
 ``mx.kv`` store (``init_optimizer``); a ``dist*`` one trains with the
 workers of a ``tools/launch.py`` cluster, fused on a card (or with a
-``*_device`` type) and classic otherwise. Not ported: several contexts
-per module and monitors (``ROADMAP.md`` A6b, A7).
+``*_device`` type) and classic otherwise. Several contexts (``context=
+[mx.cpu(0), mx.cpu(1)]``, with ``work_load_list``) bind one executor each
+on the classic path, the gradients summed by the kvstore's ``Comm``.
+Not ported: monitors (``ROADMAP.md`` A7).
 """
 from __future__ import annotations
 
@@ -57,8 +59,11 @@ class Module(BaseModule):
         if context is None:
             context = [ctx_mod.current_context()]
         if isinstance(context, (torch.device, str)):
-            context = [torch.device(context)]
-        self._context = [torch.device(c) for c in context]
+            context = [context]
+        # Context objects stay as they are: cpu(0) and cpu(1) are one torch
+        # device but two contexts, each with its executor
+        self._context = [c if isinstance(c, (ctx_mod.Context, torch.device))
+                         else torch.device(c) for c in context]
         if work_load_list is None:
             work_load_list = [1] * len(self._context)
         if len(work_load_list) != len(self._context):
@@ -265,6 +270,9 @@ class Module(BaseModule):
         self._arg_params = {name: arr.copyto(host) for name, arr in exe.arg_dict.items()
                             if name in self._param_names}
         self._aux_params = {name: arr.copyto(host) for name, arr in exe.aux_dict.items()}
+        if len(self._exec_group.execs) > 1:
+            # the other contexts' executors start from the same values
+            self._exec_group.set_params(self._arg_params, self._aux_params)
         self.params_initialized = True
         self._params_dirty = False
         if self._fused is not None:
@@ -462,6 +470,12 @@ class Module(BaseModule):
             return "state_names are bound"
         if self._fixed_param_names:
             return "fixed_param_names are bound"
+        if len(self._context) > 1:
+            devices = [torch.device(c) for c in self._context]
+            if len(set(devices)) != len(devices):
+                return "contexts resolve to duplicate devices (no SPMD mesh)"
+            return ("a fused data-parallel step over several cards is not "
+                    "ported (ROADMAP.md A6d)")
         from .fused_path import batch_axes_standard
 
         if not batch_axes_standard(self._data_shapes or []) or (

@@ -41,7 +41,8 @@ from . import _build
 from .registry import Param, get_op, register
 
 __all__ = ["attention_reference", "flash_attention_forward",
-           "flash_attention_backward", "flash_attention",
+           "flash_attention_backward", "flash_attention_backward_f32",
+           "flash_attention",
            "paged_attention_reference", "paged_attention",
            "paged_attention_multi_reference", "paged_attention_multi"]
 
@@ -175,13 +176,13 @@ def flash_attention_forward(q, k, v, causal=False, sm_scale=None):
 
 # ----------------------------------------------------------- flash backward
 def _flash_backward_plain(q, k, v, out, lse, g, causal, sm_scale,
-                          block_k=256):
+                          block_k=256, keep_f32=False):
     """Plain flash backward: P recomputed per KV block from the saved
     ``lse``, dq accumulated across blocks, dk/dv written per block — the
     twin of the JAX ``_scan_backward``. ``delta = rowsum(dout * out)`` in
     float32. Masked scores are pinned to -1e30, so their p is exactly 0;
     the last block is short instead of zero-padded. Returns (dq, dk, dv)
-    in the dtypes of q, k and v."""
+    in the dtypes of q, k and v (float32 with ``keep_f32``)."""
     sq = q.shape[2]
     sk = k.shape[2]
     block_k = min(block_k, sk)
@@ -204,11 +205,14 @@ def _flash_backward_plain(q, k, v, out, lse, g, causal, sm_scale,
         ds = p * (dp - delta[..., None]) * sm_scale
         dq = dq + torch.einsum("bhqk,bhkd->bhqd", ds, kb)
         dks.append(torch.einsum("bhqk,bhqd->bhkd", ds, qf))
-    return (dq.to(q.dtype), torch.cat(dks, dim=2).to(k.dtype),
-            torch.cat(dvs, dim=2).to(v.dtype))
+    dk, dv = torch.cat(dks, dim=2), torch.cat(dvs, dim=2)
+    if keep_f32:
+        return dq, dk, dv
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _flash_backward_cuda(q, k, v, out, lse, g, causal, sm_scale):
+def _flash_backward_cuda(q, k, v, out, lse, g, causal, sm_scale,
+                         keep_f32=False):
     _check_flash(q, k, v)
     if g.shape != q.shape or g.dtype != q.dtype or not g.is_contiguous():
         raise MXNetError("flash backward takes a contiguous output gradient "
@@ -246,7 +250,28 @@ def _flash_backward_cuda(q, k, v, out, lse, g, causal, sm_scale):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             b, h, sq, sk, d, sm_scale, int(causal), code, stream)
+    if keep_f32:
+        return dq, dk, dv
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_backward_f32(q, k, v, out, lse, g, causal=False,
+                                 sm_scale=None):
+    """:func:`flash_attention_backward` with ``(dq, dk, dv)`` left in the
+    kernels' float32, for callers that sum several calls' gradients (ring
+    attention) and round once at the end."""
+    return _flash_backward(q, k, v, out, lse, g, causal, sm_scale, True)
+
+
+def _flash_backward(q, k, v, out, lse, g, causal, sm_scale, keep_f32):
+    sm_scale = _scale(sm_scale, q.shape[-1])
+    if q.device.type == "cuda":
+        return _flash_backward_cuda(q, k, v, out, lse, g, causal, sm_scale,
+                                    keep_f32=keep_f32)
+    if q.device.type == "cpu":
+        return _flash_backward_plain(q, k, v, out, lse, g, causal, sm_scale,
+                                     keep_f32=keep_f32)
+    raise MXNetError("flash attention: no implementation on %s" % q.device)
 
 
 def flash_attention_backward(q, k, v, out, lse, g, causal=False,
@@ -256,12 +281,7 @@ def flash_attention_backward(q, k, v, out, lse, g, causal=False,
     returns ``(dq, dk, dv)`` in the dtypes of q, k and v. CPU tensors take
     the plain version, CUDA tensors the ``flash_bwd_dkv`` and
     ``flash_bwd_dq`` kernels (their ``flash_wide_*`` twins past D 256)."""
-    sm_scale = _scale(sm_scale, q.shape[-1])
-    if q.device.type == "cuda":
-        return _flash_backward_cuda(q, k, v, out, lse, g, causal, sm_scale)
-    if q.device.type == "cpu":
-        return _flash_backward_plain(q, k, v, out, lse, g, causal, sm_scale)
-    raise MXNetError("flash attention: no implementation on %s" % q.device)
+    return _flash_backward(q, k, v, out, lse, g, causal, sm_scale, False)
 
 
 class _FlashAttention(torch.autograd.Function):

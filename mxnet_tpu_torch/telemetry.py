@@ -487,6 +487,10 @@ METRIC_HELP = {
         "ImageRecordIter configs that asked for the native decode stage "
         "and took the Python pipeline, by reason (always-on)",
     "fault.injections": "fired fault-injection rules by point (always-on)",
+    "parallel.transfers":
+        "copies between mesh positions made by the collectives (always-on)",
+    "parallel.transfer_bytes":
+        "bytes of those copies (always-on)",
     "serving.kv_blocks_total": "usable KV pool blocks (pool size minus the "
                                "reserved trash block)",
     "serving.kv_blocks_used": "KV pool blocks currently allocated to "

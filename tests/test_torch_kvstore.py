@@ -253,7 +253,7 @@ def _launcher_env(monkeypatch, **extra):
                          ids=["replicas", "elastic", "recovery"])
 def test_dist_store_refuses_the_a6b_features(monkeypatch, env):
     _launcher_env(monkeypatch, **env)
-    with pytest.raises(MXNetError, match="A6b"):
+    with pytest.raises(MXNetError, match="A6c"):
         T.kv.create("dist_sync")
 
 

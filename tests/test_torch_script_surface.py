@@ -74,9 +74,12 @@ def test_script_names_resolve_and_later_names_say_their_item():
                                   "seed_everything"))):
         for n in names:
             assert callable(getattr(mod, n)), n
+    # ported with ROADMAP.md A6b
+    for mod, name in ((T.mod, "ParallelLMModule"), (T.parallel, "build_mesh"),
+                      (T, "executor_manager")):
+        assert hasattr(mod, name), name
     for get, item in ((lambda: T.profiler, "A7"), (lambda: T.monitor, "A7"),
-                      (lambda: T.mod.ParallelLMModule, "A6b"),
-                      (lambda: T.parallel.build_mesh, "A6b"),
+                      (lambda: T.compileobs, "A7"),
                       (lambda: T.export_artifact, "A8")):
         with pytest.raises(MXNetError, match=item):
             get()

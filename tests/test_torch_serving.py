@@ -385,11 +385,36 @@ def test_port_import_leaves_jax_out():
             " mxnet_tpu_torch.recordio, mxnet_tpu_torch._native,"
             " mxnet_tpu_torch.image, mxnet_tpu_torch.image_det,"
             " mxnet_tpu_torch.io_image, mxnet_tpu_torch.io,"
-            " mxnet_tpu_torch.tools.im2rec;"
+            " mxnet_tpu_torch.tools.im2rec, mxnet_tpu_torch.parallel.mesh,"
+            " mxnet_tpu_torch.parallel.collectives,"
+            " mxnet_tpu_torch.parallel.ring, mxnet_tpu_torch.parallel.pipeline,"
+            " mxnet_tpu_torch.parallel.moe, mxnet_tpu_torch.parallel.lm,"
+            " mxnet_tpu_torch.module.parallel_module, mxnet_tpu_torch.placed,"
+            " mxnet_tpu_torch.executor_manager;"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'mxnet_tpu' or "
             "m.startswith('mxnet_tpu.')];"
             "print(bad); sys.exit(1 if bad else 0)")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_build_mesh_takes_a_jax_device_without_importing_jax():
+    """``examples/train_lm_parallel.py`` hands ``jax.devices()`` to
+    ``build_mesh``: a stub with ``platform`` and ``id`` stands for one, and
+    the port reads it without importing jax."""
+    code = ("import sys, torch, mxnet_tpu_torch as mx\n"
+            "class Dev:\n"
+            "    def __init__(self, platform, id):\n"
+            "        self.platform, self.id = platform, id\n"
+            "m = mx.parallel.build_mesh({'sp': 2}, [Dev('cpu', 0), Dev('cpu', 1)])\n"
+            "g = mx.parallel.build_mesh({'sp': 2}, [Dev('gpu', 0), Dev('gpu', 1)])\n"
+            "assert m.device_list == [torch.device('cpu')] * 2, m\n"
+            "assert g.device_list == [torch.device('cuda', 0),"
+            " torch.device('cuda', 1)], g\n"
+            "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')]\n"
+            "print(bad); sys.exit(1 if bad else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
@@ -427,7 +452,10 @@ def test_port_sources_import_no_jax():
         "module/python_module.py", "module/sequential_module.py",
         "visualization.py", "log.py", "kvstore.py", "kvstore_server.py",
         "engine.py", "context.py", "utils/__init__.py", "_native.py",
-        "tools/caffe_converter.py")} <= rel
+        "tools/caffe_converter.py", "parallel/mesh.py",
+        "parallel/collectives.py", "parallel/ring.py", "parallel/pipeline.py",
+        "parallel/moe.py", "parallel/lm.py", "module/parallel_module.py",
+        "placed.py", "executor_manager.py", "module/executor_group.py")} <= rel
     for f in files:
         roots = set(_imported_roots(f))
         assert not roots & {"jax", "jaxlib", "mxnet_tpu"}, (f, roots)

@@ -426,10 +426,13 @@ def test_executor_forward_backward_matches_jax():
 
 
 def test_executor_rejects_unported_options():
+    # group2ctx is ported (A6b): on one device it binds one segment
     _, ts = _symbols()
-    with pytest.raises(MXNetError):
-        ts.simple_bind(ctx=tmx.cpu(), group2ctx={"a": tmx.cpu()}, data=(B, T),
-                       softmax_label=(B, T))
+    ex = ts.simple_bind(ctx=tmx.cpu(), group2ctx={"a": tmx.cpu()}, data=(B, T),
+                        softmax_label=(B, T))
+    assert ex._placed is None
+    with pytest.raises(MXNetError, match="A7"):
+        ex.set_monitor_callback(lambda *a: None)
 
 
 # ------------------------------------------------------------------ module
@@ -556,9 +559,11 @@ def test_fit_rejects_unported_options():
         with pytest.raises(MXNetError, match="ROADMAP"):
             tmx.mod.Module(ts, context=tmx.cpu()).fit(
                 tmx.io.NDArrayIter(X, Y, batch_size=B), num_epoch=1, **kw)
-    with pytest.raises(MXNetError):
-        tmx.mod.Module(ts, context=[tmx.cpu(), tmx.cpu()]).bind(
-            data_shapes=[("data", (B, T))], label_shapes=[("softmax_label", (B, T))])
+    # several contexts are ported (A6b): one executor each
+    mod = tmx.mod.Module(ts, context=[tmx.cpu(), tmx.cpu()])
+    mod.bind(data_shapes=[("data", (B, T))],
+             label_shapes=[("softmax_label", (B, T))])
+    assert len(mod._exec_group.execs) == 2
 
 
 def test_package_namespaces_mirror_jax():
