@@ -310,6 +310,38 @@ Drives ``mxnet_tpu_torch`` (never the JAX package) on ``cuda:0``:
    within 1e-4 and the parameters after 4 SGD steps within 1e-3 of the
    largest, one K1, K2a and K2b per layer, executor and step.
 
+23. A7's training half on the zoo LM at full width (batch 32 x 128,
+   Adam; K1, K2a, K2b) — (a) the fused ``fit(guard="rollback")`` over 12
+   batches with ``MXNET_FAULT_SPEC="nan:after=5,times=1"``,
+   ``max_bad_steps=1``, ``snapshot_every=4``: exactly one bad step and one
+   rollback to batch 4, the batches replayed from there in the one CUDA
+   graph, the final parameters within 1e-6 of the largest of the
+   unguarded fit's, the launches (one of each per layer and step, the
+   bad step included) and both fits' host wall per step; (b) the classic
+   path under ``skip`` with a NaN-poisoned gradient: the parameters after
+   that step bitwise those before it; (c) a ``stall`` in the device
+   feed's transfer stage with ``MXNET_GUARD_STALL_S=3``: ``StallError``
+   within 8 s of the last step, no feed thread or feed left; (d)
+   ``fit(monitor=Monitor(1))`` (SGD): the first batch's records on the
+   card against the CPU port's from the same weights and batch, node
+   outputs within 1e-4 relative, gradients and updated weights within
+   phase 6's 1e-3, K1 launched by the monitored forward; (e) the profiler in mode
+   ``all`` with ``MXNET_PROFILER_TRACE_DIR`` (traces under
+   ``build/phase23/``) around 3 classic steps, whose device trace
+   holds as many K1/K2a/K2b kernel events as the launch counters moved,
+   and around 3 graph replays (what the trace shows is printed); (f)
+   ``compileobs.program_table()`` (the fused-step captures, phase 4's and
+   16's serving graphs, the nvcc builds), a seq_len recompile of
+   ``fused.step`` when the LM (its block reshape written as a batch
+   split, one graph at every length) is fit at seq 128 then 64, and
+   ``Executor.memory_analysis()`` of the classic executor: peak above the
+   arguments, the next step unchanged by the call; (g) a 100 GB request
+   under ``oom_guard("executor.fwd")``: torch's OOM after a report naming
+   the program, then a step that runs. Then ``MXNET_BACKWARD_DO_MIRROR=1``
+   against plain on the fused step (K1 per replay twice the plain
+   step's, host wall, peak, parameters within 1e-6) and
+   ``examples/memcost.py``'s network at its defaults (both peaks).
+
 Every phase that fails raises, so the exit code is not 0. The last two
 lines are the ``kernels`` JSON object and the ``ok`` JSON object; the card
 line comes just before them.
@@ -4821,6 +4853,497 @@ def run_model_parallel_phase(mx, A, build, card):
     return launches
 
 
+# ---------------------------------------------------------------- phase 23
+OBS_BATCHES = 12                  # batches of 32 in the guarded fits
+OBS_SPEC = "nan:after=5,times=1"  # 23(a): the sixth fused step goes bad
+OBS_TOL = RESUME_TOL              # 23(a): a healed fit against an unguarded one
+MON_TOL = 1e-4                    # 23(d): node-output stats card vs CPU,
+#                                   relative; gradients' and weights' at GRAD_TOL
+MON_SGD = {"learning_rate": 0.1}  # 23(d): an update linear in the gradient
+STALL_S = 3                       # 23(c): the watchdog's deadline
+STALL_SPEC = "stall:after=6,times=1,delay_ms=6000"
+STALL_LIMIT = STALL_S + 5         # 23(c): StallError within this many seconds
+MEMCOST = dict(depth=48, batch=512, hidden=1024)  # examples/memcost.py
+FLASH = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+FLASH_EVENTS = {"flash_fwd": "flash_fwd_kernel",
+                "flash_bwd_dkv": "flash_bwd_dkv_kernel",
+                "flash_bwd_dq": "flash_bwd_dq_kernel"}
+
+
+def _obs_fit(mx, build, mod=None, n=OBS_BATCHES, epochs=1, cfg=TRAIN,
+             batch_end=(), **kw):
+    """Phase 5's fit of the LM (fused unless the caller wraps it in
+    ``no_fused``) over ``n`` batches: (module, host seconds per step, the
+    K1/K2a/K2b launches). Counters set to 0 just before, read just
+    after."""
+    X, Y = lm_stream(32 * n, cfg=cfg)
+    it = mx.io.NDArrayIter(X, Y, batch_size=32, shuffle=False)
+    if mod is None:
+        mod = mx.mod.Module(mx.models.transformer_lm(**cfg),
+                            context=mx.gpu(0))
+    stamps = []
+
+    def stamp(_p):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    _zero(build)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mod.fit(it, num_epoch=epochs, optimizer="adam",
+            optimizer_params={"learning_rate": TRAIN_LR},
+            initializer=mx.init.Xavier(rng=torch.Generator().manual_seed(0)),
+            eval_metric=mx.metric.Perplexity(ignore_label=None),
+            batch_end_callback=[stamp] + list(batch_end), **kw)
+    torch.cuda.synchronize()
+    per = np.diff([t0] + stamps)
+    return mod, (float(np.median(per[2:])) if len(per) > 3 else None), \
+        _counts(build)
+
+
+def _host_params(mod):
+    return {n: a.asnumpy().copy() for n, a in mod.get_params()[0].items()}
+
+
+def _params_close(got, want, tol):
+    scale = max(float(np.abs(v).max()) for v in want.values())
+    return max(float(np.abs(got[n] - want[n]).max()) for n in want) / scale, tol
+
+
+def guarded_fit(mx, build, card):
+    """23(a): the LM's fused fit under ``guard="rollback"`` with one
+    injected bad step, against the same fit unguarded."""
+    import os
+
+    ref, plain_s, _ = _obs_fit(mx, build)
+    want = _host_params(ref)
+    del ref
+    guard = mx.guard.TrainingGuard(mx.guard.GuardPolicy(
+        "rollback", max_bad_steps=1, snapshot_every=4))
+    log_ = []
+    bad_step = guard.bad_step
+
+    def record(reason, epoch, nbatch, applied=False):
+        action = bad_step(reason, epoch, nbatch, applied=applied)
+        log_.append((reason, nbatch, applied, action))
+        return action
+
+    guard.bad_step = record
+    seen = []
+    os.environ["MXNET_FAULT_SPEC"] = OBS_SPEC
+    mx.fault.reset()
+    try:
+        mod, guarded_s, launches = _obs_fit(
+            mx, build, guard=guard,
+            batch_end=[lambda p: seen.append(p.nbatch)])
+    finally:
+        del os.environ["MXNET_FAULT_SPEC"]
+        mx.fault.reset()
+    err, tol = _params_close(_host_params(mod), want, OBS_TOL)
+    L = TRAIN["num_layers"]
+    steps = len(seen) + guard.bad_steps   # a bad step has no batch end
+    log("  (a) guarded fused fit, %s: bad steps %d, rollbacks %d, decisions "
+        "(reason, batch, applied, action) %s, batch ends %s; final parameters "
+        "within %.3e of the largest of the unguarded fit's (tolerance %g); "
+        "launches %s in %d steps"
+        % (OBS_SPEC, guard.bad_steps, guard.rollbacks, log_, seen, err, tol,
+           launches, steps))
+    log("  (a) host wall per fused step (median, synchronized): guarded "
+        "%.6f s, unguarded %.6f s, ratio %.4f (%s)"
+        % (guarded_s, plain_s, guarded_s / plain_s, card))
+    check(guard.bad_steps == 1 and guard.rollbacks == 1,
+          "23(a): %d bad steps, %d rollbacks" % (guard.bad_steps,
+                                                 guard.rollbacks))
+    check(seen == list(range(5)) + list(range(4, OBS_BATCHES)),
+          "23(a): the fit did not replay from the snapshot batch: %s" % seen)
+    check(mod._fused is not None and mod._fused.trainer.captures == 1,
+          "23(a): the guarded fit left its one CUDA graph")
+    check(err <= tol, "23(a): the healed fit is %.3e from the unguarded one"
+          % err)
+    for name in FLASH:
+        check(launches[name] == L * steps, "23(a): %s launched %d times"
+              % (name, launches[name]))
+    return launches, {"guarded_s": guarded_s, "plain_s": plain_s}
+
+
+def classic_skip(mx, build):
+    """23(b): the classic path under ``skip`` with a poisoned gradient."""
+    snaps = []
+    guard = mx.guard.TrainingGuard(mx.guard.GuardPolicy("skip"))
+    with no_fused(), mx.fault.inject("nan:after=2,times=1"):
+        mod, _, launches = _obs_fit(
+            mx, build, n=4, guard=guard,
+            batch_end=[lambda p: snaps.append(_host_params(
+                p.locals["self"]))])
+    same = all(np.array_equal(snaps[2][n], snaps[1][n]) for n in snaps[1])
+    moved = any(not np.array_equal(snaps[3][n], snaps[2][n]) for n in snaps[1])
+    log("  (b) classic fit under skip, nan:after=2: bad steps %d; the "
+        "parameters after the poisoned step bitwise those before it: %s; "
+        "the next step moved them: %s" % (guard.bad_steps, same, moved))
+    check(guard.bad_steps == 1 and same and moved,
+          "23(b): skip did not leave the parameters untouched")
+    return launches
+
+
+def stall_check(mx, build):
+    """23(c): a stall in the device feed's transfer stage under
+    ``MXNET_GUARD_STALL_S``."""
+    import gc
+    import os
+    import threading
+
+    def feeds():
+        gc.collect()
+        return ({id(o) for o in gc.get_objects()
+                 if isinstance(o, mx.io.DeviceFeedIter)},
+                {t.ident for t in threading.enumerate()
+                 if t.name == "DeviceFeedIter" and t.is_alive()})
+
+    before = feeds()   # an earlier phase's feeds are not this fit's
+    os.environ.update(MXNET_GUARD_STALL_S=str(STALL_S), MXNET_FEED_DEPTH="2")
+    beats = []
+    t_err = None
+    try:
+        with mx.fault.inject(STALL_SPEC):
+            _obs_fit(mx, build, n=16,
+                     batch_end=[lambda p: beats.append(time.perf_counter())])
+    except mx.guard.StallError as e:
+        t_err = time.perf_counter()
+        log("  (c) StallError: %s" % e)
+    finally:
+        del os.environ["MXNET_GUARD_STALL_S"], os.environ["MXNET_FEED_DEPTH"]
+    after = feeds()
+    held, alive = after[0] - before[0], after[1] - before[1]
+    dt = None if t_err is None or not beats else t_err - beats[-1]
+    log("  (c) %s, MXNET_GUARD_STALL_S=%d: %d steps, then StallError %s s "
+        "after the last one (limit %d s); this fit's feed threads alive %d, "
+        "feeds held %d (earlier phases': %d threads, %d feeds)"
+        % (STALL_SPEC, STALL_S, len(beats),
+           "%.3f" % dt if dt is not None else "never", STALL_LIMIT,
+           len(alive), len(held), len(before[1]), len(before[0])))
+    check(dt is not None and dt <= STALL_LIMIT,
+          "23(c): no StallError within %d s" % STALL_LIMIT)
+    check(not alive and not held, "23(c): the device feed outlived the fit")
+
+
+def _mon_records(mx, net, ctx, params, n=1):
+    """``fit(monitor=Monitor(1))`` of the LM ``net`` from ``params`` on
+    ``ctx``: the first batch's records and the module."""
+    X, Y = lm_stream(32 * n)
+    mon = mx.mon.Monitor(1)
+    recs = []
+    mon.toc_print = lambda: recs.append(mon.toc())
+    mod = mx.mod.Module(net, context=ctx)
+    mod.fit(mx.io.NDArrayIter(X, Y, batch_size=32, shuffle=False),
+            num_epoch=1, optimizer="sgd", optimizer_params=MON_SGD,
+            monitor=mon, arg_params=params)
+    return recs[0], mod
+
+
+def monitored_fit(mx, build, params):
+    """23(d): ``fit(monitor=Monitor(interval=1))`` on the card against the
+    CPU port from the same weights and batch. SGD: Adam's first step,
+    lr·g/(|g|+eps), takes a gradient of the size of eps that the card and
+    the CPU round apart to updates up to lr apart (Adam moved
+    ``layer3_ln2_beta``'s RMS by 6.2e-4 relative on an H100).
+    Node outputs within MON_TOL (the forward: 1.6e-7 there); gradients
+    and the weights after the update within phase 6's GRAD_TOL: the flash
+    kernels' TF32 split moved ``layer0_ln1_beta``'s gradient RMS by
+    1.33e-4, and that beta, 0 before the step, is -lr times it after."""
+    net = mx.models.transformer_lm(**TRAIN)   # one symbol: the same names
+    _zero(build)
+    card_recs, mod = _mon_records(mx, net, mx.gpu(0), params, n=2)
+    launches = _counts(build)
+    cpu_recs, _ = _mon_records(mx, net, mx.cpu(), params)
+    names = [r[1] for r in card_recs]
+    worst = {}
+    for (_, name, a), (_, _, b) in zip(card_recs, cpu_recs):
+        kind = ("gradients" if name.endswith("_grad") else
+                "node outputs" if name.endswith("_output") else "weights")
+        rel = abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
+        worst[kind] = max(worst.get(kind, (0.0, "")), (rel, name))
+    L = TRAIN["num_layers"]
+    log("  (d) monitored fit (SGD %s): %d records in the first batch (%s "
+        "... %s); worst relative difference card vs CPU (tolerance): %s; on "
+        "the classic path: %s; launches over its 2 steps %s"
+        % (MON_SGD, len(card_recs), names[:3], names[-3:],
+           {k: ("%.3e" % v[0], v[1], MON_TOL if k == "node outputs"
+                else GRAD_TOL) for k, v in sorted(worst.items())},
+           mod._fused is None, launches))
+    check(names == [r[1] for r in cpu_recs] and len(names) > 50,
+          "23(d): the card's and the CPU's records differ in names")
+    for kind, (rel, name) in worst.items():
+        check(rel <= (MON_TOL if kind == "node outputs" else GRAD_TOL),
+              "23(d): monitor stats of %s differ by %.3e (%s)"
+              % (kind, rel, name))
+    check(mod._fused is None and launches["flash_fwd"] == 2 * L,
+          "23(d): the monitored forward did not launch K1 %d times" % (2 * L))
+    return launches
+
+
+def _trace_counts(path):
+    """Kernel events of K1/K2a/K2b in an exported torch trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return {n: sum(1 for e in events if e.get("cat") == "kernel"
+                   and pat in str(e.get("name", "")))
+            for n, pat in FLASH_EVENTS.items()}, \
+        sum(1 for e in events if e.get("cat") == "kernel")
+
+
+def profiled_steps(mx, build):
+    """23(e): the profiler in mode ``all`` with MXNET_PROFILER_TRACE_DIR
+    around 3 classic steps, and around 3 replays of a fused fit's graph
+    (captured before the window opens)."""
+    import os
+
+    out = os.path.join("build", "phase23")
+    os.makedirs(out, exist_ok=True)
+    os.environ["MXNET_PROFILER_TRACE_DIR"] = os.path.join(out, "device")
+    fused, _, _ = _obs_fit(mx, build, n=3)
+    res = {}
+    try:
+        for label, run in (
+                ("classic", lambda: _obs_fit_classic(mx, build)),
+                ("fused", lambda: _obs_fit(mx, build, mod=fused, n=3,
+                                           epochs=2, begin_epoch=1))):
+            py = os.path.join(out, "python_%s.json" % label)
+            mx.profiler.profiler_set_config(mode="all", filename=py)
+            mx.profiler.profiler_set_state("run")
+            try:
+                _, _, launches = run()
+            finally:
+                mx.profiler.profiler_set_state("stop")
+            mx.profiler.dump_profile()
+            with open(py) as f:
+                spans = {e["name"] for e in json.load(f)["traceEvents"]}
+            events, kernels = _trace_counts(mx.profiler.last_device_trace())
+            res[label] = (launches, events)
+            log("  (e) %s: launches %s; kernel events in the device trace "
+                "%s of %d kernels; python trace spans include fit.step %s, "
+                "executor_fwd_bwd %s" % (
+                    label, {n: launches[n] for n in FLASH}, events, kernels,
+                    "fit.step" in spans,
+                    any(s.startswith("executor_fwd_bwd") for s in spans)))
+            check("fit.step" in spans, "23(e): no fit.step span")
+    finally:
+        del os.environ["MXNET_PROFILER_TRACE_DIR"]
+    launches, events = res["classic"]
+    check(all(events[n] == launches[n] for n in FLASH),
+          "23(e): the device trace's K1/K2a/K2b events %s are not the "
+          "launch counts %s" % (events, launches))
+    return {n: res["classic"][0][n] + res["fused"][0][n] for n in FLASH}
+
+
+def _obs_fit_classic(mx, build, **kw):
+    with no_fused():
+        return _obs_fit(mx, build, n=3, **kw)
+
+
+def _seq_free_lm(mx, seq_len):
+    """The zoo LM with its blocks' ``Reshape(-1, seq_len, d)`` written as
+    a split of the batch (``(-4, 32, -1, -2)``): the same computation at
+    batch 32, one graph (one symbol digest) at every sequence length."""
+    cfg = dict(TRAIN, seq_len=seq_len)
+    js = mx.models.transformer_lm(**cfg).tojson()
+    old = '"(-1, %d, %d)"' % (seq_len, TRAIN["model_dim"])
+    check(old in js, "23(f): the LM's block reshape is not %s" % old)
+    return mx.sym.load_json(js.replace(old, '"(-4, 32, -1, -2)"')), cfg
+
+
+def compile_records(mx, build):
+    """23(f): the registry after the run so far, a recompile at seq 64,
+    and ``Executor.memory_analysis``."""
+    table = mx.compileobs.program_table()
+    for row in table:
+        log("  (f) program %-24s compiles %3d in %9.4f s, runs %6d in "
+            "%9.4f s, recompiles %d, arg bytes %d" % (
+                row["program"], row["compile_count"], row["compile_seconds"],
+                row["run_count"], row["run_seconds"], row["recompile_count"],
+                row["arg_bytes"]))
+    names = {r["program"] for r in table}
+    check({"fused.step", "serving.prefill", "serving.decode",
+           "nvcc.flash_fwd", "nvcc.flash_bwd_dkv", "nvcc.flash_bwd_dq"}
+          <= names, "23(f): the registry lacks programs: %s" % sorted(names))
+    launches = {n: 0 for n in FLASH}
+    digests = []
+    for seq in (128, 64):
+        net, cfg = _seq_free_lm(mx, seq)
+        digests.append(mx.compileobs.symbol_digest(net))
+        mod = mx.mod.Module(net, context=mx.gpu(0))
+        # the log keeps the newest 256 attributions: select by time
+        since = time.time()
+        _, _, n = _obs_fit(mx, build, mod=mod, n=3, cfg=cfg)
+        launches = {k: launches[k] + n[k] for k in FLASH}
+    new = [r for r in mx.compileobs.recompile_log() if r["ts"] >= since]
+    log("  (f) the LM at seq 128 then 64 (one graph: digests %s): recompiles "
+        "%s" % (digests, [(r["program"], r["cause"], r.get("arg"),
+                           r.get("old_shape"), r.get("new_shape"))
+                          for r in new]))
+    check(digests[0] == digests[1] and any(
+        r["program"] == "fused.step" and r["cause"] == "seq_len" for r in new),
+        "23(f): no seq_len recompile of fused.step")
+    # memory_analysis on the classic executor, between two steps
+    X, Y = lm_stream(64)
+    outs = []
+    for analyze in (False, True):
+        with no_fused():
+            mod = mx.mod.Module(mx.models.transformer_lm(**TRAIN),
+                                context=mx.gpu(0))
+            mod.bind([("data", (32, 128))], [("softmax_label", (32, 128))])
+            mod.init_params(mx.init.Xavier(rng=torch.Generator().manual_seed(0)))
+            mod.init_optimizer(optimizer="adam",
+                               optimizer_params={"learning_rate": TRAIN_LR})
+        for i in range(2):
+            if i == 1 and analyze:
+                ma = mod._exec_group.execs[0].memory_analysis()
+            mod.forward_backward(mx.io.DataBatch(
+                [mx.nd.array(X[32 * i:32 * (i + 1)], ctx=mx.gpu(0))],
+                [mx.nd.array(Y[32 * i:32 * (i + 1)], ctx=mx.gpu(0))]))
+            mod.update()
+        outs.append((mod.get_outputs()[0].asnumpy(), _host_params(mod)))
+        del mod
+    err = max(float(np.abs(outs[1][0] - outs[0][0]).max()),
+              _params_close(outs[1][1], outs[0][1], 0)[0])
+    log("  (f) memory_analysis of the LM's classic executor (batch 32 x "
+        "128): arguments %d, outputs %d, temp %d, peak %d bytes; the next "
+        "step with and without the call differs by %.3e"
+        % (ma.argument_size_in_bytes, ma.output_size_in_bytes,
+           ma.temp_size_in_bytes, ma.peak_memory_in_bytes, err))
+    check(ma.peak_memory_in_bytes > ma.argument_size_in_bytes,
+          "23(f): the measured peak is not above the arguments")
+    check(err <= OBS_TOL, "23(f): memory_analysis moved the next step")
+    return launches
+
+
+def oom_check(mx, build):
+    """23(g): a 100 GB request under ``oom_guard("executor.fwd")``."""
+    import logging
+
+    class Grab(logging.Handler):
+        def __init__(self):
+            super().__init__(logging.ERROR)
+            self.msgs = []
+
+        def emit(self, record):
+            self.msgs.append(record.getMessage())
+
+    grab = Grab()
+    logger = logging.getLogger("mxnet_tpu_torch.compileobs")
+    logger.addHandler(grab)
+    raised = None
+    try:
+        with mx.compileobs.oom_guard("executor.fwd"):
+            torch.empty(100 * 10 ** 9, dtype=torch.uint8, device="cuda:0")
+    except torch.cuda.OutOfMemoryError as e:
+        raised = e
+    finally:
+        logger.removeHandler(grab)
+    report = [m for m in grab.msgs if "OOM at program 'executor.fwd'" in m]
+    with no_fused():
+        mod, _, launches = _obs_fit(mx, build, n=1)
+    ok = np.isfinite(mod.get_outputs()[0].asnumpy()).all()
+    log("  (g) 100 GB under oom_guard: %s; report %s (%d lines); the next "
+        "step ran, outputs finite: %s" % (
+            type(raised).__name__ if raised else "no error",
+            "naming executor.fwd" if report else "missing",
+            report[0].count("\n") + 1 if report else 0, ok))
+    check(raised is not None and report and ok, "23(g): OOM path failed")
+    return launches
+
+
+def mirrored_steps(mx, build, card):
+    """The fused LM step with MXNET_BACKWARD_DO_MIRROR=1 against the plain
+    one: K1 per step, host wall, peak memory, parameters; and
+    ``examples/memcost.py``'s network at its defaults, both peaks."""
+    import os
+
+    res = {}
+    for mirror in ("0", "1"):
+        os.environ["MXNET_BACKWARD_DO_MIRROR"] = mirror
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            mod, step_s, launches = _obs_fit(mx, build, n=8)
+            peak = torch.cuda.max_memory_allocated() - base
+            res[mirror] = (step_s, peak, mod._fused.trainer._per_replay,
+                           _host_params(mod), launches)
+            del mod
+        finally:
+            del os.environ["MXNET_BACKWARD_DO_MIRROR"]
+    err, _ = _params_close(res["1"][3], res["0"][3], 0)
+    L = TRAIN["num_layers"]
+    log("  mirror: fused LM step host wall %.6f s mirrored, %.6f s plain "
+        "(%.4fx); peak above the fit's start %.3f GB mirrored, %.3f GB "
+        "plain; K1 per replay %d mirrored, %d plain; parameters after 8 "
+        "steps within %.3e of the largest (%s)"
+        % (res["1"][0], res["0"][0], res["1"][0] / res["0"][0],
+           res["1"][1] / 1e9, res["0"][1] / 1e9,
+           res["1"][2].get("flash_fwd", 0), res["0"][2].get("flash_fwd", 0),
+           err, card))
+    check(res["1"][2].get("flash_fwd") == 2 * L
+          and res["0"][2].get("flash_fwd") == L,
+          "mirror: K1 per replay %s, not twice the plain step's"
+          % res["1"][2])
+    check(err <= OBS_TOL, "mirror: parameters differ by %.3e" % err)
+    peaks = {}
+    for mirror in ("0", "1"):
+        os.environ["MXNET_BACKWARD_DO_MIRROR"] = mirror
+        try:
+            net = mx.sym.Variable("data")
+            for i in range(MEMCOST["depth"]):
+                net = mx.sym.FullyConnected(net, num_hidden=MEMCOST["hidden"],
+                                            name="fc%d" % i)
+                net = mx.sym.Activation(net, act_type="relu",
+                                        name="relu%d" % i)
+            net = mx.sym.SoftmaxOutput(mx.sym.FullyConnected(
+                net, num_hidden=10, name="out"), name="softmax")
+            ex = net.simple_bind(ctx=mx.gpu(0), data=(MEMCOST["batch"],
+                                                      MEMCOST["hidden"]))
+            peaks[mirror] = ex.memory_analysis().peak_memory_in_bytes
+            del ex
+        finally:
+            del os.environ["MXNET_BACKWARD_DO_MIRROR"]
+    log("  memcost at its defaults (depth %d, batch %d, hidden %d): peak "
+        "bytes without mirror %.1f MB, with mirror %.1f MB, saved %.1f%% (%s)"
+        % (MEMCOST["depth"], MEMCOST["batch"], MEMCOST["hidden"],
+           peaks["0"] / 1e6, peaks["1"] / 1e6,
+           100.0 * (peaks["0"] - peaks["1"]) / max(peaks["0"], 1), card))
+    check(peaks["0"] > 0 and peaks["1"] > 0, "memcost: no measured peak")
+    return {n: res["0"][4][n] + res["1"][4][n] for n in FLASH}
+
+
+def run_observability_phase(mx, build, card):
+    """Phase 23: A7's training half on the LM's fused fit (see the module
+    docstring). Returns the K1/K2a/K2b launches of its main paths."""
+    total = {n: 0 for n in FLASH}
+
+    def add(launches):
+        for n in FLASH:
+            total[n] += launches.get(n, 0)
+
+    t0 = time.perf_counter()
+    a_launches, walls = guarded_fit(mx, build, card)
+    add(a_launches)
+    add(classic_skip(mx, build))
+    stall_check(mx, build)
+    init = mx.mod.Module(mx.models.transformer_lm(**TRAIN), context=mx.cpu())
+    init.bind([("data", (32, 128))], [("softmax_label", (32, 128))])
+    init.init_params(mx.init.Xavier(rng=torch.Generator().manual_seed(0)))
+    params = {n: a.asnumpy() for n, a in init.get_params()[0].items()}
+    del init
+    add(monitored_fit(mx, build, params))
+    add(profiled_steps(mx, build))
+    add(compile_records(mx, build))
+    add(oom_check(mx, build))
+    add(mirrored_steps(mx, build, card))
+    torch.cuda.empty_cache()
+    log("  phase 23: %.1f s; K1/K2a/K2b launches on its main paths %s"
+        % (time.perf_counter() - t0, total))
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -5085,6 +5608,11 @@ def main():
         row = next((r for r in rows if r["name"] == name), None)
         if row is not None:
             row["launches"] += n
+
+    log("== 23. A7's training half on the LM's fit: the health guard, the "
+        "monitor, the profiler, compileobs, the mirror (%s)" % card)
+    for name, n in run_observability_phase(mx, build, card).items():
+        next(r for r in rows if r["name"] == name)["launches"] += n
 
     log(card)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -99,6 +99,9 @@ from . import kvstore as kv  # noqa: E402
 from .kvstore import KVStore  # noqa: E402
 from . import kvstore_server  # noqa: E402
 from . import fault, analysis, parallel  # noqa: E402
+from . import profiler, compileobs, guard  # noqa: E402
+from . import monitor  # noqa: E402
+from . import monitor as mon  # noqa: E402
 from . import placed, executor_manager  # noqa: E402
 from . import random as rnd  # noqa: E402
 from .model import FeedForward  # noqa: E402
@@ -107,17 +110,17 @@ from .base import not_ported as _not_ported  # noqa: E402
 
 # the JAX package's top-level names the port has not reached yet
 __getattr__ = _not_ported(__name__, {
-    "compile_cache": "A7", "compileobs": "A7", "graphpass": "A7",
-    "guard": "A7", "monitor": "A7", "mon": "A7", "profiler": "A7",
-    "rtc": "A7", "export_artifact": "A8",
-    "export_predict_artifact": "A8", "export_train_artifact": "A8"})
+    "compile_cache": "A7", "graphpass": "A7", "rtc": "A7",
+    "export_artifact": "A8", "export_predict_artifact": "A8",
+    "export_train_artifact": "A8"})
 
 __version__ = "0.1.0"
 
 __all__ = ["base", "context", "MXNetError", "Context", "cpu", "gpu", "tpu",
            "current_context", "default_device", "utils", "engine", "kv",
            "kvstore", "KVStore", "kvstore_server", "fault", "analysis",
-           "parallel", "placed", "executor_manager", "rnd",
+           "parallel", "placed", "executor_manager", "rnd", "profiler",
+           "compileobs", "guard", "monitor", "mon",
            "FeedForward", "Optimizer",
            "nd", "ndarray", "operator", "sym", "symbol", "AttrScope", "NameManager",
            "Prefix", "Executor", "init", "initializer", "random",

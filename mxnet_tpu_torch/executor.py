@@ -29,15 +29,31 @@ and the graph runs as per-context segments joined by explicit copies
 segment: every ``cpu(i)`` is the one CPU device, and on one card every
 ``tpu(i)`` the card (``ROADMAP.md`` C15). A card and the host do place.
 
-Monitor callbacks raise :class:`MXNetError` (``ROADMAP.md`` A7). The JAX
-package's graph passes and compile cache have no counterpart yet (A7).
+``set_monitor_callback`` installs a per-node monitor (``monitor.py``):
+while it is active, forward runs the graph with a callback on every
+node's visible outputs (``<node>_output``), the reference's
+``ExecuteMonCallback``. ``MXNET_BACKWARD_DO_MIRROR=1`` recomputes the
+whole forward in backward instead of keeping its activations
+(:func:`mirrored`: ``torch.utils.checkpoint``, non-reentrant, the port's
+generator put back for the recompute). :meth:`Executor.memory_analysis`
+measures one fwd+bwd on the card (``ROADMAP.md`` C16). Every forward and
+fwd+bwd is a ``compileobs`` program (``executor.fwd_eval``,
+``executor.fwd_bwd``: the first call at a new signature is its compile),
+runs inside ``compileobs.oom_guard`` and records a profiler span
+(``executor_forward[name]``, ``executor_fwd_bwd[name]``). The JAX
+package's graph passes and compile cache have no counterpart yet
+(``ROADMAP.md`` A7).
 """
 from __future__ import annotations
 
+import time
+
 import torch
 
+from . import compileobs as _compileobs
+from . import profiler as _profiler
 from . import random as _random
-from .base import MXNetError, torch_dtype
+from .base import MXNetError, env_flag, torch_dtype
 from .ops.registry import OpContext, get_op
 from .symbol import _topo_order
 
@@ -82,14 +98,17 @@ def cast_compute(names, tensors, compute_dtype, exempt):
             for n, t in zip(names, tensors)]
 
 
-def build_graph_fn(symbol):
+def build_graph_fn(symbol, node_callback=None):
     """Build ``fn(arg_list, aux_list, is_train, device=None) -> (outputs,
     new_auxs)`` over torch tensors, with arguments and aux states in the
     symbol's ``list_arguments``/``list_auxiliary_states`` order. The graph
     runs on the device its arguments lie on (``device`` for a graph with
     none, where its creation and sampling ops make their outputs); a
     stochastic op draws from that device's :mod:`.random` generator, in
-    the graph's topological order."""
+    the graph's topological order. ``node_callback(name, tensor)``, when
+    given, sees every op node's visible outputs as they are computed
+    (``<node>_output``, or ``<node>_output<k>`` for several: the
+    reference's monitor names)."""
     order = _topo_order(symbol._entries)
     _, aux_vars = symbol._arg_aux_split()
     arg_names = symbol.list_arguments()
@@ -123,12 +142,87 @@ def build_graph_fn(symbol):
             ins = [vals[id(n)][k] for n, k in node.inputs]
             outs, updated_aux = op.forward(octx, node.attrs, ins[:n_args], ins[n_args:])
             vals[id(node)] = list(outs)
+            if node_callback is not None:
+                n_vis = op.num_visible_outputs(node.attrs)
+                for k in range(n_vis):
+                    node_callback(node.name + ("_output" if n_vis == 1
+                                               else "_output%d" % k), outs[k])
             # aux write-backs (aux inputs are always variables)
             for (inp, _), new in zip(node.inputs[n_args:], updated_aux):
                 new_aux[slots[id(inp)][1]] = new
         return [vals[id(n)][k] for n, k in symbol._entries], new_aux
 
     return graph_fn
+
+
+def graph_is_stochastic(symbol):
+    """Whether any op of ``symbol`` draws random numbers."""
+    return any(not node.is_variable and get_op(node.op).stochastic(node.attrs)
+               for node in _topo_order(symbol._entries))
+
+
+def mirrored(fn, inputs, device, stochastic):
+    """``fn(*inputs)`` under ``torch.utils.checkpoint`` (non-reentrant):
+    autograd keeps only ``inputs``, and backward runs ``fn`` again to
+    rebuild what it needs (``MXNET_BACKWARD_DO_MIRROR``; the reference's
+    graph_executor.cc:213-226, the JAX package's ``jax.checkpoint`` over
+    the whole forward). Checkpoint restores only torch's default
+    generators; a ``stochastic`` graph draws from the port's generator of
+    ``device``, which is put back to its forward state for the recompute
+    and restored after it, so backward sees the forward's masks."""
+    from torch.utils.checkpoint import checkpoint
+
+    gen = (_random.generator(device)
+           if stochastic and device is not None else None)
+    if gen is not None and torch.device(device).type == "cuda" and \
+            torch.cuda.is_current_stream_capturing():
+        raise MXNetError(
+            "MXNET_BACKWARD_DO_MIRROR over a graph that draws random numbers "
+            "cannot run inside a CUDA-graph capture (a generator's state "
+            "cannot be read there); train it with MXNET_MODULE_NO_FUSED=1")
+    saved = []
+
+    def run(*xs):
+        if gen is None:
+            return fn(*xs)
+        if not saved:               # the forward
+            saved.append(gen.get_state())
+            return fn(*xs)
+        after = gen.get_state()     # the recompute, in backward
+        gen.set_state(saved[0])
+        try:
+            return fn(*xs)
+        finally:
+            gen.set_state(after)
+
+    return checkpoint(run, *inputs, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+class _MemoryAnalysis:
+    """What :meth:`Executor.memory_analysis` returns, with the field names
+    of XLA's ``CompiledMemoryStats``."""
+
+    __slots__ = ("argument_size_in_bytes", "output_size_in_bytes",
+                 "temp_size_in_bytes", "peak_memory_in_bytes",
+                 "alias_size_in_bytes", "generated_code_size_in_bytes")
+
+    def __init__(self, argument, output, temp, peak):
+        self.argument_size_in_bytes = int(argument)
+        self.output_size_in_bytes = int(output)
+        self.temp_size_in_bytes = int(temp)
+        self.peak_memory_in_bytes = int(peak)
+        self.alias_size_in_bytes = 0
+        self.generated_code_size_in_bytes = 0
+
+    def __repr__(self):
+        return ("MemoryAnalysis(argument=%d, output=%d, temp=%d, peak=%d)"
+                % (self.argument_size_in_bytes, self.output_size_in_bytes,
+                   self.temp_size_in_bytes, self.peak_memory_in_bytes))
+
+
+def _nbytes(tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
 class Executor:
@@ -146,6 +240,17 @@ class Executor:
         self._arg_names = symbol.list_arguments()
         self._aux_names = symbol.list_auxiliary_states()
         self._graph_fn = build_graph_fn(symbol)
+        self._stochastic = graph_is_stochastic(symbol)
+        self.monitor_callback = None
+        self._monitor_active = None
+        self._graph_fn_monitored = None
+        digest = _compileobs.symbol_digest(symbol)
+        site = "mxnet_tpu_torch/executor.py:Executor"
+        self._prog_eval = _compileobs.Program("executor.fwd_eval", site,
+                                              digest, digest)
+        self._prog_fwd_bwd = _compileobs.Program("executor.fwd_bwd", site,
+                                                 digest, digest)
+        self._fwd_s = 0.0   # the training forward's seconds, for fwd_bwd
 
         if isinstance(args, dict):
             try:
@@ -223,40 +328,104 @@ class Executor:
                         arr._set_data(arr.data.to(torch.device(where[name])))
 
     # ---- forward ------------------------------------------------------
+    def _profile_name(self, kind):
+        return "executor_%s[%s]" % (kind, getattr(self._symbol, "name", None)
+                                    or "graph")
+
+    def _signature(self, args, auxs):
+        return _compileobs.signature(zip(self._arg_names + self._aux_names,
+                                         list(args) + list(auxs)))
+
+    def _train_forward(self, args, auxs, graph_fn=None):
+        """The training forward with autograd on: ``(leaves, outputs, new
+        auxs)``, the leaves the arguments that take a gradient. Under
+        ``MXNET_BACKWARD_DO_MIRROR`` (not with a node callback) autograd
+        keeps only the leaves and backward recomputes the forward."""
+        args = list(args)
+        leaves = []
+        for i in self._diff_idx:
+            args[i] = args[i].detach().requires_grad_(True)
+            leaves.append(args[i])
+        fn = graph_fn or self._graph_fn
+        with torch.enable_grad():
+            if graph_fn is None and leaves and env_flag("MXNET_BACKWARD_DO_MIRROR"):
+                n_out = len(self._symbol._entries)
+
+                def run(*xs):
+                    full = list(args)
+                    for i, x in zip(self._diff_idx, xs):
+                        full[i] = x
+                    outs, new_aux = fn(self._cast(full), auxs, True, self._ctx)
+                    return tuple(outs) + tuple(new_aux)
+
+                res = mirrored(run, leaves, self._ctx, self._stochastic)
+                outs, new_aux = list(res[:n_out]), list(res[n_out:])
+            else:
+                outs, new_aux = fn(self._cast(args), auxs, True, self._ctx)
+        return leaves, outs, new_aux
+
     def forward(self, is_train=False, **kwargs):
         """Run the graph. kwargs overwrite input arrays first
         (``data=...``). With ``is_train`` the autograd graph is kept for
-        :meth:`backward`."""
+        :meth:`backward`. With an active monitor the run feeds its
+        callback every node's outputs."""
         for k, v in kwargs.items():
             if k not in self._arg_names:
                 raise MXNetError("Unknown input %s" % k)
             self.arg_arrays[self._arg_names.index(k)][:] = v
         args = [a.data for a in self.arg_arrays]
         auxs = [a.data for a in self.aux_arrays]
-        if self._placed is not None:
-            outs, new_aux = self._placed.forward(args, auxs, is_train)
-            self._pending = (None, outs) if is_train else None
-            self._outputs = outs
-        elif is_train:
-            leaves = []
-            for i in self._diff_idx:
-                args[i] = args[i].detach().requires_grad_(True)
-                leaves.append(args[i])
-            with torch.enable_grad():
-                outs, new_aux = self._graph_fn(self._cast(args), auxs, True,
-                                               self._ctx)
-            self._pending = (leaves, outs)
-            self._outputs = [o.detach() for o in outs]
-        else:
-            with torch.no_grad():
-                outs, new_aux = self._graph_fn(self._cast(args), auxs, False,
-                                               self._ctx)
-            self._pending = None
-            self._outputs = outs
+        monitored = self.monitor_callback is not None and (
+            self._monitor_active is None or self._monitor_active())
+        if monitored and self._placed is not None:
+            raise MXNetError(
+                "Monitor is not supported on a multi-device group2ctx "
+                "executor: remove the monitor or bind without group2ctx.")
+        graph_fn = self._monitored_fn() if monitored else None
+        kind = ("forward_monitored" if monitored else
+                "fwd_bwd" if is_train else "forward")
+        t0 = time.perf_counter()
+        wall0 = time.time()
+        with _profiler.record_span(self._profile_name(kind), "executor"), \
+                _compileobs.oom_guard("executor.fwd_bwd" if is_train
+                                      else "executor.fwd",
+                                      inject=not is_train):
+            if self._placed is not None:
+                outs, new_aux = self._placed.forward(args, auxs, is_train)
+                self._pending = (None, outs) if is_train else None
+                self._outputs = outs
+            elif is_train:
+                leaves, outs, new_aux = self._train_forward(args, auxs,
+                                                            graph_fn)
+                self._pending = (leaves, outs)
+                self._outputs = [o.detach() for o in outs]
+            else:
+                with torch.no_grad():
+                    outs, new_aux = (graph_fn or self._graph_fn)(
+                        self._cast(args), auxs, False, self._ctx)
+                self._pending = None
+                self._outputs = outs
+        dt = time.perf_counter() - t0
         if is_train:
+            self._fwd_s = dt
             for arr, new in zip(self.aux_arrays, new_aux):
                 arr._set_data(new.detach().to(arr.data.dtype))
+        else:
+            self._prog_eval.charge(self._signature(args, auxs), dt, wall0)
         return self.outputs
+
+    def _monitored_fn(self):
+        if self._graph_fn_monitored is None:
+            from .ndarray import NDArray
+
+            def emit(name, value):
+                cb = self.monitor_callback
+                if cb is not None:
+                    cb(name, NDArray(value.detach()))
+
+            self._graph_fn_monitored = build_graph_fn(self._symbol,
+                                                      node_callback=emit)
+        return self._graph_fn_monitored
 
     def _cast(self, args):
         return cast_compute(self._arg_names, args, self._compute_dtype,
@@ -283,6 +452,19 @@ class Executor:
             self.forward(is_train=True)
         leaves, outs = self._pending
         self._pending = None
+        sig = self._signature([a.data for a in self.arg_arrays],
+                              [a.data for a in self.aux_arrays])
+        t0 = time.perf_counter()
+        wall0 = time.time() - self._fwd_s
+        with _profiler.record_span(self._profile_name("fwd_bwd"), "executor"), \
+                _compileobs.oom_guard("executor.fwd_bwd"):
+            self._backward(leaves, outs, out_grads)
+        self._prog_fwd_bwd.charge(sig, self._fwd_s + time.perf_counter() - t0,
+                                  wall0)
+
+    def _backward(self, leaves, outs, out_grads):
+        from .ndarray import NDArray
+
         if out_grads is None:
             ogs = [torch.full_like(o, 1.0 if loss else 0.0)
                    for o, loss in zip(outs, self._is_loss_output)]
@@ -344,8 +526,70 @@ class Executor:
                 raise ValueError("Find name %s that is not in the auxiliary states" % name)
 
     def set_monitor_callback(self, callback, is_active=None):
-        raise MXNetError("monitor callbacks are not ported yet (ROADMAP.md A7)")
+        """Install a per-node monitor (reference:
+        MXExecutorSetMonitorCallback → GraphExecutor::ExecuteMonCallback,
+        graph_executor.cc:761-781): while installed and ``is_active()``
+        (always when None), forward feeds ``callback(name, NDArray)`` every
+        node's visible outputs."""
+        self.monitor_callback = callback
+        self._monitor_active = is_active
 
     def memory_analysis(self):
-        raise MXNetError("the compiled program's memory analysis "
-                         "(compileobs) is not ported yet (ROADMAP.md A7)")
+        """Memory of one fwd+bwd of this executor, with the field names of
+        XLA's ``CompiledMemoryStats`` (``argument_size_in_bytes``,
+        ``output_size_in_bytes``, ``temp_size_in_bytes``,
+        ``peak_memory_in_bytes``).
+
+        torch has no compile-time memory plan (``ROADMAP.md`` C16): on a
+        card the port measures — one fwd+bwd on scratch copies of the
+        arguments and auxiliary states with the allocator's peak reset, the
+        generator put back after it, so the executor's arrays, gradients,
+        random stream and the next step are untouched; the peak is the
+        allocator's peak above what was allocated before, and temp the
+        peak less arguments and outputs. On the CPU the argument and
+        output sizes are the arrays' bytes and the peak 0 (nothing
+        measures it there)."""
+        if self._placed is not None:
+            raise MXNetError(
+                "memory_analysis is per-program; a multi-device group2ctx "
+                "executor runs one program per device segment. Bind without "
+                "group2ctx to analyze the single-device program.")
+        args = [a.data for a in self.arg_arrays]
+        auxs = [a.data for a in self.aux_arrays]
+        arg_bytes = _nbytes(args + auxs)
+        device = args[0].device if args else torch.device(self._ctx)
+        if device.type != "cuda":
+            shapes = {n: tuple(a.shape) for n, a in
+                      zip(self._arg_names, self.arg_arrays)}
+            _, out_shapes, _ = self._symbol.infer_shape(**shapes)
+            itemsize = (torch.empty((), dtype=self._compute_dtype).element_size()
+                        if self._compute_dtype is not None else 4)
+            out_bytes = sum(int(torch.Size(s).numel()) * itemsize
+                            for s in out_shapes)
+            out_bytes += _nbytes([args[i] for i in self._diff_idx] + auxs)
+            return _MemoryAnalysis(arg_bytes, out_bytes, 0, 0)
+        gen = _random.generator(device)
+        state = gen.get_state()
+        torch.cuda.synchronize(device)
+        base = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        try:
+            scratch = [a.clone() for a in args]
+            scratch_aux = [a.clone() for a in auxs]
+            leaves, outs, new_aux = self._train_forward(scratch, scratch_aux)
+            pairs = [(o, torch.full_like(o, 1.0 if loss else 0.0))
+                     for o, loss in zip(outs, self._is_loss_output)
+                     if o.requires_grad]
+            grads = []
+            if pairs and leaves:
+                grads = torch.autograd.grad([o for o, _ in pairs], leaves,
+                                            [g for _, g in pairs],
+                                            allow_unused=True)
+            out_bytes = _nbytes(list(outs) + list(grads) + list(new_aux))
+            torch.cuda.synchronize(device)
+            peak = torch.cuda.max_memory_allocated(device) - base
+            del scratch, scratch_aux, leaves, outs, new_aux, pairs, grads
+        finally:
+            gen.set_state(state)
+        return _MemoryAnalysis(arg_bytes, out_bytes,
+                               max(peak - arg_bytes - out_bytes, 0), peak)

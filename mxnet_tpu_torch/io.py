@@ -36,7 +36,7 @@ from collections import namedtuple
 import numpy as np
 import torch
 
-from . import telemetry
+from . import fault, telemetry
 from .base import MXNetError, env_int
 from .context import cpu
 from .ndarray import NDArray, array
@@ -775,6 +775,9 @@ class DeviceFeedIter(DataIter):
                     break
                 tel = telemetry.enabled()
                 t0 = time.perf_counter() if tel else 0.0
+                # the `stall` fault point: delay_ms wedges the transfer
+                # stage past the guard's watchdog deadline
+                fault.hit("stall")
                 staged, event = (self._upload(batch) if self._cuda
                                  else (batch, None))
                 if tel:

@@ -125,9 +125,13 @@ def _update_params(param_arrays, grad_arrays, updater, num_device,
 def save_checkpoint(prefix, epoch, symbol, arg_params, aux_params):
     """Save the symbol (when given) and the parameters of ``epoch``, and
     retire a ``.resume`` sidecar of the same epoch number (it described an
-    older write of this params file)."""
+    older write of this params file). The ``checkpoint_between_files``
+    fault point sits between the two files."""
+    from . import fault
+
     if symbol is not None:
         symbol.save("%s-symbol.json" % prefix)
+    fault.hit("checkpoint_between_files")
     save_dict = {("arg:%s" % k): v for k, v in arg_params.items()}
     save_dict.update({("aux:%s" % k): v for k, v in aux_params.items()})
     param_name = "%s-%04d.params" % (prefix, epoch)

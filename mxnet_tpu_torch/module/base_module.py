@@ -12,9 +12,18 @@ batches, with batch-end and epoch-end callbacks, the epoch-end
 intact checkpoint under ``prefix`` (``model.load_latest_valid_checkpoint``),
 with its ``.states`` file when there is one (else a warm start, logged),
 and, when a ``.resume`` sidecar lies beside it, at the exact batch, numpy
-RNG and optimizer update counts it recorded. The JAX package's health
-``guard``, ``monitor``, elastic membership and telemetry hooks are not
-ported yet: passing ``guard`` or ``monitor`` raises (``ROADMAP.md`` A7).
+RNG and optimizer update counts it recorded.
+
+``fit(guard=...)`` runs the training health guard (``guard.py``: a policy
+name, a ``GuardPolicy``, a ``TrainingGuard``, or None for the
+``MXNET_GUARD_*`` variables): each step's loss and gradients are
+classified, bad steps skipped or rolled back per its ladder (the inner
+loop restarts at the snapshot's batch), and its watchdog turns a hung
+step into a ``StallError``. ``fit(monitor=Monitor(...))`` installs the
+monitor (the module leaves the fused path) and brackets every step with
+its ``tic``/``toc_print``. Every step is a ``fit.step`` span
+(``epoch``/``nbatch`` args) on the profiler's trace. The JAX package's
+elastic membership and cluster hooks are ``ROADMAP.md`` A6c.
 """
 from __future__ import annotations
 
@@ -25,10 +34,12 @@ from collections import namedtuple
 
 import numpy as np
 
+from .. import guard as guard_mod
 from .. import metric as metric_mod
 from .. import io as io_mod
 from .. import model as model_mod
 from .. import ndarray as nd
+from .. import telemetry
 from ..base import MXNetError
 from ..context import cpu
 
@@ -141,14 +152,12 @@ class BaseModule:
         """Train for ``num_epoch`` epochs. ``arg_params``/``aux_params`` may
         be dicts of NDArrays, tensors or numpy arrays. ``auto_resume`` is a
         checkpoint prefix to continue from (see the module docstring); with
-        no loadable checkpoint under it training starts afresh."""
+        no loadable checkpoint under it training starts afresh.
+        ``monitor`` and ``guard`` are described there too."""
         from .. import initializer as init_mod
 
         if num_epoch is None:
             raise MXNetError("please specify number of epochs")
-        for name, value in (("monitor", monitor), ("guard", guard)):
-            if value is not None:
-                raise MXNetError("fit(%s=...) is not ported yet (ROADMAP.md A7)" % name)
         if initializer is None:
             initializer = init_mod.Uniform(0.01)
         resume_epoch = resume_state = None
@@ -166,6 +175,8 @@ class BaseModule:
                     "auto-resume: restored '%s' epoch %d, continuing at epoch "
                     "%d%s", auto_resume, resume_epoch, begin_epoch,
                     " batch %d" % resume_state["nbatch"] if resume_state else "")
+        guard_obj = guard_mod.resolve(guard, checkpoint_prefix=auto_resume,
+                                      logger=self.logger)
         # MXNET_FEED_DEPTH: a transfer thread keeps the next batches on the
         # device (the feed is this fit's own and closed when it returns)
         inner_data = train_data
@@ -175,6 +186,8 @@ class BaseModule:
             self.bind(data_shapes=train_data.provide_data,
                       label_shapes=train_data.provide_label,
                       for_training=True, force_rebind=force_rebind)
+            if monitor is not None:
+                self.install_monitor(monitor)
             self.init_params(initializer=initializer, arg_params=arg_params,
                              aux_params=aux_params, allow_missing=allow_missing,
                              force_init=force_init or resume_epoch is not None)
@@ -186,38 +199,101 @@ class BaseModule:
                 validation_metric = eval_metric
             if not isinstance(eval_metric, metric_mod.EvalMetric):
                 eval_metric = metric_mod.create(eval_metric)
+            if guard_obj is not None:
+                guard_obj.start()
+            # with a guard: the iterator's position as of each fetched
+            # batch, so a snapshot after step n restores to batch n+1 though
+            # the loop fetched n+1 before step n ended
+            state_fn = getattr(train_data, "state_dict", None)
+            track_state = guard_obj is not None and state_fn is not None
 
             for epoch in range(begin_epoch, num_epoch):
                 tic = time.time()
                 eval_metric.reset()
-                nbatch = 0
+                start_nbatch = 0
                 if resume_state is not None and epoch == begin_epoch:
-                    nbatch = self._resume_fast_forward(train_data, resume_state)
+                    start_nbatch = self._resume_fast_forward(train_data,
+                                                             resume_state)
                     resume_state = None
-                data_iter = iter(train_data)
-                end_of_batch = False
-                try:
-                    next_data_batch = next(data_iter)
-                except StopIteration:
-                    # a mid-epoch resume may land on the epoch's end
-                    end_of_batch = True
-                while not end_of_batch:
-                    data_batch = next_data_batch
-                    self.forward_backward(data_batch)
-                    self.update()
+                if guard_obj is not None:
+                    guard_obj.epoch_start(self, train_data, epoch,
+                                          start_nbatch)
+                while True:  # restarted when the guard rolls back
+                    rolled_back = False
+                    nbatch = start_nbatch
+                    data_iter = iter(train_data)
+                    end_of_batch = False
                     try:
-                        # fetch the next batch while the card works on this one
                         next_data_batch = next(data_iter)
-                        self.prepare(next_data_batch)
                     except StopIteration:
-                        end_of_batch = True
-                    self.update_metric(eval_metric, data_batch.label)
-                    if batch_end_callback is not None:
-                        params = BatchEndParam(epoch=epoch, nbatch=nbatch,
-                                               eval_metric=eval_metric, locals=locals())
-                        for callback in _as_list(batch_end_callback):
-                            callback(params)
-                    nbatch += 1
+                        # a mid-epoch resume may land on the epoch's end
+                        break
+                    next_state = state_fn() if track_state else None
+                    while not end_of_batch:
+                        data_batch = next_data_batch
+                        cur_state = next_state
+                        if guard_obj is not None:
+                            guard_obj.check_stall()
+                        if monitor is not None:
+                            monitor.tic()
+                        bad_reason = None
+                        bad_applied = False
+                        with telemetry.span("fit.step", "fit", epoch=epoch,
+                                            nbatch=nbatch):
+                            self.forward_backward(data_batch)
+                            if guard_obj is not None:
+                                # before the update: a bad classic step is
+                                # dropped with the parameters untouched
+                                bad_reason = guard_obj.step_check(self)
+                            if bad_reason is None:
+                                self.update()
+                                if guard_obj is not None:
+                                    # the fused step's outputs exist only
+                                    # now, its update already applied
+                                    bad_reason = guard_obj.post_check(self)
+                                    bad_applied = bad_reason is not None
+                        if bad_reason is not None:
+                            action = guard_obj.bad_step(bad_reason, epoch,
+                                                        nbatch,
+                                                        applied=bad_applied)
+                            if action == "abort":
+                                raise guard_obj.abort_error(bad_reason,
+                                                            epoch, nbatch)
+                            if action == "rollback":
+                                _, r_nbatch, iter_restored = \
+                                    guard_obj.rollback(self, train_data)
+                                eval_metric.reset()
+                                start_nbatch = (r_nbatch if iter_restored
+                                                else nbatch + 1)
+                                rolled_back = True
+                                break
+                            # skip: no update ran; the batch advances
+                        try:
+                            # fetch the next batch while the card works
+                            next_data_batch = next(data_iter)
+                            next_state = state_fn() if track_state else None
+                            self.prepare(next_data_batch)
+                        except StopIteration:
+                            end_of_batch = True
+                        if bad_reason is None:
+                            self.update_metric(eval_metric, data_batch.label)
+                            if guard_obj is not None:
+                                guard_obj.good_step(self, train_data, epoch,
+                                                    nbatch, cur_state)
+                        if monitor is not None:
+                            monitor.toc_print()
+                        if batch_end_callback is not None:
+                            params = BatchEndParam(epoch=epoch, nbatch=nbatch,
+                                                   eval_metric=eval_metric,
+                                                   locals=locals())
+                            for callback in _as_list(batch_end_callback):
+                                callback(params)
+                        nbatch += 1
+                    if not rolled_back:
+                        break
+                if guard_obj is not None:
+                    # epoch-boundary work is not a stall
+                    guard_obj.suspend_watchdog()
                 for name, val in eval_metric.get_name_value():
                     self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
                 self.logger.info("Epoch[%d] Time cost=%.3f", epoch, time.time() - tic)
@@ -234,7 +310,15 @@ class BaseModule:
                     for name, val in res:
                         self.logger.info("Epoch[%d] Validation-%s=%f", epoch, name, val)
                 train_data.reset()
+        except KeyboardInterrupt:
+            # the watchdog interrupts a wedged step with SIGINT; a real
+            # Ctrl-C (the watchdog never fired) goes on as it is
+            if guard_obj is not None and guard_obj.stall_fired:
+                raise guard_obj.stall_error() from None
+            raise
         finally:
+            if guard_obj is not None:
+                guard_obj.close()
             if train_data is not inner_data:
                 train_data.close()
 

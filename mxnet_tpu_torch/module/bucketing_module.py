@@ -27,6 +27,7 @@ class BucketingModule(BaseModule):
                  context=None, work_load_list=None, fixed_param_names=None,
                  state_names=None):
         super().__init__(logger=logger)
+        self._monitor = None
         if default_bucket_key is None:
             raise MXNetError("BucketingModule needs a default_bucket_key")
         self._default_bucket_key = default_bucket_key
@@ -179,10 +180,15 @@ class BucketingModule(BaseModule):
         self._check_bound(params=False)
         if bucket_key not in self._buckets:
             module = self._new_module(bucket_key)
+            monitor = self._monitor
+            # a bucket bound after install_monitor stays classic too
+            module._monitor_installed = monitor is not None
             module.bind(data_shapes, label_shapes, self._curr_module.for_training,
                         self._curr_module.inputs_need_grad, force_rebind=False,
                         shared_module=self._buckets[self._default_bucket_key])
             self._buckets[bucket_key] = module
+            if monitor is not None:
+                module.install_monitor(monitor)
         self._curr_module = self._buckets[bucket_key]
         self._curr_bucket_key = bucket_key
 
@@ -237,6 +243,9 @@ class BucketingModule(BaseModule):
         self._curr_module.update_metric(eval_metric, labels)
 
     def install_monitor(self, mon):
+        """Install ``mon`` on every bucket's module, and on each bucket
+        bound later; all of them train on the classic path from here."""
         self._check_bound(params=False)
+        self._monitor = mon
         for mod in self._buckets.values():
             mod.install_monitor(mon)

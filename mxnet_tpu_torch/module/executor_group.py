@@ -106,6 +106,7 @@ class DataParallelExecutorGroup:
         self.logger = logger
         self.fixed_param_names = fixed_param_names or []
         self.state_names = state_names or []
+        self._monitors = []
 
         if not for_training:
             grad_req = "null"
@@ -158,6 +159,7 @@ class DataParallelExecutorGroup:
         self.decide_slices(descs)
         if shared_execs is None and self.shared_group is not None:
             shared_execs = self.shared_group.execs
+        old_execs = getattr(self, "execs", [])
         self.execs = [self._bind_ith_exec(i, descs, None if shared_execs is None
                                           else shared_execs[i])
                       for i in range(len(self.contexts))]
@@ -182,6 +184,11 @@ class DataParallelExecutorGroup:
                                   if self.inputs_need_grad else None)
         self.aux_arrays = [[e.aux_arrays[i] for e in execs]
                            for i in range(len(self.aux_names))]
+        for mon in self._monitors:
+            # a rebind (reshape) moves the monitor onto the new executors
+            mon.exes = [e for e in mon.exes if e not in old_execs]
+            for exe in execs:
+                mon.install(exe)
 
     def _bind_ith_exec(self, i, descs, shared_exec):
         ctx = self.contexts[i]
@@ -307,4 +314,8 @@ class DataParallelExecutorGroup:
                                 zip(labels, self.label_layouts)], exe.outputs)
 
     def install_monitor(self, mon):
-        raise MXNetError("monitors are not ported yet (ROADMAP.md A7)")
+        """Install ``mon`` on every executor of the group (and on those a
+        later reshape binds)."""
+        self._monitors.append(mon)
+        for exe in self.execs:
+            mon.install(exe)

@@ -51,6 +51,7 @@ import pickle
 import numpy as np
 import torch
 
+from .. import compileobs as _compileobs
 from ..base import MXNetError
 from ..io import DataDesc
 from ..ndarray import NDArray
@@ -338,10 +339,13 @@ class FusedFitPath:
             raise RuntimeError("no staged batch: call forward first")
         st = self.state
         kv = self._dist_kv()
-        if kv is not None:
-            self._step_dist(kv)
-        else:
-            self._outs = self.trainer.step(st.params, st.auxs, st.states)
+        # OOM forensics at the step's boundary: a device out-of-memory
+        # logs the live tensors and the program table before it propagates
+        with _compileobs.oom_guard("fused.step"):
+            if kv is not None:
+                self._step_dist(kv)
+            else:
+                self._outs = self.trainer.step(st.params, st.auxs, st.states)
         self._pending = False
         self.staged_batch = None
         st.device_dirty = True

@@ -30,7 +30,9 @@ workers of a ``tools/launch.py`` cluster, fused on a card (or with a
 ``*_device`` type) and classic otherwise. Several contexts (``context=
 [mx.cpu(0), mx.cpu(1)]``, with ``work_load_list``) bind one executor each
 on the classic path, the gradients summed by the kvstore's ``Comm``.
-Not ported: monitors (``ROADMAP.md`` A7).
+``install_monitor`` leaves the fused path for good (per-node hooks need
+the executors), handing the parameters, the optimizer's slots and its
+update count to the classic Updater.
 """
 from __future__ import annotations
 
@@ -103,6 +105,7 @@ class Module(BaseModule):
         self._data_shapes = None
         self._label_shapes = None
         self._fused = None    # the fused path, set by init_optimizer
+        self._monitor_installed = False
         self._fused_kvstore_arg = None
         self._preload_opt_states = None   # a .states file for init_optimizer
 
@@ -129,8 +132,12 @@ class Module(BaseModule):
         sidecar at batch 0 that carries the optimizer's update counts (the
         ``.states`` format has no room for them; without them an
         epoch-boundary resume restarts Adam's bias correction at t = 1,
-        which the JAX package does)."""
+        which the JAX package does). The ``checkpoint_between_files``
+        fault point sits between the symbol and the params file."""
+        from .. import fault
+
         self._symbol.save("%s-symbol.json" % prefix)
+        fault.hit("checkpoint_between_files")
         param_name = "%s-%04d.params" % (prefix, epoch)
         self.save_params(param_name)
         model_mod.clear_resume_state(prefix, epoch)
@@ -470,6 +477,9 @@ class Module(BaseModule):
             return "state_names are bound"
         if self._fixed_param_names:
             return "fixed_param_names are bound"
+        if self._monitor_installed:
+            return ("a Monitor is installed (per-node hooks need the "
+                    "executor path)")
         if len(self._context) > 1:
             devices = [torch.device(c) for c in self._context]
             if len(set(devices)) != len(devices):
@@ -624,7 +634,30 @@ class Module(BaseModule):
         self._exec_group.update_metric(eval_metric, labels)
 
     def install_monitor(self, mon):
-        raise MXNetError("monitors are not ported yet (ROADMAP.md A7)")
+        """Install ``mon`` on the executors. A module on the fused path
+        leaves it: the device parameters go back to the executor group, the
+        optimizer's slots to the Updater, and the update count is rebased
+        so the classic indices go on where the fused steps left the
+        schedule (the JAX package's handover, module.py:667-690). Later
+        rebinds and buckets stay classic (``_fused_veto``)."""
+        if not self.binded:
+            raise MXNetError("bind the module before installing a monitor")
+        self._monitor_installed = True
+        if self._fused is not None:
+            self._fused.sync_to_module()
+            if self.optimizer_initialized:
+                opt = self._optimizer
+                if self._updater is not None:
+                    opt.begin_num_update = opt.num_update
+                    opt._index_update_count = {}
+                    self._updater.states = self._fused.states_for_updater()
+                elif self._kvstore is not None:
+                    self.logger.warning(
+                        "install_monitor mid-training with a kvstore-updating "
+                        "config: optimizer state restarts fresh on the kvstore")
+            self._fused.drop_batch()
+            self._fused = None
+        self._exec_group.install_monitor(mon)
 
 
 def _kv_type(kvstore):

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from . import context as _context
+from . import profiler as _profiler
 from . import random as _random
 from .base import MXNetError, torch_dtype
 from .ops.registry import OpContext, get_op, has_op
@@ -697,7 +698,8 @@ def imperative_invoke(op_name, ndargs, attrs, out=None, ctx=None):
     octx = OpContext(is_train=is_train, device=device,
                      rng=(_random.generator(device) if op.stochastic(attrs)
                           else None))
-    with torch.enable_grad() if recording else torch.no_grad():
+    with _profiler.record_span(op_name, "operator"), \
+            (torch.enable_grad() if recording else torch.no_grad()):
         outs, new_auxs = op.forward(octx, attrs, tensors[:n_args],
                                     tensors[n_args:])
     n_vis = builtins.max(op.num_visible_outputs(attrs), 1)

@@ -12,7 +12,9 @@ library, all at once.
 
 Every C entry point returns the ``cudaGetLastError()`` of its launch; a
 :class:`Kernel` raises :class:`MXNetError` when it is not 0, and counts
-its successful launches in ``Kernel.launches``.
+its successful launches in ``Kernel.launches``. Each build is a
+``compileobs`` compile of program ``nvcc.<source>``, charged the seconds
+its ``nvcc`` ran.
 """
 from __future__ import annotations
 
@@ -23,6 +25,8 @@ import os
 import shutil
 import subprocess
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 
 from ..base import MXNetError
 
@@ -167,6 +171,17 @@ KERNELS = {k.name: k for k in (FLASH_FWD, FLASH_BWD_DKV, FLASH_BWD_DQ,
                                 PAGED_DECODE_MULTI)}
 
 
+def _note_build(source, seconds, wall0):
+    """Charge an ``nvcc`` run to the registry as program
+    ``nvcc.<source>``."""
+    from .. import compileobs
+
+    stem = os.path.splitext(os.path.basename(source))[0]
+    compileobs.note_compile("nvcc." + stem, seconds,
+                            site="mxnet_tpu_torch/ops/_build.py:build",
+                            wall0=wall0)
+
+
 def build(kernels=None):
     """Build the shared library of every kernel in ``kernels`` (default:
     all) that is missing, one ``nvcc`` per source, all started together
@@ -185,12 +200,21 @@ def build(kernels=None):
         procs = []
         for out, ks in todo.items():
             tmp = "%s.tmp%d" % (out, os.getpid())
-            procs.append((ks, out, tmp, subprocess.Popen(
-                nvcc_command(ks[0].source, tmp, nvcc), stdout=subprocess.PIPE,
-                stderr=subprocess.STDOUT, text=True)))
-        failed = []
-        for ks, out, tmp, proc in procs:
+            procs.append((ks, out, tmp, time.time(), time.perf_counter(),
+                          subprocess.Popen(
+                              nvcc_command(ks[0].source, tmp, nvcc),
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)))
+
+        def finish(proc):
             log, _ = proc.communicate()
+            return log, time.perf_counter()
+
+        # one waiter per nvcc, so each build's seconds end when it did
+        with ThreadPoolExecutor(len(procs)) as pool:
+            done = list(pool.map(finish, [p[-1] for p in procs]))
+        failed = []
+        for (ks, out, tmp, wall0, t0, proc), (log, t1) in zip(procs, done):
             for k in ks:
                 k.build_log = log
             if proc.returncode != 0:
@@ -198,5 +222,6 @@ def build(kernels=None):
                                                      proc.returncode, log))
                 continue
             os.replace(tmp, out)
+            _note_build(ks[0].source, t1 - t0, wall0)
         if failed:
             raise MXNetError("nvcc failed for " + "\n".join(failed))

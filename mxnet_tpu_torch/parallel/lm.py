@@ -26,15 +26,19 @@ Every trainer has the JAX package's surface: ``init_params(seed)``,
 ``step`` takes numpy or torch tokens, updates the parameter and state
 tensors in place (the JAX step donates them) and returns the same dicts
 and the loss as a 0-d tensor; the update is the fused rule of
-:mod:`.fused_opt` for the optimizer. The JAX package registers each step
-with ``compileobs`` (``_obs_jit``); that is ``ROADMAP.md`` A7 and left
-out here.
+:mod:`.fused_opt` for the optimizer. Each trainer's ``step`` and
+``forward`` are ``compileobs`` programs (``lm.step``, ``lm.fwd``; the
+graph key the trainer class and its config, as the JAX package's
+``_obs_jit``): the first call at a new signature is their compile.
 """
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
 
+from .. import compileobs
 from .. import optimizer as opt_mod
 from . import collectives as C
 from . import fused_opt
@@ -180,6 +184,11 @@ class _LMTrainerBase:
         self.rule = fused_opt.make_rule(self.optimizer)
         self.mesh = mesh
         self.cfg = cfg
+        key = (type(self).__name__,
+               tuple(sorted((k, str(v)) for k, v in cfg.items())))
+        site = "mxnet_tpu_torch/parallel/lm.py:%s" % type(self).__name__
+        self._programs = {kind: compileobs.Program("lm." + kind, site, key)
+                          for kind in ("step", "fwd")}
         if mesh is not None:
             self.device = mesh.device_list[0]
         else:
@@ -219,6 +228,7 @@ class _LMTrainerBase:
     def step(self, params, opt_state, tokens, labels):
         """One step: loss, gradients and the optimizer's update, written
         into ``params`` and ``opt_state`` in place."""
+        t0 = time.perf_counter()
         params = self._params_on_device(params)
         tokens, labels = self._ids(tokens), self._ids(labels)
         lr, t = fused_opt.host_step_values(self.optimizer, list(params))
@@ -232,12 +242,21 @@ class _LMTrainerBase:
         with torch.no_grad():
             for n, g in zip(names, grads):
                 self.rule.apply_(params[n], g, opt_state[n], lr_t, wd)
+        self._programs["step"].charge(
+            compileobs.signature([("tokens", tokens), ("labels", labels)]
+                                 + list(params.items())),
+            time.perf_counter() - t0)
         return params, opt_state, loss.detach()
 
     def forward(self, params, tokens):
+        t0 = time.perf_counter()
+        tokens = self._ids(tokens)
         with torch.no_grad():
-            return self._forward(self._params_on_device(params),
-                                 self._ids(tokens))
+            out = self._forward(self._params_on_device(params), tokens)
+        self._programs["fwd"].charge(
+            compileobs.signature([("tokens", tokens)]),
+            time.perf_counter() - t0)
+        return out
 
 
 def _lm_cfg(vocab_size, num_layers, model_dim, num_heads, ffn_dim, seq_len):

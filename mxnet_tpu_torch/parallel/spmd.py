@@ -42,6 +42,18 @@ Nothing falls back: a failed capture or replay raises. A kernel's launch
 count (``ops._build.Kernel.launches``) goes up by its launches in the
 captured step on every replay, and the capture itself counts none.
 
+Each program is a ``compileobs`` program (``fused.step``,
+``fused.grad_step``, ``fused.apply_grads``; the graph key is the
+symbol's digest, the signature the batch inputs then the parameters):
+on the card the capture is its compile and the warm-up and replays its
+runs; on the CPU the first run is its compile.
+
+``MXNET_BACKWARD_DO_MIRROR=1`` (read when the trainer is made) runs the
+forward under ``executor.mirrored``: backward recomputes it inside the
+captured step, so the step's graph holds each forward kernel twice (the
+JAX package's ``jax.checkpoint`` over the step's forward). A mirrored
+step of a graph that draws random numbers cannot be captured and raises.
+
 The distributed step (``module.fused_path``'s ``_step_dist``) splits the
 step in two, each its own graph under the same rules:
 :meth:`SPMDTrainer.grad_step` (forward and backward, the float32
@@ -55,27 +67,33 @@ from __future__ import annotations
 
 import torch
 
+import time
+
+from .. import compileobs as _compileobs
 from .. import random as _random
-from ..base import MXNetError, torch_dtype
-from ..executor import build_graph_fn, cast_compute, index_like_inputs
+from ..base import MXNetError, env_flag, torch_dtype
+from ..executor import (build_graph_fn, cast_compute, graph_is_stochastic,
+                        index_like_inputs, mirrored)
 from ..ops.registry import get_op
-from ..symbol import _topo_order
 from . import fused_opt
 
 __all__ = ["SPMDTrainer"]
+
+_SITE = "mxnet_tpu_torch/parallel/spmd.py:SPMDTrainer"
 
 
 class _Graph:
     """One captured program of a trainer: the CUDA graph, its output
     tensors and the kernel launches each replay adds."""
 
-    __slots__ = ("graph", "outs", "per_replay", "warm")
+    __slots__ = ("graph", "outs", "per_replay", "warm", "program")
 
-    def __init__(self):
+    def __init__(self, program):
         self.graph = None
         self.outs = None
         self.per_replay = {}
         self.warm = False
+        self.program = program
 
 
 class SPMDTrainer:
@@ -111,9 +129,10 @@ class SPMDTrainer:
                              | index_like_inputs(symbol))
         self._loss_flags = [not node.is_variable and get_op(node.op).is_loss
                             for node, _ in symbol._entries]
-        self._stochastic = any(
-            not node.is_variable and get_op(node.op).stochastic(node.attrs)
-            for node in _topo_order(symbol._entries))
+        self._stochastic = graph_is_stochastic(symbol)
+        self._mirror = env_flag("MXNET_BACKWARD_DO_MIRROR")
+        self._digest = _compileobs.symbol_digest(symbol)
+        self._sig = None
         # the step's learning rate: written before each step, read by the
         # graph
         self._lr = torch.zeros((), dtype=torch.float32, device=self.device)
@@ -199,12 +218,24 @@ class SPMDTrainer:
         names = self.arg_names
         leaves = {n: params[n].detach().requires_grad_(True)
                   for n in self.param_names}
-        args = [leaves[n] if n in leaves else inputs[n] for n in names]
-        with torch.enable_grad():
+        aux_list = [auxs[n] for n in self.aux_names]
+
+        def run(*xs):
+            by_name = dict(zip(leaves, xs))
+            args = [by_name[n] if n in by_name else inputs[n] for n in names]
             outs, new_aux = self._graph_fn(
                 cast_compute(names, args, self.compute_dtype,
-                             self._cast_exempt),
-                [auxs[n] for n in self.aux_names], True)
+                             self._cast_exempt), aux_list, True, self.device)
+            return tuple(outs) + tuple(new_aux)
+
+        with torch.enable_grad():
+            if self._mirror and leaves:
+                res = mirrored(run, list(leaves.values()), self.device,
+                               self._stochastic)
+            else:
+                res = run(*leaves.values())
+        n_out = len(self._loss_flags)
+        outs, new_aux = list(res[:n_out]), list(res[n_out:])
         pairs = [(o, torch.full_like(o, 1.0 if loss else 0.0))
                  for o, loss in zip(outs, self._loss_flags) if o.requires_grad]
         order = list(leaves)
@@ -296,13 +327,45 @@ class SPMDTrainer:
         self._launch("apply", lambda: self._apply_rule(
             params, states, [(n, bufs[n]) for n in self.param_names]))
 
+    _PROGRAMS = {"step": "fused.step", "grad": "fused.grad_step",
+                 "apply": "fused.apply_grads"}
+
+    def _signature(self):
+        """The programs' input signature: the batch inputs, then the
+        parameters (fixed per trainer)."""
+        if self._sig is None:
+            inputs = self.input_buffers()
+            self._sig = _compileobs.signature(
+                (n, inputs[n]) for n in self.data_names + self.label_names) \
+                + tuple((n, "", tuple(self.arg_shapes[n]), "float32")
+                        for n in self.param_names)
+        return self._sig
+
+    def _slot(self, slot):
+        g = self._graphs.get(slot)
+        if g is None:
+            g = self._graphs[slot] = _Graph(self._PROGRAMS[slot])
+        return g
+
     def _launch(self, slot, fn):
-        """``fn()`` (the work of program ``slot``): eagerly off the card;
-        on a CUDA device eagerly on a side stream the first time, captured
-        the second, replayed from then on."""
+        """``fn()`` (the work of program ``slot``): eagerly off the card
+        (the first run charged as its compile); on a CUDA device eagerly on
+        a side stream the first time, captured the second, replayed from
+        then on."""
+        g = self._slot(slot)
+        t0 = time.perf_counter()
+        wall0 = time.time()
         if self.device.type != "cuda":
-            return fn()
-        g = self._graphs.setdefault(slot, _Graph())
+            outs = fn()
+            if g.warm:
+                _compileobs.note_run(g.program, time.perf_counter() - t0)
+            else:
+                g.warm = True
+                _compileobs.note_compile(
+                    g.program, time.perf_counter() - t0, self._signature(),
+                    graph_key=self._digest, site=_SITE, digest=self._digest,
+                    wall0=wall0)
+            return outs
         if g.graph is None:
             if not g.warm:
                 side = torch.cuda.Stream(self.device)
@@ -311,19 +374,22 @@ class SPMDTrainer:
                     outs = fn()
                 torch.cuda.current_stream(self.device).wait_stream(side)
                 g.warm = True
+                _compileobs.note_run(g.program, time.perf_counter() - t0)
                 return outs
             self._capture_slot(g, fn, draws=slot != "apply")
+            t0 = time.perf_counter()
         g.graph.replay()
         self.replays += 1
         from ..ops import _build
 
         for name, n in g.per_replay.items():
             _build.KERNELS[name].launches += n
+        _compileobs.note_run(g.program, time.perf_counter() - t0)
         return g.outs
 
     def _capture(self, params, auxs, states, inputs):
         """Record one training step into a CUDA graph (nothing runs)."""
-        self._capture_slot(self._graphs.setdefault("step", _Graph()),
+        self._capture_slot(self._slot("step"),
                            lambda: self._run(params, auxs, states, inputs))
 
     def _capture_slot(self, g, fn, draws=True):
@@ -342,7 +408,10 @@ class SPMDTrainer:
             graph.register_generator_state(_random.generator(self.device))
         before = {n: k.launches for n, k in _build.KERNELS.items()}
         torch.cuda.synchronize(self.device)
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        with _compileobs.record_compile(
+                g.program, self._signature(), graph_key=self._digest,
+                site=_SITE, digest=self._digest), \
+                torch.cuda.graph(graph, capture_error_mode="thread_local"):
             outs = fn()
         for n, k in _build.KERNELS.items():
             if k.launches != before[n]:

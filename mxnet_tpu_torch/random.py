@@ -22,7 +22,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["seed", "generator", "uniform", "normal", "randint"]
+__all__ = ["seed", "generator", "get_states", "set_states", "uniform",
+           "normal", "randint"]
 
 _DEFAULT_SEED = 0
 _seed = [_DEFAULT_SEED]
@@ -55,6 +56,26 @@ def generator(device):
         gen.manual_seed(_seed[0])
         _cuda_generators[index] = gen
     return gen
+
+
+def get_states():
+    """The state of every generator made so far (the CPU's and each
+    card's): what a rollback snapshot keeps."""
+    states = {"cpu": torch.default_generator.get_state()}
+    for index, gen in _cuda_generators.items():
+        states[index] = gen.get_state()
+    return states
+
+
+def set_states(states):
+    """Put back :func:`get_states`'s states (a card's generator made since
+    is reseeded from the last :func:`seed`, as when it was made)."""
+    torch.default_generator.set_state(states["cpu"])
+    for index, gen in _cuda_generators.items():
+        if index in states:
+            gen.set_state(states[index])
+        else:
+            gen.manual_seed(_seed[0])
 
 
 # Imperative samplers (mx.random.uniform / normal / randint); also

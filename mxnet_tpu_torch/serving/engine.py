@@ -35,9 +35,11 @@ Thread model: ``submit()`` is safe from any thread; ``step()`` /
 (TTFT, end-to-end, tokens/sec) flow through the telemetry registry.
 
 ``stats()["compiles"]`` counts each program's captures, their seconds and
-the replays after them, keyed as the JAX package's ``compiles`` block.
-CUDA graphs do not outlive the process, so there is no persistent cache
-and no ``compile_cache`` block (``ROADMAP.md`` A7).
+the replays after them, keyed as the JAX package's ``compiles`` block;
+each capture is also a ``compileobs`` compile of its program. CUDA graphs
+do not outlive the process, so there is no persistent cache and no
+``compile_cache`` block (``compile_cache.py`` is ``ROADMAP.md`` A7's
+second half).
 """
 import itertools
 import threading

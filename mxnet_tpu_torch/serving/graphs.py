@@ -29,6 +29,11 @@ Nothing falls back: a failed capture or replay raises. On the CPU the same
 object runs the step eagerly on its static buffers at every call (the CPU
 path the caller asked for); the first call there counts as the bucket's
 build, so ``captures`` reads one per bucket used on either device.
+
+Each build is a ``compileobs`` compile of ``program`` (its
+``compile.count``/``compile.seconds`` metrics, a span on the profiler's
+compile lane, the bucket's input shapes as its signature) and each later
+call a run.
 """
 from __future__ import annotations
 
@@ -37,7 +42,7 @@ import time
 import numpy as np
 import torch
 
-from .. import telemetry
+from .. import compileobs
 
 __all__ = ["BucketGraph"]
 
@@ -104,8 +109,10 @@ class BucketGraph:
             outs = self._outs
         else:
             outs = self._fn(*self.inputs)
+        dt = time.perf_counter() - t0
         self.replays += 1
-        self.run_s += time.perf_counter() - t0
+        self.run_s += dt
+        compileobs.note_run(self.program, dt)
         return outs
 
     def _stage(self, arrays):
@@ -126,6 +133,7 @@ class BucketGraph:
 
     def _build(self):
         t0 = time.perf_counter()
+        wall0 = time.time()
         if not self._cuda:
             outs = self._fn(*self.inputs)
         else:
@@ -133,8 +141,12 @@ class BucketGraph:
         dt = time.perf_counter() - t0
         self.captures += 1
         self.capture_s += dt
-        telemetry.counter("compile.count", program=self.program).inc()
-        telemetry.histogram("compile.seconds", program=self.program).observe(dt)
+        compileobs.note_compile(
+            self.program, dt,
+            compileobs.signature(zip(("in%d" % i for i in range(len(self.inputs))),
+                                     self.inputs)),
+            graph_key=id(self), site="mxnet_tpu_torch/serving/graphs.py:"
+                                      "BucketGraph", wall0=wall0)
         return outs
 
     def _capture(self):

@@ -27,9 +27,8 @@ never lose events), but timing sites guard on :func:`enabled`, and
 ``span()`` returns a shared no-op object while telemetry is off.
 
 Enable with ``MXNET_TELEMETRY=1``, by setting ``MXNET_TELEMETRY_FILE``, or
-with :func:`enable`. Not ported yet: the chrome-trace profiler hooks of
-``span`` (they wait for the profiler's port, ``ROADMAP.md`` A7, and are
-no-ops here) and the input pipeline's stage helpers.
+with :func:`enable`. While the profiler runs (``profiler.py``) every
+``span`` also lands on its chrome trace, with its ``args``.
 """
 from __future__ import annotations
 
@@ -332,29 +331,43 @@ _NULL_SPAN = _NullSpan()
 
 
 class _Span:
-    __slots__ = ("name", "_t0")
+    __slots__ = ("name", "category", "args", "_t0", "_wall0")
 
-    def __init__(self, name):
+    def __init__(self, name, category, args=None):
         self.name = name
+        self.category = category
+        self.args = args
 
     def __enter__(self):
+        self._wall0 = time.time()
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, *a):
-        histogram(self.name).observe(time.perf_counter() - self._t0)
+        dur = time.perf_counter() - self._t0
+        if _enabled:
+            histogram(self.name).observe(dur)
+        from . import profiler
+
+        profiler.emit_span(self.name, self.category, self._wall0, dur,
+                           self.args)
         return False
 
 
 def span(name, category="telemetry", **args):
-    """Context manager timing one named span into histogram ``name`` while
-    telemetry is enabled; a shared no-op otherwise. ``category`` and
-    ``args`` feed the chrome-trace profiler in the JAX package and are
-    accepted here for the same call sites."""
-    del category, args
+    """Context manager timing one named span.
+
+    While telemetry is enabled the duration lands in histogram ``name``;
+    while the profiler runs the span is also appended to its chrome trace,
+    with ``args`` as the event's ``args`` (the fit loop stamps
+    ``epoch``/``nbatch`` on ``fit.step``; they do not label the
+    histogram). When neither is on, a shared no-op."""
     if not _enabled:
-        return _NULL_SPAN
-    return _Span(name)
+        from . import profiler
+
+        if not profiler.is_running():
+            return _NULL_SPAN
+    return _Span(name, category, args or None)
 
 
 # ---------------------------------------------------------------------------

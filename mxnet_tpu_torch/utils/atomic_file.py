@@ -19,8 +19,13 @@ existed) verify as legacy and load unchanged.
 
 The whole-buffer helpers ``verify_and_strip`` and ``read_verified`` read
 ``.states`` files; ``footer_crc`` is the ``.resume`` sidecar's binding
-token. Not carried over: the ``checkpoint_write`` fault-injection point
-(``crash_after_bytes``).
+token.
+
+Fault injection: writers take a ``fault_name`` consulted through
+:mod:`mxnet_tpu_torch.fault` (default ``checkpoint_write``);
+``crash_after_bytes=N`` aborts the stream after exactly N payload bytes
+with an :class:`~mxnet_tpu_torch.fault.InjectedCrash`, leaving the torn
+temp file behind, as a real crash would, and the final path untouched.
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ import struct
 import zlib
 from contextlib import contextmanager
 
+from .. import fault
 from ..base import MXNetError
 
 __all__ = ["atomic_write", "ChecksumError", "ChecksummingReader",
@@ -49,16 +55,27 @@ class ChecksumError(MXNetError):
 # thread-confined: wraps one open temp file for the duration of a single
 # atomic_write, owned end-to-end by the writing thread
 class _ChecksummedWriter:
-    """File-like wrapper keeping a running CRC32 of what it writes."""
+    """File-like wrapper keeping a running CRC32 of what it writes, with the
+    byte budget of an armed ``crash_after_bytes`` fault."""
 
-    def __init__(self, f):
+    def __init__(self, f, fault_name):
         self._f = f
         self._crc = 0
         self.nbytes = 0
+        self._fault_name = fault_name
+        self._budget = (None if fault_name is None
+                        else fault.crash_after_bytes(fault_name))
 
     def write(self, data):
         if isinstance(data, str):
             data = data.encode("utf-8")
+        if self._budget is not None and self.nbytes + len(data) > self._budget:
+            allowed = self._budget - self.nbytes
+            self._f.write(data[:allowed])
+            self.nbytes += allowed
+            fault.consume(self._fault_name)
+            raise fault.InjectedCrash("injected crash at %s after %d bytes"
+                                      % (self._fault_name, self.nbytes))
         self._f.write(data)
         self._crc = zlib.crc32(data, self._crc)
         self.nbytes += len(data)
@@ -70,19 +87,20 @@ class _ChecksummedWriter:
 
 
 @contextmanager
-def atomic_write(path, checksum=True):
+def atomic_write(path, checksum=True, fault_name="checkpoint_write"):
     """Yield a writer whose output reaches ``path`` atomically.
 
     On clean exit the CRC footer (when ``checksum``) is appended, the file is
     fsynced and renamed over ``path``, and the directory entry is fsynced.
     On an ordinary exception the temp file is removed and ``path`` is left
     untouched; on a ``BaseException`` (``KeyboardInterrupt``) the torn temp
-    file is left behind, as a process death would leave it.
+    file is left behind, as a process death would leave it (an injected
+    ``crash_after_bytes`` fault at ``fault_name`` is one).
     """
     path = os.fspath(path)
     tmp = "%s.tmp.%d.%d" % (path, os.getpid(), next(_tmp_counter))
     f = open(tmp, "wb")
-    writer = _ChecksummedWriter(f)
+    writer = _ChecksummedWriter(f, fault_name)
     try:
         yield writer
         if checksum:

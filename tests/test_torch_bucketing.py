@@ -14,6 +14,7 @@ unfused). Tolerances are stated per test.
 """
 import importlib
 import os
+import re
 
 import numpy as np
 import pytest
@@ -207,8 +208,40 @@ def test_module_bind_shared_module_and_reshape():
         tmx.mod.Module(sym_gen(5)[0], context=tmx.cpu()).bind(
             [("data", (BATCH, 5, DIM))], shared_module=tmx.mod.Module(
                 sym_gen(5)[0], context=tmx.cpu()))
-    with pytest.raises(MXNetError, match="A7"):
-        lender.install_monitor(object())
+    # install_monitor (A7): the same node and weight statistics as the
+    # JAX package's monitor on the same parameters and batch
+    jlender = jmx.mod.Module(_bucket_sym_gen(jmx)(5)[0], context=jmx.cpu())
+    jlender.bind([("data", (2, 5, DIM))], [("softmax_label", (2,))])
+    jlender.init_params(jmx.init.One())
+    _assert_same_monitor_records(lender, jlender)
+
+
+def _monitor_records(pkg, mod, x):
+    mon = pkg.mon.Monitor(1, sort=True)
+    mod.install_monitor(mon)
+    mon.tic()
+    mod.forward(pkg.io.DataBatch(
+        [pkg.nd.array(x, ctx=pkg.cpu())], None, bucket_key=x.shape[1],
+        provide_data=[pkg.io.DataDesc("data", x.shape)]), is_train=False)
+    return mon.toc()
+
+
+def _unnumbered(name):
+    """A record's name without the auto-name counter, which depends on how
+    many symbols each package built before (``activation9_output``)."""
+    return re.sub(r"^([a-z_]+?)\d+_", r"\1_", name)
+
+
+def _assert_same_monitor_records(tmod, jmod, shape=(2, 5, DIM)):
+    """One monitored inference forward of each module on the same batch:
+    the records' names equal, each RMS within 1e-5 relative."""
+    x = np.random.RandomState(3).rand(*shape).astype(np.float32)
+    got = _monitor_records(tmx, tmod, x)
+    want = _monitor_records(jmx, jmod, x)
+    assert got and ([_unnumbered(r[1]) for r in got]
+                    == [_unnumbered(r[1]) for r in want])
+    for (_, name, a), (_, _, b) in zip(got, want):
+        np.testing.assert_allclose(float(a), float(b), rtol=1e-5, err_msg=name)
 
 
 def test_reshape_on_fused_path_keeps_training():
@@ -318,11 +351,18 @@ def test_bucketing_module_surface():
     with pytest.raises(MXNetError):
         bmod.bind([("data", (BATCH, 5, DIM))], shared_module=bmod)
     bmod.init_params(tmx.init.One())
-    with pytest.raises(MXNetError, match="A7"):
-        bmod.install_monitor(object())
+    # install_monitor (A7): the JAX package's statistics on bucket 5
+    jbmod = jmx.mod.BucketingModule(_bucket_sym_gen(jmx), default_bucket_key=5,
+                                    context=jmx.cpu())
+    jbmod.bind([("data", (BATCH, 5, DIM))], [("softmax_label", (BATCH,))])
+    jbmod.init_params(jmx.init.One())
+    _assert_same_monitor_records(bmod, jbmod, (BATCH, 5, DIM))
     batch = _bucket_batches(tmx, 2)[1]
     bmod.prepare(batch)                       # binds bucket 3, stays on 5
     assert sorted(bmod._buckets) == [3, 5] and bmod._curr_bucket_key == 5
+    # a bucket bound after install_monitor is monitored and stays classic
+    assert bmod._buckets[3]._monitor_installed
+    assert bmod._buckets[3]._exec_group.execs[0].monitor_callback is not None
     bmod.forward(batch, is_train=False)
     assert bmod.get_outputs()[0].shape == (BATCH, CLASSES)
     assert bmod.output_shapes[0][1] == (BATCH, CLASSES)

@@ -78,8 +78,21 @@ def test_script_names_resolve_and_later_names_say_their_item():
     for mod, name in ((T.mod, "ParallelLMModule"), (T.parallel, "build_mesh"),
                       (T, "executor_manager")):
         assert hasattr(mod, name), name
-    for get, item in ((lambda: T.profiler, "A7"), (lambda: T.monitor, "A7"),
-                      (lambda: T.compileobs, "A7"),
+    # ported with A7's training half: the JAX package's entry points
+    for name, attrs in (
+            ("profiler", ("profiler_set_config", "profiler_set_state",
+                          "dump_profile", "emit_span", "record_span")),
+            ("monitor", ("Monitor",)), ("mon", ("Monitor",)),
+            ("guard", ("GuardPolicy", "TrainingGuard", "Sentinel",
+                       "BadStepError", "StallError", "resolve")),
+            ("compileobs", ("symbol_digest", "diff_signatures", "summary",
+                            "program_table", "oom_guard", "reset",
+                            "device_memory_stats", "update_memory_gauges"))):
+        for attr in attrs:
+            assert callable(getattr(getattr(J, name), attr)), (name, attr)
+            assert callable(getattr(getattr(T, name), attr)), (name, attr)
+    for get, item in ((lambda: T.compile_cache, "A7"),
+                      (lambda: T.graphpass, "A7"), (lambda: T.rtc, "A7"),
                       (lambda: T.export_artifact, "A8")):
         with pytest.raises(MXNetError, match=item):
             get()

@@ -390,7 +390,10 @@ def test_port_import_leaves_jax_out():
             " mxnet_tpu_torch.parallel.ring, mxnet_tpu_torch.parallel.pipeline,"
             " mxnet_tpu_torch.parallel.moe, mxnet_tpu_torch.parallel.lm,"
             " mxnet_tpu_torch.module.parallel_module, mxnet_tpu_torch.placed,"
-            " mxnet_tpu_torch.executor_manager;"
+            " mxnet_tpu_torch.executor_manager, mxnet_tpu_torch.profiler,"
+            " mxnet_tpu_torch.monitor, mxnet_tpu_torch.guard,"
+            " mxnet_tpu_torch.compileobs, mxnet_tpu_torch.fault,"
+            " mxnet_tpu_torch.tools.compile_report;"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'mxnet_tpu' or "
             "m.startswith('mxnet_tpu.')];"

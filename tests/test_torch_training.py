@@ -431,8 +431,25 @@ def test_executor_rejects_unported_options():
     ex = ts.simple_bind(ctx=tmx.cpu(), group2ctx={"a": tmx.cpu()}, data=(B, T),
                         softmax_label=(B, T))
     assert ex._placed is None
-    with pytest.raises(MXNetError, match="A7"):
-        ex.set_monitor_callback(lambda *a: None)
+    # set_monitor_callback (A7): every node's outputs, named and valued as
+    # the JAX executor's monitored forward gives them
+    js, _ = _symbols()
+    jex = js.simple_bind(ctx=jmx.cpu(), data=(B, T), softmax_label=(B, T))
+    X, Y = _lm_data(B)
+    seen = {}
+    for pkg, exe in (("t", ex), ("j", jex)):
+        for n, v in _lm_params().items():
+            exe.arg_dict[n][:] = v
+        exe.arg_dict["data"][:] = X
+        exe.arg_dict["softmax_label"][:] = Y
+        rec = seen[pkg] = []
+        exe.set_monitor_callback(lambda name, arr, rec=rec: rec.append(
+            (name, arr.asnumpy().copy())))
+        exe.forward(is_train=False)
+    assert [n for n, _ in seen["t"]] == [n for n, _ in seen["j"]]
+    assert len(seen["t"]) > 20
+    for (n, a), (_, b) in zip(seen["t"], seen["j"]):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4, err_msg=n)
 
 
 # ------------------------------------------------------------------ module
@@ -553,12 +570,25 @@ def test_module_without_context_needs_cuda(monkeypatch):
 def test_fit_rejects_unported_options():
     _, ts = _symbols()
     X, Y = _lm_data(8)
-    # auto_resume is ported (tests/test_torch_resume.py); monitor and guard
-    # are not
-    for kw in ({"monitor": object()}, {"guard": "skip"}):
-        with pytest.raises(MXNetError, match="ROADMAP"):
-            tmx.mod.Module(ts, context=tmx.cpu()).fit(
-                tmx.io.NDArrayIter(X, Y, batch_size=B), num_epoch=1, **kw)
+    # auto_resume is ported (tests/test_torch_resume.py), and since A7 so
+    # are monitor and guard: each fit ends where the JAX package's does
+    js, _ = _symbols()
+    params = _lm_params()
+    ends = {}
+    for pkg, sym in ((tmx, ts), (jmx, js)):
+        for opt, kw in (("monitor", {"monitor": pkg.mon.Monitor(1)}),
+                        ("guard", {"guard": "skip"})):
+            m = pkg.mod.Module(sym, context=pkg.cpu())
+            m.fit(pkg.io.NDArrayIter(X, Y, batch_size=B), num_epoch=1,
+                  arg_params={n: pkg.nd.array(v, ctx=pkg.cpu())
+                              for n, v in params.items()}, **kw)
+            ends[pkg, opt] = {n: a.asnumpy() for n, a in
+                              m.get_params()[0].items()}
+    for opt in ("monitor", "guard"):
+        for n in params:
+            np.testing.assert_allclose(ends[tmx, opt][n], ends[jmx, opt][n],
+                                       rtol=TOL, atol=TOL, err_msg=n)
+            assert not np.array_equal(ends[tmx, opt][n], params[n]), n
     # several contexts are ported (A6b): one executor each
     mod = tmx.mod.Module(ts, context=[tmx.cpu(), tmx.cpu()])
     mod.bind(data_shapes=[("data", (B, T))],
