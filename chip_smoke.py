@@ -342,6 +342,35 @@ Drives ``mxnet_tpu_torch`` (never the JAX package) on ``cuda:0``:
    step's, host wall, peak, parameters within 1e-6) and
    ``examples/memcost.py``'s network at its defaults (both peaks).
 
+24. A6c, the parameter server's HA and elastic half, on phase 21(b)'s LM
+   fit (256 sequences, batch 32, 3 epochs of 4 steps per worker, Adam,
+   fused on ``cuda:0``; the sequences reordered so that the contiguous
+   shard ``num_parts=2`` gives each worker phase 21's) under
+   ``tools/launch.py --elastic`` with 0.5 s heartbeats and a 2 s timeout:
+   (a) ``-s 4`` with ``MXNET_KV_REPLICAS=1`` (groups [0, 1] and [2, 3]),
+   server checkpoints every 2 steps, and server 2, group 1's primary,
+   SIGKILLed mid-epoch 2 (``kill_server``): the launcher exits 0, both
+   workers finish on the server map 0,3 with bitwise equal parameters,
+   the logs show the promotion, the map adopted, server 2 relaunched, a
+   checkpoint written, the optimizer state restored and the rejoin as a
+   backup, and every server (the relaunched one too) stops without having
+   initialized CUDA; (b) ``-s 1`` with worker 1 SIGKILLed at its seventh
+   batch (``kill_worker``): the survivor reconfigures and goes on alone,
+   the relaunched worker rejoins, recaptures its gradient graph on
+   ``cuda:0`` and trains; both end bitwise equal, each last epoch's
+   batches those of a fresh ``NDArrayIter`` on shard (2, rank), K1, K2a
+   and K2b launched by both incarnations; in both runs rank 0 holds its
+   batch end once the membership changed until the relaunched process is
+   back (so the cycle completes inside the fit); (c) a plain ``dist_sync``
+   cluster whose rank 1 sleeps 0.5 s in its data iterator per batch after
+   its second: rank 0's ``cluster_stats()`` holds both ranks and names
+   rank 1 (stage data_wait), and ``request_server_trace()`` attributes
+   pushes and pulls to both ranks and their last step. Printed: the
+   seconds from the last step before each kill to the first step after
+   it, the median host wall per fused step before and after each event,
+   the launches per incarnation, each run's final perplexity and its
+   parameters' largest difference from phase 21(b)'s.
+
 Every phase that fails raises, so the exit code is not 0. The last two
 lines are the ``kernels`` JSON object and the ``ok`` JSON object; the card
 line comes just before them.
@@ -4270,11 +4299,12 @@ def _free_port():
     return port
 
 
-def run_cluster(command, env_extra, what):
-    """``tools/launch.py -n 2 -s 1 <command>`` in its own process group,
-    killed past ``DIST_TIMEOUT``: returns (stdout, stderr); a failed or
-    hung cluster fails the phase. The server must report on exit that it
-    never initialized CUDA."""
+def run_cluster(command, env_extra, what, servers=1, launch_args=()):
+    """``tools/launch.py -n 2 -s <servers> <command>`` in its own process
+    group, killed past ``DIST_TIMEOUT``: returns (stdout, stderr); a failed
+    or hung cluster fails the phase. Each server id must write, on exit,
+    one line saying that it never initialized CUDA (a killed server
+    writes none; its relaunch does)."""
     import os
     import signal
 
@@ -4282,8 +4312,9 @@ def run_cluster(command, env_extra, what):
     env = {k: v for k, v in os.environ.items() if not k.startswith("DMLC_")}
     env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
     env.update(env_extra)
-    cmd = [sys.executable, os.path.join(root, "tools", "launch.py"), "-n", "2",
-           "-s", "1", "--port", str(_free_port())] + command
+    cmd = ([sys.executable, os.path.join(root, "tools", "launch.py"), "-n",
+            "2", "-s", str(servers), "--port", str(_free_port())]
+           + list(launch_args) + command)
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, env=env, cwd=root, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True,
@@ -4298,11 +4329,15 @@ def run_cluster(command, env_extra, what):
     log("  %s: launcher exit %d after %.1f s" % (what, proc.returncode,
                                                  time.perf_counter() - t0))
     check(proc.returncode == 0, "%s: the cluster failed: %s" % (what, err[-3000:]))
-    lines = [l for l in err.splitlines() if l.startswith("kvstore-server")]
+    lines = [l for l in err.splitlines()
+             if l.startswith("kvstore-server") and ": stopped;" in l]
     for line in lines:
         log("  %s" % line)
-    check(len(lines) == 1 and lines[0].endswith("cuda initialized: False"),
-          "%s: the server did not report that it kept off CUDA" % what)
+    check(sorted(l.split(":")[0] for l in lines)
+          == ["kvstore-server %d" % i for i in range(servers)]
+          and all(l.endswith("cuda initialized: False") for l in lines),
+          "%s: the servers did not each report that they kept off CUDA"
+          % what)
     return out, err
 
 
@@ -4421,7 +4456,8 @@ def run_train_lm_example(mx, build):
 
 
 def run_dist_phase(mx, build, card, t_counts):
-    """Phase 21; returns the kernels' launches of its main paths."""
+    """Phase 21; returns the kernels' launches of its main paths and
+    worker 0's final parameters of the fused dist_sync fit."""
     import os
     import tempfile
 
@@ -4492,7 +4528,7 @@ def run_dist_phase(mx, build, card, t_counts):
     log("  train_mnist validation accuracy per epoch and worker: %s" % acc)
     check(len(acc) == 2 * MNIST_EPOCHS and all(math.isfinite(a) for a in acc)
           and min(acc[-2:]) > 0.5, "train_mnist under dist_sync did not learn")
-    return launches
+    return launches, params["fused", 0]
 
 
 # --------------------------------------- model parallelism (phase 22)
@@ -5344,6 +5380,371 @@ def run_observability_phase(mx, build, card):
     return total
 
 
+# ------------------------------------ A6c: HA and elastic membership (24)
+ELASTIC_HB = {"MXNET_ELASTIC_HEARTBEAT_S": "0.5",
+              "MXNET_ELASTIC_HEARTBEAT_TIMEOUT_S": "2"}
+# (b): worker 1 dies at the top of its seventh batch (epoch 1, batch 2)
+WORKER_KILL_AFTER = 6
+# (a): server 2 dies once group 1's keys took this many steps of updates
+# (mid-epoch 1, batch 2), and the servers checkpoint every this many
+SERVER_KILL_STEPS = 6
+SERVER_CKPT_STEPS = 2
+# (c): rank 1's sleep per batch in its data iterator, after this many
+STRAGGLER_SLEEP_S = 0.5
+STRAGGLER_WARMUP = 2
+# rank 0's wait at a batch end for the relaunched process to be back
+HOLD_LIMIT_S = 240
+
+
+def elastic_stream():
+    """Phase 21(b)'s sequences reordered so that ``num_parts=2`` part r is
+    phase 21's shard of rank r (``X[r::2]``)."""
+    X, Y = lm_stream(DIST_SEQS)
+    return (np.concatenate([X[0::2], X[1::2]]),
+            np.concatenate([Y[0::2], Y[1::2]]))
+
+
+def _checksum(x):
+    return float(np.abs(np.asarray(x, np.float64)).sum())
+
+
+def elastic_lm_worker():
+    """One process of phase 24, started by ``tools/launch.py`` (a server
+    serves inside the ``import`` and exits there): phase 21(b)'s fit on
+    ``cuda:0``, fused, on contiguous shards that the elastic session
+    reshards. Every batch end appends a JSON line (time, incarnation,
+    step, membership epoch, server map, launches so far, the batch's
+    checksum) to ``SMOKE_OUT``, so a killed incarnation leaves its record;
+    the end writes the parameters and a summary. ``WAIT_FOR``
+    (``server:<id>`` or ``worker:<rank>``) makes rank 0 wait at its first
+    batch end after a membership change until that process is back in
+    the registry's table; ``SMOKE_STRAGGLE=1`` slows rank 1's data path."""
+    import os
+
+    if os.environ.get("DMLC_PS_RECOVERY"):
+        # the kill rule is the first incarnation's
+        os.environ.pop("MXNET_FAULT_SPEC", None)
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import telemetry as tel
+    from mxnet_tpu_torch.ops import _build as build
+
+    out_dir = os.environ["SMOKE_OUT"]
+    wait_for = os.environ.get("WAIT_FOR")
+    straggle = os.environ.get("SMOKE_STRAGGLE") == "1"
+    kv = mx.kv.create("dist_sync")
+    rank = kv.rank
+    inc = "relaunch" if kv.is_recovery else "first"
+    X, Y = elastic_stream()
+
+    class Paced(mx.io.NDArrayIter):
+        served = 0
+
+        def next(self):
+            Paced.served += 1
+            if straggle and rank == 1 and Paced.served > STRAGGLER_WARMUP:
+                time.sleep(STRAGGLER_SLEEP_S)
+            return super().next()
+
+    it = Paced(X, Y, batch_size=DIST_BATCH, shuffle=False,
+               num_parts=kv.num_workers, part_index=rank)
+    mod = mx.mod.Module(mx.models.transformer_lm(**TRAIN), context=mx.gpu(0))
+    metric = mx.metric.Perplexity(ignore_label=None)
+    ppl, held, probe = [], [], {}
+    path = os.path.join(out_dir, "steps-%d-%s.jsonl" % (rank, inc))
+    for k in build.KERNELS.values():
+        k.launches = 0
+
+    def back(table):
+        kind, who = wait_for.split(":")
+        return int(who) in table["servers" if kind == "server" else "workers"]
+
+    def hold():
+        deadline = time.time() + HOLD_LIMIT_S
+        while time.time() < deadline:
+            raw = kv.registry_fetch("mb_get")
+            if raw and back(json.loads(raw.decode())):
+                held.append(time.time())
+                return
+            time.sleep(0.1)
+        raise SystemExit("%s never came back" % wait_for)
+
+    def watch(param):
+        # three steps into rank 1's sleep: the merged view of both ranks
+        step = param.epoch * 4 + param.nbatch
+        if "stats" in probe or step < STRAGGLER_WARMUP + 3:
+            return
+        for _ in range(40):
+            stats = kv.cluster_stats()
+            if all(((stats["workers"].get(r) or {}).get("window") or {}).get(
+                    "steps") for r in (0, 1)):
+                probe["stats"] = stats
+                break
+            time.sleep(0.1)
+        probe["at"] = step
+        evs = tel.events("kv.straggler")
+        probe["named"] = dict(evs[0]) if evs else None
+
+    def batch_end(param):
+        torch.cuda.synchronize()
+        tr = mod._fused.trainer if mod._fused is not None else None
+        rec = {"t": time.time(), "rank": rank, "inc": inc,
+               "epoch": param.epoch, "nbatch": param.nbatch,
+               "mepoch": kv.membership_epoch, "smap": list(kv._smap),
+               "checksum": _checksum(param.locals["data_batch"].data[0]
+                                     .asnumpy()),
+               "launches": {n: build.KERNELS[n].launches for n in FLASH},
+               "captures": None if tr is None else tr.captures}
+        with open(path, "a") as f:
+            f.write(json.dumps(rec) + "\n")
+        if rank == 0 and straggle:
+            watch(param)
+        if rank == 0 and wait_for and not held and kv.membership_epoch >= 1:
+            hold()
+
+    mod.fit(it, num_epoch=DIST_EPOCHS, kvstore=kv, optimizer="adam",
+            optimizer_params={"learning_rate": TRAIN_LR},
+            initializer=mx.init.Xavier(rng=torch.Generator().manual_seed(rank)),
+            eval_metric=metric, batch_end_callback=batch_end,
+            epoch_end_callback=lambda *a: ppl.append(metric.get()[1]))
+    tr = mod._fused.trainer if mod._fused is not None else None
+    summary = {"rank": rank, "inc": inc, "ppl": ppl, "smap": list(kv._smap),
+               "fused": mod._fused is not None,
+               "context": str(torch.device(mod._context[0])),
+               "captures": None if tr is None else tr.captures,
+               "launches": {n: build.KERNELS[n].launches for n in FLASH},
+               "held": held}
+    if rank == 0 and straggle:
+        stats = probe.get("stats") or {}
+        trace = kv.request_server_trace()
+        workers = stats.get("workers") or {}
+        summary["probe"] = {
+            "named": probe.get("named"), "at": probe.get("at"),
+            "held": sorted(r for r, s in workers.items() if s),
+            "straggler": stats.get("straggler"),
+            "windows": {r: (s or {}).get("window") for r, s in
+                        workers.items()},
+            "trace": next(iter(trace.values()))["per_rank"]}
+    np.savez(os.path.join(out_dir, "params-%d.npz" % rank),
+             **{n: a.asnumpy() for n, a in mod.get_params()[0].items()})
+    with open(os.path.join(out_dir, "done-%d.json" % rank), "w") as f:
+        json.dump(summary, f)
+    kv.barrier()
+    if rank == 0:
+        kv._stop_servers()
+
+
+def _elastic_run(what, out_dir, env, servers=1, elastic=True):
+    """One phase-24 cluster; returns (stderr, {rank: summary}, {rank:
+    params}, [every batch-end record, by time])."""
+    import glob
+    import os
+
+    os.makedirs(out_dir)
+    command = [sys.executable, "-c",
+               "import chip_smoke; chip_smoke.elastic_lm_worker()"]
+    t0 = time.time()
+    _, err = run_cluster(command, dict(env, SMOKE_OUT=out_dir), what,
+                         servers=servers,
+                         launch_args=("--elastic",) if elastic else ())
+    log("  %s: %.1f s" % (what, time.time() - t0))
+    done, params = {}, {}
+    for r in (0, 1):
+        with open(os.path.join(out_dir, "done-%d.json" % r)) as f:
+            done[r] = json.load(f)
+        with np.load(os.path.join(out_dir, "params-%d.npz" % r)) as z:
+            params[r] = {k: z[k] for k in z.files}
+    steps = []
+    for p in glob.glob(os.path.join(out_dir, "steps-*.jsonl")):
+        with open(p) as f:
+            steps += [json.loads(l) for l in f if l.strip()]
+    steps.sort(key=lambda r: r["t"])
+    return err, done, params, steps
+
+
+def _median_walls(steps, rank):
+    """``{membership epoch: rank's median host wall per step}``: the gaps
+    between its batch ends within one epoch and incarnation, the first two
+    of each left out (the hold, a capture) when more than four remain."""
+    out = {}
+    for e in sorted({r["mepoch"] for r in steps}):
+        rows = [r for r in steps if r["rank"] == rank and r["mepoch"] == e]
+        gaps = [cur["t"] - prev["t"] for prev, cur in zip(rows, rows[1:])
+                if cur["inc"] == prev["inc"]]
+        gaps = sorted(gaps[2:] if len(gaps) > 4 else gaps)
+        out[e] = gaps[len(gaps) // 2] if gaps else float("nan")
+    return out
+
+
+def _walls_line(walls):
+    return ", ".join("membership epoch %d: %s" % (e, "%.5f s" % w if w == w
+                                                 else "one step")
+                     for e, w in sorted(walls.items()))
+
+
+def _incarnation_launches(steps):
+    """Each (rank, incarnation)'s launches by its last batch end."""
+    last = {}
+    for r in steps:
+        last[r["rank"], r["inc"]] = r["launches"]
+    return last
+
+
+def _largest_diff(params, ref):
+    return max(float(np.abs(params[k] - ref[k]).max()) for k in ref)
+
+
+def _check_elastic_common(what, done, params, steps, ref):
+    L = TRAIN["num_layers"]
+    differ = [k for k in params[0]
+              if not np.array_equal(params[0][k], params[1][k])]
+    log("  [%s] the two workers' final parameters: %s"
+        % (what, "bitwise equal" if not differ else "differ in %s" % differ))
+    check(not differ, "%s: the workers' parameters differ" % what)
+    for r in (0, 1):
+        check(done[r]["context"] == "cuda:0" and done[r]["fused"],
+              "%s: worker %d did not train fused on cuda:0" % (what, r))
+    ppl = done[0]["ppl"]
+    log("  [%s] worker 0's perplexity per epoch %s; largest parameter "
+        "difference from phase 21(b)'s unfaulted fit %.3e"
+        % (what, ["%.3f" % p for p in ppl], _largest_diff(params[0], ref)))
+    check(len(ppl) == DIST_EPOCHS and all(math.isfinite(p) for p in ppl)
+          and ppl[-1] < ppl[0], "%s: the perplexity did not fall" % what)
+    for key, n in sorted(_incarnation_launches(steps).items()):
+        log("  [%s] worker %d, %s incarnation: launches %s" % (what, key[0],
+                                                              key[1], n))
+        check(all(n[k] > 0 and n[k] % L == 0 for k in FLASH),
+              "%s: worker %d's %s incarnation launched %s" % (what, key[0],
+                                                            key[1], n))
+
+
+def run_elastic_phase(mx, build, card, dist_params):
+    """Phase 24 (see the module docstring); returns the K1/K2a/K2b launches
+    of its runs, every incarnation's."""
+    import os
+    import tempfile
+
+    total = {n: 0 for n in FLASH}
+    steps_per_epoch = DIST_SEQS // 2 // DIST_BATCH
+    names = [n for n in mx.models.transformer_lm(**TRAIN).list_arguments()
+             if n not in ("data", "softmax_label")]
+    group1 = sum(1 for i in range(len(names)) if i % 2 == 1)
+    t_phase = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        log("  (a) -s 4, MXNET_KV_REPLICAS=1: server 2 (group 1's primary) "
+            "killed after %d updates (%d keys in group 1, %d steps)"
+            % (group1 * SERVER_KILL_STEPS, group1, SERVER_KILL_STEPS))
+        err, done, params, steps = _elastic_run(
+            "server failover", os.path.join(tmp, "a"), dict(
+                ELASTIC_HB, MXNET_KV_REPLICAS="1",
+                MXNET_KV_SERVER_CKPT_STEPS=str(group1 * SERVER_CKPT_STEPS),
+                MXNET_KV_SERVER_CKPT_DIR=os.path.join(tmp, "ckpt"),
+                MXNET_FAULT_SPEC="kill_server:server_id=2,after=%d,times=1"
+                % (group1 * SERVER_KILL_STEPS),
+                WAIT_FOR="server:2"), servers=4)
+        check(done[0]["smap"] == done[1]["smap"] == [0, 3],
+              "(a): the workers ended on server maps %s, %s"
+              % (done[0]["smap"], done[1]["smap"]))
+        for event in ("PROMOTED to primary", "adopting server map",
+                      "relaunching server 2", "optimizer-state checkpoint",
+                      "restored optimizer state", "rejoined as a backup"):
+            n = err.count(event)
+            log("  (a) log: %r x%d" % (event, n))
+            check(n > 0, "(a): the logs never say %r" % event)
+        _check_elastic_common("(a)", done, params, steps, dist_params)
+        r0 = [r for r in steps if r["rank"] == 0]
+        before = [r for r in r0 if r["smap"] != [0, 3]]
+        after = [r for r in r0 if r["smap"] == [0, 3]]
+        check(before and after, "(a): no step on each side of the failover")
+        log("  (a) %.3f s from the last step before the kill (epoch %d batch "
+            "%d) to the first step on the map 0,3; worker 0's median host "
+            "wall per fused step by membership epoch: %s"
+            % (after[0]["t"] - before[-1]["t"], before[-1]["epoch"],
+               before[-1]["nbatch"], _walls_line(_median_walls(steps, 0))))
+        for n, c in _incarnation_launches(steps).items():
+            for k in FLASH:
+                total[k] += c[k]
+
+        log("  (b) -s 1: worker 1 killed at its batch %d"
+            % (WORKER_KILL_AFTER + 1))
+        err, done, params, steps = _elastic_run(
+            "worker kill", os.path.join(tmp, "b"), dict(
+                ELASTIC_HB, MXNET_KV_SERVER_CKPT_DIR=os.path.join(tmp, "ckpt_b"),
+                MXNET_FAULT_SPEC="kill_worker:rank=1,after=%d,times=1"
+                % WORKER_KILL_AFTER, WAIT_FOR="worker:1"))
+        for event in ("elastic: reconfigured to membership epoch",
+                      "elastic: joined membership epoch",
+                      "relaunching worker 1"):
+            n = err.count(event)
+            log("  (b) log: %r x%d" % (event, n))
+            check(n > 0, "(b): the logs never say %r" % event)
+        check(done[1]["inc"] == "relaunch" and done[0]["inc"] == "first",
+              "(b): incarnations %s, %s" % (done[0]["inc"], done[1]["inc"]))
+        check(done[1]["captures"] and done[1]["captures"] >= 1,
+              "(b): the relaunched worker captured no gradient graph")
+        _check_elastic_common("(b)", done, params, steps, dist_params)
+        keys = _incarnation_launches(steps)
+        check((1, "first") in keys and (1, "relaunch") in keys,
+              "(b): launches of %s" % sorted(keys))
+        X, Y = elastic_stream()
+        for r in (0, 1):
+            fresh = mx.io.NDArrayIter(X, Y, batch_size=DIST_BATCH,
+                                      num_parts=2, part_index=r)
+            want = [_checksum(b.data[0].asnumpy()) for b in fresh]
+            got = [s["checksum"] for s in steps if s["rank"] == r
+                   and s["epoch"] == DIST_EPOCHS - 1][-steps_per_epoch:]
+            check(got == want, "(b): worker %d's last epoch read %s, a fresh "
+                  "shard (2, %d) %s" % (r, got, r, want))
+        log("  (b) each worker's last epoch: the batches of a fresh "
+            "NDArrayIter on shard (2, rank)")
+        first1 = [s for s in steps if s["rank"] == 1 and s["inc"] == "first"]
+        relaunch1 = [s for s in steps if s["rank"] == 1
+                     and s["inc"] == "relaunch"]
+        log("  (b) %.3f s from worker 1's last step (epoch %d batch %d) to "
+            "its relaunch's first step; worker 0's median host wall per "
+            "fused step by membership epoch (0: two workers, 1: alone, 2: "
+            "rejoined): %s"
+            % (relaunch1[0]["t"] - first1[-1]["t"], first1[-1]["epoch"],
+               first1[-1]["nbatch"], _walls_line(_median_walls(steps, 0))))
+        for n, c in keys.items():
+            for k in FLASH:
+                total[k] += c[k]
+
+        log("  (c) dist_sync, rank 1 sleeping %.1f s per batch in its data "
+            "path after %d" % (STRAGGLER_SLEEP_S, STRAGGLER_WARMUP))
+        err, done, params, steps = _elastic_run(
+            "cluster statistics", os.path.join(tmp, "c"), {
+                "SMOKE_STRAGGLE": "1", "MXNET_CLUSTER_STATS_INTERVAL_S": "0.15",
+                "MXNET_STRAGGLER_FACTOR": "2.0"}, elastic=False)
+        probe = done[0]["probe"]
+        verdict = probe["straggler"]
+        log("  (c) rank 0's cluster_stats() at step %s: ranks %s, straggler "
+            "%s; windows %s; the publisher's first kv.straggler event %s"
+            % (probe["at"], probe["held"], verdict, probe["windows"],
+               probe["named"]))
+        check(probe["held"] == [0, 1],
+              "(c): cluster_stats() holds ranks %s" % probe["held"])
+        check(verdict is not None and verdict["rank"] == 1
+              and verdict["stage"] == "data_wait",
+              "(c): cluster_stats() names the straggler %s" % verdict)
+        trace = probe["trace"]
+        last = ((DIST_EPOCHS - 1) << 32) | (steps_per_epoch - 1)
+        log("  (c) the server's trace: %s" % trace)
+        check(all(trace[r]["pushes"] > 0 and trace[r]["pulls"] > 0
+                  and trace[r]["last_step"] == last for r in ("0", "1")),
+              "(c): the trace does not attribute both ranks' RPCs")
+        differ = [k for k in dist_params
+                  if not np.array_equal(params[0][k], dist_params[k])]
+        log("  (c) final parameters against phase 21(b)'s: %s"
+            % ("bitwise equal" if not differ else "largest difference %.3e"
+               % _largest_diff(params[0], dist_params)))
+        for n, c in _incarnation_launches(steps).items():
+            for k in FLASH:
+                total[k] += c[k]
+    log("  phase 24: %.1f s; K1/K2a/K2b launches %s"
+        % (time.time() - t_phase, total))
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -5599,7 +6000,8 @@ def main():
 
     log("== 21. the example scripts and mx.kv: train_lm, dist_sync across "
         "two workers and a server (%s)" % card)
-    for name, n in run_dist_phase(mx, build, card, t_counts).items():
+    d_launches, dist_params = run_dist_phase(mx, build, card, t_counts)
+    for name, n in d_launches.items():
         next(r for r in rows if r["name"] == name)["launches"] += n
 
     log("== 22. model parallelism: ring and Ulysses attention, the sp/pp/ep "
@@ -5612,6 +6014,11 @@ def main():
     log("== 23. A7's training half on the LM's fit: the health guard, the "
         "monitor, the profiler, compileobs, the mirror (%s)" % card)
     for name, n in run_observability_phase(mx, build, card).items():
+        next(r for r in rows if r["name"] == name)["launches"] += n
+
+    log("== 24. A6c: a server primary and a worker killed under "
+        "tools/launch.py --elastic; cluster statistics (%s)" % card)
+    for name, n in run_elastic_phase(mx, build, card, dist_params).items():
         next(r for r in rows if r["name"] == name)["launches"] += n
 
     log(card)

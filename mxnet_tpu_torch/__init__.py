@@ -39,7 +39,10 @@ surface (``mx.Context`` and its ``with`` scope, ``mx.tpu``,
 parameter-server cluster of ``tools/launch.py`` (``dist_sync``,
 ``dist_async``; :mod:`.kvstore_server`, the engine and the transport in
 ``csrc/native``), whose fused step runs its gradient and its update as
-two CUDA graphs with the exchange on the host between them; model
+two CUDA graphs with the exchange on the host between them, with its
+HA and elastic half (replicated server groups with failover and
+checkpoints, the membership registry, :mod:`.elastic`, the cluster-stats
+publisher); model
 parallelism: meshes of positions over the cards (``parallel``), ring and
 Ulysses attention over the flash kernels, the GPipe pipeline, the Switch
 MoE, the dense, sp, pp and ep LM trainers behind
@@ -98,6 +101,7 @@ from . import kvstore  # noqa: E402
 from . import kvstore as kv  # noqa: E402
 from .kvstore import KVStore  # noqa: E402
 from . import kvstore_server  # noqa: E402
+from . import elastic  # noqa: E402
 from . import fault, analysis, parallel  # noqa: E402
 from . import profiler, compileobs, guard  # noqa: E402
 from . import monitor  # noqa: E402
@@ -118,7 +122,7 @@ __version__ = "0.1.0"
 
 __all__ = ["base", "context", "MXNetError", "Context", "cpu", "gpu", "tpu",
            "current_context", "default_device", "utils", "engine", "kv",
-           "kvstore", "KVStore", "kvstore_server", "fault", "analysis",
+           "kvstore", "KVStore", "kvstore_server", "elastic", "fault", "analysis",
            "parallel", "placed", "executor_manager", "rnd", "profiler",
            "compileobs", "guard", "monitor", "mon",
            "FeedForward", "Optimizer",

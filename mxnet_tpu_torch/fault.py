@@ -24,10 +24,21 @@ is testable in one process, reproducibly:
   synthesizes a classified ``KVCacheOOM`` without draining the pool.
 * ``slow_step`` — the serving engine step's entry (``delay_ms=N`` stalls
   the whole step).
-
-Not here yet: the JAX package's ``kv_push``/``kv_pull``/``server_updater``
-retry points and the ``kill_worker``/``kill_server`` hooks (``ROADMAP.md``
-A6c), and ``bad_record``.
+* ``kv_push`` / ``kv_pull`` — the dist KVStore's RPC attempts
+  (``drop=1`` fails one, ``delay_ms=N`` stalls it), for retry and backoff.
+* ``server_updater`` — a parameter server's optimizer update (``raise=1``),
+  for the server's failure count and threshold.
+* ``bad_record`` — ``ImageRecordIter``'s per-record decode.
+* ``kill_worker`` — the fit loop's per-batch seam (``module/
+  base_module.py``): SIGKILLs this process, no exit hooks, no flush: a
+  machine loss. ``rank=N`` targets one worker of a launched cluster (every
+  process inherits ``MXNET_FAULT_SPEC``); with ``after=K`` it dies at batch
+  K. Drives the elastic kill, reconfigure and rejoin cycle
+  (``tools/launch.py --elastic``).
+* ``kill_server`` — a parameter server's update seam
+  (``kvstore_server.py``): SIGKILLs a server the same way, after ``after=K``
+  applied updates; ``server_id=N`` targets one. Drives the promotion of a
+  backup.
 
 Faults are described by a spec string, in ``MXNET_FAULT_SPEC`` (inherited
 by every process a run starts) or pushed with :func:`inject`::
@@ -42,6 +53,8 @@ Grammar: ``point:arg=val[,arg=val...]`` joined by ``;``. Args: ``times=N``
 """
 from __future__ import annotations
 
+import os
+import signal
 import threading
 import time
 from contextlib import contextmanager
@@ -50,7 +63,7 @@ from . import telemetry
 from .base import MXNetError, env_str
 
 __all__ = ["InjectedFault", "InjectedCrash", "hit", "inject", "reset",
-           "crash_after_bytes", "consume"]
+           "crash_after_bytes", "consume", "kill_worker", "kill_server"]
 
 
 class InjectedFault(MXNetError):
@@ -119,14 +132,19 @@ def inject(spec):
             _spec_stack.remove(rules)
 
 
-def _arm(name, require=None):
+def _arm(name, require=None, match=None):
     """after/times gating (caller holds ``_lock``): count the hit on
-    ``name``'s rule (one carrying arg ``require``, when given) and return
-    the rule if it should fire, not yet marked fired."""
+    ``name``'s rule (one carrying arg ``require``, when given; one whose
+    args named in ``match`` equal its values, where the rule has them) and
+    return the rule if it should fire, not yet marked fired. A rule aimed
+    at another target is not counted: its budget stays the target's."""
     for r in _active_rules():
         if r["point"] != name:
             continue
         if require is not None and require not in r["args"]:
+            continue
+        if match is not None and any(k in r["args"] and r["args"][k] != str(v)
+                                     for k, v in match.items()):
             continue
         args = r["args"]
         r["hits"] += 1
@@ -171,6 +189,31 @@ def crash_after_bytes(name):
         if rule is None:
             return None
         return int(rule["args"]["crash_after_bytes"])
+
+
+def _kill(name, match):
+    with _lock:
+        rule = _arm(name, match=match)
+        if rule is None:
+            return
+        rule["fired"] += 1
+    telemetry.counter("fault.injections", point=name).inc()
+    os.kill(os.getpid(), signal.SIGKILL)
+
+
+def kill_worker(rank=None):
+    """The ``kill_worker`` point: SIGKILL this process when a rule fires
+    whose ``rank=`` (if it has one) is ``rank``. The fit loop calls it once
+    per batch."""
+    _kill("kill_worker", None if rank is None else {"rank": int(rank)})
+
+
+def kill_server(server_id=None):
+    """The ``kill_server`` point: SIGKILL this server when a rule fires
+    whose ``server_id=`` (if it has one) is ``server_id``. A server calls
+    it once per applied update."""
+    _kill("kill_server",
+          None if server_id is None else {"server_id": int(server_id)})
 
 
 def consume(name):

@@ -269,35 +269,81 @@ def _init_data(data, allow_empty, default_name):
 
 
 class NDArrayIter(DataIter):
-    """Iterate over in-memory arrays, held on the host."""
+    """Iterate over in-memory arrays, held on the host.
+
+    ``num_parts``/``part_index`` take the contiguous part ``part_index`` of
+    ``num_parts`` of the arrays (the dmlc InputSplit contract), then the
+    shuffle, seeded by ``seed`` when given. :meth:`set_partition` cuts the
+    original arrays again (elastic training); a shuffle without ``seed``
+    cannot be repeated and refuses to."""
 
     def __init__(self, data, label=None, batch_size=1, shuffle=False,
                  last_batch_handle="pad", data_name="data",
-                 label_name="softmax_label", seed=None):
+                 label_name="softmax_label", seed=None, num_parts=1,
+                 part_index=0):
         super().__init__(batch_size)
         if last_batch_handle not in ("pad", "discard", "roll_over"):
             raise ValueError("last_batch_handle must be pad, discard or "
                              "roll_over, got %r" % (last_batch_handle,))
-        self.data = _init_data(data, allow_empty=False, default_name=data_name)
-        self.label = _init_data(label, allow_empty=True, default_name=label_name)
-        n = self.data[0][1].shape[0]
-        self.idx = np.arange(n)
-        if shuffle:
-            rng = np.random.RandomState(seed) if seed is not None else np.random
-            rng.shuffle(self.idx)
-            self.data = [(k, v[self.idx]) for k, v in self.data]
-            self.label = [(k, v[self.idx]) for k, v in self.label]
-        if last_batch_handle == "discard":
-            new_n = n - n % batch_size
-            self.data = [(k, v[:new_n]) for k, v in self.data]
-            self.label = [(k, v[:new_n]) for k, v in self.label]
+        self._full_data = _init_data(data, allow_empty=False,
+                                     default_name=data_name)
+        self._full_label = _init_data(label, allow_empty=True,
+                                      default_name=label_name)
+        self._shuffle = shuffle
+        self._seed = seed
         self.last_batch_handle = last_batch_handle
+        self.num_parts = int(num_parts)
+        self.part_index = int(part_index)
+        self._apply_partition()
+        if self._shuffle and self._seed is None:
+            # never cut again (set_partition refuses): keep no second copy
+            self._full_data, self._full_label = self.data, self.label
+
+    def _apply_partition(self):
+        """The iteration arrays of the current partition: its contiguous
+        part, then the shuffle (the global numpy RNG without a seed)."""
+        if not 0 <= self.part_index < self.num_parts:
+            raise ValueError("part_index %d is not in [0, %d)"
+                             % (self.part_index, self.num_parts))
+        n_total = self._full_data[0][1].shape[0]
+        lo, hi = 0, n_total
+        if self.num_parts > 1:
+            n = n_total // self.num_parts
+            lo, hi = self.part_index * n, (self.part_index + 1) * n
+        data = [(k, v[lo:hi]) for k, v in self._full_data]
+        label = [(k, v[lo:hi]) for k, v in self._full_label]
+        n = hi - lo
+        self.idx = np.arange(n)
+        if self._shuffle:
+            rng = (np.random.RandomState(self._seed)
+                   if self._seed is not None else np.random)
+            rng.shuffle(self.idx)
+            data = [(k, v[self.idx]) for k, v in data]
+            label = [(k, v[self.idx]) for k, v in label]
+        if self.last_batch_handle == "discard":
+            new_n = n - n % self.batch_size
+            data = [(k, v[:new_n]) for k, v in data]
+            label = [(k, v[:new_n]) for k, v in label]
+        self.data, self.label = data, label
         self.data_list = [x[1] for x in self.data] + [x[1] for x in self.label]
         self.num_source = len(self.data_list)
         self.num_data = self.data_list[0].shape[0]
-        if self.num_data < batch_size:
+        if self.num_data < self.batch_size:
             raise ValueError("batch_size needs to be smaller than data size.")
-        self.cursor = -batch_size
+        self.cursor = -self.batch_size
+
+    def set_partition(self, num_parts, part_index):
+        """Cut the original arrays into part ``part_index`` of
+        ``num_parts`` and rewind; :meth:`load_state` then seeks within the
+        new part. The same arrays, seed and partition give the same
+        stream."""
+        if self._shuffle and self._seed is None:
+            raise MXNetError("NDArrayIter.set_partition with shuffle=True "
+                             "requires seed= (the reshuffle must be "
+                             "reproducible)")
+        self.num_parts = int(num_parts)
+        self.part_index = int(part_index)
+        self._apply_partition()
 
     @property
     def provide_data(self):
@@ -380,6 +426,17 @@ class ResizeIter(DataIter):
     def load_state(self, state):
         self.data_iter.load_state(state["inner"])
         self.cur = int(state["cur"])
+        self.current_batch = None
+
+    def set_partition(self, num_parts, part_index):
+        """Reshard the inner iterator (the resized length is the
+        consumer's and stays) and rewind."""
+        inner = getattr(self.data_iter, "set_partition", None)
+        if inner is None:
+            raise MXNetError("%s does not support set_partition"
+                             % type(self.data_iter).__name__)
+        inner(num_parts, part_index)
+        self.cur = 0
         self.current_batch = None
 
     def iter_next(self):

@@ -81,7 +81,11 @@ def _initialize_kvstore(kvstore, param_arrays, arg_params, param_names,
                         update_on_kvstore):
     """Initialize every parameter's key (its index) from ``arg_params``;
     when the store updates, pull its value back into the device copies
-    (reference: model.py:79)."""
+    (reference: model.py:79). A relaunched elastic worker skips it: its
+    pulls would carry an epoch it has not adopted yet, and the elastic
+    join pulls the parameters once it has."""
+    if getattr(kvstore, "_elastic_join", False):
+        return
     for idx, param_on_devs in enumerate(param_arrays):
         kvstore.init(idx, arg_params[param_names[idx]])
         if update_on_kvstore:

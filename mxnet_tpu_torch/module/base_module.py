@@ -22,8 +22,21 @@ loop restarts at the snapshot's batch), and its watchdog turns a hung
 step into a ``StallError``. ``fit(monitor=Monitor(...))`` installs the
 monitor (the module leaves the fused path) and brackets every step with
 its ``tic``/``toc_print``. Every step is a ``fit.step`` span
-(``epoch``/``nbatch`` args) on the profiler's trace. The JAX package's
-elastic membership and cluster hooks are ``ROADMAP.md`` A6c.
+(``epoch``/``nbatch`` args) on the profiler's trace; while telemetry is on
+each step's wall is split into ``fit.compute_seconds`` (the step),
+``fit.data_wait_seconds`` (the next batch) and ``fit.guard_seconds``.
+
+On a parameter-server store (``kvstore='dist_*'`` under a launcher) every
+RPC of a step carries ``epoch << 32 | nbatch`` (``KVStoreDist.set_step``),
+and ``fit`` starts the store's cluster-stats publisher unless one runs
+already (it stops only the one it started). With ``MXNET_ELASTIC=1``
+(``tools/launch.py --elastic``) ``fit`` joins the membership registry
+before the first RPC (:mod:`..elastic`), runs a rollback guard when none
+was given, and answers a ``KVMembershipError`` — a worker or server lost,
+a worker joined — by reconfiguring (drain, adopt, reshard, roll back) and
+going on from the snapshot; a relaunched worker enters where the
+survivors restart. The ``kill_worker`` fault point sits at the top of
+every step.
 """
 from __future__ import annotations
 
@@ -34,6 +47,8 @@ from collections import namedtuple
 
 import numpy as np
 
+from .. import elastic as elastic_mod
+from .. import fault as fault_mod
 from .. import guard as guard_mod
 from .. import metric as metric_mod
 from .. import io as io_mod
@@ -67,6 +82,64 @@ def _check_input_names(symbol, names, typename, throw):
 
 def _as_list(obj):
     return obj if isinstance(obj, (list, tuple)) else [obj]
+
+
+def _batch_samples(data_batch, source_iter):
+    """Real samples in a batch: its size less the padding."""
+    bs = getattr(source_iter, "batch_size", None)
+    if not bs and data_batch.data:
+        bs = data_batch.data[0].shape[0]
+    return max(int(bs or 0) - int(getattr(data_batch, "pad", 0) or 0), 0)
+
+
+class _StepMeter:
+    """The fit loop's step split while telemetry is on: the step (forward,
+    backward, update), the wait for the next batch, the guard's checks,
+    the whole step, batches, samples and samples per second. The handles
+    are resolved at the first step; off, each call is one flag check."""
+
+    __slots__ = ("_inst",)
+
+    def __init__(self):
+        self._inst = None
+
+    @staticmethod
+    def now():
+        return time.perf_counter() if telemetry.enabled() else 0.0
+
+    def _instruments(self):
+        if self._inst is None:
+            self._inst = (telemetry.histogram("fit.compute_seconds"),
+                          telemetry.histogram("fit.data_wait_seconds"),
+                          telemetry.histogram("fit.step_time_seconds"),
+                          telemetry.counter("fit.batches"),
+                          telemetry.counter("fit.samples"),
+                          telemetry.gauge("fit.imgs_per_sec"),
+                          telemetry.histogram("fit.guard_seconds"))
+        return self._inst
+
+    def guard(self, t0):
+        if telemetry.enabled():
+            self._instruments()[6].observe(time.perf_counter() - t0)
+
+    def wait(self, t0):
+        if telemetry.enabled():
+            self._instruments()[1].observe(time.perf_counter() - t0)
+
+    def step(self, t_step, t_compute, t_data, data_batch, source_iter):
+        if not telemetry.enabled():
+            return
+        h_comp, h_wait, h_step, c_batch, c_samp, g_ips, _ = self._instruments()
+        step_s = time.perf_counter() - t_step
+        h_comp.observe(t_compute - t_step)
+        h_wait.observe(t_data - t_compute)
+        h_step.observe(step_s)
+        c_batch.inc()
+        n = _batch_samples(data_batch, source_iter)
+        if n:
+            c_samp.inc(n)
+            if step_s > 0:
+                g_ips.set(n / step_s)
 
 
 class BaseModule:
@@ -177,6 +250,23 @@ class BaseModule:
                     " batch %d" % resume_state["nbatch"] if resume_state else "")
         guard_obj = guard_mod.resolve(guard, checkpoint_prefix=auto_resume,
                                       logger=self.logger)
+        from ..kvstore import KVMembershipError
+
+        # elastic: the store is made and joins the registry before its
+        # first RPC, and survivors recover by rolling back, so a rollback
+        # guard runs when none was given
+        session = None
+        if elastic_mod.enabled():
+            kvstore, session = elastic_mod.prepare(kvstore, logger=self.logger)
+            if session is not None and guard_obj is None:
+                guard_obj = guard_mod.resolve("rollback",
+                                              checkpoint_prefix=auto_resume,
+                                              logger=self.logger)
+        fault_rank = int(os.environ.get("DMLC_WORKER_ID", "0") or 0)
+        completed = False
+        kv_obj = set_step = None
+        started_cluster = False
+        meter = _StepMeter()
         # MXNET_FEED_DEPTH: a transfer thread keeps the next batches on the
         # device (the feed is this fit's own and closed when it returns)
         inner_data = train_data
@@ -193,8 +283,22 @@ class BaseModule:
                              force_init=force_init or resume_epoch is not None)
             self.init_optimizer(kvstore=kvstore, optimizer=optimizer,
                                 optimizer_params=optimizer_params)
+            kv_obj = getattr(self, "_kvstore", None)
+            set_step = getattr(kv_obj, "set_step", None)
+            if getattr(kv_obj, "start_cluster_stats", None) is not None \
+                    and kv_obj._cluster is None:
+                # fit owns the publisher only when it started it
+                started_cluster = kv_obj.start_cluster_stats() is not None
             if resume_epoch is not None:
                 self._resume_optimizer(auto_resume, resume_epoch, resume_state)
+            if session is not None and session.joining:
+                # relaunched: adopt the membership and shard, pull the
+                # servers' parameters, enter where the survivors restart
+                joined = session.join(self, train_data)
+                if joined is None:
+                    completed = True
+                    return
+                begin_epoch, resume_state = joined
             if validation_metric is None:
                 validation_metric = eval_metric
             if not isinstance(eval_metric, metric_mod.EvalMetric):
@@ -223,35 +327,72 @@ class BaseModule:
                     nbatch = start_nbatch
                     data_iter = iter(train_data)
                     end_of_batch = False
+                    t0 = meter.now()
                     try:
                         next_data_batch = next(data_iter)
                     except StopIteration:
                         # a mid-epoch resume may land on the epoch's end
                         break
                     next_state = state_fn() if track_state else None
+                    meter.wait(t0)
                     while not end_of_batch:
                         data_batch = next_data_batch
                         cur_state = next_state
+                        if set_step is not None:
+                            # one step id across the cluster (BSP ranks
+                            # run the same (epoch, nbatch) sequence)
+                            set_step((epoch << 32) | nbatch)
+                        # the machine-loss seam of the elastic cycle
+                        fault_mod.kill_worker(fault_rank)
                         if guard_obj is not None:
                             guard_obj.check_stall()
                         if monitor is not None:
                             monitor.tic()
+                        t_step = meter.now()
                         bad_reason = None
                         bad_applied = False
+                        membership_changed = False
                         with telemetry.span("fit.step", "fit", epoch=epoch,
                                             nbatch=nbatch):
-                            self.forward_backward(data_batch)
-                            if guard_obj is not None:
-                                # before the update: a bad classic step is
-                                # dropped with the parameters untouched
-                                bad_reason = guard_obj.step_check(self)
-                            if bad_reason is None:
-                                self.update()
+                            try:
+                                self.forward_backward(data_batch)
                                 if guard_obj is not None:
-                                    # the fused step's outputs exist only
-                                    # now, its update already applied
-                                    bad_reason = guard_obj.post_check(self)
-                                    bad_applied = bad_reason is not None
+                                    # before the update: a bad classic step
+                                    # is dropped, the parameters untouched
+                                    t_guard = meter.now()
+                                    bad_reason = guard_obj.step_check(self)
+                                    meter.guard(t_guard)
+                                if bad_reason is None:
+                                    self.update()
+                                    if guard_obj is not None:
+                                        # the fused step's outputs exist
+                                        # only now, its update applied
+                                        t_guard = meter.now()
+                                        bad_reason = guard_obj.post_check(self)
+                                        meter.guard(t_guard)
+                                        bad_applied = bad_reason is not None
+                            except KVMembershipError:
+                                # the cluster reconfigured under this step;
+                                # without a session that stays fatal
+                                if session is None:
+                                    raise
+                                membership_changed = True
+                        t_compute = meter.now()
+                        if membership_changed:
+                            r_epoch, r_nbatch, iter_restored = \
+                                self._reconfigure(session, train_data,
+                                                  guard_obj)
+                            if r_epoch != epoch:
+                                self.logger.warning(
+                                    "elastic: snapshot epoch %d != current "
+                                    "epoch %d — resuming within the current "
+                                    "epoch at its batch position", r_epoch,
+                                    epoch)
+                            eval_metric.reset()
+                            start_nbatch = (r_nbatch if iter_restored
+                                            else nbatch + 1)
+                            rolled_back = True
+                            break
                         if bad_reason is not None:
                             action = guard_obj.bad_step(bad_reason, epoch,
                                                         nbatch,
@@ -275,11 +416,14 @@ class BaseModule:
                             self.prepare(next_data_batch)
                         except StopIteration:
                             end_of_batch = True
+                        t_data = meter.now()
                         if bad_reason is None:
                             self.update_metric(eval_metric, data_batch.label)
                             if guard_obj is not None:
                                 guard_obj.good_step(self, train_data, epoch,
                                                     nbatch, cur_state)
+                        meter.step(t_step, t_compute, t_data, data_batch,
+                                   train_data)
                         if monitor is not None:
                             monitor.toc_print()
                         if batch_end_callback is not None:
@@ -310,6 +454,7 @@ class BaseModule:
                     for name, val in res:
                         self.logger.info("Epoch[%d] Validation-%s=%f", epoch, name, val)
                 train_data.reset()
+            completed = True
         except KeyboardInterrupt:
             # the watchdog interrupts a wedged step with SIGINT; a real
             # Ctrl-C (the watchdog never fired) goes on as it is
@@ -317,10 +462,33 @@ class BaseModule:
                 raise guard_obj.stall_error() from None
             raise
         finally:
+            if started_cluster:
+                kv_obj.stop_cluster_stats()
+            if session is not None:
+                # a failed fit only stops beating: the lapse reconfigures
+                # the survivors and the launcher's relaunch rejoins
+                session.close(done=completed)
             if guard_obj is not None:
                 guard_obj.close()
             if train_data is not inner_data:
                 train_data.close()
+
+    def _reconfigure(self, session, train_data, guard_obj):
+        """The elastic session's recovery, started again when the
+        membership changes once more during it (five times at most)."""
+        from ..kvstore import KVMembershipError
+
+        for attempt in range(5):
+            try:
+                return session.reconfigure(self, train_data, guard_obj)
+            except KVMembershipError:
+                self.logger.warning(
+                    "elastic: membership changed again during "
+                    "reconfiguration (attempt %d/5) — restarting recovery",
+                    attempt + 1)
+        raise MXNetError("elastic: membership kept changing through 5 "
+                         "reconfiguration attempts — giving up (the cluster "
+                         "is flapping)")
 
     def _resume_optimizer(self, prefix, epoch, resume_state):
         """Restore the optimizer states of checkpoint ``epoch`` (a warm

@@ -42,7 +42,11 @@ pulled values are the new weights and are copied into the master tensors;
 otherwise the pulled sums are copied into the gradient buffers and the
 update graph applies the rule. Everything pulled is written in place
 into the tensors the graphs captured (a rebind would leave every replay
-reading the first step's).
+reading the first step's). So is an elastic recovery's state: a
+survivor's rollback (``Module.set_params``) and a rejoining worker's
+pull reach the module's copies, which the next step copies into the
+captured tensors; a step refused by a membership change leaves its batch
+staged, and the rollback drops it.
 """
 from __future__ import annotations
 

@@ -169,7 +169,10 @@ def test_abort_raises_bad_step_error():
 
 def test_stall_in_the_device_feed_raises_stall_error(monkeypatch):
     """The ``stall`` point sleeps the feed's transfer stage past a 0.5 s
-    watchdog: a StallError, in both packages, and the feed thread ends."""
+    watchdog: a StallError, in both packages, and the feed thread ends.
+    The stall is the feed's sixth batch, staged once the loop took its
+    fourth: after the first steps' compiles and the watchdog's arming, so
+    it cannot pass unseen behind a slow first step."""
     import threading
 
     monkeypatch.setenv("MXNET_FEED_DEPTH", "1")
@@ -177,7 +180,7 @@ def test_stall_in_the_device_feed_raises_stall_error(monkeypatch):
         guard = pkg.guard.TrainingGuard(pkg.guard.GuardPolicy(
             policy="off", stall_timeout_s=0.5))
         with pytest.raises(pkg.guard.StallError):
-            _fit(pkg, guard, spec="stall:after=2,times=1,delay_ms=2500")
+            _fit(pkg, guard, spec="stall:after=5,times=1,delay_ms=2500")
         assert guard.stall_fired
     assert not [t for t in threading.enumerate()
                 if t.name == "DeviceFeedIter" and t.is_alive()]

@@ -1,7 +1,8 @@
 """``mx.kv`` in one process against the JAX package: the store types,
 ``init``/``push``/``pull``/``set_optimizer`` sequences from the same numpy
 values (within 1e-6), ``Module`` with a store object, the host engine's
-error contract, and what the distributed store and its server refuse."""
+error contract, what the distributed store and its server refuse, and a
+working store under each HA variable."""
 import os
 import pickle
 import threading
@@ -247,14 +248,64 @@ def _launcher_env(monkeypatch, **extra):
         monkeypatch.setenv(k, v)
 
 
+def _free_port():
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
 @pytest.mark.parametrize("env", [{"MXNET_KV_REPLICAS": "1"},
                                  {"MXNET_ELASTIC": "1"},
                                  {"DMLC_PS_RECOVERY": "1"}],
                          ids=["replicas", "elastic", "recovery"])
-def test_dist_store_refuses_the_a6b_features(monkeypatch, env):
-    _launcher_env(monkeypatch, **env)
-    with pytest.raises(MXNetError, match="A6c"):
-        T.kv.create("dist_sync")
+def test_dist_store_works_under_the_ha_variables(monkeypatch, tmp_path, env):
+    """Under a launcher's environment of two servers (in this process) and
+    one worker, each HA variable gives a working store: init, an optimizer,
+    a push and a pull; elastic, the worker joins the registry first."""
+    from mxnet_tpu_torch import elastic, kvstore_server
+
+    port = _free_port()
+    while _free_port() == port + 1:
+        port = _free_port()
+    _launcher_env(monkeypatch, DMLC_PS_ROOT_PORT=str(port), DMLC_NUM_SERVER="2",
+                  MXNET_ELASTIC_HEARTBEAT_S="0.2",
+                  MXNET_ELASTIC_HEARTBEAT_TIMEOUT_S="5",
+                  MXNET_KV_SERVER_CKPT_DIR=str(tmp_path), **env)
+    threads = []
+    for sid in (0, 1):
+        monkeypatch.setenv("DMLC_SERVER_ID", str(sid))
+        server = kvstore_server.KVStoreServer(port=port + sid, num_workers=1)
+        threads.append(threading.Thread(target=server.run, daemon=True))
+        threads[-1].start()
+    monkeypatch.setenv("DMLC_WORKER_ID", "0")
+    kv = T.kv.create("dist_sync")
+    assert type(kv) is T.kv.KVStoreDist
+    session = None
+    if "MXNET_ELASTIC" in env:
+        kv, session = elastic.prepare(kv)
+        table = session.sync()
+        assert table["workers"] == [0] and table["formed"]
+    with T.cpu():
+        for k in (0, 1):               # one key on each server
+            kv.init(k, T.nd.ones((3,)) * (k + 1))
+        kv.set_optimizer(T.optimizer.SGD(learning_rate=0.5, rescale_grad=1.0))
+        out = T.nd.zeros((3,))
+        for k in (0, 1):
+            kv.push(k, T.nd.ones((3,)))
+            kv.pull(k, out=out)
+            np.testing.assert_allclose(out.asnumpy(), k + 0.5)
+        assert kv._smap == ([0] if "MXNET_KV_REPLICAS" in env else [0, 1])
+        assert kv.is_recovery == ("DMLC_PS_RECOVERY" in env)
+    if session is not None:
+        session.close(done=True)
+    kv._stop_servers()
+    for t in threads:
+        t.join(timeout=30)
+        assert not t.is_alive()
 
 
 def test_dist_store_and_server_raise_without_the_native_library(monkeypatch):
@@ -317,8 +368,10 @@ def test_a_server_has_no_cuda_and_stops_on_request(tmp_path):
     t.join(timeout=30)
     lib.mxt_ps_client_destroy(c)
     assert not t.is_alive()
-    assert server.stats() == {"updates_applied": 1, "update_failures": 0,
-                              "last_update_error": None, "has_optimizer": True}
+    assert server.stats() == dict(
+        {"updates_applied": 1, "update_failures": 0,
+         "last_update_error": None, "has_optimizer": True},
+        **dict.fromkeys(kvstore_server._STATS_COUNTER_FIELDS_HA, 0))
     assert not torch.cuda.is_initialized()
     assert os.environ.get("DMLC_ROLE") is None
 

@@ -393,7 +393,8 @@ def test_port_import_leaves_jax_out():
             " mxnet_tpu_torch.executor_manager, mxnet_tpu_torch.profiler,"
             " mxnet_tpu_torch.monitor, mxnet_tpu_torch.guard,"
             " mxnet_tpu_torch.compileobs, mxnet_tpu_torch.fault,"
-            " mxnet_tpu_torch.tools.compile_report;"
+            " mxnet_tpu_torch.tools.compile_report, mxnet_tpu_torch.elastic,"
+            " mxnet_tpu_torch.kvstore_server;"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'mxnet_tpu' or "
             "m.startswith('mxnet_tpu.')];"
@@ -458,7 +459,8 @@ def test_port_sources_import_no_jax():
         "tools/caffe_converter.py", "parallel/mesh.py",
         "parallel/collectives.py", "parallel/ring.py", "parallel/pipeline.py",
         "parallel/moe.py", "parallel/lm.py", "module/parallel_module.py",
-        "placed.py", "executor_manager.py", "module/executor_group.py")} <= rel
+        "placed.py", "executor_manager.py", "module/executor_group.py",
+        "elastic.py")} <= rel
     for f in files:
         roots = set(_imported_roots(f))
         assert not roots & {"jax", "jaxlib", "mxnet_tpu"}, (f, roots)
