@@ -369,7 +369,32 @@ Drives ``mxnet_tpu_torch`` (never the JAX package) on ``cuda:0``:
    seconds from the last step before each kill to the first step after
    it, the median host wall per fused step before and after each event,
    the launches per incarnation, each run's final perplexity and its
-   parameters' largest difference from phase 21(b)'s.
+   parameters' largest difference from phase 21(b)'s. (c) runs with
+   per-rank telemetry sinks (``MXNET_TELEMETRY_FILE``) and profiler
+   traces (``MXNET_PROFILER_AUTOSTART``), and rank 0 runs ``mxtop --once``
+   while it trains, for 25(d).
+
+25. A7's compiler half. The whole run has ``MXNET_COMPILE_CACHE_DIR``
+   set to a fresh directory, so phase 2's builds fill the cache. (a)
+   Phase 5's fused fit (the LM at full width, 20 Adam steps) in two
+   processes, with the default graph passes and with
+   ``MXNET_GRAPH_PASSES=none``: the nodes eliminated and in fusion
+   groups, the per-step metric and the final parameters against each
+   other (rtol/atol 1e-5), the host wall per fused step both ways and
+   K1/K2a/K2b launched 80 times in each; the LM built in the other
+   operand order has the same optimized digest. (b) A process on a
+   fresh copy of the package (an empty ``build/``) and the same cache:
+   no ``nvcc`` runs, one cache hit per kernel source, no miss; it holds
+   K1, K2a, K2b, K3, K4 and the wide route against their plain versions
+   with phase 3's checks; the summed ``nvcc.*`` seconds cold and warm.
+   Then one byte of the fastest source's artifact is flipped, and
+   another fresh copy rebuilds that one library (one ``nvcc`` run), counts
+   ``compile.cache_errors`` and passes that kernel's check. (c)
+   ``mx.rtc`` ``y = x * 2 + 1`` on ``cuda:0`` bitwise equal to the CPU,
+   with its registry row. (d) 24(c)'s run: ``mxtop --once`` showed both
+   ranks with their step times; ``trace_merge`` writes one trace with the
+   two worker lanes and the ``cluster`` lane, and rank 1's residual
+   spread is below worker 0's wall per step.
 
 Every phase that fails raises, so the exit code is not 0. The last two
 lines are the ``kernels`` JSON object and the ``ok`` JSON object; the card
@@ -481,7 +506,13 @@ def check(cond, msg):
         raise RuntimeError("chip_smoke: " + msg)
 
 
+# a phase's header carries the seconds since the script started
+_T0 = time.time()
+
+
 def log(*a):
+    if a and str(a[0]).startswith("== "):
+        a = a + ("[%.1f s in]" % (time.time() - _T0),)
     print(*a, flush=True)
 
 
@@ -5424,6 +5455,12 @@ def elastic_lm_worker():
     if os.environ.get("DMLC_PS_RECOVERY"):
         # the kill rule is the first incarnation's
         os.environ.pop("MXNET_FAULT_SPEC", None)
+    trace_dir = os.environ.get("SMOKE_TRACE_DIR")
+    if trace_dir:
+        # 25(d): every process of the job (the server too) traces there
+        os.makedirs(trace_dir, exist_ok=True)
+        os.environ["MXNET_PROFILER_FILENAME"] = os.path.join(
+            trace_dir, "profile.%d.json" % os.getpid())
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import telemetry as tel
     from mxnet_tpu_torch.ops import _build as build
@@ -5483,6 +5520,19 @@ def elastic_lm_worker():
         probe["at"] = step
         evs = tel.events("kv.straggler")
         probe["named"] = dict(evs[0]) if evs else None
+        if trace_dir and "stats" in probe:
+            # 25(d): mxtop --once, an observer of the plane with none of
+            # this job's sinks or roles
+            env = {k: v for k, v in os.environ.items()
+                   if k not in ("MXNET_TELEMETRY_FILE", "DMLC_ROLE",
+                                "MXNET_PROFILER_AUTOSTART",
+                                "MXNET_PROFILER_FILENAME")}
+            p = subprocess.run([sys.executable, "-m",
+                                "mxnet_tpu_torch.tools.mxtop", "--once"],
+                               env=env, capture_output=True, text=True,
+                               timeout=120)
+            probe["mxtop"] = {"rc": p.returncode, "out": p.stdout,
+                              "err": p.stderr[-2000:]}
 
     def batch_end(param):
         torch.cuda.synchronize()
@@ -5519,6 +5569,7 @@ def elastic_lm_worker():
         workers = stats.get("workers") or {}
         summary["probe"] = {
             "named": probe.get("named"), "at": probe.get("at"),
+            "mxtop": probe.get("mxtop"),
             "held": sorted(r for r, s in workers.items() if s),
             "straggler": stats.get("straggler"),
             "windows": {r: (s or {}).get("window") for r, s in
@@ -5617,9 +5668,60 @@ def _check_elastic_common(what, done, params, steps, ref):
                                                             key[1], n))
 
 
-def run_elastic_phase(mx, build, card, dist_params):
+def straggler_run(work, dist_params):
+    """Phase 24(c): a plain ``dist_sync`` cluster whose rank 1 sleeps in
+    its data path, with per-rank telemetry sinks and profiler traces under
+    ``work`` for 25(d); returns its K1/K2a/K2b launches and what 25(d)
+    reads."""
+    import os
+
+    steps_per_epoch = DIST_SEQS // 2 // DIST_BATCH
+    log("  (c) dist_sync, rank 1 sleeping %.1f s per batch in its data "
+        "path after %d" % (STRAGGLER_SLEEP_S, STRAGGLER_WARMUP))
+    # with per-rank telemetry sinks and profiler traces, for 25(d)
+    trace_dir = os.path.join(work, "24c", "trace")
+    err, done, params, steps = _elastic_run(
+        "cluster statistics", os.path.join(work, "24c"), {
+            "SMOKE_STRAGGLE": "1", "MXNET_CLUSTER_STATS_INTERVAL_S": "0.15",
+            "MXNET_STRAGGLER_FACTOR": "2.0", "SMOKE_TRACE_DIR": trace_dir,
+            "MXNET_TELEMETRY_FILE": os.path.join(
+                trace_dir, "telemetry.{rank}.jsonl"),
+            "MXNET_PROFILER_AUTOSTART": "1"}, elastic=False)
+    probe = done[0]["probe"]
+    verdict = probe["straggler"]
+    log("  (c) rank 0's cluster_stats() at step %s: ranks %s, straggler "
+        "%s; windows %s; the publisher's first kv.straggler event %s"
+        % (probe["at"], probe["held"], verdict, probe["windows"],
+           probe["named"]))
+    check(probe["held"] == [0, 1],
+          "(c): cluster_stats() holds ranks %s" % probe["held"])
+    check(verdict is not None and verdict["rank"] == 1
+          and verdict["stage"] == "data_wait",
+          "(c): cluster_stats() names the straggler %s" % verdict)
+    trace = probe["trace"]
+    last = ((DIST_EPOCHS - 1) << 32) | (steps_per_epoch - 1)
+    log("  (c) the server's trace: %s" % trace)
+    check(all(trace[r]["pushes"] > 0 and trace[r]["pulls"] > 0
+              and trace[r]["last_step"] == last for r in ("0", "1")),
+          "(c): the trace does not attribute both ranks' RPCs")
+    differ = [k for k in dist_params
+              if not np.array_equal(params[0][k], dist_params[k])]
+    log("  (c) final parameters against phase 21(b)'s: %s"
+        % ("bitwise equal" if not differ else "largest difference %.3e"
+           % _largest_diff(params[0], dist_params)))
+    total = {k: 0 for k in FLASH}
+    for n, c in _incarnation_launches(steps).items():
+        for k in FLASH:
+            total[k] += c[k]
+    return total, {"trace_dir": trace_dir, "mxtop": probe.get("mxtop"),
+                   "step_wall": _median_walls(steps, 0)[0]}
+
+
+def run_elastic_phase(mx, build, card, dist_params, work):
     """Phase 24 (see the module docstring); returns the K1/K2a/K2b launches
-    of its runs, every incarnation's."""
+    of its runs, every incarnation's, and what 25(d) reads of (c): its
+    trace directory under ``work``, ``mxtop``'s frame and worker 0's
+    median wall per step."""
     import os
     import tempfile
 
@@ -5709,40 +5811,461 @@ def run_elastic_phase(mx, build, card, dist_params):
             for k in FLASH:
                 total[k] += c[k]
 
-        log("  (c) dist_sync, rank 1 sleeping %.1f s per batch in its data "
-            "path after %d" % (STRAGGLER_SLEEP_S, STRAGGLER_WARMUP))
-        err, done, params, steps = _elastic_run(
-            "cluster statistics", os.path.join(tmp, "c"), {
-                "SMOKE_STRAGGLE": "1", "MXNET_CLUSTER_STATS_INTERVAL_S": "0.15",
-                "MXNET_STRAGGLER_FACTOR": "2.0"}, elastic=False)
-        probe = done[0]["probe"]
-        verdict = probe["straggler"]
-        log("  (c) rank 0's cluster_stats() at step %s: ranks %s, straggler "
-            "%s; windows %s; the publisher's first kv.straggler event %s"
-            % (probe["at"], probe["held"], verdict, probe["windows"],
-               probe["named"]))
-        check(probe["held"] == [0, 1],
-              "(c): cluster_stats() holds ranks %s" % probe["held"])
-        check(verdict is not None and verdict["rank"] == 1
-              and verdict["stage"] == "data_wait",
-              "(c): cluster_stats() names the straggler %s" % verdict)
-        trace = probe["trace"]
-        last = ((DIST_EPOCHS - 1) << 32) | (steps_per_epoch - 1)
-        log("  (c) the server's trace: %s" % trace)
-        check(all(trace[r]["pushes"] > 0 and trace[r]["pulls"] > 0
-                  and trace[r]["last_step"] == last for r in ("0", "1")),
-              "(c): the trace does not attribute both ranks' RPCs")
-        differ = [k for k in dist_params
-                  if not np.array_equal(params[0][k], dist_params[k])]
-        log("  (c) final parameters against phase 21(b)'s: %s"
-            % ("bitwise equal" if not differ else "largest difference %.3e"
-               % _largest_diff(params[0], dist_params)))
-        for n, c in _incarnation_launches(steps).items():
-            for k in FLASH:
-                total[k] += c[k]
+        c_launches, c_run = straggler_run(work, dist_params)
+        for k in FLASH:
+            total[k] += c_launches[k]
     log("  phase 24: %.1f s; K1/K2a/K2b launches %s"
         % (time.time() - t_phase, total))
-    return total
+    return total, c_run
+
+
+# --------------------------------------- A7's compiler half (phase 25)
+# 25(b): each kernel source's check, phase 3's, by the library it lives in
+SOURCE_CHECKS = {
+    "nvcc.flash_fwd": ("flash",), "nvcc.flash_bwd_dkv": ("flash_bwd",),
+    "nvcc.flash_bwd_dq": ("flash_bwd",), "nvcc.paged_decode": ("paged",),
+    "nvcc.paged_decode_multi": ("paged_multi",),
+    "nvcc.flash_wide": ("flash_wide",)}
+CHILD_TIMEOUT = 600
+
+
+def _child(fn, env_extra, what, cwd=None):
+    """``python -c "import chip_smoke; chip_smoke.<fn>()"`` from ``cwd``
+    (default: the checkout's root, which is then on ``PYTHONPATH``);
+    returns its stdout. A failed or hung child fails the phase."""
+    import os
+
+    cwd = cwd or os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if k != "MXNET_GRAPH_PASSES"}
+    env["PYTHONPATH"] = cwd + os.pathsep + env.get("PYTHONPATH", "")
+    env.update(env_extra)
+    t0 = time.perf_counter()
+    try:
+        out = subprocess.run([sys.executable, "-c",
+                              "import chip_smoke; chip_smoke.%s()" % fn],
+                             cwd=cwd, env=env, capture_output=True, text=True,
+                             timeout=CHILD_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        check(False, "%s: the child hung past %d s" % (what, CHILD_TIMEOUT))
+    log("  %s: child exit %d after %.1f s" % (what, out.returncode,
+                                               time.perf_counter() - t0))
+    check(out.returncode == 0, "%s: the child failed: %s %s"
+          % (what, out.stdout[-2000:], out.stderr[-3000:]))
+    return out.stdout
+
+
+def graphpass_fit_child():
+    """25(a): phase 5's fused fit in a process of its own (the graph
+    passes as ``MXNET_GRAPH_PASSES`` says), written to ``SMOKE_OUT``.json
+    and .npz: the metric after every step, the host wall per step, the
+    K1/K2a/K2b launches, the captured graph's digest and its nodes."""
+    import os
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import telemetry as tel
+    from mxnet_tpu_torch.ops import _build as build
+    from mxnet_tpu_torch.symbol import _topo_order
+
+    out = os.environ["SMOKE_OUT"]
+    X, Y = lm_stream(128)
+    net = mx.models.transformer_lm(**TRAIN)
+    # JAX's graph-pass parity case: one fwd+bwd of an executor from a
+    # seeded point (the label's probability and every gradient)
+    ex = net.simple_bind(ctx=mx.gpu(0), data=(32, TRAIN["seq_len"]),
+                         softmax_label=(32, TRAIN["seq_len"]))
+    rs = np.random.RandomState(7)
+    for name in sorted(ex.arg_dict):
+        a = ex.arg_dict[name]
+        a[:] = (X[:32] if name == "data" else Y[:32] if name.endswith("label")
+                else (rs.randn(*a.shape) * 0.1).astype(np.float32))
+    ex.forward(is_train=True)
+    ex.backward()
+    prob = ex.outputs[0].data.reshape(-1, TRAIN["vocab_size"])
+    picked = torch.gather(prob, 1, torch.as_tensor(
+        Y[:32].reshape(-1), device=prob.device).long()[:, None])
+    step = {"prob": picked.cpu().numpy()}
+    step.update({"grad:" + n: g.asnumpy() for n, g in ex.grad_dict.items()
+                 if g is not None})
+    np.savez(out + "-step.npz", **step)
+    del ex, prob, picked
+    it = mx.io.NDArrayIter(X, Y, batch_size=32, shuffle=False)
+    mod = mx.mod.Module(net, context=mx.gpu(0))
+    metric = mx.metric.Perplexity(ignore_label=None)
+    stamps, metrics, ppl = [], [], []
+
+    def batch_end(_param):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        metrics.append(metric.get()[1])
+
+    def epoch_end(*_a):
+        ppl.append(metric.get()[1])
+
+    for k in build.KERNELS.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mod.fit(it, num_epoch=5, optimizer="adam",
+            optimizer_params={"learning_rate": TRAIN_LR},
+            initializer=mx.init.Xavier(rng=torch.Generator().manual_seed(0)),
+            eval_metric=metric, batch_end_callback=batch_end,
+            epoch_end_callback=epoch_end)
+    torch.cuda.synchronize()
+    tr = mod._fused.trainer
+    opt = tr._opt_symbol
+    rec = {"passes": os.environ.get("MXNET_GRAPH_PASSES", "default"),
+           "metrics": metrics, "ppl": ppl,
+           "step_s": float(np.median(np.diff([t0] + stamps)[1:])),
+           "launches": {n: build.KERNELS[n].launches for n in FLASH},
+           "captures": tr.captures, "replays": tr.replays,
+           "digest": tr._digest, "optimized": opt is not net,
+           "nodes": len(_topo_order(opt._entries)),
+           "nodes_built": len(_topo_order(net._entries)),
+           "fused_nodes": sum(1 for n in _topo_order(opt._entries)
+                              if n._extra_attrs.get("__fuse_group__")),
+           "eliminated": tel.totals("graphpass.nodes_eliminated")[1],
+           "fallbacks": tel.totals("graphpass.fallbacks")[1]}
+    np.savez(out + ".npz",
+             **{n: a.asnumpy() for n, a in mod.get_params()[0].items()})
+    with open(out + ".json", "w") as f:
+        json.dump(rec, f)
+
+
+def _swap_operands(net):
+    """``net`` built in the other operand order: every commutative binary
+    node's two inputs swapped."""
+    from mxnet_tpu_torch.graphpass import passes
+    from mxnet_tpu_torch.symbol import _topo_order
+
+    g = net.__copy__()
+    n = 0
+    for node in _topo_order(g._entries):
+        if not node.is_variable and node.op in passes._COMMUTATIVE \
+                and len(node.inputs) == 2:
+            node.inputs = node.inputs[::-1]
+            n += 1
+    return g, n
+
+
+def graphpass_fits(mx, work):
+    """25(a): the passes on and off in phase 5's fused fit; returns the
+    K1/K2a/K2b launches of both."""
+    import os
+
+    net = mx.models.transformer_lm(**TRAIN)
+    swapped, n_swapped = _swap_operands(net)
+    digest = mx.compileobs.symbol_digest
+    d_raw = (digest(net), digest(swapped))
+    d_opt = (digest(mx.graphpass.optimize(net)),
+             digest(mx.graphpass.optimize(swapped)))
+    log("  (a) the LM built in two operand orders (%d commutative nodes "
+        "swapped): digests as built %s, after the passes %s"
+        % (n_swapped, d_raw, d_opt))
+    check(n_swapped > 0 and d_raw[0] != d_raw[1] and d_opt[0] == d_opt[1],
+          "25(a): the optimized digest depends on the operand order")
+    recs, params, step = {}, {}, {}
+    for label, passes in (("on", None), ("off", "none")):
+        path = os.path.join(work, "passes_" + label)
+        env = {"SMOKE_OUT": path}
+        if passes:
+            env["MXNET_GRAPH_PASSES"] = passes
+        _child("graphpass_fit_child", env, "(a) passes %s" % label)
+        with open(path + ".json") as f:
+            recs[label] = json.load(f)
+        with np.load(path + ".npz") as z:
+            params[label] = {k: z[k] for k in z.files}
+        with np.load(path + "-step.npz") as z:
+            step[label] = {k: z[k] for k in z.files}
+    on, off = recs["on"], recs["off"]
+    for label, r in recs.items():
+        log("  (a) passes %s: graph of %d nodes (%d as built), %d in fusion "
+            "groups, nodes eliminated %d, fallbacks %d; digest %s; %d "
+            "captures, %d replays; host wall per fused step %.5f s; "
+            "launches %s" % (label, r["nodes"], r["nodes_built"],
+                             r["fused_nodes"], r["eliminated"],
+                             r["fallbacks"], r["digest"], r["captures"],
+                             r["replays"], r["step_s"], r["launches"]))
+        check(r["captures"] == 1 and r["replays"] == 19,
+              "25(a) passes %s: not one captured graph" % label)
+        check(all(r["launches"][k] == TRAIN["num_layers"] * 20
+                  for k in FLASH),
+              "25(a) passes %s: launches %s" % (label, r["launches"]))
+    check(on["optimized"] and not off["optimized"]
+          and on["nodes"] < off["nodes"] and on["fused_nodes"] > 0
+          and on["fallbacks"] == 0,
+          "25(a): the fused step did not run the optimized graph")
+    check(on["digest"] == d_opt[0] and off["digest"] == d_raw[0],
+          "25(a): the trainers' digests are not the graphs'")
+    def rel_to_bound(a, b):
+        """max |a - b| / (1e-5 + 1e-5 |b|): at most 1 within rtol/atol
+        1e-5, JAX's test_graphpass.py parity bound."""
+        return float(np.max(np.abs(a - b) / (1e-5 + 1e-5 * np.abs(b))))
+
+    one = {k: rel_to_bound(step["on"][k], step["off"][k]) for k in step["off"]}
+    worst_one = max(one, key=one.get)
+    log("  (a) one fwd+bwd of the LM's executor from a seeded point, passes "
+        "on against off: the label's probability and %d gradients, largest "
+        "|a-b| / (1e-5 + 1e-5 |b|) %.4f (at %s)"
+        % (len(one) - 1, one[worst_one], worst_one))
+    check(one[worst_one] <= 1.0,
+          "25(a): the passes moved one step's outputs or gradients")
+    m_on, m_off = np.array(on["metrics"]), np.array(off["metrics"])
+    m_rel = np.abs(m_on - m_off) / np.abs(m_off)
+    p_rel = float(abs(on["ppl"][-1] - off["ppl"][-1]) / off["ppl"][-1])
+    worst, worst_n = 0.0, None
+    for n in params["off"]:
+        e = rel_to_bound(params["on"][n], params["off"][n])
+        if e > worst:
+            worst, worst_n = e, n
+    log("  (a) the fits, passes on against off: the metric after step 1 "
+        "(the first fused forward) differs by %.3e relative, after each step "
+        "%s; perplexity per epoch %s / %s (last %.3e apart); final "
+        "parameters: largest |a-b| / (1e-5 + 1e-5 |b|) %.3f at %s; host "
+        "wall per fused step %.5f / %.5f s (%.4fx)"
+        % (m_rel[0], ["%.1e" % r for r in m_rel],
+           ["%.3f" % p for p in on["ppl"]], ["%.3f" % p for p in off["ppl"]],
+           p_rel, worst, worst_n, on["step_s"], off["step_s"],
+           on["step_s"] / off["step_s"]))
+    # past the first steps the two fits part by more than rounding: Adam
+    # from its first step moves a weight by ~lr whatever its gradient's
+    # size, so a sign that rounding decides decides a full step (on the
+    # CPU, which is deterministic, too); the fits are held at their first
+    # step and at the perplexity they reach
+    check(m_rel[0] <= 1e-5, "25(a): the passes moved the first step's loss")
+    for r in recs.values():
+        check(all(b < a for a, b in zip(r["ppl"], r["ppl"][1:])),
+              "25(a): a fit's perplexity did not fall every epoch")
+    check(p_rel <= 1e-2, "25(a): the fits end at other perplexities")
+    return {k: on["launches"][k] + off["launches"][k] for k in FLASH}
+
+
+def warm_start_child():
+    """25(b): a process on a fresh copy of the package (its own empty
+    ``build/``) and the parent's ``MXNET_COMPILE_CACHE_DIR``: builds every
+    kernel, writes its ``nvcc`` runs and cache counts to ``SMOKE_OUT``,
+    then holds the kernels ``SMOKE_CHECKS`` names against their plain
+    versions with phase 3's bounds."""
+    import os
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import compile_cache, telemetry as tel
+    from mxnet_tpu_torch.ops import _build as build
+    from mxnet_tpu_torch.ops import attention as A
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    check(build.BUILD_DIR.startswith(here) and build.CSRC.startswith(here),
+          "25(b): the child's package is not its copy")
+    check(not os.path.exists(build.BUILD_DIR) or not any(
+        f.endswith(".so") for f in os.listdir(build.BUILD_DIR)),
+        "25(b): the child's build directory is not empty")
+    t0 = time.perf_counter()
+    build.build()
+    t_build = time.perf_counter() - t0
+    programs = sorted({k.program for k in build.KERNELS.values()})
+    rows = [r for r in mx.compileobs.program_table()
+            if r["program"].startswith("nvcc.")]
+    rec = {"nvcc_runs": build.nvcc_runs, "build_s": t_build,
+           "nvcc_seconds": sum(r["compile_seconds"] for r in rows),
+           "hits": {p: tel.counter("compile.cache_hits", program=p).value
+                    for p in programs},
+           "misses": {p: tel.counter("compile.cache_misses", program=p).value
+                      for p in programs},
+           "errors": tel.totals("compile.cache_errors")[1],
+           "stats": compile_cache.stats()}
+    with open(os.environ["SMOKE_OUT"], "w") as f:
+        json.dump(rec, f)
+    for name in os.environ["SMOKE_CHECKS"].split(","):
+        if name == "flash":
+            check_flash(A)
+        elif name == "flash_bwd":
+            check_flash_bwd(A)
+        elif name == "paged":
+            check_paged(A)
+        elif name == "paged_multi":
+            check_paged_multi(A)
+        elif name == "flash_wide":
+            check_flash_wide(A, build)
+    log("WARM_CHILD_OK")
+
+
+def _fresh_copy(dst):
+    """The package and this script, copied to ``dst`` (no ``build/``)."""
+    import os
+    import shutil
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    shutil.copytree(os.path.join(root, "mxnet_tpu_torch"),
+                    os.path.join(dst, "mxnet_tpu_torch"),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(os.path.join(root, "chip_smoke.py"), dst)
+    return dst
+
+
+def warm_start(mx, build, work):
+    """25(b): the compile cache's warm start, and a corrupt artifact."""
+    import os
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mxnet_tpu_torch import compile_cache
+
+    programs = sorted({k.program for k in build.KERNELS.values()})
+    cold = {r["program"]: r["compile_seconds"]
+            for r in mx.compileobs.program_table()
+            if r["program"].startswith("nvcc.")}
+    stats = compile_cache.stats()
+    log("  (b) the main process's cache %s: %d artifacts, %d bytes; its "
+        "phase-2 builds (cold, in parallel): %s, summed %.3f s"
+        % (stats["dir"], stats["aot_artifacts"], stats["aot_bytes"],
+           {p: round(s, 3) for p, s in sorted(cold.items())},
+           sum(cold.values())))
+    check(stats["enabled"] and stats["aot_artifacts"] == len(programs),
+          "25(b): the cache holds %s artifacts for %d sources"
+          % (stats.get("aot_artifacts"), len(programs)))
+    all_checks = ",".join(sorted({c for cs in SOURCE_CHECKS.values()
+                                  for c in cs}))
+    # the corrupt child reads a copy of the cache with one byte of the
+    # fastest build's artifact flipped, so the two children run at once
+    victim = min(cold, key=cold.get) if cold else "nvcc.paged_decode"
+    kern = next(k for k in build.KERNELS.values() if k.program == victim)
+    bad_cc = os.path.join(work, "cc_corrupt")
+    shutil.copytree(compile_cache.cache_dir(), bad_cc)
+    path = os.path.join(bad_cc, "aot", kern.cache_key())
+    with open(path, "r+b") as f:
+        f.seek(os.path.getsize(path) // 2)
+        byte = f.read(1)
+        f.seek(-1, 1)
+        f.write(bytes([byte[0] ^ 0xFF]))
+    log("  (b) corrupted one byte of %s's artifact (the fastest build) in "
+        "a copy of the cache" % victim)
+    jobs = {"warm": (all_checks, {}),
+            "corrupt": (",".join(SOURCE_CHECKS[victim]),
+                        {"MXNET_COMPILE_CACHE_DIR": bad_cc})}
+
+    def run(label):
+        checks, extra = jobs[label]
+        dst = _fresh_copy(os.path.join(work, label))
+        out = os.path.join(work, label + ".json")
+        _child("warm_start_child",
+               dict(extra, SMOKE_OUT=out, SMOKE_CHECKS=checks),
+               "(b) %s child" % label, cwd=dst)
+        with open(out) as f:
+            return json.load(f)
+
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        futures = {label: pool.submit(run, label) for label in jobs}
+        runs = {label: f.result() for label, f in futures.items()}
+    warm, bad = runs["warm"], runs["corrupt"]
+    log("  (b) warm child: %d nvcc runs; build() %.3f s; cache hits %s, "
+        "misses %s, errors %d; summed nvcc.* seconds cold %.3f, warm %.3f; "
+        "K1, K2a, K2b, K3, K4 and the wide route held against their plain "
+        "versions (phase 3's checks)"
+        % (warm["nvcc_runs"], warm["build_s"], warm["hits"], warm["misses"],
+           warm["errors"], sum(cold.values()), warm["nvcc_seconds"]))
+    check(warm["nvcc_runs"] == 0
+          and all(warm["hits"][p] == 1 for p in programs)
+          and not any(warm["misses"].values()) and warm["errors"] == 0,
+          "25(b): the warm child was not served by the cache")
+    log("  (b) corrupt-artifact child: %d nvcc runs; build() %.3f s; hits "
+        "%s, misses %s, errors %d; %s held against its plain version"
+        % (bad["nvcc_runs"], bad["build_s"], bad["hits"], bad["misses"],
+           bad["errors"], victim))
+    check(bad["nvcc_runs"] == 1 and bad["errors"] >= 1
+          and bad["misses"][victim] == 1
+          and sum(bad["hits"].values()) == len(programs) - 1,
+          "25(b): the corrupt artifact was not counted and rebuilt")
+
+
+def rtc_check(mx):
+    """25(c): ``mx.rtc`` on the card against the same push on the CPU."""
+    rng = np.random.default_rng(25)
+    x_np = rng.standard_normal((64, 1000)).astype(np.float32)
+    got = {}
+    for ctx in (mx.gpu(0), mx.cpu()):
+        x = mx.nd.array(x_np, ctx=ctx)
+        y = mx.nd.zeros(x_np.shape, ctx=ctx)
+        k = mx.rtc.Rtc("smoke_affine", [("x", x)], [("y", y)],
+                       "y = x * 2 + 1")
+        k.push([x], [y], grid_dims=(1, 1, 1), block_dims=(256, 1, 1))
+        k.push([x], [y])
+        check(torch.device(y.context) == torch.device(ctx),
+              "25(c): the output left %s" % ctx)
+        got[torch.device(ctx).type] = y.asnumpy()
+    row = next(r for r in mx.compileobs.program_table()
+               if r["program"] == "rtc.smoke_affine")
+    same = np.array_equal(got["cuda"], got["cpu"])
+    log("  (c) rtc 'y = x * 2 + 1' on cuda:0 against the CPU: %s; registry "
+        "row: %d compiles, %d runs, %.6f s compile"
+        % ("bitwise equal" if same else "differs", row["compile_count"],
+           row["run_count"], row["compile_seconds"]))
+    check(same, "25(c): rtc differs between the card and the CPU")
+    check(row["compile_count"] == 2 and row["run_count"] == 2,
+          "25(c): the registry row %s" % row)
+
+
+def cluster_tools(c_run):
+    """25(d): phase 24(c)'s run through ``mxtop --once`` (taken while it
+    trained) and ``trace_merge``."""
+    import os
+
+    frame = c_run["mxtop"]
+    check(frame is not None, "25(d): rank 0 never ran mxtop")
+    for line in frame["out"].splitlines():
+        log("  (d) mxtop | %s" % line)
+    rows = {l.split()[0]: l.split() for l in frame["out"].splitlines()
+            if l[:1].isdigit()}
+    check(frame["rc"] == 0 and sorted(rows) == ["0", "1"]
+          and all(float(rows[r][3]) > 0 for r in rows),
+          "25(d): mxtop --once did not show both ranks' step times: %s %s"
+          % (frame["out"], frame["err"]))
+    trace_dir = c_run["trace_dir"]
+    merged = os.path.join(os.path.dirname(trace_dir), "merged.json")
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = subprocess.run([sys.executable, "-m",
+                          "mxnet_tpu_torch.tools.trace_merge", "-o", merged,
+                          "--validate", trace_dir], cwd=root,
+                         capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ, PYTHONPATH=root))
+    for line in out.stdout.splitlines():
+        log("  (d) trace_merge | %s" % line)
+    check(out.returncode == 0, "25(d): trace_merge failed: %s"
+          % out.stderr[-2000:])
+    with open(merged) as f:
+        trace = json.load(f)
+    names = sorted(e["args"]["name"] for e in trace["traceEvents"]
+                   if e.get("ph") == "M" and e.get("name") == "process_name")
+    offs = trace["otherData"]["clock_offsets"]
+    one = offs.get("telemetry.1.jsonl") or {}
+    wall = c_run["step_wall"]
+    log("  (d) merged trace: lanes %s, %d events, %d bytes; rank 1's sink "
+        "offset %s s, residual spread %s s over %s sync points; worker "
+        "0's median host wall per step %.5f s"
+        % (names, len(trace["traceEvents"]), os.path.getsize(merged),
+           one.get("offset_s"), one.get("residual_s"),
+           one.get("sync_points"), wall))
+    check(names == ["cluster", "rank 0", "rank 1"],
+          "25(d): the merged trace's lanes are %s" % names)
+    check(one.get("sync_points", 0) >= DIST_EPOCHS * 4
+          and one.get("residual_s") is not None
+          and one["residual_s"] < wall,
+          "25(d): the lanes are not aligned within a step: %s" % one)
+
+
+def run_compiler_phase(mx, build, card, work, c_run):
+    """Phase 25 (see the module docstring); returns the K1/K2a/K2b
+    launches of its fits."""
+    t_phase = time.time()
+    log("  (a) the graph passes in phase 5's fused fit, on and off")
+    launches = graphpass_fits(mx, work)
+    log("  (b) the compile cache's warm start")
+    warm_start(mx, build, work)
+    log("  (c) mx.rtc")
+    rtc_check(mx)
+    log("  (d) the cluster tools on phase 24(c)'s run")
+    cluster_tools(c_run)
+    log("  phase 25: %.1f s; K1/K2a/K2b launches %s"
+        % (time.time() - t_phase, launches))
+    return launches
 
 
 def main():
@@ -5750,6 +6273,21 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "runs the port on the card only", file=sys.stderr)
         return 2
+    import os
+    import shutil
+    import tempfile
+
+    # the run's scratch: phase 2 fills a fresh compile cache here (25(b)),
+    # and phase 24(c) leaves its traces here for 25(d)
+    work = tempfile.mkdtemp(prefix="chip_smoke-")
+    os.environ["MXNET_COMPILE_CACHE_DIR"] = os.path.join(work, "cc")
+    try:
+        return _main(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _main(work):
     # the package is imported only once a card is known to be there
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import serving as S
@@ -6018,7 +6556,15 @@ def main():
 
     log("== 24. A6c: a server primary and a worker killed under "
         "tools/launch.py --elastic; cluster statistics (%s)" % card)
-    for name, n in run_elastic_phase(mx, build, card, dist_params).items():
+    e_launches, c_run = run_elastic_phase(mx, build, card, dist_params,
+                                          work)
+    for name, n in e_launches.items():
+        next(r for r in rows if r["name"] == name)["launches"] += n
+
+    log("== 25. A7's compiler half on the LM's fit: the graph passes, the "
+        "compile cache's warm start, mx.rtc, trace_merge and mxtop (%s)"
+        % card)
+    for name, n in run_compiler_phase(mx, build, card, work, c_run).items():
         next(r for r in rows if r["name"] == name)["launches"] += n
 
     log(card)

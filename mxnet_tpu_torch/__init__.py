@@ -104,6 +104,7 @@ from . import kvstore_server  # noqa: E402
 from . import elastic  # noqa: E402
 from . import fault, analysis, parallel  # noqa: E402
 from . import profiler, compileobs, guard  # noqa: E402
+from . import compile_cache, graphpass, rtc  # noqa: E402
 from . import monitor  # noqa: E402
 from . import monitor as mon  # noqa: E402
 from . import placed, executor_manager  # noqa: E402
@@ -114,7 +115,6 @@ from .base import not_ported as _not_ported  # noqa: E402
 
 # the JAX package's top-level names the port has not reached yet
 __getattr__ = _not_ported(__name__, {
-    "compile_cache": "A7", "graphpass": "A7", "rtc": "A7",
     "export_artifact": "A8", "export_predict_artifact": "A8",
     "export_train_artifact": "A8"})
 
@@ -124,7 +124,8 @@ __all__ = ["base", "context", "MXNetError", "Context", "cpu", "gpu", "tpu",
            "current_context", "default_device", "utils", "engine", "kv",
            "kvstore", "KVStore", "kvstore_server", "elastic", "fault", "analysis",
            "parallel", "placed", "executor_manager", "rnd", "profiler",
-           "compileobs", "guard", "monitor", "mon",
+           "compileobs", "compile_cache", "graphpass", "rtc", "guard",
+           "monitor", "mon",
            "FeedForward", "Optimizer",
            "nd", "ndarray", "operator", "sym", "symbol", "AttrScope", "NameManager",
            "Prefix", "Executor", "init", "initializer", "random",
@@ -134,6 +135,9 @@ __all__ = ["base", "context", "MXNetError", "Context", "cpu", "gpu", "tpu",
            "image_det", "io_image", "contrib", "test_utils", "notebook",
            "op_doc", "symbol_doc", "ndarray_doc", "torch_bridge", "th",
            "torch"]
+
+# the persistent compile cache, when MXNET_COMPILE_CACHE_DIR names one
+compile_cache.maybe_enable_from_env()
 
 # a server-role process serves here until the cluster stops (reference:
 # python/mxnet/__init__.py -> kvstore_server._init_kvstore_server_module)

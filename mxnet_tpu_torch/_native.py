@@ -269,5 +269,5 @@ ENGINE_FN = ctypes.CFUNCTYPE(None, ctypes.c_void_p)
 UPDATER_FN = ctypes.CFUNCTYPE(
     None, ctypes.c_int, ctypes.POINTER(ctypes.c_float),
     ctypes.POINTER(ctypes.c_float), ctypes.c_uint64)
-COMMAND_FN = ctypes.CFUNCTYPE(None, ctypes.POINTER(ctypes.c_char),
+COMMAND_FN = ctypes.CFUNCTYPE(ctypes.c_int, ctypes.POINTER(ctypes.c_char),
                               ctypes.c_uint64)

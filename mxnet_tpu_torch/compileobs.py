@@ -15,7 +15,12 @@ has no tracer and no XLA compile; its **programs** are
   ``executor.fwd_eval`` and ``executor.fwd_bwd`` (eager on either
   device); that run's seconds are its compile seconds;
 * an ``nvcc`` build of a kernel source (``ops/_build.py``: program
-  ``nvcc.<source>``), charged its build seconds.
+  ``nvcc.<source>``), charged its build seconds, or the seconds it took
+  to copy the library from the persistent compile cache.
+
+With the compile cache on (:mod:`.compile_cache`), every compile is
+classified warm or cold (``compile.cache_hits`` / ``cache_misses``), and
+:func:`summary` carries the totals with ``cache_errors``.
 
 Per logical program the registry records, as the JAX package's does: a
 graph digest (:func:`symbol_digest`, the JAX package's, value for value),
@@ -271,12 +276,37 @@ def _arg_nbytes(sig):
 # ---------------------------------------------------------------------------
 
 
+def _classify(program, sig, graph_key, digest, seconds, cache_key, cached):
+    """The persistent cache's verdict on this compile (``compile.cache_hits``
+    / ``compile.cache_misses``): True for warm, False for cold, None while
+    the cache is off or the program has no identity to key."""
+    from . import compile_cache as _cc
+
+    if not _cc.enabled():
+        return None
+    identity = digest if digest is not None else graph_key
+    if cache_key is None and identity is None:
+        return None
+    try:
+        if cache_key is None:
+            cache_key = _cc.make_key(program, identity, sig)
+        cls = _cc.classify_compile(program, cache_key, seconds, hit=cached)
+    except Exception:
+        telemetry.counter("compile.cache_errors").inc()
+        return None
+    return None if cls is None else cls == "hit"
+
+
 def note_compile(program, seconds, sig=(), graph_key=None, site=None,
-                 digest=None, wall0=None):
+                 digest=None, wall0=None, cache_key=None, cached=None):
     """Charge ``seconds`` to ``program`` as one compile at input signature
     ``sig``. When the program's graph ``graph_key`` compiled before, the
     old and new signatures are diffed into a ``compile.recompile``
-    attribution (any compile after the graph's first is a recompile)."""
+    attribution (any compile after the graph's first is a recompile).
+    With the persistent compile cache on, the compile is classified warm
+    or cold (by ``cache_key``, else a key of the program, its digest and
+    ``sig``; ``cached`` states the verdict where the caller knows it) and
+    the ``compile`` event carries ``cached``."""
     rec = _record(program, site=site, digest=digest)
     if wall0 is None:
         wall0 = time.time() - seconds
@@ -293,13 +323,18 @@ def note_compile(program, seconds, sig=(), graph_key=None, site=None,
         if graph_key is not None:
             prev = rec.signatures.get(graph_key)
             rec.signatures[graph_key] = sig
+    cached = _classify(rec.name, sig, graph_key, digest, seconds,
+                       cache_key, cached)
     telemetry.counter("compile.count", program=rec.name).inc()
     telemetry.histogram("compile.seconds", program=rec.name).observe(seconds)
     _emit_compile_span("compile[%s]" % rec.name, wall0, seconds,
                        {"program": rec.name, "site": rec.site})
-    telemetry.event("compile", program=rec.name, site=rec.site,
-                    seconds=round(seconds, 6), count=rec.compile_count,
-                    arg_bytes=nbytes)
+    ev = {"program": rec.name, "site": rec.site,
+          "seconds": round(seconds, 6), "count": rec.compile_count,
+          "arg_bytes": nbytes}
+    if cached is not None:
+        ev["cached"] = cached
+    telemetry.event("compile", **ev)
     peak = _backend_peak_bytes()
     if peak is not None:
         with rec.lock:
@@ -419,6 +454,12 @@ def summary(include_recompiles=True):
         "run_seconds": round(sum(r["run_seconds"] for r in rows), 6),
         "recompile_count": sum(r["recompile_count"] for r in rows),
     }
+    from . import compile_cache as _cc
+
+    if _cc.enabled():
+        out["cache_hits"] = telemetry.totals("compile.cache_hits")[1]
+        out["cache_misses"] = telemetry.totals("compile.cache_misses")[1]
+        out["cache_errors"] = telemetry.totals("compile.cache_errors")[1]
     if include_recompiles:
         out["recompiles"] = recompile_log()
     return out

@@ -52,6 +52,8 @@ enum MsgType : uint32_t {
                      // elastic reconfiguration re-seeds server state from the
                      // survivors' rollback snapshot through this
   kRejectEpoch = 10, // response: request carried a stale membership epoch
+  kRefused = 11,     // response: the command handler declined the command
+                     // (a registry command at a server not hosting it)
 };
 
 // Reserved-negative-key split (cluster observability plane): keys in
@@ -117,8 +119,10 @@ typedef void (*UpdaterFn)(int key, const float* grad, float* weight,
                           uint64_t n);
 // Command callback: arbitrary control strings from workers (reference:
 // KVStoreDistServer::CommandHandle, kvstore_dist_server.h:121-134 — carries
-// the pickled optimizer and sync-mode switches).
-typedef void (*CommandFn)(const char* cmd, uint64_t len);
+// the pickled optimizer and sync-mode switches). Returns 0 to acknowledge;
+// anything else answers kRefused, so the sender's probe fails at once and
+// it tries the next candidate instead of taking the ack as served.
+typedef int (*CommandFn)(const char* cmd, uint64_t len);
 
 class PSServer {
  public:
@@ -527,8 +531,10 @@ class PSServer {
           if (sscanf(cmd.c_str() + 7, "%lld:%d", &e, &w) == 2)
             Reconfigure(e, w);
         }
-        if (cmd_handler_) cmd_handler_(cmd.data(), cmd.size());
-        Respond(c, MsgHeader{kResp, 0, h.req_id, 0, 0, -1, 0}, nullptr);
+        int refused = cmd_handler_ ? cmd_handler_(cmd.data(), cmd.size()) : 0;
+        Respond(c, MsgHeader{refused ? kRefused : kResp, 0, h.req_id, 0, 0,
+                             -1, 0},
+                nullptr);
         break;
       }
       default:
@@ -810,9 +816,11 @@ class PSClient {
       }
       uint64_t n = h.nbytes / sizeof(float);
       // kRejectEpoch carries no payload: -2 distinguishes a membership
-      // rejection (deterministic, never retried) from a transport -1
-      int64_t result =
-          h.type == kRejectEpoch ? -2 : static_cast<int64_t>(n);
+      // rejection (deterministic, never retried) from a transport -1;
+      // kRefused (-3) is a command its handler declined
+      int64_t result = h.type == kRejectEpoch ? -2
+                       : h.type == kRefused   ? -3
+                                              : static_cast<int64_t>(n);
       bool read_ok = true;
       if (p && p->out && n) {
         if (n <= p->cap) {

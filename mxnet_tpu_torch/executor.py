@@ -40,9 +40,16 @@ measures one fwd+bwd on the card (``ROADMAP.md`` C16). Every forward and
 fwd+bwd is a ``compileobs`` program (``executor.fwd_eval``,
 ``executor.fwd_bwd``: the first call at a new signature is its compile),
 runs inside ``compileobs.oom_guard`` and records a profiler span
-(``executor_forward[name]``, ``executor_fwd_bwd[name]``). The JAX
-package's graph passes and compile cache have no counterpart yet
-(``ROADMAP.md`` A7).
+(``executor_forward[name]``, ``executor_fwd_bwd[name]``).
+
+The graph that runs is the graph-pass pipeline's output
+(:func:`.graphpass.optimize`: canonicalize, fold constants, CSE, fusion
+groups; ``MXNET_GRAPH_PASSES`` turns it off), bound by name to the
+original symbol's argument and aux-state order; a placed executor runs
+the original, as the JAX package's multi-device one does, and so does a
+monitored forward (the monitor sees every node the user built). The
+compile registry's digest is the optimized graph's, so the same network
+built in another operand order is the same program.
 """
 from __future__ import annotations
 
@@ -51,6 +58,7 @@ import time
 import torch
 
 from . import compileobs as _compileobs
+from . import graphpass as _graphpass
 from . import profiler as _profiler
 from . import random as _random
 from .base import MXNetError, env_flag, torch_dtype
@@ -98,21 +106,63 @@ def cast_compute(names, tensors, compute_dtype, exempt):
             for n, t in zip(names, tensors)]
 
 
-def build_graph_fn(symbol, node_callback=None):
+def _order_like(order, reference):
+    """A topological order of the nodes of ``order`` that runs each node
+    as early as the ``reference`` graph ran the node of its name (Kahn's
+    algorithm, ready nodes by their rank in the reference's order). A
+    graph-pass output runs its stochastic nodes in the original graph's
+    order that way, so they draw the same numbers from the generator."""
+    import heapq
+
+    rank = {}
+    for i, node in enumerate(_topo_order(reference._entries)):
+        rank.setdefault(node.name, i)
+    pos = {id(n): i for i, n in enumerate(order)}
+    byid = {id(n): n for n in order}
+    waiting = {}
+    users = {}
+    for n in order:
+        deps = {id(i) for i, _ in n.inputs}
+        waiting[id(n)] = len(deps)
+        for d in deps:
+            users.setdefault(d, []).append(id(n))
+    far = len(rank)
+    ready = [(rank.get(n.name, far), pos[id(n)], id(n)) for n in order
+             if not waiting[id(n)]]
+    heapq.heapify(ready)
+    out = []
+    while ready:
+        _, _, nid = heapq.heappop(ready)
+        out.append(byid[nid])
+        for u in users.get(nid, ()):
+            waiting[u] -= 1
+            if not waiting[u]:
+                heapq.heappush(ready, (rank.get(byid[u].name, far), pos[u], u))
+    return out
+
+
+def build_graph_fn(symbol, node_callback=None, arg_names=None,
+                   aux_names=None, order_like=None):
     """Build ``fn(arg_list, aux_list, is_train, device=None) -> (outputs,
     new_auxs)`` over torch tensors, with arguments and aux states in the
-    symbol's ``list_arguments``/``list_auxiliary_states`` order. The graph
-    runs on the device its arguments lie on (``device`` for a graph with
-    none, where its creation and sampling ops make their outputs); a
-    stochastic op draws from that device's :mod:`.random` generator, in
-    the graph's topological order. ``node_callback(name, tensor)``, when
-    given, sees every op node's visible outputs as they are computed
+    symbol's ``list_arguments``/``list_auxiliary_states`` order, or, when
+    given, in the order of ``arg_names``/``aux_names``: variables then
+    bind to those slots by name (how a graph-pass output runs against
+    arrays bound in the original symbol's order). The graph runs on the
+    device its arguments lie on (``device`` for a graph with none, where
+    its creation and sampling ops make their outputs); a stochastic op
+    draws from that device's :mod:`.random` generator, in the graph's
+    topological order, or in the order the ``order_like`` symbol runs its
+    nodes of the same names. ``node_callback(name, tensor)``, when given,
+    sees every op node's visible outputs as they are computed
     (``<node>_output``, or ``<node>_output<k>`` for several: the
     reference's monitor names)."""
     order = _topo_order(symbol._entries)
     _, aux_vars = symbol._arg_aux_split()
-    arg_names = symbol.list_arguments()
-    aux_names = symbol.list_auxiliary_states()
+    if arg_names is None:
+        arg_names = symbol.list_arguments()
+    if aux_names is None:
+        aux_names = symbol.list_auxiliary_states()
     arg_slot = {n: i for i, n in enumerate(arg_names)}
     aux_slot = {n: i for i, n in enumerate(aux_names)}
     slots = {}
@@ -124,6 +174,8 @@ def build_graph_fn(symbol, node_callback=None):
     stochastic = any(not node.is_variable
                      and get_op(node.op).stochastic(node.attrs)
                      for node in order)
+    if stochastic and order_like is not None and order_like is not symbol:
+        order = _order_like(order, order_like)
 
     def graph_fn(arg_list, aux_list, is_train, device=None):
         vals = {}
@@ -239,12 +291,22 @@ class Executor:
         self._ctx = ctx
         self._arg_names = symbol.list_arguments()
         self._aux_names = symbol.list_auxiliary_states()
-        self._graph_fn = build_graph_fn(symbol)
+        base = ctx[0] if isinstance(ctx, (list, tuple)) else ctx
+        multi_dev = bool(group2ctx) and len(
+            {torch.device(c) for c in group2ctx.values()}
+            | {torch.device(base)}) > 1
+        # the graph-pass pipeline's output runs, bound by name to the
+        # original symbol's slots; a placed graph keeps the original (the
+        # segment cutter reads its node structure)
+        self._opt_symbol = symbol if multi_dev else _graphpass.optimize(symbol)
+        self._graph_fn = build_graph_fn(
+            self._opt_symbol, arg_names=self._arg_names,
+            aux_names=self._aux_names, order_like=symbol)
         self._stochastic = graph_is_stochastic(symbol)
         self.monitor_callback = None
         self._monitor_active = None
         self._graph_fn_monitored = None
-        digest = _compileobs.symbol_digest(symbol)
+        digest = _compileobs.symbol_digest(self._opt_symbol)
         site = "mxnet_tpu_torch/executor.py:Executor"
         self._prog_eval = _compileobs.Program("executor.fwd_eval", site,
                                               digest, digest)
@@ -298,16 +360,13 @@ class Executor:
         self._outputs = None
         self._pending = None   # (leaves, outputs with their autograd graph)
         self._placed = None
-        if group2ctx:
-            base = ctx[0] if isinstance(ctx, (list, tuple)) else ctx
-            devices = {torch.device(c) for c in group2ctx.values()}
-            if len(devices | {torch.device(base)}) > 1:
-                from .placed import PlacedGraph
+        if multi_dev:
+            from .placed import PlacedGraph
 
-                self._placed = PlacedGraph(symbol, group2ctx, base,
-                                           self._arg_names, self._aux_names,
-                                           self._cast_one)
-                self._place_arrays()
+            self._placed = PlacedGraph(symbol, group2ctx, base,
+                                       self._arg_names, self._aux_names,
+                                       self._cast_one)
+            self._place_arrays()
 
     def _cast_one(self, name, t):
         return cast_compute([name], [t], self._compute_dtype,
@@ -423,6 +482,8 @@ class Executor:
                 if cb is not None:
                     cb(name, NDArray(value.detach()))
 
+            # the original graph, as the JAX executor's monitored forward
+            # runs it: the monitor sees every node the user built
             self._graph_fn_monitored = build_graph_fn(self._symbol,
                                                       node_callback=emit)
         return self._graph_fn_monitored

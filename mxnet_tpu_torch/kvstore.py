@@ -462,6 +462,8 @@ class KVStoreDist(KVStore):
         self._mepoch = 0
         self._reserved_seq = 0
         self._step = 0
+        self._bsp_synced_step = None  # last step a bsp_sync event fired for
+        self._bsp_lock = threading.Lock()
         self._barrier_seq = 0
         self._cluster = None            # the _ClusterStatsPublisher
         self._publish_inflight = None   # a snapshot publish still blocked
@@ -693,6 +695,8 @@ class KVStoreDist(KVStore):
                 raise MXNetError("push rpc failed for key %d" % ikey)
         self._timed("kvstore.push_latency_seconds", ikey,
                     lambda: self._with_retry("push", ikey, attempt))
+        if telemetry.enabled():
+            self._maybe_emit_bsp_sync()
 
     def _zpull(self, ikey, n):
         """Pull ``n`` float32 values of one key."""
@@ -796,6 +800,19 @@ class KVStoreDist(KVStore):
     @property
     def step_id(self):
         return self._step
+
+    def _maybe_emit_bsp_sync(self):
+        """One ``bsp_sync`` event per step, when the step's first push
+        response arrives: the server releases a merged round to every
+        worker at once, so the event's wall time is a cross-worker sync
+        point (``tools/trace_merge.py`` aligns clocks on it). Pushes run on
+        engine threads: the check-and-set is locked, so a step has one."""
+        step = self._step
+        with self._bsp_lock:
+            if step == self._bsp_synced_step:
+                return
+            self._bsp_synced_step = step
+        telemetry.event("bsp_sync", step_id=step)
 
     # ---- the registry ------------------------------------------------------------
     def _registry_probe(self, cmd, timeout_ms):
@@ -1148,6 +1165,10 @@ class KVStoreDist(KVStore):
         out = {"programs": s["programs"], "count": s["compile_count"],
                "seconds": round(s["compile_seconds"], 3),
                "recompiles": s["recompile_count"]}
+        if "cache_hits" in s:
+            # the compile cache is on: which ranks started warm (mxtop)
+            out["cache_hits"] = int(s["cache_hits"])
+            out["cache_misses"] = int(s["cache_misses"])
         last = compileobs.last_recompile()
         if last:
             out["last_recompile"] = {"program": last.get("program"),

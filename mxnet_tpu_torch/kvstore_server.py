@@ -695,15 +695,19 @@ class KVStoreServer:
             self._note_update_failure(key, err)
 
     def _command(self, cmd_ptr, n):
+        """The transport's command callback: 0 acknowledges, 1 refuses
+        (see :meth:`_handle_membership`)."""
         cmd = ctypes.string_at(cmd_ptr, n)
         try:
-            self._dispatch(cmd)
+            return 1 if self._dispatch(cmd) is False else 0
         except Exception:  # noqa: BLE001 — a bad command must not take the
-            # connection thread down; the sender's bounded wait sees silence
+            # connection thread down
             log.exception("kvstore-server %d: command %r failed", self._sid,
                           cmd[:48])
+            return 0
 
     def _dispatch(self, cmd):
+        """Act on ``cmd``; False when this server refuses it."""
         if cmd.startswith(b"optim:"):
             blob = base64.b64decode(cmd[6:])
             err = self._on_main(lambda: self._set_optimizer(pickle.loads(blob)))
@@ -726,7 +730,7 @@ class KVStoreServer:
             payload = json.dumps({"per_rank": self.trace_stats()}).encode()
             self._publish_vec(int(cmd[9:]), encode_bytes_vec(payload))
         elif cmd.startswith(b"mb_"):
-            self._handle_membership(cmd)
+            return self._handle_membership(cmd)
         elif not cmd.startswith((b"ping", b"sync:", b"elastic:")):
             # (the transport itself acts on ping, sync: and elastic:)
             log.error("kvstore-server %d: unknown command %r ignored",
@@ -867,7 +871,14 @@ class KVStoreServer:
             with self._repl_cv:
                 self._repl_inflight.discard(key)
                 self._repl_done_seq = seq
+                lag = self._repl_seq - seq
                 self._repl_cv.notify_all()
+            # the rounds still queued once this one went out (the JAX
+            # package's server sets the lag only when it queues a round,
+            # so there it keeps reading 1 after the last forward)
+            telemetry.gauge("kv.replication.lag_rounds").set(lag)
+            with self._stats_lock:
+                self._ha_stats["repl_lag_rounds"] = lag
 
     def _repl_client(self, sid):
         """The replication thread's client of backup ``sid``, made again
@@ -1078,17 +1089,20 @@ class KVStoreServer:
             return
 
     def _handle_membership(self, cmd):
-        """A worker's ``mb_*`` command. Only the registry's host answers;
-        elsewhere it is dropped (the worker's bounded wait moves on to the
-        next candidate), but for ``mb_sync``, the registry's snapshot to
-        its standbys."""
+        """A worker's ``mb_*`` command. Only the registry's host serves
+        it; elsewhere it is refused (False), so the sender moves on to the
+        next candidate at once and never takes this server for the
+        registry's host — but for ``mb_sync``, the registry's snapshot to
+        its standbys. (The JAX package's server acknowledges and drops
+        such a command: a worker whose command to a slow host timed out
+        then stuck to a standby that never publishes a table.)"""
         if cmd.startswith(b"mb_sync:"):
             with self._ha_lock:
                 self._mb_sync = cmd[8:].decode()
-            return
+            return None
         reg = self._registry
         if reg is None:
-            return
+            return False
         name, _, arg = cmd.decode().partition(":")
         if name in ("mb_join", "mb_hb"):
             # "<rank>[:<step>]": the step dates membership events

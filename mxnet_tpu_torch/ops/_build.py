@@ -15,6 +15,15 @@ Every C entry point returns the ``cudaGetLastError()`` of its launch; a
 its successful launches in ``Kernel.launches``. Each build is a
 ``compileobs`` compile of program ``nvcc.<source>``, charged the seconds
 its ``nvcc`` ran.
+
+With the persistent compile cache on (``MXNET_COMPILE_CACHE_DIR``,
+:mod:`..compile_cache`), :func:`build` first looks for a missing library
+there (key ``make_key("nvcc.<source>", <source digest>, ())``) and
+copies a hit into the build directory before anything loads it (a warm
+compile of the same program, charged the copy's seconds); it saves each
+library it builds, and each one it finds already built that the cache
+lacks. A corrupt artifact is counted, removed and rebuilt.
+``nvcc_runs`` counts the ``nvcc`` processes this process started.
 """
 from __future__ import annotations
 
@@ -47,6 +56,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 _lock = threading.Lock()
+
+#: ``nvcc`` processes started by :func:`build` in this process
+nvcc_runs = 0
 
 
 def _nvcc():
@@ -82,17 +94,33 @@ class Kernel:
         self._fn = None
         self._err = None
 
-    def library(self):
-        """Path of this kernel's shared library for the current source."""
+    @property
+    def program(self):
+        """The compile registry's name of this kernel's build:
+        ``nvcc.<source>``."""
+        return "nvcc." + os.path.splitext(os.path.basename(self.source))[0]
+
+    def digest(self):
+        """sha1 of the current source, the shared headers and the flags."""
         h = hashlib.sha1()
         for path in [self.source] + sorted(glob.glob(os.path.join(CSRC,
                                                                   "*.cuh"))):
             with open(path, "rb") as f:
                 h.update(f.read())
         h.update(" ".join(NVCC_FLAGS).encode())
+        return h.hexdigest()
+
+    def library(self):
+        """Path of this kernel's shared library for the current source."""
         stem = os.path.splitext(os.path.basename(self.source))[0]
         return os.path.join(BUILD_DIR, "%s-%s.so" % (stem,
-                                                     h.hexdigest()[:16]))
+                                                     self.digest()[:16]))
+
+    def cache_key(self):
+        """The compile cache's key of this kernel's library."""
+        from .. import compile_cache
+
+        return compile_cache.make_key(self.program, self.digest(), ())
 
     def _load(self):
         if self._fn is None:
@@ -171,28 +199,67 @@ KERNELS = {k.name: k for k in (FLASH_FWD, FLASH_BWD_DKV, FLASH_BWD_DQ,
                                 PAGED_DECODE_MULTI)}
 
 
-def _note_build(source, seconds, wall0):
-    """Charge an ``nvcc`` run to the registry as program
-    ``nvcc.<source>``."""
+def _note_build(kernel, seconds, wall0, key=None, cached=None):
+    """Charge an ``nvcc`` run (or a copy from the compile cache, with
+    ``cached``) to the registry as program ``nvcc.<source>``."""
     from .. import compileobs
 
-    stem = os.path.splitext(os.path.basename(source))[0]
-    compileobs.note_compile("nvcc." + stem, seconds,
+    compileobs.note_compile(kernel.program, seconds,
                             site="mxnet_tpu_torch/ops/_build.py:build",
-                            wall0=wall0)
+                            wall0=wall0, cache_key=key, cached=cached)
+
+
+def _from_cache(kernel, out):
+    """Copy ``kernel``'s library from the compile cache to ``out``; True
+    on a hit."""
+    from .. import compile_cache
+
+    wall0, t0 = time.time(), time.perf_counter()
+    key = kernel.cache_key()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    if compile_cache.load_executable(key, kernel.program, dest=out) is None:
+        return False
+    _note_build(kernel, time.perf_counter() - t0, wall0, key, cached=True)
+    return True
+
+
+def _to_cache(kernel, out):
+    """Store the library ``out`` of ``kernel`` in the compile cache unless
+    it holds it already."""
+    from .. import compile_cache
+
+    key = kernel.cache_key()
+    if not os.path.exists(os.path.join(compile_cache.cache_dir(), "aot",
+                                       key)):
+        compile_cache.save_executable(key, out, kernel.program)
 
 
 def build(kernels=None):
     """Build the shared library of every kernel in ``kernels`` (default:
     all) that is missing, one ``nvcc`` per source, all started together
-    (kernels that share a source share its one build).
-    Raises :class:`MXNetError` with the compiler's output on failure."""
+    (kernels that share a source share its one build), after taking what
+    the compile cache holds. Raises :class:`MXNetError` with the
+    compiler's output on failure."""
+    global nvcc_runs
+    from .. import compile_cache
+
     kernels = list(KERNELS.values()) if kernels is None else list(kernels)
+    cached = compile_cache.aot_enabled()
     with _lock:
         todo = {}
+        seen = set()
         for k in kernels:
-            if not os.path.exists(k.library()):
-                todo.setdefault(k.library(), []).append(k)
+            out = k.library()
+            if out in todo:
+                todo[out].append(k)
+            if out in seen:
+                continue
+            seen.add(out)
+            if os.path.exists(out):
+                if cached:
+                    _to_cache(k, out)
+            elif not (cached and _from_cache(k, out)):
+                todo[out] = [k]
         if not todo:
             return
         nvcc = _nvcc()
@@ -200,6 +267,7 @@ def build(kernels=None):
         procs = []
         for out, ks in todo.items():
             tmp = "%s.tmp%d" % (out, os.getpid())
+            nvcc_runs += 1
             procs.append((ks, out, tmp, time.time(), time.perf_counter(),
                           subprocess.Popen(
                               nvcc_command(ks[0].source, tmp, nvcc),
@@ -222,6 +290,11 @@ def build(kernels=None):
                                                      proc.returncode, log))
                 continue
             os.replace(tmp, out)
-            _note_build(ks[0].source, t1 - t0, wall0)
+            if cached:
+                _note_build(ks[0], t1 - t0, wall0, ks[0].cache_key(),
+                            cached=False)
+                _to_cache(ks[0], out)
+            else:
+                _note_build(ks[0], t1 - t0, wall0)
         if failed:
             raise MXNetError("nvcc failed for " + "\n".join(failed))

@@ -42,9 +42,14 @@ Nothing falls back: a failed capture or replay raises. A kernel's launch
 count (``ops._build.Kernel.launches``) goes up by its launches in the
 captured step on every replay, and the capture itself counts none.
 
+The step runs (and captures) the graph-pass pipeline's output
+(:func:`..graphpass.optimize`), bound by name to the original symbol's
+argument and aux-state order.
+
 Each program is a ``compileobs`` program (``fused.step``,
 ``fused.grad_step``, ``fused.apply_grads``; the graph key is the
-symbol's digest, the signature the batch inputs then the parameters):
+optimized graph's digest, the signature the batch inputs then the
+parameters):
 on the card the capture is its compile and the warm-up and replays its
 runs; on the CPU the first run is its compile.
 
@@ -65,11 +70,13 @@ a rebind would leave every replay reading the first step's tensors.
 """
 from __future__ import annotations
 
-import torch
-
+import gc
 import time
 
+import torch
+
 from .. import compileobs as _compileobs
+from .. import graphpass as _graphpass
 from .. import random as _random
 from ..base import MXNetError, env_flag, torch_dtype
 from ..executor import (build_graph_fn, cast_compute, graph_is_stochastic,
@@ -105,7 +112,13 @@ class SPMDTrainer:
         self.device = torch.device(device)
         self.arg_names = symbol.list_arguments()
         self.aux_names = symbol.list_auxiliary_states()
-        self._graph_fn = build_graph_fn(symbol)
+        # the graph-pass pipeline's output is what runs and is captured;
+        # the public arg/aux order (checkpoints, shapes, the shared
+        # state) stays the original symbol's, bound by name
+        self._opt_symbol = _graphpass.optimize(symbol)
+        self._graph_fn = build_graph_fn(
+            self._opt_symbol, arg_names=self.arg_names,
+            aux_names=self.aux_names, order_like=symbol)
         self.data_names = [n for n, _ in data_shapes]
         self.label_names = [n for n, _ in (label_shapes or [])]
         inputs = set(self.data_names + self.label_names)
@@ -131,7 +144,7 @@ class SPMDTrainer:
                             for node, _ in symbol._entries]
         self._stochastic = graph_is_stochastic(symbol)
         self._mirror = env_flag("MXNET_BACKWARD_DO_MIRROR")
-        self._digest = _compileobs.symbol_digest(symbol)
+        self._digest = _compileobs.symbol_digest(self._opt_symbol)
         self._sig = None
         # the step's learning rate: written before each step, read by the
         # graph
@@ -408,11 +421,22 @@ class SPMDTrainer:
             graph.register_generator_state(_random.generator(self.device))
         before = {n: k.launches for n, k in _build.KERNELS.items()}
         torch.cuda.synchronize(self.device)
-        with _compileobs.record_compile(
-                g.program, self._signature(), graph_key=self._digest,
-                site=_SITE, digest=self._digest), \
-                torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            outs = fn()
+        # no garbage collection inside the capture: a collected object's
+        # finalizer (a pinned host buffer, a decode pipeline joining its
+        # threads) may call the CUDA runtime on this thread, which ends
+        # the capture; what is garbage now is collected before it begins
+        gc.collect()
+        gc_was = gc.isenabled()
+        gc.disable()
+        try:
+            with _compileobs.record_compile(
+                    g.program, self._signature(), graph_key=self._digest,
+                    site=_SITE, digest=self._digest), \
+                    torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                outs = fn()
+        finally:
+            if gc_was:
+                gc.enable()
         for n, k in _build.KERNELS.items():
             if k.launches != before[n]:
                 g.per_replay[n] = k.launches - before[n]

@@ -29,6 +29,11 @@ import os
 import threading
 import time
 
+# bound at import: the dump at exit must not import the package again (a
+# server process exits from inside its import, and a second import would
+# serve again)
+from . import telemetry
+
 __all__ = ["profiler_set_config", "profiler_set_state", "dump_profile",
            "emit_span", "record_span", "is_running", "last_device_trace"]
 
@@ -197,8 +202,6 @@ def dump_profile():
         events = sorted(_state["events"],
                         key=lambda e: (e.get("tid", 0), e.get("ts", 0)))
         filename = _state["filename"]
-    from . import telemetry
-
     rank = telemetry.get_rank()
     if rank is not None:
         events.insert(0, {

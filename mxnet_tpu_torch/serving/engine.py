@@ -37,9 +37,9 @@ Thread model: ``submit()`` is safe from any thread; ``step()`` /
 ``stats()["compiles"]`` counts each program's captures, their seconds and
 the replays after them, keyed as the JAX package's ``compiles`` block;
 each capture is also a ``compileobs`` compile of its program. CUDA graphs
-do not outlive the process, so there is no persistent cache and no
-``compile_cache`` block (``compile_cache.py`` is ``ROADMAP.md`` A7's
-second half).
+do not outlive the process; ``stats()["compile_cache"]`` is the persistent
+cache's snapshot (:func:`..compile_cache.stats`: it keeps the kernels'
+nvcc libraries, ``ROADMAP.md`` C18), as in the JAX package.
 """
 import itertools
 import threading
@@ -49,7 +49,7 @@ from collections import deque
 import numpy as np
 import torch
 
-from .. import context, fault, telemetry
+from .. import compile_cache, context, fault, telemetry
 from ..analysis import witness
 from ..base import env_bool, env_int, env_str, torch_dtype
 from . import model as _model
@@ -880,6 +880,7 @@ class ServingEngine:
                 "slo": self.obs.slo_snapshot(),
                 "phases": self.obs.phase_snapshot(),
                 "compiles": self._compiles(),
+                "compile_cache": compile_cache.stats(),
             }
 
     def _compiles(self):

@@ -490,6 +490,34 @@ METRIC_HELP = {
     "compile.seconds":
         "capture wall per program: warm-up run + graph capture (on the "
         "CPU, the bucket's first run) (always-on)",
+    "compile.cache_hits":
+        "compiles served warm by the persistent compile cache per program "
+        "(an nvcc library copied from the cache, or a program whose key a "
+        "previous process compiled; always-on)",
+    "compile.cache_misses":
+        "genuinely cold compiles per program while the persistent "
+        "cache is enabled (always-on)",
+    "compile.cache_errors":
+        "persistent-cache faults: corrupt/stale artifacts, IO failures — "
+        "each falls back to a cold compile (always-on)",
+    "compile.cache_evictions":
+        "cache entries evicted to fit MXNET_COMPILE_CACHE_MAX_MB "
+        "(always-on)",
+    "graphpass.pass_seconds":
+        "per-pass graph-optimization wall at bind time, labeled pass",
+    "graphpass.nodes_eliminated":
+        "graph nodes removed per pass (fold_constants/CSE; always-on)",
+    "graphpass.nodes_fused":
+        "pointwise nodes annotated into fusion groups (always-on)",
+    "graphpass.shapes_bucketed":
+        "declared batch dims padded by the opt-in bucket_shapes pass "
+        "(always-on)",
+    "graphpass.errors":
+        "graph passes that raised and were skipped, labeled pass "
+        "(always-on; the bind continues on the unoptimized graph)",
+    "graphpass.fallbacks":
+        "pipelines discarded for breaking the arg/aux/output binding "
+        "surface (always-on; the unoptimized graph is used)",
     "speedometer.samples_per_sec": "last Speedometer window sample",
     "pipeline.stage_seconds":
         "input-pipeline wall per stage (decode, assemble, upload, "

@@ -26,6 +26,8 @@ variable-length prompts, and emits ONE JSON record:
 * the compile summary, read from ``stats()["compiles"]``: the bucket
   graphs captured in warmup against the replays after it — a capture
   sneaking into the timed window is visible in the record
+* ``compile_cache`` — the persistent compile cache's snapshot
+  (``compile_cache.stats()``: on, its directory, artifacts, hits)
 * ``device`` — where it ran: ``torch.cuda.get_device_name`` and the
   card's name and power limit as ``nvidia-smi`` prints them (``cpu`` for
   ``--device cpu``)
@@ -85,7 +87,7 @@ def main(argv=None):
 
     import torch
 
-    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch import compile_cache, telemetry
     from mxnet_tpu_torch.serving import ServingConfig, ServingEngine
 
     cfg = ServingConfig(
@@ -219,9 +221,9 @@ def main(argv=None):
                                      engine.bucket_graphs()), 6),
             "recompile_count": 0,
         },
-        # CUDA graphs do not outlive the process: no persistent cache
-        "compile_cache": {"enabled": False, "dir": None, "aot": False,
-                          "hits": 0, "misses": 0, "errors": 0},
+        # the nvcc libraries' persistent cache (CUDA graphs do not
+        # outlive the process)
+        "compile_cache": compile_cache.stats(),
         "device": _device_record(engine.device),
     }
     _phase_table(reqs, file=sys.stderr)

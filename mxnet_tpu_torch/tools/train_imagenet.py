@@ -286,7 +286,20 @@ def fit(args, batch_end_callback=(), eval_data=True):
         "data": data_record(train),
         "device": device_record(device),
     }
+    # the pipelines' threads stop here: a decode thread left prefetching
+    # calls the CUDA runtime while a later step of this process is
+    # captured into a CUDA graph, which ends the capture
+    for it in (train, val):
+        close_iter(it)
     return mod, record
+
+
+def close_iter(it):
+    """Stop ``it``'s threads: a device feed's and those of the iterator it
+    feeds from (an iterator without threads is left alone)."""
+    for obj in (it, getattr(it, "_iter", None)):
+        if obj is not None and callable(getattr(obj, "close", None)):
+            obj.close()
 
 
 def main(argv=None):

@@ -10,6 +10,7 @@ primary killed mid-training, its backup promoted, the workers moved to the
 new server map, the dead slot relaunched from its checkpoint and back as a
 backup, and the two workers ending bitwise equal."""
 import base64
+import ctypes
 import json
 import os
 import pickle
@@ -30,12 +31,28 @@ from mxnet_tpu_torch import kvstore_server as tsrv
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _free_port():
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
+def _free_port(n=1):
+    """A port P with P..P+n-1 all free: server i listens on P+i, so a
+    cluster of n servers needs the run (concurrent runs of these tests
+    must not hand two clusters overlapping runs)."""
+    for _ in range(100):
+        socks = []
+        try:
+            s = socket.socket()
+            socks.append(s)
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+            for i in range(1, n):
+                t = socket.socket()
+                socks.append(t)
+                t.bind(("127.0.0.1", port + i))
+            return port
+        except OSError:
+            continue
+        finally:
+            for t in socks:
+                t.close()
+    raise RuntimeError("no run of %d free ports" % n)
 
 
 def _run_cluster(script, n_workers, n_servers, env_extra, timeout=240,
@@ -48,7 +65,7 @@ def _run_cluster(script, n_workers, n_servers, env_extra, timeout=240,
     env.update(env_extra)
     cmd = [sys.executable, os.path.join(ROOT, "tools", "launch.py"),
            "-n", str(n_workers), "-s", str(n_servers),
-           "--port", str(_free_port()), *launch_args,
+           "--port", str(_free_port(n_servers)), *launch_args,
            sys.executable, "-c", script]
     proc = subprocess.Popen(cmd, env=env, cwd=ROOT, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True,
@@ -438,6 +455,107 @@ def test_kill_server_targets_by_server_id():
 
 
 # ---------------------------------------------------------------------------
+# registry commands at a server that does not host the registry
+# ---------------------------------------------------------------------------
+
+
+def _server_shim(registry=None):
+    """The command path of a server of group 0 (no transport of its own)."""
+    srv = object.__new__(tsrv.KVStoreServer)
+    srv._sid = 1
+    srv._registry = registry
+    srv._ha_lock = threading.Lock()
+    srv._mb_sync = None
+    return srv
+
+
+@pytest.fixture
+def group0():
+    """Two raw transports standing for group 0's servers: 0 hosts the
+    registry and answers its commands after ``delay[0]`` seconds; 1 is a
+    standby (the port's command handler on a server with no registry)."""
+    from mxnet_tpu_torch import _native
+    lib = _native.load()
+    delay = [0.0]
+
+    def slow_host(ptr, n):
+        import time
+        time.sleep(delay[0])
+        return 0
+
+    standby = _server_shim()
+    handlers = [_native.COMMAND_FN(slow_host),
+                _native.COMMAND_FN(standby._command)]
+    servers, clients = [], []
+    port = _free_port(2)
+    try:
+        for i, h in enumerate(handlers):
+            s = lib.mxt_ps_server_create(port + i, 1, 1)
+            assert s
+            servers.append(s)
+            lib.mxt_ps_server_set_command_handler(
+                s, ctypes.cast(h, ctypes.c_void_p))
+            c = lib.mxt_ps_client_create(b"127.0.0.1", port + i)
+            assert c
+            clients.append(c)
+        kv = object.__new__(T.kv.KVStoreDist)
+        kv._lib, kv._rank, kv._ha = lib, 0, True
+        kv._groups, kv._registry_sid = [[0, 1]], 0
+        kv._clients = clients
+        yield lib, kv, standby, delay
+    finally:
+        for c in clients:
+            lib.mxt_ps_client_destroy(c)
+        for s in servers:
+            lib.mxt_ps_server_destroy(s)
+
+
+def test_a_standby_refuses_registry_commands_and_acknowledges_the_rest(group0):
+    lib, kv, standby, _ = group0
+    c = kv._clients[1]
+    for cmd in (b"mb_get:-5", b"mb_hb:0:3", b"mb_srv_hb:3", b"mb_srv_dead:2"):
+        assert lib.mxt_ps_client_probe(c, cmd, 2000) != 0, cmd
+    assert lib.mxt_ps_client_probe(c, b"mb_sync:c25hcA==", 2000) == 0
+    assert standby._mb_sync == "c25hcA=="
+    assert lib.mxt_ps_client_probe(c, b"ping", 2000) == 0
+
+
+def test_a_slow_registry_host_keeps_the_workers_commands(group0):
+    """A command to the registry's host that outlives its deadline must not
+    move the worker to a standby: a standby never publishes a table, so
+    every later fetch would time out there (an elastic fit's reconfigure
+    then raised "membership registry unreachable")."""
+    _, kv, _, delay = group0
+    delay[0] = 0.6
+    assert not kv.registry_command("mb_srv_dead:2", timeout_ms=200)
+    assert kv._registry_sid == 0
+    delay[0] = 0.0
+    assert kv.registry_command("mb_hb:0:1", timeout_ms=2000)
+    assert kv._registry_sid == 0
+    # a worker that took the standby for the host finds the host again
+    kv._registry_sid = 1
+    assert kv.registry_command("mb_hb:0:2", timeout_ms=2000)
+    assert kv._registry_sid == 0
+
+
+def test_a_standby_that_resumed_the_registry_takes_its_commands(group0):
+    _, kv, standby, delay = group0
+    beats = []
+
+    class Resumed:
+        def heartbeat(self, rank, step=None):
+            beats.append((rank, step))
+
+    delay[0] = 0.6                     # the host wedged
+    standby._registry = Resumed()
+    assert kv.registry_command("mb_hb:0:7", timeout_ms=200)
+    assert kv._registry_sid == 1 and beats == [(0, 7)]
+    delay[0] = 0.0
+    assert kv.registry_command("mb_hb:0:8", timeout_ms=2000)
+    assert kv._registry_sid == 1 and beats[-1] == (0, 8)
+
+
+# ---------------------------------------------------------------------------
 # clusters under tools/launch.py
 # ---------------------------------------------------------------------------
 
@@ -456,7 +574,19 @@ for k in range(5):
 kv.push(2, mx.nd.ones((3,)) * 5)        # no optimizer: the push is stored
 kv.pull(2, out=out)
 assert np.allclose(out.asnumpy(), 5.0), out.asnumpy()
-stats = kv.request_server_stats()
+# the primary forwards each applied round to its backup from a thread of
+# its own (at most one round behind): wait for that before counting
+import time
+deadline = time.time() + 30.0
+while True:
+    stats = kv.request_server_stats()
+    if (len(stats) == 4 and all(s is not None for s in stats.values())
+            and all("repl_forwards" in s for s in stats.values())
+            and all(s.get("repl_lag_rounds", 0) == 0 for s in stats.values())
+            and sum(s["repl_forwards"] for s in stats.values()) >= 1):
+        break
+    assert time.time() < deadline, ("replication did not catch up", stats)
+    time.sleep(0.05)
 assert len(stats) == 4 and all(s is not None for s in stats.values()), stats
 assert all("repl_forwards" in s for s in stats.values()), stats
 assert sum(s["repl_forwards"] for s in stats.values()) >= 1, stats

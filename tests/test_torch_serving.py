@@ -394,7 +394,10 @@ def test_port_import_leaves_jax_out():
             " mxnet_tpu_torch.monitor, mxnet_tpu_torch.guard,"
             " mxnet_tpu_torch.compileobs, mxnet_tpu_torch.fault,"
             " mxnet_tpu_torch.tools.compile_report, mxnet_tpu_torch.elastic,"
-            " mxnet_tpu_torch.kvstore_server;"
+            " mxnet_tpu_torch.kvstore_server, mxnet_tpu_torch.graphpass,"
+            " mxnet_tpu_torch.graphpass.passes, mxnet_tpu_torch.compile_cache,"
+            " mxnet_tpu_torch.rtc, mxnet_tpu_torch.tools.trace_merge,"
+            " mxnet_tpu_torch.tools.mxtop;"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'mxnet_tpu' or "
             "m.startswith('mxnet_tpu.')];"
@@ -460,7 +463,9 @@ def test_port_sources_import_no_jax():
         "parallel/collectives.py", "parallel/ring.py", "parallel/pipeline.py",
         "parallel/moe.py", "parallel/lm.py", "module/parallel_module.py",
         "placed.py", "executor_manager.py", "module/executor_group.py",
-        "elastic.py")} <= rel
+        "elastic.py", "graphpass/__init__.py", "graphpass/passes.py",
+        "compile_cache.py", "rtc.py", "tools/trace_merge.py",
+        "tools/mxtop.py")} <= rel
     for f in files:
         roots = set(_imported_roots(f))
         assert not roots & {"jax", "jaxlib", "mxnet_tpu"}, (f, roots)
