@@ -272,7 +272,7 @@ Drives ``mxnet_tpu_torch`` (never the JAX package) on ``cuda:0``:
    and K2b per layer and step (counts set to 0 just before, read just
    after); (b) ``tools/launch.py -n 2 -s 1``: two workers on ``cuda:0`` and
    one server on the host train the zoo Transformer-LM at phase 5's width
-   (batch 32 per worker, 3 epochs of 4 batches of each worker's half of
+   (batch 32 per worker, 2 epochs of 4 batches of each worker's half of
    256 sequences, Adam on the server) with ``kvstore='dist_sync'``, fused
    (the gradient step one CUDA graph, the exchange on the host, the
    pulled weights copied into the captured masters) and then with
@@ -343,18 +343,18 @@ Drives ``mxnet_tpu_torch`` (never the JAX package) on ``cuda:0``:
    ``examples/memcost.py``'s network at its defaults (both peaks).
 
 24. A6c, the parameter server's HA and elastic half, on phase 21(b)'s LM
-   fit (256 sequences, batch 32, 3 epochs of 4 steps per worker, Adam,
+   fit (256 sequences, batch 32, 2 epochs of 4 steps per worker, Adam,
    fused on ``cuda:0``; the sequences reordered so that the contiguous
    shard ``num_parts=2`` gives each worker phase 21's) under
    ``tools/launch.py --elastic`` with 0.5 s heartbeats and a 2 s timeout:
    (a) ``-s 4`` with ``MXNET_KV_REPLICAS=1`` (groups [0, 1] and [2, 3]),
    server checkpoints every 2 steps, and server 2, group 1's primary,
-   SIGKILLed mid-epoch 2 (``kill_server``): the launcher exits 0, both
+   SIGKILLed mid-epoch 1 (``kill_server``): the launcher exits 0, both
    workers finish on the server map 0,3 with bitwise equal parameters,
    the logs show the promotion, the map adopted, server 2 relaunched, a
    checkpoint written, the optimizer state restored and the rejoin as a
    backup, and every server (the relaunched one too) stops without having
-   initialized CUDA; (b) ``-s 1`` with worker 1 SIGKILLed at its seventh
+   initialized CUDA; (b) ``-s 1`` with worker 1 SIGKILLed at its third
    batch (``kill_worker``): the survivor reconfigures and goes on alone,
    the relaunched worker rejoins, recaptures its gradient graph on
    ``cuda:0`` and trains; both end bitwise equal, each last epoch's
@@ -395,6 +395,34 @@ Drives ``mxnet_tpu_torch`` (never the JAX package) on ``cuda:0``:
    ranks with their step times; ``trace_merge`` writes one trace with the
    two worker lanes and the ``cluster`` lane, and rank 1's residual
    spread is below worker 0's wall per step.
+
+26. A8a, the C boundary. The port's C library (``_capi.build``: the
+   predict, NDArray, RecordIO and training C APIs, CPython embedded) is
+   built and loaded into this process with ``ctypes``, and the clients
+   under ``mxnet_tpu_torch/csrc/capi/clients`` are compiled against it.
+   (a) Phase 5's trained LM as a checkpoint through ``MXPredCreate``,
+   ``MXPredSetInput`` (token ids as float32), ``MXPredForward`` and
+   ``MXPredGetOutput`` in this process: the probabilities bitwise equal
+   to the Python ``Predictor`` on the card (created with no context: it
+   must land on ``cuda:0``) and within ``OUT_REL_TOL`` of the
+   ``Predictor`` under ``with mx.cpu():``; K1 launched once per layer and
+   forward; ``MXPredCreatePartialOut`` of ``lm_head_output`` and a second
+   create at batch 3, each bitwise equal to the Python ``Predictor``
+   (``reshape`` for the second). (b) ``predict_client.c`` in a process of
+   its own (no Python of its own; ``PYTHONPATH`` to the checkout, no
+   ``MXNET_DEFAULT_CONTEXT``): its logits bitwise equal to (a)'s, its
+   median predict call beside (a)'s. (c) ``lm_trainer.cpp`` over
+   ``mxnet_cpp.hpp`` with ``Context("gpu", 0)``: in this process through
+   ``ctypes``, 20 steps of forward, backward and ``MXExecutorSGDUpdate``
+   with K1, K2a and K2b launched once per layer in every step, step 1's
+   gradients bitwise equal to the port's Python ``Executor`` on the card,
+   the loss falling; then as a process of its own, its step-1 gradients
+   bitwise equal to the in-process run's. (d) ResNet-50 scoring at batch
+   32 in float32 through ``MXPredForward`` (the client's process, and
+   this process through ``ctypes``) and through the Python ``Predictor``:
+   the scores bitwise equal, images/s of each. A C entry point that
+   returns -1, a library that does not build and a predictor on the CPU
+   each stop the run with ``MXGetLastError()``'s or the compiler's text.
 
 Every phase that fails raises, so the exit code is not 0. The last two
 lines are the ``kernels`` JSON object and the ``ok`` JSON object; the card
@@ -4286,7 +4314,9 @@ def run_data_phase(mx, A, build, card, rn_fused):
 # sequences (its shard), 4 batches of 32 per epoch
 DIST_SEQS = 256
 DIST_BATCH = 32
-DIST_EPOCHS = 3
+# two epochs: phase 24's faults fall in the first, and the second runs on
+# the membership the fault left (its batches are checked)
+DIST_EPOCHS = 2
 # each cluster's own limit: the launcher's process group is killed past it
 DIST_TIMEOUT = 420
 # (c): train_mnist's epochs under the launcher
@@ -5414,11 +5444,11 @@ def run_observability_phase(mx, build, card):
 # ------------------------------------ A6c: HA and elastic membership (24)
 ELASTIC_HB = {"MXNET_ELASTIC_HEARTBEAT_S": "0.5",
               "MXNET_ELASTIC_HEARTBEAT_TIMEOUT_S": "2"}
-# (b): worker 1 dies at the top of its seventh batch (epoch 1, batch 2)
-WORKER_KILL_AFTER = 6
+# (b): worker 1 dies at the top of its third batch (epoch 0, batch 2)
+WORKER_KILL_AFTER = 2
 # (a): server 2 dies once group 1's keys took this many steps of updates
-# (mid-epoch 1, batch 2), and the servers checkpoint every this many
-SERVER_KILL_STEPS = 6
+# (mid-epoch 0, batch 3), and the servers checkpoint every this many
+SERVER_KILL_STEPS = 3
 SERVER_CKPT_STEPS = 2
 # (c): rank 1's sleep per batch in its data iterator, after this many
 STRAGGLER_SLEEP_S = 0.5
@@ -6268,6 +6298,505 @@ def run_compiler_phase(mx, build, card, work, c_run):
     return launches
 
 
+# ------------------------------------------- A8a: the C boundary (26)
+CAPI_CLIENTS = "mxnet_tpu_torch/csrc/capi/clients"
+CAPI_PRED_BATCH = 2        # the LM predicted at batch 2 x 128 (8.2M logits)
+CAPI_PRED_BATCH2 = 3       # the second create, at a new batch
+CAPI_PARTIAL = "lm_head_output"   # 26(a)'s internal output
+CAPI_REPS = 20             # timed predict calls
+CAPI_TRAIN_BATCH = 8       # the C trainer's fixed batch of 8 x 128 tokens
+CAPI_STEPS = 20
+# plain SGD on SoftmaxOutput's gradients, summed over the 1024 rows
+CAPI_LR = 1e-4
+CAPI_TIMEOUT = 300
+CAPI_DEV = "gpu"           # the C++ trainer's Context("gpu", 0)
+
+
+def capi_check(lib, rc, what):
+    """A C entry point's return code: -1 stops the phase with
+    ``MXGetLastError()``'s text."""
+    if rc != 0:
+        raise RuntimeError("chip_smoke: %s returned %d: %s" % (
+            what, rc, lib.MXGetLastError().decode(errors="replace")))
+
+
+def capi_build(work):
+    """The port's C library (``_capi.build``: a failure raises), the one
+    loaded into this process, and the phase's clients compiled against it
+    in parallel: ``predict_client`` and ``lm_trainer`` (executables) and
+    ``lm_trainer.so`` linked to the loaded library. Returns (loaded
+    library, paths)."""
+    import ctypes
+    import os
+
+    from mxnet_tpu_torch import _capi
+
+    t0 = time.perf_counter()
+    # the library a client links and the one this process loads (the same
+    # one where this Python links libpython) build at once
+    import threading
+
+    linked = threading.Thread(target=_capi.build)
+    linked.start()
+    lib = _capi.load()
+    linked.join()
+    c = ctypes
+    lib.MXGetLastError.restype = c.c_char_p
+    for name in ("MXPredCreate", "MXPredCreatePartialOut", "MXPredSetInput",
+                 "MXPredForward", "MXPredGetOutputShape", "MXPredGetOutput",
+                 "MXPredFree"):
+        getattr(lib, name).restype = c.c_int
+    loaded = os.path.dirname(lib._name)
+    root = os.path.dirname(os.path.abspath(__file__))
+    src = os.path.join(root, CAPI_CLIENTS)
+    out = os.path.join(work, "capi")
+    os.makedirs(out, exist_ok=True)
+    paths = {"predict_client": os.path.join(out, "predict_client"),
+             "lm_trainer": os.path.join(out, "lm_trainer"),
+             "lm_trainer.so": os.path.join(out, "lm_trainer.so")}
+    inproc = ["-I" + _capi.include_dir(), "-L" + loaded, "-lmxtpu_predict",
+              "-Wl,-rpath," + loaded]
+    cmds = [
+        ["gcc", "-O2", os.path.join(src, "predict_client.c"), "-o",
+         paths["predict_client"]] + _capi.client_flags(),
+        ["g++", "-O2", "-std=c++17", os.path.join(src, "lm_trainer.cpp"),
+         "-o", paths["lm_trainer"]] + _capi.client_flags(),
+        ["g++", "-O2", "-std=c++17", "-shared", "-fPIC",
+         os.path.join(src, "lm_trainer.cpp"), "-o", paths["lm_trainer.so"]]
+        + inproc]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    for cmd, p in zip(cmds, procs):
+        text = p.communicate(timeout=CAPI_TIMEOUT)[0]
+        check(p.returncode == 0, "compiling %s failed:\n%s"
+              % (os.path.basename(cmd[-1] if cmd[0] == "gcc" else cmd[3]),
+                 text[-3000:]))
+    log("  the port's C library %s (loaded here: %s; %s) and three clients "
+        "built in %.2f s" % (_capi.build(), lib._name,
+                             "libpython linked" if lib._name == _capi.build()
+                             else "CPython from this process",
+                             time.perf_counter() - t0))
+    return lib, paths
+
+
+class CPredictor:
+    """``MXPredCreate`` (or ``MXPredCreatePartialOut``) through ctypes
+    in this process, with the input shapes ``shapes`` (name -> shape,
+    "data" first: the input ``predict`` sets); every call is checked."""
+
+    def __init__(self, lib, sym_json, params, shapes, outputs=()):
+        import ctypes as c
+
+        self.lib, self.h = lib, c.c_void_p()
+        keys = (c.c_char_p * len(shapes))(*[k.encode() for k in shapes])
+        bounds = np.cumsum([0] + [len(s) for s in shapes.values()])
+        indptr = (c.c_uint * len(bounds))(*[int(b) for b in bounds])
+        flat = [int(d) for s in shapes.values() for d in s]
+        dims = (c.c_uint * len(flat))(*flat)
+        common = (sym_json.encode(), params, len(params), 2, 0, len(shapes),
+                  keys, indptr, dims)
+        if outputs:
+            okeys = (c.c_char_p * len(outputs))(*[o.encode() for o in outputs])
+            capi_check(lib, lib.MXPredCreatePartialOut(
+                *common, len(outputs), okeys, c.byref(self.h)),
+                "MXPredCreatePartialOut")
+        else:
+            capi_check(lib, lib.MXPredCreate(*common, c.byref(self.h)),
+                       "MXPredCreate")
+        ptr, ndim = c.POINTER(c.c_uint)(), c.c_uint()
+        capi_check(lib, lib.MXPredGetOutputShape(
+            self.h, 0, c.byref(ptr), c.byref(ndim)), "MXPredGetOutputShape")
+        self.out_shape = tuple(ptr[i] for i in range(ndim.value))
+
+    def predictor(self):
+        """The Python ``Predictor`` behind the handle (the shim's handle
+        points at a struct whose first member is that object)."""
+        import ctypes as c
+
+        return c.cast(c.cast(self.h, c.POINTER(c.c_void_p))[0],
+                      c.py_object).value
+
+    def predict(self, x):
+        """MXPredSetInput (float32), MXPredForward, MXPredGetOutput."""
+        import ctypes as c
+
+        x = np.ascontiguousarray(x, np.float32)
+        capi_check(self.lib, self.lib.MXPredSetInput(
+            self.h, b"data", x.ctypes.data_as(c.POINTER(c.c_float)),
+            x.size), "MXPredSetInput")
+        capi_check(self.lib, self.lib.MXPredForward(self.h), "MXPredForward")
+        out = np.empty(self.out_shape, np.float32)
+        capi_check(self.lib, self.lib.MXPredGetOutput(
+            self.h, 0, out.ctypes.data_as(c.POINTER(c.c_float)), out.size),
+            "MXPredGetOutput")
+        return out
+
+    def free(self):
+        capi_check(self.lib, self.lib.MXPredFree(self.h), "MXPredFree")
+
+
+def median_ms(fn, reps=CAPI_REPS):
+    """Median host wall of ``fn()`` (which ends with a read to the host)
+    over ``reps`` calls after one untimed call."""
+    fn()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(walls))
+
+
+def _save_checkpoint(mx, path, sym, arg_params, aux_params=None):
+    """``path``-symbol.json and ``path``-0000.params; returns (json,
+    params bytes)."""
+    blob = {"arg:%s" % k: mx.nd.array(v, ctx=mx.cpu())
+            for k, v in arg_params.items()}
+    blob.update({"aux:%s" % k: mx.nd.array(v, ctx=mx.cpu())
+                 for k, v in (aux_params or {}).items()})
+    mx.nd.save(path + "-0000.params", blob)
+    sym.save(path + "-symbol.json")
+    with open(path + "-0000.params", "rb") as f:
+        return sym.tojson(), f.read()
+
+
+def capi_predict_in_process(mx, build, lib, ckpt, tokens):
+    """26(a): the LM's checkpoint through MXPredCreate ... MXPredGetOutput
+    in this process, against the Python Predictor on the card (bitwise)
+    and on the CPU (OUT_REL_TOL); K1's launches per forward; the partial
+    output and a second create at a new batch, each against the Python
+    Predictor. Returns (logits, in-process ms, Python ms, K1 launches of
+    the C calls)."""
+    from mxnet_tpu_torch.predict import Predictor
+
+    sym_json, params = ckpt
+    L, T = TRAIN["num_layers"], TRAIN["seq_len"]
+    shape = (CAPI_PRED_BATCH, T)
+    # the label goes through a Reshape: its shape is given, not inferred
+    shapes = {"data": shape, "softmax_label": shape}
+    py = Predictor(sym_json, params, input_shapes=shapes)
+    check(py.ctx.type == "cuda" and py._exe.arg_dict["data"].context.type
+          == "cuda", "the Predictor with no context landed on %s" % py.ctx)
+    want = py.forward(data=tokens).get_output(0)
+    cp = CPredictor(lib, sym_json, params, shapes)
+    ctx = cp.predictor()._exe.arg_dict["data"].context
+    check(ctx.type == "cuda", "the C predictor landed on %s" % ctx)
+    check(cp.out_shape == want.shape, "MXPredGetOutputShape before the first "
+          "forward: %s, want %s" % (cp.out_shape, want.shape))
+    _zero(build)
+    got = cp.predict(tokens)
+    k1 = k1_total = _counts(build)["flash_fwd"]
+    check(k1 == L, "one MXPredForward launched K1 %d times, want %d" % (k1, L))
+    check(np.isfinite(got).all(), "the C predictor's logits are not finite")
+    check(np.array_equal(got, want), "the C predictor's logits differ from "
+          "the Python Predictor's on the card: largest %.3e"
+          % float(np.abs(got - want).max()))
+    with mx.cpu():
+        cpu = Predictor(sym_json, params, input_shapes=shapes)
+    ref = cpu.forward(data=tokens).get_output(0)
+    err = float(np.abs(got - ref).max() / np.abs(ref).max())
+    check(err <= OUT_REL_TOL, "the C predictor on the card against the "
+          "Predictor on the CPU: %.3e of the largest (tol %.0e)"
+          % (err, OUT_REL_TOL))
+    _zero(build)
+    c_ms = median_ms(lambda: cp.predict(tokens))
+    k1 = _counts(build)["flash_fwd"]
+    k1_total += k1
+    check(k1 == L * (CAPI_REPS + 1), "%d MXPredForward calls launched K1 %d "
+          "times" % (CAPI_REPS + 1, k1))
+    py_ms = median_ms(lambda: py.forward(data=tokens).get_output(0))
+    log("  (a) MXPredCreate/SetInput/Forward/GetOutput in this process, the "
+        "LM at batch %d x %d (output %s): bitwise equal to the Python "
+        "Predictor on the card; %.3e of the largest against the CPU (tol "
+        "%.0e); K1 %d launches in %d forwards (%d layers); predict call "
+        "(set input, forward, read output) median %.3f ms through the C API, "
+        "%.3f ms through the Python Predictor"
+        % (shape[0], T, want.shape, err, OUT_REL_TOL, k1, CAPI_REPS + 1, L,
+           c_ms, py_ms))
+    cp.free()
+    # the partial output: the logits before the softmax
+    part = CPredictor(lib, sym_json, params, shapes, outputs=[CAPI_PARTIAL])
+    pw = Predictor(sym_json, params, input_shapes=shapes,
+                   output_names=[CAPI_PARTIAL]).forward(data=tokens)
+    _zero(build)
+    pg = part.predict(tokens)
+    k1_total += _counts(build)["flash_fwd"]
+    check(np.array_equal(pg, pw.get_output(0)), "MXPredCreatePartialOut(%s) "
+          "differs from Predictor(output_names=...)" % CAPI_PARTIAL)
+    part.free()
+    # a second create at a new batch, against the Python Predictor reshaped
+    tokens2 = np.concatenate([tokens, tokens[:1]])[:CAPI_PRED_BATCH2]
+    shape2 = (CAPI_PRED_BATCH2, T)
+    second = CPredictor(lib, sym_json, params,
+                        {"data": shape2, "softmax_label": shape2})
+    _zero(build)
+    g2 = second.predict(tokens2)
+    k1_total += _counts(build)["flash_fwd"]
+    w2 = py.reshape({"data": shape2, "softmax_label": shape2}).forward(
+        data=tokens2).get_output(0)
+    check(np.array_equal(g2, w2), "the C predictor at batch %d differs from "
+          "the reshaped Predictor" % CAPI_PRED_BATCH2)
+    second.free()
+    log("  (a) MXPredCreatePartialOut(%s) %s and a second MXPredCreate at "
+        "batch %d %s: each bitwise equal to the Python Predictor (the "
+        "second against Predictor.reshape)"
+        % (CAPI_PARTIAL, pg.shape, CAPI_PRED_BATCH2, g2.shape))
+    return got, c_ms, py_ms, k1_total
+
+
+def capi_trainer_in_process(mx, build, paths, files, init):
+    """26(c) in this process: the C++ trainer's lmt_* entry points through
+    ctypes, step by step with the launch counters read after each; step
+    1's gradients against the port's Python Executor on the card
+    (bitwise); the loss falling. Returns the per-step launches and the
+    mean step ms, with the Python Executor's."""
+    import ctypes as c
+
+    L, T, B = TRAIN["num_layers"], TRAIN["seq_len"], CAPI_TRAIN_BATCH
+    so = c.CDLL(paths["lm_trainer.so"], mode=__import__("os").RTLD_LOCAL)
+    so.lmt_step.argtypes = [c.c_float, c.c_int, c.POINTER(c.c_double)]
+    rc = so.lmt_create(files["symbol"].encode(), files["init"].encode(),
+                       files["data"].encode(), files["label"].encode(), B, T,
+                       CAPI_DEV.encode())
+    check(rc == 0, "lmt_create returned %d (its message is on stderr)" % rc)
+    per_step, losses = [], {}
+    loss = c.c_double()
+    for s in range(1, CAPI_STEPS + 1):
+        _zero(build)
+        rc = so.lmt_step(CAPI_LR, int(s in (1, CAPI_STEPS)), c.byref(loss))
+        check(rc == 0, "lmt_step %d returned %d" % (s, rc))
+        per_step.append(_counts(build))
+        if s in (1, CAPI_STEPS):
+            losses[s] = loss.value
+        if s == 1:
+            check(so.lmt_save_grads(files["grads"].encode()) == 0,
+                  "lmt_save_grads failed")
+    check(so.lmt_sync() == 0, "lmt_sync failed")
+    for s, n in enumerate(per_step, 1):
+        check(all(n[k] == L for k in FLASH), "the C trainer's step %d "
+              "launched %s, want %d of each of K1/K2a/K2b" % (s, n, L))
+    check(losses[CAPI_STEPS] < losses[1] and all(
+        math.isfinite(v) for v in losses.values()),
+        "the C trainer's loss did not fall: %s" % losses)
+    # the step timed as the subprocess times it: steps that read nothing
+    # back, up to a read that waits for the card
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(CAPI_STEPS - 2):
+        check(so.lmt_step(CAPI_LR, 0, c.byref(loss)) == 0, "lmt_step failed")
+    check(so.lmt_sync() == 0, "lmt_sync failed")
+    c_ms = (time.perf_counter() - t0) * 1e3 / (CAPI_STEPS - 2)
+    so.lmt_free()
+    # the same step through the port's Python Executor
+    X = np.fromfile(files["data"], np.float32).reshape(B, T)
+    Y = np.fromfile(files["label"], np.float32).reshape(B, T)
+    sym = mx.sym.load(files["symbol"])
+    ex = sym.simple_bind(mx.gpu(0), grad_req="write", data=(B, T),
+                         softmax_label=(B, T))
+    for k, v in init.items():
+        ex.arg_dict[k][:] = v
+    ex.arg_dict["data"][:] = X
+    ex.arg_dict["softmax_label"][:] = Y
+    ex.forward(is_train=True)
+    ex.backward()
+    got = mx.nd.load(files["grads"])
+    diff = {k: float(np.abs(got["grad:" + k].asnumpy()
+                            - ex.grad_dict[k].asnumpy().ravel()).max())
+            for k in init}
+    worst = max(diff, key=diff.get)
+    check(all(v == 0 and np.array_equal(
+        got["grad:" + k].asnumpy(), ex.grad_dict[k].asnumpy().ravel())
+        for k, v in diff.items()),
+        "the C trainer's step-1 gradients differ from the Python Executor's: "
+        "largest %.3e (%s)" % (diff[worst], worst))
+
+    def py_step():
+        ex.arg_dict["data"][:] = X
+        ex.arg_dict["softmax_label"][:] = Y
+        ex.forward(is_train=True)
+        ex.backward()
+        with torch.no_grad():
+            for k in init:
+                w = ex.arg_dict[k]
+                w[:] = w.data - CAPI_LR * ex.grad_dict[k].data
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(CAPI_STEPS - 2):
+        py_step()
+    torch.cuda.synchronize()
+    py_ms = (time.perf_counter() - t0) * 1e3 / (CAPI_STEPS - 2)
+    del ex
+    log("  (c) the C++ trainer (mxnet_cpp.hpp, Context(\"gpu\", 0)) in this "
+        "process: %d steps of forward, backward, MXExecutorSGDUpdate (lr "
+        "%g) at batch %d x %d; K1/K2a/K2b launches per step %s; step 1's "
+        "gradients of %d parameters bitwise equal to the Python Executor's; "
+        "loss %.6f -> %.6f; mean step %.3f ms (Python Executor, the same "
+        "update: %.3f ms)"
+        % (CAPI_STEPS, CAPI_LR, B, T,
+           sorted({tuple(n[k] for k in FLASH) for n in per_step}),
+           len(init), losses[1], losses[CAPI_STEPS], c_ms, py_ms))
+    return per_step, losses, c_ms, py_ms
+
+
+def _client_run(cmd, what):
+    from mxnet_tpu_torch import _capi
+
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True,
+                       env=_capi.client_env(), timeout=CAPI_TIMEOUT)
+    check(r.returncode == 0, "%s exited %d:\n%s\n%s"
+          % (what, r.returncode, r.stdout[-2000:], r.stderr[-4000:]))
+    return r.stdout, time.perf_counter() - t0
+
+
+def _resnet_checkpoint(mx, path):
+    """ResNet-50 at bench.py's configuration, Xavier-initialized from a
+    seed on the card, as a checkpoint; float32."""
+    net = mx.models.resnet(**RESNET)
+    mod = mx.mod.Module(net, context=mx.gpu(0))
+    mod.bind(data_shapes=[("data", (CAPI_PRED_BATCH,) + RESNET_SHAPE)],
+             label_shapes=[("softmax_label", (CAPI_PRED_BATCH,))],
+             for_training=False)
+    mod.init_params(initializer=mx.init.Xavier(
+        rng=torch.Generator().manual_seed(26)))
+    args, auxs = mod.get_params()
+    return _save_checkpoint(mx, path, net,
+                            {k: v.asnumpy() for k, v in args.items()},
+                            {k: v.asnumpy() for k, v in auxs.items()})
+
+
+def run_capi_phase(mx, build, card, t_params, work):
+    """Phase 26 (see the module docstring); returns the K1/K2a/K2b
+    launches of its main paths."""
+    import os
+
+    from mxnet_tpu_torch.predict import Predictor
+
+    t_phase = time.perf_counter()
+    lib, paths = capi_build(work)
+    d = os.path.join(work, "capi")
+    L, T = TRAIN["num_layers"], TRAIN["seq_len"]
+    total = {k: 0 for k in FLASH}
+
+    # (a) phase 5's trained LM as a checkpoint, predicted in this process
+    lm_sym = mx.models.transformer_lm(**TRAIN)
+    ckpt = _save_checkpoint(mx, os.path.join(d, "lm"), lm_sym, t_params)
+    X, _ = lm_stream(CAPI_PRED_BATCH, seed=26)
+    X.tofile(os.path.join(d, "lm_tokens.f32"))
+    logits, c_ms, _, total["flash_fwd"] = capi_predict_in_process(
+        mx, build, lib, ckpt, X)
+
+    # (d)'s checkpoint and input, for the subprocess
+    rn_json, rn_params = _resnet_checkpoint(mx, os.path.join(d, "resnet"))
+    imgs = np.random.RandomState(26).uniform(
+        -1, 1, (RESNET_BATCH,) + RESNET_SHAPE).astype(np.float32)
+    imgs.tofile(os.path.join(d, "images.f32"))
+
+    # (b) the compiled C client in a process of its own: the LM, then
+    # ResNet-50 scoring for (d)
+    _zero(build)
+    out, wall = _client_run(
+        [paths["predict_client"], str(CAPI_REPS),
+         os.path.join(d, "lm-symbol.json"), os.path.join(d, "lm-0000.params"),
+         os.path.join(d, "lm_tokens.f32"), os.path.join(d, "lm_out.f32"),
+         "2", str(CAPI_PRED_BATCH), str(T),
+         "+softmax_label", "2", str(CAPI_PRED_BATCH), str(T),
+         os.path.join(d, "resnet-symbol.json"),
+         os.path.join(d, "resnet-0000.params"),
+         os.path.join(d, "images.f32"), os.path.join(d, "resnet_out.f32"),
+         "4", str(RESNET_BATCH)] + [str(x) for x in RESNET_SHAPE],
+        "the C predict client")
+    check(sum(_counts(build).values()) == 0, "the subprocess counted here")
+    lines = dict((tuple(l.split()[:3]), l.split()[3:])
+                 for l in out.splitlines() if l.startswith("JOB "))
+    sub_logits = np.fromfile(os.path.join(d, "lm_out.f32"), np.float32)
+    check(sub_logits.size == logits.size and np.array_equal(
+        sub_logits.reshape(logits.shape), logits),
+        "the C client process's logits differ from the in-process C "
+        "predictor's")
+    sub_ms = float(lines[("JOB", "0", "MEDIAN_MS")][0])
+    log("  (b) predict_client.c in its own process (%.1f s, no Python of its "
+        "own; the port's interpreter embedded): the LM's logits bitwise "
+        "equal to (a)'s; predict call median %.3f ms, against %.3f ms in "
+        "this process through the C API (%s)" % (wall, sub_ms, c_ms, card))
+
+    # (c) the C++ trainer: in process, then as a process of its own
+    init_mod = mx.mod.Module(lm_sym, context=mx.gpu(0))
+    init_mod.bind(data_shapes=[("data", (CAPI_TRAIN_BATCH, T))],
+                  label_shapes=[("softmax_label", (CAPI_TRAIN_BATCH, T))])
+    init_mod.init_params(initializer=mx.init.Xavier(
+        rng=torch.Generator().manual_seed(26)))
+    init = {k: v.asnumpy() for k, v in init_mod.get_params()[0].items()}
+    del init_mod
+    _save_checkpoint(mx, os.path.join(d, "lm_init"), lm_sym, init)
+    tx, ty = lm_stream(CAPI_TRAIN_BATCH, seed=27)
+    files = {"symbol": os.path.join(d, "lm_init-symbol.json"),
+             "init": os.path.join(d, "lm_init-0000.params"),
+             "data": os.path.join(d, "train_data.f32"),
+             "label": os.path.join(d, "train_label.f32"),
+             "grads": os.path.join(d, "grads_in_process.params")}
+    tx.tofile(files["data"])
+    ty.tofile(files["label"])
+    per_step, losses, step_ms, py_step_ms = capi_trainer_in_process(
+        mx, build, paths, files, init)
+    for n in per_step:
+        for k in FLASH:
+            total[k] += n[k]
+    sub_grads = os.path.join(d, "grads_process.params")
+    out, wall = _client_run(
+        [paths["lm_trainer"], files["symbol"], files["init"], files["data"],
+         files["label"], str(CAPI_TRAIN_BATCH), str(T), str(CAPI_STEPS),
+         repr(CAPI_LR), CAPI_DEV, sub_grads], "the C++ trainer")
+    # "LOSS <step> <value>" and "STEP_MS <value>" as LOSS<step>, STEP_MS
+    sub = {"".join(l.split()[:-1]): float(l.split()[-1])
+           for l in out.splitlines() if l.startswith(("LOSS", "STEP_MS"))}
+    g_in, g_sub = mx.nd.load(files["grads"]), mx.nd.load(sub_grads)
+    check(sorted(g_in) == sorted(g_sub) and all(
+        np.array_equal(g_in[k].asnumpy(), g_sub[k].asnumpy()) for k in g_in),
+        "the C++ trainer's process wrote other step-1 gradients than its "
+        "in-process run")
+    check(sub["LOSS%d" % CAPI_STEPS] < sub["LOSS1"],
+          "the C++ trainer process's loss did not fall: %s" % sub)
+    log("  (c) lm_trainer.cpp in its own process (%.1f s): step-1 gradients "
+        "bitwise equal to the in-process run's; loss %.6f -> %.6f (in "
+        "process %.6f -> %.6f); mean step %.3f ms (in process %.3f, Python "
+        "Executor %.3f) (%s)"
+        % (wall, sub["LOSS1"], sub["LOSS%d" % CAPI_STEPS], losses[1],
+           losses[CAPI_STEPS], sub["STEP_MS"], step_ms, py_step_ms, card))
+
+    # (d) ResNet-50 scoring through MXPredForward, float32, batch 32
+    rn_sub = np.fromfile(os.path.join(d, "resnet_out.f32"), np.float32)
+    rn_py = Predictor(rn_json, rn_params,
+                      input_shapes={"data": (RESNET_BATCH,) + RESNET_SHAPE})
+    want = rn_py.forward(data=imgs).get_output(0)
+    check(np.isfinite(want).all() and rn_sub.size == want.size
+          and np.array_equal(rn_sub.reshape(want.shape), want),
+          "ResNet-50's scores from the C client differ from the Python "
+          "Predictor's")
+    py_rn = median_ms(lambda: rn_py.forward(data=imgs).get_output(0))
+    del rn_py
+    c_rn = CPredictor(lib, rn_json, rn_params,
+                      {"data": (RESNET_BATCH,) + RESNET_SHAPE})
+    in_rn = median_ms(lambda: c_rn.predict(imgs))
+    c_rn.free()
+    sub_rn = float(lines[("JOB", "1", "MEDIAN_MS")][0])
+    log("  (d) ResNet-%d scoring, float32, batch %d x %s: the C client's "
+        "scores bitwise equal to the Python Predictor's; predict call "
+        "median %.3f ms = %.1f images/s (C client process), %.3f ms = %.1f "
+        "images/s (C API in this process), %.3f ms = %.1f images/s (Python "
+        "Predictor) (%s)"
+        % (RESNET["num_layers"], RESNET_BATCH, RESNET_SHAPE, sub_rn,
+           RESNET_BATCH * 1e3 / sub_rn,
+           in_rn, RESNET_BATCH * 1e3 / in_rn, py_rn,
+           RESNET_BATCH * 1e3 / py_rn, card))
+    torch.cuda.empty_cache()
+    log("  phase 26: %.1f s; K1/K2a/K2b launches on its main paths %s"
+        % (time.perf_counter() - t_phase, total))
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -6565,6 +7094,12 @@ def _main(work):
         "compile cache's warm start, mx.rtc, trace_merge and mxtop (%s)"
         % card)
     for name, n in run_compiler_phase(mx, build, card, work, c_run).items():
+        next(r for r in rows if r["name"] == name)["launches"] += n
+
+    log("== 26. A8a, the C boundary: the LM predicted and trained by "
+        "compiled C/C++ clients; ResNet-50 scored through MXPredForward (%s)"
+        % card)
+    for name, n in run_capi_phase(mx, build, card, t_params, work).items():
         next(r for r in rows if r["name"] == name)["launches"] += n
 
     log(card)

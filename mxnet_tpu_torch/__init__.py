@@ -115,8 +115,8 @@ from .base import not_ported as _not_ported  # noqa: E402
 
 # the JAX package's top-level names the port has not reached yet
 __getattr__ = _not_ported(__name__, {
-    "export_artifact": "A8", "export_predict_artifact": "A8",
-    "export_train_artifact": "A8"})
+    "export_artifact": "A8b", "export_predict_artifact": "A8b",
+    "export_train_artifact": "A8b"})
 
 __version__ = "0.1.0"
 

@@ -245,6 +245,25 @@ class Symbol:
     def list_inputs(self):
         return self.list_arguments() + self.list_auxiliary_states()
 
+    def get_children(self):
+        """The inputs of the head node as one symbol; None for a variable."""
+        node = self._entries[0][0]
+        if not node.inputs:
+            return None
+        return Symbol([(n, i) for n, i in node.inputs])
+
+    def debug_str(self):
+        """One line per variable, one block per op with its inputs."""
+        lines = []
+        for node in _topo_order(self._entries):
+            if node.is_variable:
+                lines.append("Variable:%s" % node.name)
+            else:
+                lines.append("Op:%s, Name=%s\nInputs:\n\t%s" % (
+                    node.op, node.name,
+                    "\n\t".join(n.name for n, _ in node.inputs)))
+        return "\n".join(lines)
+
     def get_internals(self):
         """Every internal output, one entry per node output, in
         topological order."""
@@ -261,12 +280,22 @@ class Symbol:
     def infer_shape(self, *args, **kwargs):
         """(arg_shapes, out_shapes, aux_shapes); all three None when the
         given shapes do not determine every one."""
+        return _infer(self, self._provided_shapes(args, kwargs), "shape")
+
+    def infer_shape_partial(self, *args, **kwargs):
+        """As :meth:`infer_shape`, but a shape the given ones do not
+        determine is None in its list (a node whose inference fails leaves
+        its outputs None)."""
+        return _infer(self, self._provided_shapes(args, kwargs), "shape",
+                      partial=True)
+
+    def _provided_shapes(self, args, kwargs):
         provided = {}
         for name, shape in zip(self.list_arguments(), args):
             if shape is not None:
                 provided[name] = tuple(shape)
         provided.update({k: tuple(v) for k, v in kwargs.items() if v is not None})
-        return _infer(self, provided, "shape")
+        return provided
 
     def infer_type(self, *args, **kwargs):
         provided = {}
@@ -366,8 +395,9 @@ class Symbol:
         return "<Symbol %s>" % (name if name else "Grouped")
 
 
-def _infer(sym, provided, kind):
-    """Run shape or type inference over the graph in topo order."""
+def _infer(sym, provided, kind, partial=False):
+    """Run shape or type inference over the graph in topo order; with
+    ``partial`` a node whose inference fails leaves its outputs None."""
     order = _topo_order(sym._entries)
     known = {}  # id(node) -> list of per-output values
     for node in order:
@@ -397,6 +427,9 @@ def _infer(sym, provided, kind):
                 new_aux = [v if v is not None else new_args[0] for v in aux_vals] \
                     if op.aux_names(node.attrs) else []
         except Exception as e:  # noqa: BLE001
+            if partial:
+                known[id(node)] = [None] * op.num_outputs(node.attrs)
+                continue
             raise MXNetError(
                 "%s inference failed at node %s(%s): %s" % (kind, node.op, node.name, e)
             ) from e
@@ -415,7 +448,8 @@ def _infer(sym, provided, kind):
             (auxs if id(node) in aux_vars else args).append(known[id(node)][0])
     outs = [None if known.get(id(node)) is None else known[id(node)][k]
             for node, k in sym._entries]
-    if kind == "shape" and any(v is None for v in args + outs + auxs):
+    if kind == "shape" and not partial and any(
+            v is None for v in args + outs + auxs):
         return None, None, None
     return args, outs, auxs
 

@@ -11,6 +11,7 @@ JAX package: a subprocess import and an AST scan check that.
 import ast
 import glob
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -397,7 +398,8 @@ def test_port_import_leaves_jax_out():
             " mxnet_tpu_torch.kvstore_server, mxnet_tpu_torch.graphpass,"
             " mxnet_tpu_torch.graphpass.passes, mxnet_tpu_torch.compile_cache,"
             " mxnet_tpu_torch.rtc, mxnet_tpu_torch.tools.trace_merge,"
-            " mxnet_tpu_torch.tools.mxtop;"
+            " mxnet_tpu_torch.tools.mxtop, mxnet_tpu_torch.predict,"
+            " mxnet_tpu_torch.capi_train, mxnet_tpu_torch._capi;"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'mxnet_tpu' or "
             "m.startswith('mxnet_tpu.')];"
@@ -465,10 +467,25 @@ def test_port_sources_import_no_jax():
         "placed.py", "executor_manager.py", "module/executor_group.py",
         "elastic.py", "graphpass/__init__.py", "graphpass/passes.py",
         "compile_cache.py", "rtc.py", "tools/trace_merge.py",
-        "tools/mxtop.py")} <= rel
+        "tools/mxtop.py", "predict.py", "capi_train.py", "_capi.py")} <= rel
     for f in files:
         roots = set(_imported_roots(f))
         assert not roots & {"jax", "jaxlib", "mxnet_tpu"}, (f, roots)
+
+
+def test_capi_shims_import_only_the_port():
+    """The C shims embed CPython and import modules by name: every such
+    name in ``csrc/capi/*.cc`` is the port's (``mxnet_tpu_torch...``)."""
+    srcs = glob.glob(os.path.join(ROOT, "mxnet_tpu_torch", "csrc", "capi",
+                                  "*.cc"))
+    names = []
+    for f in srcs:
+        text = open(f).read()
+        names += re.findall(r'PyImport_ImportModule\(\s*"([^"]*)"', text)
+        assert "PyImport_Import(" not in text, f
+    assert sorted(names) == ["mxnet_tpu_torch.capi_train",
+                             "mxnet_tpu_torch.predict"]
+    assert all(n.startswith("mxnet_tpu_torch.") for n in names)
 
 
 def test_native_build_compiles_only_the_ports_sources(tmp_path, monkeypatch):
