@@ -8,7 +8,9 @@ Drives ``mxnet_tpu_torch`` (never the JAX package) on ``cuda:0``:
    torch and CUDA versions;
 2. build — compiles every hand-written kernel from
    ``mxnet_tpu_torch/csrc`` with ``nvcc`` (one process per source, all
-   started together) and prints the ptxas report;
+   started together) and prints the ptxas report; beside them, the host
+   builds that phases 20 and 26 load (the native host stage, the C
+   library and its clients);
 3. kernels vs plain — each kernel's wrapper on card tensors against its
    plain PyTorch version on the same inputs, at the main paths' shapes,
    with stated tolerances: the flash forward at every serving bucket
@@ -283,7 +285,9 @@ Drives ``mxnet_tpu_torch`` (never the JAX package) on ``cuda:0``:
    it never initialized CUDA, and each path's host wall per step beside
    phase 5's fused ``local`` one; every cluster in its own process group,
    killed past its time limit; (c) ``examples/train_mnist.py --kv-store
-   dist_sync`` under the same launcher.
+   dist_sync`` under the same launcher, every process seeded with
+   ``MNIST_SEED``: both epochs' validation accuracy finite, the last above
+   0.5 in each worker.
 22. model parallelism — (a) ``build_mesh({"sp": 4})``: four positions on
    ``cuda:0`` (printed); ring and Ulysses attention at (2, 8, 4096, 64)
    float32 causal over them against one whole-sequence
@@ -424,6 +428,29 @@ Drives ``mxnet_tpu_torch`` (never the JAX package) on ``cuda:0``:
    returns -1, a library that does not build and a predictor on the CPU
    each stop the run with ``MXGetLastError()``'s or the compiler's text.
 
+27. A7's last part, ``analysis/``: the engine dependency sanitizer and
+   the lock witness in strict mode. (a) Phase 21(b)'s fused ``dist_sync``
+   fit again (two workers on ``cuda:0``, the server on the host), every
+   process with ``MXNET_ENGINE_SANITIZER=strict`` and
+   ``MXNET_LOCK_WITNESS=strict``, each worker's witness seeded with the
+   static lock graph of ``mxnet_tpu_torch/`` (``lockgraph.build``, built
+   once by this process and handed to the workers as a JSON file): the
+   launcher exits 0 with no ``EngineSanitizerError`` or
+   ``LockWitnessError`` in any log, every ``engine.sanitizer.*`` counter
+   and ``lock.order_violations`` 0 and ``engine.pushes`` above 0 in each
+   worker, K1, K2a and K2b once per layer and step, the two workers'
+   final parameters bitwise equal and within ``RESUME_TOL`` of 21(b)'s
+   (the largest difference and the host wall per step beside 21(b)'s are
+   printed). (b) The witness strict and seeded in this process over a
+   ``ServingEngine`` at phase 4's width serving phase 4's prompts: the
+   token streams equal phase 4's, K1 and K3 launched as in phase 4, the
+   observed nesting edges a subset of the static ones,
+   ``lock.held_seconds`` of the engine lock observed, no violation. (c)
+   The negatives must raise: under ``ThreadedEngine`` a pushed fn writing
+   a card ``NDArray`` whose var it declared const (``const_write`` at
+   ``wait_for_var``), and two declared locks nested in an order the static
+   graph lacks (``unknown_edge``).
+
 Every phase that fails raises, so the exit code is not 0. The last two
 lines are the ``kernels`` JSON object and the ``ok`` JSON object; the card
 line comes just before them.
@@ -542,6 +569,13 @@ def log(*a):
     if a and str(a[0]).startswith("== "):
         a = a + ("[%.1f s in]" % (time.time() - _T0),)
     print(*a, flush=True)
+
+
+def timed(fn, *args):
+    """(``fn(*args)``, the seconds it took)."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    return out, time.perf_counter() - t0
 
 
 def card_line():
@@ -1096,7 +1130,8 @@ def run_serving(S, M, build, tel):
         "p99 %.4f s (port telemetry)" % (ntok, wall, ntok / wall,
                                          st["ttft_p50_s"], st["ttft_p99_s"]))
     return cfg, params, launches, {"prefills": prefills, "decodes": decodes,
-                                   "steps": steps}
+                                   "steps": steps,
+                                   "streams": [list(r.generated) for r in reqs]}
 
 
 def teacher_forced(S, M, cfg, params_np):
@@ -4235,8 +4270,9 @@ def det_records(mx, path, n, seed):
         w.close()
 
 
-def run_data_phase(mx, A, build, card, rn_fused):
-    """Phase 20; returns the kernels' launches of (a)'s recorded runs."""
+def run_data_phase(mx, A, build, card, rn_fused, native_s):
+    """Phase 20 (``native_s``: phase 2's build of the native host stage);
+    returns the kernels' launches of (a)'s recorded runs."""
     import os
     import tempfile
 
@@ -4247,9 +4283,10 @@ def run_data_phase(mx, A, build, card, rn_fused):
 
     t0 = time.perf_counter()
     lib_decoder = _native.decoder()
-    log("  decoder: %s (the native stage, built in %.2f s); the Python "
-        "pipeline decodes with %s" % (lib_decoder, time.perf_counter() - t0,
-                                       mx.image.python_decoder()))
+    log("  decoder: %s (the native stage, built in phase 2 in %.2f s, "
+        "loaded in %.2f s); the Python pipeline decodes with %s"
+        % (lib_decoder, native_s, time.perf_counter() - t0,
+           mx.image.python_decoder()))
     check(lib_decoder != "none", "the native stage has no JPEG decoder")
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
@@ -4319,8 +4356,14 @@ DIST_BATCH = 32
 DIST_EPOCHS = 2
 # each cluster's own limit: the launcher's process group is killed past it
 DIST_TIMEOUT = 420
-# (c): train_mnist's epochs under the launcher
+# (c): train_mnist's epochs under the launcher, and the seed of every
+# process's draws (the initial weights, each worker's shuffle). The example
+# itself is unseeded, and at its lr 0.1 and momentum 0.9 some draws diverge
+# in the second epoch in the JAX package and in the port alike, on the same
+# draws: a fixed draw makes the check below a check of the port, not of the
+# draw
 MNIST_EPOCHS = 2
+MNIST_SEED = 0
 
 
 def example_source(name):
@@ -4341,10 +4384,17 @@ def example_source(name):
     return path, "".join(out)
 
 
-def exec_example(name, argv):
+def exec_example(name, argv, seed=None):
     """Run ``examples/<name>.py`` from its source (import lines rewritten)
     as ``__main__`` with ``argv``; a launcher's worker and server both run
-    this (the server serves inside the script's ``import``)."""
+    this (the server serves inside the ``import``). ``seed``, when given,
+    seeds numpy's global generator and ``mx.random`` first, as a user's
+    ``mx.random.seed`` at the top of the script would."""
+    if seed is not None:
+        np.random.seed(seed)
+        import mxnet_tpu_torch as mx
+
+        mx.random.seed(seed)
     path, src = example_source(name)
     sys.argv = [path] + list(argv)
     exec(compile(src, path, "exec"), {"__name__": "__main__", "__file__": path})
@@ -4414,6 +4464,18 @@ def dist_lm_worker():
     from mxnet_tpu_torch.ops import _build as build
 
     out_dir = os.environ["SMOKE_OUT"]
+    # phase 27(a): the same fit with the sanitizer and the witness strict
+    # (the launcher's environment) and the witness seeded with the static
+    # lock graph the parent built (a JSON list of edges)
+    static = os.environ.get("SMOKE_STATIC_EDGES")
+    sanitized = static is not None
+    if sanitized:
+        from mxnet_tpu_torch import telemetry
+        from mxnet_tpu_torch.analysis import witness
+
+        with open(static) as f:
+            witness.seed_static(json.load(f))
+        telemetry.enable()
     kv = mx.kv.create("dist_sync")
     rank = kv.rank
     X, Y = lm_stream(DIST_SEQS)
@@ -4450,6 +4512,14 @@ def dist_lm_worker():
            "context": str(torch.device(mod._context[0]))}
     params = {n: a.asnumpy() for n, a in mod.get_params()[0].items()}
     tag = "fused" if rec["fused"] else "classic"
+    if sanitized:
+        from mxnet_tpu_torch import telemetry
+        from mxnet_tpu_torch.analysis import sanitizer, witness
+
+        tag = "sanitized"
+        rec["modes"] = [sanitizer.mode(), witness.mode()]
+        rec["counters"] = {n: telemetry.counter(n).value for n in (
+            SANITIZER_COUNTERS + ("lock.order_violations", "engine.pushes"))}
     np.savez(os.path.join(out_dir, "%s-%d.npz" % (tag, rank)), **params)
     with open(os.path.join(out_dir, "%s-%d.json" % (tag, rank)), "w") as f:
         json.dump(rec, f)
@@ -4517,8 +4587,9 @@ def run_train_lm_example(mx, build):
 
 
 def run_dist_phase(mx, build, card, t_counts):
-    """Phase 21; returns the kernels' launches of its main paths and
-    worker 0's final parameters of the fused dist_sync fit."""
+    """Phase 21; returns the kernels' launches of its main paths, worker
+    0's final parameters of the fused dist_sync fit and its host wall per
+    step."""
     import os
     import tempfile
 
@@ -4581,7 +4652,8 @@ def run_dist_phase(mx, build, card, t_counts):
     log("  (c) examples/train_mnist.py --kv-store dist_sync under the launcher")
     _, err = run_cluster(
         [sys.executable, "-c", "import sys, chip_smoke; "
-         "chip_smoke.exec_example('train_mnist', sys.argv[1:])",
+         "chip_smoke.exec_example('train_mnist', sys.argv[1:], %d)"
+         % MNIST_SEED,
          "--kv-store", "dist_sync", "--num-epochs", str(MNIST_EPOCHS)],
         {}, "train_mnist dist_sync")
     acc = [float(l.rsplit("=", 1)[1]) for l in err.splitlines()
@@ -4589,7 +4661,7 @@ def run_dist_phase(mx, build, card, t_counts):
     log("  train_mnist validation accuracy per epoch and worker: %s" % acc)
     check(len(acc) == 2 * MNIST_EPOCHS and all(math.isfinite(a) for a in acc)
           and min(acc[-2:]) > 0.5, "train_mnist under dist_sync did not learn")
-    return launches, params["fused", 0]
+    return launches, params["fused", 0], f_s
 
 
 # --------------------------------------- model parallelism (phase 22)
@@ -5943,6 +6015,7 @@ def graphpass_fit_child():
     torch.cuda.synchronize()
     tr = mod._fused.trainer
     opt = tr._opt_symbol
+    # fwlint: disable=env-raw-read — the raw setting this child ran with, recorded as a label and never parsed
     rec = {"passes": os.environ.get("MXNET_GRAPH_PASSES", "default"),
            "metrics": metrics, "ppl": ppl,
            "step_s": float(np.median(np.diff([t0] + stamps)[1:])),
@@ -6320,33 +6393,20 @@ def capi_check(lib, rc, what):
             what, rc, lib.MXGetLastError().decode(errors="replace")))
 
 
-def capi_build(work):
-    """The port's C library (``_capi.build``: a failure raises), the one
-    loaded into this process, and the phase's clients compiled against it
-    in parallel: ``predict_client`` and ``lm_trainer`` (executables) and
-    ``lm_trainer.so`` linked to the loaded library. Returns (loaded
-    library, paths)."""
-    import ctypes
+def capi_compile(work):
+    """Phase 26's builds, made beside phase 2's ``nvcc`` runs: the port's C
+    library (``_capi.build``: a failure raises), the variant this process
+    loads (the same one where this Python links libpython), and the
+    phase's clients compiled against them in parallel: ``predict_client``
+    and ``lm_trainer`` (executables) and ``lm_trainer.so`` linked to the
+    loaded variant. Returns (paths, seconds)."""
     import os
 
     from mxnet_tpu_torch import _capi
 
     t0 = time.perf_counter()
-    # the library a client links and the one this process loads (the same
-    # one where this Python links libpython) build at once
-    import threading
-
-    linked = threading.Thread(target=_capi.build)
-    linked.start()
-    lib = _capi.load()
-    linked.join()
-    c = ctypes
-    lib.MXGetLastError.restype = c.c_char_p
-    for name in ("MXPredCreate", "MXPredCreatePartialOut", "MXPredSetInput",
-                 "MXPredForward", "MXPredGetOutputShape", "MXPredGetOutput",
-                 "MXPredFree"):
-        getattr(lib, name).restype = c.c_int
-    loaded = os.path.dirname(lib._name)
+    _capi.build()
+    loaded = os.path.dirname(_capi.build(_capi._process_has_libpython()))
     root = os.path.dirname(os.path.abspath(__file__))
     src = os.path.join(root, CAPI_CLIENTS)
     out = os.path.join(work, "capi")
@@ -6372,11 +6432,31 @@ def capi_build(work):
         check(p.returncode == 0, "compiling %s failed:\n%s"
               % (os.path.basename(cmd[-1] if cmd[0] == "gcc" else cmd[3]),
                  text[-3000:]))
-    log("  the port's C library %s (loaded here: %s; %s) and three clients "
-        "built in %.2f s" % (_capi.build(), lib._name,
-                             "libpython linked" if lib._name == _capi.build()
-                             else "CPython from this process",
-                             time.perf_counter() - t0))
+    return paths, time.perf_counter() - t0
+
+
+def capi_build(compiled):
+    """The library :func:`capi_compile` built for this process, loaded,
+    with the entry points this phase calls declared. Returns (loaded
+    library, the clients' paths)."""
+    import ctypes
+
+    from mxnet_tpu_torch import _capi
+
+    paths, seconds = compiled
+    t0 = time.perf_counter()
+    lib = _capi.load()
+    c = ctypes
+    lib.MXGetLastError.restype = c.c_char_p
+    for name in ("MXPredCreate", "MXPredCreatePartialOut", "MXPredSetInput",
+                 "MXPredForward", "MXPredGetOutputShape", "MXPredGetOutput",
+                 "MXPredFree"):
+        getattr(lib, name).restype = c.c_int
+    log("  the port's C library %s (loaded here in %.2f s: %s; %s) and three "
+        "clients built in phase 2 in %.2f s"
+        % (_capi.build(), time.perf_counter() - t0, lib._name,
+           "libpython linked" if lib._name == _capi.build()
+           else "CPython from this process", seconds))
     return lib, paths
 
 
@@ -6667,15 +6747,16 @@ def _resnet_checkpoint(mx, path):
                             {k: v.asnumpy() for k, v in auxs.items()})
 
 
-def run_capi_phase(mx, build, card, t_params, work):
-    """Phase 26 (see the module docstring); returns the K1/K2a/K2b
-    launches of its main paths."""
+def run_capi_phase(mx, build, card, t_params, work, compiled):
+    """Phase 26 (see the module docstring; ``compiled``: phase 2's
+    :func:`capi_compile`); returns the K1/K2a/K2b launches of its main
+    paths."""
     import os
 
     from mxnet_tpu_torch.predict import Predictor
 
     t_phase = time.perf_counter()
-    lib, paths = capi_build(work)
+    lib, paths = capi_build(compiled)
     d = os.path.join(work, "capi")
     L, T = TRAIN["num_layers"], TRAIN["seq_len"]
     total = {k: 0 for k in FLASH}
@@ -6797,6 +6878,222 @@ def run_capi_phase(mx, build, card, t_params, work):
     return total
 
 
+# -------------------------------- analysis/: sanitizer and witness (phase 27)
+SANITIZER_COUNTERS = tuple("engine.sanitizer." + k for k in (
+    "undeclared_mutation", "const_write", "use_after_free",
+    "undeclared_read"))
+SERVING_LOCK = "mxnet_tpu_torch.serving.engine.ServingEngine._lock"
+
+
+def static_lock_edges():
+    """The static lock graph's edges over this checkout's
+    ``mxnet_tpu_torch/`` (``lockgraph.build``): the witness's seed."""
+    import os
+
+    from mxnet_tpu_torch.analysis import fwlint, lockgraph
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    ctxs, errors = fwlint.load_contexts(["mxnet_tpu_torch"], root)
+    check(not errors, "the package does not parse: %s" % errors)
+    return lockgraph.build(ctxs).edge_set()
+
+
+def sanitized_fit(build, card, static, dist_params, dist_step_s):
+    """27(a): phase 21(b)'s fused dist_sync fit with the sanitizer and the
+    witness strict in every process, each worker's witness seeded with
+    ``static``; returns the kernels' launches."""
+    import os
+    import tempfile
+
+    L = TRAIN["num_layers"]
+    steps = DIST_EPOCHS * (DIST_SEQS // 2 // DIST_BATCH)
+    recs, params = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        edges = os.path.join(tmp, "static_edges.json")
+        with open(edges, "w") as f:
+            json.dump(sorted(static), f)
+        out, err = run_cluster(
+            [sys.executable, "-c",
+             "import chip_smoke; chip_smoke.dist_lm_worker()"],
+            {"SMOKE_OUT": tmp, "SMOKE_STATIC_EDGES": edges,
+             "MXNET_ENGINE_SANITIZER": "strict",
+             "MXNET_LOCK_WITNESS": "strict"}, "dist_sync sanitized")
+        for r in (0, 1):
+            with open(os.path.join(tmp, "sanitized-%d.json" % r)) as f:
+                recs[r] = json.load(f)
+            with np.load(os.path.join(tmp, "sanitized-%d.npz" % r)) as z:
+                params[r] = {k: z[k] for k in z.files}
+    for name in ("EngineSanitizerError", "LockWitnessError"):
+        check(name not in out and name not in err,
+              "27(a): %s in the cluster's logs: %s" % (name, err[-3000:]))
+    launches = dict.fromkeys(build.KERNELS, 0)
+    for r, rec in sorted(recs.items()):
+        log("  [worker %d] modes (sanitizer, witness) %s; %d steps, host wall "
+            "per step %.5f s (21(b)'s fused: %.5f s); counters %s; launches %s"
+            % (r, rec["modes"], rec["steps"], rec["step_s"], dist_step_s,
+               rec["counters"], {n: rec["launches"][n] for n in FLASH}))
+        check(rec["modes"] == ["strict", "strict"],
+              "27(a) worker %d ran without strict checkers" % r)
+        check(rec["fused"] and rec["captures"] == 1
+              and rec["replays"] == steps - 1 and rec["steps"] == steps,
+              "27(a) worker %d did not replay one gradient graph" % r)
+        bad = {n: v for n, v in rec["counters"].items()
+               if n != "engine.pushes" and v != 0}
+        check(not bad, "27(a) worker %d: violations %s" % (r, bad))
+        check(rec["counters"]["engine.pushes"] > 0,
+              "27(a) worker %d pushed nothing through the engine" % r)
+        for name in FLASH:
+            n = rec["launches"][name]
+            check(n == L * steps, "27(a) worker %d: %s launched %d times in "
+                  "%d steps" % (r, name, n, steps))
+            launches[name] += n
+    differ = [k for k in params[0]
+              if not np.array_equal(params[0][k], params[1][k])]
+    check(not differ, "27(a): the workers' parameters differ in %s" % differ)
+    diff, tol = _params_close(params[0], dist_params, RESUME_TOL)
+    log("  the two workers' final parameters bitwise equal; largest "
+        "difference from 21(b)'s fused run %.3g of the largest parameter "
+        "(bound %g)" % (diff, tol))
+    check(diff <= tol, "27(a): the sanitized fit moved from 21(b)'s by %g"
+          % diff)
+    return launches
+
+
+def witnessed_serving(S, M, build, static, serve_ref):
+    """27(b): phase 4's engine and prompts with the witness strict and
+    seeded in this process; returns the kernels' launches."""
+    from mxnet_tpu_torch import telemetry as tel
+    from mxnet_tpu_torch.analysis import witness
+
+    ref_launches, ref_streams = serve_ref
+    witness.configure("strict")
+    witness.seed_static(static)
+    witness.reset_observations()
+    held = tel.histogram(witness.HELD_HISTOGRAM, lock=SERVING_LOCK)
+    held0, viol0 = held.count, tel.counter(witness.COUNTER_ORDER).value
+    try:
+        cfg = S.ServingConfig(**SERVE)
+        eng = S.ServingEngine(cfg, arg_params=M.random_params(cfg, seed=0),
+                              device="cuda")
+        check(type(eng._lock).__name__ == "_WitnessedLock",
+              "27(b): the engine's lock is not witnessed")
+        eng.warmup()
+        for k in build.KERNELS.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reqs = [eng.submit(p, 16) for p in prompt_mix(cfg.vocab_size)]
+        steps = 0
+        while any(not r.finished() for r in reqs):
+            eng.step()
+            steps += 1
+            check(steps < 10000, "27(b): serving did not finish")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {n: k.launches for n, k in build.KERNELS.items()}
+        observed = witness.observed_edges()
+    finally:
+        witness.configure(None)
+        witness.seed_static(None)
+        witness.reset_observations()
+    viol = tel.counter(witness.COUNTER_ORDER).value - viol0
+    log("  %d requests in %d steps, %.3f s; observed edges %s (all static: "
+        "%s); %s held %d times; violations %d; launches %s"
+        % (len(reqs), steps, wall, sorted(observed), observed <= static,
+           SERVING_LOCK, held.count - held0, viol,
+           {n: launches[n] for n in ("flash_fwd", "paged_decode")}))
+    check([list(r.generated) for r in reqs] == ref_streams,
+          "27(b): the token streams differ from phase 4's")
+    for name in ("flash_fwd", "paged_decode"):
+        check(launches[name] == ref_launches[name] > 0,
+              "27(b): %s launched %d times, phase 4 %d"
+              % (name, launches[name], ref_launches[name]))
+    check(observed <= static, "27(b): edges outside the static graph: %s"
+          % sorted(observed - static))
+    check(held.count > held0, "27(b): no hold of the engine lock observed")
+    check(viol == 0, "27(b): %d lock-order violations" % viol)
+    return launches
+
+
+def analysis_negatives(mx, static):
+    """27(c): a const write under ThreadedEngine and an off-graph nesting
+    must each raise its classified error."""
+    import threading
+
+    from mxnet_tpu_torch.analysis import sanitizer, witness
+
+    eng = mx.engine.ThreadedEngine()
+    a = mx.nd.ones((256, 256), ctx=mx.gpu(0))
+    va = eng.new_variable()
+    sanitizer.attach(a, va)
+    sanitizer.configure("strict")
+    try:
+        eng.push(lambda: a._set_data(a.data + 1), const_vars=[va])
+        try:
+            eng.wait_for_var(va)
+            kind = None
+        except sanitizer.EngineSanitizerError as e:
+            kind = e.kind
+    finally:
+        sanitizer.configure(None)
+        eng.wait_all()
+    log("  ThreadedEngine, a card NDArray written under a const declaration: "
+        "EngineSanitizerError(%r) at wait_for_var" % kind)
+    check(kind == "const_write", "27(c): the const write raised %r" % kind)
+    outer = "mxnet_tpu_torch.kvstore_server.KVStoreServer._ha_lock"
+    inner = SERVING_LOCK
+    check((outer, inner) not in static and (inner, outer) not in static,
+          "27(c): the static graph holds %s -> %s" % (outer, inner))
+    witness.configure("strict")
+    witness.seed_static(static)
+    try:
+        lo = witness.declare(outer, threading.Lock())
+        li = witness.declare(inner, threading.RLock())
+        try:
+            with lo:
+                with li:
+                    kind = None
+        except witness.LockWitnessError as e:
+            kind = e.kind
+        freed = lo.acquire(blocking=False) and li.acquire(blocking=False)
+        if freed:
+            li.release()
+            lo.release()
+    finally:
+        witness.configure(None)
+        witness.seed_static(None)
+        witness.reset_observations()
+    log("  %s nested under %s: LockWitnessError(%r); both locks free after: "
+        "%s" % (inner, outer, kind, freed))
+    check(kind == "unknown_edge", "27(c): the off-graph nesting raised %r"
+          % kind)
+    check(freed, "27(c): a lock stayed held after the violation")
+
+
+def run_analysis_phase(mx, S, M, build, card, dist_params, dist_step_s,
+                       serve_ref):
+    """Phase 27; returns the kernels' launches of (a) and (b)."""
+    t0 = time.perf_counter()
+    static = static_lock_edges()
+    log("  the static lock graph of mxnet_tpu_torch/: %d locks, %d edges "
+        "(%.2f s)" % (len({n for e in static for n in e}), len(static),
+                      time.perf_counter() - t0))
+    log("  (a) the fused dist_sync fit, every process under "
+        "MXNET_ENGINE_SANITIZER=strict and MXNET_LOCK_WITNESS=strict")
+    t0 = time.perf_counter()
+    launches = sanitized_fit(build, card, static, dist_params, dist_step_s)
+    log("  (a) took %.1f s (%s)" % (time.perf_counter() - t0, card))
+    log("  (b) the serving engine at phase 4's width, witness strict and "
+        "seeded")
+    t0 = time.perf_counter()
+    for name, n in witnessed_serving(S, M, build, static, serve_ref).items():
+        launches[name] += n
+    log("  (b) took %.1f s (%s)" % (time.perf_counter() - t0, card))
+    log("  (c) the negatives")
+    analysis_negatives(mx, static)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -6834,10 +7131,23 @@ def _main(work):
     log("  host time to enqueue a small op: %.3f us" % op_us)
 
     log("== 2. build")
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mxnet_tpu_torch import _native
+
     t0 = time.perf_counter()
-    build.build()
-    log("  built %s in %.2f s" % (sorted(build.KERNELS),
-                                  time.perf_counter() - t0))
+    # the host's builds that phases 20 and 26 load start beside the nvcc
+    # runs, which leave cores idle while the slowest source compiles
+    with ThreadPoolExecutor(2) as pool:
+        native_job = pool.submit(timed, _native._build)
+        capi_job = pool.submit(capi_compile, work)
+        build.build()
+        log("  built %s in %.2f s" % (sorted(build.KERNELS),
+                                      time.perf_counter() - t0))
+        native_s = native_job.result()[1]
+        capi_compiled = capi_job.result()
+    log("  beside them: the native host stage in %.2f s, the C library and "
+        "phase 26's clients in %.2f s" % (native_s, capi_compiled[1]))
     for k in build.KERNELS.values():
         for line in k.build_log.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
@@ -7062,12 +7372,14 @@ def _main(work):
     run_ssd_phase(mx, build, card, sweep)
 
     log("== 20. autograd over the flash kernels; the data pipeline (%s)" % card)
-    for name, n in run_data_phase(mx, A, build, card, rn_fused).items():
+    for name, n in run_data_phase(mx, A, build, card, rn_fused,
+                                  native_s).items():
         next(r for r in rows if r["name"] == name)["launches"] += n
 
     log("== 21. the example scripts and mx.kv: train_lm, dist_sync across "
         "two workers and a server (%s)" % card)
-    d_launches, dist_params = run_dist_phase(mx, build, card, t_counts)
+    d_launches, dist_params, dist_step_s = run_dist_phase(mx, build, card,
+                                                          t_counts)
     for name, n in d_launches.items():
         next(r for r in rows if r["name"] == name)["launches"] += n
 
@@ -7099,7 +7411,16 @@ def _main(work):
     log("== 26. A8a, the C boundary: the LM predicted and trained by "
         "compiled C/C++ clients; ResNet-50 scored through MXPredForward (%s)"
         % card)
-    for name, n in run_capi_phase(mx, build, card, t_params, work).items():
+    for name, n in run_capi_phase(mx, build, card, t_params, work,
+                                  capi_compiled).items():
+        next(r for r in rows if r["name"] == name)["launches"] += n
+
+    log("== 27. A7's last part, analysis/: the engine sanitizer and the lock "
+        "witness, strict, over the dist_sync fit and the serving engine (%s)"
+        % card)
+    for name, n in run_analysis_phase(
+            mx, S, M, build, card, dist_params, dist_step_s,
+            (launches, counts["streams"])).items():
         next(r for r in rows if r["name"] == name)["launches"] += n
 
     log(card)

@@ -58,6 +58,8 @@ LIB_NAME = "libmxtpu_predict.so"
 CXXFLAGS = ("-O2", "-std=c++17", "-fPIC", "-pthread", "-shared")
 
 _locks = {True: threading.Lock(), False: threading.Lock()}
+# race-ok: each variant's slot is written under that variant's own lock in
+# _locks; the dict holds one key per variant and a slot write is atomic
 _built = {}
 _loaded = None
 

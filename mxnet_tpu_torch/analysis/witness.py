@@ -1,13 +1,21 @@
-"""Runtime lock-order witness (the port's copy of
-``mxnet_tpu/analysis/witness.py``).
+"""Runtime lock-order witness — the dynamic half of the concurrency pass
+(the port's copy of ``mxnet_tpu/analysis/witness.py``).
 
-Declared locks are wrapped so each acquisition records, per thread, the
-lock it was taken under — an observed nesting edge. The classified
-violation is ``order_inversion``: this thread acquired B under A while
-some thread earlier acquired A under B — the classic deadlock recipe,
-caught even when the two schedules never actually collide in this run.
-The JAX package also checks edges against its static lock graph
-(``unknown_edge``); that analyzer is not ported, so neither is the check.
+The static analyzer (:mod:`lockgraph`, :mod:`concurrency`) reasons about
+every acquisition it can SEE; this module checks the ones that actually
+HAPPEN. Declared locks are wrapped so each acquisition records, per
+thread, the lock it was taken under — an observed nesting edge. Two
+classified violations:
+
+* ``order_inversion`` — this thread acquired B under A while some thread
+  (statically or earlier at runtime) acquired A under B: the classic
+  deadlock recipe, caught even when the two schedules never actually
+  collide in this run.
+* ``unknown_edge`` — an observed edge absent from the static lock graph:
+  either the analyzer has a blind spot (fix lockgraph) or runtime took a
+  path no reviewer saw (fix the code). Checked only once a static edge
+  set is seeded (:func:`seed_static`) — without one, the witness still
+  catches inversions against its own observations.
 
 Modes (``MXNET_LOCK_WITNESS``, read via ``base.env_str``; off when
 unset):
@@ -18,19 +26,24 @@ unset):
 * ``strict`` — violations raise :class:`LockWitnessError` at the
   offending ``acquire``.
 
-Telemetry (always-on): ``lock.held_seconds{lock}`` (hold-time histogram
-per declared lock), ``lock.contention{lock}`` (acquisitions that found the
-lock taken) and ``lock.order_violations`` (classified violations).
+Telemetry (always-on):
 
-Integration idiom — wrap AFTER construction, in a separate statement::
+* ``lock.held_seconds{lock}`` — hold-time histogram per declared lock.
+* ``lock.contention{lock}``   — acquisitions that found the lock taken.
+* ``lock.order_violations``   — classified violations (both kinds).
+
+Integration idiom — wrap AFTER construction, in a separate statement, so
+lockgraph still sees the ``threading.Lock()`` call and keys the lock to
+its declaration site::
 
     self._lock = threading.RLock()
     self._lock = witness.declare(
         "mxnet_tpu_torch.serving.engine.ServingEngine._lock", self._lock)
 
-A wrapped lock still works under ``threading.Condition`` — the proxy
-forwards the private ``_release_save``/``_acquire_restore``/``_is_owned``
-hooks.
+``declare`` names must be the lock ids the static graph uses
+(``module.Class.attr``) so seeded edges line up. A wrapped lock still
+works under ``threading.Condition`` — the proxy forwards the private
+``_release_save``/``_acquire_restore``/``_is_owned`` hooks.
 """
 from __future__ import annotations
 
@@ -38,11 +51,16 @@ import logging
 import threading
 import time
 
-from ..base import MXNetError
+# imported with this module, never inside a call: a call can run on a
+# parameter server's connection thread while the server serves inside
+# ``import mxnet_tpu_torch``, and an import of the package from that
+# thread would wait on its import lock for ever
+from .. import telemetry
+from ..base import MXNetError, env_str
 
 __all__ = ["LockWitnessError", "declare", "mode", "configure", "active",
-           "observed_edges", "reset_observations", "COUNTER_ORDER",
-           "HELD_HISTOGRAM", "CONTENTION_COUNTER"]
+           "seed_static", "observed_edges", "reset_observations",
+           "COUNTER_ORDER", "HELD_HISTOGRAM", "CONTENTION_COUNTER"]
 
 COUNTER_ORDER = "lock.order_violations"
 HELD_HISTOGRAM = "lock.held_seconds"
@@ -53,6 +71,7 @@ _mode = _UNSET  # None=off, "warn", "strict"; _UNSET = env not read yet
 _lock = threading.Lock()  # guards the module's own registries below
 _tls = threading.local()  # .stack — [witness names] held by THIS thread
 _observed = {}  # (outer, inner) -> first-seen description
+_static_edges = None  # set[(outer, inner)] from lockgraph, or None = unseeded
 _logged_edges = set()  # warn-mode dedup, bounded
 _MAX_LOGGED_EDGES = 4096
 
@@ -62,8 +81,8 @@ _log = logging.getLogger(__name__)
 class LockWitnessError(MXNetError):
     """Classified strict-mode lock-order violation.
 
-    ``kind`` is ``order_inversion``; an ``except MXNetError`` catches it
-    like every other classified failure."""
+    ``kind`` is ``order_inversion`` or ``unknown_edge``; an ``except
+    MXNetError`` catches it like every other classified failure."""
 
     def __init__(self, kind, message):
         super().__init__(message)
@@ -76,8 +95,6 @@ def mode():
     :func:`configure`)."""
     global _mode
     if _mode is _UNSET:
-        from ..base import env_str
-
         configure(env_str("MXNET_LOCK_WITNESS", None,
                           choices=("warn", "strict")))
     return _mode
@@ -103,6 +120,16 @@ def configure(new_mode):
         _logged_edges.clear()
 
 
+def seed_static(edges):
+    """Seed the static lock graph's edge set (``{(outer, inner), ...}`` of
+    witness names) — from then on an observed edge outside it is an
+    ``unknown_edge`` violation. Pass ``None`` to unseed (inversion checks
+    continue)."""
+    global _static_edges
+    with _lock:
+        _static_edges = None if edges is None else {tuple(e) for e in edges}
+
+
 def observed_edges():
     """Snapshot of every (outer, inner) nesting observed so far."""
     with _lock:
@@ -118,7 +145,7 @@ def reset_observations():
 
 
 def declare(name, lock):
-    """Register ``lock`` under ``name`` (``module.Class.attr``).
+    """Register ``lock`` under ``name`` (the static graph's lock id).
 
     Returns ``lock`` itself when the witness is off — the caller's
     attribute is the pristine stdlib object, zero overhead. When on,
@@ -135,8 +162,6 @@ def declare(name, lock):
 def _count(counter, **labels):
     # always-on: violations and lock health must be visible even with
     # telemetry disabled (same contract as the engine sanitizer)
-    from .. import telemetry
-
     telemetry.counter(counter, **labels).inc()
 
 
@@ -163,10 +188,22 @@ def _record_edge(outer, inner):
         if first:
             _observed[edge] = True
         inverted = (inner, outer) in _observed
-    if first and inverted:
+        static = _static_edges
+    if not first:
+        return
+    if inverted:
         _violate("order_inversion", edge,
                  "%s acquired under %s, but the reverse nesting was also "
                  "observed — deadlock-possible order inversion"
+                 % (inner, outer))
+    if static is not None and edge not in static \
+            and (inner, outer) not in static:
+        # the reverse static edge is NOT a free pass for this direction —
+        # but it already reported as an inversion above; only a genuinely
+        # unknown pair lands here
+        _violate("unknown_edge", edge,
+                 "observed %s acquired under %s — an edge the static lock "
+                 "graph does not contain (blind spot or untracked path)"
                  % (inner, outer))
 
 
@@ -240,15 +277,14 @@ class _WitnessedLock:
         stack = self._stack()
         held = [w._name for w in stack]
         if self._name not in held:
-            # one edge per DISTINCT held lock
+            # one edge per DISTINCT held lock — the same all-pairs shape
+            # the static graph records, so seeded comparisons line up
             for outer in dict.fromkeys(held):
                 _record_edge(outer, self._name)
             self._t0 = time.monotonic()
         stack.append(self)
 
     def _observe_held(self, t0):
-        from .. import telemetry
-
         telemetry.histogram(HELD_HISTOGRAM, lock=self._name).observe(
             time.monotonic() - t0)
 

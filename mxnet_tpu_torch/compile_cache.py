@@ -65,7 +65,8 @@ ENV_DIR = "MXNET_COMPILE_CACHE_DIR"
 _CACHE_FORMAT = 1  # bump to invalidate every existing entry
 
 _lock = threading.Lock()
-# writes serialize under _lock; reads sample single dict slots
+# race-ok: writes serialize under _lock; fast-path reads sample single
+# dict slots (atomic under the GIL) and tolerate one stale configure()
 _state = {"dir": None, "aot": False}
 _fingerprint_cache = [None]
 

@@ -222,6 +222,8 @@ class ElasticSession:
                 set_part(new_nw, new_rank)
                 telemetry.event("reshard", num_workers=new_nw, rank=new_rank,
                                 epoch=epoch)
+        # race-ok: atomic tuple rebind on the restart path; stats readers
+        # tolerate sampling the previous membership for one tick
         self.effective = (new_nw, new_rank)
         # 4. every survivor rolls back to the same snapshot (BSP lockstep,
         # one snapshot cadence)

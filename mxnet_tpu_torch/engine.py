@@ -16,6 +16,11 @@ wins) and raised from the next ``wait_for_var``/``wait_all`` on any
 thread, then cleared; it is never printed and dropped. The native
 engine calls every op through one ctypes trampoline, which must not let
 an exception escape into C++: it records it instead.
+
+With ``MXNET_ENGINE_SANITIZER=warn|strict`` both engines check each push
+against its declared variables (:mod:`.analysis.sanitizer`): a deleted
+declared var raises at the push, an undeclared or const write found while
+the op runs surfaces through the error slot at the next wait.
 """
 from __future__ import annotations
 
@@ -24,13 +29,16 @@ import logging
 import os
 import threading
 
-from . import _native, base
+from . import _native, base, telemetry
+from .analysis import sanitizer as _sanitizer
 
 __all__ = ["Engine", "NaiveEngine", "ThreadedEngine", "get_engine", "Var"]
 
 
 class Var:
-    """A dependency token (reference: engine.h VarHandle)."""
+    """A dependency token (reference: engine.h VarHandle). ``deleted`` is
+    set by ``delete_variable`` so the dependency sanitizer can flag a use
+    after free; the scheduler itself never reads it."""
 
     __slots__ = ("handle", "deleted")
 
@@ -91,6 +99,13 @@ class NaiveEngine(Engine):
         return Var(None)
 
     def push(self, fn, const_vars=(), mutable_vars=(), priority=0):
+        if _sanitizer.active():
+            # strict mode raises HERE on a deleted declared var (caller bug,
+            # synchronous by design); in-fn checks ride inside the wrapper
+            _sanitizer.check_declared(const_vars, mutable_vars)
+            fn = _sanitizer.wrap_push(fn, const_vars, mutable_vars)
+        if telemetry.enabled():
+            telemetry.counter("engine.pushes").inc()
         try:
             fn()
         except Exception as e:  # noqa: BLE001 — raised at the next wait
@@ -144,6 +159,11 @@ class ThreadedEngine(Engine):
         return arr
 
     def push(self, fn, const_vars=(), mutable_vars=(), priority=0):
+        if _sanitizer.active():
+            _sanitizer.check_declared(const_vars, mutable_vars)
+            fn = _sanitizer.wrap_push(fn, const_vars, mutable_vars)
+        if telemetry.enabled():
+            telemetry.counter("engine.pushes").inc()
         with self._pending_lock:
             key = self._next_id
             self._next_id += 1
@@ -176,8 +196,9 @@ class ThreadedEngine(Engine):
         try:
             self._lib.mxt_engine_wait_all(self._handle)
             self._lib.mxt_engine_destroy(self._handle)
-        except Exception:  # noqa: BLE001 — interpreter teardown: the
-            pass           # library's globals may be gone already
+        # fwlint: disable=swallowed-exception — interpreter teardown: the library's globals may be gone already
+        except Exception:  # noqa: BLE001
+            pass
 
 
 _engine = None

@@ -474,6 +474,9 @@ def _renamed(descs, rename):
             for d in descs]
 
 
+# race-ok: producer and consumer alternate strict turns through the
+# data_taken/data_ready Event handshake — each slot is owned by exactly one
+# side at any moment, and Event.set/wait give the happens-before edge
 class PrefetchingIter(DataIter):
     """One thread per inner iterator reads its next batch while the
     consumer works on this one; the batches of all the iterators are
@@ -741,6 +744,8 @@ def ImageRecordIter(**kwargs):
     return _Impl(**kwargs)
 
 
+# thread-confined: a slot's pinned buffers are staged and read only by the
+# DeviceFeedIter thread that owns its ring
 class _PinnedSlot:
     """One slot of the feed's ring: pinned host buffers by position and
     shape, and the event of the last upload that read them."""

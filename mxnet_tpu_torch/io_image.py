@@ -61,8 +61,9 @@ def _close_live_iters():
     for it in list(_LIVE_ITERS):
         try:
             it.close()
-        except Exception:  # noqa: BLE001 - the interpreter is going down;
-            pass  # nowhere left to report
+        # fwlint: disable=swallowed-exception — the interpreter is going down; nowhere left to report
+        except Exception:  # noqa: BLE001
+            pass
 
 
 def _mean_std(mean_r, mean_g, mean_b, std_r, std_g, std_b):

@@ -1296,8 +1296,9 @@ class KVStoreDist(KVStore):
         try:
             for c in self._clients + self._dead_clients:
                 self._lib.mxt_ps_client_destroy(c)
-        except Exception:  # noqa: BLE001 — interpreter teardown: the
-            pass           # library's globals may be gone already
+        # fwlint: disable=swallowed-exception — interpreter teardown: the library's globals may be gone already
+        except Exception:  # noqa: BLE001
+            pass
 
 
 class _ClusterStatsPublisher:

@@ -73,6 +73,7 @@ import numpy as np
 import torch
 
 from . import _native, fault, telemetry
+from .analysis import witness
 from . import optimizer as opt
 from .base import env_flag, env_float, env_int, env_str
 from .ndarray import NDArray
@@ -207,6 +208,9 @@ class MembershipRegistry:
         self._broadcast = (broadcast if broadcast is not None
                            else self._broadcast_to_servers)
         self._lock = threading.Lock()
+        self._lock = witness.declare(
+            "mxnet_tpu_torch.kvstore_server.MembershipRegistry._lock",
+            self._lock)
         self._alive = {}      # rank -> monotonic time of its last beat
         self._last_step = {}  # rank -> the training step it last reported
         self._epoch = 0
@@ -472,7 +476,7 @@ class MembershipRegistry:
                     "%s:%d" % (host, port + s),
                     lib.mxt_ps_client_create2(host.encode(), port + s, 30))
         timeout_ms = max(int(self._timeout_s * 1000), 1)
-        alive = set(self._srv_alive)
+        alive = set(self._srv_alive)  # fwlint: disable=unguarded-shared-write — every caller holds _lock (reached through the self._broadcast indirection)
         for s, (addr, c) in self._bcast_clients.items():
             if s not in alive:
                 continue
@@ -561,6 +565,9 @@ class KVStoreServer:
         self._optimizer_obj = None
         self._updater_lock = threading.Lock()
         self._stats_lock = threading.Lock()
+        self._stats_lock = witness.declare(
+            "mxnet_tpu_torch.kvstore_server.KVStoreServer._stats_lock",
+            self._stats_lock)
         self._updates_applied = 0      # guarded-by: _stats_lock
         self._update_failures = 0      # guarded-by: _stats_lock
         self._last_update_error = None  # guarded-by: _stats_lock
@@ -583,6 +590,9 @@ class KVStoreServer:
         self._backups = [s for s in group if s != self._sid]
         self._hb_timeout_s = env_float("MXNET_ELASTIC_HEARTBEAT_TIMEOUT_S", 5.0)
         self._ha_lock = threading.Lock()
+        self._ha_lock = witness.declare(
+            "mxnet_tpu_torch.kvstore_server.KVStoreServer._ha_lock",
+            self._ha_lock)
         self._alive_sids = set(range(self._nservers))  # guarded-by: _ha_lock
         self._smap_view = [g[0] for g in self._groups]  # guarded-by: _ha_lock
         self._primary = group[0] == self._sid          # guarded-by: _ha_lock
@@ -665,9 +675,11 @@ class KVStoreServer:
         key = int(key)
         with self._updater_lock:
             updater = self._updater
-        # a one-round-late view of _primary costs one forward or skip: the
-        # forward carries the whole weight
-        repl = self._replicas > 0 and self._primary and self._backups
+        # read under the lock a promotion flips it under: a round is offered
+        # by the server that is primary when the round lands
+        with self._ha_lock:
+            primary = self._primary
+        repl = self._replicas > 0 and primary and self._backups
         if updater is None:
             weight[:] = grad
             if repl:
@@ -1085,6 +1097,9 @@ class KVStoreServer:
             log.warning("kvstore-server %d: registry predecessor(s) %s dead — "
                         "resuming the membership registry here (%s snapshot)",
                         self._sid, preds, "with" if snap else "WITHOUT")
+            # race-ok: one-shot rebind by the sole standby thread (runs only
+            # after every predecessor died); concurrent readers see the old
+            # None or the fully constructed registry, nothing in between
             self._registry = MembershipRegistry(self._num_workers, resume=snap)
             return
 
@@ -1268,6 +1283,8 @@ class KVStoreServer:
         self._lib.mxt_ps_server_destroy(self._handle)
         stop.set()
         d.join()
+        # race-ok: shutdown epilogue — the waiter thread exited before the
+        # destroy above, so nothing else can observe this rebind
         self._handle = None
 
 

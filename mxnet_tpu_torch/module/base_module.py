@@ -109,6 +109,8 @@ class _StepMeter:
 
     def _instruments(self):
         if self._inst is None:
+            # race-ok: idempotent lazy cache — racing initializers store
+            # equal tuples of the same registry handles
             self._inst = (telemetry.histogram("fit.compute_seconds"),
                           telemetry.histogram("fit.data_wait_seconds"),
                           telemetry.histogram("fit.step_time_seconds"),
@@ -206,6 +208,7 @@ class BaseModule:
             return output_list
         if merge_batches:
             num_outputs = len(output_list[0])
+            # fwlint: disable=host-sync — predict(merge_batches=True) returns host arrays by contract
             merged = [nd.array(np.concatenate([out[i].asnumpy() for out in output_list]),
                                ctx=cpu())
                       for i in range(num_outputs)]

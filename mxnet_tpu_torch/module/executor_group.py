@@ -86,6 +86,8 @@ def _merge(tensors, axis):
     return nd.NDArray(torch.cat([t.data.to(dev) for t in tensors], dim=axis))
 
 
+# thread-confined: an executor group is driven by its Module's thread; the feed thread's `slot.stage(...)` is _PinnedSlot.stage, which the
+# analyzer's method-name match also ties to FusedFitPath.stage
 class DataParallelExecutorGroup:
     def __init__(self, symbol, contexts, workload, data_shapes, label_shapes,
                  param_names, for_training, inputs_need_grad, shared_group=None,

@@ -88,6 +88,8 @@ class _SharedFusedState:
         self.fresh = False    # params/auxs hold the Module's values
 
 
+# thread-confined: a fused path is driven by its Module's thread; the feed thread's `slot.stage(...)` is _PinnedSlot.stage, which the
+# analyzer's method-name match also ties to FusedFitPath.stage
 class FusedFitPath:
     def __init__(self, module, share_state=None):
         from ..parallel.spmd import SPMDTrainer
@@ -251,6 +253,7 @@ class FusedFitPath:
                 return None
             if isinstance(s, tuple):
                 return tuple(host(x) for x in s)
+            # fwlint: disable=host-sync — the .states file's payload: host egress by contract
             return _tensor(s).detach().cpu().numpy().copy()
 
         return pickle.dumps({i: host(s) for i, s in

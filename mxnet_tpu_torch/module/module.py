@@ -53,6 +53,9 @@ from .executor_group import DataParallelExecutorGroup
 __all__ = ["Module"]
 
 
+# thread-confined: a Module is driven by the one thread that calls its fit/
+# forward/update (and its DeviceFeedIter only reads its batches); the feed thread's `slot.stage(...)` is _PinnedSlot.stage, which the
+# analyzer's method-name match also ties to FusedFitPath.stage
 class Module(BaseModule):
     def __init__(self, symbol, data_names=("data",), label_names=("softmax_label",),
                  logger=logging, context=None, work_load_list=None,

@@ -58,15 +58,23 @@ def _np_dtype(dtype):
     return name if name == "bfloat16" else np.dtype(name)
 
 
+# thread-confined: an NDArray is owned by one thread at a time; the cross-
+# thread handoffs in this package (device feed queue, serving batcher)
+# publish the finished array through a synchronized queue, never mutate it
+# after
 class NDArray:
     """An n-dimensional array on a device context, over one torch tensor."""
 
-    __slots__ = ("_data", "__weakref__")
+    # _engine_var: optional engine.Var this buffer is tracked by — set via
+    # analysis.sanitizer.attach() so the dependency sanitizer can compare a
+    # pushed fn's actual reads/writes against its declared vars
+    __slots__ = ("_data", "_engine_var", "__weakref__")
 
     def __init__(self, data):
         if not isinstance(data, torch.Tensor):
             raise TypeError("NDArray holds a torch.Tensor, got %s" % type(data))
         self._data = data
+        self._engine_var = None
 
     # ---- buffer access --------------------------------------------------
     @property

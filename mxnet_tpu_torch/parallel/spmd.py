@@ -103,6 +103,8 @@ class _Graph:
         self.program = program
 
 
+# thread-confined: a trainer is driven by the thread that steps it; the feed thread's `slot.stage(...)` is _PinnedSlot.stage, which the
+# analyzer's method-name match also ties to FusedFitPath.stage
 class SPMDTrainer:
     """Forward, backward and update of ``symbol`` at fixed input shapes on
     one ``device``, with float32 master parameters."""
@@ -420,6 +422,7 @@ class SPMDTrainer:
                     "train it with MXNET_MODULE_NO_FUSED=1" % torch.__version__)
             graph.register_generator_state(_random.generator(self.device))
         before = {n: k.launches for n, k in _build.KERNELS.items()}
+        # fwlint: disable=host-sync — a capture begins on an idle card, once per graph
         torch.cuda.synchronize(self.device)
         # no garbage collection inside the capture: a collected object's
         # finalizer (a pinned host buffer, a decode pipeline joining its

@@ -49,6 +49,8 @@ class RNNParams:
         return self._params[name]
 
 
+# thread-confined: a cell is built and unrolled by one thread; the feed
+# thread reaches it only through the analyzer's method-name matches
 class BaseRNNCell:
     """Base class of the cells."""
 
@@ -499,6 +501,8 @@ class DropoutCell(BaseRNNCell):
         return inputs, states
 
 
+# thread-confined: a cell is built and unrolled by one thread; the feed
+# thread reaches it only through the analyzer's method-name matches
 class ModifierCell(BaseRNNCell):
     """A cell wrapped around a base cell, whose parameters and states it
     takes over (the base cell is marked modified and may not be called

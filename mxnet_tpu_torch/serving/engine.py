@@ -396,6 +396,7 @@ class ServingEngine:
         try:
             with self._lock, telemetry.span("serving.step"):
                 # chaos: injected per-step latency
+                # fwlint: disable=lock-order — the injected delay models a slow device dispatch, which blocks under the step lock by design
                 fault.hit("slow_step")
                 # deadline/cancellation sweep BEFORE scheduling
                 self.scheduler.sweep()
@@ -408,6 +409,7 @@ class ServingEngine:
                 if plan.empty():
                     return failed
                 for req in plan.prefills:
+                    # fwlint: disable=lock-order — fault.hit("dispatch_error") in the callee can inject a delay; real dispatch blocks under the step lock identically
                     self._run_prefill(req)
                 n_preempted = len(plan.preempted)
                 if plan.prefills:
@@ -425,8 +427,10 @@ class ServingEngine:
                     # SHARED block gets a private bit-exact copy first
                     self._cow_guard(decodes)
                     if self._spec:
+                        # fwlint: disable=lock-order — injected dispatch fault may stall; matches real device-dispatch blocking under the step lock
                         self._run_spec_decode(decodes)
                     else:
+                        # fwlint: disable=lock-order — injected dispatch fault may stall; matches real device-dispatch blocking under the step lock
                         self._run_decode(decodes)
                 finished = [r for r in list(self.scheduler.running)
                             if r.finished()]
@@ -551,6 +555,7 @@ class ServingEngine:
                     g(np.zeros((B, T), np.int32), np.zeros((B, T), np.int32),
                       np.zeros((B, nb), np.int32), np.ones((B, T), np.int32))
             if self.device.type == "cuda":
+                # fwlint: disable=host-sync — warmup() returns once every bucket's graph is built
                 torch.cuda.synchronize(self.device)
 
     def generate(self, prompts, max_new_tokens, eos_id=None, timeout_s=None):
@@ -634,7 +639,7 @@ class ServingEngine:
             # prefix's original prefill, as the target pages were
             graphs[1](toks, length, write_table)
         # the per-request token egress: serving's output IS this transfer
-        tok = int(tok.cpu()[0])
+        tok = int(tok.cpu()[0])  # fwlint: disable=host-sync — token egress to the client is the product, one scalar per prefill
         wall = time.time() - t0
         c1, s1 = self._capture_totals(graphs)
         stall = min(s1 - s0, wall) if c1 > c0 else 0.0
@@ -668,7 +673,7 @@ class ServingEngine:
         t0 = time.time()
         nxt, _logits = g(toks, poss, tables, ctx)
         # the fused step's single device->host read: the next-token vector
-        nxt = nxt.cpu().numpy()
+        nxt = nxt.cpu().numpy()  # fwlint: disable=host-sync — token egress to clients is the product, B int32s per step
         if g.captures > c0:
             # a cold batch bucket stalls EVERY stream in the batch
             self.obs.decode_stall(reqs, min(g.capture_s - s0,
@@ -736,7 +741,7 @@ class ServingEngine:
             if j < k:
                 # the proposal steers the next inner step's input token:
                 # one device->host read of B int32s per draft step
-                dnxt = dnxt.cpu().numpy()
+                dnxt = dnxt.cpu().numpy()  # fwlint: disable=host-sync — the draft's proposals feed the host-side verify batch
                 proposals[:, j] = dnxt[:n]
                 cur[:n] = dnxt[:n]
         draft_wall = time.time() - t0
@@ -757,7 +762,7 @@ class ServingEngine:
         t0 = time.time()
         nxt2, _logits = vg(toks2, poss2, tables, ctx2)
         # token egress to clients: B x (k+1) int32s per step
-        nxt2 = nxt2.cpu().numpy()
+        nxt2 = nxt2.cpu().numpy()  # fwlint: disable=host-sync — token egress to clients is the product, B x T int32s per step
         verify_wall = time.time() - t0
         verify_stall = min(vg.capture_s - s0, verify_wall) \
             if vg.captures > c0 else 0.0

@@ -130,7 +130,7 @@ def as_device_params(arg_params, cfg, dtype=None, device=None):
             continue
         a = arg_params[name]
         if hasattr(a, "asnumpy"):
-            a = a.asnumpy()
+            a = a.asnumpy()  # fwlint: disable=host-sync — weights read once, when the engine is built
         if not isinstance(a, torch.Tensor):
             a = torch.from_numpy(np.ascontiguousarray(np.asarray(a)))
         if tuple(a.shape) != tuple(shape):

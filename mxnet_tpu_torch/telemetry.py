@@ -625,6 +625,15 @@ METRIC_HELP = {
     "serving.drains":
         "graceful drains begun (SIGTERM / POST /drain / start_drain): "
         "admission closed, inflight work finishing (always-on)",
+    "engine.pushes": "host-side ops pushed to the engine",
+    "engine.sanitizer.undeclared_mutation":
+        "sanitizer: pushed fn wrote an undeclared var (always-on)",
+    "engine.sanitizer.const_write":
+        "sanitizer: pushed fn wrote a declared-const var (always-on)",
+    "engine.sanitizer.use_after_free":
+        "sanitizer: pushed fn touched a deleted var (always-on)",
+    "engine.sanitizer.undeclared_read":
+        "sanitizer: pushed fn read an undeclared var (always-on)",
     "lock.held_seconds":
         "hold time per witness-declared lock (MXNET_LOCK_WITNESS; "
         "always-on while the witness is enabled)",

@@ -399,7 +399,13 @@ def test_port_import_leaves_jax_out():
             " mxnet_tpu_torch.graphpass.passes, mxnet_tpu_torch.compile_cache,"
             " mxnet_tpu_torch.rtc, mxnet_tpu_torch.tools.trace_merge,"
             " mxnet_tpu_torch.tools.mxtop, mxnet_tpu_torch.predict,"
-            " mxnet_tpu_torch.capi_train, mxnet_tpu_torch._capi;"
+            " mxnet_tpu_torch.capi_train, mxnet_tpu_torch._capi,"
+            " mxnet_tpu_torch.analysis.fwlint, mxnet_tpu_torch.analysis.baseline,"
+            " mxnet_tpu_torch.analysis.dataflow, mxnet_tpu_torch.analysis.checkers,"
+            " mxnet_tpu_torch.analysis.lockgraph,"
+            " mxnet_tpu_torch.analysis.concurrency,"
+            " mxnet_tpu_torch.analysis.sanitizer, mxnet_tpu_torch.analysis.witness,"
+            " mxnet_tpu_torch.tools.fwlint;"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'mxnet_tpu' or "
             "m.startswith('mxnet_tpu.')];"
@@ -467,10 +473,37 @@ def test_port_sources_import_no_jax():
         "placed.py", "executor_manager.py", "module/executor_group.py",
         "elastic.py", "graphpass/__init__.py", "graphpass/passes.py",
         "compile_cache.py", "rtc.py", "tools/trace_merge.py",
-        "tools/mxtop.py", "predict.py", "capi_train.py", "_capi.py")} <= rel
+        "tools/mxtop.py", "predict.py", "capi_train.py", "_capi.py",
+        "analysis/__init__.py", "analysis/fwlint.py", "analysis/baseline.py",
+        "analysis/dataflow.py", "analysis/checkers.py", "analysis/lockgraph.py",
+        "analysis/concurrency.py", "analysis/sanitizer.py",
+        "analysis/witness.py", "tools/fwlint.py")} <= rel
     for f in files:
         roots = set(_imported_roots(f))
         assert not roots & {"jax", "jaxlib", "mxnet_tpu"}, (f, roots)
+
+
+def test_analysis_loads_standalone_without_torch():
+    """The lint half of ``mxnet_tpu_torch.analysis`` loads the way its CLI
+    loads it (from its files, the package's ``__init__`` not run) and
+    imports the standard library alone: no torch, numpy, jax."""
+    code = ("import importlib, importlib.util, sys\n"
+            "spec = importlib.util.spec_from_file_location('cli',"
+            " 'mxnet_tpu_torch/tools/fwlint.py')\n"
+            "cli = importlib.util.module_from_spec(spec)\n"
+            "spec.loader.exec_module(cli)\n"
+            "a = cli._load_analysis()\n"
+            "for m in ('fwlint', 'baseline', 'dataflow', 'checkers',"
+            " 'lockgraph', 'concurrency'):\n"
+            "    importlib.import_module('mxnet_tpu_torch.analysis.' + m)\n"
+            "assert 'host-sync' in a.RULES\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in"
+            " ('torch', 'numpy', 'jax', 'jaxlib', 'mxnet_tpu')"
+            " or m in ('mxnet_tpu_torch.base', 'mxnet_tpu_torch.ndarray')]\n"
+            "print(bad); sys.exit(1 if bad else 0)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
 
 
 def test_capi_shims_import_only_the_port():
