@@ -278,7 +278,9 @@ Drives ``mxnet_tpu_torch`` (never the JAX package) on ``cuda:0``:
    256 sequences, Adam on the server) with ``kvstore='dist_sync'``, fused
    (the gradient step one CUDA graph, the exchange on the host, the
    pulled weights copied into the captured masters) and then with
-   ``MXNET_MODULE_NO_FUSED=1``: each worker's perplexity finite and
+   ``MXNET_MODULE_NO_FUSED=1`` (the two clusters and (c)'s run at once,
+   so their walls per step are taken side by side): each worker's
+   perplexity finite and
    falling, one launch of each flash kernel per layer and step in each
    worker, the two workers' final parameters bitwise equal, fused
    against classic within phase 5's 1e-4, the server's exit line saying
@@ -450,6 +452,42 @@ Drives ``mxnet_tpu_torch`` (never the JAX package) on ``cuda:0``:
    a card ``NDArray`` whose var it declared const (``const_write`` at
    ``wait_for_var``), and two declared locks nested in an order the static
    graph lacks (``unknown_edge``).
+
+28. A8b, the Python-free artifact. From the end of phase 2 a process at
+   the lowest CPU priority builds the runtime
+   ``libmxtpu_predict_native.so`` (``_predict_native.build``: ``g++`` over
+   ``csrc/native_rt/``, linked against libtorch and the K1, K2a, K2b and
+   K1-wide libraries); the phase waits for it and compiles the JAX
+   package's two C clients, unchanged, against it. (a) Phase 5's trained LM exported with
+   ``mx.export_predict_artifact`` at batch 4: ``predict_native_client.c``
+   in a process of its own (``ldd`` of the runtime and that process's
+   ``/proc/<pid>/maps`` name no libpython), and the same artifact through
+   ``MXPredCreateFromFile`` (``dev_type`` 2) in this process with
+   ``ctypes``: within 1e-6 of the Python ``Predictor`` on ``cuda:0``
+   (bitwise expected; the largest difference printed) and of the client
+   process, within ``OUT_REL_TOL`` of the ``Predictor`` under ``with
+   mx.cpu():``; K1 once per layer and forward by the runtime's own
+   counters, each forward or timed run read between a reset and a read,
+   and a refused launch not counted; the median predict call beside 26(a)'s; a launch refused by
+   K1 itself (``MXTPU_NATIVE_FAIL_KERNEL``) returns -1 with its error
+   text. (b) The LM exported with ``mx.export_train_artifact`` (Adam at
+   ``TRAIN_LR``, batch 32, phase 5's initial parameters):
+   ``train_native_client.c`` for 8 steps (phase 5's 4 batches, cycled) in
+   a process of its own, the same 8 steps through ``MXTrainNative*`` here
+   beside the port's fused step (``SPMDTrainer`` on ``cuda:0``): step 1's parameters within 1e-6 of
+   the fused step's, every later step within ``RESUME_TOL`` of the
+   largest parameter (each step's largest difference printed), K1, K2a
+   and K2b once per layer in every step (the compared, the loss and the
+   timed steps, each read), the first batch's loss lower at
+   its third visit than at its first, the client's
+   ``MXTrainNativeSaveParams`` file equal to the in-process parameters;
+   the eager C++ step's wall beside the fused step's. (c) ResNet-50
+   scoring in float32 at batch 32 from a predict artifact, within 1e-5
+   of the Python ``Predictor``, images/s of each. (d) Phase 8's head_dim
+   512 LM from a predict artifact: K1's wide route once per layer, within
+   1e-6 of the ``Predictor``. (e) A Dropout MLP's train artifact on the
+   card (masks drawn there, seeded ``seed + t``): two trainers of one
+   seed step to the same parameters, another seed to others.
 
 Every phase that fails raises, so the exit code is not 0. The last two
 lines are the ``kernels`` JSON object and the ``ok`` JSON object; the card
@@ -4599,12 +4637,26 @@ def run_dist_phase(mx, build, card, t_counts):
         "on the host train the LM at phase 5's width, kvstore='dist_sync'")
     L = TRAIN["num_layers"]
     recs, params = {}, {}
-    with tempfile.TemporaryDirectory() as tmp:
-        for tag, extra in (("fused", {}),
-                           ("classic", {"MXNET_MODULE_NO_FUSED": "1"})):
-            run_cluster([sys.executable, "-c",
-                         "import chip_smoke; chip_smoke.dist_lm_worker()"],
-                        dict(extra, SMOKE_OUT=tmp), "dist_sync %s" % tag)
+    from concurrent.futures import ThreadPoolExecutor
+
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(3) as pool:
+        # (b)'s two clusters and (c)'s run at once: nothing in one reads
+        # another, and each mostly waits for its processes to start
+        jobs = {tag: pool.submit(
+            run_cluster, [sys.executable, "-c",
+                          "import chip_smoke; chip_smoke.dist_lm_worker()"],
+            dict(extra, SMOKE_OUT=tmp), "dist_sync %s" % tag)
+            for tag, extra in (("fused", {}),
+                               ("classic", {"MXNET_MODULE_NO_FUSED": "1"}))}
+        mnist = pool.submit(
+            run_cluster,
+            [sys.executable, "-c", "import sys, chip_smoke; "
+             "chip_smoke.exec_example('train_mnist', sys.argv[1:], %d)"
+             % MNIST_SEED,
+             "--kv-store", "dist_sync", "--num-epochs", str(MNIST_EPOCHS)],
+            {}, "train_mnist dist_sync")
+        for tag, job in jobs.items():
+            job.result()
             for r in (0, 1):
                 with open(os.path.join(tmp, "%s-%d.json" % (tag, r))) as f:
                     recs[tag, r] = json.load(f)
@@ -4649,13 +4701,9 @@ def run_dist_phase(mx, build, card, t_counts):
     log("  host wall per step (%s): dist_sync fused %.5f s, dist_sync classic "
         "%.5f s, phase 5's fused local %.5f s (dist_sync fused / local "
         "%.2fx)" % (card, f_s, c_s, t_counts["step_s"], f_s / t_counts["step_s"]))
-    log("  (c) examples/train_mnist.py --kv-store dist_sync under the launcher")
-    _, err = run_cluster(
-        [sys.executable, "-c", "import sys, chip_smoke; "
-         "chip_smoke.exec_example('train_mnist', sys.argv[1:], %d)"
-         % MNIST_SEED,
-         "--kv-store", "dist_sync", "--num-epochs", str(MNIST_EPOCHS)],
-        {}, "train_mnist dist_sync")
+    log("  (c) examples/train_mnist.py --kv-store dist_sync under the "
+        "launcher (run beside (b)'s clusters)")
+    _, err = mnist.result()
     acc = [float(l.rsplit("=", 1)[1]) for l in err.splitlines()
            if "Validation-accuracy=" in l]
     log("  train_mnist validation accuracy per epoch and worker: %s" % acc)
@@ -6067,12 +6115,17 @@ def graphpass_fits(mx, work):
     check(n_swapped > 0 and d_raw[0] != d_raw[1] and d_opt[0] == d_opt[1],
           "25(a): the optimized digest depends on the operand order")
     recs, params, step = {}, {}, {}
-    for label, passes in (("on", None), ("off", "none")):
+    from concurrent.futures import ThreadPoolExecutor
+
+    runs = (("on", None), ("off", "none"))
+    with ThreadPoolExecutor(len(runs)) as pool:   # the two fits at once
+        list(pool.map(lambda run: _child(
+            "graphpass_fit_child",
+            dict({"SMOKE_OUT": os.path.join(work, "passes_" + run[0])},
+                 **({"MXNET_GRAPH_PASSES": run[1]} if run[1] else {})),
+            "(a) passes %s" % run[0]), runs))
+    for label, _ in runs:
         path = os.path.join(work, "passes_" + label)
-        env = {"SMOKE_OUT": path}
-        if passes:
-            env["MXNET_GRAPH_PASSES"] = passes
-        _child("graphpass_fit_child", env, "(a) passes %s" % label)
         with open(path + ".json") as f:
             recs[label] = json.load(f)
         with np.load(path + ".npz") as z:
@@ -6222,9 +6275,17 @@ def warm_start(mx, build, work):
         % (stats["dir"], stats["aot_artifacts"], stats["aot_bytes"],
            {p: round(s, 3) for p, s in sorted(cold.items())},
            sum(cold.values())))
-    check(stats["enabled"] and stats["aot_artifacts"] == len(programs),
-          "25(b): the cache holds %s artifacts for %d sources"
-          % (stats.get("aot_artifacts"), len(programs)))
+    # one library per nvcc source; the cache may also hold phase 28's
+    # runtime (program g++.native_rt), whose build still runs beside this
+    # phase, so only the nvcc programs' artifacts are counted and copied
+    aot = os.path.abspath(os.path.join(compile_cache.cache_dir() or "",
+                                       "aot"))
+    nvcc_keys = {k.cache_key() for k in build.KERNELS.values()}
+    held = set(os.listdir(aot)) if os.path.isdir(aot) else set()
+    check(stats["enabled"] and len(nvcc_keys) == len(programs)
+          and nvcc_keys <= held,
+          "25(b): the cache holds %d of the %d nvcc sources' artifacts"
+          % (len(nvcc_keys & held), len(programs)))
     all_checks = ",".join(sorted({c for cs in SOURCE_CHECKS.values()
                                   for c in cs}))
     # the corrupt child reads a copy of the cache with one byte of the
@@ -6232,7 +6293,10 @@ def warm_start(mx, build, work):
     victim = min(cold, key=cold.get) if cold else "nvcc.paged_decode"
     kern = next(k for k in build.KERNELS.values() if k.program == victim)
     bad_cc = os.path.join(work, "cc_corrupt")
-    shutil.copytree(compile_cache.cache_dir(), bad_cc)
+    shutil.copytree(compile_cache.cache_dir(), bad_cc,
+                    ignore=lambda d, names: [
+                        n for n in names if os.path.abspath(d) == aot
+                        and n not in nvcc_keys])
     path = os.path.join(bad_cc, "aot", kern.cache_key())
     with open(path, "r+b") as f:
         f.seek(os.path.getsize(path) // 2)
@@ -6586,6 +6650,7 @@ def capi_predict_in_process(mx, build, lib, ckpt, tokens):
     check(k1 == L * (CAPI_REPS + 1), "%d MXPredForward calls launched K1 %d "
           "times" % (CAPI_REPS + 1, k1))
     py_ms = median_ms(lambda: py.forward(data=tokens).get_output(0))
+    PHASE_NOTES["capi_predict_ms"] = c_ms
     log("  (a) MXPredCreate/SetInput/Forward/GetOutput in this process, the "
         "LM at batch %d x %d (output %s): bitwise equal to the Python "
         "Predictor on the card; %.3e of the largest against the CPU (tol "
@@ -7094,6 +7159,647 @@ def run_analysis_phase(mx, S, M, build, card, dist_params, dist_step_s,
     return launches
 
 
+# ------------------------- A8b: the Python-free artifact (phase 28)
+ART_PRED_BATCH = 4         # 28(a): the LM predicted from an artifact
+ART_TRAIN_BATCH = 32       # 28(b): the LM trained from an artifact
+ART_STEPS = 8
+ART_BATCHES = 4            # 28(b) cycles phase 5's 4 batches: two epochs
+ART_TIMED_STEPS = 5        # 28(b): C++ steps timed after the compared ones
+ART_WIDE_BATCH = 2         # 28(d)
+ART_TIMEOUT = 300
+ART_NATIVE_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq",
+                      "flash_wide_fwd", "flash_wide_bwd_dkv",
+                      "flash_wide_bwd_dq")
+#: values an earlier phase leaves for a later one (26(a)'s call time)
+PHASE_NOTES = {}
+
+
+def native_rt_start():
+    """Phase 28's runtime build (``_predict_native.build``: ``g++`` over
+    ``csrc/native_rt/``), started when phase 2's kernels are built, in a
+    process of its own at the lowest CPU priority: it takes the cores the
+    later phases leave idle, not phase 2's. Returns the process."""
+    import os
+    import shutil
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    code = ("from mxnet_tpu_torch import _predict_native as P; "
+            "print(P.build()); print(P.build_seconds)")
+    nice = shutil.which("nice")
+    return subprocess.Popen(
+        ([nice, "-n", "19"] if nice else []) + [sys.executable, "-c", code],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+
+
+def native_rt_compile(work, proc):
+    """Waits for :func:`native_rt_start`'s build (a failure stops the run
+    with the compiler's text) and compiles the JAX package's two C
+    clients, unchanged, against the runtime. Returns (paths, the build's
+    seconds)."""
+    import os
+
+    from mxnet_tpu_torch import _predict_native as P
+
+    out, err = proc.communicate(timeout=ART_TIMEOUT * 4)
+    check(proc.returncode == 0, "building the native runtime failed:\n%s"
+          % err[-4000:])
+    lib, seconds = out.split()[-2:]
+    check(P.build() == lib, "the runtime built is not the one this process "
+          "would load: %s" % lib)
+    root = os.path.dirname(os.path.abspath(__file__))
+    d = os.path.join(work, "native_rt")
+    os.makedirs(d, exist_ok=True)
+    paths = {"lib": lib,
+             "predict": os.path.join(d, "predict_native_client"),
+             "train": os.path.join(d, "train_native_client")}
+    procs = [subprocess.Popen(
+        ["gcc", "-O2", os.path.join(root, "tests", "c", src), "-o", paths[k]]
+        + P.client_flags(), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for k, src in (("predict", "predict_native_client.c"),
+                                  ("train", "train_native_client.c"))]
+    for p in procs:
+        text = p.communicate(timeout=ART_TIMEOUT)[0]
+        check(p.returncode == 0, "compiling a native client failed:\n%s"
+              % text[-3000:])
+    return paths, float(seconds)
+
+
+def _native_counts(P, reset=False):
+    return {k: P.kernel_launches(k, reset=reset) for k in ART_NATIVE_KERNELS}
+
+
+def _native_launched(P, run, per_run, what):
+    """``run()`` (which returns how many forwards or steps it made)
+    between a reset of the runtime's counters and a read of them: each
+    kernel of ``per_run`` must have launched ``per_run[k]`` times per
+    forward or step, and no other kernel at all. Returns the reading."""
+    _native_counts(P, reset=True)
+    n = run()
+    got = _native_counts(P)
+    check(all(v == per_run.get(k, 0) * n for k, v in got.items()),
+          "%s: %d runs launched %s, want %s per run" % (what, n, got, per_run))
+    return got
+
+
+def _watch_maps(cmd, env, what):
+    """``cmd`` in a process of its own, its ``/proc/<pid>/maps`` read
+    while it runs: (stdout, stderr, seconds, whether a read saw libtorch,
+    the libpython mappings seen)."""
+    import os
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env)
+    saw_torch, pythons = False, set()
+    while proc.poll() is None:
+        try:
+            with open("/proc/%d/maps" % proc.pid) as f:
+                maps = f.read()
+        except OSError:
+            break
+        saw_torch = saw_torch or "libtorch" in maps
+        pythons |= {line.split()[-1] for line in maps.splitlines()
+                    if "libpython" in line}
+        time.sleep(0.02)
+    out, err = proc.communicate(timeout=ART_TIMEOUT)
+    check(proc.returncode == 0, "%s exited %d:\n%s\n%s"
+          % (what, proc.returncode, out[-2000:], err[-4000:]))
+    return out, err, time.perf_counter() - t0, saw_torch, sorted(pythons)
+
+
+class NativePredictor:
+    """``MXPredCreateFromFile`` of the Python-free runtime on ``cuda:0``
+    through ctypes in this process; every call is checked."""
+
+    def __init__(self, lib, path):
+        import ctypes as c
+
+        self.lib, self.h = lib, c.c_void_p()
+        capi_check(lib, lib.MXPredCreateFromFile(path.encode(), 2, 0,
+                                                 c.byref(self.h)),
+                   "MXPredCreateFromFile")
+        ptr, ndim = c.POINTER(c.c_uint)(), c.c_uint()
+        capi_check(lib, lib.MXPredGetOutputShape(
+            self.h, 0, c.byref(ptr), c.byref(ndim)), "MXPredGetOutputShape")
+        self.out_shape = tuple(ptr[i] for i in range(ndim.value))
+
+    def predict(self, x):
+        import ctypes as c
+
+        x = np.ascontiguousarray(x, np.float32)
+        capi_check(self.lib, self.lib.MXPredSetInput(
+            self.h, b"data", x.ctypes.data_as(c.POINTER(c.c_float)), x.size),
+            "MXPredSetInput")
+        capi_check(self.lib, self.lib.MXPredForward(self.h), "MXPredForward")
+        out = np.empty(self.out_shape, np.float32)
+        capi_check(self.lib, self.lib.MXPredGetOutput(
+            self.h, 0, out.ctypes.data_as(c.POINTER(c.c_float)), out.size),
+            "MXPredGetOutput")
+        return out
+
+    def free(self):
+        capi_check(self.lib, self.lib.MXPredFree(self.h), "MXPredFree")
+
+
+def _predictor_of(mx, path, sym, args, auxs, shapes, ctx=None):
+    """The Python ``Predictor`` over the checkpoint ``path`` of (sym,
+    args, auxs)."""
+    from mxnet_tpu_torch.predict import Predictor
+
+    sym_json, params = _save_checkpoint(mx, path, sym, args, auxs)
+    if ctx is None:
+        return Predictor(sym_json, params, input_shapes=shapes)
+    with ctx:
+        return Predictor(sym_json, params, input_shapes=shapes)
+
+
+def artifact_predict(mx, P, lib, paths, d, t_params):
+    """28(a): phase 5's LM as a predict artifact, through the unchanged C
+    client in a process of its own (no libpython mapped) and through
+    ctypes here, against the Python Predictor on the card and on the
+    CPU; K1 once per layer and forward; a forced kernel failure."""
+    import os
+
+    L, T = TRAIN["num_layers"], TRAIN["seq_len"]
+    shape = (ART_PRED_BATCH, T)
+    shapes = {"data": shape, "softmax_label": shape}
+    sym = mx.models.transformer_lm(**TRAIN)
+    art = os.path.join(d, "lm.mxa")
+    m = mx.export_predict_artifact(sym, t_params, {}, shapes, art)
+    check(m["platform"] == "cuda", "the export recorded %s" % m["platform"])
+    X, _ = lm_stream(ART_PRED_BATCH, seed=28)
+    X.tofile(os.path.join(d, "tokens.f32"))
+    ldd = subprocess.run(["ldd", paths["lib"]], capture_output=True,
+                         text=True, timeout=60).stdout
+    names = [line.split()[0] for line in ldd.splitlines() if line.strip()]
+    check(not [n for n in names if "python" in n.lower()],
+          "the runtime links a Python library:\n%s" % ldd)
+    from mxnet_tpu_torch import _predict_native
+
+    _native_counts(P, reset=True)
+    out, _, wall, saw_torch, pythons = _watch_maps(
+        [paths["predict"], art, "data", os.path.join(d, "tokens.f32"),
+         os.path.join(d, "probs.f32")], _predict_native.client_env(),
+        "predict_native_client")
+    check(saw_torch and not pythons, "the C client's process: libtorch "
+          "mapped %s, libpython mappings %s" % (saw_torch, pythons))
+    check(sum(_native_counts(P).values()) == 0, "the subprocess counted here")
+    py = _predictor_of(mx, os.path.join(d, "lm_ckpt"), sym, t_params, {},
+                       shapes)
+    want = py.forward(data=X).get_output(0)
+    sub = np.fromfile(os.path.join(d, "probs.f32"), np.float32)
+    np_ = NativePredictor(lib, art)
+    check(np_.out_shape == want.shape, "the artifact's output shape %s, "
+          "want %s" % (np_.out_shape, want.shape))
+    per_forward = {"flash_fwd": L}
+    outs = []
+    k1 = _native_launched(P, lambda: outs.append(np_.predict(X)) or 1,
+                          per_forward, "one MXPredForward")
+    got = outs[0]
+    check(np.isfinite(got).all(), "the artifact's probabilities are not finite")
+    err_card = float(np.abs(got - want).max())
+    check(err_card <= 1e-6, "the artifact against the Predictor on the card: "
+          "%.3e" % err_card)
+    err_sub = float(np.abs(sub.reshape(got.shape) - got).max())
+    check(err_sub <= 1e-6, "the C client's process against ctypes here: "
+          "%.3e" % err_sub)
+    cpu = _predictor_of(mx, os.path.join(d, "lm_ckpt"), sym, t_params, {},
+                        shapes, ctx=mx.cpu())
+    ref = cpu.forward(data=X).get_output(0)
+    err_cpu = float(np.abs(got - ref).max() / np.abs(ref).max())
+    check(err_cpu <= OUT_REL_TOL, "the artifact on the card against the "
+          "Predictor on the CPU: %.3e of the largest" % err_cpu)
+    del cpu
+    calls = [0]
+
+    def native_predict():
+        calls[0] += 1
+        return np_.predict(X)
+
+    def native_forward():
+        calls[0] += 1
+        capi_check(lib, lib.MXPredForward(np_.h), "MXPredForward")
+        torch.cuda.synchronize()
+
+    def py_forward():
+        py._exe.forward(is_train=False)
+        torch.cuda.synchronize()
+
+    timed = {}
+
+    def run_timed():
+        timed["ms"] = median_ms(native_predict)
+        timed["fwd_ms"] = median_ms(native_forward)
+        return calls[0]
+
+    k1_total = k1["flash_fwd"] + _native_launched(
+        P, run_timed, per_forward, "the timed predict calls")["flash_fwd"]
+    ms, fwd_ms = timed["ms"], timed["fwd_ms"]
+    py_ms = median_ms(lambda: py.forward(data=X).get_output(0))
+    py_fwd_ms = median_ms(py_forward)
+    # a refused launch returns -1 with the kernel's own error text, and
+    # is not counted
+    refused = {}
+
+    def run_refused():
+        os.environ["MXTPU_NATIVE_FAIL_KERNEL"] = "flash_fwd"
+        try:
+            refused["rc"] = lib.MXPredForward(np_.h)
+            refused["msg"] = lib.MXGetLastError().decode(errors="replace")
+        finally:
+            del os.environ["MXTPU_NATIVE_FAIL_KERNEL"]
+        return 0
+
+    _native_launched(P, run_refused, per_forward, "a refused forward")
+    rc, msg = refused["rc"], refused["msg"]
+    check(rc == -1 and "flash_fwd failed to launch" in msg,
+          "a refused K1 launch returned %d: %s" % (rc, msg))
+    outs = []
+    k1_total += _native_launched(
+        P, lambda: outs.append(np_.predict(X)) or 1, per_forward,
+        "the forward after a refused launch")["flash_fwd"]
+    check(np.array_equal(outs[0], got), "the predictor after a refused "
+          "launch differs")
+    np_.free()
+    log("  (a) the LM (batch %d x %d) from a predict artifact: "
+        "predict_native_client.c in its own process (%.1f s; libtorch "
+        "mapped, no libpython; ldd of the runtime names no Python library) "
+        "within %.3e of the in-process call; in this process through ctypes "
+        "%.3e from the Python Predictor on the card (bitwise expected), "
+        "%.3e of the largest from the Predictor on the CPU (tol %.0e); K1 "
+        "%d launches per forward (%d layers), %d over the %d forwards read; "
+        "predict call (set input, "
+        "forward, read the %.1f MB output) median %.3f ms (Python Predictor "
+        "%.3f ms; phase 26(a)'s C API at batch %d %s ms); the forward alone, "
+        "synchronized, median %.3f ms (Python Executor %.3f ms); a refused "
+        "K1 launch returned -1: %s"
+        % (ART_PRED_BATCH, T, wall, err_sub, err_card, err_cpu, OUT_REL_TOL,
+           k1["flash_fwd"], L, k1_total, k1_total // L, got.nbytes / 1e6,
+           ms, py_ms, CAPI_PRED_BATCH,
+           "%.3f" % PHASE_NOTES["capi_predict_ms"]
+           if "capi_predict_ms" in PHASE_NOTES else "not run", fwd_ms,
+           py_fwd_ms, msg))
+    return k1_total, out
+
+
+class NativeTrainer:
+    """``MXTrainNativeCreateFromFile`` through ctypes in this process."""
+
+    def __init__(self, lib, path):
+        import ctypes as c
+
+        self.lib, self.h = lib, c.c_void_p()
+        capi_check(lib, lib.MXTrainNativeCreateFromFile(path.encode(),
+                                                        c.byref(self.h)),
+                   "MXTrainNativeCreateFromFile")
+
+    def step(self, x, y, lr):
+        import ctypes as c
+
+        for name, v in ((b"data", x), (b"softmax_label", y)):
+            v = np.ascontiguousarray(v, np.float32)
+            capi_check(self.lib, self.lib.MXTrainNativeSetInput(
+                self.h, name, v.ctypes.data_as(c.POINTER(c.c_float)), v.size),
+                "MXTrainNativeSetInput")
+        capi_check(self.lib, self.lib.MXTrainNativeStep(self.h, c.c_float(lr)),
+                   "MXTrainNativeStep")
+
+    def output(self, shape):
+        import ctypes as c
+
+        out = np.empty(shape, np.float32)
+        capi_check(self.lib, self.lib.MXTrainNativeGetOutput(
+            self.h, 0, out.ctypes.data_as(c.POINTER(c.c_float)), out.size),
+            "MXTrainNativeGetOutput")
+        return out
+
+    def save(self, path):
+        capi_check(self.lib, self.lib.MXTrainNativeSaveParams(
+            self.h, path.encode()), "MXTrainNativeSaveParams")
+
+    def free(self):
+        capi_check(self.lib, self.lib.MXTrainNativeFree(self.h),
+                   "MXTrainNativeFree")
+
+
+def _fused_lm_steps(mx, sym, init, X, Y, lr, steps):
+    """``steps`` of the port's fused step (captured from the second on) on
+    ``cuda:0`` over the ``ART_BATCHES`` batches of (X, Y), cycled: the
+    parameters after each, and the mean host wall of the replays."""
+    from mxnet_tpu_torch.parallel.spmd import SPMDTrainer
+
+    B, T = ART_TRAIN_BATCH, TRAIN["seq_len"]
+    pnames = [n for n in sym.list_arguments()
+              if n not in ("data", "softmax_label")]
+    opt = mx.optimizer.create("adam", sym=sym,
+                              param_idx2name={n: n for n in pnames},
+                              learning_rate=lr)
+    tr = SPMDTrainer(sym, "cuda:0", [("data", (B, T))], opt,
+                     label_shapes=[("softmax_label", (B, T))])
+    params = {n: torch.tensor(init[n], device="cuda:0") for n in tr.param_names}
+    states = tr.init_opt_state()
+    buf = tr.input_buffers()
+    after, walls = [], []
+    for s in range(steps):
+        k = s % ART_BATCHES
+        buf["data"].copy_(torch.tensor(X[k * B:(k + 1) * B]))
+        buf["softmax_label"].copy_(torch.tensor(Y[k * B:(k + 1) * B]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.step(params, {}, states)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        after.append({n: v.cpu().numpy() for n, v in params.items()})
+    return after, float(np.mean(walls[2:])) * 1e3
+
+
+def artifact_train(mx, P, lib, paths, d):
+    """28(b): the LM as a train artifact (Adam, batch 32, phase 5's
+    initial parameters): the unchanged C training client for 8 steps in
+    a process of its own; the same 8 steps through ctypes here beside the
+    port's fused step; K1, K2a and K2b once per layer and step."""
+    import os
+
+    L, T, B = TRAIN["num_layers"], TRAIN["seq_len"], ART_TRAIN_BATCH
+    lr = float(np.float32(TRAIN_LR))
+    sym = mx.models.transformer_lm(**TRAIN)
+    mod = mx.mod.Module(sym, context=mx.gpu(0))
+    mod.bind(data_shapes=[("data", (B, T))],
+             label_shapes=[("softmax_label", (B, T))])
+    mod.init_params(initializer=mx.init.Xavier(
+        rng=torch.Generator().manual_seed(0)))     # phase 5's initializer
+    init = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+    del mod
+    art = os.path.join(d, "lm_train.mxa")
+    m = mx.export_train_artifact(sym, {"data": (B, T), "softmax_label": (B, T)},
+                                 art, optimizer="adam",
+                                 optimizer_params={"learning_rate": lr},
+                                 arg_params=init)
+    check(m["optimizer"] == "Adam" and m["nslot"] == 2, "the train manifest "
+          "says %s with %d slots" % (m["optimizer"], m["nslot"]))
+    # phase 5's stream and its 4 batches, cycled as its fit cycles them:
+    # after 8 distinct batches the first batch's loss rises under the JAX
+    # package's trainer as under the port's (Adam's early transient,
+    # tests/lm_heldout_witness.py), so only a batch seen again can show
+    # the loss falling within 8 steps
+    X, Y = lm_stream(B * ART_BATCHES)
+    X.tofile(os.path.join(d, "train_data.f32"))
+    Y.tofile(os.path.join(d, "train_label.f32"))
+    from mxnet_tpu_torch import _predict_native
+
+    sub_params = os.path.join(d, "trained_process.params")
+    out, _, wall, saw_torch, pythons = _watch_maps(
+        [paths["train"], art, os.path.join(d, "train_data.f32"),
+         os.path.join(d, "train_label.f32"), str(B), str(ART_STEPS), repr(lr),
+         sub_params, os.path.join(d, "loss.txt")],
+        _predict_native.client_env(), "train_native_client")
+    check(saw_torch and not pythons, "the C trainer's process: libtorch "
+          "mapped %s, libpython mappings %s" % (saw_torch, pythons))
+    # the client reports the probabilities' mean for a label of several
+    # ids per row: 1/V while they are finite
+    reported = [float(line.split()[1])
+                for line in open(os.path.join(d, "loss.txt"))]
+    check(len(reported) >= 2 and all(math.isfinite(v) for v in reported),
+          "the C trainer reported %s" % reported)
+    fused, fused_ms = _fused_lm_steps(mx, sym, init, X, Y, lr, ART_STEPS)
+    tr = NativeTrainer(lib, art)
+    per_step, diffs, losses = [], [], []
+    lab0 = Y[:B].reshape(-1).astype(np.int64)
+
+    def batch0_loss():
+        """The cross-entropy of the last step's forward, which ran on the
+        first batch."""
+        prob = tr.output((B * T, TRAIN["vocab_size"]))
+        return float(-np.log(np.maximum(prob[np.arange(B * T), lab0],
+                                        1e-8)).mean())
+
+    scale = max(float(np.abs(v).max()) for v in init.values())
+    per_step_want = {k: L for k in FLASH}
+
+    def one_step(k):
+        def run():
+            tr.step(X[k * B:(k + 1) * B], Y[k * B:(k + 1) * B], lr)
+            torch.cuda.synchronize()
+            return 1
+        return run
+
+    for s in range(ART_STEPS):
+        per_step.append(_native_launched(
+            P, one_step(s % ART_BATCHES), per_step_want, "C++ step %d"
+            % (s + 1)))
+        if s == 0:
+            losses.append(batch0_loss())
+        tr.save(os.path.join(d, "step.params"))
+        got = {k[4:]: v.asnumpy() for k, v in
+               mx.nd.load(os.path.join(d, "step.params")).items()}
+        diffs.append(max(float(np.abs(got[n] - fused[s][n]).max())
+                         for n in init))
+    # the first batch again (its third visit), its forward on the
+    # parameters of the 8 steps
+    per_step.append(_native_launched(P, one_step(0), per_step_want,
+                                     "the loss step"))
+    losses.append(batch0_loss())
+    check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+          "the C++ steps' loss on the first batch did not fall: %s" % losses)
+    check(diffs[0] <= 1e-6, "step 1's parameters against the fused step's: "
+          "%.3e" % diffs[0])
+    check(all(v <= RESUME_TOL * scale for v in diffs), "the C++ steps' "
+          "parameters against the fused step's: %s" % diffs)
+    saved = mx.nd.load(sub_params)
+    check(sorted(saved) == sorted("arg:" + n for n in init) and all(
+        np.array_equal(saved["arg:" + n].asnumpy(), got[n]) for n in init),
+        "MXTrainNativeSaveParams' file from the C process differs from the "
+        "in-process trainer's parameters")
+    # the C++ step's wall: steps that read nothing back, synchronized
+    torch.cuda.synchronize()
+    timed = {}
+
+    def timed_steps():
+        t0 = time.perf_counter()
+        for s in range(ART_TIMED_STEPS):
+            tr.step(X[:B], Y[:B], lr)
+        torch.cuda.synchronize()   # the runtime's work is on this card
+        timed["ms"] = (time.perf_counter() - t0) * 1e3 / ART_TIMED_STEPS
+        return ART_TIMED_STEPS
+
+    per_step.append(_native_launched(P, timed_steps, per_step_want,
+                                     "the timed C++ steps"))
+    step_ms = timed["ms"]
+    tr.free()
+    # every reading: the compared steps, the loss step and the timed ones
+    total = {k: sum(n[k] for n in per_step) for k in FLASH}
+    log("  (b) the LM trained from a train artifact (Adam, lr %g, batch %d x "
+        "%d, phase 5's initial parameters): train_native_client.c in its own "
+        "process (%.1f s, no libpython mapped), its saved file bitwise the "
+        "in-process trainer's; the first batch's loss %.6f at step 1, "
+        "%.6f after %d steps; through "
+        "ctypes K1/K2a/K2b %s per step, %s over the %d steps read (the "
+        "compared, the loss step and the timed ones); the largest parameter "
+        "difference from the port's fused step per step %s (step 1 tol "
+        "1e-6, then %.0e of the largest parameter, %.3g); C++ step %.3f ms "
+        "eager, the fused step %.3f ms (a CUDA graph's replays) (%s)"
+        % (lr, B, T, wall, losses[0], losses[-1], ART_STEPS,
+           sorted({tuple(n[k] for k in FLASH) for n in per_step[:ART_STEPS]}),
+           [total[k] for k in FLASH], ART_STEPS + 1 + ART_TIMED_STEPS,
+           ["%.3e" % v for v in diffs], RESUME_TOL, scale, step_ms, fused_ms,
+           out.strip().splitlines()[-2] if out.strip() else ""))
+    return total
+
+
+def artifact_resnet(mx, P, lib, d):
+    """28(c): ResNet-50 scoring in float32 at batch 32 from a predict
+    artifact, against the Python Predictor; images/s of each."""
+    import os
+
+    rn_json, rn_params = _resnet_checkpoint(mx, os.path.join(d, "resnet"))
+    blob = mx.nd.load(os.path.join(d, "resnet-0000.params"))
+    args = {k[4:]: v.asnumpy() for k, v in blob.items() if k.startswith("arg:")}
+    auxs = {k[4:]: v.asnumpy() for k, v in blob.items() if k.startswith("aux:")}
+    shape = (RESNET_BATCH,) + RESNET_SHAPE
+    art = os.path.join(d, "resnet.mxa")
+    mx.export_predict_artifact(mx.sym.load_json(rn_json), args, auxs,
+                               {"data": shape}, art)
+    imgs = np.random.RandomState(28).uniform(-1, 1, shape).astype(np.float32)
+    from mxnet_tpu_torch.predict import Predictor
+
+    py = Predictor(rn_json, rn_params, input_shapes={"data": shape})
+    want = py.forward(data=imgs).get_output(0)
+    np_ = NativePredictor(lib, art)
+    got = np_.predict(imgs)
+    err = float(np.abs(got - want).max())
+    check(np.isfinite(got).all() and err <= 1e-5, "ResNet-50's scores from "
+          "the artifact against the Python Predictor: %.3e" % err)
+    art_ms = median_ms(lambda: np_.predict(imgs), reps=10)
+    py_ms = median_ms(lambda: py.forward(data=imgs).get_output(0), reps=10)
+    np_.free()
+    del py
+    log("  (c) ResNet-%d scoring, float32, batch %d from a predict artifact: "
+        "%.3e from the Python Predictor (tol 1e-5); predict call median %.3f "
+        "ms = %.1f images/s from the artifact, %.3f ms = %.1f images/s "
+        "through the Python Predictor"
+        % (RESNET["num_layers"], RESNET_BATCH, err, art_ms,
+           RESNET_BATCH * 1e3 / art_ms, py_ms, RESNET_BATCH * 1e3 / py_ms))
+
+
+def artifact_wide(mx, P, lib, d, w_params):
+    """28(d): one forward of phase 8's head_dim-512 LM from a predict
+    artifact: K1's wide route, against the Python Predictor."""
+    import os
+
+    L, T = WIDE["num_layers"], WIDE["seq_len"]
+    shape = (ART_WIDE_BATCH, T)
+    shapes = {"data": shape, "softmax_label": shape}
+    sym = mx.models.transformer_lm(**WIDE)
+    art = os.path.join(d, "wide.mxa")
+    mx.export_predict_artifact(sym, w_params, {}, shapes, art)
+    X, _ = lm_stream(ART_WIDE_BATCH, seed=29, cfg=WIDE)
+    py = _predictor_of(mx, os.path.join(d, "wide_ckpt"), sym, w_params, {},
+                       shapes)
+    want = py.forward(data=X).get_output(0)
+    del py
+    np_ = NativePredictor(lib, art)
+    _native_counts(P, reset=True)
+    got = np_.predict(X)
+    n = _native_counts(P)
+    np_.free()
+    err = float(np.abs(got - want).max())
+    check(n["flash_wide_fwd"] == L and sum(n.values()) == L,
+          "the head_dim 512 forward launched %s, want flash_wide_fwd %d "
+          "times" % (n, L))
+    check(np.isfinite(got).all() and err <= 1e-6, "the wide artifact against "
+          "the Predictor: %.3e" % err)
+    log("  (d) phase 8's LM at head_dim 512 (batch %d x %d) from a predict "
+        "artifact: flash_wide_fwd %d launches (%d layers), %.3e from the "
+        "Python Predictor on the card"
+        % (ART_WIDE_BATCH, T, n["flash_wide_fwd"], L, err))
+    return n["flash_wide_fwd"]
+
+
+def artifact_dropout(mx, lib, d):
+    """28(e): a Dropout MLP's train artifact on the card, its masks drawn
+    there from a generator seeded ``seed + t``: two trainers of one
+    artifact step to the same parameters, an artifact of another seed to
+    others."""
+    import os
+
+    B, D = 64, 256
+    data = mx.sym.Variable("data")
+    net = mx.sym.FullyConnected(data, num_hidden=D, name="fc1")
+    net = mx.sym.Dropout(net, p=0.5, name="drop")
+    net = mx.sym.Activation(net, act_type="relu")
+    net = mx.sym.FullyConnected(net, num_hidden=10, name="fc2")
+    net = mx.sym.SoftmaxOutput(net, name="softmax")
+    rs = np.random.RandomState(30)
+    args = {n: (rs.randn(*s) * 0.05).astype(np.float32) for n, s in zip(
+        net.list_arguments(), net.infer_shape(data=(B, D))[0])
+        if n not in ("data", "softmax_label")}
+    x = rs.randn(B, D).astype(np.float32)
+    y = (np.arange(B) % 10).astype(np.float32)
+    saved = []
+    for run, seed in enumerate((4, 4, 5)):
+        art = os.path.join(d, "dropout%d.mxa" % run)
+        mx.export_train_artifact(net, {"data": (B, D)}, art, optimizer="sgd",
+                                 optimizer_params={"learning_rate": 0.1},
+                                 arg_params=args, seed=seed)
+        tr = NativeTrainer(lib, art)
+        for _ in range(3):
+            tr.step(x, y, 0.1)
+        tr.save(os.path.join(d, "dropout.params"))
+        tr.free()
+        saved.append({k: v.asnumpy() for k, v in mx.nd.load(
+            os.path.join(d, "dropout.params")).items()})
+    moved = max(float(np.abs(saved[0]["arg:" + n] - args[n]).max())
+                for n in args)
+    check(moved > 0 and all(np.isfinite(v).all() for v in saved[0].values()),
+          "28(e): the Dropout MLP did not train")
+    check(all(np.array_equal(saved[0][k], saved[1][k]) for k in saved[0]),
+          "28(e): two trainers of one stochastic artifact differ")
+    check(any(not np.array_equal(saved[0][k], saved[2][k])
+              for k in saved[0]),
+          "28(e): an artifact with another seed drew the same masks")
+    log("  (e) a Dropout MLP's train artifact on the card, 3 steps: two "
+        "trainers of one seed bitwise equal, another seed differs (its masks "
+        "drawn on the card from seed + t)")
+
+
+def run_artifact_phase(mx, build, card, t_params, w_params, work, compiled):
+    """Phase 28 (see the module docstring; ``compiled``:
+    :func:`native_rt_compile`'s); returns the runtime's launches of K1,
+    K2a, K2b and K1 wide on its main paths."""
+    import os
+
+    from mxnet_tpu_torch import _predict_native as P
+
+    t_phase = time.perf_counter()
+    paths, seconds = compiled
+    lib = P.load()
+    for name in ("MXPredCreateFromFile", "MXPredSetInput", "MXPredForward",
+                 "MXPredGetOutputShape", "MXPredGetOutput", "MXPredFree",
+                 "MXTrainNativeCreateFromFile", "MXTrainNativeSetInput",
+                 "MXTrainNativeStep", "MXTrainNativeGetOutput",
+                 "MXTrainNativeSaveParams", "MXTrainNativeFree"):
+        getattr(lib, name).restype = __import__("ctypes").c_int
+    log("  the runtime %s (g++ %.2f s, at the lowest priority from phase 2 "
+        "on) and the two C clients" % (paths["lib"], seconds))
+    d = os.path.join(work, "native_rt")
+    total = {k: 0 for k in FLASH}
+    total["flash_wide_fwd"] = 0
+    k1, _ = artifact_predict(mx, P, lib, paths, d, t_params)
+    total["flash_fwd"] += k1
+    for k, v in artifact_train(mx, P, lib, paths, d).items():
+        total[k] += v
+    artifact_resnet(mx, P, lib, d)
+    total["flash_wide_fwd"] += artifact_wide(mx, P, lib, d, w_params)
+    artifact_dropout(mx, lib, d)
+    torch.cuda.empty_cache()
+    log("  phase 28: %.1f s; the runtime's launches on its main paths %s"
+        % (time.perf_counter() - t_phase, total))
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -7148,6 +7854,9 @@ def _main(work):
         capi_compiled = capi_job.result()
     log("  beside them: the native host stage in %.2f s, the C library and "
         "phase 26's clients in %.2f s" % (native_s, capi_compiled[1]))
+    rt_proc = native_rt_start()
+    log("  phase 28's runtime builds from here on in a process at the lowest "
+        "CPU priority (pid %d)" % rt_proc.pid)
     for k in build.KERNELS.values():
         for line in k.build_log.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
@@ -7421,6 +8130,14 @@ def _main(work):
     for name, n in run_analysis_phase(
             mx, S, M, build, card, dist_params, dist_step_s,
             (launches, counts["streams"])).items():
+        next(r for r in rows if r["name"] == name)["launches"] += n
+
+    log("== 28. A8b, the Python-free artifact: the LM predicted and trained "
+        "by compiled C clients from .mxa artifacts through the port's "
+        "kernels; ResNet-50 and the wide route (%s)" % card)
+    for name, n in run_artifact_phase(mx, build, card, t_params, w_params,
+                                      work, native_rt_compile(work, rt_proc)
+                                      ).items():
         next(r for r in rows if r["name"] == name)["launches"] += n
 
     log(card)

@@ -75,4 +75,4 @@ def _lint_only():
 
 if not _lint_only():
     from ._package import *  # noqa: E402,F401,F403
-    from ._package import __all__, __getattr__, __version__  # noqa: E402,F401
+    from ._package import __all__, __version__  # noqa: E402,F401

@@ -17,7 +17,8 @@ covers the sources, the headers and the flags), so a client links with
 ``-lmxtpu_predict`` as it does against the JAX package's library. Only
 sources under ``csrc/capi/`` are compiled. Several processes may build at
 once (test workers): the build runs under an exclusive file lock in its
-directory, into a temporary name that is renamed into place.
+directory, into a temporary name that is renamed into place
+(``_cbuild.build_locked``).
 
 The Python flags come from :mod:`sysconfig` of the running interpreter
 (``INCLUDEPY``; ``LIBDIR``/``LIBPL``, ``LDLIBRARY``, ``Py_ENABLE_SHARED``)
@@ -33,9 +34,7 @@ A compiled client::
 from __future__ import annotations
 
 import ctypes
-import fcntl
 import glob
-import hashlib
 import os
 import shutil
 import subprocess
@@ -43,6 +42,7 @@ import sys
 import sysconfig
 import threading
 
+from . import _cbuild
 from .base import MXNetError
 
 __all__ = ["build", "load", "library_dir", "include_dir", "client_flags",
@@ -104,17 +104,6 @@ def _python_flags(embed):
                     "-lpython" + ver, "-ldl", "-lm"]
 
 
-def _digest(flags):
-    h = hashlib.sha256()
-    for path in sorted(glob.glob(os.path.join(SRC_DIR, "*.cc"))
-                       + glob.glob(os.path.join(SRC_DIR, "include", "*"))):
-        with open(path, "rb") as f:
-            h.update(os.path.basename(path).encode())
-            h.update(f.read())
-    h.update(" ".join(flags).encode())
-    return h.hexdigest()[:16]
-
-
 def build(embed=True):
     """Compile the library unless it exists; returns its path. ``embed``
     links libpython (what a C client needs); without it the library
@@ -127,27 +116,21 @@ def build(embed=True):
                              "built from source at first use")
         cflags, lflags = _python_flags(embed)
         flags = list(CXXFLAGS) + cflags
-        out_dir = os.path.join(BUILD_DIR, "capi-%s" % _digest(flags + lflags))
-        path = os.path.join(out_dir, LIB_NAME)
-        if not os.path.exists(path):
-            os.makedirs(out_dir, exist_ok=True)
-            with open(os.path.join(out_dir, "build.lock"), "w") as lockf:
-                fcntl.flock(lockf, fcntl.LOCK_EX)
-                try:
-                    if not os.path.exists(path):
-                        tmp = "%s.%d.tmp" % (path, os.getpid())
-                        cmd = (["g++"] + flags + ["-o", tmp]
-                               + [os.path.join(SRC_DIR, s) for s in SOURCES]
-                               + lflags)
-                        res = subprocess.run(cmd, capture_output=True,
-                                             text=True, timeout=900)
-                        if res.returncode != 0:
-                            raise MXNetError(
-                                "building the port's C API library failed:\n%s"
-                                % res.stderr[-4000:])
-                        os.replace(tmp, path)
-                finally:
-                    fcntl.flock(lockf, fcntl.LOCK_UN)
+        sources = (glob.glob(os.path.join(SRC_DIR, "*.cc"))
+                   + glob.glob(os.path.join(SRC_DIR, "include", "*")))
+        path = os.path.join(BUILD_DIR, "capi-%s" % _cbuild.digest(
+            sources, flags + lflags), LIB_NAME)
+
+        def make(tmp):
+            cmd = (["g++"] + flags + ["-o", tmp]
+                   + [os.path.join(SRC_DIR, s) for s in SOURCES] + lflags)
+            res = subprocess.run(cmd, capture_output=True, text=True,
+                                 timeout=900)
+            if res.returncode != 0:
+                raise MXNetError("building the port's C API library failed:"
+                                 "\n%s" % res.stderr[-4000:])
+
+        _cbuild.build_locked(path, make)
         _built[embed] = path
         return path
 
@@ -200,14 +183,10 @@ def client_env(env=None, cpu=False):
     interpreter then finds the port and torch, inside a virtualenv too).
     ``cpu`` sets ``MXNET_DEFAULT_CONTEXT=cpu``; otherwise an inherited one
     is dropped, so the client runs on the card."""
-    env = dict(os.environ if env is None else env)
+    env = _cbuild.client_env(env, cpu)
     paths = [_ROOT] + [p for p in sys.path if p and os.path.isdir(p)]
     old = env.get("PYTHONPATH")
     if old:
         paths.append(old)
     env["PYTHONPATH"] = os.pathsep.join(dict.fromkeys(paths))
-    if cpu:
-        env["MXNET_DEFAULT_CONTEXT"] = "cpu"
-    else:
-        env.pop("MXNET_DEFAULT_CONTEXT", None)
     return env

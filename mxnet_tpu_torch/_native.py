@@ -20,19 +20,19 @@ the pipeline cannot be created). Without ``g++`` :func:`load` raises.
 
 Several processes may build at once (test workers): the build runs
 under an exclusive file lock, into a temporary name that is renamed into
-place, so a process loads either nothing or a whole library.
+place (``_cbuild.build_locked``), so a process loads either nothing or a
+whole library.
 """
 from __future__ import annotations
 
 import ctypes
-import fcntl
 import glob
-import hashlib
 import os
 import shutil
 import subprocess
 import threading
 
+from . import _cbuild
 from .base import MXNetError
 
 __all__ = ["load", "decoder", "MXTPipeConfig", "SRC_DIR", "SOURCES",
@@ -76,13 +76,10 @@ def _decoder_flags():
 
 
 def _library_path(flags):
-    h = hashlib.sha256()
-    for path in sorted(glob.glob(os.path.join(SRC_DIR, "*.cc"))
-                       + glob.glob(os.path.join(SRC_DIR, "include", "*.h"))):
-        with open(path, "rb") as f:
-            h.update(f.read())
-    h.update(" ".join(flags).encode())
-    return os.path.join(BUILD_DIR, "libmxt_native-%s.so" % h.hexdigest()[:16])
+    sources = (glob.glob(os.path.join(SRC_DIR, "*.cc"))
+               + glob.glob(os.path.join(SRC_DIR, "include", "*.h")))
+    return os.path.join(BUILD_DIR, "libmxt_native-%s.so"
+                        % _cbuild.digest(sources, flags))
 
 
 def _build():
@@ -93,25 +90,17 @@ def _build():
     name, cflags, lflags = _decoder_flags()
     flags = list(CXXFLAGS) + cflags
     path = _library_path(flags + lflags)
-    if os.path.exists(path):
-        return path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    with open(os.path.join(BUILD_DIR, "native.lock"), "w") as lockf:
-        fcntl.flock(lockf, fcntl.LOCK_EX)
-        try:
-            if os.path.exists(path):      # another process built it
-                return path
-            tmp = "%s.%d.tmp" % (path, os.getpid())
-            cmd = (["g++"] + flags + ["-o", tmp]
-                   + [os.path.join(SRC_DIR, s) for s in SOURCES] + lflags)
-            res = subprocess.run(cmd, capture_output=True, text=True,
-                                 timeout=600)
-            if res.returncode != 0:
-                raise MXNetError("building the native host stage (%s decoder) "
-                                 "failed:\n%s" % (name, res.stderr[-4000:]))
-            os.replace(tmp, path)
-        finally:
-            fcntl.flock(lockf, fcntl.LOCK_UN)
+
+    def make(tmp):
+        cmd = (["g++"] + flags + ["-o", tmp]
+               + [os.path.join(SRC_DIR, s) for s in SOURCES] + lflags)
+        res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+        if res.returncode != 0:
+            raise MXNetError("building the native host stage (%s decoder) "
+                             "failed:\n%s" % (name, res.stderr[-4000:]))
+
+    _cbuild.build_locked(path, make, lock=os.path.join(BUILD_DIR,
+                                                       "native.lock"))
     return path
 
 

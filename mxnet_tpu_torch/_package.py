@@ -56,12 +56,9 @@ from . import placed, executor_manager  # noqa: E402
 from . import random as rnd  # noqa: E402
 from .model import FeedForward  # noqa: E402
 from .optimizer import Optimizer  # noqa: E402
-from .base import not_ported as _not_ported  # noqa: E402
-
-# the JAX package's top-level names the port has not reached yet
-__getattr__ = _not_ported(__name__, {
-    "export_artifact": "A8b", "export_predict_artifact": "A8b",
-    "export_train_artifact": "A8b"})
+from . import export_artifact  # noqa: E402
+from .export_artifact import (export_predict_artifact,  # noqa: E402
+                              export_train_artifact)
 
 __version__ = "0.1.0"
 
@@ -71,7 +68,8 @@ __all__ = ["base", "context", "MXNetError", "Context", "cpu", "gpu", "tpu",
            "parallel", "placed", "executor_manager", "rnd", "profiler",
            "compileobs", "compile_cache", "graphpass", "rtc", "guard",
            "monitor", "mon",
-           "FeedForward", "Optimizer",
+           "FeedForward", "Optimizer", "export_artifact",
+           "export_predict_artifact", "export_train_artifact",
            "nd", "ndarray", "operator", "sym", "symbol", "AttrScope", "NameManager",
            "Prefix", "Executor", "init", "initializer", "random",
            "lr_scheduler", "opt", "optimizer",

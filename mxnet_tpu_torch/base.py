@@ -17,27 +17,13 @@ import torch
 __all__ = ["MXNetError", "env_flag", "env_int", "env_float", "env_bool",
            "env_str",
            "torch_dtype", "attr_str", "parse_shape", "parse_bool",
-           "string_types", "not_ported"]
+           "string_types"]
 
 string_types = (str,)
 
 
 class MXNetError(Exception):
     """Error raised by the framework (reference: python/mxnet/base.py MXNetError)."""
-
-
-def not_ported(module, items):
-    """A module ``__getattr__`` for the JAX package's names that ``module``
-    lacks: a name in ``items`` (name -> ``ROADMAP.md`` item) raises
-    :class:`MXNetError` naming the item that will port it, so a script
-    written for the JAX package fails saying why; any other name raises
-    ``AttributeError`` as usual."""
-    def __getattr__(name):
-        if name in items:
-            raise MXNetError("%s.%s is not ported yet (ROADMAP.md %s)"
-                             % (module, name, items[name]))
-        raise AttributeError("module %r has no attribute %r" % (module, name))
-    return __getattr__
 
 
 def env_flag(name, default="0"):

@@ -1,0 +1,521 @@
+// MXTrainNative*: a whole training step from a kind="train" .mxa artifact,
+// with no Python in the process (the JAX package's
+// mxnet_tpu/src/c_predict_pjrt.cc:1441-1769 has the same ten entry points,
+// roles, input order, t counter from t0, per-step lr, SaveParams wire and
+// outputs). The step is the port's fused step (parallel/spmd.py
+// SPMDTrainer._forward_backward and _apply_rule), eager, one op at a time:
+// the forward over the program with the parameters as autograd leaves
+// (cast to compute_dtype where the fused step casts them), the loss
+// outputs seeded with ones and the others with zeros, libtorch's C++
+// autograd for the gradients, the auxiliary states and then each
+// parameter and its slots updated in place on the device (the
+// counterpart of the JAX step's donation). The rules are
+// parallel/fused_opt.py's SGD (with momentum) and Adam; any other rule
+// fails at create. A stochastic graph draws on its device from a generator
+// seeded with seed + t, so a replay is deterministic.
+#include <ATen/CPUGeneratorImpl.h>
+#include <torch/csrc/autograd/autograd.h>
+
+#include <cmath>
+#include <cstring>
+#include <memory>
+#include <mutex>
+#include <set>
+
+#include "runtime.h"
+
+#define MXT_DLL extern "C" __attribute__((visibility("default")))
+
+typedef unsigned int mx_uint;
+typedef float mx_float;
+typedef void* TrainNativeHandle;
+
+namespace mxt_rt {
+namespace {
+
+struct TrainArg {
+  std::string name;
+  std::string role;  // param | state | aux | data | label | lr | t
+  std::vector<int64_t> shape;
+  std::vector<uint32_t> shape_u32;
+  at::ScalarType dtype = at::kFloat;
+  int64_t n_elem = 1;
+};
+
+struct Rule {
+  std::string name;  // SGD or Adam
+  double momentum = 0, beta1 = 0.9, beta2 = 0.999, eps = 1e-8;
+  double rescale = 1.0, clip = -1.0, wd = 0.0;
+  std::map<std::string, double> lr_mult, wd_mult;
+
+  int nslot() const { return name == "Adam" ? 2 : (momentum != 0 ? 1 : 0); }
+
+  // fused_opt.py _Rule.step_lr: Adam's bias correction folded into the
+  // step size on the host in double precision
+  double step_lr(double lr, int t) const {
+    if (name != "Adam") return lr;
+    double coef1 = 1.0 - std::pow(beta1, t);
+    double coef2 = 1.0 - std::pow(beta2, t);
+    return lr * std::sqrt(coef2) / coef1;
+  }
+
+  // optimizer_ops.py, in its order
+  at::Tensor prep(const at::Tensor& grad, const at::Tensor& w, double wd_n) const {
+    at::Tensor g = grad * rescale;
+    if (clip > 0) g = at::clamp(g, -clip, clip);
+    return g + wd_n * w;
+  }
+
+  void apply(at::Tensor& w, const at::Tensor& grad, std::vector<at::Tensor>& st,
+             const at::Tensor& lr, double wd_n) const {
+    at::Tensor g = prep(grad, w, wd_n);
+    if (name == "Adam") {
+      at::Tensor mean = beta1 * st[0] + (1 - beta1) * g;
+      at::Tensor var = beta2 * st[1] + (1 - beta2) * at::square(g);
+      at::Tensor new_w = w - lr * mean / (at::sqrt(var) + eps);
+      st[0].copy_(mean);
+      st[1].copy_(var);
+      w.copy_(new_w);
+    } else if (momentum != 0) {
+      at::Tensor m = momentum * st[0] - lr * g;
+      at::Tensor new_w = w + m;
+      st[0].copy_(m);
+      w.copy_(new_w);
+    } else {
+      w.copy_(w - lr * g);
+    }
+  }
+};
+
+struct Trainer {
+  Graph graph;
+  at::Device device = at::kCPU;
+  std::vector<TrainArg> args;     // flat order: carry, inputs, lr, t
+  std::vector<TrainArg> outputs;  // flat order: carry, then "out"
+  size_t n_carry = 0;
+  std::vector<std::string> pnames, anames;
+  std::map<std::string, at::Tensor> params, auxs;
+  std::map<std::string, std::vector<at::Tensor>> states;
+  std::vector<int> input_idx;     // arg index of each settable input
+  std::vector<at::Tensor> input_vals;
+  std::vector<char> loss_flags;
+  std::vector<at::Tensor> outs;   // the last step's "out" outputs
+  Rule rule;
+  std::optional<at::ScalarType> compute_dtype;
+  std::set<std::string> cast_exempt;
+  bool stochastic = false;
+  std::optional<at::Generator> gen;  // a CUDA trainer's generator
+  int64_t seed = 0;
+  int32_t t = 1;
+  bool has_run = false;
+  bool broken = false;
+};
+
+bool parse_train_arg(const JVal& j, TrainArg* s) {
+  const JVal* n = j.get("name");
+  const JVal* role = j.get("role");
+  const JVal* shp = j.get("shape");
+  const JVal* dt = j.get("dtype");
+  if (!n || !role || !shp || !dt) return false;
+  s->name = n->str;
+  s->role = role->str;
+  if (!json_shape(*shp, &s->shape, &s->shape_u32, &s->n_elem)) return false;
+  const JVal* shard = j.get("sharding");
+  if (shard && shard->kind == JVal::STR && shard->str != "rep") return false;
+  bool ok = false;
+  s->dtype = dtype_by_name(dt->str, &ok);
+  return ok;
+}
+
+double num_or(const JVal* o, const char* k, double def) {
+  if (!o) return def;
+  const JVal* v = o->get(k);
+  return v && v->kind == JVal::NUM ? v->num : def;
+}
+
+int create(const char* bytes, size_t size, TrainNativeHandle* out) {
+  Artifact art;
+  std::string err;
+  if (!read_artifact(bytes, size, &art, &err)) return fail(err);
+  const JVal& m = art.manifest;
+  const JVal* jkind = m.get("kind");
+  if (!jkind || jkind->str != "train")
+    return fail(".mxa: not a train artifact (kind != \"train\"); use "
+                "MXPredCreateFromFile for predict artifacts");
+  auto tr = std::make_unique<Trainer>();
+  if (!parse_graph(art.program, &tr->graph, &err)) return fail(err);
+  const JVal* jnd = m.get("num_devices");
+  if (jnd && jnd->kind == JVal::NUM && jnd->num > 1)
+    return fail(".mxa: a data-parallel train artifact over several cards is "
+                "not ported (ROADMAP.md A6d)");
+  const JVal* jargs = m.get("args");
+  const JVal* jouts = m.get("outputs");
+  if (!jargs || !jouts || jargs->kind != JVal::ARR || jouts->kind != JVal::ARR)
+    return fail(".mxa: train manifest missing args/outputs");
+  for (const auto& j : jargs->arr) {
+    TrainArg a;
+    if (!parse_train_arg(j, &a)) return fail(".mxa: bad train arg spec");
+    tr->args.push_back(std::move(a));
+  }
+  for (const auto& j : jouts->arr) {
+    TrainArg a;
+    if (!parse_train_arg(j, &a)) return fail(".mxa: bad train output spec");
+    tr->outputs.push_back(std::move(a));
+  }
+  const JVal* jt0 = m.get("t0");
+  tr->t = jt0 && jt0->kind == JVal::NUM ? static_cast<int32_t>(jt0->num) : 1;
+  const JVal* jseed = m.get("seed");
+  tr->seed = jseed && jseed->kind == JVal::NUM ? static_cast<int64_t>(jseed->num) : 0;
+  const JVal* jloss = m.get("loss_outputs");
+  if (jloss && jloss->kind == JVal::ARR)
+    for (const auto& f : jloss->arr)
+      tr->loss_flags.push_back(f.kind == JVal::BOOL && f.b);
+
+  // the rule
+  const JVal* jopt = m.get("optimizer");
+  const JVal* jop = m.get("optimizer_params");
+  std::string opt = jopt && jopt->kind == JVal::STR ? jopt->str : "";
+  if (opt == "ccSGD") opt = "SGD";
+  if (opt != "SGD" && opt != "Adam")
+    return fail(".mxa: optimizer '" + opt + "' has no rule in the native "
+                "runtime (SGD with or without momentum, Adam; ROADMAP.md)");
+  if (!jop || jop->kind != JVal::OBJ)
+    return fail(".mxa: train manifest missing optimizer_params");
+  tr->rule.name = opt;
+  tr->rule.momentum = num_or(jop, "momentum", 0.0);
+  tr->rule.beta1 = num_or(jop, "beta1", 0.9);
+  tr->rule.beta2 = num_or(jop, "beta2", 0.999);
+  tr->rule.eps = num_or(jop, "eps", 1e-8);
+  tr->rule.rescale = num_or(jop, "rescale_grad", 1.0);
+  tr->rule.clip = num_or(jop, "clip_gradient", -1.0);
+  tr->rule.wd = num_or(jop, "wd", 0.0);
+  for (const char* k : {"lr_mult", "wd_mult"}) {
+    const JVal* mult = jop->get(k);
+    if (mult && mult->kind == JVal::OBJ)
+      for (const auto& kv : mult->obj)
+        (strcmp(k, "lr_mult") == 0 ? tr->rule.lr_mult : tr->rule.wd_mult)
+            [kv.first] = kv.second.num;
+  }
+  const JVal* jns = m.get("nslot");
+  if (jns && jns->kind == JVal::NUM && static_cast<int>(jns->num) != tr->rule.nslot())
+    return fail(".mxa: nslot does not match the rule's slots");
+  const JVal* jcd = m.get("compute_dtype");
+  if (jcd && jcd->kind == JVal::STR && jcd->str != "float32") {
+    bool ok = false;
+    at::ScalarType t = dtype_by_name(jcd->str, &ok);
+    if (!ok) return fail(".mxa: unsupported compute_dtype " + jcd->str);
+    tr->compute_dtype = t;
+  }
+
+  // carry prefix: param/state/aux args, mirrored by the outputs' prefix
+  for (const auto& a : tr->args) {
+    if (a.role == "param" || a.role == "state" || a.role == "aux")
+      ++tr->n_carry;
+    else
+      break;
+  }
+  size_t n_state_outs = 0;
+  for (const auto& o : tr->outputs)
+    if (o.role == "param" || o.role == "state" || o.role == "aux") ++n_state_outs;
+  if (n_state_outs != tr->n_carry)
+    return fail(".mxa: carry mismatch (outputs carry " +
+                std::to_string(n_state_outs) + " args " +
+                std::to_string(tr->n_carry) + ")");
+  for (size_t i = 0; i < tr->n_carry; ++i)
+    if (tr->outputs[i].name != tr->args[i].name)
+      return fail(".mxa: carry order mismatch at slot " + std::to_string(i));
+  if (tr->outputs.size() - n_state_outs != tr->graph.heads.size())
+    return fail(".mxa: the manifest's outputs do not match the program's heads");
+
+  // validate the blob against the manifest before anything is allocated
+  std::vector<const HostArray*> init(tr->n_carry, nullptr);
+  for (size_t i = 0; i < tr->n_carry; ++i) {
+    const TrainArg& a = tr->args[i];
+    std::string key = (a.role == "param" ? "arg:" + a.name
+                       : a.role == "aux" ? "aux:" + a.name
+                                         : "state:" + a.name);
+    auto it = art.by_name.find(key);
+    if (it == art.by_name.end())
+      return fail(".mxa: initial value '" + key + "' missing from blob");
+    const HostArray& h = *it->second;
+    if (h.none) return fail(".mxa: '" + key + "' is a none record");
+    if (h.dtype != kF32 || a.dtype != at::kFloat)
+      return fail(".mxa: dtype mismatch for '" + key + "'");
+    if (h.data.size() != static_cast<size_t>(a.n_elem) * 4)
+      return fail(".mxa: shape mismatch for '" + key + "' (blob record holds " +
+                  std::to_string(h.data.size()) + " bytes, manifest wants " +
+                  std::to_string(static_cast<size_t>(a.n_elem) * 4) + ")");
+    init[i] = &h;
+  }
+
+  if (!resolve_device(0, 0, &tr->device, &err)) return fail(err);
+  auto f32 = at::TensorOptions().dtype(at::kFloat).device(tr->device);
+  for (size_t i = 0; i < tr->n_carry; ++i) {
+    const TrainArg& a = tr->args[i];
+    at::Tensor host = at::empty(a.shape, at::TensorOptions().dtype(at::kFloat));
+    memcpy(host.data_ptr(), init[i]->data.data(), init[i]->data.size());
+    at::Tensor dev = host.to(tr->device);
+    if (a.role == "param") {
+      tr->pnames.push_back(a.name);
+      tr->params[a.name] = dev;
+    } else if (a.role == "aux") {
+      tr->anames.push_back(a.name);
+      tr->auxs[a.name] = dev;
+    } else {
+      size_t colon = a.name.rfind(':');
+      tr->states[a.name.substr(0, colon)].push_back(dev);
+    }
+  }
+  for (const auto& n : tr->pnames)
+    if (static_cast<int>(tr->states[n].size()) != tr->rule.nslot())
+      return fail(".mxa: parameter '" + n + "' lacks its optimizer slots");
+  for (size_t i = tr->n_carry; i < tr->args.size(); ++i) {
+    const TrainArg& a = tr->args[i];
+    if (a.role != "data" && a.role != "label") continue;
+    tr->input_idx.push_back(static_cast<int>(i));
+    tr->input_vals.push_back(at::zeros(a.shape, f32));
+    if (a.role == "label") tr->cast_exempt.insert(a.name);
+  }
+  // index-like inputs (token ids) keep float32 under a compute_dtype, and
+  // the graph's draws make it stochastic
+  for (const auto& n : tr->graph.nodes) {
+    if (n.op == "null") continue;
+    if (op_is_stochastic(n)) tr->stochastic = true;
+    for (size_t pos : index_arg_positions(n.op))
+      if (pos < n.inputs.size() && tr->graph.nodes[n.inputs[pos].first].op == "null")
+        tr->cast_exempt.insert(tr->graph.nodes[n.inputs[pos].first].name);
+  }
+  *out = tr.release();
+  return 0;
+}
+
+void step(Trainer* tr, float lr_in) {
+  // this step's learning rate as a float32 device scalar (SPMDTrainer._lr)
+  at::Tensor lr = at::full({}, tr->rule.step_lr(static_cast<double>(lr_in), tr->t),
+                           at::TensorOptions().dtype(at::kFloat).device(tr->device));
+  std::map<std::string, at::Tensor> leaves;
+  for (const auto& n : tr->pnames)
+    leaves[n] = tr->params[n].detach().requires_grad_(true);
+  std::map<std::string, at::Tensor> vars;
+  auto cast = [&](const std::string& name, const at::Tensor& t) {
+    if (tr->compute_dtype && !tr->cast_exempt.count(name) &&
+        t.scalar_type() == at::kFloat)
+      return t.to(*tr->compute_dtype);
+    return t;
+  };
+  std::vector<at::Tensor> outs;
+  std::vector<at::Tensor> grads;
+  {
+    at::AutoGradMode grad_on(true);
+    for (const auto& kv : leaves) vars[kv.first] = cast(kv.first, kv.second);
+    for (size_t i = 0; i < tr->input_idx.size(); ++i) {
+      const std::string& name = tr->args[tr->input_idx[i]].name;
+      vars[name] = cast(name, tr->input_vals[i]);
+    }
+    for (const auto& kv : tr->auxs) vars[kv.first] = kv.second;
+    OpCtx ctx;
+    ctx.is_train = true;
+    ctx.device = tr->device;
+    if (tr->stochastic) {
+      uint64_t seed = static_cast<uint64_t>(tr->seed + tr->t);
+      if (tr->device.is_cuda()) {
+        // the card draws from a CUDA generator of the trainer's own (a
+        // clone of the device's default, so the process's stays as it
+        // was), reseeded every step
+        if (!tr->gen)
+          tr->gen = at::globalContext()
+                        .defaultGenerator(at::Device(
+                            at::kCUDA, tr->device.has_index() ? tr->device.index() : 0))
+                        .clone();
+        std::lock_guard<std::mutex> lock(tr->gen->mutex());
+        tr->gen->set_current_seed(seed);
+        ctx.gen = *tr->gen;
+      } else {
+        ctx.gen = at::make_generator<at::CPUGeneratorImpl>(seed);
+      }
+    }
+    auto vals = run_graph(tr->graph, &vars, ctx, {});
+    for (const auto& h : tr->graph.heads) outs.push_back(vals[h.first][h.second]);
+    std::vector<at::Tensor> ys, seeds, xs;
+    for (size_t k = 0; k < outs.size(); ++k)
+      if (outs[k].requires_grad()) {
+        bool loss = k < tr->loss_flags.size() && tr->loss_flags[k];
+        ys.push_back(outs[k]);
+        seeds.push_back(at::full_like(outs[k], loss ? 1.0 : 0.0));
+      }
+    for (const auto& n : tr->pnames) xs.push_back(leaves[n]);
+    if (!ys.empty() && !xs.empty())
+      grads = torch::autograd::grad(ys, xs, seeds, std::nullopt, false, true);
+    else
+      grads.assign(xs.size(), at::Tensor());
+    at::NoGradGuard no_grad;
+    for (const auto& n : tr->anames) tr->auxs[n].copy_(vars[n]);
+  }
+  at::NoGradGuard no_grad;
+  for (size_t i = 0; i < tr->pnames.size(); ++i) {
+    const std::string& n = tr->pnames[i];
+    at::Tensor& w = tr->params[n];
+    at::Tensor g = grads[i].defined() ? grads[i].to(w.scalar_type())
+                                      : at::zeros_like(w);
+    double lm = tr->rule.lr_mult.count(n) ? tr->rule.lr_mult[n] : 1.0;
+    double wm = tr->rule.wd_mult.count(n) ? tr->rule.wd_mult[n] : 1.0;
+    tr->rule.apply(w, g, tr->states[n], lr * lm, tr->rule.wd * wm);
+  }
+  tr->outs.clear();
+  for (auto& o : outs) tr->outs.push_back(o.detach());
+  tr->t += 1;
+}
+
+#define API_BEGIN() try {
+#define API_END()                                   \
+  }                                                 \
+  catch (const c10::Error& e) {                     \
+    return fail(e.what_without_backtrace());        \
+  }                                                 \
+  catch (const std::exception& e) {                 \
+    return fail(e.what());                          \
+  }                                                 \
+  return 0;
+
+}  // namespace
+}  // namespace mxt_rt
+
+using namespace mxt_rt;
+
+MXT_DLL int MXTrainNativeCreateFromFile(const char* artifact_path,
+                                        TrainNativeHandle* out) {
+  API_BEGIN();
+  std::vector<char> bytes;
+  std::string err;
+  if (!read_file(artifact_path, &bytes, &err)) return fail(err);
+  return create(bytes.data(), bytes.size(), out);
+  API_END();
+}
+
+MXT_DLL int MXTrainNativeNumInputs(TrainNativeHandle h, mx_uint* out) {
+  auto* tr = static_cast<Trainer*>(h);
+  if (!tr) return fail("null trainer");
+  *out = static_cast<mx_uint>(tr->input_idx.size());
+  return 0;
+}
+
+MXT_DLL int MXTrainNativeInputInfo(TrainNativeHandle h, mx_uint index,
+                                   const char** name, const char** role,
+                                   const mx_uint** shape, mx_uint* ndim) {
+  auto* tr = static_cast<Trainer*>(h);
+  if (!tr || index >= tr->input_idx.size()) return fail("bad input index");
+  const TrainArg& a = tr->args[tr->input_idx[index]];
+  *name = a.name.c_str();
+  *role = a.role.c_str();
+  *shape = a.shape_u32.data();
+  *ndim = static_cast<mx_uint>(a.shape_u32.size());
+  return 0;
+}
+
+MXT_DLL int MXTrainNativeSetInput(TrainNativeHandle h, const char* key,
+                                  const mx_float* data, mx_uint size) {
+  API_BEGIN();
+  auto* tr = static_cast<Trainer*>(h);
+  if (!tr) return fail("null trainer");
+  for (size_t i = 0; i < tr->input_idx.size(); ++i) {
+    const TrainArg& a = tr->args[tr->input_idx[i]];
+    if (a.name != key) continue;
+    if (a.dtype != at::kFloat)
+      return fail("MXTrainNativeSetInput is float32; input '" + a.name +
+                  "' is not float32 in the artifact");
+    if (size != static_cast<mx_uint>(a.n_elem))
+      return fail("MXTrainNativeSetInput: size mismatch for '" + a.name + "'");
+    tr->input_vals[i].copy_(at::from_blob(const_cast<mx_float*>(data), a.shape,
+                                          at::TensorOptions().dtype(at::kFloat)));
+    return 0;
+  }
+  return fail(std::string("unknown train input '") + key + "'");
+  API_END();
+}
+
+MXT_DLL int MXTrainNativeStep(TrainNativeHandle h, mx_float lr) {
+  auto* tr = static_cast<Trainer*>(h);
+  if (!tr) return fail("null trainer");
+  if (tr->broken)
+    return fail("the carried state is gone (a previous step failed); "
+                "recreate the trainer");
+  try {
+    step(tr, lr);
+  } catch (const c10::Error& e) {
+    tr->broken = true;  // a step may have updated part of the state
+    return fail(e.what_without_backtrace());
+  } catch (const std::exception& e) {
+    tr->broken = true;
+    return fail(e.what());
+  }
+  tr->has_run = true;
+  return 0;
+}
+
+MXT_DLL int MXTrainNativeNumOutputs(TrainNativeHandle h, mx_uint* out) {
+  auto* tr = static_cast<Trainer*>(h);
+  if (!tr) return fail("null trainer");
+  *out = static_cast<mx_uint>(tr->outputs.size() - tr->n_carry);
+  return 0;
+}
+
+MXT_DLL int MXTrainNativeOutputInfo(TrainNativeHandle h, mx_uint index,
+                                    const char** name, int* is_loss,
+                                    const mx_uint** shape, mx_uint* ndim) {
+  auto* tr = static_cast<Trainer*>(h);
+  if (!tr) return fail("null trainer");
+  size_t i = tr->n_carry + index;
+  if (i >= tr->outputs.size()) return fail("output index out of range");
+  const TrainArg& a = tr->outputs[i];
+  *name = a.name.c_str();
+  *is_loss = index < tr->loss_flags.size() && tr->loss_flags[index] ? 1 : 0;
+  *shape = a.shape_u32.data();
+  *ndim = static_cast<mx_uint>(a.shape_u32.size());
+  return 0;
+}
+
+MXT_DLL int MXTrainNativeGetOutput(TrainNativeHandle h, mx_uint index,
+                                   mx_float* data, mx_uint size) {
+  API_BEGIN();
+  auto* tr = static_cast<Trainer*>(h);
+  if (!tr) return fail("null trainer");
+  if (!tr->has_run) return fail("call MXTrainNativeStep first");
+  if (index >= tr->outs.size()) return fail("output index out of range");
+  const at::Tensor& t = tr->outs[index];
+  if (size != static_cast<mx_uint>(t.numel()))
+    return fail("MXTrainNativeGetOutput: size mismatch");
+  // the C contract is float32 (a bfloat16 compute_dtype's outputs too),
+  // copied from the device into the caller's buffer
+  at::from_blob(data, t.sizes(), at::TensorOptions().dtype(at::kFloat))
+      .copy_(t);
+  API_END();
+}
+
+MXT_DLL int MXTrainNativeSaveParams(TrainNativeHandle h, const char* path) {
+  API_BEGIN();
+  auto* tr = static_cast<Trainer*>(h);
+  if (!tr) return fail("null trainer");
+  if (tr->broken) return fail("carried state is gone (a step failed); cannot save");
+  std::vector<std::string> names;
+  std::vector<std::vector<int64_t>> shapes;
+  std::vector<at::Tensor> hosts;
+  for (size_t i = 0; i < tr->n_carry; ++i) {
+    const TrainArg& a = tr->args[i];
+    if (a.role != "param" && a.role != "aux") continue;
+    const at::Tensor& t = a.role == "param" ? tr->params[a.name] : tr->auxs[a.name];
+    names.push_back((a.role == "param" ? "arg:" : "aux:") + a.name);
+    shapes.push_back(a.shape);
+    hosts.push_back(t.to(at::kCPU, at::kFloat).contiguous());
+  }
+  std::vector<const float*> data;
+  for (const auto& t : hosts) data.push_back(t.data_ptr<float>());
+  std::string err;
+  if (!write_params_f32(path, names, shapes, data, &err)) return fail(err);
+  API_END();
+}
+
+MXT_DLL int MXTrainNativeFree(TrainNativeHandle h) {
+  API_BEGIN();
+  delete static_cast<Trainer*>(h);
+  API_END();
+}

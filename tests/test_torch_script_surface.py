@@ -102,9 +102,14 @@ def test_script_names_resolve_and_later_names_say_their_item():
         for attr in attrs:
             assert callable(getattr(getattr(J, name), attr)), (name, attr)
             assert callable(getattr(getattr(T, name), attr)), (name, attr)
-    for get, item in ((lambda: T.export_artifact, "A8"),):
-        with pytest.raises(MXNetError, match=item):
-            get()
+    # ported with A8b
+    for attr in ("export_predict_artifact", "export_train_artifact",
+                 "load_artifact_manifest"):
+        assert callable(getattr(J.export_artifact, attr)), attr
+        assert callable(getattr(T.export_artifact, attr)), attr
+    assert T.export_artifact.MAGIC == J.export_artifact.MAGIC
+    assert callable(T.export_predict_artifact)
+    assert callable(T.export_train_artifact)
     assert not hasattr(T, "no_such_name")
 
 

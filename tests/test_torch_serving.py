@@ -405,7 +405,9 @@ def test_port_import_leaves_jax_out():
             " mxnet_tpu_torch.analysis.lockgraph,"
             " mxnet_tpu_torch.analysis.concurrency,"
             " mxnet_tpu_torch.analysis.sanitizer, mxnet_tpu_torch.analysis.witness,"
-            " mxnet_tpu_torch.tools.fwlint;"
+            " mxnet_tpu_torch.tools.fwlint, mxnet_tpu_torch.export_artifact,"
+            " mxnet_tpu_torch.tools.export_model,"
+            " mxnet_tpu_torch._predict_native;"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'mxnet_tpu' or "
             "m.startswith('mxnet_tpu.')];"
@@ -477,10 +479,36 @@ def test_port_sources_import_no_jax():
         "analysis/__init__.py", "analysis/fwlint.py", "analysis/baseline.py",
         "analysis/dataflow.py", "analysis/checkers.py", "analysis/lockgraph.py",
         "analysis/concurrency.py", "analysis/sanitizer.py",
-        "analysis/witness.py", "tools/fwlint.py")} <= rel
+        "analysis/witness.py", "tools/fwlint.py", "export_artifact.py",
+        "tools/export_model.py", "_predict_native.py")} <= rel
     for f in files:
         roots = set(_imported_roots(f))
         assert not roots & {"jax", "jaxlib", "mxnet_tpu"}, (f, roots)
+
+
+def test_native_runtime_sources_include_no_python_and_nothing_of_the_jax_package():
+    """``csrc/native_rt/`` (the Python-free runtime) includes no
+    ``Python.h`` and no file of ``mxnet_tpu/``: its headers are its own,
+    ATen's and libtorch's autograd's."""
+    import re
+
+    srcs = sorted(glob.glob(os.path.join(ROOT, "mxnet_tpu_torch", "csrc",
+                                         "native_rt", "*")))
+    assert {os.path.basename(f) for f in srcs} >= {
+        "container.cc", "container.h", "graph.cc", "ops.cc", "attention.cc",
+        "predict_api.cc", "train_api.cc", "runtime.h"}
+    for f in srcs:
+        for line in open(f):
+            m = re.match(r'\s*#\s*include\s*[<"]([^>"]+)[>"]', line)
+            if not m:
+                continue
+            inc = m.group(1)
+            assert "Python" not in inc and "pybind" not in inc, (f, inc)
+            assert "mxnet_tpu/" not in inc and "mxnet_tpu_torch" not in inc \
+                and ".." not in inc, (f, inc)
+            if '"' in line:
+                assert os.path.exists(os.path.join(os.path.dirname(f), inc)), \
+                    (f, inc)
 
 
 def test_analysis_loads_standalone_without_torch():
