@@ -118,7 +118,8 @@ Drives ``mxnet_tpu_torch`` (never the JAX package) on ``cuda:0``:
    (vocab 10000, embed and hidden 200, 2 layers of ``LSTMCell`` unrolled
    in a ``SequentialRNNCell``, buckets 10/20/30/40/60, batch 32, SGD lr 0.01
    momentum 0.9, Xavier, ``Perplexity(ignore_label=0)``, kvstore 'local')
-   through ``BucketingModule.fit`` for 4 epochs of 2000 seeded sentences
+   through ``BucketingModule.fit`` for 3 epochs (4 before PR 24) of 2000
+   seeded sentences
    of 5-60 tokens (each token the previous + 1, Zipfian first tokens)
    from ``BucketSentenceIter``: on the fused step (one CUDA graph per
    bucket, every graph over one shared set of master parameters and
@@ -234,7 +235,8 @@ Drives ``mxnet_tpu_torch`` (never the JAX package) on ``cuda:0``:
    over SSD's anchors card vs CPU: targets, masks and the kept set exact,
    encodings, boxes and scores within 1e-5, and their device time; (d)
    ``tools/train_ssd.py --evaluate`` at the example's defaults as a
-   subprocess, its JSON line, mAP finite; (e) a fit of a symbol holding a
+   subprocess (running beside (b), (c) and (e) since PR 24), its JSON
+   line, mAP finite; (e) a fit of a symbol holding a
    ``Custom`` op (classic path: host Python is never replayed from a
    graph) and of a ``SequentialModule`` of two Modules, each card vs CPU
    within 1e-4.
@@ -265,7 +267,8 @@ Drives ``mxnet_tpu_torch`` (never the JAX package) on ``cuda:0``:
    batches, both with cuDNN's deterministic algorithms (outputs and BN
    statistics within 1e-4, phase 10's, updates within 1e-4 of the
    largest; bitwise expected); (e) ``tools/train_ssd.py --data-dir``
-   over ``ImageDetRecordIter`` records for a few steps.
+   over ``ImageDetRecordIter`` records for a few steps (running beside
+   (d) since PR 24).
 
 21. the example scripts and ``mx.kv`` — (a) ``examples/train_lm.py``
    from its own source with only its import lines pointed at the port, at
@@ -378,7 +381,8 @@ Drives ``mxnet_tpu_torch`` (never the JAX package) on ``cuda:0``:
    parameters' largest difference from phase 21(b)'s. (c) runs with
    per-rank telemetry sinks (``MXNET_TELEMETRY_FILE``) and profiler
    traces (``MXNET_PROFILER_AUTOSTART``), and rank 0 runs ``mxtop --once``
-   while it trains, for 25(d).
+   while it trains, for 25(d). Since PR 24 (c)'s cluster runs beside
+   25(a)-(c), which read nothing of it and hold no time.
 
 25. A7's compiler half. The whole run has ``MXNET_COMPILE_CACHE_DIR``
    set to a fresh directory, so phase 2's builds fill the cache. (a)
@@ -429,6 +433,10 @@ Drives ``mxnet_tpu_torch`` (never the JAX package) on ``cuda:0``:
    the scores bitwise equal, images/s of each. A C entry point that
    returns -1, a library that does not build and a predictor on the CPU
    each stop the run with ``MXGetLastError()``'s or the compiler's text.
+   Since PR 24 (b)'s and (c)'s client processes start when the phase's
+   inputs are written and run beside (a) and (c)'s in-process run, and
+   27(a)'s cluster runs beside the whole phase: the calls and steps they
+   time are printed, not held.
 
 27. A7's last part, ``analysis/``: the engine dependency sanitizer and
    the lock witness in strict mode. (a) Phase 21(b)'s fused ``dist_sync``
@@ -487,7 +495,31 @@ Drives ``mxnet_tpu_torch`` (never the JAX package) on ``cuda:0``:
    512 LM from a predict artifact: K1's wide route once per layer, within
    1e-6 of the ``Predictor``. (e) A Dropout MLP's train artifact on the
    card (masks drawn there, seeded ``seed + t``): two trainers of one
-   seed step to the same parameters, another seed to others.
+   seed step to the same parameters, another seed to others. (f) The
+   LM's train artifact (batch 32, phase 5's initial parameters) under
+   each rule the runtime gained in PR 24 — NAG, AdaGrad, RMSProp plain
+   and centered, AdaDelta, Ftrl — for 3 steps: ``train_native_client.c``
+   in a process per rule (all at once) and the same steps through
+   ``MXTrainNative*`` here against the port's fused step under the same
+   rule: step 1 within 1e-6, later steps within ``RESUME_TOL`` of the
+   largest parameter, the client's saved file bitwise the in-process
+   trainer's, K1, K2a and K2b once per layer in every step read.
+29. the repo tools on the card, each at its published widths and a cut
+   depth: (a) ``tools/bench_pipeline.py``'s ladder (PIL and cv2 decode;
+   ``ImageRecordIter`` into a null consumer at 1, 2 and 4 threads, the
+   uint8 wire, the native stage on nvJPEG; the device feed and wire
+   decode; ``Module.fit`` of a small conv net four ways, fused) at 224
+   pixels, 256 images, 3 windows of 10 batches; (b) ``bandwidth`` over
+   ResNet-50's gradients, ``local`` and ``device`` with two positions on
+   ``cuda:0``, every pulled value the sum pushed; (c) ``baseline_matrix``
+   DCGAN classic and fused (the whole iteration as one CUDA graph), 20
+   steps each at batch 64: images/s of each, finite losses, the fused
+   step's first replay bitwise equal to its eager step on the same ``z``
+   (cuDNN deterministic) and two replays' ``z`` apart; (d) SSD-300 and
+   the LSTM LM ``--quick``: finite losses, the perplexity falling; (e)
+   ``gen_op_docs`` (equal to the committed index), ``gen_api_docs`` and
+   ``c_api_coverage --check`` against the libraries phases 2 and 28
+   built. Each sub-phase prints its wall.
 
 Every phase that fails raises, so the exit code is not 0. The last two
 lines are the ``kernels`` JSON object and the ``ok`` JSON object; the card
@@ -2092,7 +2124,7 @@ LSTM = dict(num_embed=200, num_hidden=200, num_layers=2, vocab_size=10000)
 LSTM_BUCKETS = [10, 20, 30, 40, 60]
 LSTM_BATCH = 32
 LSTM_SENTENCES = 2000
-LSTM_EPOCHS = 4
+LSTM_EPOCHS = 3
 LSTM_SGD = {"learning_rate": 0.01, "momentum": 0.9}
 # phase 14's short fused-RNN fit: every bucket stepped at least twice
 LSTM_RNN_SENTENCES = 800
@@ -3756,19 +3788,35 @@ def ssd_step_card_vs_cpu(mx, params):
     check(grel[worst] <= GRAD_TOL, "SSD gradients: card disagrees with CPU")
 
 
-def run_ssd_tool():
-    """19(d): tools/train_ssd.py --evaluate at the example's defaults, as a
-    subprocess; its JSON record, mAP finite."""
+def start_tool(args):
+    """``python -m mxnet_tpu_torch.tools.<args>`` started in a process of
+    its own from the checkout's root: (the process, its start time).
+    Phases 19 and 20 start their tool runs before correctness checks that
+    time nothing and collect them after (:func:`finish_tool`)."""
     import os
 
-    t0 = time.perf_counter()
-    out = subprocess.run([sys.executable, "-m", "mxnet_tpu_torch.tools.train_ssd",
-                          "--evaluate"], capture_output=True, text=True,
-                         timeout=900, cwd=os.path.dirname(os.path.abspath(__file__)))
-    check(out.returncode == 0, "tools/train_ssd.py failed: %s" % out.stderr[-2000:])
-    rec = json.loads(out.stdout.strip().splitlines()[-1])
-    log("  tools/train_ssd.py --evaluate (%.1f s): %s"
-        % (time.perf_counter() - t0, json.dumps(rec)))
+    return (subprocess.Popen(
+        [sys.executable, "-m"] + list(args), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__))), time.perf_counter())
+
+
+def finish_tool(started, what):
+    """The tool run's JSON record (its last line) and wall seconds; a
+    failed run stops the phase with its error text."""
+    proc, t0 = started
+    out, err = proc.communicate(timeout=900)
+    check(proc.returncode == 0, "%s failed: %s" % (what, err[-2000:]))
+    return json.loads(out.strip().splitlines()[-1]), time.perf_counter() - t0
+
+
+def run_ssd_tool(started):
+    """19(d): tools/train_ssd.py --evaluate at the example's defaults, as a
+    subprocess (started by the phase after (a)); its JSON record, mAP
+    finite."""
+    rec, wall = finish_tool(started, "tools/train_ssd.py")
+    log("  tools/train_ssd.py --evaluate (%.1f s, beside (b), (c) and (e)): %s"
+        % (wall, json.dumps(rec)))
     check(np.isfinite(rec["mAP"]), "tools/train_ssd.py: mAP not finite")
 
 
@@ -3867,6 +3915,8 @@ def run_ssd_phase(mx, build, card, sweep):
         log_profile("SSD-300 " + path, device_profile(step), step_s)
     del c_mod
     ssd_fused_against_classic(mx)
+    # (d)'s tool run, beside the correctness checks (b), (c) and (e)
+    ssd_tool = start_tool(["mxnet_tpu_torch.tools.train_ssd", "--evaluate"])
     log("  (b) one SSD-300 step, card vs CPU")
     ssd_step_card_vs_cpu(mx, {n: a.asnumpy() for n, a in mod.get_params()[0].items()})
     del mod
@@ -3884,10 +3934,10 @@ def run_ssd_phase(mx, build, card, sweep):
         "18(c)): worst smooth case %s at %.3e of the largest (tol %.0e)"
         % (len(new), worst, errors.get(worst, 0.0), SWEEP_TOL))
     multibox_card_vs_cpu(mx)
-    log("  (d) tools/train_ssd.py --evaluate at the example's defaults")
-    run_ssd_tool()
     log("  (e) Custom and SequentialModule, card vs CPU")
     custom_and_sequential_card_vs_cpu(mx)
+    log("  (d) tools/train_ssd.py --evaluate at the example's defaults")
+    run_ssd_tool(ssd_tool)
 
 
 # ---------------------------------------------------------------- phase 20
@@ -4360,23 +4410,20 @@ def run_data_phase(mx, A, build, card, rn_fused, native_s):
         os.remove(prefix + ".idx")
         for threads in (PIPE_THREADS, PIPE_THREADS // 2):
             record_fit(mx, build, data_dir, rn_fused, threads)
-    log("  (d) the uint8 wire: the op and the fused step")
-    wire_checks(mx, A)
-    log("  (e) tools/train_ssd.py --data-dir over ImageDetRecordIter records")
     with tempfile.TemporaryDirectory() as tmp:
+        # (e)'s tool run, beside the correctness checks of (d)
         det_records(mx, os.path.join(tmp, "train.rec"), SSD_REC_IMAGES, 1)
-        t0 = time.perf_counter()
-        out = subprocess.run(
-            [sys.executable, "-m", "mxnet_tpu_torch.tools.train_ssd", "--data-dir",
-             tmp, "--batch-size", str(SSD_REC_BATCH), "--num-epochs", "1",
-             "--data-nthreads", str(PIPE_THREADS)],
-            capture_output=True, text=True, timeout=900,
-            cwd=os.path.dirname(os.path.abspath(__file__)))
-        check(out.returncode == 0, "tools/train_ssd.py --data-dir failed: %s"
-              % out.stderr[-2000:])
-        rec = json.loads(out.stdout.strip().splitlines()[-1])
-        log("  tools/train_ssd.py --data-dir (%.1f s): %s"
-            % (time.perf_counter() - t0, json.dumps(rec)))
+        ssd_tool = start_tool(
+            ["mxnet_tpu_torch.tools.train_ssd", "--data-dir", tmp,
+             "--batch-size", str(SSD_REC_BATCH), "--num-epochs", "1",
+             "--data-nthreads", str(PIPE_THREADS)])
+        log("  (d) the uint8 wire: the op and the fused step")
+        wire_checks(mx, A)
+        log("  (e) tools/train_ssd.py --data-dir over ImageDetRecordIter "
+            "records")
+        rec, wall = finish_tool(ssd_tool, "tools/train_ssd.py --data-dir")
+        log("  tools/train_ssd.py --data-dir (%.1f s, beside (d)): %s"
+            % (wall, json.dumps(rec)))
         check(rec["data"] == "ImageDetRecordIter" and rec["steps"] ==
               SSD_REC_IMAGES // SSD_REC_BATCH, "train_ssd did not read the records")
         check(all(np.isfinite(v) for v in rec["train"].values()),
@@ -5868,10 +5915,9 @@ def straggler_run(work, dist_params):
 
 
 def run_elastic_phase(mx, build, card, dist_params, work):
-    """Phase 24 (see the module docstring); returns the K1/K2a/K2b launches
-    of its runs, every incarnation's, and what 25(d) reads of (c): its
-    trace directory under ``work``, ``mxtop``'s frame and worker 0's
-    median wall per step."""
+    """Phase 24's (a) and (b) (see the module docstring); returns the
+    K1/K2a/K2b launches of their runs, every incarnation's. (c),
+    :func:`straggler_run`, runs beside 25(a)-(c)."""
     import os
     import tempfile
 
@@ -5960,13 +6006,9 @@ def run_elastic_phase(mx, build, card, dist_params, work):
         for n, c in keys.items():
             for k in FLASH:
                 total[k] += c[k]
-
-        c_launches, c_run = straggler_run(work, dist_params)
-        for k in FLASH:
-            total[k] += c_launches[k]
-    log("  phase 24: %.1f s; K1/K2a/K2b launches %s"
+    log("  phase 24 (a) and (b): %.1f s; K1/K2a/K2b launches %s"
         % (time.time() - t_phase, total))
-    return total, c_run
+    return total
 
 
 # --------------------------------------- A7's compiler half (phase 25)
@@ -6418,9 +6460,12 @@ def cluster_tools(c_run):
           "25(d): the lanes are not aligned within a step: %s" % one)
 
 
-def run_compiler_phase(mx, build, card, work, c_run):
-    """Phase 25 (see the module docstring); returns the K1/K2a/K2b
-    launches of its fits."""
+def run_compiler_phase(mx, build, card, work, straggle):
+    """Phase 25 (see the module docstring), with phase 24(c)'s cluster
+    (``straggle``: the future of :func:`straggler_run`) running beside
+    (a)-(c): nothing in one reads the other, and (d) reads (c)'s traces
+    once it is done. Returns the K1/K2a/K2b launches of 25's fits and
+    24(c)'s run."""
     t_phase = time.time()
     log("  (a) the graph passes in phase 5's fused fit, on and off")
     launches = graphpass_fits(mx, work)
@@ -6428,6 +6473,10 @@ def run_compiler_phase(mx, build, card, work, c_run):
     warm_start(mx, build, work)
     log("  (c) mx.rtc")
     rtc_check(mx)
+    c_launches, c_run = straggle.result()
+    log("  24(c), beside (a)-(c), launched %s" % c_launches)
+    for k in FLASH:
+        launches[k] += c_launches[k]
     log("  (d) the cluster tools on phase 24(c)'s run")
     cluster_tools(c_run)
     log("  phase 25: %.1f s; K1/K2a/K2b launches %s"
@@ -6785,15 +6834,24 @@ def capi_trainer_in_process(mx, build, paths, files, init):
     return per_step, losses, c_ms, py_ms
 
 
-def _client_run(cmd, what):
+def _client_start(cmd):
+    """A compiled client started in a process of its own: (the process,
+    its start time); :func:`_client_wait` collects it."""
     from mxnet_tpu_torch import _capi
 
-    t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True,
-                       env=_capi.client_env(), timeout=CAPI_TIMEOUT)
-    check(r.returncode == 0, "%s exited %d:\n%s\n%s"
-          % (what, r.returncode, r.stdout[-2000:], r.stderr[-4000:]))
-    return r.stdout, time.perf_counter() - t0
+    return (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True,
+                             env=_capi.client_env()), time.perf_counter())
+
+
+def _client_wait(started, what):
+    """(stdout, wall seconds) of a :func:`_client_start` process; a
+    failure stops the phase with its output."""
+    proc, t0 = started
+    out, err = proc.communicate(timeout=CAPI_TIMEOUT)
+    check(proc.returncode == 0, "%s exited %d:\n%s\n%s"
+          % (what, proc.returncode, out[-2000:], err[-4000:]))
+    return out, time.perf_counter() - t0
 
 
 def _resnet_checkpoint(mx, path):
@@ -6826,49 +6884,16 @@ def run_capi_phase(mx, build, card, t_params, work, compiled):
     L, T = TRAIN["num_layers"], TRAIN["seq_len"]
     total = {k: 0 for k in FLASH}
 
-    # (a) phase 5's trained LM as a checkpoint, predicted in this process
+    # the inputs of every part first: (b)'s and (c)'s client processes run
+    # beside (a) and (c)'s in-process run (no check holds a time)
     lm_sym = mx.models.transformer_lm(**TRAIN)
     ckpt = _save_checkpoint(mx, os.path.join(d, "lm"), lm_sym, t_params)
     X, _ = lm_stream(CAPI_PRED_BATCH, seed=26)
     X.tofile(os.path.join(d, "lm_tokens.f32"))
-    logits, c_ms, _, total["flash_fwd"] = capi_predict_in_process(
-        mx, build, lib, ckpt, X)
-
-    # (d)'s checkpoint and input, for the subprocess
     rn_json, rn_params = _resnet_checkpoint(mx, os.path.join(d, "resnet"))
     imgs = np.random.RandomState(26).uniform(
         -1, 1, (RESNET_BATCH,) + RESNET_SHAPE).astype(np.float32)
     imgs.tofile(os.path.join(d, "images.f32"))
-
-    # (b) the compiled C client in a process of its own: the LM, then
-    # ResNet-50 scoring for (d)
-    _zero(build)
-    out, wall = _client_run(
-        [paths["predict_client"], str(CAPI_REPS),
-         os.path.join(d, "lm-symbol.json"), os.path.join(d, "lm-0000.params"),
-         os.path.join(d, "lm_tokens.f32"), os.path.join(d, "lm_out.f32"),
-         "2", str(CAPI_PRED_BATCH), str(T),
-         "+softmax_label", "2", str(CAPI_PRED_BATCH), str(T),
-         os.path.join(d, "resnet-symbol.json"),
-         os.path.join(d, "resnet-0000.params"),
-         os.path.join(d, "images.f32"), os.path.join(d, "resnet_out.f32"),
-         "4", str(RESNET_BATCH)] + [str(x) for x in RESNET_SHAPE],
-        "the C predict client")
-    check(sum(_counts(build).values()) == 0, "the subprocess counted here")
-    lines = dict((tuple(l.split()[:3]), l.split()[3:])
-                 for l in out.splitlines() if l.startswith("JOB "))
-    sub_logits = np.fromfile(os.path.join(d, "lm_out.f32"), np.float32)
-    check(sub_logits.size == logits.size and np.array_equal(
-        sub_logits.reshape(logits.shape), logits),
-        "the C client process's logits differ from the in-process C "
-        "predictor's")
-    sub_ms = float(lines[("JOB", "0", "MEDIAN_MS")][0])
-    log("  (b) predict_client.c in its own process (%.1f s, no Python of its "
-        "own; the port's interpreter embedded): the LM's logits bitwise "
-        "equal to (a)'s; predict call median %.3f ms, against %.3f ms in "
-        "this process through the C API (%s)" % (wall, sub_ms, c_ms, card))
-
-    # (c) the C++ trainer: in process, then as a process of its own
     init_mod = mx.mod.Module(lm_sym, context=mx.gpu(0))
     init_mod.bind(data_shapes=[("data", (CAPI_TRAIN_BATCH, T))],
                   label_shapes=[("softmax_label", (CAPI_TRAIN_BATCH, T))])
@@ -6885,16 +6910,52 @@ def run_capi_phase(mx, build, card, t_params, work, compiled):
              "grads": os.path.join(d, "grads_in_process.params")}
     tx.tofile(files["data"])
     ty.tofile(files["label"])
+    # (b) the compiled C client in a process of its own: the LM, then
+    # ResNet-50 scoring for (d)
+    predict_client = _client_start(
+        [paths["predict_client"], str(CAPI_REPS),
+         os.path.join(d, "lm-symbol.json"), os.path.join(d, "lm-0000.params"),
+         os.path.join(d, "lm_tokens.f32"), os.path.join(d, "lm_out.f32"),
+         "2", str(CAPI_PRED_BATCH), str(T),
+         "+softmax_label", "2", str(CAPI_PRED_BATCH), str(T),
+         os.path.join(d, "resnet-symbol.json"),
+         os.path.join(d, "resnet-0000.params"),
+         os.path.join(d, "images.f32"), os.path.join(d, "resnet_out.f32"),
+         "4", str(RESNET_BATCH)] + [str(x) for x in RESNET_SHAPE])
+    # (c)'s C++ trainer as a process of its own
+    sub_grads = os.path.join(d, "grads_process.params")
+    trainer_client = _client_start(
+        [paths["lm_trainer"], files["symbol"], files["init"], files["data"],
+         files["label"], str(CAPI_TRAIN_BATCH), str(T), str(CAPI_STEPS),
+         repr(CAPI_LR), CAPI_DEV, sub_grads])
+
+    # (a) phase 5's trained LM as a checkpoint, predicted in this process
+    logits, c_ms, _, total["flash_fwd"] = capi_predict_in_process(
+        mx, build, lib, ckpt, X)
+
+    _zero(build)
+    out, wall = _client_wait(predict_client, "the C predict client")
+    check(sum(_counts(build).values()) == 0, "the subprocess counted here")
+    lines = dict((tuple(l.split()[:3]), l.split()[3:])
+                 for l in out.splitlines() if l.startswith("JOB "))
+    sub_logits = np.fromfile(os.path.join(d, "lm_out.f32"), np.float32)
+    check(sub_logits.size == logits.size and np.array_equal(
+        sub_logits.reshape(logits.shape), logits),
+        "the C client process's logits differ from the in-process C "
+        "predictor's")
+    sub_ms = float(lines[("JOB", "0", "MEDIAN_MS")][0])
+    log("  (b) predict_client.c in its own process (%.1f s, no Python of its "
+        "own; the port's interpreter embedded): the LM's logits bitwise "
+        "equal to (a)'s; predict call median %.3f ms, against %.3f ms in "
+        "this process through the C API (%s)" % (wall, sub_ms, c_ms, card))
+
+    # (c) the C++ trainer: in process, and as the process started above
     per_step, losses, step_ms, py_step_ms = capi_trainer_in_process(
         mx, build, paths, files, init)
     for n in per_step:
         for k in FLASH:
             total[k] += n[k]
-    sub_grads = os.path.join(d, "grads_process.params")
-    out, wall = _client_run(
-        [paths["lm_trainer"], files["symbol"], files["init"], files["data"],
-         files["label"], str(CAPI_TRAIN_BATCH), str(T), str(CAPI_STEPS),
-         repr(CAPI_LR), CAPI_DEV, sub_grads], "the C++ trainer")
+    out, wall = _client_wait(trainer_client, "the C++ trainer")
     # "LOSS <step> <value>" and "STEP_MS <value>" as LOSS<step>, STEP_MS
     sub = {"".join(l.split()[:-1]): float(l.split()[-1])
            for l in out.splitlines() if l.startswith(("LOSS", "STEP_MS"))}
@@ -7135,19 +7196,16 @@ def analysis_negatives(mx, static):
     check(freed, "27(c): a lock stayed held after the violation")
 
 
-def run_analysis_phase(mx, S, M, build, card, dist_params, dist_step_s,
-                       serve_ref):
-    """Phase 27; returns the kernels' launches of (a) and (b)."""
-    t0 = time.perf_counter()
-    static = static_lock_edges()
-    log("  the static lock graph of mxnet_tpu_torch/: %d locks, %d edges "
-        "(%.2f s)" % (len({n for e in static for n in e}), len(static),
-                      time.perf_counter() - t0))
+def run_analysis_phase(mx, S, M, build, card, static, sanitized, serve_ref):
+    """Phase 27 (``static``: :func:`static_lock_edges`; ``sanitized``: the
+    future of (a)'s :func:`sanitized_fit`, started before phase 26 and
+    running beside it); returns the kernels' launches of (a) and (b)."""
     log("  (a) the fused dist_sync fit, every process under "
-        "MXNET_ENGINE_SANITIZER=strict and MXNET_LOCK_WITNESS=strict")
+        "MXNET_ENGINE_SANITIZER=strict and MXNET_LOCK_WITNESS=strict (its "
+        "cluster ran beside phase 26)")
     t0 = time.perf_counter()
-    launches = sanitized_fit(build, card, static, dist_params, dist_step_s)
-    log("  (a) took %.1f s (%s)" % (time.perf_counter() - t0, card))
+    launches = sanitized.result()
+    log("  (a) waited %.1f s for it (%s)" % (time.perf_counter() - t0, card))
     log("  (b) the serving engine at phase 4's width, witness strict and "
         "seeded")
     t0 = time.perf_counter()
@@ -7485,18 +7543,20 @@ class NativeTrainer:
                    "MXTrainNativeFree")
 
 
-def _fused_lm_steps(mx, sym, init, X, Y, lr, steps):
+def _fused_lm_steps(mx, sym, init, X, Y, lr, steps, optimizer="adam",
+                    opt_params=None):
     """``steps`` of the port's fused step (captured from the second on) on
-    ``cuda:0`` over the ``ART_BATCHES`` batches of (X, Y), cycled: the
-    parameters after each, and the mean host wall of the replays."""
+    ``cuda:0`` over the ``ART_BATCHES`` batches of (X, Y), cycled, under
+    ``optimizer`` (Adam at ``lr`` by default): the parameters after each,
+    and the mean host wall of the replays."""
     from mxnet_tpu_torch.parallel.spmd import SPMDTrainer
 
     B, T = ART_TRAIN_BATCH, TRAIN["seq_len"]
     pnames = [n for n in sym.list_arguments()
               if n not in ("data", "softmax_label")]
-    opt = mx.optimizer.create("adam", sym=sym,
+    opt = mx.optimizer.create(optimizer, sym=sym,
                               param_idx2name={n: n for n in pnames},
-                              learning_rate=lr)
+                              **dict(opt_params or {}, learning_rate=lr))
     tr = SPMDTrainer(sym, "cuda:0", [("data", (B, T))], opt,
                      label_shapes=[("softmax_label", (B, T))])
     params = {n: torch.tensor(init[n], device="cuda:0") for n in tr.param_names}
@@ -7513,7 +7573,7 @@ def _fused_lm_steps(mx, sym, init, X, Y, lr, steps):
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         after.append({n: v.cpu().numpy() for n, v in params.items()})
-    return after, float(np.mean(walls[2:])) * 1e3
+    return after, float(np.mean(walls[2:])) * 1e3 if len(walls) > 2 else None
 
 
 def artifact_train(mx, P, lib, paths, d):
@@ -7646,6 +7706,118 @@ def artifact_train(mx, P, lib, paths, d):
            [total[k] for k in FLASH], ART_STEPS + 1 + ART_TIMED_STEPS,
            ["%.3e" % v for v in diffs], RESUME_TOL, scale, step_ms, fused_ms,
            out.strip().splitlines()[-2] if out.strip() else ""))
+    return total
+
+
+# 28(f): the runtime's rules beyond SGD and Adam, each (optimizer, params)
+ART_RULES = (
+    ("nag", {"momentum": 0.9}, TRAIN_LR),
+    ("adagrad", {}, 1e-2),
+    ("rmsprop", {}, TRAIN_LR),
+    ("rmsprop", {"centered": True, "clip_weights": 1.0}, TRAIN_LR),
+    ("adadelta", {}, 1.0),
+    ("ftrl", {"lamda1": 0.01}, 0.1),
+)
+ART_RULE_STEPS = 3
+
+
+def artifact_rules(mx, P, lib, paths, d):
+    """28(f): the LM's train artifact (batch 32, phase 5's initial
+    parameters) under each of NAG, AdaGrad, RMSProp (plain and centered),
+    AdaDelta and Ftrl for ``ART_RULE_STEPS`` steps: the unchanged C
+    training client in a process of its own per rule (all at once), the
+    same steps through ctypes here, against the port's fused step under
+    the same rule; K1, K2a and K2b once per layer in every step read."""
+    import os
+
+    from mxnet_tpu_torch import _predict_native
+
+    t0 = time.perf_counter()
+    L, T, B = TRAIN["num_layers"], TRAIN["seq_len"], ART_TRAIN_BATCH
+    sym = mx.models.transformer_lm(**TRAIN)
+    mod = mx.mod.Module(sym, context=mx.gpu(0))
+    mod.bind(data_shapes=[("data", (B, T))],
+             label_shapes=[("softmax_label", (B, T))])
+    mod.init_params(initializer=mx.init.Xavier(
+        rng=torch.Generator().manual_seed(0)))     # phase 5's initializer
+    init = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+    del mod
+    X, Y = lm_stream(B * ART_BATCHES)
+    X.tofile(os.path.join(d, "rules_data.f32"))
+    Y.tofile(os.path.join(d, "rules_label.f32"))
+    scale = max(float(np.abs(v).max()) for v in init.values())
+    per_step_want = {k: L for k in FLASH}
+    total = {k: 0 for k in FLASH}
+    procs, report = [], []
+    for i, (opt, extra, lr) in enumerate(ART_RULES):
+        lr = float(np.float32(lr))
+        art = os.path.join(d, "lm_rule%d.mxa" % i)
+        m = mx.export_train_artifact(
+            sym, {"data": (B, T), "softmax_label": (B, T)}, art,
+            optimizer=opt, optimizer_params=dict(extra, learning_rate=lr),
+            arg_params=init)
+        out = os.path.join(d, "rule%d_process.params" % i)
+        procs.append((out, subprocess.Popen(
+            [paths["train"], art, os.path.join(d, "rules_data.f32"),
+             os.path.join(d, "rules_label.f32"), str(B), str(ART_RULE_STEPS),
+             repr(lr), out, os.path.join(d, "rule%d_loss.txt" % i)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=_predict_native.client_env())))
+        fused, _ = _fused_lm_steps(mx, sym, init, X, Y, lr, ART_RULE_STEPS,
+                                   optimizer=opt, opt_params=extra)
+        tr = NativeTrainer(lib, art)
+        diffs, got = [], None
+        for s in range(ART_RULE_STEPS):
+            k = s % ART_BATCHES
+
+            def run(k=k):
+                tr.step(X[k * B:(k + 1) * B], Y[k * B:(k + 1) * B], lr)
+                torch.cuda.synchronize()
+                return 1
+
+            for name, v in _native_launched(
+                    P, run, per_step_want, "28(f) %s step %d"
+                    % (m["optimizer"], s + 1)).items():
+                if name in total:
+                    total[name] += v
+            tr.save(os.path.join(d, "rule.params"))
+            got = {k[4:]: v.asnumpy() for k, v in
+                   mx.nd.load(os.path.join(d, "rule.params")).items()}
+            check(all(np.isfinite(v).all() for v in got.values()),
+                  "28(f) %s: a parameter is not finite after step %d"
+                  % (m["optimizer"], s + 1))
+            diffs.append(max(float(np.abs(got[n] - fused[s][n]).max())
+                             for n in init))
+        tr.free()
+        moved = max(float(np.abs(got[n] - init[n]).max()) for n in init)
+        check(moved > 0, "28(f) %s: the parameters did not move"
+              % m["optimizer"])
+        check(diffs[0] <= 1e-6, "28(f) %s: step 1's parameters against the "
+              "fused step's: %.3e" % (m["optimizer"], diffs[0]))
+        check(all(v <= RESUME_TOL * scale for v in diffs), "28(f) %s: the "
+              "C++ steps against the fused step's: %s" % (m["optimizer"], diffs))
+        report.append((m["optimizer"] + ("(centered)" if extra.get("centered")
+                                         else ""), m["nslot"], diffs, got))
+    for (out, proc), (name, _, _, got) in zip(procs, report):
+        _, err = proc.communicate(timeout=ART_TIMEOUT)
+        check(proc.returncode == 0, "28(f) %s: train_native_client.c "
+              "exited %d:\n%s" % (name, proc.returncode, err[-2000:]))
+        saved = mx.nd.load(out)
+        check(sorted(saved) == sorted("arg:" + n for n in init) and all(
+            np.array_equal(saved["arg:" + n].asnumpy(), got[n]) for n in init),
+            "28(f) %s: the C process's saved parameters differ from the "
+            "in-process trainer's" % name)
+    log("  (f) the LM's train artifact under each new rule, %d steps (batch "
+        "%d, phase 5's initial parameters): the largest parameter difference "
+        "from the port's fused step per step %s (step 1 tol 1e-6, then %.0e "
+        "of the largest parameter, %.3g); train_native_client.c in a process "
+        "per rule, its saved file bitwise the in-process trainer's; K1/K2a/K2b "
+        "%d per step, %s over the %d steps read; %.1f s"
+        % (ART_RULE_STEPS, B, ["%s/%d slots: %s" % (n, k, ["%.3e" % v
+                                                           for v in dd])
+                               for n, k, dd, _ in report],
+           RESUME_TOL, scale, L, [total[k] for k in FLASH],
+           ART_RULE_STEPS * len(ART_RULES), time.perf_counter() - t0))
     return total
 
 
@@ -7794,10 +7966,228 @@ def run_artifact_phase(mx, build, card, t_params, w_params, work, compiled):
     artifact_resnet(mx, P, lib, d)
     total["flash_wide_fwd"] += artifact_wide(mx, P, lib, d, w_params)
     artifact_dropout(mx, lib, d)
+    for k, v in artifact_rules(mx, P, lib, paths, d).items():
+        total[k] += v
     torch.cuda.empty_cache()
     log("  phase 28: %.1f s; the runtime's launches on its main paths %s"
         % (time.perf_counter() - t_phase, total))
     return total
+
+
+# phase 29: the repo tools on the card, each at its published widths and
+# a cut depth
+TOOLS_PIPE_ARGS = ["--n", "256", "--size", "224", "--reps", "3",
+                   "--batches", "10"]
+TOOLS_GAN_STEPS = 20
+TOOLS_BW_ITERS = 5
+
+
+def _tool_records(fn, argv):
+    """``fn(argv)`` (a tool's ``main``) with its standard output caught:
+    (its return code, its JSON records, its text)."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(argv)
+    text = buf.getvalue()
+    recs = [json.loads(line) for line in text.splitlines()
+            if line.startswith("{")]
+    return rc, recs, text
+
+
+def tools_pipeline(card):
+    """29(a): ``bench_pipeline``'s whole ladder on the card."""
+    from mxnet_tpu_torch import _native
+    from mxnet_tpu_torch.tools import bench_pipeline
+
+    t0 = time.perf_counter()
+    rc, recs, text = _tool_records(bench_pipeline.main, TOOLS_PIPE_ARGS)
+    check(rc == 0, "29(a) bench_pipeline returned %s" % rc)
+    by = {}
+    for r in recs:
+        by.setdefault(r["metric"], []).append(r)
+    check(not [m for m in by if m.endswith("_unavailable")],
+          "29(a): a rung was replaced by a flag: %s" % sorted(by))
+    check(len(by.get("recorditer_imgs_per_sec", [])) == 5
+          and len(by.get("rec_device_put_imgs_per_sec", [])) == 3
+          and len(by.get("rec_training_imgs_per_sec", [])) == 4,
+          "29(a): rungs missing: %s" % {m: len(v) for m, v in by.items()})
+    native = [r for r in recs if r.get("backend") == "native"]
+    decoder = _native.decoder()
+    check(len(native) == 3 and all(r["decoder"] == decoder for r in native)
+          and decoder in ("nvjpeg", "libjpeg"),
+          "29(a): the native rungs ran on %s" % [r.get("decoder") for r in native])
+    check(all(r["device"] == "cuda:0" and r.get("name") for r in recs),
+          "29(a): a record names no card")
+    check(all(r["fused"] for r in by["rec_training_imgs_per_sec"]),
+          "29(a): a D rung's fit did not take the fused step")
+    check(all(math.isfinite(r["value"]) and r["value"] > 0
+              for m in ("recorditer_imgs_per_sec", "rec_device_put_imgs_per_sec",
+                        "rec_training_imgs_per_sec", "decode_pil_imgs_per_sec",
+                        "decode_cv2_imgs_per_sec") for r in by[m]),
+          "29(a): a rate is not positive")
+    table = text[text.index("| ladder rung"):].strip().splitlines()
+    for line in table:
+        log("    " + line)
+    log("  (a) bench_pipeline %s on %s (native rungs on %s): the ladder above "
+        "(images/s, median and band over 3 windows); %.1f s"
+        % (" ".join(TOOLS_PIPE_ARGS), card, decoder, time.perf_counter() - t0))
+
+
+def tools_bandwidth(card):
+    """29(b): ``bandwidth`` over ResNet-50's gradients, ``local`` and
+    ``device``, two positions on ``cuda:0``; every pulled value is the sum
+    pushed (the tool checks it)."""
+    from mxnet_tpu_torch.tools import bandwidth
+
+    t0 = time.perf_counter()
+    out = []
+    for kv in ("local", "device"):
+        rec = bandwidth.measure(kv, "resnet", 1000, 2, TOOLS_BW_ITERS,
+                                device="cuda:0")
+        check(rec["values_checked"] and rec["device"] == "cuda:0"
+              and rec["grads"] == len(bandwidth.get_shapes("resnet", 1000)),
+              "29(b) %s: %s" % (kv, rec))
+        out.append(rec)
+        log("  (b) kvstore=%s devices=2 grads=%d bytes=%.1f MB: %.3f ms per "
+            "iteration, %.1f MB moved, %.2f GB/s (algo-bw %.2f GB/s), every "
+            "pulled value the sum pushed" % (
+                kv, rec["grads"], rec["bytes"] / 1e6, rec["time_per_iter_ms"],
+                rec["bytes_moved_per_iter"] / 1e6, rec["gb_per_sec"],
+                rec["algo_bw_gb_per_sec"]))
+    log("  (b) %.1f s on %s" % (time.perf_counter() - t0, card))
+    return out
+
+
+def tools_gan(mx, card):
+    """29(c): ``baseline_matrix`` dcgan and dcgan_fused, ``TOOLS_GAN_STEPS``
+    steps each at the tool's widths (batch 64); then, with cuDNN's
+    deterministic algorithms, the fused step's first replay against its
+    eager step on the replay's z, bitwise, and two replays' z apart."""
+    from mxnet_tpu_torch.tools import baseline_matrix as bm
+
+    t0 = time.perf_counter()
+    bm.set_device("cuda:0")
+    with contextlib.redirect_stdout(sys.stderr):
+        c_rate, c_d, c_g = bm.run_dcgan(steps=TOOLS_GAN_STEPS)
+        f_rate, f_d, f_g, gan = bm.run_dcgan_fused(steps=TOOLS_GAN_STEPS)
+    check(all(math.isfinite(v) for v in c_d + c_g + f_d + f_g),
+          "29(c): a loss is not finite: %s %s %s %s" % (c_d, c_g, f_d, f_g))
+    check(gan.captures == 1 and gan.replays == TOOLS_GAN_STEPS - 1,
+          "29(c): the fused step captured %d and replayed %d times"
+          % (gan.captures, gan.replays))
+    del gan
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        rng = np.random.RandomState(0)
+        gan = bm.FusedGAN(bm.dcgan_initial(mx, 64, mx.gpu(0)),
+                          bm.real_pool(rng, 64), 64, "cuda:0")
+        gan.step(1)                       # eager, t = 1
+        before, t = gan.state(), gan.t
+        gan.step(2)                       # captured, then the first replay
+        replay = gan.state()
+        gan.load_state(before, t)
+        gan.eager_step(2, z=replay["z"])  # the same step, eagerly
+        eager = gan.state()
+        diff = max(float((replay[k] - eager[k]).abs().max()) for k in replay)
+        check(all(torch.equal(replay[k], eager[k]) for k in replay),
+              "29(c): the first replay differs from its eager step on the "
+              "same z by up to %.3e" % diff)
+        gan.load_state(replay, t + 1)
+        gan.step(3)
+        check(not torch.equal(gan.z, replay["z"]),
+              "29(c): two replays drew the same z")
+        check(gan.captures == 1 and gan.replays == 2,
+              "29(c): %d captures, %d replays" % (gan.captures, gan.replays))
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    del gan
+    log("  (c) DCGAN (ngf = ndf = 32, nc 1, 64x64, z 100, batch 64), %d steps "
+        "each: the classic two-Module loop %.1f images/s, the whole iteration "
+        "as one CUDA graph %.1f images/s (%.2fx); losses finite (D %s / %s, G "
+        "%s / %s, classic / fused); the first replay bitwise its eager step on "
+        "the same z (cuDNN deterministic), two replays' z apart; %.1f s"
+        % (TOOLS_GAN_STEPS, c_rate, f_rate, f_rate / c_rate,
+           ["%.4f" % v for v in c_d], ["%.4f" % v for v in f_d],
+           ["%.4f" % v for v in c_g], ["%.4f" % v for v in f_g],
+           time.perf_counter() - t0))
+
+
+def tools_ssd_lstm(card):
+    """29(d): ``baseline_matrix ssd --quick`` and ``lstm --quick``."""
+    from mxnet_tpu_torch.tools import baseline_matrix as bm
+
+    t0 = time.perf_counter()
+    bm.set_device("cuda:0")
+    with contextlib.redirect_stdout(sys.stderr):
+        rate, mean_ap, traj = bm.run_ssd(quick=True)
+        ppl, tok = bm.run_lstm(quick=True)
+    check(all(math.isfinite(v) for row in traj for v in row)
+          and 0 <= mean_ap <= 1, "29(d): SSD's losses %s, mAP %s"
+          % (traj[-1], mean_ap))
+    check(all(math.isfinite(p) for p in ppl) and ppl[-1] < ppl[0],
+          "29(d): the LSTM's perplexity did not fall: %s" % ppl)
+    log("  (d) SSD-300 --quick (batch 8, 2 epochs): %.2f images/s, the "
+        "MultiBox metric (ce, smoothl1) %s -> %s, training-set mAP %.4f; the "
+        "LSTM LM --quick (2x128, vocab 5000): perplexity %s, %.0f tokens/s; "
+        "%.1f s" % (rate, ["%.4f" % v for v in traj[0]],
+                    ["%.4f" % v for v in traj[-1]], mean_ap,
+                    ["%.1f" % p for p in ppl], tok[0] if tok else float("nan"),
+                    time.perf_counter() - t0))
+
+
+def tools_docs(work):
+    """29(e): the operator index and the API reference generated on the
+    card; the C API manifest checked against the libraries phases 2 and 28
+    built."""
+    import os
+
+    from mxnet_tpu_torch.tools import c_api_coverage, gen_api_docs, gen_op_docs
+
+    t0 = time.perf_counter()
+    d = os.path.join(work, "docs")
+    os.makedirs(d, exist_ok=True)
+    rc, recs, _ = _tool_records(gen_op_docs.main,
+                                ["--out", os.path.join(d, "operators.md")])
+    check(rc == 0 and recs[-1]["names"] == 297, "29(e) gen_op_docs: %s" % recs)
+    same_ops = (open(os.path.join(d, "operators.md")).read()
+                == open(gen_op_docs.OUT).read())
+    check(same_ops, "29(e): the operator index on the card differs from the "
+          "committed one")
+    rc, recs_api, _ = _tool_records(gen_api_docs.main,
+                                    ["--out", os.path.join(d, "api.md")])
+    check(rc == 0 and recs_api[-1]["modules"] == 39, "29(e) gen_api_docs: %s"
+          % recs_api)
+    same_api = (open(os.path.join(d, "api.md")).read()
+                == open(gen_api_docs.OUT).read())
+    rc, recs_c, _ = _tool_records(c_api_coverage.main, ["--check"])
+    check(rc == 0 and recs_c[-1]["up_to_date"], "29(e) c_api_coverage "
+          "--check against this card's libraries: %s" % recs_c)
+    log("  (e) gen_op_docs: %d ops, %d names, equal to the committed index; "
+        "gen_api_docs: %d modules, %d lines (equal to the committed file: %s); "
+        "c_api_coverage --check: %d implemented / %d equivalent / %d descoped "
+        "of %d, up to date; %.1f s"
+        % (recs[-1]["ops"], recs[-1]["names"], recs_api[-1]["modules"],
+           recs_api[-1]["lines"], same_api, recs_c[-1]["implemented"],
+           recs_c[-1]["equivalent"], recs_c[-1]["descoped"],
+           recs_c[-1]["declarations"], time.perf_counter() - t0))
+
+
+def run_tools_phase(mx, card, work):
+    """Phase 29 (see the module docstring)."""
+    t0 = time.perf_counter()
+    tools_pipeline(card)
+    torch.cuda.empty_cache()
+    tools_bandwidth(card)
+    torch.cuda.empty_cache()
+    tools_gan(mx, card)
+    torch.cuda.empty_cache()
+    tools_ssd_lstm(card)
+    torch.cuda.empty_cache()
+    tools_docs(work)
+    log("  phase 29: %.1f s" % (time.perf_counter() - t0))
 
 
 def main():
@@ -8106,31 +8496,44 @@ def _main(work):
 
     log("== 24. A6c: a server primary and a worker killed under "
         "tools/launch.py --elastic; cluster statistics (%s)" % card)
-    e_launches, c_run = run_elastic_phase(mx, build, card, dist_params,
-                                          work)
+    e_launches = run_elastic_phase(mx, build, card, dist_params, work)
     for name, n in e_launches.items():
         next(r for r in rows if r["name"] == name)["launches"] += n
 
-    log("== 25. A7's compiler half on the LM's fit: the graph passes, the "
-        "compile cache's warm start, mx.rtc, trace_merge and mxtop (%s)"
-        % card)
-    for name, n in run_compiler_phase(mx, build, card, work, c_run).items():
-        next(r for r in rows if r["name"] == name)["launches"] += n
+    from concurrent.futures import ThreadPoolExecutor
 
-    log("== 26. A8a, the C boundary: the LM predicted and trained by "
-        "compiled C/C++ clients; ResNet-50 scored through MXPredForward (%s)"
-        % card)
-    for name, n in run_capi_phase(mx, build, card, t_params, work,
-                                  capi_compiled).items():
-        next(r for r in rows if r["name"] == name)["launches"] += n
+    # two clusters run beside the phase after theirs, each of which times
+    # nothing that a check holds: 24(c) beside 25(a)-(c), 27(a) beside 26
+    with ThreadPoolExecutor(1) as pool:
+        log("== 25. A7's compiler half on the LM's fit: the graph passes, the "
+            "compile cache's warm start, mx.rtc, trace_merge and mxtop; "
+            "beside it 24(c), cluster statistics (%s)" % card)
+        straggle = pool.submit(straggler_run, work, dist_params)
+        for name, n in run_compiler_phase(mx, build, card, work,
+                                          straggle).items():
+            next(r for r in rows if r["name"] == name)["launches"] += n
 
-    log("== 27. A7's last part, analysis/: the engine sanitizer and the lock "
-        "witness, strict, over the dist_sync fit and the serving engine (%s)"
-        % card)
-    for name, n in run_analysis_phase(
-            mx, S, M, build, card, dist_params, dist_step_s,
-            (launches, counts["streams"])).items():
-        next(r for r in rows if r["name"] == name)["launches"] += n
+        t0 = time.perf_counter()
+        static = static_lock_edges()
+        log("  the static lock graph of mxnet_tpu_torch/ for 27: %d locks, %d "
+            "edges (%.2f s)" % (len({n for e in static for n in e}),
+                                len(static), time.perf_counter() - t0))
+        log("== 26. A8a, the C boundary: the LM predicted and trained by "
+            "compiled C/C++ clients; ResNet-50 scored through MXPredForward; "
+            "beside it 27(a)'s sanitized cluster (%s)" % card)
+        sanitized = pool.submit(sanitized_fit, build, card, static,
+                                dist_params, dist_step_s)
+        for name, n in run_capi_phase(mx, build, card, t_params, work,
+                                      capi_compiled).items():
+            next(r for r in rows if r["name"] == name)["launches"] += n
+
+        log("== 27. A7's last part, analysis/: the engine sanitizer and the "
+            "lock witness, strict, over the dist_sync fit and the serving "
+            "engine (%s)" % card)
+        for name, n in run_analysis_phase(
+                mx, S, M, build, card, static, sanitized,
+                (launches, counts["streams"])).items():
+            next(r for r in rows if r["name"] == name)["launches"] += n
 
     log("== 28. A8b, the Python-free artifact: the LM predicted and trained "
         "by compiled C clients from .mxa artifacts through the port's "
@@ -8139,6 +8542,11 @@ def _main(work):
                                       work, native_rt_compile(work, rt_proc)
                                       ).items():
         next(r for r in rows if r["name"] == name)["launches"] += n
+
+    log("== 29. the repo tools on the card: bench_pipeline, bandwidth, "
+        "baseline_matrix (DCGAN classic and as one CUDA graph, SSD, LSTM), "
+        "gen_op_docs, gen_api_docs, c_api_coverage (%s)" % card)
+    run_tools_phase(mx, card, work)
 
     log(card)
     print(json.dumps({"kernels": rows}), flush=True)

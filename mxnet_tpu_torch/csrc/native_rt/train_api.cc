@@ -10,9 +10,12 @@
 // autograd for the gradients, the auxiliary states and then each
 // parameter and its slots updated in place on the device (the
 // counterpart of the JAX step's donation). The rules are
-// parallel/fused_opt.py's SGD (with momentum) and Adam; any other rule
-// fails at create. A stochastic graph draws on its device from a generator
-// seeded with seed + t, so a replay is deterministic.
+// parallel/fused_opt.py's, with its slot order and arithmetic in its order:
+// SGD (with or without momentum; ccSGD under its rule), NAG, Adam, AdaGrad,
+// RMSProp (plain, one slot; centered, three), AdaDelta and Ftrl; any other
+// optimizer fails at create naming it, as fused_opt.make_rule refuses it.
+// A stochastic graph draws on its device from a generator seeded with
+// seed + t, so a replay is deterministic.
 #include <ATen/CPUGeneratorImpl.h>
 #include <torch/csrc/autograd/autograd.h>
 
@@ -43,12 +46,22 @@ struct TrainArg {
 };
 
 struct Rule {
-  std::string name;  // SGD or Adam
+  // SGD, NAG, Adam, AdaGrad, RMSProp, AdaDelta or Ftrl
+  std::string name;
   double momentum = 0, beta1 = 0.9, beta2 = 0.999, eps = 1e-8;
+  double gamma1 = 0.9, gamma2 = 0.9, clip_weights = 0, rho = 0.9;
+  double lamda1 = 0.01, beta = 1.0;
+  bool centered = false;
   double rescale = 1.0, clip = -1.0, wd = 0.0;
   std::map<std::string, double> lr_mult, wd_mult;
 
-  int nslot() const { return name == "Adam" ? 2 : (momentum != 0 ? 1 : 0); }
+  // fused_opt.py's nslot of each rule
+  int nslot() const {
+    if (name == "SGD" || name == "NAG") return momentum != 0 ? 1 : 0;
+    if (name == "RMSProp") return centered ? 3 : 1;
+    if (name == "AdaGrad") return 1;
+    return 2;  // Adam, AdaDelta, Ftrl
+  }
 
   // fused_opt.py _Rule.step_lr: Adam's bias correction folded into the
   // step size on the host in double precision
@@ -59,30 +72,91 @@ struct Rule {
     return lr * std::sqrt(coef2) / coef1;
   }
 
-  // optimizer_ops.py, in its order
-  at::Tensor prep(const at::Tensor& grad, const at::Tensor& w, double wd_n) const {
-    at::Tensor g = grad * rescale;
+  // fused_opt.py _grad: rescaled, clipped when the clip is positive
+  at::Tensor grad(const at::Tensor& g0) const {
+    at::Tensor g = g0 * rescale;
     if (clip > 0) g = at::clamp(g, -clip, clip);
-    return g + wd_n * w;
+    return g;
   }
 
-  void apply(at::Tensor& w, const at::Tensor& grad, std::vector<at::Tensor>& st,
+  // optimizer_ops.py _prep_grad: the same, with the weight decay added
+  at::Tensor prep(const at::Tensor& g0, const at::Tensor& w, double wd_n) const {
+    return grad(g0) + wd_n * w;
+  }
+
+  // each rule of fused_opt.py, its arithmetic in its order
+  void apply(at::Tensor& w, const at::Tensor& g0, std::vector<at::Tensor>& st,
              const at::Tensor& lr, double wd_n) const {
-    at::Tensor g = prep(grad, w, wd_n);
     if (name == "Adam") {
+      at::Tensor g = prep(g0, w, wd_n);
       at::Tensor mean = beta1 * st[0] + (1 - beta1) * g;
       at::Tensor var = beta2 * st[1] + (1 - beta2) * at::square(g);
       at::Tensor new_w = w - lr * mean / (at::sqrt(var) + eps);
       st[0].copy_(mean);
       st[1].copy_(var);
       w.copy_(new_w);
-    } else if (momentum != 0) {
-      at::Tensor m = momentum * st[0] - lr * g;
-      at::Tensor new_w = w + m;
-      st[0].copy_(m);
+    } else if (name == "SGD") {
+      at::Tensor g = prep(g0, w, wd_n);
+      if (momentum != 0) {
+        at::Tensor m = momentum * st[0] - lr * g;
+        at::Tensor new_w = w + m;
+        st[0].copy_(m);
+        w.copy_(new_w);
+      } else {
+        w.copy_(w - lr * g);
+      }
+    } else if (name == "NAG") {
+      at::Tensor g = grad(g0);
+      if (momentum != 0) {
+        at::Tensor m = st[0] * momentum;
+        g = g + wd_n * w;
+        m = m + g;
+        g = g + momentum * m;
+        st[0].copy_(m);
+        w.copy_(w + -lr * g);
+      } else {
+        w.copy_(w + -lr * (g + wd_n * w));
+      }
+    } else if (name == "AdaGrad") {
+      at::Tensor g = grad(g0);
+      at::Tensor hist = st[0] + g * g;
+      st[0].copy_(hist);
+      w.copy_(w + -lr * (g / at::sqrt(hist + eps) + wd_n * w));
+    } else if (name == "RMSProp") {
+      at::Tensor g = prep(g0, w, wd_n);
+      at::Tensor new_n = (1 - gamma1) * at::square(g) + gamma1 * st[0];
+      at::Tensor new_w;
+      if (centered) {
+        at::Tensor new_g = (1 - gamma1) * g + gamma1 * st[1];
+        at::Tensor new_delta =
+            gamma2 * st[2] - lr * g / at::sqrt(new_n - at::square(new_g) + eps);
+        new_w = w + new_delta;
+        st[0].copy_(new_n);
+        st[1].copy_(new_g);
+        st[2].copy_(new_delta);
+      } else {
+        new_w = w - lr * g / at::sqrt(new_n + eps);
+        st[0].copy_(new_n);
+      }
+      if (clip_weights != 0) new_w = at::clamp(new_w, -clip_weights, clip_weights);
       w.copy_(new_w);
-    } else {
-      w.copy_(w - lr * g);
+    } else if (name == "AdaDelta") {
+      at::Tensor g = grad(g0);
+      at::Tensor ag = st[0] * rho + (1.0 - rho) * g * g;
+      at::Tensor cur = at::sqrt(st[1] + eps) / at::sqrt(ag + eps) * g;
+      at::Tensor ad = st[1] * rho + (1.0 - rho) * cur * cur;
+      st[0].copy_(ag);
+      st[1].copy_(ad);
+      w.copy_(w - cur - wd_n * w);
+    } else {  // Ftrl
+      at::Tensor g = grad(g0);
+      at::Tensor z = st[0], n = st[1];
+      at::Tensor zv = z + (g - (at::sqrt(n + g * g) - at::sqrt(n)) / lr * w);
+      at::Tensor nv = n + g * g;
+      z.copy_(zv);
+      n.copy_(nv);
+      w.copy_((at::sign(zv) * lamda1 - zv) / ((beta + at::sqrt(nv)) / lr + wd_n) *
+              (at::abs(zv) > lamda1).to(zv.scalar_type()));
     }
   }
 };
@@ -176,9 +250,11 @@ int create(const char* bytes, size_t size, TrainNativeHandle* out) {
   const JVal* jop = m.get("optimizer_params");
   std::string opt = jopt && jopt->kind == JVal::STR ? jopt->str : "";
   if (opt == "ccSGD") opt = "SGD";
-  if (opt != "SGD" && opt != "Adam")
-    return fail(".mxa: optimizer '" + opt + "' has no rule in the native "
-                "runtime (SGD with or without momentum, Adam; ROADMAP.md)");
+  static const std::set<std::string> kRules = {"SGD", "NAG", "Adam", "AdaGrad",
+                                               "RMSProp", "AdaDelta", "Ftrl"};
+  if (!kRules.count(opt))
+    return fail(".mxa: optimizer '" + opt + "' has no fused rule (supported: "
+                "SGD/ccSGD, NAG, Adam, AdaGrad, RMSProp, AdaDelta, Ftrl)");
   if (!jop || jop->kind != JVal::OBJ)
     return fail(".mxa: train manifest missing optimizer_params");
   tr->rule.name = opt;
@@ -186,6 +262,13 @@ int create(const char* bytes, size_t size, TrainNativeHandle* out) {
   tr->rule.beta1 = num_or(jop, "beta1", 0.9);
   tr->rule.beta2 = num_or(jop, "beta2", 0.999);
   tr->rule.eps = num_or(jop, "eps", 1e-8);
+  tr->rule.gamma1 = num_or(jop, "gamma1", 0.9);
+  tr->rule.gamma2 = num_or(jop, "gamma2", 0.9);
+  tr->rule.centered = num_or(jop, "centered", 0.0) != 0;
+  tr->rule.clip_weights = num_or(jop, "clip_weights", 0.0);
+  tr->rule.rho = num_or(jop, "rho", 0.9);
+  tr->rule.lamda1 = num_or(jop, "lamda1", 0.01);
+  tr->rule.beta = num_or(jop, "beta", 1.0);
   tr->rule.rescale = num_or(jop, "rescale_grad", 1.0);
   tr->rule.clip = num_or(jop, "clip_gradient", -1.0);
   tr->rule.wd = num_or(jop, "wd", 0.0);

@@ -572,6 +572,9 @@ class Executor:
     def output_dict(self):
         return dict(zip(self._symbol.list_outputs(), self.outputs))
 
+    def debug_str(self):
+        return self._symbol.debug_str()
+
     def copy_params_from(self, arg_params, aux_params=None, allow_extra_params=False):
         """Copy parameters (NDArrays, tensors or numpy arrays) into the
         bound arrays."""

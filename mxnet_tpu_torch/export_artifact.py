@@ -243,7 +243,8 @@ def _rule_params(rule, optimizer, param_names, lr_mult, wd_mult):
     out = {"wd": float(optimizer.wd),
            "rescale_grad": float(rule.rescale),
            "clip_gradient": (None if rule.clip is None else float(rule.clip))}
-    for k in ("momentum", "beta1", "beta2", "eps"):
+    for k in ("momentum", "beta1", "beta2", "eps", "gamma1", "gamma2",
+              "centered", "clip_weights", "rho", "lamda1", "beta"):
         if hasattr(rule, k):
             out[k] = float(getattr(rule, k) or 0.0)
     out["lr_mult"] = {n: lr_mult[n] for n in param_names}

@@ -65,6 +65,14 @@ class DataDesc(namedtuple("DataDesc", ["name", "shape"])):
             return 0
         return layout.find("N")
 
+    @staticmethod
+    def get_list(shapes, types):
+        """DataDescs of ``[(name, shape)]``, with ``types``'s dtypes."""
+        if types is not None:
+            type_dict = dict(types)
+            return [DataDesc(x[0], x[1], type_dict[x[0]]) for x in shapes]
+        return [DataDesc(x[0], x[1]) for x in shapes]
+
 
 class DataBatch:
     """One mini-batch: lists of data and label NDArrays, and the padding.
@@ -354,6 +362,10 @@ class NDArrayIter(DataIter):
     def provide_label(self):
         return [DataDesc(k, tuple([self.batch_size] + list(v.shape[1:])), v.dtype)
                 for k, v in self.label]
+
+    def hard_reset(self):
+        """Back to the first batch, ignoring a roll-over."""
+        self.cursor = -self.batch_size
 
     def reset(self):
         if self.last_batch_handle == "roll_over" and self.cursor > self.num_data:
@@ -803,6 +815,10 @@ class DeviceFeedIter(DataIter):
     @property
     def provide_label(self):
         return self._iter.provide_label
+
+    @property
+    def default_bucket_key(self):
+        return self._iter.default_bucket_key
 
     def _upload(self, batch):
         """One host batch onto the card; returns (device batch, event)."""

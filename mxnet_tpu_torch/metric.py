@@ -261,10 +261,13 @@ class Perplexity(_DeviceSumMetric):
             if lab.numel() * p.shape[-1] != p.numel():
                 raise ValueError("shape mismatch: %s vs. %s"
                                  % (tuple(lab.shape), tuple(p.shape)))
-            # a clamped index: an ignored label such as -1 must not read
-            # outside the row on the card
-            probs = p.reshape(-1, p.shape[-1]).gather(
-                1, lab.clamp(0, p.shape[-1] - 1)[:, None])[:, 0]
+            # a negative label reads from the row's end, as numpy's (and so
+            # the JAX package's and the reference's) index does (ROADMAP
+            # C36: BucketSentenceIter pads with -1); clamped, so that no
+            # label reads outside the row on the card
+            V = p.shape[-1]
+            idx = torch.where(lab < 0, lab + V, lab).clamp(0, V - 1)
+            probs = p.reshape(-1, V).gather(1, idx[:, None])[:, 0]
             cnt = torch.tensor(float(lab.numel()), device=p.device)
             if self.ignore_label is not None:
                 ign = lab == int(self.ignore_label)

@@ -32,6 +32,7 @@ import json
 import logging
 import os
 import re
+from collections import namedtuple
 
 import numpy as np
 
@@ -44,7 +45,10 @@ from .utils.atomic_file import atomic_write, footer_crc
 __all__ = ["FeedForward", "save_checkpoint", "load_checkpoint",
            "load_latest_valid_checkpoint",
            "save_resume_state", "load_resume_state", "clear_resume_state",
-           "decode_rng", "optimizer_counts", "restore_optimizer_counts"]
+           "decode_rng", "optimizer_counts", "restore_optimizer_counts",
+           "BatchEndParam"]
+
+BatchEndParam = namedtuple("BatchEndParams", ["epoch", "nbatch", "eval_metric", "locals"])
 
 
 def _create_kvstore(kvstore, num_device, arg_params):
@@ -354,9 +358,9 @@ class FeedForward:
             epoch_end_callback=None, batch_end_callback=None, kvstore="local",
             logger=None, work_load_list=None, monitor=None,
             eval_end_callback=None, eval_batch_end_callback=None,
-            auto_resume=None):
+            auto_resume=None, guard=None):
         """Train through ``Module.fit`` (reference: model.py
-        FeedForward.fit); ``auto_resume`` as there."""
+        FeedForward.fit); ``auto_resume`` and ``guard`` as there."""
         from .module import Module
 
         data = self._prepare_iter(X, y, is_train=True)
@@ -373,7 +377,7 @@ class FeedForward:
                 initializer=self.initializer, arg_params=self.arg_params,
                 aux_params=self.aux_params, allow_missing=True,
                 begin_epoch=self.begin_epoch, num_epoch=self.num_epoch,
-                monitor=monitor, auto_resume=auto_resume)
+                monitor=monitor, auto_resume=auto_resume, guard=guard)
         self.arg_params, self.aux_params = mod.get_params()
         self._module = mod
 

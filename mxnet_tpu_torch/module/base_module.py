@@ -43,7 +43,6 @@ from __future__ import annotations
 import logging
 import os
 import time
-from collections import namedtuple
 
 import numpy as np
 
@@ -60,7 +59,7 @@ from ..context import cpu
 
 __all__ = ["BaseModule", "BatchEndParam"]
 
-BatchEndParam = namedtuple("BatchEndParams", ["epoch", "nbatch", "eval_metric", "locals"])
+BatchEndParam = model_mod.BatchEndParam
 
 
 def _check_input_names(symbol, names, typename, throw):
@@ -188,6 +187,34 @@ class BaseModule:
             for callback in _as_list(score_end_callback):
                 callback(params)
         return eval_metric.get_name_value()
+
+    def iter_predict(self, eval_data, num_batch=None, reset=True):
+        """Yields ``(outputs, nbatch, batch)`` over ``eval_data``, padding
+        dropped (inference forwards)."""
+        if not (self.binded and self.params_initialized):
+            raise MXNetError("bind and initialize the module first")
+        if reset:
+            eval_data.reset()
+        for nbatch, eval_batch in enumerate(eval_data):
+            if num_batch is not None and nbatch == num_batch:
+                break
+            self.forward(eval_batch, is_train=False)
+            pad = eval_batch.pad or 0
+            outputs = [out[0:out.shape[0] - pad] for out in self.get_outputs()]
+            yield (outputs, nbatch, eval_batch)
+
+    def get_states(self, merge_multi_context=True):
+        """The states of a stateful module's graph: none here, as in the
+        JAX package (RNN states are inputs)."""
+        if not (self.binded and self.params_initialized):
+            raise MXNetError("bind and initialize the module first")
+        assert not merge_multi_context
+        return []
+
+    def set_states(self, states=None, value=None):
+        if not (self.binded and self.params_initialized):
+            raise MXNetError("bind and initialize the module first")
+        assert not states and not value
 
     def predict(self, eval_data, num_batch=None, merge_batches=True, reset=True,
                 always_output_list=False):

@@ -94,6 +94,12 @@ class BucketingModule(BaseModule):
         self._check_bound(params=False)
         return self._curr_module.symbol
 
+    def get_states(self, merge_multi_context=True):
+        return self._curr_module.get_states(merge_multi_context=merge_multi_context)
+
+    def set_states(self, states=None, value=None):
+        self._curr_module.set_states(states, value)
+
     # ---- params ----------------------------------------------------------
     def get_params(self):
         """Host copies of the parameters, the fused updates synced in."""

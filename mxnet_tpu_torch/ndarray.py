@@ -188,6 +188,8 @@ class NDArray:
         if self._data.is_cuda:
             torch.cuda.current_stream(self._data.device).synchronize()
 
+    wait_to_write = wait_to_read
+
     # ---- arithmetic (the JAX package's dispatch) --------------------------
     def _binary(self, other, op, scalar_op, reverse=False):
         if isinstance(other, NDArray):

@@ -85,6 +85,9 @@ class Optimizer:
     def update(self, index, weight, grad, state):
         raise NotImplementedError()
 
+    def set_lr_scale(self, args_lrscale):
+        raise DeprecationWarning
+
     def set_lr_mult(self, args_lr_mult):
         """``__lr_mult__`` attrs of the symbol, then ``args_lr_mult``."""
         self.lr_mult = {}
@@ -447,6 +450,14 @@ class Updater:
             self.states[index] = _as_in(self.states[index], weight.context)
             self._on_host.discard(index)
         self.optimizer.update(index, weight, grad, self.states[index])
+
+    def sync_state_context(self, state, context):
+        """``state`` (an NDArray or a tuple of them) on ``context``."""
+        if isinstance(state, NDArray):
+            return state.as_in_context(context)
+        if isinstance(state, (tuple, list)):
+            return type(state)(self.sync_state_context(i, context) for i in state)
+        return state
 
     def update_all(self, pairs):
         """``pairs``: (index, grad, weight) triples, updated in order."""

@@ -37,6 +37,7 @@ call a run.
 """
 from __future__ import annotations
 
+import gc
 import time
 
 import numpy as np
@@ -164,8 +165,18 @@ class BucketGraph:
         stream.wait_stream(side)
         before = {n: k.launches for n, k in _build.KERNELS.items()}
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            self._outs = self._fn(*self.inputs)
+        # no garbage collection inside the capture: a finalizer that calls
+        # the CUDA runtime on this thread would end it (as in the fused
+        # step's capture)
+        gc.collect()
+        gc_was = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph):
+                self._outs = self._fn(*self.inputs)
+        finally:
+            if gc_was:
+                gc.enable()
         for n, k in _build.KERNELS.items():
             if k.launches != before[n]:
                 self._per_replay[n] = k.launches - before[n]

@@ -252,6 +252,9 @@ class Symbol:
             return None
         return Symbol([(n, i) for n, i in node.inputs])
 
+    def grad(self, wrt):
+        raise MXNetError("Symbol.grad is deprecated; use bind with args_grad")
+
     def debug_str(self):
         """One line per variable, one block per op with its inputs."""
         lines = []

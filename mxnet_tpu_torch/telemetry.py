@@ -114,6 +114,21 @@ class Gauge:
         return self.value
 
 
+class _Timer:
+    __slots__ = ("_hist", "_t0")
+
+    def __init__(self, hist):
+        self._hist = hist
+
+    def __enter__(self):
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *a):
+        self._hist.observe(time.perf_counter() - self._t0)
+        return False
+
+
 class Histogram:
     """Bounded-bucket distribution with quantile estimates (linear
     interpolation inside the covering bucket, clamped to the observed
@@ -134,6 +149,10 @@ class Histogram:
         self._sum = 0.0
         self._min = math.inf
         self._max = -math.inf
+
+    def time(self):
+        """Context manager observing the block's wall duration."""
+        return _Timer(self)
 
     def observe(self, v):
         v = float(v)

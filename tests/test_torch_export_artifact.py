@@ -700,3 +700,123 @@ def test_export_model_tool_both_subcommands(tmp_path, monkeypatch, capsys):
     with pytest.raises(SystemExit, match="--bf16"):
         export_model.main(["predict", "--prefix", prefix, "--epoch", "3",
                            "--shape", "data:2,8", "--out", pout, "--bf16"])
+
+
+# ---- the runtime's rules beyond SGD and Adam -------------------------------------
+RULES = {
+    # name: (optimizer, params): each of fused_opt's rules the runtime gained
+    "nag": ("nag", {"learning_rate": 0.01, "momentum": 0.9, "wd": 1e-3}),
+    "adagrad": ("adagrad", {"learning_rate": 0.05, "clip_gradient": 0.5}),
+    "rmsprop": ("rmsprop", {"learning_rate": 0.01, "wd": 1e-3}),
+    "rmsprop_centered": ("rmsprop", {"learning_rate": 0.01, "centered": True,
+                                     "clip_weights": 0.5,
+                                     "rescale_grad": 0.5}),
+    "adadelta": ("adadelta", {"learning_rate": 1.0, "wd": 1e-3}),
+    "ftrl": ("ftrl", {"learning_rate": 0.1, "lamda1": 0.01}),
+}
+RULE_STEPS = 3
+
+
+def _train_native_in_process(lib, path, batches, lr, tmp_path):
+    """The runtime's steps through ctypes in this process: the parameters
+    saved after each (``MXTrainNativeSaveParams``)."""
+    h = ctypes.c_void_p()
+    assert lib.MXTrainNativeCreateFromFile(path.encode(), ctypes.byref(h)) == 0, \
+        lib.MXGetLastError()
+    after = []
+    for x, y in batches:
+        for name, v in ((b"data", x), (b"softmax_label", y)):
+            arr, ptr = _cfloat(v)
+            assert lib.MXTrainNativeSetInput(h, name, ptr, arr.size) == 0, \
+                lib.MXGetLastError()
+        assert lib.MXTrainNativeStep(h, ctypes.c_float(lr)) == 0, \
+            lib.MXGetLastError()
+        out = str(tmp_path / "step.params")
+        assert lib.MXTrainNativeSaveParams(h, out.encode()) == 0
+        after.append({k[4:]: v.asnumpy() for k, v in T.nd.load(out).items()
+                      if k.startswith("arg:")})
+    assert lib.MXTrainNativeFree(h) == 0
+    return after
+
+
+def _fused_per_step(net, shapes, opt, opt_params, args, batches):
+    """The port's SPMDTrainer on the CPU over the same batches: the
+    parameters after each step."""
+    import torch
+
+    from mxnet_tpu_torch.parallel.spmd import SPMDTrainer
+
+    pnames = [n for n in net.list_arguments() if n not in shapes]
+    optimizer = T.optimizer.create(opt, sym=net,
+                                   param_idx2name={n: n for n in pnames},
+                                   **opt_params)
+    tr = SPMDTrainer(net, "cpu", [("data", shapes["data"])], optimizer,
+                     label_shapes=[("softmax_label", shapes["softmax_label"])])
+    params = {n: torch.tensor(args[n]) for n in tr.param_names}
+    states = tr.init_opt_state()
+    buf = tr.input_buffers()
+    after = []
+    for x, y in batches:
+        buf["data"].copy_(torch.tensor(x))
+        buf["softmax_label"].copy_(torch.tensor(y))
+        tr.step(params, {}, states)
+        after.append({n: v.numpy().copy() for n, v in params.items()})
+    return after
+
+
+@pytest.mark.parametrize("name", sorted(RULES))
+def test_runtime_rules_step_as_the_fused_step(name, tmp_path, monkeypatch):
+    """Three steps of the small LM's train artifact under each of NAG,
+    AdaGrad, RMSProp (plain and centered), AdaDelta and Ftrl, through the
+    runtime in this process, against the port's fused step over the same
+    batches: every parameter within 1e-6 after every step."""
+    monkeypatch.setenv("MXNET_DEFAULT_CONTEXT", "cpu")
+    opt, opt_params = RULES[name]
+    lr = float(np.float32(opt_params["learning_rate"]))
+    opt_params = dict(opt_params, learning_rate=lr)
+    batch = 4
+    shapes = {"data": (batch, LM["seq_len"]),
+              "softmax_label": (batch, LM["seq_len"])}
+    net = lm(T)
+    args, _ = _params_of(net, shapes, 31, scale=0.1)
+    path = str(tmp_path / "t.mxa")
+    m = T.export_train_artifact(net, shapes, path, optimizer=opt,
+                                optimizer_params=opt_params, arg_params=args,
+                                platform="cpu")
+    rule = T.parallel.fused_opt.make_rule(T.optimizer.create(opt, **opt_params))
+    assert m["nslot"] == rule.nslot
+    x, y = _train_data("lm", batch, RULE_STEPS)
+    batches = [(x[s * batch:(s + 1) * batch], y[s * batch:(s + 1) * batch])
+               for s in range(RULE_STEPS)]
+    got = _train_native_in_process(P.load(), path, batches, lr, tmp_path)
+    want = _fused_per_step(net, shapes, opt, opt_params, args, batches)
+    for s in range(RULE_STEPS):
+        for n in args:
+            np.testing.assert_allclose(got[s][n], want[s][n], atol=1e-6,
+                                       rtol=0, err_msg="step %d %s" % (s + 1, n))
+    assert any(np.abs(got[-1][n] - args[n]).max() > 1e-5 for n in args)
+
+
+def test_runtime_refuses_a_rule_the_fused_step_lacks(tmp_path, monkeypatch):
+    """An artifact whose manifest names an optimizer with no fused rule
+    (SGLD: ``fused_opt.make_rule`` refuses it, so no exporter writes one)
+    fails at create, naming it."""
+    monkeypatch.setenv("MXNET_DEFAULT_CONTEXT", "cpu")
+    with pytest.raises(ValueError, match="SGLD"):
+        T.parallel.fused_opt.make_rule(T.optimizer.create("sgld"))
+    path = str(tmp_path / "ok.mxa")
+    T.export_train_artifact(mlp(T), {"data": (8, 8)}, path, optimizer="sgd",
+                            optimizer_params={"learning_rate": 0.1},
+                            platform="cpu")
+    raw = open(path, "rb").read()
+    (mlen,) = struct.unpack("<Q", raw[8:16])
+    manifest = json.loads(raw[16:16 + mlen].decode())
+    manifest["optimizer"] = "SGLD"
+    mjs = json.dumps(manifest, indent=1).encode()
+    bad = str(tmp_path / "sgld.mxa")
+    with open(bad, "wb") as f:
+        f.write(raw[:8] + struct.pack("<Q", len(mjs)) + mjs + raw[16 + mlen:])
+    lib = P.load()
+    h = ctypes.c_void_p()
+    assert lib.MXTrainNativeCreateFromFile(bad.encode(), ctypes.byref(h)) == -1
+    assert b"'SGLD' has no fused rule" in lib.MXGetLastError()

@@ -100,6 +100,7 @@ def test_records_are_byte_equal_across_packages(tmp_path):
 
 @pytest.mark.parametrize("parts", [1, 3])
 def test_native_sharded_reader_matches_jax(recs, parts):
+    assert _jax_native_lib() is not None, "the JAX native library did not build"
     for part in range(parts):
         got = list(T.recordio.RecReader(recs["cls"], part, parts))
         want = list(J.recordio.RecReader(recs["cls"], part, parts))
@@ -266,6 +267,7 @@ def test_native_stage_matches_jax_native_stage(recs, threads):
     """One decode thread with random crops and flips; three with the
     deterministic chain (which record a worker takes, and so which of
     the per-worker draws it gets, depends on scheduling)."""
+    assert _jax_native_lib() is not None, "the JAX native library did not build"
     aug = AUG if threads == 1 else dict(mean_r=1.0, seed=3)
     kw = dict(aug, data_shape=(3, 28, 28), resize=36, threads=threads)
     got = _stream(T, recs["cls"], "native", **kw)
@@ -276,6 +278,7 @@ def test_native_stage_matches_jax_native_stage(recs, threads):
 def test_native_batches_survive_a_slow_consumer(recs):
     """The stage runs ahead (prefetch 1, two decode threads) while the
     consumer holds every batch and sleeps: no batch it holds changes."""
+    assert _jax_native_lib() is not None, "the JAX native library did not build"
     it = T.io_image.ImageRecordIter(recs["cls"], (3, 28, 28), 2,
                                     backend="native", prefetch_buffer=1,
                                     preprocess_threads=2, resize=36)
@@ -294,27 +297,50 @@ def test_native_batches_survive_a_slow_consumer(recs):
 
 
 def _jax_native_lib():
-    """The JAX package's native library, built once under a file lock.
-    ``mxnet_tpu._native.get_lib`` runs ``make`` at first use and never
-    retries in a process whose build failed; test processes of another
-    file may be building it at the same moment. So: take a lock, and
-    where this process's first try found no library, clear its
-    no-retry flag and try again after the other build had time to end."""
+    """The JAX package's native library with its decode stage, installed
+    as the library that package has loaded: a copy built from its sources
+    by its own Makefile (``make BUILD=<dir>``) into a directory of this
+    checkout's ``build/`` named by the sources' digest, once, under a file
+    lock. The JAX package's own ``mxnet_tpu/src/build`` is left alone: its
+    tests run ``make`` there at first use with no lock, and a library
+    loaded while another process links it may lack the decode stage (the
+    iterator then falls back to the Python pipeline). Returns None, for
+    the caller's assertion, where the copy does not build or decode."""
+    import ctypes
     import fcntl
+    import hashlib
 
     from mxnet_tpu import _native as jn
 
-    lock_dir = os.path.join(ROOT, "build")
-    os.makedirs(lock_dir, exist_ok=True)
-    with open(os.path.join(lock_dir, "jax-native-test.lock"), "w") as f:
+    src = os.path.join(ROOT, "mxnet_tpu", "src")
+    digest = hashlib.sha256()
+    for dirpath, dirnames, files in os.walk(src):
+        dirnames[:] = sorted(d for d in dirnames if d != "build")
+        for name in sorted(files):
+            if name.endswith((".cc", ".h")) or name == "Makefile":
+                with open(os.path.join(dirpath, name), "rb") as f:
+                    digest.update(name.encode() + f.read())
+    build = os.path.join(ROOT, "build", "jax-native-" + digest.hexdigest()[:16])
+    lib_path = os.path.join(build, "libmxtpu.so")
+    os.makedirs(os.path.dirname(build), exist_ok=True)
+    with open(os.path.join(ROOT, "build", "jax-native-test.lock"), "w") as f:
         fcntl.flock(f, fcntl.LOCK_EX)
-        for _ in range(5):
-            lib = jn.get_lib()
-            if lib is not None:
-                return lib
-            jn._tried = False
-            time.sleep(3)
-    return jn.get_lib()
+        if not os.path.exists(lib_path):
+            tmp = build + ".tmp%d" % os.getpid()
+            res = subprocess.run(["make", "-s", "-j4", "BUILD=" + tmp], cwd=src,
+                                 capture_output=True, text=True, timeout=600)
+            if res.returncode != 0:
+                return None
+            os.replace(tmp, build)
+    with jn._lock:
+        lib = jn._lib
+        if lib is None or not getattr(lib, "_mxt_has_pipe", False) \
+                or not lib.mxt_pipe_decode_available():
+            lib = jn._declare(ctypes.CDLL(lib_path))
+            jn._lib, jn._tried = lib, True
+    if not lib._mxt_has_pipe or not lib.mxt_pipe_decode_available():
+        return None
+    return lib
 
 
 def test_c12_jax_native_batches_alias_the_stage_buffers(recs, tmp_path):
@@ -370,6 +396,9 @@ def test_state_dict_load_state_and_set_partition(recs, backend):
     crops and flips resume exactly; the Python pipeline's draw from the
     global ``random`` as its threads run ahead, so it resumes a
     deterministic chain (as the JAX package's does)."""
+    if backend == "native":
+        assert _jax_native_lib() is not None, \
+            "the JAX native library did not build"
     aug = AUG if backend == "native" else dict(resize=36)
     kw = dict(aug, data_shape=(3, 28, 28), wire_dtype="uint8",
               preprocess_threads=1)

@@ -407,10 +407,17 @@ def test_port_import_leaves_jax_out():
             " mxnet_tpu_torch.analysis.sanitizer, mxnet_tpu_torch.analysis.witness,"
             " mxnet_tpu_torch.tools.fwlint, mxnet_tpu_torch.export_artifact,"
             " mxnet_tpu_torch.tools.export_model,"
-            " mxnet_tpu_torch._predict_native;"
+            " mxnet_tpu_torch._predict_native,"
+            " mxnet_tpu_torch.tools._device, mxnet_tpu_torch.tools.gen_op_docs,"
+            " mxnet_tpu_torch.tools.gen_api_docs,"
+            " mxnet_tpu_torch.tools.c_api_coverage,"
+            " mxnet_tpu_torch.tools.bandwidth,"
+            " mxnet_tpu_torch.tools.bench_pipeline,"
+            " mxnet_tpu_torch.tools.baseline_matrix;"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib')) or m == 'mxnet_tpu' or "
-            "m.startswith('mxnet_tpu.')];"
+            "m.startswith('mxnet_tpu.') or m in ('tools', 'examples') or "
+            "m.startswith(('tools.', 'examples.'))];"
             "print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
