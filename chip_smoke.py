@@ -520,6 +520,25 @@ Drives ``mxnet_tpu_torch`` (never the JAX package) on ``cuda:0``:
    ``gen_op_docs`` (equal to the committed index), ``gen_api_docs`` and
    ``c_api_coverage --check`` against the libraries phases 2 and 28
    built. Each sub-phase prints its wall.
+30. A6d, the data-parallel fused step (``SPMDTrainer`` over a ``dp``
+   mesh; on one card its positions are two on ``cuda:0``, each its own
+   replica, the exchange real copies). (a) The zoo LM at ``TRAIN``'s
+   widths, global batch 32, Adam: one fwd+bwd at dp 2 against dp 1 (the
+   loss and every gradient within ``DP_GRAD_TOL`` of the largest, both
+   positions holding the same summed gradient), then ``DP_LM_STEPS``
+   steps of each, one captured CUDA graph apiece with K1, K2a and K2b
+   launched 4 per position per step, the perplexities falling and within
+   ``DP_PPL_TOL``; the step times beside each other. (b) ResNet-50 in
+   bf16 at batch 32, SGD with momentum, 3 steps at dp 2 and dp 1: after
+   the first step and after the third, the parameters and BatchNorm's
+   moving statistics (global statistics: a sum over the positions inside
+   the step) apart by no more than ``DP_RESNET_FACTOR`` times the dp 1
+   run's distance from its float32 twin. (c) ``param_rules`` splitting the
+   LM's FFN input weights over ``{"dp": 1, "tp": 2}``: 4 steps bitwise
+   equal to the unsharded trainer's, each position holding half of
+   each matched weight and of its Adam slots. (d) ``Module.fit`` over
+   every card's context with ``kvstore='device'`` against one card's,
+   only where two or more cards are visible (one card: "30(d) not run").
 
 Every phase that fails raises, so the exit code is not 0. The last two
 lines are the ``kernels`` JSON object and the ``ok`` JSON object; the card
@@ -8190,6 +8209,341 @@ def run_tools_phase(mx, card, work):
     log("  phase 29: %.1f s" % (time.perf_counter() - t0))
 
 
+# ----------------------------- A6d: the data-parallel fused step (phase 30)
+DP_LM_BATCH = 32
+# a warm-up step, then 8 replays of one captured graph
+DP_LM_STEPS = 9
+# one fwd+bwd at dp 2 against dp 1: max |g2 - g1| / max |g1| per parameter.
+# Each position multiplies half the rows, so cuBLAS may round the FFN's
+# products otherwise and a ReLU input at its kink may take the other side
+# (C22, phase 6's KINK_TOL): the bound is DP_GRAD_TOL or, where larger,
+# UPDATE_SENSITIVITY_FACTOR times how far dp 1's own gradient moves when
+# the parameters move by +-PERTURBATION (relative, seeded), measured in the
+# same run
+DP_GRAD_TOL = 1e-5
+# the perplexities of the 8 replayed steps, dp 2 against dp 1 (relative)
+DP_PPL_TOL = 1e-2
+DP_RESNET_STEPS = 3
+# ResNet-50 in bf16 at dp 2 against dp 1, after the first step and after
+# the last: the largest difference over the largest move from the start
+# (parameters, and apart the moving statistics) at most this many times
+# the same measure of the dp 1 bf16 run against its float32 twin,
+# measured in the same run. After one step the gap is rounding; after
+# three at lr 0.05 the trajectories have spread at ReLU kinks, and chip
+# run 2 of PR 25 read 0.86 against 1.13 there
+DP_RESNET_FACTOR = 2.0
+DP_TP_STEPS = 4
+DP_TP_RULES = {r".*_ffn1_weight": ("tp", None)}
+
+
+def _dp_init(mx, sym, shapes, aux=False):
+    """A seeded Xavier draw of ``sym``'s parameters (and auxiliary states)
+    through ``Module.init_params``, as whole tensors on the card."""
+    mod = mx.mod.Module(sym, context=mx.gpu(0))
+    mod.bind([("data", shapes["data"])], [("softmax_label", shapes["softmax_label"])])
+    mod.init_params(mx.init.Xavier(rng=torch.Generator().manual_seed(0)))
+    args, auxs = mod.get_params()
+    out = ({n: a.data.clone() for n, a in args.items()},
+           {n: a.data.clone() for n, a in auxs.items()})
+    del mod
+    return out
+
+
+def _dp_trainer(mx, sym, mesh, shapes, opt, opt_params, **kw):
+    from mxnet_tpu_torch.parallel.spmd import SPMDTrainer
+
+    return SPMDTrainer(sym, mesh, [("data", shapes["data"])], opt,
+                       dict(opt_params),
+                       label_shapes=[("softmax_label", shapes["softmax_label"])],
+                       **kw)
+
+
+def _dp_steps(tr, w0, a0, inputs, steps, on_step=None):
+    """``steps`` fused steps from ``w0``/``a0``: (params, auxs, states, host
+    wall of each step, synchronized); ``on_step(outs, params, auxs)``
+    after each."""
+    params, auxs = tr.place(w0), tr.place(a0)
+    states = tr.init_opt_state()
+    buf = tr.input_buffers()
+    for n, v in inputs.items():
+        buf[n].copy_(v)
+    walls = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = tr.step(params, auxs, states)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if on_step is not None:
+            on_step(outs, params, auxs)
+    return params, auxs, states, walls
+
+
+def _worst_rel(got, want):
+    """(name, max |got - want| / max |want|) of the worst tensor."""
+    rel = {n: float((got[n].float() - want[n].float()).abs().max())
+           / max(float(want[n].float().abs().max()), 1e-30) for n in want}
+    worst = max(rel, key=rel.get)
+    return worst, rel[worst]
+
+
+def dp_lm(mx, build, card):
+    """30(a): the LM at TRAIN's widths, dp 2 on cuda:0 against dp 1."""
+    from mxnet_tpu_torch.parallel import build_mesh
+
+    L = TRAIN["num_layers"]
+    sym = mx.models.transformer_lm(**TRAIN)
+    X, Y = lm_stream(DP_LM_BATCH, seed=30)
+    inputs = {"data": torch.tensor(X, device="cuda"),
+              "softmax_label": torch.tensor(Y, device="cuda")}
+    shapes = {n: tuple(v.shape) for n, v in inputs.items()}
+    w0, a0 = _dp_init(mx, sym, shapes)
+    opt = ("adam", {"learning_rate": TRAIN_LR, "rescale_grad": 1.0 / DP_LM_BATCH})
+    meshes = {1: build_mesh({"dp": 1}), 2: build_mesh({"dp": 2})}
+    check([str(d) for d in meshes[2].device_list] == ["cuda:0", "cuda:0"],
+          "build_mesh({'dp': 2}) is not two positions on cuda:0: %s" % meshes[2])
+    label = inputs["softmax_label"].reshape(-1).long()
+
+    def nll(probs):
+        return float(-probs.float().gather(1, label[:, None]).clamp_min(
+            1e-30).log().mean())
+
+    def grads_at(n, point):
+        """One fwd+bwd at ``point`` (the grad program's eager first run):
+        the loss and the summed gradients."""
+        tr = _dp_trainer(mx, sym, meshes[n], shapes, *opt)
+        params, auxs = tr.place(point), tr.place(a0)
+        for k, v in inputs.items():
+            tr.input_buffers()[k].copy_(v)
+        outs = tr.grad_step(params, auxs)
+        torch.cuda.synchronize()
+        g = {k: v.clone() for k, v in tr.grad_buffers().items()}
+        for p in range(1, n):
+            for k in g:
+                check(torch.equal(tr.grad_buffers(p)[k], g[k]),
+                      "30(a): position %d holds another summed gradient of "
+                      "%s" % (p, k))
+        return nll(outs[0]), g
+
+    loss1, g1 = grads_at(1, w0)
+    loss2, g2 = grads_at(2, w0)
+    worst, rel = _worst_rel(g2, g1)
+    host = {k: v.cpu().numpy() for k, v in w0.items()}
+    sens, sens_at = 0.0, None
+    for sign in (1, -1):
+        gp = grads_at(1, {k: torch.tensor(v) for k, v in moved(
+            host, sign * PERTURBATION, 6).items()})[1]
+        at, r = _worst_rel(gp, g1)
+        if r > sens:
+            sens, sens_at = r, at
+    bound = max(DP_GRAD_TOL, UPDATE_SENSITIVITY_FACTOR * sens)
+    log("  (a) one fwd+bwd, dp 2 against dp 1: loss %.7f / %.7f; worst "
+        "gradient %s %.3e of its largest; dp 1's own gradient under a "
+        "+-%.0e parameter move: worst %s %.3e; bound max(%.0e, %.1f x that) "
+        "= %.3e" % (loss2, loss1, worst, rel, PERTURBATION, sens_at, sens,
+                    DP_GRAD_TOL, UPDATE_SENSITIVITY_FACTOR, bound))
+    check(abs(loss2 - loss1) <= DP_GRAD_TOL * abs(loss1),
+          "30(a): the dp 2 loss is not the dp 1 loss")
+    check(rel <= bound, "30(a): dp 2 gradients disagree with dp 1")
+    del g1, g2
+    # DP_LM_STEPS captured steps of each
+    res, total = {}, {}
+    for n, mesh in meshes.items():
+        tr = _dp_trainer(mx, sym, mesh, shapes, *opt)
+        ppl = []
+        _zero(build)
+        params, _, _, walls = _dp_steps(
+            tr, w0, a0, inputs, DP_LM_STEPS,
+            lambda outs, *_: ppl.append(math.exp(nll(outs[0]))))
+        counts = _counts(build)
+        for k, c in counts.items():
+            total[k] = total.get(k, 0) + c
+        check(tr.captures == 1 and tr.replays == DP_LM_STEPS - 1,
+              "30(a) dp %d: not one captured graph replayed %d times: %s"
+              % (n, DP_LM_STEPS - 1, (tr.captures, tr.replays)))
+        for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+            check(counts[k] == n * L * DP_LM_STEPS,
+                  "30(a) dp %d: %s launched %d times in %d steps"
+                  % (n, k, counts[k], DP_LM_STEPS))
+        step_ms = 1e3 * float(np.median(walls[2:]))
+        res[n] = ({k: tr.gather(k, v) for k, v in params.items()}, ppl, step_ms)
+        log("  (a) dp %d over %s: one graph, %d replays; launches per replay "
+            "%s; copies between positions per replay %d (%d bytes); step "
+            "%.3f ms (median of the replays after the first); perplexities %s"
+            % (n, mesh, tr.replays, tr._per_replay,
+               tr._graphs["step"].transfers[0],
+               tr._graphs["step"].transfers[1], step_ms,
+               ["%.3f" % p for p in ppl]))
+        del tr, params
+        torch.cuda.empty_cache()
+    ppl1, ppl2 = res[1][1], res[2][1]
+    check(all(b < a for a, b in zip(ppl2, ppl2[1:])),
+          "30(a): the dp 2 perplexity did not fall every step")
+    gap = max(abs(a - b) / b for a, b in zip(ppl2, ppl1))
+    worst, prel = _worst_rel(res[2][0], res[1][0])
+    log("  (a) dp 2 against dp 1 after %d steps: perplexity %.3e (tol %.0e), "
+        "worst parameter %s %.3e of its largest; step %.3f ms against "
+        "%.3f ms (%.2fx), %s"
+        % (DP_LM_STEPS, gap, DP_PPL_TOL, worst, prel, res[2][2], res[1][2],
+           res[2][2] / res[1][2], card))
+    check(gap <= DP_PPL_TOL, "30(a): dp 2 perplexities part from dp 1's")
+    return total
+
+
+def dp_resnet(mx, build, card):
+    """30(b): ResNet-50 in bf16, dp 2 on cuda:0 against dp 1, held against
+    the dp 1 run's own distance from float32."""
+    from mxnet_tpu_torch.parallel import build_mesh
+
+    sym = mx.models.resnet(**RESNET)
+    rng = np.random.RandomState(30)
+    inputs = {"data": torch.tensor(rng.rand(RESNET_BATCH, *RESNET_SHAPE).astype(
+                  np.float32), device="cuda"),
+              "softmax_label": torch.tensor(rng.randint(
+                  0, RESNET["num_classes"], (RESNET_BATCH,)).astype(np.float32),
+                  device="cuda")}
+    shapes = {n: tuple(v.shape) for n, v in inputs.items()}
+    w0, a0 = _dp_init(mx, sym, shapes)
+    opt = ("sgd", {"learning_rate": 0.05, "momentum": 0.9,
+                   "rescale_grad": 1.0 / RESNET_BATCH})
+    runs, first = {}, {}
+    for tag, n, cd in (("dp 1", 1, "bfloat16"), ("dp 2", 2, "bfloat16"),
+                       ("dp 1 float32", 1, None)):
+        tr = _dp_trainer(mx, sym, build_mesh({"dp": n}), shapes, *opt,
+                         compute_dtype=cd)
+
+        def snap(outs, params, auxs, tag=tag, tr=tr):
+            if tag not in first:
+                first[tag] = ({k: tr.gather(k, v).clone()
+                               for k, v in params.items()},
+                              {k: tr.gather(k, v).clone()
+                               for k, v in auxs.items()})
+
+        params, auxs, _, walls = _dp_steps(tr, w0, a0, inputs,
+                                           DP_RESNET_STEPS, snap)
+        check(tr.captures == 1, "30(b) %s: %d captures" % (tag, tr.captures))
+        runs[tag] = ({k: tr.gather(k, v) for k, v in params.items()},
+                     {k: tr.gather(k, v) for k, v in auxs.items()},
+                     1e3 * walls[-1])
+        del tr, params, auxs
+        torch.cuda.empty_cache()
+    def apart(got, want, start):
+        """(worst name, its largest difference over the largest move of
+        ``want`` from ``start``)."""
+        diff = {n: float((got[n] - want[n]).abs().max()) for n in want}
+        scale = max(float((want[n] - start[n].to(want[n].device)).abs().max())
+                    for n in want)
+        worst = max(diff, key=diff.get)
+        return worst, diff[worst] / max(scale, 1e-30), scale
+
+    for steps, res in ((1, first), (DP_RESNET_STEPS, runs)):
+        for k, what, start in ((0, "parameters", w0),
+                               (1, "moving statistics", a0)):
+            w2, r2, s2 = apart(res["dp 2"][k], res["dp 1"][k], start)
+            wf, rf, _ = apart(res["dp 1"][k], res["dp 1 float32"][k], start)
+            log("  (b) ResNet-50 bf16 after %d step(s), %s (largest move from "
+                "the start %.4g): dp 2 against dp 1 worst %s %.3e of it; dp 1 "
+                "bf16 against float32 worst %s %.3e (bound: %.1fx that)"
+                % (steps, what, s2, w2, r2, wf, rf, DP_RESNET_FACTOR))
+            check(s2 > 0, "30(b): the %s did not move" % what)
+            check(r2 <= DP_RESNET_FACTOR * rf,
+                  "30(b): dp 2 %s part from dp 1 beyond bf16's own distance "
+                  "after %d step(s)" % (what, steps))
+    log("  (b) last step %.3f ms at dp 2, %.3f ms at dp 1 (bf16), %s"
+        % (runs["dp 2"][2], runs["dp 1"][2], card))
+
+
+def dp_param_rules(mx, build, card):
+    """30(c): the LM with its FFN input weights split over tp=2 (dp 1) on
+    cuda:0 against the unsharded trainer: bitwise equal parameters, half
+    of each matched weight and slot at each position."""
+    from mxnet_tpu_torch.parallel import build_mesh
+
+    L = TRAIN["num_layers"]
+    sym = mx.models.transformer_lm(**TRAIN)
+    X, Y = lm_stream(DP_LM_BATCH, seed=31)
+    inputs = {"data": torch.tensor(X, device="cuda"),
+              "softmax_label": torch.tensor(Y, device="cuda")}
+    shapes = {n: tuple(v.shape) for n, v in inputs.items()}
+    w0, a0 = _dp_init(mx, sym, shapes)
+    opt = ("adam", {"learning_rate": TRAIN_LR, "rescale_grad": 1.0 / DP_LM_BATCH})
+    want, _, _, _ = _dp_steps(_dp_trainer(mx, sym, build_mesh({"dp": 1}),
+                                          shapes, *opt), w0, a0, inputs,
+                              DP_TP_STEPS)
+    tr = _dp_trainer(mx, sym, build_mesh({"dp": 1, "tp": 2}), shapes, *opt,
+                     param_rules=DP_TP_RULES)
+    _zero(build)
+    params, _, states, _ = _dp_steps(tr, w0, a0, inputs, DP_TP_STEPS)
+    counts = _counts(build)
+    matched = sorted(n for n, sd in tr.shard_dims.items() if sd is not None)
+    check(len(matched) == L, "30(c): the rules matched %s" % matched)
+    for n in matched:
+        full = tuple(tr.arg_shapes[n])
+        for p in range(2):
+            shapes_p = [tuple(params[n][p].shape)] + [
+                tuple(s.shape) for s in states[n][p]]
+            check(all(s == (full[0] // 2,) + full[1:] for s in shapes_p),
+                  "30(c): position %d holds %s of %s %s" % (p, shapes_p, n, full))
+    diff = [n for n in want if not torch.equal(tr.gather(n, params[n]), want[n])]
+    log("  (c) param_rules %s over %s: %d weights split (%s of %s each, "
+        "their 2 Adam slots too), %d steps; parameters bitwise equal to the "
+        "unsharded trainer's: %s; launches %s"
+        % (DP_TP_RULES, tr.mesh, len(matched), (tr.shard_shape(matched[0]),),
+           tuple(tr.arg_shapes[matched[0]]), DP_TP_STEPS, not diff,
+           {k: counts[k] for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")}))
+    check(not diff, "30(c): parameters differ from the unsharded step: %s" % diff[:4])
+    for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+        check(counts[k] == 2 * L * DP_TP_STEPS,
+              "30(c): %s launched %d times" % (k, counts[k]))
+    return counts
+
+
+def dp_module_fit(mx, build, card):
+    """30(d): ``Module.fit`` over every card's context, kvstore='device',
+    against one card's fit; only where two or more cards are visible."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        log("  30(d) not run: %d card visible" % n)
+        return {}
+    X, Y = lm_stream(4 * DP_LM_BATCH * n, seed=32)
+    res = {}
+    _zero(build)
+    for tag, ctx in (("one card", [mx.gpu(0)]),
+                     ("%d cards" % n, [mx.gpu(i) for i in range(n)])):
+        mod = mx.mod.Module(mx.models.transformer_lm(**TRAIN), context=ctx)
+        mod.fit(mx.io.NDArrayIter(X, Y, batch_size=DP_LM_BATCH * n), num_epoch=1,
+                kvstore="device", optimizer="adam",
+                optimizer_params={"learning_rate": TRAIN_LR},
+                initializer=mx.init.Xavier(rng=torch.Generator().manual_seed(0)))
+        check(mod._fused is not None and mod._fused.trainer.dp == len(ctx),
+              "30(d) %s: not fused over %d positions" % (tag, len(ctx)))
+        res[tag] = {k: v.data.to("cuda:0") for k, v in mod.get_params()[0].items()}
+    worst, rel = _worst_rel(res["%d cards" % n], res["one card"])
+    log("  30(d) %d cards against one: worst %s %.3e (tol %.0e)"
+        % (n, worst, rel, FUSED_CLASSIC_TOL))
+    check(rel <= FUSED_CLASSIC_TOL, "30(d): the fit over %d cards parts from "
+          "one card's" % n)
+    return _counts(build)
+
+
+def run_dp_phase(mx, build, card):
+    """Phase 30 (see the module docstring): the kernel launches of its main
+    paths."""
+    t0 = time.perf_counter()
+    total = {}
+    for part in (dp_lm, dp_param_rules, dp_module_fit):
+        for k, c in part(mx, build, card).items():
+            total[k] = total.get(k, 0) + c
+        torch.cuda.empty_cache()
+    dp_resnet(mx, build, card)
+    torch.cuda.empty_cache()
+    log("  phase 30: %.1f s; K1/K2a/K2b launches on its main paths %s"
+        % (time.perf_counter() - t0,
+           {k: total.get(k, 0) for k in ("flash_fwd", "flash_bwd_dkv",
+                                         "flash_bwd_dq")}))
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -8547,6 +8901,14 @@ def _main(work):
         "baseline_matrix (DCGAN classic and as one CUDA graph, SSD, LSTM), "
         "gen_op_docs, gen_api_docs, c_api_coverage (%s)" % card)
     run_tools_phase(mx, card, work)
+
+    log("== 30. A6d, the data-parallel fused step: the LM at dp 2 on one "
+        "card against dp 1, ResNet-50's BatchNorm, param_rules, Module.fit "
+        "over the cards (%s)" % card)
+    for name, n in run_dp_phase(mx, build, card).items():
+        row = next((r for r in rows if r["name"] == name), None)
+        if row is not None:
+            row["launches"] += n
 
     log(card)
     print(json.dumps({"kernels": rows}), flush=True)

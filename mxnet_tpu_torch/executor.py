@@ -141,22 +141,10 @@ def _order_like(order, reference):
     return out
 
 
-def build_graph_fn(symbol, node_callback=None, arg_names=None,
-                   aux_names=None, order_like=None):
-    """Build ``fn(arg_list, aux_list, is_train, device=None) -> (outputs,
-    new_auxs)`` over torch tensors, with arguments and aux states in the
-    symbol's ``list_arguments``/``list_auxiliary_states`` order, or, when
-    given, in the order of ``arg_names``/``aux_names``: variables then
-    bind to those slots by name (how a graph-pass output runs against
-    arrays bound in the original symbol's order). The graph runs on the
-    device its arguments lie on (``device`` for a graph with none, where
-    its creation and sampling ops make their outputs); a stochastic op
-    draws from that device's :mod:`.random` generator, in the graph's
-    topological order, or in the order the ``order_like`` symbol runs its
-    nodes of the same names. ``node_callback(name, tensor)``, when given,
-    sees every op node's visible outputs as they are computed
-    (``<node>_output``, or ``<node>_output<k>`` for several: the
-    reference's monitor names)."""
+def graph_plan(symbol, arg_names=None, aux_names=None, order_like=None):
+    """``(order, slots, stochastic)`` of :func:`build_graph_fn`: the nodes
+    in the order they run, each variable's ``id -> (is_aux, slot)``, and
+    whether an op draws random numbers."""
     order = _topo_order(symbol._entries)
     _, aux_vars = symbol._arg_aux_split()
     if arg_names is None:
@@ -176,6 +164,27 @@ def build_graph_fn(symbol, node_callback=None, arg_names=None,
                      for node in order)
     if stochastic and order_like is not None and order_like is not symbol:
         order = _order_like(order, order_like)
+    return order, slots, stochastic
+
+
+def build_graph_fn(symbol, node_callback=None, arg_names=None,
+                   aux_names=None, order_like=None):
+    """Build ``fn(arg_list, aux_list, is_train, device=None) -> (outputs,
+    new_auxs)`` over torch tensors, with arguments and aux states in the
+    symbol's ``list_arguments``/``list_auxiliary_states`` order, or, when
+    given, in the order of ``arg_names``/``aux_names``: variables then
+    bind to those slots by name (how a graph-pass output runs against
+    arrays bound in the original symbol's order). The graph runs on the
+    device its arguments lie on (``device`` for a graph with none, where
+    its creation and sampling ops make their outputs); a stochastic op
+    draws from that device's :mod:`.random` generator, in the graph's
+    topological order, or in the order the ``order_like`` symbol runs its
+    nodes of the same names. ``node_callback(name, tensor)``, when given,
+    sees every op node's visible outputs as they are computed
+    (``<node>_output``, or ``<node>_output<k>`` for several: the
+    reference's monitor names)."""
+    order, slots, stochastic = graph_plan(symbol, arg_names, aux_names,
+                                          order_like)
 
     def graph_fn(arg_list, aux_list, is_train, device=None):
         vals = {}

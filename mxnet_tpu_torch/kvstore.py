@@ -975,7 +975,10 @@ class KVStoreDist(KVStore):
         ``on_bucket(bucket_pairs)`` consumes each while later buckets' RPCs
         are still on the wire. Returns False when bucketing is off
         (``MXNET_KV_BUCKET_MB=0``): the caller then pushes and pulls key by
-        key."""
+        key. A fused ``dist_sync_device`` step over several local contexts
+        pushes one value per key, its positions' gradients already summed
+        on the device (``fused_path._step_dist``), as the classic path
+        pushes its contexts' list."""
         limit = self.bucket_bytes_limit()
         if limit is None:
             return False

@@ -1,5 +1,5 @@
 """The fused fit path behind Module (counterpart of
-``mxnet_tpu/module/fused_path.py``), on one context.
+``mxnet_tpu/module/fused_path.py``).
 
 ``Module`` routes ``forward``/``backward``/``update`` here when the
 configuration is one program per step (``Module._fused_veto``):
@@ -16,6 +16,18 @@ into the Module's host dicts and its executor group whenever a
 classic-path consumer (an eval forward, ``get_params``, a checkpoint)
 needs them.
 
+Several contexts (A6d): the trainer runs over a ``dp`` mesh with one
+position per context, the JAX package's data-parallel step
+(:class:`~..parallel.spmd.SPMDTrainer`). Distinct contexts that are one
+torch device (``cpu(0)``, ``cpu(1)``: the CPU is one torch device) are
+distinct positions on it (``ROADMAP.md`` C37). Every position keeps its
+own replica of the masters, auxiliary states and slots
+(:class:`_SharedFusedState` ``pos_params``, ``pos_auxs``,
+``pos_states``; ``params``, ``auxs`` and ``states`` are position 0's);
+a write from the Module's side reaches every replica, and a read
+(``get_params``, a checkpoint, a ``.states`` file) takes position 0's,
+once.
+
 Bucketing: the buckets of a ``BucketingModule`` share one
 :class:`_SharedFusedState` (``Module.borrow_optimizer``). Each bucket has
 its own trainer, shape-specialized, with its own CUDA graph, and every
@@ -23,7 +35,8 @@ graph is captured on the shared state's tensors. Those tensors are
 allocated once and only ever written in place (``set_params``, optimizer
 states from a file, a rebind, a resume all ``copy_`` into them), so every
 bucket's graph stays valid and a bucket switch moves nothing through the
-host. The update count is the one optimizer's that the buckets share.
+host. The update count is the one optimizer's that the buckets share,
+and the mesh is the shared state's.
 
 Optimizer states travel in the JAX package's ``.states`` format
 (:meth:`FusedFitPath.get_states_bytes`/``set_states_bytes``): a pickled
@@ -59,6 +72,7 @@ from .. import compileobs as _compileobs
 from ..base import MXNetError
 from ..io import DataDesc
 from ..ndarray import NDArray
+from ..parallel import collectives as C
 
 __all__ = ["FusedFitPath", "batch_axes_standard"]
 
@@ -76,33 +90,52 @@ class _SharedFusedState:
     """The device-resident training state of the fused paths bound to one
     set of parameters (one, or every bucket of a BucketingModule)."""
 
-    __slots__ = ("params", "auxs", "states", "host_states", "device_dirty",
+    __slots__ = ("mesh", "params", "auxs", "states", "pos_params",
+                 "pos_auxs", "pos_states", "host_states", "device_dirty",
                  "fresh")
 
-    def __init__(self):
-        self.params = None    # name -> float32 master tensor
-        self.auxs = None      # name -> float32 tensor
+    def __init__(self, mesh):
+        self.mesh = mesh      # the dp mesh: one position per context
+        self.params = None    # name -> float32 master tensor (position 0)
+        self.auxs = None      # name -> float32 tensor (position 0)
         self.states = None    # name -> tuple of optimizer slot tensors
+        # the same, name -> [one per position] (entry 0 is position 0's)
+        self.pos_params = None
+        self.pos_auxs = None
+        self.pos_states = None
         self.host_states = None  # name -> serial state awaiting upload
         self.device_dirty = False
         self.fresh = False    # params/auxs hold the Module's values
+
+    def for_trainer(self, tr):
+        """(params, auxs, states) as ``tr`` takes them: position 0's dicts
+        on one position, else one list per name."""
+        if self.mesh.size == 1:
+            return self.params, self.auxs, self.states
+        return ({n: self.pos_params[n] for n in tr.param_names},
+                {n: self.pos_auxs[n] for n in tr.aux_names},
+                {n: self.pos_states[n] for n in tr.param_names})
 
 
 # thread-confined: a fused path is driven by its Module's thread; the feed thread's `slot.stage(...)` is _PinnedSlot.stage, which the
 # analyzer's method-name match also ties to FusedFitPath.stage
 class FusedFitPath:
     def __init__(self, module, share_state=None):
+        from ..parallel import build_mesh
         from ..parallel.spmd import SPMDTrainer
 
         self._mod = module
-        self.state = share_state if share_state is not None else _SharedFusedState()
+        if share_state is None:
+            share_state = _SharedFusedState(
+                build_mesh({"dp": len(module._context)}, module._context))
+        self.state = share_state
         self._data_shapes = [(d.name, tuple(d.shape))
                              for d in module._data_shapes]
         self._label_shapes = [(d.name, tuple(d.shape))
                               for d in (module._label_shapes or [])]
         # raises ValueError on an optimizer without a fused rule
         self.trainer = SPMDTrainer(
-            module._symbol, module._context[0], self._data_shapes,
+            module._symbol, share_state.mesh, self._data_shapes,
             module._optimizer, label_shapes=self._label_shapes,
             compute_dtype=module._compute_dtype)
         self._pending = False     # a batch is staged for the next step()
@@ -118,18 +151,25 @@ class FusedFitPath:
         """Device tensors for every parameter, auxiliary state and slot of
         this trainer that the shared state lacks (once per name)."""
         st, tr = self.state, self.trainer
-        dev = tr.device
+        devs = st.mesh.device_list
         if st.params is None:
             st.params, st.auxs, st.states = {}, {}, {}
+            st.pos_params, st.pos_auxs, st.pos_states = {}, {}, {}
         for n in tr.param_names:
             if n not in st.params:
-                st.params[n] = torch.empty(tr.arg_shapes[n], dtype=torch.float32,
-                                           device=dev)
-                st.states[n] = tr.rule.init_state(tr.arg_shapes[n], dev)
+                st.pos_params[n] = [torch.empty(tr.arg_shapes[n],
+                                                dtype=torch.float32, device=d)
+                                    for d in devs]
+                st.pos_states[n] = [tr.rule.init_state(tr.arg_shapes[n], d)
+                                    for d in devs]
+                st.params[n] = st.pos_params[n][0]
+                st.states[n] = st.pos_states[n][0]
         for n in tr.aux_names:
             if n not in st.auxs:
-                st.auxs[n] = torch.empty(tr.aux_shapes[n], dtype=torch.float32,
-                                         device=dev)
+                st.pos_auxs[n] = [torch.empty(tr.aux_shapes[n],
+                                              dtype=torch.float32, device=d)
+                                  for d in devs]
+                st.auxs[n] = st.pos_auxs[n][0]
 
     def _upload_states(self):
         """Copy the staged serial states into the slots that exist."""
@@ -138,9 +178,10 @@ class FusedFitPath:
             return
         with torch.no_grad():
             for n in [n for n in st.host_states if n in st.states]:
-                for dst, src in zip(st.states[n],
-                                    rule.from_serial(st.host_states.pop(n))):
-                    dst.copy_(_tensor(src))
+                srcs = rule.from_serial(st.host_states.pop(n))
+                for slots in st.pos_states[n]:
+                    for dst, src in zip(slots, srcs):
+                        dst.copy_(_tensor(src))
         if not st.host_states:
             st.host_states = None
 
@@ -164,10 +205,12 @@ class FusedFitPath:
         with torch.no_grad():
             for n in params:
                 if n in mod._arg_params:
-                    st.params[n].copy_(mod._arg_params[n].data)
+                    for t in st.pos_params[n]:
+                        t.copy_(mod._arg_params[n].data)
             for n in auxs:
                 if n in mod._aux_params:
-                    st.auxs[n].copy_(mod._aux_params[n].data)
+                    for t in st.pos_auxs[n]:
+                        t.copy_(mod._aux_params[n].data)
         self._upload_states()
         st.fresh = True
 
@@ -247,7 +290,10 @@ class FusedFitPath:
 
     def get_states_bytes(self):
         """The ``.states`` file payload: ``{i: numpy state}`` keyed by
-        ``enumerate(param_names)``, the classic Updater's layout."""
+        ``enumerate(param_names)``, the classic Updater's layout; over
+        several contexts without ``update_on_kvstore``, one copy per
+        context keyed ``i * num_device + k``, the classic multi-device
+        Updater's (as the JAX package writes it)."""
         def host(s):
             if s is None:
                 return None
@@ -256,8 +302,13 @@ class FusedFitPath:
             # fwlint: disable=host-sync — the .states file's payload: host egress by contract
             return _tensor(s).detach().cpu().numpy().copy()
 
-        return pickle.dumps({i: host(s) for i, s in
-                             enumerate(self._serial_by_name().values())})
+        serial = {i: host(s) for i, s in
+                  enumerate(self._serial_by_name().values())}
+        ndev = len(self._mod._context)
+        if ndev > 1 and not self._mod._update_on_kvstore:
+            serial = {i * ndev + k: s for i, s in serial.items()
+                      for k in range(ndev)}
+        return pickle.dumps(serial)
 
     def set_states_bytes(self, data):
         """Adopt a ``.states`` payload of either package (one context's
@@ -352,7 +403,7 @@ class FusedFitPath:
             if kv is not None:
                 self._step_dist(kv)
             else:
-                self._outs = self.trainer.step(st.params, st.auxs, st.states)
+                self._outs = self.trainer.step(*st.for_trainer(self.trainer))
         self._pending = False
         self.staged_batch = None
         st.device_dirty = True
@@ -363,7 +414,10 @@ class FusedFitPath:
         in place into the masters, or the pulled sums into the gradient
         buffers and then the update graph."""
         st, tr = self.state, self.trainer
-        self._outs = tr.grad_step(st.params, st.auxs)
+        params, auxs, states = st.for_trainer(tr)
+        self._outs = tr.grad_step(params, auxs)
+        # position 0's buffers hold the gradient summed over the local
+        # positions: it alone is pushed
         grads = tr.grad_buffers()
         update_on_kv = self._mod._update_on_kvstore
         # a pull writes into its out in place (NDArray[:] = value): these
@@ -379,8 +433,17 @@ class FusedFitPath:
             for idx, grad, out in pairs:
                 kv.push(idx, grad, priority=-idx)
                 kv.pull(idx, out=out, priority=-idx)
+        # what was pulled into position 0's tensors reaches the others
+        with torch.no_grad():
+            for p in range(1, st.mesh.size):
+                peer = ({n: st.pos_params[n][p] for n in grads}
+                        if update_on_kv else tr.grad_buffers(p))
+                for n in grads:
+                    peer[n].copy_(dst[n])
+                C.count_transfers(len(grads), sum(
+                    dst[n].numel() * dst[n].element_size() for n in grads))
         if not update_on_kv:
-            tr.apply_grads(st.params, st.states)
+            tr.apply_grads(params, states)
 
     @property
     def has_outputs(self):
@@ -391,8 +454,8 @@ class FusedFitPath:
         (forward without update), an inference forward of the staged batch
         with the current parameters."""
         if self._outs is None and self._pending:
-            st = self.state
-            self._outs = self.trainer.forward(st.params, st.auxs,
+            params, auxs, _ = self.state.for_trainer(self.trainer)
+            self._outs = self.trainer.forward(params, auxs,
                                               self.trainer.input_buffers())
         return [NDArray(o) for o in self._outs]
 
@@ -405,7 +468,8 @@ class FusedFitPath:
         if st.states is None:
             return 0
         return sum(s.numel() * s.element_size()
-                   for slots in st.states.values() for s in slots)
+                   for per_pos in st.pos_states.values()
+                   for slots in per_pos for s in slots)
 
 
 def batch_axes_standard(descs):

@@ -458,9 +458,13 @@ class Module(BaseModule):
 
     def _fused_veto(self, kvstore_arg):
         """Why this configuration does not run as one program per step —
-        None when it does. The JAX package's reasons for one context, with
-        the card's context in the TPU's place: kvstore None, 'local' and
-        'device' fuse on a card, only 'device' on the CPU."""
+        None when it does. The JAX package's reasons, with the card's
+        context in the TPU's place: kvstore None, 'local' and 'device' fuse
+        on cards, only 'device' on the CPU. Several contexts run as one
+        data-parallel step over a ``dp`` mesh (A6d), one position per
+        context: distinct contexts that are one torch device (``cpu(0)``,
+        ``cpu(1)``) are distinct positions on it (C37); the same context
+        named twice, or contexts of mixed types, are refused."""
         if env_flag("MXNET_MODULE_NO_FUSED"):
             return "MXNET_MODULE_NO_FUSED=1 (explicit opt-out)"
         kvstore_arg = _kv_type(kvstore_arg)
@@ -483,12 +487,8 @@ class Module(BaseModule):
         if self._monitor_installed:
             return ("a Monitor is installed (per-node hooks need the "
                     "executor path)")
-        if len(self._context) > 1:
-            devices = [torch.device(c) for c in self._context]
-            if len(set(devices)) != len(devices):
-                return "contexts resolve to duplicate devices (no SPMD mesh)"
-            return ("a fused data-parallel step over several cards is not "
-                    "ported (ROADMAP.md A6d)")
+        if len(set(self._work_load_list)) > 1:
+            return "non-uniform work_load_list"
         from .fused_path import batch_axes_standard
 
         if not batch_axes_standard(self._data_shapes or []) or (
@@ -502,19 +502,24 @@ class Module(BaseModule):
         if not any(not node.is_variable and get_op(node.op).is_loss
                    for node, _ in self._symbol._entries):
             return "symbol has no loss output (trained via out_grads)"
+        if len({getattr(c, "device_type", c.type) for c in self._context}) != 1:
+            return "mixed device types in context list"
+        if len(set(self._context)) != len(self._context):
+            return ("the same context is named twice (no SPMD mesh: its "
+                    "positions would be one)")
         if kvstore_arg is not None and "dist" in kvstore_arg:
             # the hybrid step (fused_path._step_dist): 'device' in the type
             # opts in anywhere, plain dist types fuse on a card
             if "device" in kvstore_arg or self._context[0].type == "cuda":
                 return None
-            return ("distributed kvstore %r on a CPU context (pass "
+            return ("distributed kvstore %r on CPU contexts (pass "
                     "kvstore='dist_sync_device' to opt into the hybrid "
                     "fused step)" % (kvstore_arg,))
         if kvstore_arg in ("device", "local_allreduce_device"):
             return None
         if self._context[0].type == "cuda" and kvstore_arg in (None, "local"):
             return None
-        return ("kvstore=%r on a CPU context (pass kvstore='device' to opt "
+        return ("kvstore=%r on CPU contexts (pass kvstore='device' to opt "
                 "in)" % (kvstore_arg,))
 
     def _build_fused_path(self, kvstore_arg, share_state=None):

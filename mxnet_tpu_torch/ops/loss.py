@@ -49,7 +49,10 @@ def _minus_onehot(p, lab, dim, on, off=0.0):
     return grad.scatter(dim, idx, hit)
 
 
-def _softmax_grad(p, label, attrs):
+def _softmax_grad(p, label, attrs, denom=None):
+    """The head's gradient; ``denom``, when given (under a normalization),
+    replaces the count it divides by: a data-parallel step's global
+    count."""
     scale = attrs["grad_scale"]
     norm = attrs["normalization"]
     ignore = int(attrs["ignore_label"])
@@ -60,7 +63,9 @@ def _softmax_grad(p, label, attrs):
         valid = (lab != ignore).to(p.dtype) if attrs["use_ignore"] \
             else torch.ones(lab.shape, dtype=p.dtype, device=p.device)
         grad = grad * valid.unsqueeze(1)
-        if norm == "batch":
+        if denom is not None:
+            grad = grad / denom
+        elif norm == "batch":
             grad = grad / float(p.shape[0])
         elif norm != "null":
             grad = grad / torch.clamp_min(valid.sum(), 1.0)
@@ -76,7 +81,9 @@ def _softmax_grad(p, label, attrs):
         valid = (lab != ignore).to(p.dtype) if attrs["use_ignore"] \
             else torch.ones(lab.shape, dtype=p.dtype, device=p.device)
         grad = grad * valid[:, None]
-        if norm == "batch":
+        if denom is not None:
+            grad = grad / denom
+        elif norm == "batch":
             grad = grad / float(p.shape[0])
         elif norm == "valid":
             grad = grad / torch.clamp_min(valid.sum(), 1.0)
@@ -86,19 +93,20 @@ def _softmax_grad(p, label, attrs):
 
 class _SoftmaxOutput(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, data, label, attrs):
+    def forward(ctx, data, label, attrs, denom=None):
         p = _softmax_fwd(data, attrs)
         ctx.save_for_backward(p, label)
         ctx.attrs = attrs
+        ctx.denom = denom
         return p
 
     @staticmethod
     def backward(ctx, g):
         p, label = ctx.saved_tensors
-        grad = _softmax_grad(p, label, ctx.attrs)
+        grad = _softmax_grad(p, label, ctx.attrs, ctx.denom)
         if ctx.attrs["out_grad"]:
             grad = grad * g
-        return grad, None, None
+        return grad, None, None, None
 
 
 _SOFTMAX_PARAMS = {
@@ -223,9 +231,10 @@ get_op("SVMOutput").is_loss = True
 # ---------------------------------------------------------------- MakeLoss
 class _MakeLoss(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, attrs):
+    def forward(ctx, x, attrs, denom=None):
         ctx.save_for_backward(x)
         ctx.attrs = attrs
+        ctx.denom = denom
         return x.clone()
 
     @staticmethod
@@ -233,12 +242,14 @@ class _MakeLoss(torch.autograd.Function):
         (x,) = ctx.saved_tensors
         attrs = ctx.attrs
         grad = torch.full_like(x, attrs["grad_scale"])
-        if attrs["normalization"] == "batch":
+        if ctx.denom is not None:
+            grad = grad / ctx.denom
+        elif attrs["normalization"] == "batch":
             grad = grad / x.shape[0]
         elif attrs["normalization"] == "valid":
             valid = (x > attrs["valid_thresh"]).to(x.dtype).sum()
             grad = grad / torch.clamp_min(valid, 1.0)
-        return grad, None
+        return grad, None, None
 
 
 @register(

@@ -16,8 +16,13 @@ one position reaches no other. The copies are ordinary autograd
 operations, so gradients flow back through them and a body needs no
 hand-written backward. Every copy counts in telemetry's
 ``parallel.transfers`` and its bytes in ``parallel.transfer_bytes``.
+Inside a CUDA-graph capture the copies are recorded, not run: there
+:func:`tally_transfers` collects them instead, and whoever replays the
+graph adds the tally per replay (:func:`count_transfers`).
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -25,7 +30,30 @@ from .. import telemetry
 
 __all__ = ["PartitionSpec", "P", "shard", "unshard", "run_sharded",
            "transfer", "to_position", "broadcast", "ppermute", "all_to_all",
-           "psum", "pmean", "gather_to", "tree_map", "tree_leaves"]
+           "psum", "pmean", "all_gather", "reduce_scatter", "gather_to",
+           "tree_map", "tree_leaves", "tally_transfers", "count_transfers"]
+
+
+class _Telemetry:
+    """Where copies are counted outside a capture: telemetry's counters."""
+
+    @staticmethod
+    def add(n, nbytes):
+        count_transfers(n, nbytes)
+
+
+class _Tally(list):
+    """``[copies, bytes]`` collected while a capture records copies."""
+
+    def add(self, n, nbytes):
+        self[0] += n
+        self[1] += nbytes
+
+
+# where transfer() counts its copies: telemetry, or a capture's tally
+# (tally_transfers swaps it), so no copy recorded into a CUDA graph
+# touches telemetry
+_sink = _Telemetry()
 
 
 def tree_map(fn, tree):
@@ -57,17 +85,37 @@ class PartitionSpec(tuple):
 P = PartitionSpec
 
 
+def count_transfers(n, nbytes):
+    """Add ``n`` copies of ``nbytes`` in all to telemetry's counters."""
+    telemetry.counter("parallel.transfers").inc(n)
+    telemetry.counter("parallel.transfer_bytes").inc(nbytes)
+
+
+@contextlib.contextmanager
+def tally_transfers():
+    """Collect the copies made inside the block into the yielded
+    ``[copies, bytes]`` instead of telemetry: a CUDA graph records its
+    copies once and runs them on every replay, which counts them."""
+    global _sink
+    prev, _sink = _sink, _Tally([0, 0])
+    try:
+        yield _sink
+    finally:
+        _sink = prev
+
+
 def transfer(x, device):
     """A copy of ``x`` on ``device`` that shares no memory with ``x``
     (differentiable), counted as one cross-position copy."""
-    telemetry.counter("parallel.transfers").inc()
-    telemetry.counter("parallel.transfer_bytes").inc(x.numel() * x.element_size())
+    # fwlint: disable=capture-impure — inside a capture _sink is its tally (tally_transfers): the copy is counted once there and the trainer adds the tally on every replay
+    _sink.add(1, x.numel() * x.element_size())
     return x.to(device, copy=True)
 
 
 def to_position(x, device):
     """``x`` on ``device``: itself where it already lies there (a read of a
     replicated value), else a counted copy."""
+    # fwlint: disable=capture-impure — compares two torch.device objects (host metadata), no tensor value is read
     return x if x.device == torch.device(device) else transfer(x, device)
 
 
@@ -225,3 +273,40 @@ def pmean(xs, mesh, axis):
     """``lax.pmean``: the group's mean at every position."""
     n = mesh.shape[axis]
     return [s / n for s in psum(xs, mesh, axis)]
+
+
+def all_gather(xs, mesh, axis, dim=0):
+    """``lax.all_gather(..., tiled=True)``: every position of a group gets
+    the group's values joined along ``dim`` in order along ``axis``, on
+    its own device (its own piece copied too, so no position aliases
+    another's)."""
+    out = [None] * mesh.size
+    devs = mesh.device_list
+    for group in mesh.groups(axis):
+        for p in group:
+            out[p] = torch.cat([transfer(xs[q], devs[p]) for q in group],
+                               dim=dim)
+    return out
+
+
+def reduce_scatter(xs, mesh, axis, dim=0):
+    """``lax.psum_scatter(..., tiled=True)``: position i of a group gets
+    block i along ``dim`` of the group's sum (the blocks summed in order
+    along ``axis``, as :func:`psum` sums)."""
+    out = [None] * mesh.size
+    devs = mesh.device_list
+    for group in mesh.groups(axis):
+        n = len(group)
+        for i, p in enumerate(group):
+            size = xs[p].shape[dim]
+            if size % n:
+                raise ValueError("dim %d of size %d does not split over %s=%d"
+                                 % (dim, size, axis, n))
+            block = size // n
+            parts = [transfer(xs[q].narrow(dim, i * block, block), devs[p])
+                     for q in group]
+            total = parts[0]
+            for part in parts[1:]:
+                total = total + part
+            out[p] = total
+    return out

@@ -59,6 +59,30 @@ captured step, so the step's graph holds each forward kernel twice (the
 JAX package's ``jax.checkpoint`` over the step's forward). A mirrored
 step of a graph that draws random numbers cannot be captured and raises.
 
+**Over a mesh** (A6d). Given a :class:`~.mesh.Mesh` of several
+positions, the trainer is the JAX package's data-parallel step: the batch
+is cut into contiguous blocks along ``batch_axis`` (as ``P("dp")`` cuts
+it; a batch the axis does not divide raises), each position runs forward
+and backward on its block through :class:`~.dp.DPGraph` (every op that
+reads rows of other positions exchanges what the global batch needs, or
+the trainer refuses the graph and names the op), the gradients are
+summed over ``batch_axis`` with :func:`~.collectives.psum` (explicit
+copies, also between two positions of one card), and every position
+applies the same rule to its own replica of the parameters and slots:
+the step computes what the one-position step computes on the global
+batch. ``param_rules`` (regex -> ``PartitionSpec``, first match wins, as
+the JAX package's) store a matched weight and its optimizer slots
+sharded: each position holds its block, the step all-gathers the weight
+before the forward and keeps its block of the summed gradient. That
+shards storage, not compute: each position multiplies by the whole
+weight (``ROADMAP.md`` C38). The state is then per position: every value
+of ``params``, ``auxs`` and ``states`` is a list with one entry per
+position (:meth:`SPMDTrainer.place` makes one from whole tensors,
+:meth:`SPMDTrainer.gather` joins it back). On one card the whole step for
+every position is one captured CUDA graph; over distinct cards it would
+be one graph spanning them (unverified: no machine here has two cards).
+A bare device is a one-position mesh, with plain tensors for values.
+
 The distributed step (``module.fused_path``'s ``_step_dist``) splits the
 step in two, each its own graph under the same rules:
 :meth:`SPMDTrainer.grad_step` (forward and backward, the float32
@@ -71,8 +95,10 @@ a rebind would leave every replay reading the first step's tensors.
 from __future__ import annotations
 
 import gc
+import re
 import time
 
+import numpy as np
 import torch
 
 from .. import compileobs as _compileobs
@@ -82,7 +108,9 @@ from ..base import MXNetError, env_flag, torch_dtype
 from ..executor import (build_graph_fn, cast_compute, graph_is_stochastic,
                         index_like_inputs, mirrored)
 from ..ops.registry import get_op
+from . import collectives as C
 from . import fused_opt
+from .mesh import Mesh, as_torch_device
 
 __all__ = ["SPMDTrainer"]
 
@@ -93,12 +121,14 @@ class _Graph:
     """One captured program of a trainer: the CUDA graph, its output
     tensors and the kernel launches each replay adds."""
 
-    __slots__ = ("graph", "outs", "per_replay", "warm", "program")
+    __slots__ = ("graph", "outs", "per_replay", "transfers", "warm",
+                 "program")
 
     def __init__(self, program):
         self.graph = None
         self.outs = None
         self.per_replay = {}
+        self.transfers = (0, 0)   # cross-position copies (count, bytes)
         self.warm = False
         self.program = program
 
@@ -106,12 +136,36 @@ class _Graph:
 # thread-confined: a trainer is driven by the thread that steps it; the feed thread's `slot.stage(...)` is _PinnedSlot.stage, which the
 # analyzer's method-name match also ties to FusedFitPath.stage
 class SPMDTrainer:
-    """Forward, backward and update of ``symbol`` at fixed input shapes on
-    one ``device``, with float32 master parameters."""
+    """Forward, backward and update of ``symbol`` at fixed input shapes
+    over ``mesh`` (or one device), with float32 master parameters.
 
-    def __init__(self, symbol, device, data_shapes, optimizer,
-                 label_shapes=None, compute_dtype=None):
-        self.device = torch.device(device)
+    ``optimizer`` is a name (made with ``optimizer_params``, the symbol's
+    ``__lr_mult__``/``__wd_mult__`` attributes resolved by parameter
+    name) or an ``Optimizer``. ``dtype`` is the masters' (float32 only)
+    and ``donate`` must stay True: the step always updates its state in
+    place. ``input_dtype`` other than ``dtype`` sets the compute dtype
+    when ``compute_dtype`` is not given, as in the JAX package."""
+
+    def __init__(self, symbol, mesh, data_shapes, optimizer="sgd",
+                 optimizer_params=None, label_shapes=None, dtype=np.float32,
+                 param_rules=None, batch_axis="dp", donate=True,
+                 compute_dtype=None, input_dtype=None):
+        from .. import optimizer as opt_mod
+
+        if np.dtype(dtype) != np.float32:
+            raise MXNetError("fused step: the master parameters are float32, "
+                             "not %s" % np.dtype(dtype))
+        if not donate:
+            raise MXNetError("fused step: donate=False is not supported (the "
+                             "step updates its state in place)")
+        if not isinstance(mesh, Mesh):
+            mesh = Mesh(np.array([as_torch_device(mesh)], dtype=object),
+                        [batch_axis])
+        self.mesh = mesh
+        self.batch_axis = batch_axis
+        #: positions along the batch axis (1: the batch is not cut)
+        self.dp = mesh.shape.get(batch_axis, 1)
+        self.device = mesh.device_list[0]
         self.arg_names = symbol.list_arguments()
         self.aux_names = symbol.list_auxiliary_states()
         # the graph-pass pipeline's output is what runs and is captured;
@@ -133,11 +187,25 @@ class SPMDTrainer:
             raise MXNetError("fused step: shape inference failed")
         self.arg_shapes = dict(zip(self.arg_names, arg_shapes))
         self.aux_shapes = dict(zip(self.aux_names, aux_shapes))
+        if isinstance(optimizer, str):
+            optimizer = opt_mod.create(
+                optimizer, sym=symbol,
+                param_idx2name={n: n for n in self.param_names},
+                **dict(optimizer_params or {}))
+        elif not isinstance(optimizer, opt_mod.Optimizer):
+            raise TypeError("optimizer must be a name or an Optimizer instance")
+        elif optimizer_params:
+            raise ValueError("optimizer_params cannot be combined with a ready "
+                             "Optimizer instance; configure the instance "
+                             "directly")
         self.optimizer = optimizer
         # raises ValueError for an optimizer without a fused rule
         self.rule = fused_opt.make_rule(optimizer)
         self.lr_mult, self.wd_mult = fused_opt.mults_for(optimizer,
                                                          self.param_names)
+        if compute_dtype is None and input_dtype is not None \
+                and torch_dtype(input_dtype) != torch.float32:
+            compute_dtype = input_dtype
         self.compute_dtype = (None if compute_dtype is None
                               else torch_dtype(compute_dtype))
         self._cast_exempt = (frozenset(self.label_names)
@@ -148,9 +216,28 @@ class SPMDTrainer:
         self._mirror = env_flag("MXNET_BACKWARD_DO_MIRROR")
         self._digest = _compileobs.symbol_digest(self._opt_symbol)
         self._sig = None
+        self._param_rules = [(re.compile(k), v)
+                             for k, v in (param_rules or {}).items()]
+        #: parameter -> (dim, mesh axis) it is stored split along, or None
+        self.shard_dims = {n: self._shard_dim(n) for n in self.param_names}
+        #: the data-parallel graph (None on a one-position mesh)
+        self._dp_graph = None
+        if mesh.size > 1:
+            if batch_axis not in mesh.shape:
+                raise MXNetError("fused step: mesh %s has no batch axis %r"
+                                 % (mesh, batch_axis))
+            from .dp import DPGraph
+
+            self._dp_graph = DPGraph(
+                self._opt_symbol, mesh, batch_axis, self.input_shapes,
+                set(self.input_shapes), self.arg_names, self.aux_names,
+                order_like=symbol)
+            self._out_axes = self._dp_graph.output_axes()
         # the step's learning rate: written before each step, read by the
-        # graph
-        self._lr = torch.zeros((), dtype=torch.float32, device=self.device)
+        # graph (one scalar per device of the mesh)
+        self._lrs = {d: torch.zeros((), dtype=torch.float32, device=d)
+                     for d in dict.fromkeys(mesh.device_list)}
+        self._lr = self._lrs[self.device]
         #: the value last written into it
         self.step_lr = None
         self._inputs = None
@@ -165,9 +252,87 @@ class SPMDTrainer:
         self.replays = 0
 
     # ---- state ---------------------------------------------------------
+    def _shard_dim(self, name):
+        """``(dim, axis)`` of the first ``param_rules`` spec that matches
+        ``name`` and splits a dimension, or None (replicated)."""
+        for prog, spec in self._param_rules:
+            if not prog.match(name):
+                continue
+            spec = tuple(spec) if isinstance(spec, (tuple, list)) else ()
+            split = [(d, a) for d, a in enumerate(spec) if a is not None]
+            if not split:
+                return None
+            if len(split) > 1:
+                raise MXNetError("param_rules: %s splits %d dimensions; one "
+                                 "is supported" % (name, len(split)))
+            d, a = split[0]
+            if a not in self.mesh.shape:
+                raise MXNetError("param_rules: %s names axis %r, not in %s"
+                                 % (name, a, self.mesh))
+            size = self.arg_shapes[name][d]
+            if size % self.mesh.shape[a]:
+                raise MXNetError("param_rules: dim %d of %s (%d) does not "
+                                 "split over %s=%d" % (d, name, size, a,
+                                                       self.mesh.shape[a]))
+            return None if self.mesh.shape[a] == 1 else (d, a)
+        return None
+
+    def shard_shape(self, name):
+        """The shape each position stores of parameter ``name``."""
+        shape = list(self.arg_shapes[name])
+        sd = self.shard_dims.get(name)
+        if sd is not None:
+            shape[sd[0]] //= self.mesh.shape[sd[1]]
+        return tuple(shape)
+
+    def _block(self, name, full, pos):
+        """Position ``pos``'s block of parameter ``name``'s whole value."""
+        sd = self.shard_dims.get(name)
+        if sd is None:
+            return full
+        d, a = sd
+        size = full.shape[d] // self.mesh.shape[a]
+        return full.narrow(d, self.mesh.axis_index(pos, a) * size, size)
+
+    def place(self, values):
+        """``{name: whole tensor}`` (parameters or auxiliary states, on any
+        device) as this trainer's state: on a one-position mesh the
+        float32 tensors on its device, else a list per name with each
+        position's own copy (its block, for a parameter ``param_rules``
+        split)."""
+        out = {}
+        for n, v in values.items():
+            v = torch.as_tensor(v).detach().to(torch.float32)
+            if self.mesh.size == 1:
+                out[n] = v.to(self.device, copy=True)
+            else:
+                out[n] = [C.transfer(self._block(n, v, p).contiguous(), dev)
+                          for p, dev in enumerate(self.mesh.device_list)]
+        return out
+
+    def gather(self, name, value):
+        """The whole tensor of a parameter, auxiliary state or slot in this
+        trainer's state (joined from the positions' blocks when
+        ``param_rules`` split it), on position 0's device."""
+        if not isinstance(value, (list, tuple)):
+            return value
+        sd = self.shard_dims.get(name)
+        if sd is None:
+            return value[0]
+        d, a = sd
+        parts = [value[p] for p in self.mesh.groups(a)[0]]
+        return torch.cat([C.to_position(t, self.device) for t in parts],
+                         dim=d)
+
     def init_opt_state(self):
-        """Fresh optimizer slots: name -> tuple of float32 tensors."""
-        return {n: self.rule.init_state(self.arg_shapes[n], self.device)
+        """Fresh optimizer slots: name -> tuple of float32 tensors (a list
+        of one tuple per position over a mesh, each of the position's
+        block's shape)."""
+        if self.mesh.size == 1:
+            return {n: self.rule.init_state(self.arg_shapes[n], self.device)
+                    for n in self.param_names}
+        return {n: [self.rule.init_state(self.shard_shape(n), dev)
+                    for dev in self.mesh.device_list]
                 for n in self.param_names}
 
     @property
@@ -179,15 +344,17 @@ class SPMDTrainer:
                 out[n] = out.get(n, 0) + k
         return out
 
-    def grad_buffers(self):
+    def grad_buffers(self, pos=0):
         """The static float32 gradient tensors of :meth:`grad_step` (name
-        -> tensor), made once; :meth:`apply_grads` reads them."""
+        -> tensor) of position ``pos`` (each holds the gradient summed
+        over the batch axis, of the position's block), made once;
+        :meth:`apply_grads` reads them."""
         if self._grad_bufs is None:
-            self._grad_bufs = {
-                n: torch.zeros(self.arg_shapes[n], dtype=torch.float32,
-                               device=self.device)
-                for n in self.param_names}
-        return self._grad_bufs
+            self._grad_bufs = [
+                {n: torch.zeros(self.shard_shape(n), dtype=torch.float32,
+                                device=dev) for n in self.param_names}
+                for dev in self.mesh.device_list]
+        return self._grad_bufs[pos]
 
     @property
     def started(self):
@@ -230,6 +397,8 @@ class SPMDTrainer:
         """Forward and backward of the batch: returns the outputs and
         ``[(name, gradient or None)]`` in ``param_names`` order; the
         auxiliary states are updated in place."""
+        if self._dp_graph is not None:
+            return self._forward_backward_dp(params, auxs, inputs)
         names = self.arg_names
         leaves = {n: params[n].detach().requires_grad_(True)
                   for n in self.param_names}
@@ -268,6 +437,8 @@ class SPMDTrainer:
     def _apply_rule(self, params, states, grads):
         """Each parameter's rule over ``[(name, gradient or None)]``, in
         place, at the learning rate in ``self._lr``."""
+        if self._dp_graph is not None:
+            return self._apply_rule_dp(params, states, grads)
         base_wd = self.optimizer.wd
         with torch.no_grad():
             for n, g in grads:
@@ -276,12 +447,146 @@ class SPMDTrainer:
                 self.rule.apply_(w, g, states[n], self._lr * self.lr_mult[n],
                                  base_wd * self.wd_mult[n])
 
+    # ---- the step over a mesh --------------------------------------------
+    def _positions(self, values):
+        """Check a state dict of a several-position mesh: a list per name."""
+        for n, v in values.items():
+            if not isinstance(v, (list, tuple)) or len(v) != self.mesh.size:
+                raise MXNetError(
+                    "fused step over %s: %s must be a list with one value per "
+                    "position (SPMDTrainer.place makes one)" % (self.mesh, n))
+        return values
+
+    def _leaves_dp(self, params):
+        """Per position, ``{name: leaf}`` of the whole parameters the
+        forward reads: the position's replica, or the weight all-gathered
+        from the blocks ``param_rules`` split (detached: its gradient is
+        taken whole and the block kept after the exchange)."""
+        P = self.mesh.size
+        leaves = [{} for _ in range(P)]
+        for n in self.param_names:
+            vals = [v.detach() for v in params[n]]
+            sd = self.shard_dims[n]
+            if sd is not None:
+                vals = C.all_gather(vals, self.mesh, sd[1], dim=sd[0])
+            for p in range(P):
+                leaves[p][n] = vals[p].requires_grad_(True)
+        return leaves
+
+    def _join(self, outs_pp):
+        """The step's outputs over the global batch, on position 0's
+        device: each joined along its batch axis from position 0's group,
+        or position 0's where it holds no batch."""
+        group = (self.mesh.groups(self.batch_axis)[0] if self.dp > 1
+                 else [0])
+        out = []
+        for k, a in enumerate(self._out_axes):
+            if a is None:
+                out.append(outs_pp[0][k])
+            else:
+                out.append(torch.cat([C.to_position(outs_pp[q][k], self.device)
+                                      for q in group], dim=a))
+        return out
+
+    def _blocks(self, inputs):
+        """Per position, its block of every batch input (contiguous, along
+        axis 0, as ``P(batch_axis)`` cuts it)."""
+        spec = C.P(self.batch_axis)
+        cut = {n: C.shard(t, self.mesh, spec) for n, t in inputs.items()}
+        return [{n: v[p] for n, v in cut.items()}
+                for p in range(self.mesh.size)]
+
+    def _run_dp_graph(self, leaves, auxs, blocks, is_train):
+        """The data-parallel graph over per-position leaves and blocks."""
+        names = self.arg_names
+        args_pp = []
+        for p, blk in enumerate(blocks):
+            args = [leaves[p][n] if n in leaves[p] else blk[n] for n in names]
+            args_pp.append(cast_compute(names, args, self.compute_dtype,
+                                        self._cast_exempt))
+        aux_pp = [[auxs[n][p] for n in self.aux_names]
+                  for p in range(self.mesh.size)]
+        return self._dp_graph(args_pp, aux_pp, is_train)
+
+    def _forward_backward_dp(self, params, auxs, inputs):
+        """:meth:`_forward_backward` over the mesh: returns the joined
+        outputs and, per position, ``[(name, gradient)]`` summed over the
+        batch axis (the position's block of it under ``param_rules``)."""
+        self._positions(params)
+        self._positions(auxs)
+        mesh, P = self.mesh, self.mesh.size
+        leaves = self._leaves_dp(params)
+        flat = [leaves[p][n] for p in range(P) for n in self.param_names]
+        blocks = self._blocks(inputs)
+        n_par, n_out = len(self.param_names), len(self._loss_flags)
+
+        def run(*xs):
+            by_pos = [dict(zip(self.param_names, xs[p * n_par:(p + 1) * n_par]))
+                      for p in range(P)]
+            outs_pp, aux_pp = self._run_dp_graph(by_pos, auxs, blocks, True)
+            return tuple(o for row in outs_pp for o in row) + \
+                tuple(a for row in aux_pp for a in row)
+
+        with torch.enable_grad():
+            if self._mirror and flat:
+                res = mirrored(run, flat, self.device, self._stochastic)
+            else:
+                res = run(*flat)
+        outs_pp = [list(res[p * n_out:(p + 1) * n_out]) for p in range(P)]
+        n_aux = len(self.aux_names)
+        aux_res = res[P * n_out:]
+        pairs = [(o, torch.full_like(o, 1.0 if loss else 0.0))
+                 for row in outs_pp
+                 for o, loss in zip(row, self._loss_flags) if o.requires_grad]
+        grads = [None] * len(flat)
+        if pairs:
+            grads = torch.autograd.grad([o for o, _ in pairs], flat,
+                                        [g for _, g in pairs],
+                                        allow_unused=True)
+        with torch.no_grad():
+            for p in range(P):
+                for i, n in enumerate(self.aux_names):
+                    auxs[n][p].copy_(aux_res[p * n_aux + i])
+            by_pos = [[] for _ in range(P)]
+            for i, n in enumerate(self.param_names):
+                gs = [grads[p * n_par + i] for p in range(P)]
+                gs = [torch.zeros_like(leaves[p][n]) if g is None else g
+                      for p, g in enumerate(gs)]
+                if self.dp > 1:
+                    gs = C.psum(gs, mesh, self.batch_axis)
+                for p in range(P):
+                    by_pos[p].append((n, self._block(n, gs[p], p)))
+        return [o.detach() for o in self._join(outs_pp)], by_pos
+
+    def _apply_rule_dp(self, params, states, grads_pp):
+        """Each position's rule over its replica (or block) and slots."""
+        base_wd = self.optimizer.wd
+        with torch.no_grad():
+            for p, grads in enumerate(grads_pp):
+                lr = self._lrs[self.mesh.device_list[p]]
+                for n, g in grads:
+                    w = params[n][p]
+                    self.rule.apply_(w, g.to(w.dtype), states[n][p],
+                                     lr * self.lr_mult[n],
+                                     base_wd * self.wd_mult[n])
+
+    def _forward_dp(self, params, auxs, inputs):
+        """An inference forward over the mesh: the joined outputs."""
+        self._positions(params)
+        leaves = self._leaves_dp(params)
+        with torch.no_grad():
+            outs_pp, _ = self._run_dp_graph(leaves, auxs,
+                                            self._blocks(inputs), False)
+        return self._join(outs_pp)
+
     def _run(self, params, auxs, states, inputs, train=True):
         """The step's work, eagerly: returns the forward's outputs (of the
         parameters before the update). With ``train`` the auxiliary
         states, parameters and slots are updated in place."""
         inputs = self._decoded(inputs)
         if not train:
+            if self._dp_graph is not None:
+                return self._forward_dp(params, auxs, inputs)
             names = self.arg_names
             with torch.no_grad():
                 args = [params[n] if n in params else inputs[n] for n in names]
@@ -299,7 +604,8 @@ class SPMDTrainer:
         rule's correction at this step's count) for the graph to read."""
         lr, t = fused_opt.host_step_values(self.optimizer, self.param_names)
         self.step_lr = self.rule.step_lr(lr, t)
-        self._lr.fill_(self.step_lr)
+        for t_lr in self._lrs.values():
+            t_lr.fill_(self.step_lr)
 
     def step(self, params, auxs, states):
         """One training step over the batch in :meth:`input_buffers`:
@@ -317,17 +623,20 @@ class SPMDTrainer:
         auxiliary states updated: returns the outputs. Its own graph, as
         :meth:`step`'s."""
         inputs = self.input_buffers()
-        bufs = self.grad_buffers()
+        self.grad_buffers()
+        bufs = self._grad_bufs
 
         def run():
             outs, grads = self._forward_backward(params, auxs,
                                                  self._decoded(inputs))
+            per_pos = grads if self._dp_graph is not None else [grads]
             with torch.no_grad():
-                for n, g in grads:
-                    if g is None:
-                        bufs[n].zero_()
-                    else:
-                        bufs[n].copy_(g)
+                for buf, pairs in zip(bufs, per_pos):
+                    for n, g in pairs:
+                        if g is None:
+                            buf[n].zero_()
+                        else:
+                            buf[n].copy_(g)
             return outs
 
         return self._launch("grad", run)
@@ -338,9 +647,11 @@ class SPMDTrainer:
         over the workers), the learning rate advanced as by :meth:`step`.
         Its own graph, as :meth:`step`'s."""
         self._set_lr()
-        bufs = self.grad_buffers()
+        self.grad_buffers()
+        pairs = [[(n, buf[n]) for n in self.param_names]
+                 for buf in self._grad_bufs]
         self._launch("apply", lambda: self._apply_rule(
-            params, states, [(n, bufs[n]) for n in self.param_names]))
+            params, states, pairs if self._dp_graph is not None else pairs[0]))
 
     _PROGRAMS = {"step": "fused.step", "grad": "fused.grad_step",
                  "apply": "fused.apply_grads"}
@@ -399,6 +710,8 @@ class SPMDTrainer:
 
         for name, n in g.per_replay.items():
             _build.KERNELS[name].launches += n
+        if g.transfers[0]:
+            C.count_transfers(*g.transfers)
         _compileobs.note_run(g.program, time.perf_counter() - t0)
         return g.outs
 
@@ -435,11 +748,13 @@ class SPMDTrainer:
             with _compileobs.record_compile(
                     g.program, self._signature(), graph_key=self._digest,
                     site=_SITE, digest=self._digest), \
+                    C.tally_transfers() as tally, \
                     torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 outs = fn()
         finally:
             if gc_was:
                 gc.enable()
+        g.transfers = tuple(tally)
         for n, k in _build.KERNELS.items():
             if k.launches != before[n]:
                 g.per_replay[n] = k.launches - before[n]

@@ -398,11 +398,13 @@ class Symbol:
         return "<Symbol %s>" % (name if name else "Grouped")
 
 
-def _infer(sym, provided, kind, partial=False):
+def _infer(sym, provided, kind, partial=False, known=None):
     """Run shape or type inference over the graph in topo order; with
-    ``partial`` a node whose inference fails leaves its outputs None."""
+    ``partial`` a node whose inference fails leaves its outputs None.
+    ``known``, when given, is filled with every node's ``id -> [value of
+    each output]``."""
     order = _topo_order(sym._entries)
-    known = {}  # id(node) -> list of per-output values
+    known = {} if known is None else known
     for node in order:
         if node.is_variable:
             val = provided.get(node.name)

@@ -277,7 +277,18 @@ def test_module_fit_over_two_contexts_matches_jax():
             assert len(mod._exec_group.execs) == 2
             assert [s.stop - s.start for s in mod._exec_group.slices] == [4, 8]
             assert mod._fused is None
-            assert "duplicate devices" in mod._fused_veto("device")
+            # the JAX package's vetoes: a non-uniform load keeps the
+            # classic path; with a uniform one, 'local' on CPU contexts
+            # does too, and 'device' fuses over two positions (C37)
+            assert mod._fused_veto("device") == "non-uniform work_load_list"
+            even = T.mod.Module(_mlp(T), context=ctx)
+            even.bind(it.provide_data, it.provide_label)
+            jeven = J.mod.Module(_mlp(J), context=[J.cpu(0), J.cpu(1)])
+            jeven.bind(it.provide_data, it.provide_label)
+            assert even._fused_veto("local").startswith("kvstore='local' on")
+            assert jeven._fused_veto("local").startswith("kvstore='local' on")
+            assert even._fused_veto("device") is None
+            assert jeven._fused_veto("device") is None
             it.reset()
             mod.forward(next(iter(it)), is_train=False)
             assert mod.get_outputs()[0].shape == (12, 2)

@@ -419,3 +419,46 @@ def test_moe_routing_ties_take_the_first_expert():
     dispatch, gate = TM._dispatch(x, gw, 4, 4)
     assert dispatch.sum(dim=(0, 2)).tolist() == [4.0, 0.0, 0.0, 0.0]
     assert torch.allclose(gate, torch.full((4,), 0.25))
+
+
+def test_all_gather_and_reduce_scatter_are_the_lax_collectives():
+    """``all_gather`` and ``reduce_scatter`` (tiled) over one axis of a
+    2x2 mesh against ``lax.all_gather``/``lax.psum_scatter`` under
+    ``shard_map``; copies counted, and inside ``tally_transfers`` (what a
+    CUDA-graph capture runs under) tallied instead of counted."""
+    from jax.experimental.shard_map import shard_map
+    from jax.sharding import PartitionSpec as JSpec
+
+    with mx.cpu():
+        mesh = build_mesh({"a": 2, "b": 2})
+    rng = np.random.RandomState(1)
+    xs = [rng.randn(4, 3).astype(np.float32) for _ in range(4)]
+    before = telemetry.counter("parallel.transfers").value
+    ag = C.all_gather([torch.tensor(v) for v in xs], mesh, "b", dim=0)
+    rs = C.reduce_scatter([torch.tensor(v) for v in xs], mesh, "b", dim=0)
+    assert telemetry.counter("parallel.transfers").value - before == 16
+    with C.tally_transfers() as tally:
+        C.psum([torch.tensor(v) for v in xs], mesh, "a")
+    # each group sums at its first position (no copy there: one device)
+    # and copies the sum to both
+    assert tally == [4, 4 * 4 * 3 * 4]
+    assert telemetry.counter("parallel.transfers").value - before == 16
+
+    jm = JP.build_mesh({"a": 2, "b": 2}, jax.devices("cpu")[:4])
+    glob = np.stack(xs).reshape(2, 2, 4, 3)
+
+    def body(x):
+        x = x[0, 0]
+        return (jax.lax.all_gather(x, "b", tiled=True)[None, None],
+                jax.lax.psum_scatter(x, "b", tiled=True)[None, None])
+
+    f = shard_map(body, mesh=jm, in_specs=JSpec("a", "b"),
+                  out_specs=(JSpec("a", "b"), JSpec("a", "b")))
+    jag, jrs = f(jnp.asarray(glob))
+    for p in range(4):
+        i, j = divmod(p, 2)
+        np.testing.assert_allclose(ag[p].numpy(), np.asarray(jag)[i, j], rtol=0, atol=0)
+        np.testing.assert_allclose(rs[p].numpy(), np.asarray(jrs)[i, j],
+                                   rtol=1e-6, atol=1e-6)
+    with pytest.raises(ValueError, match="does not split"):
+        C.reduce_scatter([torch.zeros(3)] * 4, mesh, "b")

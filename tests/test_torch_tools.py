@@ -204,9 +204,6 @@ API_DIFFERENCES = {
         "a library path in place of a jax executable", "C35"),
     ("mxnet_tpu.compile_cache", "load_executable"): (
         "dest=: where the cached library is copied", "C35"),
-    ("mxnet_tpu.parallel", "SPMDTrainer.__init__"): (
-        "one device, an Optimizer instance; no mesh or sharding rules "
-        "(the data-parallel fused step is A6d)", "C15"),
     ("mxnet_tpu.parallel", "SPMDTrainer.apply_grads"): (
         "the port's applies the gradients in its grad buffers", "C35"),
     ("mxnet_tpu.parallel", "SPMDTrainer.eval_step_fn"): (
