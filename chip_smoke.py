@@ -118,8 +118,7 @@ Drives ``mxnet_tpu_torch`` (never the JAX package) on ``cuda:0``:
    (vocab 10000, embed and hidden 200, 2 layers of ``LSTMCell`` unrolled
    in a ``SequentialRNNCell``, buckets 10/20/30/40/60, batch 32, SGD lr 0.01
    momentum 0.9, Xavier, ``Perplexity(ignore_label=0)``, kvstore 'local')
-   through ``BucketingModule.fit`` for 3 epochs (4 before PR 24) of 2000
-   seeded sentences
+   through ``BucketingModule.fit`` for 2 epochs of 2000 seeded sentences
    of 5-60 tokens (each token the previous + 1, Zipfian first tokens)
    from ``BucketSentenceIter``: on the fused step (one CUDA graph per
    bucket, every graph over one shared set of master parameters and
@@ -517,9 +516,9 @@ Drives ``mxnet_tpu_torch`` (never the JAX package) on ``cuda:0``:
    step's first replay bitwise equal to its eager step on the same ``z``
    (cuDNN deterministic) and two replays' ``z`` apart; (d) SSD-300 and
    the LSTM LM ``--quick``: finite losses, the perplexity falling; (e)
-   ``gen_op_docs`` (equal to the committed index), ``gen_api_docs`` and
-   ``c_api_coverage --check`` against the libraries phases 2 and 28
-   built. Each sub-phase prints its wall.
+   ``gen_op_docs`` and ``gen_api_docs`` (each equal to the committed
+   file) and ``c_api_coverage --check`` against the libraries phases 2
+   and 28 built. Each sub-phase prints its wall.
 30. A6d, the data-parallel fused step (``SPMDTrainer`` over a ``dp``
    mesh; on one card its positions are two on ``cuda:0``, each its own
    replica, the exchange real copies). (a) The zoo LM at ``TRAIN``'s
@@ -538,7 +537,29 @@ Drives ``mxnet_tpu_torch`` (never the JAX package) on ``cuda:0``:
    equal to the unsharded trainer's, each position holding half of
    each matched weight and of its Adam slots. (d) ``Module.fit`` over
    every card's context with ``kvstore='device'`` against one card's,
-   only where two or more cards are visible (one card: "30(d) not run").
+   only where two or more cards are visible (one card: "30(d) not run"),
+   held to (a)'s yardstick: one fwd+bwd over the cards against dp 1, and
+   the fits' perplexities batch by batch within ``DP_PPL_TOL``.
+31. A6d's remainder, the data-parallel train artifact
+   (``export_train_artifact(num_devices=N)``; the Python-free runtime's
+   step over N positions, all on ``cuda:0`` here, C41), and
+   ``Executor.reshape``. (a) The zoo LM at full width, batch 32 x 128,
+   Adam, exported at dp 2 and at dp 1 and trained by the runtime in this
+   process for ``DPA_STEPS`` steps over phase 5's 4 batches, cycled: each
+   dp 2 step within ``DPA_STEP_TOL`` of each parameter's largest of the
+   port's ``SPMDTrainer`` over a dp 2 mesh on the same batches, the first
+   step's loss dp 1's, the perplexities within ``DP_PPL_TOL`` of dp 1's,
+   K1/K2a/K2b 8 per dp 2 step from the runtime's own counters, read every
+   step; both step times. (b) ResNet-50 bf16 at batch 32 exported at dp 2
+   from 30(b)'s start and trained 2 SGD steps on 30(b)'s inputs: the
+   parameters and moving statistics against 30(b)'s ``SPMDTrainer`` at dp
+   2 after its second step, within ``DP_RESNET_FACTOR`` times 30(b)'s dp 1
+   bf16 run's distance from float32 (BatchNorm's global form at full
+   width). (c) The JAX package's C training client, unchanged, trains a dp
+   8 MLP artifact with its positions on ``cuda:0``: the loss below half its
+   first. (d) The LM executor bound at batch 32, reshaped to 16 and 8: the
+   parameters the same arrays and storage, each forward through K1 once
+   per layer, the logits within ``LOGIT_TOL`` of the CPU's.
 
 Every phase that fails raises, so the exit code is not 0. The last two
 lines are the ``kernels`` JSON object and the ``ok`` JSON object; the card
@@ -2143,7 +2164,7 @@ LSTM = dict(num_embed=200, num_hidden=200, num_layers=2, vocab_size=10000)
 LSTM_BUCKETS = [10, 20, 30, 40, 60]
 LSTM_BATCH = 32
 LSTM_SENTENCES = 2000
-LSTM_EPOCHS = 3
+LSTM_EPOCHS = 2
 LSTM_SGD = {"learning_rate": 0.01, "momentum": 0.9}
 # phase 14's short fused-RNN fit: every bucket stepped at least twice
 LSTM_RNN_SENTENCES = 800
@@ -8181,11 +8202,13 @@ def tools_docs(work):
           % recs_api)
     same_api = (open(os.path.join(d, "api.md")).read()
                 == open(gen_api_docs.OUT).read())
+    check(same_api, "29(e): the API reference on the card differs from the "
+          "committed one")
     rc, recs_c, _ = _tool_records(c_api_coverage.main, ["--check"])
     check(rc == 0 and recs_c[-1]["up_to_date"], "29(e) c_api_coverage "
           "--check against this card's libraries: %s" % recs_c)
     log("  (e) gen_op_docs: %d ops, %d names, equal to the committed index; "
-        "gen_api_docs: %d modules, %d lines (equal to the committed file: %s); "
+        "gen_api_docs: %d modules, %d lines, equal to the committed file: %s; "
         "c_api_coverage --check: %d implemented / %d equivalent / %d descoped "
         "of %d, up to date; %.1f s"
         % (recs[-1]["ops"], recs[-1]["names"], recs_api[-1]["modules"],
@@ -8287,6 +8310,65 @@ def _worst_rel(got, want):
     return worst, rel[worst]
 
 
+def _dp_nll(label):
+    """The mean negative log-likelihood of ``label`` under the LM's
+    probabilities."""
+    def nll(probs):
+        return float(-probs.float().gather(1, label[:, None]).clamp_min(
+            1e-30).log().mean())
+    return nll
+
+
+def dp_grad_check(mx, sym, meshes, shapes, opt, inputs, w0, a0, tag):
+    """One fwd+bwd over ``meshes[n]`` (n > 1 positions) against
+    ``meshes[1]`` from ``w0`` (the grad program's eager first run): the
+    loss within ``DP_GRAD_TOL`` of dp 1's, every position holding the same
+    summed gradient, and each gradient within ``DP_GRAD_TOL`` of its
+    largest or, where larger, ``UPDATE_SENSITIVITY_FACTOR`` times how far
+    dp 1's own gradient moves when the parameters move by
+    +-``PERTURBATION`` (relative, seeded), measured here."""
+    n = max(meshes)
+    nll = _dp_nll(inputs["softmax_label"].reshape(-1).long())
+
+    def grads_at(k, point):
+        tr = _dp_trainer(mx, sym, meshes[k], shapes, *opt)
+        params, auxs = tr.place(point), tr.place(a0)
+        for name, v in inputs.items():
+            tr.input_buffers()[name].copy_(v)
+        outs = tr.grad_step(params, auxs)
+        for dev in dict.fromkeys(meshes[k].device_list):
+            torch.cuda.synchronize(dev)
+        g = {name: v.clone() for name, v in tr.grad_buffers().items()}
+        for p in range(1, k):
+            for name in g:
+                check(torch.equal(tr.grad_buffers(p)[name].to(g[name].device),
+                                  g[name]),
+                      "%s: position %d holds another summed gradient of %s"
+                      % (tag, p, name))
+        return nll(outs[0]), g
+
+    loss1, g1 = grads_at(1, w0)
+    loss2, g2 = grads_at(n, w0)
+    worst, rel = _worst_rel({k: v.to(g1[k].device) for k, v in g2.items()}, g1)
+    host = {k: v.cpu().numpy() for k, v in w0.items()}
+    sens, sens_at = 0.0, None
+    for sign in (1, -1):
+        gp = grads_at(1, {k: torch.tensor(v) for k, v in moved(
+            host, sign * PERTURBATION, 6).items()})[1]
+        at, r = _worst_rel(gp, g1)
+        if r > sens:
+            sens, sens_at = r, at
+    bound = max(DP_GRAD_TOL, UPDATE_SENSITIVITY_FACTOR * sens)
+    log("  %s one fwd+bwd, dp %d against dp 1: loss %.7f / %.7f; worst "
+        "gradient %s %.3e of its largest; dp 1's own gradient under a "
+        "+-%.0e parameter move: worst %s %.3e; bound max(%.0e, %.1f x that) "
+        "= %.3e" % (tag, n, loss2, loss1, worst, rel, PERTURBATION, sens_at,
+                    sens, DP_GRAD_TOL, UPDATE_SENSITIVITY_FACTOR, bound))
+    check(abs(loss2 - loss1) <= DP_GRAD_TOL * abs(loss1),
+          "%s: the dp %d loss is not the dp 1 loss" % (tag, n))
+    check(rel <= bound, "%s: dp %d gradients disagree with dp 1" % (tag, n))
+
+
 def dp_lm(mx, build, card):
     """30(a): the LM at TRAIN's widths, dp 2 on cuda:0 against dp 1."""
     from mxnet_tpu_torch.parallel import build_mesh
@@ -8302,50 +8384,8 @@ def dp_lm(mx, build, card):
     meshes = {1: build_mesh({"dp": 1}), 2: build_mesh({"dp": 2})}
     check([str(d) for d in meshes[2].device_list] == ["cuda:0", "cuda:0"],
           "build_mesh({'dp': 2}) is not two positions on cuda:0: %s" % meshes[2])
-    label = inputs["softmax_label"].reshape(-1).long()
-
-    def nll(probs):
-        return float(-probs.float().gather(1, label[:, None]).clamp_min(
-            1e-30).log().mean())
-
-    def grads_at(n, point):
-        """One fwd+bwd at ``point`` (the grad program's eager first run):
-        the loss and the summed gradients."""
-        tr = _dp_trainer(mx, sym, meshes[n], shapes, *opt)
-        params, auxs = tr.place(point), tr.place(a0)
-        for k, v in inputs.items():
-            tr.input_buffers()[k].copy_(v)
-        outs = tr.grad_step(params, auxs)
-        torch.cuda.synchronize()
-        g = {k: v.clone() for k, v in tr.grad_buffers().items()}
-        for p in range(1, n):
-            for k in g:
-                check(torch.equal(tr.grad_buffers(p)[k], g[k]),
-                      "30(a): position %d holds another summed gradient of "
-                      "%s" % (p, k))
-        return nll(outs[0]), g
-
-    loss1, g1 = grads_at(1, w0)
-    loss2, g2 = grads_at(2, w0)
-    worst, rel = _worst_rel(g2, g1)
-    host = {k: v.cpu().numpy() for k, v in w0.items()}
-    sens, sens_at = 0.0, None
-    for sign in (1, -1):
-        gp = grads_at(1, {k: torch.tensor(v) for k, v in moved(
-            host, sign * PERTURBATION, 6).items()})[1]
-        at, r = _worst_rel(gp, g1)
-        if r > sens:
-            sens, sens_at = r, at
-    bound = max(DP_GRAD_TOL, UPDATE_SENSITIVITY_FACTOR * sens)
-    log("  (a) one fwd+bwd, dp 2 against dp 1: loss %.7f / %.7f; worst "
-        "gradient %s %.3e of its largest; dp 1's own gradient under a "
-        "+-%.0e parameter move: worst %s %.3e; bound max(%.0e, %.1f x that) "
-        "= %.3e" % (loss2, loss1, worst, rel, PERTURBATION, sens_at, sens,
-                    DP_GRAD_TOL, UPDATE_SENSITIVITY_FACTOR, bound))
-    check(abs(loss2 - loss1) <= DP_GRAD_TOL * abs(loss1),
-          "30(a): the dp 2 loss is not the dp 1 loss")
-    check(rel <= bound, "30(a): dp 2 gradients disagree with dp 1")
-    del g1, g2
+    nll = _dp_nll(inputs["softmax_label"].reshape(-1).long())
+    dp_grad_check(mx, sym, meshes, shapes, opt, inputs, w0, a0, "(a)")
     # DP_LM_STEPS captured steps of each
     res, total = {}, {}
     for n, mesh in meshes.items():
@@ -8390,6 +8430,17 @@ def dp_lm(mx, build, card):
     return total
 
 
+def _apart(got, want, start):
+    """(worst name, its largest difference over the largest move of
+    ``want`` from ``start``, that move)."""
+    diff = {n: float((got[n].to(want[n].device) - want[n]).abs().max())
+            for n in want}
+    scale = max(float((want[n] - start[n].to(want[n].device)).abs().max())
+                for n in want)
+    worst = max(diff, key=diff.get)
+    return worst, diff[worst] / max(scale, 1e-30), scale
+
+
 def dp_resnet(mx, build, card):
     """30(b): ResNet-50 in bf16, dp 2 on cuda:0 against dp 1, held against
     the dp 1 run's own distance from float32."""
@@ -8406,18 +8457,20 @@ def dp_resnet(mx, build, card):
     w0, a0 = _dp_init(mx, sym, shapes)
     opt = ("sgd", {"learning_rate": 0.05, "momentum": 0.9,
                    "rescale_grad": 1.0 / RESNET_BATCH})
-    runs, first = {}, {}
+    runs, first, second = {}, {}, {}
     for tag, n, cd in (("dp 1", 1, "bfloat16"), ("dp 2", 2, "bfloat16"),
                        ("dp 1 float32", 1, None)):
         tr = _dp_trainer(mx, sym, build_mesh({"dp": n}), shapes, *opt,
                          compute_dtype=cd)
 
         def snap(outs, params, auxs, tag=tag, tr=tr):
-            if tag not in first:
-                first[tag] = ({k: tr.gather(k, v).clone()
-                               for k, v in params.items()},
-                              {k: tr.gather(k, v).clone()
-                               for k, v in auxs.items()})
+            # after the first step, and after the second for 31(b)
+            into = second if tag in first else first
+            if tag not in into:
+                into[tag] = ({k: tr.gather(k, v).clone()
+                              for k, v in params.items()},
+                             {k: tr.gather(k, v).clone()
+                              for k, v in auxs.items()})
 
         params, auxs, _, walls = _dp_steps(tr, w0, a0, inputs,
                                            DP_RESNET_STEPS, snap)
@@ -8427,20 +8480,11 @@ def dp_resnet(mx, build, card):
                      1e3 * walls[-1])
         del tr, params, auxs
         torch.cuda.empty_cache()
-    def apart(got, want, start):
-        """(worst name, its largest difference over the largest move of
-        ``want`` from ``start``)."""
-        diff = {n: float((got[n] - want[n]).abs().max()) for n in want}
-        scale = max(float((want[n] - start[n].to(want[n].device)).abs().max())
-                    for n in want)
-        worst = max(diff, key=diff.get)
-        return worst, diff[worst] / max(scale, 1e-30), scale
-
     for steps, res in ((1, first), (DP_RESNET_STEPS, runs)):
         for k, what, start in ((0, "parameters", w0),
                                (1, "moving statistics", a0)):
-            w2, r2, s2 = apart(res["dp 2"][k], res["dp 1"][k], start)
-            wf, rf, _ = apart(res["dp 1"][k], res["dp 1 float32"][k], start)
+            w2, r2, s2 = _apart(res["dp 2"][k], res["dp 1"][k], start)
+            wf, rf, _ = _apart(res["dp 1"][k], res["dp 1 float32"][k], start)
             log("  (b) ResNet-50 bf16 after %d step(s), %s (largest move from "
                 "the start %.4g): dp 2 against dp 1 worst %s %.3e of it; dp 1 "
                 "bf16 against float32 worst %s %.3e (bound: %.1fx that)"
@@ -8451,6 +8495,8 @@ def dp_resnet(mx, build, card):
                   "after %d step(s)" % (what, steps))
     log("  (b) last step %.3f ms at dp 2, %.3f ms at dp 1 (bf16), %s"
         % (runs["dp 2"][2], runs["dp 1"][2], card))
+    PHASE_NOTES["resnet_dp"] = dict(w0=w0, a0=a0, inputs=inputs, opt=opt,
+                                    second=second)
 
 
 def dp_param_rules(mx, build, card):
@@ -8500,29 +8546,61 @@ def dp_param_rules(mx, build, card):
 
 def dp_module_fit(mx, build, card):
     """30(d): ``Module.fit`` over every card's context, kvstore='device',
-    against one card's fit; only where two or more cards are visible."""
+    against one card's fit; only where two or more cards are visible.
+    Held to what 30(a) holds (C39): one fwd+bwd over the cards against dp
+    1 at 30(a)'s bound, and the fits' perplexities batch by batch within
+    ``DP_PPL_TOL``; the parameters' distance after the fits is logged (30(a)
+    measured 0.334 of a tensor's largest after 9 steps at dp 2 on one card,
+    from a ReLU kink, with the perplexities within 3.147e-05)."""
+    from mxnet_tpu_torch.parallel import build_mesh
+
     n = torch.cuda.device_count()
     if n < 2:
         log("  30(d) not run: %d card visible" % n)
         return {}
-    X, Y = lm_stream(4 * DP_LM_BATCH * n, seed=32)
-    res = {}
+    B = DP_LM_BATCH * n
+    sym = mx.models.transformer_lm(**TRAIN)
+    X, Y = lm_stream(4 * B, seed=32)
+    inputs = {"data": torch.tensor(X[:B], device="cuda:0"),
+              "softmax_label": torch.tensor(Y[:B], device="cuda:0")}
+    shapes = {k: tuple(v.shape) for k, v in inputs.items()}
+    w0, a0 = _dp_init(mx, sym, shapes)
+    cards = ["cuda:%d" % i for i in range(n)]
+    dp_grad_check(mx, sym, {1: build_mesh({"dp": 1}, cards[:1]),
+                            n: build_mesh({"dp": n}, cards)}, shapes,
+                  ("adam", {"learning_rate": TRAIN_LR, "rescale_grad": 1.0 / B}),
+                  inputs, w0, a0, "30(d)")
+    res, ppl = {}, {}
     _zero(build)
     for tag, ctx in (("one card", [mx.gpu(0)]),
                      ("%d cards" % n, [mx.gpu(i) for i in range(n)])):
-        mod = mx.mod.Module(mx.models.transformer_lm(**TRAIN), context=ctx)
-        mod.fit(mx.io.NDArrayIter(X, Y, batch_size=DP_LM_BATCH * n), num_epoch=1,
+        seen = ppl.setdefault(tag, [])
+
+        def per_batch(param, seen=seen):
+            seen.append(param.eval_metric.get()[1])
+            param.eval_metric.reset()
+
+        mod = mx.mod.Module(sym, context=ctx)
+        mod.fit(mx.io.NDArrayIter(X, Y, batch_size=B), num_epoch=1,
                 kvstore="device", optimizer="adam",
                 optimizer_params={"learning_rate": TRAIN_LR},
+                eval_metric=mx.metric.Perplexity(None),
+                batch_end_callback=per_batch,
                 initializer=mx.init.Xavier(rng=torch.Generator().manual_seed(0)))
         check(mod._fused is not None and mod._fused.trainer.dp == len(ctx),
               "30(d) %s: not fused over %d positions" % (tag, len(ctx)))
         res[tag] = {k: v.data.to("cuda:0") for k, v in mod.get_params()[0].items()}
+    one, many = ppl["one card"], ppl["%d cards" % n]
+    gap = max(abs(a - b) / b for a, b in zip(many, one))
     worst, rel = _worst_rel(res["%d cards" % n], res["one card"])
-    log("  30(d) %d cards against one: worst %s %.3e (tol %.0e)"
-        % (n, worst, rel, FUSED_CLASSIC_TOL))
-    check(rel <= FUSED_CLASSIC_TOL, "30(d): the fit over %d cards parts from "
-          "one card's" % n)
+    log("  30(d) %d cards against one: perplexities %s against %s, worst %.3e "
+        "(tol %.0e); worst parameter %s %.3e of its largest (logged)"
+        % (n, ["%.3f" % v for v in many], ["%.3f" % v for v in one], gap,
+           DP_PPL_TOL, worst, rel))
+    check(len(many) == len(one) == 4, "30(d): %d and %d batches"
+          % (len(many), len(one)))
+    check(gap <= DP_PPL_TOL, "30(d): the fit over %d cards parts from one "
+          "card's perplexities" % n)
     return _counts(build)
 
 
@@ -8541,6 +8619,337 @@ def run_dp_phase(mx, build, card):
         % (time.perf_counter() - t0,
            {k: total.get(k, 0) for k in ("flash_fwd", "flash_bwd_dkv",
                                          "flash_bwd_dq")}))
+    return total
+
+
+# ------------- A6d's remainder: the data-parallel train artifact (phase 31)
+DPA_BATCH = ART_TRAIN_BATCH   # 31(a): the LM's global batch of 32 x 128
+DPA_STEPS = 8                 # 31(a): steps compared, cycling phase 5's 4
+DPA_TIMED_STEPS = 5           # 31(a): runtime steps timed after them
+DPA_RESNET_STEPS = 2          # 31(b): 30(b)'s inputs, SGD with momentum
+DPA_MLP_DEVICES = 8           # 31(c): tests/test_train_native_spmd.py's run
+DPA_MLP_STEPS = 300
+# 31(a): each runtime step at dp 2 against SPMDTrainer's at dp 2, per
+# parameter relative to its largest value: 28(f)'s yardstick for the
+# runtime against the fused step (the same kernels in the same order;
+# bitwise so far)
+DPA_STEP_TOL = 1e-6
+# 31(d): the LM executor bound at batch 32, reshaped to these
+RESHAPE_BATCHES = (16, 8)
+
+
+def _dp_artifact_steps(mx, P, lib, path, X, Y, lr, n, d):
+    """The runtime's steps of the LM artifact at ``path`` (``n``
+    positions) over the ``ART_BATCHES`` batches of (X, Y), cycled: the
+    parameters, the perplexity and the runtime's K1/K2a/K2b launches of
+    each step (read every step), and the mean ms of ``DPA_TIMED_STEPS``
+    steps after them."""
+    import os
+
+    L, T, B, V = (TRAIN["num_layers"], TRAIN["seq_len"], DPA_BATCH,
+                  TRAIN["vocab_size"])
+    tr = NativeTrainer(lib, path)
+    after, ppl, launches = [], [], []
+    for s in range(DPA_STEPS):
+        k = s % ART_BATCHES
+
+        def run(k=k):
+            tr.step(X[k * B:(k + 1) * B], Y[k * B:(k + 1) * B], lr)
+            torch.cuda.synchronize()
+            return 1
+
+        launches.append(_native_launched(P, run, {f: n * L for f in FLASH},
+                                         "31(a) dp %d step %d" % (n, s + 1)))
+        prob = tr.output((B * T, V))
+        lab = Y[k * B:(k + 1) * B].reshape(-1).astype(np.int64)
+        ppl.append(math.exp(float(-np.log(np.maximum(
+            prob[np.arange(B * T), lab], 1e-30)).mean())))
+        tr.save(os.path.join(d, "dp%d_step.params" % n))
+        after.append({key[4:]: v.asnumpy() for key, v in mx.nd.load(
+            os.path.join(d, "dp%d_step.params" % n)).items()})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DPA_TIMED_STEPS):
+        tr.step(X[:B], Y[:B], lr)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / DPA_TIMED_STEPS
+    tr.free()
+    return after, ppl, launches, ms
+
+
+def _spmd_lm_per_step(mx, sym, mesh, init, X, Y, lr):
+    """SPMDTrainer's steps over ``mesh`` (its first eager, the rest one
+    captured graph) over the same cycled batches: the parameters after
+    each."""
+    B, T = DPA_BATCH, TRAIN["seq_len"]
+    tr = _dp_trainer(mx, sym, mesh, {"data": (B, T), "softmax_label": (B, T)},
+                     "adam", {"learning_rate": lr})
+    params = tr.place({n: torch.tensor(init[n], device="cuda:0")
+                       for n in tr.param_names})
+    states = tr.init_opt_state()
+    buf = tr.input_buffers()
+    after = []
+    for s in range(DPA_STEPS):
+        k = s % ART_BATCHES
+        buf["data"].copy_(torch.tensor(X[k * B:(k + 1) * B]))
+        buf["softmax_label"].copy_(torch.tensor(Y[k * B:(k + 1) * B]))
+        tr.step(params, {}, states)
+        after.append({n: tr.gather(n, v).cpu().numpy().copy()
+                      for n, v in params.items()})
+    return after
+
+
+def dp_artifact_lm(mx, P, lib, d, card):
+    """31(a): the LM at full width exported at dp 2 and at dp 1 and trained
+    by the runtime in this process, each dp 2 step against SPMDTrainer's
+    at dp 2 on the same mesh and batches."""
+    import os
+
+    from mxnet_tpu_torch.parallel import build_mesh
+
+    L, T, B = TRAIN["num_layers"], TRAIN["seq_len"], DPA_BATCH
+    lr = float(np.float32(TRAIN_LR))
+    sym = mx.models.transformer_lm(**TRAIN)
+    mod = mx.mod.Module(sym, context=mx.gpu(0))
+    mod.bind(data_shapes=[("data", (B, T))],
+             label_shapes=[("softmax_label", (B, T))])
+    mod.init_params(initializer=mx.init.Xavier(
+        rng=torch.Generator().manual_seed(0)))     # phase 5's initializer
+    init = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+    del mod
+    X, Y = lm_stream(B * ART_BATCHES)
+    arts, manifests = {}, {}
+    for n in (2, 1):
+        arts[n] = os.path.join(d, "lm_dp%d.mxa" % n)
+        manifests[n] = mx.export_train_artifact(
+            sym, {"data": (B, T), "softmax_label": (B, T)}, arts[n],
+            optimizer="adam", optimizer_params={"learning_rate": lr},
+            arg_params=init, num_devices=n)
+    check(manifests[2]["num_devices"] == 2 and {a["role"]: a["sharding"] for a
+          in manifests[2]["args"]}["data"] == "batch",
+          "31(a): the dp 2 manifest: %s" % manifests[2]["args"][-4:])
+    runs = {n: _dp_artifact_steps(mx, P, lib, arts[n], X, Y, lr, n, d)
+            for n in (2, 1)}
+    want = _spmd_lm_per_step(mx, sym, build_mesh({"dp": 2}), init, X, Y, lr)
+    worst, bitwise = [], 0
+    for s, (got, ref) in enumerate(zip(runs[2][0], want)):
+        rel = {n: float(np.abs(got[n] - ref[n]).max())
+               / max(float(np.abs(ref[n]).max()), 1e-30) for n in ref}
+        name = max(rel, key=rel.get)
+        worst.append((name, rel[name]))
+        bitwise += all(np.array_equal(got[n], ref[n]) for n in ref)
+        check(rel[name] <= DPA_STEP_TOL, "31(a) step %d: the runtime's dp 2 "
+              "parameters part from SPMDTrainer's dp 2: %s %.3e of its largest"
+              % (s + 1, name, rel[name]))
+    ppl2, ppl1 = runs[2][1], runs[1][1]
+    gap = max(abs(a - b) / b for a, b in zip(ppl2, ppl1))
+    loss2, loss1 = math.log(ppl2[0]), math.log(ppl1[0])
+    check(abs(loss2 - loss1) <= DP_GRAD_TOL * abs(loss1),
+          "31(a): the first step's loss at dp 2 (%.7f) is not dp 1's (%.7f)"
+          % (loss2, loss1))
+    check(gap <= DP_PPL_TOL, "31(a): the dp 2 perplexities %s part from dp "
+          "1's %s" % (ppl2, ppl1))
+    per_step = sorted({tuple(r[k] for k in FLASH) for r in runs[2][2]})
+    log("  (a) the LM (batch %d x %d, Adam lr %g, phase 5's initial "
+        "parameters) exported at dp 2 and dp 1, %d runtime steps each: "
+        "K1/K2a/K2b per dp 2 step %s from the runtime's counters (dp 1: %s); "
+        "against SPMDTrainer at dp 2 per step worst %s (tol %.0e of the "
+        "largest), %d of %d steps bitwise; the first step's loss %.7f / "
+        "%.7f at dp 2 / dp 1 (bitwise: %s); perplexities %s against %s, "
+        "worst %.3e (tol %.0e); runtime step %.3f ms at dp 2 against %.3f "
+        "ms at dp 1 (%.2fx), eager, %s"
+        % (B, T, lr, DPA_STEPS, per_step,
+           sorted({tuple(r[k] for k in FLASH) for r in runs[1][2]}),
+           ["%s %.3e" % w for w in worst], DPA_STEP_TOL, bitwise, DPA_STEPS,
+           loss2, loss1, ppl2[0] == ppl1[0], ["%.3f" % v for v in ppl2],
+           ["%.3f" % v for v in ppl1], gap, DP_PPL_TOL, runs[2][3], runs[1][3],
+           runs[2][3] / runs[1][3], card))
+    return {k: sum(r[k] for r in runs[2][2] + runs[1][2]) for k in FLASH}
+
+
+def dp_artifact_resnet(mx, P, lib, d):
+    """31(b): ResNet-50 in bf16 at batch 32 exported at dp 2 and trained by
+    the runtime for 2 steps from 30(b)'s start on 30(b)'s inputs, against
+    30(b)'s SPMDTrainer at dp 2 after its second step (BatchNorm's global
+    statistics at full width)."""
+    import os
+
+    notes = PHASE_NOTES["resnet_dp"]
+    sym = mx.models.resnet(**RESNET)
+    inputs = {k: v.cpu().numpy() for k, v in notes["inputs"].items()}
+    w0 = {k: v.cpu().numpy() for k, v in notes["w0"].items()}
+    a0 = {k: v.cpu().numpy() for k, v in notes["a0"].items()}
+    opt, opt_params = notes["opt"]
+    art = os.path.join(d, "resnet_dp2.mxa")
+    mx.export_train_artifact(
+        sym, {k: v.shape for k, v in inputs.items()}, art, optimizer=opt,
+        optimizer_params=opt_params, arg_params=w0, aux_params=a0,
+        compute_dtype="bfloat16", num_devices=2)
+    tr = NativeTrainer(lib, art)
+    for _ in range(DPA_RESNET_STEPS):
+        tr.step(inputs["data"], inputs["softmax_label"],
+                opt_params["learning_rate"])
+    tr.save(os.path.join(d, "resnet_dp2.params"))
+    tr.free()
+    saved = mx.nd.load(os.path.join(d, "resnet_dp2.params"))
+    got = ({k[4:]: v.data for k, v in saved.items() if k.startswith("arg:")},
+           {k[4:]: v.data for k, v in saved.items() if k.startswith("aux:")})
+    second = notes["second"]
+    for k, what, start in ((0, "parameters", notes["w0"]),
+                           (1, "moving statistics", notes["a0"])):
+        w2, r2, s2 = _apart(got[k], second["dp 2"][k], start)
+        wf, rf, _ = _apart(second["dp 1"][k], second["dp 1 float32"][k], start)
+        same = all(torch.equal(got[k][n].to(v.device), v)
+                   for n, v in second["dp 2"][k].items())
+        log("  (b) ResNet-50 bf16 at dp 2 through the runtime after %d steps, "
+            "%s (largest move from the start %.4g): against 30(b)'s "
+            "SPMDTrainer at dp 2 worst %s %.3e of it (bitwise: %s); 30(b)'s "
+            "dp 1 bf16 against float32 %s %.3e (bound: %.1fx that)"
+            % (DPA_RESNET_STEPS, what, s2, w2, r2, same, wf, rf,
+               DP_RESNET_FACTOR))
+        check(s2 > 0, "31(b): the %s did not move" % what)
+        check(r2 <= DP_RESNET_FACTOR * rf, "31(b): the runtime's dp 2 %s part "
+              "from SPMDTrainer's beyond bf16's own distance" % what)
+    del PHASE_NOTES["resnet_dp"]
+
+
+def dp_artifact_client_start(mx, paths, d):
+    """31(c): the JAX package's C training client, unchanged, trains a dp 8
+    MLP artifact with its positions on cuda:0 (C41), in a process of its
+    own: started here, read by :func:`dp_artifact_client_wait`."""
+    import os
+
+    from mxnet_tpu_torch import _predict_native
+
+    data = mx.sym.Variable("data")
+    net = mx.sym.FullyConnected(data, num_hidden=16, name="fc1")
+    net = mx.sym.Activation(net, act_type="relu")
+    net = mx.sym.FullyConnected(net, num_hidden=3, name="fc2")
+    net = mx.sym.SoftmaxOutput(net, name="softmax")
+    art = os.path.join(d, "mlp_dp%d.mxa" % DPA_MLP_DEVICES)
+    rs = np.random.RandomState(5)
+    init = {"fc1_weight": rs.randn(16, 8).astype(np.float32) * 0.3,
+            "fc1_bias": np.zeros(16, np.float32),
+            "fc2_weight": rs.randn(3, 16).astype(np.float32) * 0.3,
+            "fc2_bias": np.zeros(3, np.float32)}
+    m = mx.export_train_artifact(
+        net, {"data": (32, 8)}, art, optimizer="sgd",
+        optimizer_params={"learning_rate": 0.1, "momentum": 0.9}, seed=3,
+        num_devices=DPA_MLP_DEVICES, arg_params=init)
+    check(m["num_devices"] == DPA_MLP_DEVICES and m["platform"] == "cuda",
+          "31(c): the manifest says %s devices on %s" % (m["num_devices"],
+                                                         m["platform"]))
+    rs = np.random.RandomState(11)
+    cent = rs.randn(3, 8).astype(np.float32) * 3
+    y = (np.arange(128) % 3).astype(np.float32)
+    x = (cent[y.astype(int)] + rs.randn(128, 8)).astype(np.float32)
+    x.tofile(os.path.join(d, "mlp_d.f32"))
+    y.tofile(os.path.join(d, "mlp_l.f32"))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [paths["train"], art, os.path.join(d, "mlp_d.f32"),
+         os.path.join(d, "mlp_l.f32"), "32", str(DPA_MLP_STEPS), "0.05",
+         os.path.join(d, "mlp_dp.params"), os.path.join(d, "mlp_loss.txt")],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=_predict_native.client_env())
+    return proc, t0
+
+
+def dp_artifact_client_wait(mx, started, d):
+    import os
+
+    proc, t0 = started
+    out, err = proc.communicate(timeout=ART_TIMEOUT)
+    check(proc.returncode == 0, "31(c): train_native_client.c exited %d:\n%s"
+          "\n%s" % (proc.returncode, out[-2000:], err[-2000:]))
+    losses = [float(line.split()[1])
+              for line in open(os.path.join(d, "mlp_loss.txt"))]
+    check(losses[-1] < losses[0] * 0.5, "31(c): the dp %d MLP's loss did not "
+          "halve: %s" % (DPA_MLP_DEVICES, losses[::50]))
+    saved = mx.nd.load(os.path.join(d, "mlp_dp.params"))
+    check(sorted(saved) == ["arg:fc1_bias", "arg:fc1_weight", "arg:fc2_bias",
+                            "arg:fc2_weight"], "31(c): saved %s" % sorted(saved))
+    log("  (c) train_native_client.c (unchanged) trained the dp %d MLP "
+        "artifact with its %d positions on cuda:0 (%d card visible), %d "
+        "steps: loss %.4f -> %.4f; %.1f s"
+        % (DPA_MLP_DEVICES, DPA_MLP_DEVICES, torch.cuda.device_count(),
+           DPA_MLP_STEPS, losses[0], losses[-1], time.perf_counter() - t0))
+
+
+def executor_reshape(mx, build):
+    """31(d): ``Executor.reshape`` of the LM executor bound at batch 32 on
+    the card to batches 16 and 8: the parameters the same arrays (the same
+    storage), each forward through K1 once per layer, the logits held to
+    the CPU's at the same batch."""
+    L, T = TRAIN["num_layers"], TRAIN["seq_len"]
+    sym = mx.models.transformer_lm(**TRAIN)
+    group = mx.sym.Group([sym, sym.get_internals()["lm_head_output"]])
+    w0, _ = _dp_init(mx, sym, {"data": (DP_LM_BATCH, T),
+                               "softmax_label": (DP_LM_BATCH, T)})
+    ex = group.simple_bind(mx.gpu(0), grad_req="null",
+                           data=(DP_LM_BATCH, T), softmax_label=(DP_LM_BATCH, T))
+    for n, v in w0.items():
+        ex.arg_dict[n][:] = v
+    X, _ = lm_stream(DP_LM_BATCH, seed=33)
+    cpu = group.simple_bind(mx.cpu(), grad_req="null", data=(8, T),
+                            softmax_label=(8, T))
+    report, launches = [], 0
+    for b in RESHAPE_BATCHES:
+        new = ex.reshape(data=(b, T), softmax_label=(b, T))
+        shared = all(new.arg_dict[n] is ex.arg_dict[n]
+                     and new.arg_dict[n].data.data_ptr()
+                     == ex.arg_dict[n].data.data_ptr() for n in w0)
+        check(shared, "31(d): batch %d does not share the parameters' storage"
+              % b)
+        check(tuple(new.arg_dict["data"].shape) == (b, T)
+              and float(new.arg_dict["data"].data.abs().max()) == 0.0,
+              "31(d): batch %d's data is not new zeros" % b)
+        new.arg_dict["data"][:] = X[:b]
+        _zero(build)
+        logits = new.forward(is_train=False)[1].data
+        torch.cuda.synchronize()
+        counts = _counts(build)
+        check(counts["flash_fwd"] == L and counts["flash_bwd_dkv"] == 0,
+              "31(d): batch %d's forward launched %s" % (b, counts))
+        launches += counts["flash_fwd"]
+        cpu_b = cpu.reshape(data=(b, T), softmax_label=(b, T))
+        for n, v in w0.items():
+            cpu_b.arg_dict[n][:] = v.cpu()
+        cpu_b.arg_dict["data"][:] = X[:b]
+        want = cpu_b.forward(is_train=False)[1].data
+        err = float((logits.cpu() - want).abs().max())
+        check(err <= LOGIT_TOL, "31(d): batch %d's logits against the CPU: "
+              "%.3e" % (b, err))
+        report.append("batch %d: K1 %d, logits %.3e" % (b, counts["flash_fwd"],
+                                                        err))
+    log("  (d) Executor.reshape of the LM executor bound at batch %d to %s: "
+        "the parameters the same arrays and storage, new zeros for data; %s "
+        "(tol %.0e against the CPU)" % (DP_LM_BATCH, RESHAPE_BATCHES,
+                                        "; ".join(report), LOGIT_TOL))
+    return launches
+
+
+def run_dp_artifact_phase(mx, build, card, work, compiled):
+    """Phase 31 (see the module docstring): the launches of its main paths,
+    the runtime's counters and the Python wrappers' (31(d))."""
+    import os
+
+    from mxnet_tpu_torch import _predict_native as P
+
+    t0 = time.perf_counter()
+    paths, _ = compiled
+    lib = P.load()
+    d = os.path.join(work, "native_rt")
+    total = dp_artifact_lm(mx, P, lib, d, card)
+    torch.cuda.empty_cache()
+    client = dp_artifact_client_start(mx, paths, d)
+    dp_artifact_resnet(mx, P, lib, d)
+    torch.cuda.empty_cache()
+    total["flash_fwd"] += executor_reshape(mx, build)
+    dp_artifact_client_wait(mx, client, d)
+    torch.cuda.empty_cache()
+    log("  phase 31: %.1f s; K1/K2a/K2b launches on its main paths %s"
+        % (time.perf_counter() - t0, [total[k] for k in FLASH]))
     return total
 
 
@@ -8892,9 +9301,9 @@ def _main(work):
     log("== 28. A8b, the Python-free artifact: the LM predicted and trained "
         "by compiled C clients from .mxa artifacts through the port's "
         "kernels; ResNet-50 and the wide route (%s)" % card)
+    art_compiled = native_rt_compile(work, rt_proc)
     for name, n in run_artifact_phase(mx, build, card, t_params, w_params,
-                                      work, native_rt_compile(work, rt_proc)
-                                      ).items():
+                                      work, art_compiled).items():
         next(r for r in rows if r["name"] == name)["launches"] += n
 
     log("== 29. the repo tools on the card: bench_pipeline, bandwidth, "
@@ -8909,6 +9318,13 @@ def _main(work):
         row = next((r for r in rows if r["name"] == name), None)
         if row is not None:
             row["launches"] += n
+
+    log("== 31. A6d's remainder: the data-parallel train artifact through the "
+        "Python-free runtime (the LM at dp 2, ResNet-50's BatchNorm, the C "
+        "client at dp 8); Executor.reshape (%s)" % card)
+    for name, n in run_dp_artifact_phase(mx, build, card, work,
+                                         art_compiled).items():
+        next(r for r in rows if r["name"] == name)["launches"] += n
 
     log(card)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -56,7 +56,7 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 _ROOT = os.path.dirname(_PKG)
 SRC_DIR = os.path.join(_PKG, "csrc", "native_rt")
 BUILD_DIR = os.path.join(_ROOT, "build", "mxnet_tpu_torch")
-SOURCES = ("container.cc", "graph.cc", "ops.cc", "attention.cc",
+SOURCES = ("container.cc", "graph.cc", "ops.cc", "attention.cc", "dp.cc",
            "predict_api.cc", "train_api.cc")
 LIB_NAME = "libmxtpu_predict_native.so"
 PROGRAM = "g++.native_rt"

@@ -76,6 +76,40 @@ std::optional<std::vector<int64_t>> Attrs::shape(const std::string& k) const {
 }
 
 // ---- parsing ------------------------------------------------------------------
+// the program's "dp" entry (absent in a one-position program): a form per
+// node and a batch axis (null: none; "unknown") per node output
+static bool parse_dp_plan(const JVal* dp, Graph* g, std::string* err) {
+  if (!dp) return true;
+  const JVal* n = dp->get("num_devices");
+  const JVal* forms = dp->get("forms");
+  const JVal* axes = dp->get("batch_axes");
+  const size_t nodes = g->nodes.size();
+  if (!n || n->kind != JVal::NUM || n->num < 1 || !forms || !axes ||
+      forms->kind != JVal::ARR || axes->kind != JVal::ARR ||
+      forms->arr.size() != nodes || axes->arr.size() != nodes) {
+    *err = ".mxa: the program's data-parallel plan is malformed";
+    return false;
+  }
+  g->dp.n = static_cast<int>(n->num);
+  for (size_t i = 0; i < nodes; ++i) {
+    const JVal& f = forms->arr[i];
+    const JVal& a = axes->arr[i];
+    if ((f.kind != JVal::STR && f.kind != JVal::NUL) || a.kind != JVal::ARR) {
+      *err = ".mxa: the data-parallel plan of node '" + g->nodes[i].name +
+             "' is malformed";
+      return false;
+    }
+    g->dp.forms.push_back(f.kind == JVal::STR ? f.str : "");
+    std::vector<int> out;
+    for (const auto& x : a.arr)
+      out.push_back(x.kind == JVal::NUM ? static_cast<int>(x.num)
+                    : x.kind == JVal::NUL ? kNoBatch
+                                          : kUnknownAxis);
+    g->dp.axes.push_back(std::move(out));
+  }
+  return true;
+}
+
 bool parse_graph(const std::string& json, Graph* g, std::string* err) {
   JVal j;
   if (!json_parse(json.data(), json.size(), &j) || j.kind != JVal::OBJ) {
@@ -132,14 +166,16 @@ bool parse_graph(const std::string& json, Graph* g, std::string* err) {
     }
     g->heads.push_back(h);
   }
-  return true;
+  return parse_dp_plan(j.get("dp"), g, err);
 }
 
 // ---- running ----------------------------------------------------------------------
-std::vector<std::vector<at::Tensor>> run_graph(
-    const Graph& g, std::map<std::string, at::Tensor>* vars, const OpCtx& ctx,
+std::vector<std::vector<std::vector<at::Tensor>>> run_graph(
+    const Graph& g, std::vector<std::map<std::string, at::Tensor>>* vars,
+    const std::vector<OpCtx>& ctxs,
     const std::vector<std::pair<int, int>>& keep) {
   const size_t n = g.nodes.size();
+  const size_t P = ctxs.size();
   // last reader of each node: its outputs are dropped after it ran
   std::vector<size_t> last(n, 0);
   std::vector<char> pinned(n, 0);
@@ -148,41 +184,49 @@ std::vector<std::vector<at::Tensor>> run_graph(
   for (const auto& h : g.heads) pinned[h.first] = 1;
   for (const auto& k : keep) pinned[k.first] = 1;
 
-  std::vector<std::vector<at::Tensor>> vals(n);
+  // vals[i][p]: node i's outputs at position p
+  std::vector<std::vector<std::vector<at::Tensor>>> vals(
+      n, std::vector<std::vector<at::Tensor>>(P));
   for (size_t i = 0; i < n; ++i) {
     const Node& node = g.nodes[i];
     if (node.op == "null") {
-      auto it = vars->find(node.name);
-      if (it == vars->end())
-        throw RtError("program variable '" + node.name +
-                      "' has no value in the artifact");
-      vals[i] = {it->second};
+      for (size_t p = 0; p < P; ++p) {
+        auto it = (*vars)[p].find(node.name);
+        if (it == (*vars)[p].end())
+          throw RtError("program variable '" + node.name +
+                        "' has no value in the artifact");
+        vals[i][p] = {it->second};
+      }
       continue;
     }
-    std::vector<at::Tensor> in;
-    in.reserve(node.inputs.size());
-    for (const auto& e : node.inputs) {
-      const auto& src = vals[e.first];
-      if (static_cast<size_t>(e.second) >= src.size())
-        throw RtError("op " + node.name + ": input from '" +
-                      g.nodes[e.first].name + "' output " +
-                      std::to_string(e.second) + " does not exist");
-      in.push_back(src[e.second]);
+    std::vector<std::vector<at::Tensor>> in(P);
+    for (size_t p = 0; p < P; ++p) {
+      in[p].reserve(node.inputs.size());
+      for (const auto& e : node.inputs) {
+        const auto& src = vals[e.first][p];
+        if (static_cast<size_t>(e.second) >= src.size())
+          throw RtError("op " + node.name + ": input from '" +
+                        g.nodes[e.first].name + "' output " +
+                        std::to_string(e.second) + " does not exist");
+        in[p].push_back(src[e.second]);
+      }
     }
-    OpOut out = run_op(node, in, ctx);
-    vals[i] = std::move(out.outputs);
-    for (auto& na : out.new_aux) {
-      const auto& src = node.inputs.at(na.first);
-      const Node& var = g.nodes[src.first];
-      if (var.op != "null")
-        throw RtError("op " + node.name + ": an auxiliary state that is not "
-                      "a variable");
-      (*vars)[var.name] = na.second;
+    std::vector<OpOut> out = run_node(g, static_cast<int>(i), in, ctxs);
+    for (size_t p = 0; p < P; ++p) {
+      vals[i][p] = std::move(out[p].outputs);
+      for (auto& na : out[p].new_aux) {
+        const auto& src = node.inputs.at(na.first);
+        const Node& var = g.nodes[src.first];
+        if (var.op != "null")
+          throw RtError("op " + node.name + ": an auxiliary state that is "
+                        "not a variable");
+        (*vars)[p][var.name] = na.second;
+      }
     }
     for (const auto& e : node.inputs)
       if (last[e.first] == i && !pinned[e.first] &&
           g.nodes[e.first].op != "null")
-        vals[e.first].clear();
+        for (auto& v : vals[e.first]) v.clear();
   }
   return vals;
 }

@@ -135,8 +135,24 @@ struct SoftmaxAttrs {
   double grad_scale, ignore_label, smooth;
   bool multi, use_ignore, preserve, out_grad;
   std::string norm;
+  // loss.py's denom: a given count (a number or a tensor) in place of
+  // norm's, or None
+  c10::IValue denom;
 };
 
+// `grad` over the count it divides by: s.denom where given, else the
+// normalization's (the batch under 'batch', the labels not ignored where
+// `by_valid`)
+at::Tensor normalize(const at::Tensor& grad, const at::Tensor& valid,
+                     int64_t batch, bool by_valid, const SoftmaxAttrs& s) {
+  if (s.denom.isTensor()) return grad / s.denom.toTensor();
+  if (s.denom.isDouble()) return grad / s.denom.toDouble();
+  if (s.norm == "batch") return grad / static_cast<double>(batch);
+  if (by_valid) return grad / at::clamp_min(valid.sum(), 1.0);
+  return grad;
+}
+
+// the head's gradient
 at::Tensor softmax_grad(const at::Tensor& p, const at::Tensor& label,
                         const SoftmaxAttrs& s) {
   int64_t ignore = static_cast<int64_t>(s.ignore_label);
@@ -146,11 +162,8 @@ at::Tensor softmax_grad(const at::Tensor& p, const at::Tensor& label,
     grad = minus_onehot(p, lab, 1, 1.0, 0.0);
     at::Tensor valid = s.use_ignore ? (lab != ignore).to(p.scalar_type())
                                     : at::ones(lab.sizes(), p.options());
-    grad = grad * valid.unsqueeze(1);
-    if (s.norm == "batch")
-      grad = grad / static_cast<double>(p.size(0));
-    else if (s.norm != "null")
-      grad = grad / at::clamp_min(valid.sum(), 1.0);
+    grad = normalize(grad * valid.unsqueeze(1), valid, p.size(0),
+                     s.norm != "null", s);
   } else {
     at::Tensor flat = p.reshape({p.size(0), -1});
     int64_t nclass = flat.size(1);
@@ -163,11 +176,8 @@ at::Tensor softmax_grad(const at::Tensor& p, const at::Tensor& label,
       grad = minus_onehot(flat, lab, 1, 1.0, 0.0);
     at::Tensor valid = s.use_ignore ? (lab != ignore).to(p.scalar_type())
                                     : at::ones(lab.sizes(), p.options());
-    grad = grad * valid.unsqueeze(1);
-    if (s.norm == "batch")
-      grad = grad / static_cast<double>(p.size(0));
-    else if (s.norm == "valid")
-      grad = grad / at::clamp_min(valid.sum(), 1.0);
+    grad = normalize(grad * valid.unsqueeze(1), valid, p.size(0),
+                     s.norm == "valid", s);
     grad = grad.reshape(p.sizes());
   }
   return grad * s.grad_scale;
@@ -178,6 +188,7 @@ struct SoftmaxOutputFn : public torch::autograd::Function<SoftmaxOutputFn> {
                             at::Tensor label, SoftmaxAttrs s) {
     at::Tensor p = softmax_fwd(data, s.multi, s.preserve);
     ctx->save_for_backward({p, label});
+    ctx->saved_data["denom"] = s.denom;
     ctx->saved_data["grad_scale"] = s.grad_scale;
     ctx->saved_data["ignore_label"] = s.ignore_label;
     ctx->saved_data["smooth"] = s.smooth;
@@ -199,6 +210,7 @@ struct SoftmaxOutputFn : public torch::autograd::Function<SoftmaxOutputFn> {
     s.preserve = ctx->saved_data["preserve"].toBool();
     s.out_grad = ctx->saved_data["out_grad"].toBool();
     s.norm = ctx->saved_data["norm"].toStringRef();
+    s.denom = ctx->saved_data["denom"];
     at::Tensor grad = softmax_grad(saved[0], saved[1], s);
     if (s.out_grad) grad = grad * g[0];
     return {grad, at::Tensor(), at::Tensor()};
@@ -519,17 +531,7 @@ bool build_table() {
   reg({"SoftmaxOutput", "Softmax"}, [](const Node&, const Attrs& a,
                                        const Vec& in, const OpCtx&) {
     need(a, in, 2);
-    SoftmaxAttrs s;
-    s.grad_scale = a.f("grad_scale", 1.0);
-    s.ignore_label = a.f("ignore_label", -1.0);
-    s.smooth = a.f("smooth_alpha", 0.0);
-    s.multi = a.b("multi_output", false);
-    s.use_ignore = a.b("use_ignore", false);
-    s.preserve = a.b("preserve_shape", false);
-    s.out_grad = a.b("out_grad", false);
-    s.norm = a.str("normalization", "null");
-    at::Tensor label = in[1].defined() ? in[1] : at::zeros({0}, in[0].options());
-    return one(SoftmaxOutputFn::apply(in[0], label, s));
+    return one(softmax_output(a, in[0], in[1], c10::IValue()));
   });
   // ---- attention (attention.cc)
   reg({"_contrib_MultiHeadAttention"}, [](const Node&, const Attrs& a,
@@ -575,5 +577,21 @@ std::vector<size_t> index_arg_positions(const std::string& op) {
 }
 
 bool op_is_stochastic(const Node& n) { return n.op == "Dropout"; }
+
+at::Tensor softmax_output(const Attrs& a, const at::Tensor& data,
+                          const at::Tensor& label, const c10::IValue& denom) {
+  SoftmaxAttrs s;
+  s.grad_scale = a.f("grad_scale", 1.0);
+  s.ignore_label = a.f("ignore_label", -1.0);
+  s.smooth = a.f("smooth_alpha", 0.0);
+  s.multi = a.b("multi_output", false);
+  s.use_ignore = a.b("use_ignore", false);
+  s.preserve = a.b("preserve_shape", false);
+  s.out_grad = a.b("out_grad", false);
+  s.norm = a.str("normalization", "null");
+  s.denom = denom;
+  at::Tensor lab = label.defined() ? label : at::zeros({0}, data.options());
+  return SoftmaxOutputFn::apply(data, lab, s);
+}
 
 }  // namespace mxt_rt

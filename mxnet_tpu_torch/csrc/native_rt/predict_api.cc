@@ -94,17 +94,17 @@ bool find_output(const Graph& g, const std::string& key,
 
 void forward(Predictor* p) {
   at::NoGradGuard no_grad;
-  std::map<std::string, at::Tensor> vars = p->params;
+  std::vector<std::map<std::string, at::Tensor>> vars{p->params};
   for (size_t i = 0; i < p->inputs.size(); ++i)
-    vars[p->inputs[i].name] =
+    vars[0][p->inputs[i].name] =
         p->inputs[i].kept ? p->input_vals[i] : at::Tensor();
-  OpCtx ctx;
-  ctx.is_train = false;
-  ctx.device = p->device;
+  std::vector<OpCtx> ctx(1);
+  ctx[0].is_train = false;
+  ctx[0].device = p->device;
   auto vals = run_graph(p->graph, &vars, ctx, p->outs);
   p->out_vals.clear();
   for (const auto& e : p->outs) {
-    const auto& v = vals[e.first];
+    const auto& v = vals[e.first][0];
     if (static_cast<size_t>(e.second) >= v.size())
       throw RtError("output '" + p->graph.nodes[e.first].name + "' " +
                     std::to_string(e.second) + " does not exist");

@@ -46,12 +46,31 @@ struct Node {
   std::vector<std::pair<int, int>> inputs;  // (node, output)
 };
 
+// The data-parallel plan of a train artifact's program over `n`
+// positions: the "dp" entry beside "nodes", parallel/dp.py's decisions as
+// export_artifact.py wrote them (the runtime derives none of them).
+constexpr int kNoBatch = -1;      // a value the same at every position
+constexpr int kUnknownAxis = -2;  // shapes that do not say
+struct DPPlan {
+  int n = 1;                           // positions (1: no plan)
+  std::vector<std::string> forms;      // per node: "" (variable), "local",
+                                       // "dp" or "global"
+  std::vector<std::vector<int>> axes;  // per node output: its batch axis
+};
+
 struct Graph {
   std::vector<Node> nodes;                 // topological order
   std::vector<std::pair<int, int>> heads;  // the outputs
+  DPPlan dp;
 };
 
 bool parse_graph(const std::string& json, Graph* g, std::string* err);
+
+struct OpOut {
+  std::vector<at::Tensor> outputs;
+  // new values of the inputs at these positions (auxiliary states)
+  std::vector<std::pair<size_t, at::Tensor>> new_aux;
+};
 
 struct OpCtx {
   bool is_train = false;
@@ -59,20 +78,36 @@ struct OpCtx {
   std::optional<at::Generator> gen;  // stochastic ops draw here (their device's)
 };
 
-// Runs every node; `vars` maps variable names to tensors (an undefined
-// tensor for an input the program does not read) and takes the new
-// values of auxiliary states. Returns each node's outputs, freed after
+// Runs every node over the positions, position p on ctxs[p]'s device (a
+// one-position run where the program has no data-parallel plan). `vars[p]`
+// maps variable names to position p's tensors (an undefined tensor for an
+// input the program does not read) and takes its new auxiliary states.
+// Returns vals[node][p]: each node's outputs at each position, freed after
 // their last use unless `keep` holds (node, output).
-std::vector<std::vector<at::Tensor>> run_graph(
-    const Graph& g, std::map<std::string, at::Tensor>* vars, const OpCtx& ctx,
+std::vector<std::vector<std::vector<at::Tensor>>> run_graph(
+    const Graph& g, std::vector<std::map<std::string, at::Tensor>>* vars,
+    const std::vector<OpCtx>& ctxs,
     const std::vector<std::pair<int, int>>& keep);
 
+// ---- the data-parallel forms (dp.cc) ------------------------------------------
+// `t` on device `d`: itself where it lies there, else a copy
+at::Tensor to_pos(const at::Tensor& t, const at::Device& d);
+// The refusal of a plan whose node needs a form this runtime lacks (empty
+// when it runs every node).
+std::string dp_plan_refusal(const Graph& g);
+// Node i over the positions (in[p]: its inputs at position p) in its form
+// from g.dp, "local" where the program has no plan: a "local" node at each
+// position on its block, a "dp" node in its data-parallel form
+// (BatchNorm's global statistics, SoftmaxOutput's global count), a
+// "global" node once at position 0 on the batch joined from every position.
+std::vector<OpOut> run_node(const Graph& g, int i,
+                            const std::vector<std::vector<at::Tensor>>& in,
+                            const std::vector<OpCtx>& ctxs);
+// The batch axis of node `node`'s output k (kNoBatch where the program has
+// no plan); raises where the plan does not say.
+int batch_axis(const Graph& g, int node, int k);
+
 // ---- ops --------------------------------------------------------------------
-struct OpOut {
-  std::vector<at::Tensor> outputs;
-  // new values of the inputs at these positions (auxiliary states)
-  std::vector<std::pair<size_t, at::Tensor>> new_aux;
-};
 // raises naming an op the runtime lacks
 OpOut run_op(const Node& n, const std::vector<at::Tensor>& in,
              const OpCtx& ctx);
@@ -80,6 +115,11 @@ OpOut run_op(const Node& n, const std::vector<at::Tensor>& in,
 // a compute_dtype cast, as executor.py's _INDEX_ARG_POSITIONS)
 std::vector<size_t> index_arg_positions(const std::string& op);
 bool op_is_stochastic(const Node& n);
+// SoftmaxOutput (ops/loss.py) whose gradient divides by `denom` (loss.py's
+// denom: a number or a tensor, a data-parallel step's global count) when
+// it is given, else as its normalization says
+at::Tensor softmax_output(const Attrs& a, const at::Tensor& data,
+                          const at::Tensor& label, const c10::IValue& denom);
 
 // ---- attention (attention.cc) ----------------------------------------------
 at::Tensor flash_attention(const at::Tensor& q, const at::Tensor& k,

@@ -16,6 +16,16 @@
 // optimizer fails at create naming it, as fused_opt.make_rule refuses it.
 // A stochastic graph draws on its device from a generator seeded with
 // seed + t, so a replay is deterministic.
+//
+// An artifact with num_devices N > 1 (export_train_artifact(num_devices=N))
+// trains over N positions from the one file: the batch inputs cut into N
+// contiguous blocks, every node run as the program's data-parallel plan
+// says (dp.cc), each position's gradients taken and summed in position
+// order, and the rule applied once to the one set of parameters and slots
+// every position reads. Positions lie on the CPU where the caller asks for
+// it, else position p on cuda:(p mod the cards visible): on one card every
+// position is cuda:0 (ROADMAP.md C41; the JAX package's runtime needs N
+// devices).
 #include <ATen/CPUGeneratorImpl.h>
 #include <torch/csrc/autograd/autograd.h>
 
@@ -43,6 +53,7 @@ struct TrainArg {
   std::vector<uint32_t> shape_u32;
   at::ScalarType dtype = at::kFloat;
   int64_t n_elem = 1;
+  bool batch = false;  // "sharding": "batch": cut along axis 0
 };
 
 struct Rule {
@@ -163,7 +174,8 @@ struct Rule {
 
 struct Trainer {
   Graph graph;
-  at::Device device = at::kCPU;
+  at::Device device = at::kCPU;   // position 0's, where the state lives
+  std::vector<at::Device> pos;    // each position's device
   std::vector<TrainArg> args;     // flat order: carry, inputs, lr, t
   std::vector<TrainArg> outputs;  // flat order: carry, then "out"
   size_t n_carry = 0;
@@ -195,7 +207,10 @@ bool parse_train_arg(const JVal& j, TrainArg* s) {
   s->role = role->str;
   if (!json_shape(*shp, &s->shape, &s->shape_u32, &s->n_elem)) return false;
   const JVal* shard = j.get("sharding");
-  if (shard && shard->kind == JVal::STR && shard->str != "rep") return false;
+  if (shard && shard->kind == JVal::STR) {
+    if (shard->str != "rep" && shard->str != "batch") return false;
+    s->batch = shard->str == "batch";
+  }
   bool ok = false;
   s->dtype = dtype_by_name(dt->str, &ok);
   return ok;
@@ -219,9 +234,19 @@ int create(const char* bytes, size_t size, TrainNativeHandle* out) {
   auto tr = std::make_unique<Trainer>();
   if (!parse_graph(art.program, &tr->graph, &err)) return fail(err);
   const JVal* jnd = m.get("num_devices");
-  if (jnd && jnd->kind == JVal::NUM && jnd->num > 1)
-    return fail(".mxa: a data-parallel train artifact over several cards is "
-                "not ported (ROADMAP.md A6d)");
+  const int n_dev =
+      jnd && jnd->kind == JVal::NUM ? static_cast<int>(jnd->num) : 1;
+  if (n_dev < 1) return fail(".mxa: num_devices must be at least 1");
+  if (n_dev > 1) {
+    if (tr->graph.dp.n != n_dev)
+      return fail(".mxa: num_devices=" + std::to_string(n_dev) +
+                  " but the program carries no data-parallel plan over " +
+                  std::to_string(n_dev) + " positions (export it with "
+                  "export_train_artifact(num_devices=" +
+                  std::to_string(n_dev) + "))");
+    std::string why = dp_plan_refusal(tr->graph);
+    if (!why.empty()) return fail(why);
+  }
   const JVal* jargs = m.get("args");
   const JVal* jouts = m.get("outputs");
   if (!jargs || !jouts || jargs->kind != JVal::ARR || jouts->kind != JVal::ARR)
@@ -328,10 +353,25 @@ int create(const char* bytes, size_t size, TrainNativeHandle* out) {
       return fail(".mxa: shape mismatch for '" + key + "' (blob record holds " +
                   std::to_string(h.data.size()) + " bytes, manifest wants " +
                   std::to_string(static_cast<size_t>(a.n_elem) * 4) + ")");
+    if (a.batch)
+      return fail(".mxa: carried arg '" + a.name +
+                  "' is sharded; only replicated carry is supported");
     init[i] = &h;
   }
+  // sharded inputs and outputs must split evenly over the positions
+  for (const auto* rows : {&tr->args, &tr->outputs})
+    for (const auto& a : *rows)
+      if (a.batch && (a.shape.empty() || a.shape[0] % n_dev != 0))
+        return fail(std::string(".mxa: sharded ") +
+                    (rows == &tr->args ? "arg '" : "output '") + a.name +
+                    "' batch dim does not divide num_devices");
 
   if (!resolve_device(0, 0, &tr->device, &err)) return fail(err);
+  for (int p = 0; p < n_dev; ++p)
+    tr->pos.push_back(tr->device.is_cuda()
+                          ? at::Device(at::kCUDA, static_cast<c10::DeviceIndex>(
+                                                      p % at::getNumGPUs()))
+                          : tr->device);
   auto f32 = at::TensorOptions().dtype(at::kFloat).device(tr->device);
   for (size_t i = 0; i < tr->n_carry; ++i) {
     const TrainArg& a = tr->args[i];
@@ -372,33 +412,45 @@ int create(const char* bytes, size_t size, TrainNativeHandle* out) {
   return 0;
 }
 
+// One step over the trainer's positions (one, or the data-parallel plan's
+// N): the SPMDTrainer step's forward, backward and rule, with each
+// position's gradients summed in position order (collectives.psum)
 void step(Trainer* tr, float lr_in) {
   // this step's learning rate as a float32 device scalar (SPMDTrainer._lr)
   at::Tensor lr = at::full({}, tr->rule.step_lr(static_cast<double>(lr_in), tr->t),
                            at::TensorOptions().dtype(at::kFloat).device(tr->device));
-  std::map<std::string, at::Tensor> leaves;
-  for (const auto& n : tr->pnames)
-    leaves[n] = tr->params[n].detach().requires_grad_(true);
-  std::map<std::string, at::Tensor> vars;
+  const size_t P = tr->pos.size();
+  // per position, its own leaf of every parameter (dp.py's replicas)
+  std::vector<std::map<std::string, at::Tensor>> leaves(P), vars(P);
+  for (size_t p = 0; p < P; ++p)
+    for (const auto& n : tr->pnames)
+      leaves[p][n] = to_pos(tr->params[n], tr->pos[p]).detach().requires_grad_(true);
   auto cast = [&](const std::string& name, const at::Tensor& t) {
     if (tr->compute_dtype && !tr->cast_exempt.count(name) &&
         t.scalar_type() == at::kFloat)
       return t.to(*tr->compute_dtype);
     return t;
   };
-  std::vector<at::Tensor> outs;
-  std::vector<at::Tensor> grads;
+  std::vector<std::vector<at::Tensor>> outs_pp;
+  std::vector<at::Tensor> xs, grads;
   {
     at::AutoGradMode grad_on(true);
-    for (const auto& kv : leaves) vars[kv.first] = cast(kv.first, kv.second);
-    for (size_t i = 0; i < tr->input_idx.size(); ++i) {
-      const std::string& name = tr->args[tr->input_idx[i]].name;
-      vars[name] = cast(name, tr->input_vals[i]);
+    std::vector<OpCtx> ctxs(P);
+    for (size_t p = 0; p < P; ++p) {
+      for (const auto& kv : leaves[p]) vars[p][kv.first] = cast(kv.first, kv.second);
+      for (size_t i = 0; i < tr->input_idx.size(); ++i) {
+        const TrainArg& a = tr->args[tr->input_idx[i]];
+        at::Tensor v = tr->input_vals[i];
+        if (a.batch) {
+          const int64_t size = v.size(0) / static_cast<int64_t>(P);
+          v = v.narrow(0, static_cast<int64_t>(p) * size, size).contiguous();
+        }
+        vars[p][a.name] = cast(a.name, to_pos(v, tr->pos[p]));
+      }
+      for (const auto& kv : tr->auxs) vars[p][kv.first] = to_pos(kv.second, tr->pos[p]);
+      ctxs[p].is_train = true;
+      ctxs[p].device = tr->pos[p];
     }
-    for (const auto& kv : tr->auxs) vars[kv.first] = kv.second;
-    OpCtx ctx;
-    ctx.is_train = true;
-    ctx.device = tr->device;
     if (tr->stochastic) {
       uint64_t seed = static_cast<uint64_t>(tr->seed + tr->t);
       if (tr->device.is_cuda()) {
@@ -412,40 +464,63 @@ void step(Trainer* tr, float lr_in) {
                         .clone();
         std::lock_guard<std::mutex> lock(tr->gen->mutex());
         tr->gen->set_current_seed(seed);
-        ctx.gen = *tr->gen;
+        ctxs[0].gen = *tr->gen;
       } else {
-        ctx.gen = at::make_generator<at::CPUGeneratorImpl>(seed);
+        ctxs[0].gen = at::make_generator<at::CPUGeneratorImpl>(seed);
       }
     }
-    auto vals = run_graph(tr->graph, &vars, ctx, {});
-    for (const auto& h : tr->graph.heads) outs.push_back(vals[h.first][h.second]);
-    std::vector<at::Tensor> ys, seeds, xs;
-    for (size_t k = 0; k < outs.size(); ++k)
-      if (outs[k].requires_grad()) {
-        bool loss = k < tr->loss_flags.size() && tr->loss_flags[k];
-        ys.push_back(outs[k]);
-        seeds.push_back(at::full_like(outs[k], loss ? 1.0 : 0.0));
-      }
-    for (const auto& n : tr->pnames) xs.push_back(leaves[n]);
+    auto vals = run_graph(tr->graph, &vars, ctxs, {});
+    outs_pp.resize(P);
+    for (size_t p = 0; p < P; ++p)
+      for (const auto& h : tr->graph.heads)
+        outs_pp[p].push_back(vals[h.first][p][h.second]);
+    std::vector<at::Tensor> ys, seeds;
+    for (const auto& outs : outs_pp)
+      for (size_t k = 0; k < outs.size(); ++k)
+        if (outs[k].requires_grad()) {
+          bool loss = k < tr->loss_flags.size() && tr->loss_flags[k];
+          ys.push_back(outs[k]);
+          seeds.push_back(at::full_like(outs[k], loss ? 1.0 : 0.0));
+        }
+    for (size_t p = 0; p < P; ++p)
+      for (const auto& n : tr->pnames) xs.push_back(leaves[p][n]);
     if (!ys.empty() && !xs.empty())
       grads = torch::autograd::grad(ys, xs, seeds, std::nullopt, false, true);
     else
       grads.assign(xs.size(), at::Tensor());
     at::NoGradGuard no_grad;
-    for (const auto& n : tr->anames) tr->auxs[n].copy_(vars[n]);
+    for (const auto& n : tr->anames) tr->auxs[n].copy_(vars[0][n]);
   }
   at::NoGradGuard no_grad;
-  for (size_t i = 0; i < tr->pnames.size(); ++i) {
+  const size_t n_par = tr->pnames.size();
+  for (size_t i = 0; i < n_par; ++i) {
     const std::string& n = tr->pnames[i];
     at::Tensor& w = tr->params[n];
-    at::Tensor g = grads[i].defined() ? grads[i].to(w.scalar_type())
-                                      : at::zeros_like(w);
+    at::Tensor g;
+    for (size_t p = 0; p < P; ++p) {
+      const at::Tensor& gp = grads[p * n_par + i];
+      at::Tensor part = gp.defined() ? gp : at::zeros_like(leaves[p][n]);
+      g = p == 0 ? part : g + to_pos(part, tr->device);
+    }
+    g = g.to(w.scalar_type());
     double lm = tr->rule.lr_mult.count(n) ? tr->rule.lr_mult[n] : 1.0;
     double wm = tr->rule.wd_mult.count(n) ? tr->rule.wd_mult[n] : 1.0;
     tr->rule.apply(w, g, tr->states[n], lr * lm, tr->rule.wd * wm);
   }
+  // the outputs over the global batch, joined along their batch axes
   tr->outs.clear();
-  for (auto& o : outs) tr->outs.push_back(o.detach());
+  for (size_t k = 0; k < outs_pp[0].size(); ++k) {
+    const auto& h = tr->graph.heads[k];
+    int a = batch_axis(tr->graph, h.first, h.second);
+    if (a == kNoBatch) {
+      tr->outs.push_back(outs_pp[0][k].detach());
+      continue;
+    }
+    std::vector<at::Tensor> parts;
+    for (size_t p = 0; p < P; ++p)
+      parts.push_back(to_pos(outs_pp[p][k].detach(), tr->device));
+    tr->outs.push_back(at::cat(parts, a));
+  }
   tr->t += 1;
 }
 

@@ -298,6 +298,7 @@ class Executor:
         self._cast_exempt = frozenset(cast_exempt) | index_like_inputs(symbol)
         self._symbol = symbol
         self._ctx = ctx
+        self._group2ctx = group2ctx
         self._arg_names = symbol.list_arguments()
         self._aux_names = symbol.list_auxiliary_states()
         base = ctx[0] if isinstance(ctx, (list, tuple)) else ctx
@@ -597,6 +598,47 @@ class Executor:
                 self.aux_dict[name][:] = array
             elif not allow_extra_params:
                 raise ValueError("Find name %s that is not in the auxiliary states" % name)
+
+    def reshape(self, partial_shaping=False, allow_up_sizing=False, **kwargs):
+        """A new executor of this one's symbol at the data shapes in
+        ``kwargs`` (reference: ``executor.py:360``; the JAX package's
+        ``executor.py:648-680``): every argument, gradient and auxiliary
+        array whose shape the new shapes leave unchanged is the same
+        NDArray (an update through one executor is seen by the other), and
+        every other is new zeros on this executor's context. ``grad_req``,
+        ``group2ctx``, ``compute_dtype`` and ``cast_exempt`` carry over;
+        ``partial_shaping`` and ``allow_up_sizing`` are the reference's
+        names (there is no memory pool to grow)."""
+        from . import ndarray as nd
+
+        del partial_shaping, allow_up_sizing
+        try:
+            arg_shapes, _, aux_shapes = self._symbol.infer_shape(**kwargs)
+        except MXNetError as e:
+            raise MXNetError("Insufficient argument shapes provided. (%s)"
+                             % e) from e
+        if arg_shapes is None:
+            raise MXNetError("Insufficient argument shapes provided.")
+        ctx = self._ctx[0] if isinstance(self._ctx, (list, tuple)) else self._ctx
+
+        def same_or_zeros(cur, shape):
+            if tuple(shape) == tuple(cur.shape):
+                return cur
+            return nd.zeros(shape, ctx=ctx, dtype=cur.dtype)
+
+        new_args, new_grads = [], []
+        for arr, grad, shape in zip(self.arg_arrays, self.grad_arrays,
+                                    arg_shapes):
+            new_args.append(same_or_zeros(arr, shape))
+            new_grads.append(None if grad is None else
+                             same_or_zeros(grad, shape))
+        new_aux = [same_or_zeros(arr, shape)
+                   for arr, shape in zip(self.aux_arrays, aux_shapes)]
+        return Executor(
+            self._symbol, self._ctx, new_args, new_grads,
+            [self._grad_req[n] for n in self._arg_names], new_aux,
+            group2ctx=self._group2ctx, compute_dtype=self._compute_dtype,
+            cast_exempt=self._cast_exempt)
 
     def set_monitor_callback(self, callback, is_active=None):
         """Install a per-node monitor (reference:

@@ -29,6 +29,12 @@ The params section is written by ``nd.save``, byte-equal to the JAX
 package's for the same parameters, so the weights of either package's
 artifact load in both; neither runtime runs the other's program.
 
+A train artifact of ``num_devices=N`` is the data-parallel step over N
+positions: the JAX package's ``"sharding"`` tags in the manifest, and in
+the program section, beside the symbol JSON's ``nodes``, a ``"dp"`` entry
+holding :class:`.parallel.dp.DPGraph`'s plan (each node's form, each
+output's batch axis), which the runtime reads (``csrc/native_rt/dp.cc``).
+
 ``kept`` flags follow the JAX exporter's dead-code elimination
 (``module_kept_var_idx``): an input or parameter is kept when an output
 depends on its value. The port derives them from the graph with
@@ -274,8 +280,17 @@ def export_train_artifact(symbol, input_shapes, path, optimizer="sgd",
     ``compute_dtype="bfloat16"`` is the fused step's recipe (float32
     masters and slots, bfloat16 compute, float32 gradients through the
     cast). A stochastic graph draws from a generator seeded with
-    ``seed + t``. ``num_devices > 1`` raises: the data-parallel step
-    across cards is A6d."""
+    ``seed + t``.
+
+    ``num_devices=N`` exports the data-parallel step over N positions (the
+    JAX package's manifest: parameters, slots, auxiliary states, ``lr`` and
+    ``t`` ``"sharding": "rep"``, data and labels ``"batch"``, N dividing
+    every batch; its ``compile_options`` are XLA's and left out, C34). The
+    program section then also carries ``"dp"``, each node's form and each
+    value's batch axis from :class:`.parallel.dp.DPGraph` (a node it
+    refuses is refused here, before any initializer draws), and the
+    runtime computes the global-batch step from them. The params section is
+    the one-position export's."""
     from . import initializer as init_mod
     from . import optimizer as opt_mod
     from .parallel import fused_opt
@@ -302,10 +317,6 @@ def export_train_artifact(symbol, input_shapes, path, optimizer="sgd",
                 raise ValueError(
                     "num_devices=%d must divide input '%s' batch dim %r"
                     % (num_devices, n, shp[:1]))
-        raise MXNetError(
-            "export with num_devices=%d: the data-parallel train artifact "
-            "over several cards is not ported (ROADMAP.md A6d)"
-            % num_devices)
     platform = _resolve_platform(platform)
 
     with _compileobs.record_compile(
@@ -326,6 +337,12 @@ def export_train_artifact(symbol, input_shapes, path, optimizer="sgd",
         lr_mult, wd_mult = fused_opt.mults_for(opt, pnames)
         nslot = rule.nslot
         program_sym = _graphpass.optimize(symbol)
+        # the data-parallel plan (a refusal names the op and the node)
+        # comes before any initializer draws, as the checks above
+        program = json.loads(program_sym.tojson())
+        if num_devices > 1:
+            program["dp"] = _dp_plan(program_sym, symbol, shapes, inputs,
+                                     arg_names, anames, num_devices)
         stochastic = graph_is_stochastic(program_sym)
         loss_flags = [not node.is_variable and get_op(node.op).is_loss
                       for node, _ in symbol._entries]
@@ -351,11 +368,11 @@ def export_train_artifact(symbol, input_shapes, path, optimizer="sgd",
         f32 = "float32"
         args_desc = []
 
-        def arg_row(name, role, shape, kept, donated):
+        def arg_row(name, role, shape, kept, donated, sharding="rep"):
             args_desc.append({
                 "name": name, "role": role, "shape": [int(d) for d in shape],
                 "dtype": "int32" if role == "t" else f32, "kept": kept,
-                "donated": donated, "sharding": "rep"})
+                "donated": donated, "sharding": sharding})
 
         for n in pnames:
             arg_row(n, "param", arg_shapes[n], True, True)
@@ -364,10 +381,11 @@ def export_train_artifact(symbol, input_shapes, path, optimizer="sgd",
                 arg_row("%s:%d" % (n, k), "state", arg_shapes[n], True, True)
         for n in anames:
             arg_row(n, "aux", aux_shapes[n], True, True)
+        batch_tag = "batch" if num_devices > 1 else "rep"
         for n, _ in data_shapes:
-            arg_row(n, "data", shapes[n], n in read, False)
+            arg_row(n, "data", shapes[n], n in read, False, batch_tag)
         for n, _ in label_shapes:
-            arg_row(n, "label", shapes[n], n in read, False)
+            arg_row(n, "label", shapes[n], n in read, False, batch_tag)
         # lr and t are read where the rule reads them (AdaDelta has no lr;
         # only a rule whose step size depends on t, and a graph's draws,
         # read t)
@@ -386,10 +404,15 @@ def export_train_artifact(symbol, input_shapes, path, optimizer="sgd",
                for n in anames]
             + [{"name": n, "role": "out", "shape": list(s)}
                for n, s in zip(symbol.list_outputs(), out_shapes)])
+        # an output holds the batch when its leading dim is the global
+        # batch (the JAX exporter's rule: a dim the batch only divides
+        # stays replicated)
+        global_batch = shapes[data_shapes[0][0]][0] if data_shapes else -1
         for d in outs_desc:
             d["shape"] = [int(x) for x in d["shape"]]
             d["dtype"] = f32
-            d["sharding"] = "rep"
+            d["sharding"] = ("batch" if num_devices > 1 and d["role"] == "out"
+                             and d["shape"][:1] == [global_batch] else "rep")
 
         manifest = {
             "version": 2,
@@ -419,9 +442,33 @@ def export_train_artifact(symbol, input_shapes, path, optimizer="sgd",
                     np.zeros(arg_shapes[n], np.float32), ctx=cpu)
         for n in anames:
             params_dict["aux:" + n] = nd.array(auxs0[n], ctx=cpu)
-        _write(path, manifest, program_sym.tojson().encode(),
+        _write(path, manifest, json.dumps(program, indent=2).encode(),
                _params_blob(params_dict, path))
     return manifest
+
+
+def _dp_plan(program_sym, symbol, shapes, inputs, arg_names, aux_names, n):
+    """The program section's ``"dp"`` entry of a data-parallel train
+    artifact: :class:`.parallel.dp.DPGraph`'s decisions over ``n``
+    positions, one per node of the program's JSON (``forms``: ``"local"``,
+    ``"dp"`` or ``"global"``, None for a variable; ``batch_axes``: the
+    batch axis of each output, None where it holds no batch), so the
+    runtime reads them and derives none. Raises, naming the op and the
+    node, for a node ``dp.py`` refuses."""
+    import torch
+
+    from .parallel.dp import DPGraph
+    from .parallel.mesh import Mesh
+    from .symbol import _topo_order
+
+    mesh = Mesh(np.array([torch.device("cpu")] * n, dtype=object), ["dp"])
+    plan = DPGraph(program_sym, mesh, "dp", shapes, set(inputs), arg_names,
+                   aux_names, order_like=symbol)
+    order = _topo_order(program_sym._entries)   # tojson's node order
+    return {"axis": "dp", "num_devices": int(n),
+            "forms": [None if node.is_variable else plan.how[id(node)]
+                      for node in order],
+            "batch_axes": [plan.axes[id(node)] for node in order]}
 
 
 def _dtype_name(dtype):

@@ -12,7 +12,11 @@ Train artifact (optionally warm-started from a checkpoint)::
     python -m mxnet_tpu_torch.tools.export_model train \\
         --symbol model-symbol.json --shape data:32,3,224,224 \\
         --optimizer sgd --lr 0.05 --momentum 0.9 --out train.mxa \\
-        [--prefix model --epoch 10] [--bf16]
+        [--prefix model --epoch 10] [--bf16] [--num-devices N]
+
+``--num-devices N`` exports the data-parallel step over N positions (the
+runtime trains it from the one file: on the CPU, or on the cards visible,
+repeating them).
 
 Both print the manifest summary; serve or train with
 ``libmxtpu_predict_native.so`` (``MXPredCreateFromFile`` /
@@ -77,8 +81,8 @@ def main(argv=None):
                     help="bfloat16 compute (float32 masters) in the step")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--num-devices", type=int, default=1,
-                    help="data-parallel step over N cards (train only; not "
-                         "ported: A6d)")
+                    help="data-parallel step over N positions (train only; "
+                         "N must divide the batch)")
     a = ap.parse_args(argv)
 
     shapes = parse_shapes(a.shape)
@@ -132,6 +136,7 @@ def main(argv=None):
         summary["auxs"] = roles.count("aux")
         summary["optimizer"] = manifest["optimizer"]
         summary["compute_dtype"] = manifest["compute_dtype"]
+        summary["num_devices"] = manifest["num_devices"]
     print(json.dumps(summary, indent=1))
 
 

@@ -248,10 +248,6 @@ def test_export_refusals(tmp_path):
     with pytest.raises(T.MXNetError, match="fc1_bias"):
         T.export_predict_artifact(build(T), args, {}, shapes,
                                   str(tmp_path / "x.mxa"), platform="cpu")
-    with pytest.raises(T.MXNetError, match="A6d"):
-        T.export_train_artifact(mlp(T), {"data": (8, 8)},
-                                str(tmp_path / "y.mxa"), platform="cpu",
-                                num_devices=2)
     with pytest.raises(ValueError, match="divide"):
         T.export_train_artifact(mlp(T), {"data": (9, 8)},
                                 str(tmp_path / "y.mxa"), platform="cpu",

@@ -124,6 +124,18 @@ def test_doc_tools_write_their_files_and_refuse_a_missing_card(tmp_path, capsys)
 
 
 # ---- gen_api_docs --------------------------------------------------------------
+def test_committed_api_reference_is_what_gen_api_docs_renders(capsys, tmp_path):
+    """``mxnet_tpu_torch/docs/api_python.md`` is the file ``gen_api_docs
+    --device cpu`` writes from this tree (chip_smoke's phase 29(e) checks
+    the card's rendering against it too)."""
+    gen_api = _port_tool("gen_api_docs")
+    out = str(tmp_path / "api.md")
+    assert gen_api.main(["--out", out, "--device", "cpu"]) == 0
+    capsys.readouterr()
+    assert open(out).read() == open(gen_api.OUT).read(), (
+        "stale: run python -m mxnet_tpu_torch.tools.gen_api_docs --device cpu")
+
+
 # (JAX module, name) -> (reason, ROADMAP C item)
 API_DIFFERENCES = {
     ("mxnet_tpu.ndarray", "imperative_invoke"): (
@@ -132,9 +144,6 @@ API_DIFFERENCES = {
     ("mxnet_tpu.ndarray", "NDArray.__init__"): (
         "a port NDArray wraps one torch tensor; ctx/base/index are the JAX "
         "package's device-array views", "C35"),
-    ("mxnet_tpu.executor", "Executor.reshape"): (
-        "not ported: Module.reshape rebinds (C3 keeps its JAX behaviour)",
-        "C35"),
     ("mxnet_tpu.module", "BaseModule.data_names"): (
         "abstract in the JAX package; every port module defines it", "C35"),
     ("mxnet_tpu.module", "BaseModule.data_shapes"): (
